@@ -1,0 +1,52 @@
+"""State carried across from the JAX package.
+
+Two kinds of state cross between the packages.  ``Plan`` JSON needs no
+converter: both packages read and write the same schema, byte for byte.
+A fitted memory estimator does: :func:`estimator_from_reference` rebuilds
+it from plain NumPy arrays, so this module imports nothing of the other
+package — the caller pulls the arrays out of the reference object.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from .core.memory import MemoryEstimator
+
+
+def estimator_from_reference(params_numpy: Sequence[Mapping[str, np.ndarray]],
+                             x_mean: np.ndarray, x_std: np.ndarray,
+                             y_mean: float, y_std: float,
+                             **fields) -> MemoryEstimator:
+    """Build the port's :class:`MemoryEstimator` from a reference one.
+
+    Args:
+        params_numpy: the reference MLP's layers, first to last, each
+            ``{"w": (fan_in, fan_out) array, "b": (fan_out,) array}``
+            (``[{k: np.asarray(v) for k, v in l.items()} for l in
+            est.params]`` on the reference estimator).
+        x_mean / x_std / y_mean / y_std: its feature and target
+            normalisation.
+        **fields: its remaining dataclass fields (``soft_margin``,
+            ``residual``, ``workload_seq``, ``with_cp``, ``fit_gpu_mem``,
+            ``fit_gpus_per_node``).
+
+    Returns:
+        An estimator whose ``predict_batch`` computes the same function
+        (to float32 rounding: the two frameworks order the matrix-product
+        sums and evaluate ``tanh`` differently in the last bits).
+    """
+    params = []
+    for layer in params_numpy:
+        w = np.asarray(layer["w"], np.float32)
+        b = np.asarray(layer["b"], np.float32)
+        if w.ndim != 2 or b.shape != (w.shape[1],):
+            raise ValueError(
+                f"layer shapes do not form an MLP: w {w.shape}, b {b.shape}")
+        params.append({"w": torch.from_numpy(w.copy()),
+                       "b": torch.from_numpy(b.copy())})
+    return MemoryEstimator(params, np.asarray(x_mean, np.float64),
+                           np.asarray(x_std, np.float64),
+                           float(y_mean), float(y_std), **fields)
