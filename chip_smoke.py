@@ -3,24 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the planner's main path (``Planner.plan``: enumerate, memory prune,
-profiles, pre-score, simulated-annealing dedication on the card) at full
-size, builds the CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version, and proves that the main path
-went through the kernels by their launch counts.  Needs a CUDA device and
-``nvcc``; exits non-zero without them.  Every phase prints one JSON line;
-any mismatch is a failed assertion (non-zero exit, no final line).
+Drives the package's two main paths at full size — the planner
+(``Planner.plan``: enumerate, memory prune, profiles, pre-score, simulated-
+annealing dedication on the card) and generation (``launch.generate``:
+prefill and greedy decode of qwen2-7b and falcon-mamba-7b) — builds the
+CUDA kernels from the sources in this checkout, holds each kernel against
+its plain PyTorch version, and proves that each path went through its
+kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
+non-zero without them.  Every phase prints one JSON line; any mismatch is a
+failed assertion (non-zero exit, no final line).
 
-Phases: ``env``, ``build``, ``kernels`` (bit-equality at ragged shapes),
-``plan_uniform`` (gpt-3.1b on 128 GPUs, estimator fitted on the card),
-``plan_tiered`` (gpt-11.1b on a 1024-GPU mixed fleet, hierarchical search),
-``kernels_at_path_shapes``.  Each plan is made twice — SA on the card
+Phases: ``env``, ``build``, ``kernels`` (group-reduce kernels bit-equal at
+ragged shapes), ``plan_uniform`` (gpt-3.1b on 128 GPUs, estimator fitted on
+the card), ``plan_tiered`` (gpt-11.1b on a 1024-GPU mixed fleet,
+hierarchical search), ``kernels_at_path_shapes``, ``model_kernels``
+(rmsnorm, flash_attention, selective_scan against their plain versions at
+ragged shapes, float32 and bfloat16), ``generate_qwen2_7b`` and
+``generate_falcon_mamba_7b`` (full width and depth, batch 4, prompt 512,
+32 tokens, weights from a seeded generator on the card; exact launch
+counts), ``slice_check_*`` (each model at full width and 2 layers: the
+card's prefill logits against the host's, and the first decode step
+against ``forward_logits`` at the next position), and
+``model_kernels_at_path_shapes``; with ``--profile`` also ``profile_sa``
+and ``profile_generate_*`` (torch.profiler: device busy and idle share).
+Each plan is made twice — SA on the card
 (``backend="torch"``) and on the host (``backend="numpy"``) — and the two
 Plan JSONs must be byte-equal once the backend's name is dropped.  The
-wrappers record every input shape the two plans hand them; the last kernel
-phase checks bit-equality and takes the times at exactly those shapes.
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the final
-``{"ok": true, ...}`` line.
+wrappers record every input shape the main paths hand them; the path-shape
+phases check the kernels and take their times at exactly those shapes.
+Then one ``{"kernels": [...]}`` line for all five kernels, the
+``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import os
 import subprocess
 import sys
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -45,23 +58,53 @@ from repro_torch.core import (MID_RANGE, Budget, PipetteStrategy,  # noqa: E402
                               profile_bandwidth)
 from repro_torch.core.cluster import A100_TIER, V100_TIER  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import group_reduce as gr  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import selective_scan as ss  # noqa: E402
+from repro_torch.launch import generate as gen_cli  # noqa: E402
+from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
+                                      make_prefill_step)
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.sharding import ShardCtx  # noqa: E402
+from repro_torch.models.transformer import init_params  # noqa: E402
 
-#: Published peaks of one H100 SXM used for the bounds: device-memory rate,
-#: and the non-tensor-core float32 rate as an upper bound on the rate of
-#: the float64 comparisons (so the operations bound is, if anything, low).
+#: Published peaks of one H100 SXM used for the bounds: device-memory rate;
+#: the non-tensor-core float32 rate (also an upper bound on the rate of the
+#: float64 comparisons, so that operations bound is, if anything, low); and
+#: the dense bfloat16 tensor-core rate, for products on bfloat16 inputs.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 #: Ragged shapes (groups or rows, m) checked besides the main path's own,
 #: which are not listed here: the wrappers record every shape the two plan
 #: phases hand them, and the kernels are checked and timed at exactly those.
 RAGGED_MIN_SCALE = [(1, 2), (7, 4), (130, 2)]
 RAGGED_MAX = [(1, 3), (9, 16), (257, 8)]
+WRAPPERS = {
+    "group_min_scale": gr.group_min_scale,
+    "group_max": gr.group_max,
+    "rmsnorm": rn.rmsnorm,
+    "flash_attention": fa.flash_attention,
+    "selective_scan": ss.selective_scan,
+}
 KERNELS = {
     "group_min_scale": "src/repro/kernels/group_reduce.py:60",
     "group_max": "src/repro/kernels/group_reduce.py:99",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
+    "flash_attention": "src/repro/kernels/flash_attention.py:70",
+    "selective_scan": "src/repro/kernels/selective_scan.py:50",
 }
+SOURCES = {
+    "group_min_scale": "src/repro_torch/kernels/csrc/group_reduce.cu",
+    "group_max": "src/repro_torch/kernels/csrc/group_reduce.cu",
+    "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
+}
+PLAN_KERNELS = ("group_min_scale", "group_max")
+MODEL_KERNELS = ("rmsnorm", "flash_attention", "selective_scan")
 
 
 def emit(obj: dict) -> None:
@@ -77,19 +120,18 @@ def nvidia_smi_line() -> str:
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
-        fn = getattr(gr, name)
+    for fn in WRAPPERS.values():
         fn.launches = 0
         fn.shapes.clear()
 
 
 def read_launches() -> dict:
-    return {name: getattr(gr, name).launches for name in KERNELS}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def read_shapes() -> dict:
-    """Per kernel, {input shape: launches} since the last reset."""
-    return {name: dict(getattr(gr, name).shapes) for name in KERNELS}
+    """Per kernel, {input shape key: launches} since the last reset."""
+    return {name: dict(fn.shapes) for name, fn in WRAPPERS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -130,12 +172,20 @@ CALLS = {
 
 def time_ms(fn, reps: int = 200) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls,
-    by CUDA events, after a warm-up.  The inputs (a few MB) stay in the
-    L2 cache between calls — as they are for the engine, which gathers
-    them just before each reduce."""
-    for _ in range(10):
+    by CUDA events, after a warm-up.  Inputs that fit (the group reduces'
+    few MB, the attention and norm inputs of the generate path) stay in the
+    50 MB L2 cache between calls — as they are for their callers, which
+    made them just before.  ``reps=0`` picks the count that fills about
+    0.3 s (3 to 200 calls)."""
+    for _ in range(3 if reps == 0 else 10):
         fn()
     torch.cuda.synchronize()
+    if reps == 0:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        reps = int(min(200, max(3, 0.3 / max(time.perf_counter() - t0,
+                                              1e-6))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -223,7 +273,7 @@ def check_path_shapes(device, shapes_by_phase: dict) -> list:
     """Every distinct shape a plan phase handed a wrapper: bit-equal check
     and timings at that shape, with the launches each phase made there."""
     rows = []
-    for name in KERNELS:
+    for name in PLAN_KERNELS:
         seen = sorted({sh for by_kernel in shapes_by_phase.values()
                        for sh in by_kernel[name]})
         for shape in seen:
@@ -341,25 +391,16 @@ def plan_tiered(device) -> tuple:
         None, device, must_launch=("group_min_scale", "group_max"))
 
 
-def profile_sa(device) -> dict:
-    """Where the card's time goes in the SA stage: the uniform request
-    (no estimator, 100 steps per chain) under ``torch.profiler``; device
-    busy time is the sum of the device-side rows (kernels and copies)."""
+def trace(fn) -> dict:
+    """Run ``fn()`` once under ``torch.profiler``: host wall time, device
+    busy time (the sum of the device-side rows: kernels and copies), the
+    idle share, and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
-    spec = MID_RANGE
-    w = Workload(configs.get("gpt-3.1b"), 2048, 512)
-    bw, _ = profile_bandwidth(spec)
-    req = PlanRequest(workload=w, spec=spec, space=SearchSpace(),
-                      budget=Budget(sa_seconds=600.0, sa_iters=400,
-                                    n_chains=4, sa_topk=8, backend="torch"),
-                      seed=0)
-    planner = Planner(PipetteStrategy(), device=device)
-    planner.plan(req, bw)                               # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        plan = planner.plan(req, bw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -370,8 +411,7 @@ def profile_sa(device) -> dict:
                   key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e6
     assert busy > 0, "the profiler recorded no device time"
-    return {"phase": "profile_sa", "wall_s": wall,
-            "sa_s": plan.overhead.sa_s, "device_busy_s": busy,
+    return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall,
             "device_kernel_launches": sum(e.count for e in rows),
             "top_by_device_time": [
@@ -380,21 +420,383 @@ def profile_sa(device) -> dict:
                 for e in rows[:10]]}
 
 
+def profile_sa(device) -> dict:
+    """Where the card's time goes in the SA stage: the uniform request
+    (no estimator, 100 steps per chain), after a warm-up plan."""
+    spec = MID_RANGE
+    w = Workload(configs.get("gpt-3.1b"), 2048, 512)
+    bw, _ = profile_bandwidth(spec)
+    req = PlanRequest(workload=w, spec=spec, space=SearchSpace(),
+                      budget=Budget(sa_seconds=600.0, sa_iters=400,
+                                    n_chains=4, sa_topk=8, backend="torch"),
+                      seed=0)
+    planner = Planner(PipetteStrategy(), device=device)
+    planner.plan(req, bw)                               # warm-up
+    plans = []
+    out = trace(lambda: plans.append(planner.plan(req, bw)))
+    return {"phase": "profile_sa", "sa_s": plans[0].overhead.sa_s, **out}
+
+
+# ---------------------------------------------------------------------------
+# model kernels: against their plain versions, and timing
+# ---------------------------------------------------------------------------
+
+#: (float32, bfloat16) tolerance of each kernel against its plain version:
+#: the JAX package's own, from its kernel tests (``tests/test_kernels.py``).
+#: The sums run in another order, ``rsqrtf``/``expf`` are within 2 ulp, and
+#: in bfloat16 an output may round to the neighbouring value.
+TOL = {"rmsnorm": (1e-5, 3e-2), "flash_attention": (2e-5, 2e-2),
+       "selective_scan": (2e-4, 2e-4)}
+RAGGED_RMS = [((rows, d), dt) for rows in (1, 2, 7, 33, 64, 70)
+              for d in (32, 128, 384, 3584) for dt in ("float32", "bfloat16")]
+#: (b, h, kv, sq, sk, d, causal, window): the JAX package's sweep
+#: (``FA_CASES``), a length that is no multiple of a tile, a window that
+#: masks whole key tiles, and rows with no allowed key.
+RAGGED_FA = [
+    (2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 256, 256, 64, True, 0),
+    (2, 2, 1, 128, 256, 32, False, 0), (1, 4, 2, 256, 256, 32, True, 64),
+    (1, 8, 2, 128, 128, 128, True, 0), (1, 2, 2, 64, 192, 16, True, 48),
+    (2, 4, 2, 50, 50, 64, True, 0), (1, 4, 2, 200, 200, 128, True, 40),
+    (1, 2, 2, 64, 16, 16, True, 8),
+]
+#: (b, s, d, n): the JAX package's sweep (``SCAN_CASES``) and a ragged one.
+RAGGED_SCAN = [(2, 64, 32, 8), (1, 96, 16, 4), (2, 128, 64, 16),
+               (1, 50, 24, 8), (1, 17, 100, 16)]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name.split(".")[-1])
+
+
+def _randn(gen, shape, dtype, device, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+def model_inputs(name: str, key: tuple, device) -> tuple:
+    """Random inputs for one wrapper call, laid out as the model hands them:
+    attention inputs are ``(B, S, H, D)`` tensors viewed as ``(B, H, S,
+    D)``; the scan's ``B`` and ``C`` are column slices of one projection
+    (``dt_rank + 2N`` wide).  Returns ``(args, kwargs)``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(zlib.crc32(repr(key).encode()))
+    if name == "rmsnorm":
+        shape, xt, wt = key
+        return ((_randn(gen, shape, _dtype(xt), device, 3.0),
+                 _randn(gen, shape[-1:], _dtype(wt), device), 1e-5), {})
+    if name == "flash_attention":
+        qs, ks, causal, window, dt = key
+        b, h, sq, d = qs
+        kv, sk = ks[1], ks[2]
+        q = _randn(gen, (b, sq, h, d), _dtype(dt), device).transpose(1, 2)
+        k = _randn(gen, (b, sk, kv, d), _dtype(dt), device).transpose(1, 2)
+        v = _randn(gen, (b, sk, kv, d), _dtype(dt), device).transpose(1, 2)
+        return (q, k, v), {"causal": causal, "window": window}
+    (b, s, d), n, dt = key
+    dt_rank = -(-d // 32)            # d_inner = 2 d_model, dt_rank = d_model/16
+    x = _randn(gen, (b, s, d), _dtype(dt), device, 0.5)
+    delta = (torch.nn.functional.softplus(_randn(gen, (b, s, d), torch.float32,
+                                                 device)) * 0.1).to(_dtype(dt))
+    proj = _randn(gen, (b, s, dt_rank + 2 * n), _dtype(dt), device)
+    B, C = proj[..., dt_rank:dt_rank + n], proj[..., dt_rank + n:]
+    A = -torch.exp(_randn(gen, (d, n), torch.float32, device, 0.3))
+    return (x, delta, B, C, A), {}
+
+
+def model_library(name: str, key: tuple):
+    """One PyTorch call that computes the same function, or None; timed
+    as a yardstick only, and used nowhere in the package."""
+    if name == "rmsnorm":
+        d = key[0][-1]
+        return lambda x, w, eps: torch.nn.functional.rms_norm(x, (d,), w,
+                                                              eps)
+    if name == "flash_attention":
+        qs, ks, causal, window, _ = key
+        if window == 0 and (qs[2] == ks[2] or not causal):
+            return lambda q, k, v, causal, window: \
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+    return None
+
+
+def model_bound(name: str, key: tuple, args, outs) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate (each
+    input read once, each output written once) and operations over the
+    peak rate for the inputs' type — bfloat16 products at the tensor-core
+    rate, everything else at the float32 rate.  The attention's operations
+    count only the (query, key) pairs this mask allows."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors + list(outs))
+    if name == "rmsnorm":
+        ops, rate = 4 * args[0].numel(), OPS_PER_S
+    elif name == "flash_attention":
+        qs, ks, causal, window, dt = key
+        pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu").sum())
+        ops = 4 * qs[0] * qs[1] * qs[3] * pairs
+        rate = BF16_OPS_PER_S if "bfloat16" in dt else OPS_PER_S
+    else:
+        x, n = args[0], key[1]
+        ops, rate = 7 * x.numel() * n + x.numel(), OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+MODEL_CALLS = {
+    "rmsnorm": (rn.rmsnorm, rn.rmsnorm_ref),
+    "flash_attention": (fa.flash_attention, fa.flash_attention_ref),
+    "selective_scan": (ss.selective_scan, ss.selective_scan_ref),
+}
+
+
+def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
+    """Kernel vs plain version on the same inputs, within the stated
+    tolerance; with ``timed`` also ``ms`` (one wrapper call), ``device_ms``
+    (CUDA-graph replay), ``plain_ms``, ``library_ms`` and the bound."""
+    kernel, plain = MODEL_CALLS[name]
+    args, kw = model_inputs(name, key, device)
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    tol = TOL[name][1 if got[0].dtype == torch.bfloat16 else 0]
+    err = 0.0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (name, key)
+        diff = (g.float() - w.float()).abs()
+        assert bool((diff <= tol + tol * w.float().abs()).all()), \
+            (name, key, float(diff.max()))
+        err = max(err, float(diff.max()))
+    row = {"name": name, "key": json.loads(json.dumps(key, default=str)),
+           "tol": tol, "max_abs_err": err}
+    if timed:
+        library = model_library(name, key)
+        b_ms, b_by = model_bound(name, key, args, got)
+        row.update(ms=time_ms(lambda: kernel(*args, **kw), reps=0),
+                   device_ms=device_ms(lambda: kernel(*args, **kw)),
+                   plain_ms=time_ms(lambda: plain(*args, **kw), reps=0),
+                   library_ms=(None if library is None else
+                               time_ms(lambda: library(*args, **kw),
+                                       reps=0)),
+                   bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
+def check_model_ragged(device) -> list:
+    rows = [check_model_kernel("rmsnorm", (shape, dt, dt), device, False)
+            for shape, dt in RAGGED_RMS]
+    for dt in ("float32", "bfloat16"):
+        rows += [check_model_kernel(
+            "flash_attention", ((b, h, sq, d), (b, kv, sk, d), causal,
+                                window, dt), device, False)
+            for b, h, kv, sq, sk, d, causal, window in RAGGED_FA]
+        rows += [check_model_kernel("selective_scan", ((b, s, d), n, dt),
+                                    device, False)
+                 for b, s, d, n in RAGGED_SCAN]
+    # what the kernels do not take is refused, not routed elsewhere
+    q = torch.ones(1, 2, 8, 48, device=device)
+    x = torch.ones(1, 4, 8, device=device)
+    bn = torch.ones(1, 4, 32, device=device)
+    for bad in (lambda: fa.flash_attention(q, q, q),
+                lambda: rn.rmsnorm(x.half(), torch.ones(8, device=device)),
+                lambda: ss.selective_scan(x, x, bn, bn,
+                                          torch.ones(8, 32, device=device))):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("wrapper accepted an unsupported tensor")
+    return rows
+
+
+def check_model_path_shapes(device, shapes_by_phase: dict) -> list:
+    """Every shape key a generate phase handed a model wrapper: checked
+    against the plain version and timed, with the launches each phase made
+    there."""
+    rows = []
+    for name in MODEL_KERNELS:
+        seen = sorted({k for by_kernel in shapes_by_phase.values()
+                       for k in by_kernel[name]}, key=repr)
+        for key in seen:
+            row = check_model_kernel(name, key, device, True)
+            row["launches"] = {phase: by_kernel[name].get(key, 0)
+                               for phase, by_kernel
+                               in shapes_by_phase.items()}
+            rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the generation path: full-size generate, and the slice against the host
+# ---------------------------------------------------------------------------
+
+GEN_BATCH, GEN_PROMPT, GEN_TOKENS = 4, 512, 32
+SLICE_LAYERS, SLICE_PROMPT = 2, 128
+#: Whole-slice tolerance on logits (unit scale: a normalised state times a
+#: head of variance 1/d): both sides round every product to bfloat16 (8
+#: significant bits), at different places and after sums in another order,
+#: so a logit may move by a few bfloat16 steps of the numbers it is summed
+#: from.  Held on the largest and on the mean absolute difference.
+SLICE_TOL_MAX, SLICE_TOL_MEAN = 0.25, 0.02
+
+
+def run_generate(name: str, arch: str, device) -> tuple:
+    """``launch.generate.generate`` at full width and depth; asserts the
+    exact launch count of each kernel."""
+    cfg = configs.get(arch)
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = gen_cli.generate(cfg, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+                           gen=GEN_TOKENS, seed=0, device=device)
+    wall = time.perf_counter() - t0
+    launches, shapes = read_launches(), read_shapes()
+    toks = res["tokens"]
+    assert tuple(toks.shape) == (GEN_BATCH, GEN_TOKENS), toks.shape
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    steps = res["decode_steps"]
+    norms = 1 + (2 if cfg.family == "dense" else 1) * cfg.n_layers
+    want = {k: 0 for k in WRAPPERS}
+    want["rmsnorm"] = norms * (1 + steps)          # per prefill, per step
+    if cfg.family == "dense":
+        want["flash_attention"] = cfg.n_layers     # per prefill
+    else:
+        want["selective_scan"] = cfg.n_layers      # per prefill
+    assert launches == want, (name, launches, want)
+    d = cfg.d_model
+    prefill_norm = ((GEN_BATCH, GEN_PROMPT, d), "torch.bfloat16",
+                    "torch.bfloat16")
+    step_norm = ((GEN_BATCH, 1, d), "torch.bfloat16", "torch.bfloat16")
+    assert shapes["rmsnorm"] == {prefill_norm: norms - 1,
+                                 step_norm: 1 + norms * steps}, shapes
+    line = {
+        "phase": name, "model": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": d, "vocab": cfg.vocab_size, "batch": GEN_BATCH,
+        "prompt_len": res["prompt_len"], "gen": GEN_TOKENS,
+        "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+        "decode_ms_per_token": res["decode_s"] / steps * 1e3,
+        "wall_s_with_init": wall,
+        "peak_memory_bytes": res["peak_bytes"],
+        "launches": launches,
+        "launches_per_prefill": {"rmsnorm": norms,
+                                 "flash_attention": want["flash_attention"],
+                                 "selective_scan": want["selective_scan"]},
+        "launches_per_decode_step": {"rmsnorm": norms},
+        "sample": toks[0, :8].tolist(),
+    }
+    del res
+    torch.cuda.empty_cache()
+    return line, launches, shapes
+
+
+def profile_generate(name: str, arch: str, device) -> dict:
+    """Where the card's time goes in a generate of ``run_generate``'s size:
+    one prefill and four greedy decode steps, each traced after a warm-up
+    prefill and two steps."""
+    cfg = configs.get(arch)
+    ctx = ShardCtx()
+    params = init_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                            generator=gen, device=device)
+    prefill = make_prefill_step(cfg, ctx)
+    step = make_decode_step(cfg, ctx)
+    state = {}
+
+    def run_prefill():
+        logits, cache = prefill(params, {"tokens": prompts})
+        state["cache"] = gen_cli.grow_cache(cache, 8)
+        state["tok"] = torch.argmax(logits, dim=-1)[:, None]
+
+    def run_steps(first, n):
+        for i in range(first, first + n):
+            state["tok"], _, state["cache"] = step(
+                params, state["cache"], state["tok"], GEN_PROMPT + i)
+
+    run_prefill()
+    run_steps(0, 2)
+    out = {"phase": name, "model": cfg.name, "batch": GEN_BATCH,
+           "prompt_len": GEN_PROMPT, "prefill": trace(run_prefill),
+           "decode_4_steps": trace(lambda: run_steps(2, 4))}
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _to_host(tree):
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def slice_check(name: str, arch: str, device) -> dict:
+    """One model at full width and ``SLICE_LAYERS`` layers, batch 1: the
+    card's prefill logits (kernels) against the host's (plain versions) on
+    the same weights, and the card's first decode step against
+    ``forward_logits`` at the next position — the reference's own
+    prefill/decode consistency check."""
+    cfg = configs.get(arch).replace(n_layers=SLICE_LAYERS)
+    ctx = ShardCtx()
+    params = init_params(cfg, seed=1, device=device)
+    host = _to_host(params)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, SLICE_PROMPT + 1),
+                         generator=gen)
+    prompt = toks[:, :SLICE_PROMPT]
+
+    def diff(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        assert a.shape == b.shape and torch.isfinite(a).all() \
+            and torch.isfinite(b).all()
+        d = (a - b).abs()
+        out = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+               "scale": float(b.abs().max()),
+               "argmax_equal": bool(torch.equal(a.argmax(-1),
+                                                 b.argmax(-1)))}
+        assert out["max_abs"] <= SLICE_TOL_MAX and \
+            out["mean_abs"] <= SLICE_TOL_MEAN, (name, out)
+        return out
+
+    card_last, card_cache = M.prefill(params, cfg, ctx, prompt.to(device))
+    t0 = time.perf_counter()
+    host_last, _ = M.prefill(host, cfg, ctx, prompt)
+    host_s = time.perf_counter() - t0
+    prefill = diff(card_last, host_last)
+    step_logits, _ = M.decode_step(
+        params, cfg, ctx, toks[:, SLICE_PROMPT:].to(device),
+        gen_cli.grow_cache(card_cache, 1), SLICE_PROMPT)
+    full = M.forward_logits(params, cfg, ctx, toks.to(device))
+    decode = diff(step_logits, full[:, SLICE_PROMPT])
+    del params, host, card_cache, full
+    torch.cuda.empty_cache()
+    return {"phase": name, "model": cfg.name, "n_layers": SLICE_LAYERS,
+            "prompt_len": SLICE_PROMPT, "dtype": cfg.dtype,
+            "tol": {"max_abs": SLICE_TOL_MAX, "mean_abs": SLICE_TOL_MEAN},
+            "prefill_card_vs_host": prefill,
+            "decode_vs_forward_logits": decode, "host_prefill_s": host_s}
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the plan phases, trace the SA stage with "
-                         "torch.profiler and print the device's busy and "
-                         "idle share and its top kernels")
+                    help="trace the SA stage, and a prefill and four decode "
+                         "steps of each model, with torch.profiler and "
+                         "print the device's busy and idle share and its "
+                         "top kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script only runs on a GPU", file=sys.stderr)
         return 1
     device = torch.device("cuda")
+    # full float32 in products and convolutions (the defaults leave TF32
+    # off for matmul and on for cuDNN convolutions)
+    torch.backends.cudnn.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "env", "device": kind,
@@ -410,7 +812,10 @@ def main() -> int:
           "library": os.path.relpath(str(lib), ROOT),
           "sources": [os.path.relpath(str(s), ROOT)
                       for s in _build.sources()],
-          "flags": list(_build.NVCC_FLAGS)})
+          "flags": list(_build.NVCC_FLAGS),
+          "ptxas": [ln.strip() for ln in _build.last_build_log.splitlines()
+                    if ln.startswith("==") or "Compiling entry" in ln
+                    or "Used" in ln]})
 
     ragged = check_ragged(device)
     emit({"phase": "kernels", "kernels": ragged})
@@ -426,20 +831,47 @@ def main() -> int:
     if args.profile:
         emit(profile_sa(device))
 
+    model_ragged = check_model_ragged(device)
+    emit({"phase": "model_kernels", "kernels": model_ragged})
+    line_q, launches_q, shapes_q = run_generate("generate_qwen2_7b",
+                                                "qwen2-7b", device)
+    emit(line_q)
+    line_f, launches_f, shapes_f = run_generate("generate_falcon_mamba_7b",
+                                                "falcon-mamba-7b", device)
+    emit(line_f)
+    if args.profile:
+        emit(profile_generate("profile_generate_qwen2_7b", "qwen2-7b",
+                              device))
+        emit(profile_generate("profile_generate_falcon_mamba_7b",
+                              "falcon-mamba-7b", device))
+    emit(slice_check("slice_check_qwen2_7b", "qwen2-7b", device))
+    emit(slice_check("slice_check_falcon_mamba_7b", "falcon-mamba-7b",
+                     device))
+    model_rows = check_model_path_shapes(
+        device, {"generate_qwen2_7b": shapes_q,
+                 "generate_falcon_mamba_7b": shapes_f})
+    emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
+
+    main_path = {name: launches_u[name] + launches_t[name]
+                 for name in PLAN_KERNELS}
+    main_path.update({name: launches_q[name] + launches_f[name]
+                      for name in MODEL_KERNELS})
+
     def summary(name):
-        """One line per kernel: the counts of the two plans, and the times
-        at the shape the plans launched most often (``per_shape`` has every
-        shape)."""
-        mine = [r for r in rows if r["name"] == name]
+        """One line per kernel: its launches on the main paths (the two
+        plans, or the two generate phases), and the times at the shape the
+        paths launched most often (``per_shape`` has every shape)."""
+        mine = [r for r in rows + model_rows if r["name"] == name]
+        assert main_path[name] > 0, f"{name} was never launched"
         assert sum(sum(r["launches"].values()) for r in mine) \
-            == launches_u[name] + launches_t[name]
+            == main_path[name]
         top = max(mine, key=lambda r: sum(r["launches"].values()))
-        return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/group_reduce.cu",
-                "replaces": KERNELS[name], "shape": top["shape"],
-                "launches": launches_u[name] + launches_t[name],
+        return {"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": KERNELS[name],
+                "shape": top.get("shape", top.get("key")),
+                "launches": main_path[name],
                 "max_abs_err": max(r["max_abs_err"]
-                                   for r in mine + ragged
+                                   for r in mine + ragged + model_ragged
                                    if r["name"] == name),
                 "ms": top["ms"], "device_ms": top["device_ms"],
                 "plain_ms": top["plain_ms"],

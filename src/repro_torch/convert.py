@@ -1,18 +1,22 @@
 """State carried across from the JAX package.
 
-Two kinds of state cross between the packages.  ``Plan`` JSON needs no
+Three kinds of state cross between the packages.  ``Plan`` JSON needs no
 converter: both packages read and write the same schema, byte for byte.
 A fitted memory estimator does: :func:`estimator_from_reference` rebuilds
-it from plain NumPy arrays, so this module imports nothing of the other
-package — the caller pulls the arrays out of the reference object.
+it from plain NumPy arrays.  So do model weights:
+:func:`params_from_reference` turns the reference's parameter pytree, as
+nested dicts of NumPy arrays, into the port's dict of tensors with the same
+keys and shapes.  This module imports nothing of the other package — the
+caller pulls the arrays out of the reference objects.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from ._device import DeviceLike, resolve_device
 from .core.memory import MemoryEstimator
 
 
@@ -50,3 +54,39 @@ def estimator_from_reference(params_numpy: Sequence[Mapping[str, np.ndarray]],
     return MemoryEstimator(params, np.asarray(x_mean, np.float64),
                            np.asarray(x_std, np.float64),
                            float(y_mean), float(y_std), **fields)
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # NumPy has no bfloat16 of its own (the reference's arrays carry
+        # ml_dtypes'); the bits go across as int16 and are reinterpreted
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def params_from_reference(tree: Mapping[str, Any],
+                          device: DeviceLike = None) -> dict:
+    """The reference's model parameters as the port's.
+
+    Args:
+        tree: the reference's parameter pytree as nested dicts of NumPy
+            arrays (``jax.tree.map(np.asarray, params)``): ``tok_embed``,
+            ``final_norm``, ``lm_head`` and ``layers`` with layer-stacked
+            ``(L, ...)`` arrays.  float32 and bfloat16 arrays keep their
+            type.
+        device: where the tensors go (the CUDA device by default).
+
+    Returns:
+        The same nested dict with every array a tensor of the same shape
+        and type, ready for :mod:`repro_torch.models.model`.
+    """
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, device)
+
+    return walk(tree)

@@ -1,17 +1,24 @@
 """Builds the package's CUDA sources into one shared library at first use.
 
-``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into a library with a plain C
-interface, which :func:`load_library` opens with ``ctypes`` — no PyTorch
-headers are involved, so a build takes seconds.  The library is written to
-``build/repro_torch_kernels/`` at the root of the source checkout, named by a
-digest of the sources and flags so an edited source is never served by a stale
-binary.  The path is found from this file's place under ``src/``, so the
-package is meant to be used from a checkout (``PYTHONPATH=src`` or an editable
-install).  A failing build raises.
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` into an object file —
+one ``nvcc`` per source, all started together — and links the objects into
+one library with a plain C interface, which :func:`load_library` opens with
+``ctypes``.  No PyTorch headers are involved, so a build takes seconds.  The
+library is written to ``build/repro_torch_kernels/`` at the root of the
+source checkout, named by a digest of the sources and flags so an edited
+source is never served by a stale binary.  The path is found from this
+file's place under ``src/``, so the package is meant to be used from a
+checkout (``PYTHONPATH=src`` or an editable install).  A failing build
+raises.
 
 Floating-point contraction is off for the whole library (``-fmad=false``):
-the annealing score must equal the host engine's bit for bit, and one fused
-multiply-add ulp flips an accept decision and diverges a chain.
+the group-reduce kernels feed the annealing score, which must equal the host
+engine's bit for bit, and one fused multiply-add ulp flips an accept
+decision and diverges a chain.  A kernel that wants a fused multiply-add
+(the attention dot products) asks for it with ``fmaf``.
+
+``ptxas -v`` reports each kernel's registers, shared memory and spills; the
+report of the last build in this process is kept in :data:`last_build_log`.
 """
 from __future__ import annotations
 
@@ -24,14 +31,20 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 
+#: Flags of each per-source compile; the link adds ``-shared``.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the last real build took (None until one ran in this process).
 last_build_seconds: Optional[float] = None
+#: ``ptxas -v`` output of the last real build, one block per source.
+last_build_log: str = ""
 
 
 def build_dir() -> Path:
@@ -54,53 +67,104 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _run_all(cmds: list) -> list:
+    """Start every command at once; wait for all; raise with the output of
+    every one that failed.  Returns each command's standard error."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    failed = [f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+              for cmd, p, (out, err) in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [err for _, err in outs]
+
+
 def build() -> Path:
     """Compile the sources if their library is not there yet; returns the
     path of the shared library."""
-    global last_build_seconds
+    global last_build_seconds, last_build_log
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out_dir = build_dir()
-    lib_path = out_dir / f"libgroup_reduce_{h.hexdigest()[:16]}.so"
+    lib_path = out_dir / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [out_dir / f".{s.stem}.{tag}.o" for s in srcs]
     tmp = out_dir / f".{lib_path.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in srcs]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                         for s, o in zip(srcs, objs)])
+        _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib_path)   # atomic: two concurrent builds both succeed
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)      # atomic: two concurrent builds both succeed
+        for o in objs:
+            o.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
+    last_build_log = "\n".join(f"== {s.name}\n{log.strip()}"
+                               for s, log in zip(srcs, logs))
     return lib_path
 
 
 def load_library() -> ctypes.CDLL:
     """The built library with every function's ``argtypes`` set (pointers
     and the stream as ``c_void_p`` — ctypes would otherwise cut them to 32
-    bits)."""
+    bits; element counts and strides as ``c_longlong``)."""
     global _lib
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, ll, ci, dbl = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_double)
-    for name in ("group_min_scale_f64", "group_min_scale_f32"):
+    argtypes = {
+        # group_reduce.cu: (sub, ref_bw, out, n_groups, m*m, stream)
+        "group_min_scale_f64": [vp, dbl, vp, ll, ci, vp],
+        "group_min_scale_f32": [vp, dbl, vp, ll, ci, vp],
+        # (vals, out, n_rows, m, stream)
+        "group_max_f64": [vp, vp, ll, ci, vp],
+        "group_max_f32": [vp, vp, ll, ci, vp],
+        # rmsnorm.cu: (x, w, out, rows, d, eps, x_bf16, w_bf16, stream)
+        "rmsnorm_fwd": [vp, vp, vp, ll, ci, dbl, ci, ci, vp],
+        # flash_attention.cu: (q, k, v, o, 4 x (batch, head, seq) strides,
+        #   batch, heads, kv_heads, len_q, len_k, head_dim, scale, causal,
+        #   window, bf16, stream)
+        "flash_attention_fwd": [vp, vp, vp, vp] + [ll] * 12
+        + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
+        # selective_scan.cu: (x, dt, B, C, A, h0, y, h_out,
+        #   4 x (batch, time) strides, batch, len, d, n, bf16, stream)
+        "selective_scan_fwd": [vp] * 8 + [ll] * 8
+        + [ll, ll, ci, ci, ci, vp],
+    }
+    for name, types in argtypes.items():
         fn = getattr(lib, name)
-        fn.argtypes = [vp, dbl, vp, ll, ci, vp]
-        fn.restype = ci
-    for name in ("group_max_f64", "group_max_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, ll, ci, vp]
+        fn.argtypes = types
         fn.restype = ci
     _lib = lib
     return lib
+
+
+def launch(fn_name: str, x: torch.Tensor, *args) -> None:
+    """Call one C entry point on PyTorch's current stream of ``x``'s device
+    (made current for the call when it is not), and raise on a refused
+    launch."""
+    fn = getattr(load_library(), fn_name)
+    if x.device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed (cudaError "
+                           f"{rc})")

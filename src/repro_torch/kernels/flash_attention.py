@@ -1,0 +1,138 @@
+"""Flash-attention kernel of the model stack, with its plain version.
+
+``flash_attention`` replaces the Pallas kernel ``flash_attention``
+(``_kernel``) of the JAX package's ``kernels/flash_attention.py``: causal or
+sliding-window softmax attention with grouped KV heads, forward only.  It is
+CUDA C++ (``csrc/flash_attention.cu``): one block per (32 query rows, head,
+batch), a loop over key tiles of 32 staged in shared memory in place of the
+TPU's sequential grid axis, online softmax with the running maximum, sum and
+accumulator in float32 registers, GQA by indexing (head ``h`` reads KV head
+``h // (H // KV)``; no repeated KV is written), and key tiles that no row of
+the block may see skipped.  On the model's prefill shapes the card could do
+the work in the time of its bytes on the tensor cores; this first kernel
+takes its products on the CUDA cores in float32, so its arithmetic bounds it.
+
+Unlike the Pallas wrapper, no length has to be a multiple of a block: the
+ragged tails of ``Sq`` and ``Sk`` are masked.  The kernel takes the batch,
+head and sequence strides of each tensor (the head dimension must have unit
+stride), so the model hands it transposed views of its ``(B, S, H, D)``
+activations without a copy, and the output keeps ``q``'s stride order.
+
+The plain version :func:`flash_attention_ref` is ``attention_ref`` of the
+JAX package's ``kernels/ref.py`` with the Pallas kernel's one difference: a
+row whose keys are all masked is 0, not the mean of V.  A wrapper takes the
+plain version only for a tensor that lies on the CPU; for a CUDA tensor it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from collections import Counter
+
+import torch
+
+from ._build import launch
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _allowed(sq: int, sk: int, causal: bool, window: int,
+             device) -> torch.Tensor:
+    """(sq, sk) mask of the keys each query row may see."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= q_pos >= k_pos
+    if window > 0:
+        ok &= q_pos - k_pos < window
+    return ok
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """O(S^2)-memory softmax attention in float32.
+
+    ``q`` is ``(B, H, Sq, D)``, ``k`` and ``v`` are ``(B, KV, Sk, D)``; the
+    scale is ``1/sqrt(D)``; the result is ``(B, H, Sq, D)`` in ``q``'s type,
+    with 0 in every row that has no allowed key.
+    """
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / (d ** 0.5)
+    qf = q.float().reshape(b, kv, g, sq, d) * scale
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k.float())
+    ok = _allowed(sq, sk, causal, window, q.device)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
+    o = torch.where(ok.any(dim=-1)[:, None], o, torch.zeros_like(o))
+    return o.reshape(b, h, sq, d).to(q.dtype)
+
+
+def _check(q, k, v, window) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)!r}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a unit-stride head dimension")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v differ in type: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+    b, h, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"want q (B,H,Sq,D), k and v (B,KV,Sk,D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    kv, sk = k.shape[1], k.shape[2]
+    if kv < 1 or h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+    if min(b, h, sq, sk) < 1 or max(sq, sk, window) >= 2 ** 31 \
+            or b >= 2 ** 16 or h >= 2 ** 16:
+        raise ValueError(f"unsupported sizes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, window {window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """CUDA version of :func:`flash_attention_ref` (float32 or bfloat16;
+    head dim one of :data:`HEAD_DIMS`).
+
+    A CPU tensor goes through the plain version; a CUDA tensor launches the
+    kernel or raises.
+    """
+    window = int(window)
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = torch.empty_like(q)          # q's stride order when q is dense
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    launch("flash_attention_fwd", q, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), out.data_ptr(),
+           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           *out.stride()[:3], b, h, kv, sq, sk, d, 1.0 / (d ** 0.5),
+           int(bool(causal)), window, _DTYPES[q.dtype])
+    flash_attention.launches += 1
+    flash_attention.shapes[(tuple(q.shape), tuple(k.shape), bool(causal),
+                            window, str(q.dtype))] += 1
+    return out
+
+
+#: Number of kernel launches made by the wrapper (never the plain version),
+#: and the same count split by (q shape, k shape, causal, window, dtype).
+flash_attention.launches = 0
+flash_attention.shapes = Counter()

@@ -29,6 +29,8 @@ from collections import Counter
 
 import torch
 
+from ._build import launch as _launch
+
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
 
@@ -73,22 +75,6 @@ def _check(x: torch.Tensor, name: str, min_dim: int) -> str:
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return _DTYPES[x.dtype]
-
-
-def _launch(fn_name: str, x: torch.Tensor, *args) -> None:
-    """Call one C entry point on PyTorch's current stream of ``x``'s
-    device (made current for the call when it is not), and raise on a
-    refused launch."""
-    from ._build import load_library
-    fn = getattr(load_library(), fn_name)
-    if x.device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(x.device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed (cudaError "
-                           f"{rc})")
 
 
 def group_min_scale(sub: torch.Tensor, ref_bw: float) -> torch.Tensor:

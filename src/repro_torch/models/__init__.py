@@ -1,1 +1,2 @@
-"""Model configuration dataclasses (the only part of the model zoo the planner needs)."""
+"""The model stack: configuration dataclasses, and the dense and Mamba1
+families' layers, blocks and generation API (prefill and decode)."""

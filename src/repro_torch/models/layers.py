@@ -1,0 +1,92 @@
+"""Shared layer math: norms, RoPE, activations, initialisers.
+
+Plain functions over explicit tensors, as in the JAX package's
+``models/layers.py``.  Norms and softmax-adjacent reductions run in float32
+whatever the activation type.  :func:`rms_norm` goes through the
+``rmsnorm`` kernel (CUDA on the card, its plain version on the CPU).  The
+initialisers draw from an explicit ``torch.Generator`` on the generator's
+device.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..kernels.rmsnorm import rmsnorm
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """``(x * rsqrt(mean(x**2) + eps)) * weight`` in float32, cast back to
+    ``x.dtype``."""
+    return rmsnorm(x, weight, eps)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = silu(x @ w_gate)
+    u = x @ w_up
+    return (g * u) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    """Inverse frequencies ``(head_dim // 2,)`` in float32."""
+    # scalars as 0-d tensors made by ``torch.full`` (a fill on the device;
+    # ``torch.tensor`` would copy from the host and wait for the device),
+    # and tensor / tensor, the IEEE divide — ``scalar / tensor`` is not
+    # (torch evaluates it as a reciprocal times the scalar)
+    def scalar(v):
+        return torch.full((), float(v), dtype=torch.float32, device=device)
+
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / scalar(head_dim)
+    return torch.ones_like(exponent) / scalar(theta) ** exponent
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate ``x`` ``(..., seq, heads, head_dim)`` by position-dependent
+    angles (rotate-half layout); ``positions`` is ``(..., seq)``."""
+    dtype = x.dtype
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                         # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * inv            # (..., S, hd/2)
+    sin = torch.sin(ang)[..., :, None, :]                         # (..., S, 1, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initialisers (explicit shapes; stacked (L, ...) tensors when n is set)
+# ---------------------------------------------------------------------------
+
+def normal(gen: torch.Generator, shape: Sequence[int], scale: float,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in float32 and cast to ``dtype``.  A stacked
+    shape is drawn one leading slice at a time, so the float32 temporary is
+    one layer's size, not the whole stack's."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    slices = out if len(shape) > 2 else out[None]
+    for s in slices:
+        s.copy_(torch.randn(s.shape, generator=gen, dtype=torch.float32,
+                            device=gen.device) * scale)
+    return out
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, n: int = 0,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    shape = (n, d_in, d_out) if n else (d_in, d_out)
+    return normal(gen, shape, float(1.0 / np.sqrt(d_in)), dtype)

@@ -1,0 +1,235 @@
+"""Top-level model API of the generation path: logits, prefill, decode.
+
+Port of the JAX package's ``models/model.py`` for the dense and Mamba1
+families.  Decode walks the layers in the reference's segments (runs of
+layers with the same kind, cache kind, window and theta) with a plain loop,
+so heterogeneous caches stay exact: full KV rows for global-attention
+layers, ring buffers for sliding-window layers (gemma3 locals), SSM state
+and conv tails for Mamba layers.  :func:`decode_step` updates the cache in
+place, where the reference donates it to ``jit`` (``donate_argnums``) and
+gets a new one back.  ``loss_fn`` waits for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from . import mamba as mam
+from .attention import decode_attention
+from .config import ModelConfig
+from .layers import rms_norm
+from .sharding import ShardCtx
+from .transformer import (_out_proj, _proj_qkv, check_family, init_params,
+                          layer_params, layer_plan, mlp_block, run_stack)
+
+__all__ = ["init_params", "forward_logits", "prefill", "init_cache",
+           "decode_step"]
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params, cfg: ModelConfig, tokens, img_embeds=None):
+    """Token embeddings ``(b, s, d)`` and positions ``(b, s)`` int32."""
+    if img_embeds is not None:
+        raise NotImplementedError(
+            "image embeddings come with the vlm frontend (ROADMAP Queue A 8, "
+            "models/frontends.py)")
+    x = params["tok_embed"][tokens]                     # (b, s, d)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    return x, positions
+
+
+def _head(params, cfg: ModelConfig):
+    if cfg.tie_embeddings or "lm_head" not in params:
+        return params["tok_embed"].T
+    return params["lm_head"]
+
+
+def _project_logits(x, params, cfg: ModelConfig):
+    """Final projection with phantom-row masking (padded_vocab is exact).
+
+    The reference computes ``x.astype(bfloat16) @ head``; with a float32
+    head (a ``reduced()`` config) jnp promotes the product to float32.
+    ``torch.matmul`` refuses mixed types, so the promotion is replayed:
+    round ``x`` to bfloat16, then multiply in the promoted type."""
+    head = _head(params, cfg)
+    rt = torch.promote_types(torch.bfloat16, head.dtype)
+    logits = x.to(torch.bfloat16).to(rt) @ head.to(rt)
+    if cfg.padded_vocab != cfg.vocab_size:
+        phantom = torch.arange(cfg.padded_vocab,
+                               device=logits.device) >= cfg.vocab_size
+        bias = torch.zeros(cfg.padded_vocab, dtype=torch.float32,
+                           device=logits.device).masked_fill(phantom, -1e30)
+        logits = logits + bias.to(logits.dtype)
+    return logits
+
+
+def forward_logits(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
+                   img_embeds=None):
+    """Logits ``(b, s, padded_vocab)`` of every position."""
+    x, positions = embed_inputs(params, cfg, tokens, img_embeds)
+    x, _ = run_stack(x, params, cfg, ctx, positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _project_logits(x, params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
+            img_embeds=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Full-sequence pass that returns ``(last_token_logits, cache)``.
+
+    The cache holds ``k, v`` ``(n_full, b, S, KV, hd)`` for full-attention
+    layers, ``k_ring, v_ring`` ``(n_ring, b, window, KV, hd)`` for
+    sliding-window layers (``S`` must be a multiple of the window), and
+    ``ssm`` ``(L, b, d_inner, N)`` float32 and ``conv`` ``(L, b, W-1,
+    d_inner)`` for Mamba layers."""
+    x, positions = embed_inputs(params, cfg, tokens, img_embeds)
+    x, raw = run_stack(x, params, cfg, ctx, positions, collect_cache=True)
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = _project_logits(x, params, cfg)
+
+    plan, _ = layer_plan(cfg)
+    cache: Dict[str, Any] = {}
+    if cfg.family == "ssm":
+        cache["ssm"], cache["conv"] = raw
+        return logits[:, 0], cache
+    k, v = raw                                          # (L, b, S, KV, hd)
+    full_rows = [i for i, e in enumerate(plan) if e["cache"][0] == "full"]
+    ring_rows = [(i, e["cache"][2]) for i, e in enumerate(plan)
+                 if e["cache"][0] == "ring"]
+    if full_rows:
+        idx = torch.as_tensor(np.array(full_rows), device=k.device)
+        cache["k"], cache["v"] = k[idx], v[idx]
+    if ring_rows:
+        w = ring_rows[0][1]
+        idx = torch.as_tensor(np.array([i for i, _ in ring_rows]),
+                              device=k.device)
+        s = k.shape[2]
+        if s % w:
+            raise ValueError(f"prefill length {s} must be a multiple of the "
+                             f"sliding window {w} (ring caches)")
+        cache["k_ring"], cache["v_ring"] = k[idx, :, -w:], v[idx, :, -w:]
+    return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=torch.bfloat16, device: DeviceLike = None
+               ) -> Dict[str, Any]:
+    """Zero caches of the shapes :func:`prefill` returns, for ``seq_len``
+    positions of full attention."""
+    check_family(cfg)
+    device = resolve_device(device)
+    plan, meta = layer_plan(cfg)
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    cache: Dict[str, Any] = {}
+
+    def z(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if meta["full"]:
+        cache["k"] = z((meta["full"], batch, seq_len, kv, hd))
+        cache["v"] = z((meta["full"], batch, seq_len, kv, hd))
+    if meta["ring"]:
+        w = next(e["cache"][2] for e in plan
+                 if e.get("cache", ("",))[0] == "ring")
+        cache["k_ring"] = z((meta["ring"], batch, w, kv, hd))
+        cache["v_ring"] = z((meta["ring"], batch, w, kv, hd))
+    if meta["ssm"]:
+        cache["ssm"] = z((meta["ssm"], batch, cfg.d_inner, cfg.ssm_state),
+                         torch.float32)
+        cache["conv"] = z((meta["ssm"], batch, cfg.ssm_conv - 1,
+                           cfg.d_inner))
+    return cache
+
+
+def _segments(plan, shared_at=()) -> List[Tuple[tuple, List[int], dict]]:
+    """Group consecutive layers with identical (kind, cache-kind, window,
+    theta) into segments, breaking after shared-attention application
+    points.  Returns ``[(sig, [indices], entry)]``."""
+    segs = []
+    breaks = set(shared_at)
+    prev_broke = True
+    for i, e in enumerate(plan):
+        sig = (e["kind"], e.get("cache", ("ssm",))[0],
+               e.get("cache", (None, None, 0))[2]
+               if e.get("cache", ("", 0))[0] == "ring" else 0,
+               e["theta"])
+        if segs and segs[-1][0] == sig and not prev_broke:
+            segs[-1][1].append(i)
+        else:
+            segs.append((sig, [i], e))
+        prev_broke = i in breaks
+    return segs
+
+
+def _decode_layer_body(x, lp, ck, cv, cfg, ctx, pos: int, *, kind,
+                       cache_kind, window, theta):
+    """One attention layer of a decode step.  ``ck, cv`` ``(b, S, KV, hd)``
+    are the layer's cache rows; the new token's key and value are written
+    into them in place.  Returns ``(x, ck, cv)``."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _proj_qkv(h, lp, cfg, positions, theta)
+    if cache_kind == "full":
+        slot, last = pos, pos
+    else:
+        slot, last = pos % window, min(pos, window - 1)
+    ck[:, slot:slot + 1] = k.to(ck.dtype)
+    cv[:, slot:slot + 1] = v.to(cv.dtype)
+    o = decode_attention(q, ck, cv, last)
+    x = x + _out_proj(o, lp["wo"])
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_block(h, lp), ck, cv
+
+
+def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
+                pos: int):
+    """``token`` ``(b, 1)`` at position ``pos``; returns ``(logits (b,
+    padded_vocab), cache)``.
+
+    The cache is updated in place and returned (the reference donates its
+    buffers to ``jit`` instead); full-attention rows need room for
+    position ``pos``."""
+    check_family(cfg)
+    pos = int(pos)
+    plan, meta = layer_plan(cfg)
+    x = params["tok_embed"][token]                      # (b, 1, d)
+    for sig, idxs, _ in _segments(plan, meta["shared_at"]):
+        kind, cache_kind, window, theta = sig
+        for i in idxs:
+            lp = layer_params(params, i)
+            if kind == "attn":
+                ckey, vkey = ("k", "v") if cache_kind == "full" else \
+                    ("k_ring", "v_ring")
+                row = plan[i]["cache"][1]
+                x, _, _ = _decode_layer_body(
+                    x, lp, cache[ckey][row], cache[vkey][row], cfg, ctx, pos,
+                    kind=kind, cache_kind=cache_kind, window=window,
+                    theta=theta)
+            else:                                       # mamba1 layer
+                row = plan[i]["ssm_row"]
+                h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+                y, (hs, cc) = mam.mamba1_block(
+                    h[:, 0], lp, cfg, h0=cache["ssm"][row],
+                    conv0=cache["conv"][row], single_step=True)
+                cache["ssm"][row] = hs
+                cache["conv"][row] = cc.to(cache["conv"].dtype)
+                x = x + y[:, None]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _project_logits(x, params, cfg)
+    return logits[:, 0], cache

@@ -1,0 +1,254 @@
+"""Decoder stack of the dense and SSM families, forward only.
+
+Port of the JAX package's ``models/transformer.py`` for the generation path.
+Parameters are one dict with the reference's keys and its layer-stacked
+``(L, ...)`` shapes, so a reference pytree converts key for key
+(:func:`repro_torch.convert.params_from_reference`).  :func:`run_stack` is a
+plain Python loop over layers: the reference's ``lax.scan`` and remat exist
+for compile size and training memory, and this slice runs no backward pass.
+
+Full-sequence attention goes through the ``flash_attention`` kernel and
+every norm through the ``rmsnorm`` kernel.  The ``moe``, ``hybrid``,
+``vlm`` and ``audio`` families raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..kernels.flash_attention import flash_attention
+from . import mamba as mam
+from .config import ModelConfig
+from .layers import apply_rope, dense_init, rms_norm, swiglu
+from .sharding import ShardCtx
+
+#: Families whose layers the port has not yet, and the ROADMAP item that
+#: brings each.
+NOT_PORTED = {
+    "moe": "ROADMAP Queue A 8 (models/moe.py)",
+    "hybrid": "ROADMAP Queue A 8 (Mamba2 ssd_scan / shared attention)",
+    "vlm": "ROADMAP Queue A 8 (models/frontends.py)",
+    "audio": "ROADMAP Queue A 8 (models/frontends.py)",
+}
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family this package cannot run."""
+    if cfg.family in NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to the "
+            f"PyTorch package yet; it comes with {NOT_PORTED[cfg.family]}")
+    if cfg.family == "ssm" and cfg.ssm_variant != "mamba1":
+        raise NotImplementedError(
+            f"{cfg.name}: only Mamba1 layers are ported; "
+            f"{cfg.ssm_variant!r} comes with {NOT_PORTED['hybrid']}")
+
+
+# ---------------------------------------------------------------------------
+# layer plan
+# ---------------------------------------------------------------------------
+
+def layer_plan(cfg: ModelConfig) -> Tuple[List[Dict[str, Any]],
+                                          Dict[str, Any]]:
+    """Static per-layer description (kind, cache slot, window, theta)."""
+    plan = []
+    full_rows = ring_rows = ssm_rows = 0
+    for i in range(cfg.n_layers):
+        if cfg.family == "ssm" or (cfg.family == "hybrid"):
+            kind = cfg.ssm_variant or "mamba1"
+            entry = {"kind": kind, "ssm_row": ssm_rows, "window": 0,
+                     "theta": cfg.rope_theta}
+            ssm_rows += 1
+        elif cfg.family == "moe":
+            entry = {"kind": "moe", "window": cfg.layer_window(i),
+                     "theta": cfg.rope_theta}
+        else:
+            entry = {"kind": "attn", "window": cfg.layer_window(i),
+                     "theta": cfg.rope_theta}
+        if entry["kind"] in ("attn", "moe"):
+            if cfg.local_global_period and cfg.layer_is_global_attn(i) \
+                    and cfg.rope_theta_global:
+                entry["theta"] = cfg.rope_theta_global
+            if entry["window"] > 0:
+                entry["cache"] = ("ring", ring_rows, entry["window"])
+                ring_rows += 1
+            else:
+                entry["cache"] = ("full", full_rows)
+                full_rows += 1
+        plan.append(entry)
+    # zamba2-style shared attention applications
+    shared_at = []
+    if cfg.hybrid_attn_period:
+        shared_at = [i for i in range(cfg.n_layers)
+                     if i % cfg.hybrid_attn_period
+                     == cfg.hybrid_attn_period - 1]
+    return plan, {"full": full_rows, "ring": ring_rows, "ssm": ssm_rows,
+                  "shared_at": shared_at}
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _attn_init(gen, cfg: ModelConfig, n: int, dtype, device):
+    h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    p = {
+        "wq": dense_init(gen, d, h * hd, n=n, dtype=dtype).reshape(n, d, h, hd),
+        "wk": dense_init(gen, d, kv * hd, n=n, dtype=dtype).reshape(n, d, kv, hd),
+        "wv": dense_init(gen, d, kv * hd, n=n, dtype=dtype).reshape(n, d, kv, hd),
+        "wo": dense_init(gen, h * hd, d, n=n, dtype=dtype).reshape(n, h, hd, d),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((n, h, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((n, kv, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((n, kv, hd), dtype=dtype, device=device)
+    return p
+
+
+def _mlp_init(gen, cfg: ModelConfig, n: int, dtype):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"gate": dense_init(gen, d, f, n=n, dtype=dtype),
+            "up": dense_init(gen, d, f, n=n, dtype=dtype),
+            "down": dense_init(gen, f, d, n=n, dtype=dtype)}
+
+
+def _mamba_init(gen, cfg: ModelConfig, n: int, dtype, device):
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    f32 = torch.float32
+    a0 = torch.log(torch.arange(1, N + 1, dtype=f32, device=device))
+    return {
+        "in_proj": dense_init(gen, d, 2 * di, n=n, dtype=dtype),
+        "conv_w": dense_init(gen, cfg.ssm_conv, di, n=n, dtype=dtype),
+        "conv_b": torch.zeros((n, di), dtype=dtype, device=device),
+        "x_proj": dense_init(gen, di, cfg.dt_rank + 2 * N, n=n, dtype=dtype),
+        "dt_w": dense_init(gen, cfg.dt_rank, di, n=n, dtype=dtype),
+        "dt_bias": torch.zeros((n, di), dtype=f32, device=device),
+        "A_log": a0.expand(n, di, N).contiguous(),
+        "D": torch.ones((n, di), dtype=f32, device=device),
+        "out_proj": dense_init(gen, di, d, n=n, dtype=dtype),
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """Random weights of the reference's shapes and types, drawn on
+    ``device`` (the CUDA device by default) from ``torch.Generator`` seeded
+    with ``seed``.  The draws differ from the reference's ``jax.random``
+    ones; the tests take the reference's weights through
+    :func:`repro_torch.convert.params_from_reference` instead."""
+    check_family(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    dtype = getattr(torch, cfg.dtype)
+    n = cfg.n_layers
+    vp = cfg.padded_vocab
+    # phantom vocabulary rows (padded_vocab > vocab_size) are zero
+    params: Dict[str, Any] = {
+        "tok_embed": dense_init(gen, vp, cfg.d_model, dtype=dtype),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+    }
+    params["tok_embed"][cfg.vocab_size:] = 0
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, vp, dtype=dtype)
+        params["lm_head"][:, cfg.vocab_size:] = 0
+
+    norm = torch.ones((n, cfg.d_model), dtype=dtype, device=device)
+    layers: Dict[str, Any] = {"ln1": norm}
+    if cfg.family == "dense":
+        layers.update(_attn_init(gen, cfg, n, dtype, device))
+        layers["ln2"] = norm.clone()
+        layers.update(_mlp_init(gen, cfg, n, dtype))
+    else:                                                   # ssm (Mamba1)
+        layers.update(_mamba_init(gen, cfg, n, dtype, device))
+    params["layers"] = layers
+    return params
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _proj_qkv(x, p, cfg, positions, theta):
+    """``x`` ``(b, s, d)`` -> q ``(b, s, H, hd)``, k and v ``(b, s, KV, hd)``,
+    biased and (q, k) rotated."""
+    b, s, d = x.shape
+
+    def proj(w):                         # (d, heads, hd) -> (b, s, heads, hd)
+        return (x @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
+
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    if "bq" in p:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = apply_rope(q, positions, theta)
+    k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def _out_proj(o, wo):
+    """``o`` ``(b, s, H, hd)`` @ ``wo`` ``(H, hd, d)`` -> ``(b, s, d)``."""
+    b, s = o.shape[:2]
+    return o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def attn_block(x, p, cfg, ctx: ShardCtx, positions, window, theta):
+    """Full-sequence causal attention through the ``flash_attention``
+    kernel.  Returns ``(out, (k, v))`` for cache capture.
+
+    The kernel takes ``(B, H, S, D)`` with strides, so the model's
+    ``(b, s, H, hd)`` tensors go in as transposed views, and the output
+    comes back in the same memory order."""
+    q, k, v = _proj_qkv(x, p, cfg, positions, theta)
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=True, window=int(window))
+    return _out_proj(o.transpose(1, 2), p["wo"]), (k, v)
+
+
+def mlp_block(x, p):
+    return swiglu(x, p["gate"], p["up"], p["down"])
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill): a loop over layers
+# ---------------------------------------------------------------------------
+
+def _layer_body(x, lp, cfg: ModelConfig, ctx: ShardCtx, entry, positions):
+    """One layer; returns ``(x, cache_ys)`` with ``cache_ys`` the layer's
+    ``(k, v)`` or ``(ssm state, conv tail)``."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if entry["kind"] == "attn":
+        a, kv_cache = attn_block(h, lp, cfg, ctx, positions, entry["window"],
+                                 entry["theta"])
+        x = x + a
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + mlp_block(h, lp), kv_cache
+    y, (hstate, conv_tail) = mam.mamba1_block(h, lp, cfg)
+    return x + y, (hstate, conv_tail)
+
+
+def layer_params(params, i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s slice of the stacked ``params["layers"]``."""
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def run_stack(x, params, cfg: ModelConfig, ctx: ShardCtx, positions,
+              collect_cache: bool = False):
+    """``x`` ``(b, s, d)`` -> ``(x, caches)``; with ``collect_cache`` the
+    caches are the per-layer ``(k, v)`` or ``(ssm state, conv tail)``
+    stacked over layers (the reference's scan outputs), else ``()``."""
+    check_family(cfg)
+    plan, _ = layer_plan(cfg)
+    caches = []
+    for i, entry in enumerate(plan):
+        x, c = _layer_body(x, layer_params(params, i), cfg, ctx, entry,
+                           positions)
+        if collect_cache:
+            caches.append(c)
+    if not collect_cache:
+        return x, ()
+    return x, tuple(torch.stack(parts, 0) for parts in zip(*caches))

@@ -2,7 +2,8 @@
 
 They build the CUDA kernels with ``nvcc``, launch them, and hold them and
 the engine on the card against the plain PyTorch versions and the host
-NumPy engine.  Without a CUDA device every test here skips with a reason
+NumPy engine: the group reduces bit for bit, the model kernels (rmsnorm,
+flash_attention, selective_scan) at the JAX package's kernel tolerances.  Without a CUDA device every test here skips with a reason
 (decided inside the test, never at import).  This file imports ``torch``
 and ``repro_torch`` only, so it also runs on a machine without JAX:
 
@@ -17,7 +18,10 @@ import torch
 from repro_torch.core import annealing, cluster, dedication, plan, simulator
 from repro_torch.core.memory import enumerate_confs
 from repro_torch.core.torch_engine import TorchDedicationEngine
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import group_reduce as gr
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import selective_scan as ss
 from repro_torch.models.config import ModelConfig
 
 pytestmark = pytest.mark.gpu
@@ -134,3 +138,131 @@ def test_plan_on_the_card_byte_equal_to_host_backend(hier):
 
     assert make("torch") == make("numpy")
     assert annealing.HIER_AUTO_GPUS == 2048
+
+
+# ---------------------------------------------------------------------------
+# model kernels: rmsnorm, flash_attention, selective_scan against their plain
+# versions on the card
+# ---------------------------------------------------------------------------
+
+
+#: (b, h, kv, sq, sk, d, causal, window): the JAX package's kernel sweep,
+#: ragged lengths, a window that masks whole key tiles, rows with no allowed
+#: key (sk < sq under a window) and the qwen2-7b prefill shape.
+FA_SHAPES = [
+    (2, 4, 2, 128, 128, 32, True, 0), (1, 4, 4, 256, 256, 64, True, 0),
+    (2, 2, 1, 128, 256, 32, False, 0), (1, 4, 2, 256, 256, 32, True, 64),
+    (1, 8, 2, 128, 128, 128, True, 0), (1, 2, 2, 64, 192, 16, True, 48),
+    (2, 4, 2, 50, 50, 64, True, 0), (1, 2, 1, 37, 71, 32, False, 0),
+    (1, 4, 2, 200, 200, 128, True, 40), (1, 2, 2, 64, 16, 16, True, 8),
+    (1, 2, 1, 33, 33, 256, True, 0), (4, 28, 4, 512, 512, 128, True, 0),
+]
+#: (b, s, d, n): the JAX package's scan sweep and a falcon-mamba layer.
+SCAN_SHAPES = [(2, 64, 32, 8), (1, 96, 16, 4), (2, 128, 64, 16),
+               (1, 50, 24, 8), (1, 17, 100, 16), (4, 512, 8192, 16)]
+RMS_SHAPES = [(1, 32), (7, 128), (70, 384), (33, 3584), (2048, 4096),
+              (5, 1, 3584)]
+
+
+def _randn(rng, shape, dtype, scale=1.0):
+    return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            * scale).to(dtype).cuda()
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES, ids=str)
+def test_rmsnorm_kernel_matches_plain(shape, dtype):
+    _need_cuda()
+    rng = np.random.default_rng(sum(shape))
+    x = _randn(rng, shape, dtype, 3.0)
+    w = _randn(rng, shape[-1:], dtype)
+    before = rn.rmsnorm.launches
+    got = rn.rmsnorm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    _close(got, rn.rmsnorm_ref(x, w, 1e-5),
+           1e-5 if dtype == torch.float32 else 3e-2)
+
+
+def test_rmsnorm_kernel_mixed_types_and_strided_rows():
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (4, 9, 256), torch.bfloat16)[:, -1:]   # not contiguous
+    w = _randn(rng, (256,), torch.float32)
+    _close(rn.rmsnorm(x, w), rn.rmsnorm_ref(x, w), 3e-2)
+    x32 = _randn(rng, (6, 256), torch.float32)
+    wb = _randn(rng, (256,), torch.bfloat16)
+    _close(rn.rmsnorm(x32, wb), rn.rmsnorm_ref(x32, wb), 1e-5)
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FA_SHAPES, ids=str)
+def test_flash_attention_kernel_matches_plain(case, dtype, layout):
+    _need_cuda()
+    b, h, kv, sq, sk, d, causal, window = case
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    if layout == "bhsd":
+        q = _randn(rng, (b, h, sq, d), dtype)
+        k = _randn(rng, (b, kv, sk, d), dtype)
+        v = _randn(rng, (b, kv, sk, d), dtype)
+    else:                          # the model's (B, S, H, D), viewed
+        q = _randn(rng, (b, sq, h, d), dtype).transpose(1, 2)
+        k = _randn(rng, (b, sk, kv, d), dtype).transpose(1, 2)
+        v = _randn(rng, (b, sk, kv, d), dtype).transpose(1, 2)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.stride() == q.stride()
+    _close(got, fa.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window),
+           2e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_selective_scan_kernel_matches_plain(shape, dtype):
+    _need_cuda()
+    b, s, d, n = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _randn(rng, (b, s, d), dtype, 0.5)
+    dt = (torch.nn.functional.softplus(_randn(rng, (b, s, d),
+                                              torch.float32)) * 0.1).to(dtype)
+    # B and C as column slices of one projection, as the model has them
+    proj = _randn(rng, (b, s, 3 + 2 * n), dtype)
+    B, C = proj[..., 3:3 + n], proj[..., 3 + n:]
+    A = -torch.exp(_randn(rng, (d, n), torch.float32, 0.3))
+    h0 = _randn(rng, (b, d, n), torch.float32) if s < 100 else None
+    before = ss.selective_scan.launches
+    y, h = ss.selective_scan(x, dt, B, C, A, h0)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == before + 1
+    yr, hr = ss.selective_scan_ref(x, dt, B, C, A, h0)
+    assert y.dtype == h.dtype == torch.float32
+    _close(y, yr, 2e-4)
+    _close(h, hr, 2e-4)
+
+
+def test_model_kernel_wrappers_raise_on_what_they_do_not_take():
+    _need_cuda()
+    q = torch.ones(1, 2, 8, 48, device="cuda")
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)                    # head dim 48
+    q = torch.ones(1, 2, 8, 32, device="cuda")
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.half(), q)
+    with pytest.raises(ValueError):
+        rn.rmsnorm(q, torch.ones(16, device="cuda"))
+    x = torch.ones(1, 4, 8, device="cuda")
+    bn = torch.ones(1, 4, 32, device="cuda")
+    with pytest.raises(ValueError):                    # N = 32 > 16
+        ss.selective_scan(x, x, bn, bn, torch.ones(8, 32, device="cuda"))

@@ -1,0 +1,258 @@
+"""Model kernels of the PyTorch package against the JAX package's.
+
+Each plain PyTorch version (``rmsnorm_ref``, ``flash_attention_ref``,
+``selective_scan_ref``) is held to the JAX package's oracle in
+``repro.kernels.ref`` on the same NumPy inputs, at the reference's own
+tolerances (``tests/test_kernels.py``); one small case per kernel also runs
+the Pallas kernel in interpret mode.  On the CPU each wrapper takes its plain
+version and counts no launch.  The CUDA kernels can only run on a card:
+their tests (``tests/test_torch_gpu.py``) carry the ``gpu`` marker and skip
+without one.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention as pallas_fa
+from repro.kernels.rmsnorm import rmsnorm as pallas_rms
+from repro.kernels.selective_scan import selective_scan as pallas_scan
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import selective_scan as ss
+
+#: (b, h, kv, sq, sk, d, causal, window, bf16): the reference's sweep, a
+#: ragged length, a window that masks whole tiles, and rows with no allowed
+#: key (sk < sq under a window; the reference oracle gives their mean of V,
+#: so those rows are held to the Pallas semantics separately below).
+FA_CASES = [
+    (2, 4, 2, 128, 128, 32, True, 0, False),
+    (1, 4, 4, 256, 256, 64, True, 0, False),
+    (2, 2, 1, 128, 256, 32, False, 0, False),
+    (1, 4, 2, 256, 256, 32, True, 64, False),
+    (1, 8, 2, 128, 128, 128, True, 0, True),
+    (1, 2, 2, 64, 192, 16, True, 48, False),
+    (2, 4, 2, 50, 50, 64, True, 0, False),
+    (1, 2, 1, 37, 71, 32, False, 0, True),
+]
+#: (b, s, d, n): the reference's sweep.
+SCAN_CASES = [(2, 64, 32, 8), (1, 96, 16, 4), (2, 128, 64, 16),
+              (1, 50, 24, 8)]
+RMS_CASES = [(rows, d, bf16) for rows in (1, 7, 33, 70)
+             for d in (32, 128, 384) for bf16 in (False, True)]
+
+
+def _pair(a: np.ndarray, bf16: bool):
+    """The same values in both frameworks (rounded to bfloat16 in both when
+    asked: both round to nearest even)."""
+    j = jnp.asarray(a)
+    t = torch.from_numpy(a.copy())
+    if bf16:
+        return j.astype(jnp.bfloat16), t.to(torch.bfloat16)
+    return j, t
+
+
+def _np32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,d,bf16", RMS_CASES)
+def test_rmsnorm_plain_matches_jax_oracle(rows, d, bf16):
+    rng = np.random.default_rng(rows * 1000 + d)
+    xj, xt = _pair(rng.standard_normal((rows, d)).astype(np.float32) * 3,
+                   bf16)
+    wj, wt = _pair(rng.standard_normal(d).astype(np.float32), bf16)
+    got = rn.rmsnorm(xt, wt)                     # CPU tensor: plain version
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    tol = 3e-2 if bf16 else 1e-5
+    np.testing.assert_allclose(_np32(got), _np32(ref.rmsnorm_ref(xj, wj)),
+                               rtol=tol, atol=tol)
+
+
+def test_rmsnorm_pallas_interpret_case():
+    rng = np.random.default_rng(5)
+    xj, xt = _pair(rng.standard_normal((20, 128)).astype(np.float32), False)
+    wj, wt = _pair(rng.standard_normal(128).astype(np.float32), False)
+    out = pallas_rms(xj, wj, interpret=True, block_rows=8)
+    np.testing.assert_allclose(_np32(rn.rmsnorm_ref(xt, wt)), _np32(out),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _fa_inputs(case):
+    b, h, kv, sq, sk, d, causal, window, bf16 = case
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    qj, qt = _pair(rng.standard_normal((b, h, sq, d)).astype(np.float32),
+                   bf16)
+    kj, kt = _pair(rng.standard_normal((b, kv, sk, d)).astype(np.float32),
+                   bf16)
+    vj, vt = _pair(rng.standard_normal((b, kv, sk, d)).astype(np.float32),
+                   bf16)
+    return (qj, kj, vj), (qt, kt, vt)
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=[str(c[:8]) for c in FA_CASES])
+def test_flash_attention_plain_matches_jax_oracle(case):
+    causal, window, bf16 = case[6], case[7], case[8]
+    (qj, kj, vj), (qt, kt, vt) = _fa_inputs(case)
+    got = fa.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    want = ref.attention_ref(qj, kj, vj, causal=causal, window=window)
+    tol = 2e-2 if bf16 else 2e-5
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=tol, atol=tol)
+
+
+def test_flash_attention_rows_without_keys_are_zero_like_pallas():
+    """sk < sq under a window: rows 16+8.. see no key.  The Pallas kernel
+    (interpret mode) returns 0 there, and so does the plain version."""
+    case = (1, 2, 1, 64, 16, 16, True, 8, False)
+    (qj, kj, vj), (qt, kt, vt) = _fa_inputs(case)
+    got = fa.flash_attention(qt, kt, vt, causal=True, window=8)
+    want = pallas_fa(qj, kj, vj, causal=True, window=8, block_q=32,
+                     block_k=16, interpret=True)
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=2e-5,
+                               atol=2e-5)
+    assert not got[:, :, 24:].any() and got[:, :, :23].abs().sum() > 0
+
+
+def test_flash_attention_strided_views_match_contiguous():
+    """The model hands (B, S, H, D) tensors in as transposed views."""
+    case = (2, 4, 2, 40, 40, 32, True, 0, False)
+    _, (qt, kt, vt) = _fa_inputs(case)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (qt, kt, vt)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(fa.flash_attention(*views),
+                               fa.flash_attention(qt, kt, vt), rtol=0,
+                               atol=0)
+
+
+# ---------------------------------------------------------------------------
+# selective scan
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(case, with_h0=False):
+    b, s, d, n = case
+    rng = np.random.default_rng(sum(case))
+    x = rng.standard_normal((b, s, d)).astype(np.float32) * 0.5
+    dt = (np.log1p(np.exp(rng.standard_normal((b, s, d)))) * 0.1
+          ).astype(np.float32)
+    bb = rng.standard_normal((b, s, n)).astype(np.float32)
+    cc = rng.standard_normal((b, s, n)).astype(np.float32)
+    a = (-np.exp(rng.standard_normal((d, n)) * 0.3)).astype(np.float32)
+    h0 = rng.standard_normal((b, d, n)).astype(np.float32) if with_h0 \
+        else None
+    return x, dt, bb, cc, a, h0
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=str)
+def test_selective_scan_plain_matches_jax_oracle(case):
+    x, dt, bb, cc, a, _ = _scan_inputs(case)
+    y, h = ss.selective_scan(*(torch.from_numpy(t)
+                               for t in (x, dt, bb, cc, a)))
+    yr, hr = ref.selective_scan_ref(x, dt, bb, cc, a)
+    assert y.dtype == h.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hr), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_selective_scan_initial_state_matches_models_scan():
+    """h0 keeps the meaning of ``repro.models.mamba.selective_scan``'s."""
+    from repro.models.mamba import selective_scan as assoc_scan
+    x, dt, bb, cc, a, h0 = _scan_inputs((2, 40, 16, 8), with_h0=True)
+    y, h = ss.selective_scan(*(torch.from_numpy(t)
+                               for t in (x, dt, bb, cc, a, h0)))
+    yr, hr = assoc_scan(x, dt, bb, cc, a, h0=jnp.asarray(h0), chunk=8)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hr), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_selective_scan_pallas_interpret_case():
+    x, dt, bb, cc, a, _ = _scan_inputs((1, 32, 16, 4))
+    y, h = ss.selective_scan(*(torch.from_numpy(t)
+                               for t in (x, dt, bb, cc, a)))
+    yp, hp = pallas_scan(x, dt, bb, cc, a, chunk=16, block_d=16,
+                         interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yp), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hp), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_selective_scan_takes_column_slices_of_one_projection():
+    x, dt, bb, cc, a, _ = _scan_inputs((2, 24, 16, 8))
+    proj = torch.from_numpy(np.concatenate([bb, cc], axis=-1))
+    B, C = proj[..., :8], proj[..., 8:]
+    assert not B.is_contiguous()
+    y, h = ss.selective_scan(torch.from_numpy(x), torch.from_numpy(dt), B, C,
+                             torch.from_numpy(a))
+    y2, h2 = ss.selective_scan(*(torch.from_numpy(t)
+                                 for t in (x, dt, bb, cc, a)))
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+    torch.testing.assert_close(h, h2, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# wrappers on the CPU
+# ---------------------------------------------------------------------------
+
+def test_cpu_calls_do_not_count_as_launches():
+    counts = (rn.rmsnorm.launches, fa.flash_attention.launches,
+              ss.selective_scan.launches)
+    x = torch.ones(3, 32)
+    rn.rmsnorm(x, torch.ones(32))
+    q = torch.ones(1, 2, 4, 16)
+    fa.flash_attention(q, q, q)
+    s = torch.ones(1, 4, 8)
+    ss.selective_scan(s, s, torch.ones(1, 4, 2), torch.ones(1, 4, 2),
+                      -torch.ones(8, 2))
+    assert (rn.rmsnorm.launches, fa.flash_attention.launches,
+            ss.selective_scan.launches) == counts
+    assert not rn.rmsnorm.shapes and not fa.flash_attention.shapes \
+        and not ss.selective_scan.shapes
+
+
+@pytest.mark.parametrize("call,err", [
+    (lambda: rn.rmsnorm(torch.ones(3, 8, dtype=torch.float16),
+                        torch.ones(8)), TypeError),
+    (lambda: rn.rmsnorm(torch.ones(3, 8), torch.ones(4)), ValueError),
+    (lambda: fa.flash_attention(torch.ones(1, 2, 4, 48),
+                                torch.ones(1, 2, 4, 48),
+                                torch.ones(1, 2, 4, 48)), ValueError),
+    (lambda: fa.flash_attention(torch.ones(1, 3, 4, 16),
+                                torch.ones(1, 2, 4, 16),
+                                torch.ones(1, 2, 4, 16)), ValueError),
+    (lambda: fa.flash_attention(torch.ones(1, 2, 4, 16),
+                                torch.ones(1, 2, 4, 16).double(),
+                                torch.ones(1, 2, 4, 16)), TypeError),
+    (lambda: fa.flash_attention(*[torch.ones(1, 2, 16, 4).transpose(2, 3)]
+                                * 3), ValueError),
+    (lambda: ss.selective_scan(torch.ones(1, 4, 8), torch.ones(1, 4, 8),
+                               torch.ones(1, 4, 32), torch.ones(1, 4, 32),
+                               torch.ones(8, 32)), ValueError),
+    (lambda: ss.selective_scan(torch.ones(1, 4, 8), torch.ones(1, 4, 8),
+                               torch.ones(1, 4, 2), torch.ones(1, 4, 2),
+                               torch.ones(8, 2).double()), TypeError),
+    (lambda: ss.selective_scan(torch.ones(1, 4, 8),
+                               torch.ones(1, 4, 8).bfloat16(),
+                               torch.ones(1, 4, 2), torch.ones(1, 4, 2),
+                               torch.ones(8, 2)), TypeError),
+], ids=["rms-f16", "rms-w-shape", "fa-head-dim", "fa-groups", "fa-types",
+        "fa-head-stride", "scan-n", "scan-A-type", "scan-mixed"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(call, err):
+    with pytest.raises(err):
+        call()

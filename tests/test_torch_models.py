@@ -1,0 +1,374 @@
+"""The model stack of the PyTorch package against the JAX package's.
+
+Layers and blocks (``rms_norm``, ``apply_rope``, ``decode_attention``,
+``causal_conv1d(_step)``, ``selective_scan_step``, ``mamba1_block``) are
+held to their ``repro.models`` counterparts on the same NumPy inputs.  The
+whole generation path runs on ``reduced()`` qwen2-7b (dense, GQA, QKV
+bias), gemma3-12b (sliding-window ring caches beside a global layer) and
+falcon-mamba-7b (Mamba1): the reference's weights go through
+``params_from_reference``, then ``run_stack``, ``forward_logits``,
+``prefill`` and eight greedy ``decode_step``s are compared.  Tolerances:
+1e-4 on the residual stream (float32, sums in another order), 2e-3 on
+logits (the bfloat16 cast before the head, ``model.py:51`` of the
+reference), greedy tokens equal.  Everything runs on the CPU
+(``device="cpu"``), where the kernels' plain versions stand in for them.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.launch.steps import make_decode_step as ref_make_decode_step
+from repro.models import attention as ref_attn
+from repro.models import layers as ref_layers
+from repro.models import mamba as ref_mamba
+from repro.models import model as RM
+from repro.models import transformer as ref_tf
+from repro.models.sharding import ShardCtx as RefShardCtx
+from repro_torch import configs
+from repro_torch.convert import params_from_reference
+from repro_torch.launch import generate as gen_cli
+from repro_torch.launch.steps import make_decode_step
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models import mamba
+from repro_torch.models import model as M
+from repro_torch.models import transformer as tf
+from repro_torch.models.sharding import ShardCtx
+
+KEY = jax.random.PRNGKey(0)
+RCTX, CTX = RefShardCtx(), ShardCtx()
+#: (arch, reduced() overrides, prompt length): gemma3 keeps six layers so
+#: that one global layer sits beside five sliding-window ones.
+ARCHS = [("qwen2-7b", {}, 16), ("gemma3-12b", {"n_layers": 6}, 32),
+         ("falcon-mamba-7b", {}, 16)]
+N_DECODE = 8
+
+
+def _np(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+# ---------------------------------------------------------------------------
+# layers and blocks
+# ---------------------------------------------------------------------------
+
+def test_rms_norm_matches_reference():
+    rng = _rng(1)
+    x = rng.standard_normal((2, 5, 64)).astype(np.float32) * 2
+    w = rng.standard_normal(64).astype(np.float32)
+    _close(layers.rms_norm(_t(x), _t(w), 1e-6),
+           ref_layers.rms_norm(x, w, 1e-6), 1e-5)
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_apply_rope_matches_reference(theta):
+    rng = _rng(2)
+    x = rng.standard_normal((2, 7, 3, 32)).astype(np.float32)
+    pos = np.stack([np.arange(7), np.arange(100, 107)]).astype(np.int32)
+    _close(layers.apply_rope(_t(x), _t(pos), theta),
+           ref_layers.apply_rope(x, pos, theta), 1e-5)
+    _close(layers.rope_freqs(32, theta), ref_layers.rope_freqs(32, theta),
+           1e-7)
+
+
+@pytest.mark.parametrize("pos,window", [(0, 0), (9, 0), (15, 0), (12, 4)])
+def test_decode_attention_matches_reference(pos, window):
+    rng = _rng(3 + pos)
+    q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 16, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 16, 2, 16)).astype(np.float32)
+    _close(attn.decode_attention(_t(q), _t(k), _t(v), pos, window=window),
+           ref_attn.decode_attention(q, k, v, jnp.int32(pos), window=window),
+           1e-5)
+
+
+@pytest.mark.parametrize("causal,window,q_offset",
+                         [(True, 0, 0), (True, 5, 0), (False, 0, 0),
+                          (True, 0, 3)])
+def test_reference_attention_matches_reference(causal, window, q_offset):
+    rng = _rng(4)
+    q = rng.standard_normal((2, 9, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 12, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 12, 2, 16)).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _close(attn.reference_attention(_t(q), _t(k), _t(v), **kw),
+           ref_attn.reference_attention(q, k, v, **kw), 1e-5)
+
+
+def test_causal_conv1d_and_step_match_reference():
+    rng = _rng(5)
+    x = rng.standard_normal((2, 11, 24)).astype(np.float32)
+    w = rng.standard_normal((4, 24)).astype(np.float32)
+    b = rng.standard_normal(24).astype(np.float32)
+    _close(mamba.causal_conv1d(_t(x), _t(w), _t(b)),
+           ref_mamba.causal_conv1d(x, w, b), 1e-5)
+    cache = rng.standard_normal((2, 3, 24)).astype(np.float32)
+    y, c = mamba.causal_conv1d_step(_t(x[:, 0]), _t(cache), _t(w), _t(b))
+    yr, cr = ref_mamba.causal_conv1d_step(x[:, 0], cache, w, b)
+    _close(y, yr, 1e-5)
+    _close(c, cr, 0)
+
+
+def test_selective_scan_step_matches_reference():
+    rng = _rng(6)
+    x = rng.standard_normal((2, 16)).astype(np.float32)
+    dt = np.abs(rng.standard_normal((2, 16))).astype(np.float32) * 0.1
+    bb = rng.standard_normal((2, 4)).astype(np.float32)
+    cc = rng.standard_normal((2, 4)).astype(np.float32)
+    a = -np.exp(rng.standard_normal((16, 4))).astype(np.float32)
+    h = rng.standard_normal((2, 16, 4)).astype(np.float32)
+    got = mamba.selective_scan_step(*map(_t, (x, dt, bb, cc, a, h)))
+    want = ref_mamba.selective_scan_step(x, dt, bb, cc, a, h)
+    for g, w_ in zip(got, want):
+        _close(g, w_, 1e-5)
+
+
+def test_softplus_is_logaddexp_like_jax():
+    x = np.array([-30, -3, 0, 0.5, 19, 21, 40], np.float32)
+    _close(mamba.softplus(_t(x)), jax.nn.softplus(x), 1e-6)
+
+
+@pytest.fixture(scope="module")
+def mamba_layer():
+    cfg = ref_configs.get("falcon-mamba-7b").reduced()
+    p = jax.tree.map(lambda a: np.asarray(a[0]),
+                     ref_tf.init_params(cfg, KEY)["layers"])
+    # a non-zero dt_bias and conv bias
+    rng = _rng(7)
+    p["dt_bias"] = rng.standard_normal(p["dt_bias"].shape).astype(np.float32)
+    p["conv_b"] = rng.standard_normal(p["conv_b"].shape).astype(np.float32)
+    return cfg, p, params_from_reference(p, device="cpu")
+
+
+def test_mamba1_block_matches_reference(mamba_layer):
+    cfg, p, pt = mamba_layer
+    x = _rng(8).standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    y, (h, tail) = mamba.mamba1_block(_t(x), pt, cfg)
+    yr, (hr, tailr) = ref_mamba.mamba1_block(x, p, cfg)
+    _close(y, yr, 1e-4)
+    _close(h, hr, 1e-4)
+    _close(tail, tailr, 0)
+    # one more token through the single-step path, from those caches
+    x1 = _rng(9).standard_normal((2, cfg.d_model)).astype(np.float32)
+    y1, (h1, c1) = mamba.mamba1_block(_t(x1), pt, cfg, h0=h, conv0=tail,
+                                      single_step=True)
+    y1r, (h1r, c1r) = ref_mamba.mamba1_block(x1, p, cfg, h0=hr, conv0=tailr,
+                                             single_step=True)
+    _close(y1, y1r, 1e-4)
+    _close(h1, h1r, 1e-4)
+    _close(c1, c1r, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-12b",
+                                  "falcon-mamba-7b"])
+def test_init_params_has_the_reference_keys_shapes_and_types(arch):
+    cfg = configs.get(arch).reduced(vocab_size=500)
+    mine = tf.init_params(cfg, seed=0, device="cpu")
+    theirs = ref_tf.init_params(ref_configs.get(arch).reduced(
+        vocab_size=500), KEY)
+    flat_m = {"/".join(map(str, k)): v for k, v in
+              jax.tree_util.tree_flatten_with_path(mine)[0]}
+    flat_r = {"/".join(map(str, k)): v for k, v in
+              jax.tree_util.tree_flatten_with_path(theirs)[0]}
+    assert flat_m.keys() == flat_r.keys()
+    for k in flat_r:
+        assert tuple(flat_m[k].shape) == flat_r[k].shape, k
+        assert str(flat_m[k].dtype).split(".")[-1] == \
+            str(flat_r[k].dtype), k
+    assert not mine["tok_embed"][500:].any()
+    assert not mine["lm_head"][:, 500:].any()
+    assert mine["tok_embed"][:500].std() > 0
+
+
+def test_params_from_reference_keeps_bfloat16_bits():
+    a = np.asarray(jnp.linspace(-3, 3, 11, dtype=jnp.bfloat16))
+    t = params_from_reference({"w": {"x": a}}, device="cpu")["w"]["x"]
+    assert t.dtype == torch.bfloat16
+    assert np.array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
+
+
+def test_unported_families_raise_naming_the_roadmap_item():
+    for arch in ("granite-moe-3b-a800m", "zamba2-7b",
+                 "llava-next-mistral-7b", "musicgen-large"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tf.init_params(configs.get(arch).reduced(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the generation path, end to end
+# ---------------------------------------------------------------------------
+
+def _both(arch, overrides):
+    cfg_r = ref_configs.get(arch).reduced(**overrides)
+    cfg = configs.get(arch).reduced(**overrides)
+    params_r = ref_tf.init_params(cfg_r, KEY)
+    params = params_from_reference(jax.tree.map(np.asarray, params_r),
+                                   device="cpu")
+    return cfg_r, cfg, params_r, params
+
+
+@pytest.fixture(scope="module", params=ARCHS, ids=[a[0] for a in ARCHS])
+def model_pair(request):
+    arch, overrides, s = request.param
+    cfg_r, cfg, params_r, params = _both(arch, overrides)
+    toks = np.asarray(jax.random.randint(KEY, (2, s + N_DECODE), 0,
+                                         cfg.vocab_size, jnp.int32))
+    return cfg_r, cfg, params_r, params, toks, s
+
+
+def test_run_stack_matches_reference(model_pair):
+    cfg_r, cfg, params_r, params, toks, s = model_pair
+    x_r, pos_r = RM.embed_inputs(params_r, cfg_r, toks[:, :s])
+    x, pos = M.embed_inputs(params, cfg, _t(toks[:, :s]).long())
+    _close(x, x_r, 0)
+    out, _ = tf.run_stack(x, params, cfg, CTX, pos)
+    out_r, _ = ref_tf.run_stack(x_r, params_r, cfg_r, RCTX, pos_r)
+    _close(out, out_r, 1e-4)
+
+
+def test_forward_logits_match_reference(model_pair):
+    cfg_r, cfg, params_r, params, toks, s = model_pair
+    got = M.forward_logits(params, cfg, CTX, _t(toks[:, :s]).long())
+    want = RM.forward_logits(params_r, cfg_r, RCTX, toks[:, :s])
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _close(got, want, 2e-3)
+
+
+def test_prefill_then_greedy_decode_match_reference(model_pair):
+    cfg_r, cfg, params_r, params, toks, s = model_pair
+    last, cache = M.prefill(params, cfg, CTX, _t(toks[:, :s]).long())
+    last_r, cache_r = RM.prefill(params_r, cfg_r, RCTX, toks[:, :s])
+    _close(last, last_r, 2e-3)
+    assert cache.keys() == cache_r.keys()
+    for k in cache_r:
+        assert tuple(cache[k].shape) == cache_r[k].shape, k
+        _close(cache[k], cache_r[k], 1e-4)
+
+    cache = gen_cli.grow_cache(cache, N_DECODE)
+    cache_r = {k: (jnp.pad(v, [(0, 0), (0, 0), (0, N_DECODE), (0, 0),
+                               (0, 0)]) if k in ("k", "v") else v)
+               for k, v in cache_r.items()}
+    step_r = jax.jit(ref_make_decode_step(cfg_r, RCTX))
+    step = make_decode_step(cfg, CTX)
+    tok_r = jnp.argmax(last_r, -1).astype(jnp.int32)[:, None]
+    tok = torch.argmax(last, -1)[:, None]
+    for i in range(N_DECODE):
+        assert tok.tolist() == np.asarray(tok_r).tolist(), i
+        tok, logits, cache = step(params, cache, tok, s + i)
+        tok_r, logits_r, cache_r = step_r(params_r, cache_r, tok_r,
+                                          jnp.int32(s + i))
+        _close(logits, logits_r, 2e-3)
+    assert tok.tolist() == np.asarray(tok_r).tolist()
+    for k in cache_r:
+        _close(cache[k], cache_r[k], 1e-4)
+
+
+def test_decode_step_reproduces_forward_logits_at_the_next_position(
+        model_pair):
+    """decode at position s must give forward_logits[:, s] — the
+    reference's own prefill/decode consistency check, on the port."""
+    cfg_r, cfg, params_r, params, toks, s = model_pair
+    t = _t(toks[:, :s + 1]).long()
+    full = M.forward_logits(params, cfg, CTX, t)
+    _, cache = M.prefill(params, cfg, CTX, t[:, :s])
+    logits, _ = M.decode_step(params, cfg, CTX, t[:, s:s + 1],
+                              gen_cli.grow_cache(cache, 1), s)
+    _close(logits, full[:, s], 2e-3)
+
+
+def test_padded_vocabulary_rows_are_masked_like_the_reference():
+    cfg_r, cfg, params_r, params = _both("qwen2-7b", {"vocab_size": 500,
+                                                      "n_layers": 2})
+    toks = np.arange(10, dtype=np.int32).reshape(2, 5)
+    got = M.forward_logits(params, cfg, CTX, _t(toks).long())
+    want = RM.forward_logits(params_r, cfg_r, RCTX, toks)
+    assert got.shape[-1] == 512
+    assert (got[..., 500:] <= -1e29).all()
+    _close(got[..., :500], np.asarray(want)[..., :500], 2e-3)
+
+
+def test_bfloat16_head_keeps_the_reference_promotion():
+    """bfloat16 weights: the head's product stays bfloat16; a float32 head
+    (``reduced()``) promotes it to float32, as jnp does."""
+    cfg = configs.get("qwen2-7b").reduced(n_layers=1)
+    params = tf.init_params(cfg, device="cpu")
+    x = torch.randn(2, 1, cfg.d_model)
+    assert M._project_logits(x, params, cfg).dtype == torch.float32
+    bf = {"tok_embed": params["tok_embed"].bfloat16(),
+          "lm_head": params["lm_head"].bfloat16()}
+    assert M._project_logits(x, bf, cfg).dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-12b",
+                                  "falcon-mamba-7b"])
+def test_generate_cli_smoke_on_the_cpu(arch, capsys):
+    rc = gen_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "10", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    plen = 16 if arch == "gemma3-12b" else 10      # rounded to the window
+    assert f"prefill 2x{plen} in" in out and "decoded 3 steps" in out
+    assert "ms/tok" in out and "[generate] sample:" in out
+
+
+def test_generate_returns_tokens_and_timings_on_the_cpu():
+    cfg = configs.get("falcon-mamba-7b").reduced()
+    res = gen_cli.generate(cfg, batch=3, prompt_len=5, gen=4, seed=1,
+                           device="cpu")
+    assert tuple(res["tokens"].shape) == (3, 4)
+    assert tuple(res["prompts"].shape) == (3, 5)
+    assert res["tokens"].max() < cfg.vocab_size
+    assert res["prefill_s"] > 0 and res["decode_steps"] == 3
+    assert res["peak_bytes"] is None
+    again = gen_cli.generate(cfg, batch=3, prompt_len=5, gen=4, seed=1,
+                             device="cpu")
+    assert torch.equal(res["tokens"], again["tokens"])
+
+
+def test_generate_cli_refuses_unported_families_and_a_missing_card():
+    for arch in ("llava-next-mistral-7b", "kimi-k2-1t-a32b"):
+        with pytest.raises(SystemExit) as e:
+            gen_cli.main(["--arch", arch, "--smoke", "--device", "cpu"])
+        assert e.value.code == 2
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gen_cli.main(["--smoke", "--batch", "1", "--prompt-len", "4",
+                      "--gen", "2"])
+
+
+@pytest.mark.parametrize("arch,overrides", [(a, o) for a, o, _ in ARCHS],
+                         ids=[a for a, _, _ in ARCHS])
+def test_init_cache_matches_reference_shapes(arch, overrides):
+    cfg = configs.get(arch).reduced(**overrides)
+    mine = M.init_cache(cfg, 3, 40, device="cpu")
+    theirs = RM.init_cache(ref_configs.get(arch).reduced(**overrides), 3, 40)
+    assert mine.keys() == theirs.keys()
+    for k in theirs:
+        assert tuple(mine[k].shape) == theirs[k].shape, k
+        assert str(mine[k].dtype).split(".")[-1] == str(theirs[k].dtype), k
+        assert not mine[k].any()
