@@ -13,12 +13,16 @@ kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
 non-zero without them.  Every phase prints one JSON line; any mismatch is a
 failed assertion (non-zero exit, no final line).
 
-Phases: ``env``, ``build``, ``kernels`` (group-reduce kernels bit-equal at
-ragged shapes), ``plan_uniform`` (gpt-3.1b on 128 GPUs, estimator fitted on
-the card), ``plan_tiered`` (gpt-11.1b on a 1024-GPU mixed fleet,
-hierarchical search), ``kernels_at_path_shapes``, ``model_kernels``
-(rmsnorm, flash_attention, selective_scan against their plain versions at
-ragged shapes, float32 and bfloat16), ``generate_qwen2_7b`` and
+Phases: ``env``, ``build`` (with the ``ptxas`` report: the bfloat16 D=128
+attention instance must not spill, and the cost of reading the stream
+handle both ways), ``kernels`` (group-reduce kernels bit-equal at ragged
+shapes, both addressings of ``group_min_scale``), ``plan_uniform``
+(gpt-3.1b on 128 GPUs, estimator fitted on the card), ``plan_tiered``
+(gpt-11.1b on a 1024-GPU mixed fleet, hierarchical search),
+``kernels_at_path_shapes``, ``model_kernels`` (rmsnorm, flash_attention,
+selective_scan against their plain versions at ragged shapes, float32 and
+bfloat16, and the tensor-core attention at 2048 keys and D=256; a
+misaligned bfloat16 view is refused), ``generate_qwen2_7b`` and
 ``generate_falcon_mamba_7b`` (full width and depth, batch 4, prompt 512,
 32 tokens, weights from a seeded generator on the card; exact launch
 counts), ``slice_check_*`` (each model at full width and 2 layers: the
@@ -30,7 +34,10 @@ Each plan is made twice — SA on the card
 (``backend="torch"``) and on the host (``backend="numpy"``) — and the two
 Plan JSONs must be byte-equal once the backend's name is dropped.  The
 wrappers record every input shape the main paths hand them; the path-shape
-phases check the kernels and take their times at exactly those shapes.
+phases check the kernels and take their times at exactly those shapes (the
+engine calls the gather form of ``group_min_scale``, timed beside
+``unfused_ms``: the gather, the sub-form kernel, ``amax`` and ``clamp_min``
+it replaces).
 Then one ``{"kernels": [...]}`` line for all five kernels, the
 ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 """
@@ -39,6 +46,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +90,10 @@ BF16_OPS_PER_S = 989e12
 #: phases hand them, and the kernels are checked and timed at exactly those.
 RAGGED_MIN_SCALE = [(1, 2), (7, 4), (130, 2)]
 RAGGED_MAX = [(1, 3), (9, 16), (257, 8)]
+#: Ragged gather-form cases (rows, tp, cp, width): TP and CP groups,
+#: m in {2, 4, 8, 16}.
+RAGGED_GATHER = [(1, 2, 1, 6), (7, 4, 1, 28), (3, 1, 16, 48),
+                 (130, 2, 4, 64), (9, 8, 2, 32)]
 WRAPPERS = {
     "group_min_scale": gr.group_min_scale,
     "group_max": gr.group_max,
@@ -250,17 +262,110 @@ def check_kernel(name, shape, device, timed: bool) -> dict:
     return row
 
 
+def gather_key(rows: int, tp: int, cp: int, width: int) -> tuple:
+    """``group_min_scale.shapes`` key of a gather-form call on the TP
+    (``cp == 1``) or CP groups of ``(rows, width)`` permutations."""
+    geom = gr.tp_geometry(tp) if cp == 1 else gr.cp_geometry(tp, cp)
+    return ("gather", rows, width, width) + geom
+
+
+def gather_inputs(key: tuple, dtype, device) -> tuple:
+    """``(table, perm)`` for one gather-form key: a bandwidth table as the
+    engine has it (self links ``inf``, one degenerate ``0.0`` link) and
+    random permutation rows."""
+    _, rows, width, n_tab = key[:4]
+    rng = np.random.default_rng(zlib.crc32(repr(key).encode()))
+    table = rng.uniform(0.5, 300.0, size=(n_tab, n_tab)) * 1e9
+    np.fill_diagonal(table, np.inf)
+    table[0, 1] = table[1, 0] = 0.0
+    perm = np.stack([rng.permutation(n_tab)[:width] for _ in range(rows)])
+    return (torch.from_numpy(table).to(dtype).to(device),
+            torch.from_numpy(perm).to(device))
+
+
+def gather_bound(key: tuple, table, perm) -> tuple:
+    """(bound_ms, bound_by) of one gather-form call: the permutation and
+    the distinct table entries these rows read, each read once, the output
+    written once; one comparison per gathered entry."""
+    _, rows, width, n_tab, m = key[:5]
+    pos = gr.group_positions(width, *key[4:]).numpy()
+    g = perm.cpu().numpy()[:, pos]
+    entries = np.unique(g[:, :, :, None] * n_tab + g[:, :, None, :]).size
+    t_bytes = (perm.numel() * perm.element_size()
+               + (entries + rows) * table.element_size()) / HBM_BYTES_PER_S
+    t_ops = g.size * m / OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_gather(key: tuple, device, timed: bool) -> dict:
+    """The gather form against its plain version, bit-equal in both dtypes;
+    with ``timed`` also the float64 times: the wrapper (``ms``), the device
+    alone (``device_ms``), the plain version, ``torch.amin`` over the
+    gathered sub-matrices (``library_ms``) and the engine's former sequence
+    of gather, sub-form kernel, ``amax`` and ``clamp_min`` (``unfused_ms``),
+    with the bound."""
+    _, rows, width, _, m, inner, outer, step = key
+    geom = key[4:]
+    for dtype in (torch.float32, torch.float64):
+        table, perm = gather_inputs(key, dtype, device)
+        got = gr.group_min_scale_gather(table, perm, REF_BW, *geom)
+        torch.cuda.synchronize()
+        want = gr.group_min_scale_gather_ref(table, perm, REF_BW, *geom)
+        assert got.shape == (rows,) and got.dtype == dtype
+        assert torch.equal(got, want), (key, dtype)
+    row = {"name": "group_min_scale", "form": "gather",
+           "shape": [rows, width // m, m, m],
+           "geometry": {"width": width, "m": m, "inner": inner,
+                        "outer": outer, "step": step},
+           "bit_equal": True, "max_abs_err": float((got - want).abs().max())}
+    if timed:
+        def gathered():
+            if inner == 1:                       # TP: a reshape
+                g = perm.reshape(rows, -1, m)
+            else:                                # CP: reshape, transpose
+                g = perm.reshape(rows, -1, m, inner).transpose(2, 3) \
+                    .reshape(rows, -1, m)
+            return table[g[:, :, :, None], g[:, :, None, :]]
+
+        def unfused():
+            return torch.clamp_min(
+                gr.group_min_scale(gathered(), REF_BW).amax(dim=1), 1.0)
+
+        def fused():
+            return gr.group_min_scale_gather(table, perm, REF_BW, *geom)
+
+        assert torch.equal(unfused(), got)
+        sub = gathered()
+        b_ms, b_by = gather_bound(key, table, perm)
+        row.update(ms=time_ms(fused), device_ms=device_ms(fused),
+                   plain_ms=time_ms(lambda: gr.group_min_scale_gather_ref(
+                       table, perm, REF_BW, *geom)),
+                   library_ms=time_ms(lambda: torch.amin(sub, dim=(-2, -1))),
+                   unfused_ms=time_ms(unfused),
+                   bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
 def check_ragged(device) -> list:
     rows = [check_kernel("group_min_scale", (n, m, m), device, False)
             for n, m in RAGGED_MIN_SCALE]
+    rows += [check_gather(gather_key(*c), device, False)
+             for c in RAGGED_GATHER]
     rows += [check_kernel("group_max", (n, m), device, False)
              for n, m in RAGGED_MAX]
     # what the kernels do not take is refused, not routed elsewhere
     sub = make_input("group_min_scale", (2, 3, 4, 4), torch.float64, device)
     vals = make_input("group_max", (9, 16), torch.float64, device)
+    table, perm = gather_inputs(gather_key(2, 4, 1, 16), torch.float64,
+                                device)
     for bad in (lambda: gr.group_min_scale(sub.to(torch.float16), REF_BW),
                 lambda: gr.group_min_scale(sub[..., :3], REF_BW),
-                lambda: gr.group_max(vals.T)):
+                lambda: gr.group_max(vals.T),
+                lambda: gr.group_min_scale_gather(table, perm.int(), REF_BW,
+                                                  4, 1, 4, 1),
+                lambda: gr.group_min_scale_gather(table, perm, REF_BW,
+                                                  3, 1, 3, 1)):
         try:
             bad()
         except (TypeError, ValueError):
@@ -275,9 +380,10 @@ def check_path_shapes(device, shapes_by_phase: dict) -> list:
     rows = []
     for name in PLAN_KERNELS:
         seen = sorted({sh for by_kernel in shapes_by_phase.values()
-                       for sh in by_kernel[name]})
+                       for sh in by_kernel[name]}, key=repr)
         for shape in seen:
-            row = check_kernel(name, shape, device, True)
+            row = (check_gather(shape, device, True) if shape[0] == "gather"
+                   else check_kernel(name, shape, device, True))
             row["launches"] = {phase: by_kernel[name].get(shape, 0)
                                for phase, by_kernel
                                in shapes_by_phase.items()}
@@ -459,6 +565,13 @@ RAGGED_FA = [
     (2, 4, 2, 50, 50, 64, True, 0), (1, 4, 2, 200, 200, 128, True, 40),
     (1, 2, 2, 64, 16, 16, True, 8),
 ]
+#: bfloat16 only (the tensor-core kernel): 2048 keys, causal and against a
+#: short query block, and D = 256 (gemma3-12b's head dim), ragged and
+#: windowed.
+RAGGED_FA_BF16 = [
+    (1, 4, 2, 2048, 2048, 128, True, 0), (2, 4, 1, 100, 2048, 64, False, 0),
+    (1, 2, 1, 300, 300, 256, True, 0), (1, 2, 2, 257, 257, 256, True, 50),
+]
 #: (b, s, d, n): the JAX package's sweep (``SCAN_CASES``) and a ragged one.
 RAGGED_SCAN = [(2, 64, 32, 8), (1, 96, 16, 4), (2, 128, 64, 16),
                (1, 50, 24, 8), (1, 17, 100, 16)]
@@ -593,11 +706,20 @@ def check_model_ragged(device) -> list:
         rows += [check_model_kernel("selective_scan", ((b, s, d), n, dt),
                                     device, False)
                  for b, s, d, n in RAGGED_SCAN]
+    rows += [check_model_kernel(
+        "flash_attention", ((b, h, sq, d), (b, kv, sk, d), causal, window,
+                            "bfloat16"), device, False)
+        for b, h, kv, sq, sk, d, causal, window in RAGGED_FA_BF16]
     # what the kernels do not take is refused, not routed elsewhere
     q = torch.ones(1, 2, 8, 48, device=device)
     x = torch.ones(1, 4, 8, device=device)
     bn = torch.ones(1, 4, 32, device=device)
+    odd = torch.ones(1, 2, 8, 36, dtype=torch.bfloat16, device=device)
     for bad in (lambda: fa.flash_attention(q, q, q),
+                lambda: fa.flash_attention(odd[..., :32], odd[..., :32],
+                                           odd[..., :32]),        # stride 36
+                lambda: fa.flash_attention(odd[..., 1:33], odd[..., 1:33],
+                                           odd[..., 1:33]),       # pointer
                 lambda: rn.rmsnorm(x.half(), torch.ones(8, device=device)),
                 lambda: ss.selective_scan(x, x, bn, bn,
                                           torch.ones(8, 32, device=device))):
@@ -778,6 +900,44 @@ def slice_check(name: str, arch: str, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the build: ptxas report, and the launch path's stream read
+# ---------------------------------------------------------------------------
+
+def ptxas_spills(log: str) -> dict:
+    """{kernel (mangled name): (spill store bytes, spill load bytes)} from
+    a ``ptxas -v`` log."""
+    spills, current = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and current is not None:
+            spills[current] = (int(m.group(1)), int(m.group(2)))
+            current = None
+    return spills
+
+
+def stream_read_us(n: int = 20000) -> dict:
+    """Host microseconds of one read of the current stream's handle: the
+    public ``torch.cuda.current_stream().cuda_stream`` against the raw
+    reader the wrappers' launch path uses."""
+    index = torch.cuda.current_device()
+    out = {}
+    for name, fn in (
+            ("public", lambda i: torch.cuda.current_stream(i).cuda_stream),
+            ("raw", _build.current_raw_stream)):
+        assert fn(index) == torch.cuda.current_stream(index).cuda_stream
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(index)
+        out[f"{name}_us"] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -807,15 +967,24 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load_library()
+    # the tensor-core attention at the model's head dim keeps its
+    # fragments in registers: no spill
+    log = _build.build_log()
+    spills = ptxas_spills(log)
+    d128 = [v for k, v in spills.items()
+            if "flash_fwd_bf16_mma" in k and "ILi128E" in k]
+    assert d128 == [(0, 0)], ("bf16 D=128 attention spills", d128)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_now": _build.last_build_seconds is not None,
           "library": os.path.relpath(str(lib), ROOT),
           "sources": [os.path.relpath(str(s), ROOT)
                       for s in _build.sources()],
           "flags": list(_build.NVCC_FLAGS),
-          "ptxas": [ln.strip() for ln in _build.last_build_log.splitlines()
+          "attention_bf16_d128_spill_bytes": list(d128[0]),
+          "stream_read_us": stream_read_us(),
+          "ptxas": [ln.strip() for ln in log.splitlines()
                     if ln.startswith("==") or "Compiling entry" in ln
-                    or "Used" in ln]})
+                    or "Used" in ln or "spill" in ln]})
 
     ragged = check_ragged(device)
     emit({"phase": "kernels", "kernels": ragged})
@@ -877,6 +1046,8 @@ def main() -> int:
                 "plain_ms": top["plain_ms"],
                 "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"],
+                **({"unfused_ms": top["unfused_ms"]}
+                   if "unfused_ms" in top else {}),
                 "per_shape": mine}
 
     emit({"kernels": [summary(name) for name in KERNELS]})

@@ -25,7 +25,10 @@ torch may multiply by a reciprocal instead (``scalar / tensor`` always, and
 The group-reduce inner step (per-group min-bandwidth scales, per-stage max
 compute slowdown) goes through :mod:`repro_torch.kernels.group_reduce`: on
 a CUDA device these are the hand-written CUDA kernels, one launch for the
-whole batch; on the CPU the wrappers use their plain versions.
+whole batch; on the CPU the wrappers use their plain versions.  Each TP or
+CP scale is one launch of the gather form of ``group_min_scale``, which
+reads every group's bandwidths from ``bw_noself`` through the permutation
+and returns the clamped per-row maximum.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..kernels.group_reduce import group_max, group_min_scale
+from ..kernels.group_reduce import (cp_geometry, group_max,
+                                    group_min_scale_gather, tp_geometry)
 from .cluster import ClusterSpec, compute_slowdowns
 from .dedication import PairCache
 from .simulator import Conf, Profile
@@ -239,20 +243,18 @@ class TorchDedicationEngine:
         sc = {k: (None if v is None else v[cand])
               for k, v in self._sc.items()}
 
+        # max over the TP (CP) groups of the row of ref_bw / min link,
+        # clamped below at 1.0: one launch each on the card
         if tp > 1:
-            g = perm.reshape(B, -1, tp)
-            sub = env["bw_noself"][g[:, :, :, None], g[:, :, None, :]]
-            tp_scale = torch.clamp_min(
-                group_min_scale(sub, self._tp_ref).amax(dim=1), 1.0)
+            tp_scale = group_min_scale_gather(env["bw_noself"], perm,
+                                              self._tp_ref, *tp_geometry(tp))
         else:
             tp_scale = 1.0
 
         if cp > 1:
-            g = perm.reshape(B, pp * dp, cp, tp).transpose(2, 3) \
-                .reshape(B, -1, cp)
-            sub = env["bw_noself"][g[:, :, :, None], g[:, :, None, :]]
-            cp_scale = torch.clamp_min(
-                group_min_scale(sub, self._cp_ref).amax(dim=1), 1.0)
+            cp_scale = group_min_scale_gather(env["bw_noself"], perm,
+                                              self._cp_ref,
+                                              *cp_geometry(tp, cp))
         else:
             cp_scale = 1.0
 

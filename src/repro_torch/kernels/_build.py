@@ -18,7 +18,13 @@ decision and diverges a chain.  A kernel that wants a fused multiply-add
 (the attention dot products) asks for it with ``fmaf``.
 
 ``ptxas -v`` reports each kernel's registers, shared memory and spills; the
-report of the last build in this process is kept in :data:`last_build_log`.
+report is kept beside the library (:func:`build_log`).
+
+:func:`launch` is the one call path of every wrapper, so it is kept lean:
+each ``ctypes`` function is bound once, with its ``argtypes`` set, and the
+stream handle is read raw (``torch._C._cuda_getCurrentRawStream``) rather
+than through a ``torch.cuda.Stream`` object, which costs microseconds more
+per call.
 """
 from __future__ import annotations
 
@@ -41,10 +47,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
+#: Each C entry point, bound once with its ``argtypes`` (filled by
+#: :func:`load_library`).
+_fns: dict = {}
 #: Seconds the last real build took (None until one ran in this process).
 last_build_seconds: Optional[float] = None
-#: ``ptxas -v`` output of the last real build, one block per source.
-last_build_log: str = ""
 
 
 def build_dir() -> Path:
@@ -85,7 +92,7 @@ def _run_all(cmds: list) -> list:
 def build() -> Path:
     """Compile the sources if their library is not there yet; returns the
     path of the shared library."""
-    global last_build_seconds, last_build_log
+    global last_build_seconds
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
@@ -97,6 +104,7 @@ def build() -> Path:
     lib_path = out_dir / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
     if lib_path.exists():
         return lib_path
+    log_path = lib_path.with_suffix(".ptxas.log")
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     objs = [out_dir / f".{s.stem}.{tag}.o" for s in srcs]
@@ -107,22 +115,31 @@ def build() -> Path:
         logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
                          for s, o in zip(srcs, objs)])
         _run_all([[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        log = "\n".join(f"== {s.name}\n{err.strip()}"
+                        for s, err in zip(srcs, logs))
+        log_tmp = log_path.with_name(f".{log_path.name}.{os.getpid()}.tmp")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, log_path)
         os.replace(tmp, lib_path)   # atomic: two concurrent builds both succeed
     finally:
         tmp.unlink(missing_ok=True)
         for o in objs:
             o.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = "\n".join(f"== {s.name}\n{log.strip()}"
-                               for s, log in zip(srcs, logs))
     return lib_path
+
+
+def build_log() -> str:
+    """``ptxas -v`` report of the library :func:`build` serves, one block
+    per source (builds it first if needed)."""
+    return build().with_suffix(".ptxas.log").read_text()
 
 
 def load_library() -> ctypes.CDLL:
     """The built library with every function's ``argtypes`` set (pointers
     and the stream as ``c_void_p`` — ctypes would otherwise cut them to 32
     bits; element counts and strides as ``c_longlong``)."""
-    global _lib
+    global _lib, current_raw_stream
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
@@ -132,6 +149,12 @@ def load_library() -> ctypes.CDLL:
         # group_reduce.cu: (sub, ref_bw, out, n_groups, m*m, stream)
         "group_min_scale_f64": [vp, dbl, vp, ll, ci, vp],
         "group_min_scale_f32": [vp, dbl, vp, ll, ci, vp],
+        # (table, n_tab, perm, rows, width, ref_bw, out, n_groups, m,
+        #  inner, outer, step, stream)
+        "group_min_scale_gather_f64": [vp, ll, vp, ll, ll, dbl, vp]
+        + [ci] * 5 + [vp],
+        "group_min_scale_gather_f32": [vp, ll, vp, ll, ll, dbl, vp]
+        + [ci] * 5 + [vp],
         # (vals, out, n_rows, m, stream)
         "group_max_f64": [vp, vp, ll, ci, vp],
         "group_max_f32": [vp, vp, ll, ci, vp],
@@ -151,20 +174,32 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = types
         fn.restype = ci
+        _fns[name] = fn
+    current_raw_stream = torch._C._cuda_getCurrentRawStream
     _lib = lib
     return lib
+
+
+#: ``torch._C._cuda_getCurrentRawStream``: the current stream's handle of a
+#: device index, read without building a ``torch.cuda.Stream`` (only CUDA
+#: builds of torch have it; bound by :func:`load_library`).
+current_raw_stream = None
 
 
 def launch(fn_name: str, x: torch.Tensor, *args) -> None:
     """Call one C entry point on PyTorch's current stream of ``x``'s device
     (made current for the call when it is not), and raise on a refused
     launch."""
-    fn = getattr(load_library(), fn_name)
-    if x.device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    fn = _fns.get(fn_name)
+    if fn is None:
+        load_library()
+        fn = _fns[fn_name]
+    index = x.get_device()
+    if index == torch.cuda.current_device():
+        rc = fn(*args, current_raw_stream(index))
     else:
-        with torch.cuda.device(x.device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(index):
+            rc = fn(*args, current_raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed (cudaError "
                            f"{rc})")

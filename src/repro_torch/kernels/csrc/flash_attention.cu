@@ -7,28 +7,68 @@
 // `flash_attention` (`_kernel`) of the JAX package's
 // kernels/flash_attention.py.
 //
-// Bound: on the model's prefill shapes the bytes (each of q, k, v read once,
-// o written once) take longer than the operations at the tensor cores' rate;
-// this first kernel does its products on the CUDA cores in float32, so its
-// arithmetic, not its bytes, is what limits it.  Design: one block of four
-// warps per (q tile of 32 rows, head, batch).  A loop over key tiles of 32
-// replaces the TPU's sequential grid axis: each tile of K and V is staged in
-// shared memory as float32 and used by all 32 query rows of the block,
-// while each row keeps its running maximum m, sum l and accumulator acc in
-// registers (online softmax, float32).  A warp owns eight rows; lane j
-// scores key j of the tile against each of them (float4 reads of the q rows,
-// broadcast, and of the padded K row), then the warp holds the 32 weights
-// and each lane accumulates D/32 columns of p.V.  Key tiles that no row of
-// the block may see (past the diagonal, or wholly before the window) are
-// skipped.  GQA comes from the index: head h reads KV head h / g, and no
-// repeated KV is written.  Ragged tails of Sq and Sk are masked, so no
-// length has to be a multiple of the tile.  The strides of the batch, head
-// and sequence axes are arguments (the head axis of the last dimension has
-// unit stride), so the model's (B, S, H, D) tensors are read in place.
+// Two kernels; the inputs' type picks one, and both count as launches of
+// the one wrapper.
 //
-// Masked scores take NEG_INF = -1e30 and go through the same online-softmax
-// update as the reference, so partly masked rows agree with it; a row whose
-// running maximum is still NEG_INF at the end returns 0.
+// bfloat16: tensor cores (flash_fwd_bf16_mma).  Bound: on the model's
+// prefill shapes the bytes (each of q, k, v read once, o written once) take
+// longer than the operations at the tensor cores' rate, so the design keeps
+// the products on the tensor cores and every intermediate on chip, in the
+// manner of FlashAttention-2:
+//   - one block of four warps per (64 query rows, head, batch); each warp
+//     owns 16 rows (one m16 tile); its Q fragments are loaded once with
+//     `ldmatrix` and stay in registers (D <= 128; for D = 256 they are read
+//     from shared memory at every key tile, to keep the registers free of
+//     spills);
+//   - K and V tiles of 64 keys (32 for D = 256) go through a two-stage
+//     `cp.async` ring in dynamic shared memory, 16-byte chunks XOR-swizzled
+//     by row so that the `ldmatrix` / `ldmatrix.trans` reads of eight rows
+//     hit eight distinct bank groups;
+//   - S = Q K^T and O += P V are `mma.sync.m16n8k16` with bf16 operands and
+//     f32 accumulators; V is read with `ldmatrix.trans`; P goes from the f32
+//     accumulator fragment to the bf16 A-operand fragment in registers (the
+//     C layout of m16n8k16 is its A layout), never through shared memory;
+//   - online softmax on the fragments: running (m, l) per row in f32, the
+//     row max across the quad of lanes that share a row by two
+//     __shfl_xor_sync, and the row sum across the quad once at the end;
+//     the softmax scale multiplies the f32 score inside one exp2f argument,
+//     fmaf(s, scale * log2 e, -m * scale * log2 e) (the library is built
+//     with -fmad=false, so this fmaf is the only contraction);
+//   - the per-element mask (causal, window, ragged Sk) runs only on key
+//     tiles that straddle an edge; tiles no row of the block may see are
+//     skipped; ragged Sq / Sk rows are zero-filled by cp.async's src-size
+//     form; query tiles run heavy first (the block index counts down the
+//     query tiles, so the causal blocks with the most key tiles start
+//     first).
+// Numerics: bf16 x bf16 products are exact in f32, so S differs from the
+// float32 plain version only in summation order.  P is rounded to bf16 for
+// P V (a relative error <= 2^-9 per weight) while l sums the f32 p.  At unit-
+// scale inputs the expected error against the plain version is <= 0.01; the
+// tolerance is the reference's bf16 2e-2.  Masked scores take
+// NEG_INF = -1e30 and go through the same update as in the reference; while
+// a row's running max is still NEG_INF its masked weights are 0 here where
+// the reference has exp(0) = 1, which it then multiplies by
+// exp(NEG_INF - m) = 0 at the row's first allowed key, or drops when the
+// row returns 0 — the output is the same.  16-byte cp.async needs every row
+// of q, k, v 16-byte aligned: the wrapper checks pointers and strides.
+//
+// float32: CUDA cores (flash_fwd_f32).  Tensor cores would mean TF32, ten
+// bits of mantissa, which breaks the float32 tolerance of 2e-5.  One block
+// of four warps per (q tile of 32 rows, head, batch).  A loop over key tiles
+// of 32 replaces the TPU's sequential grid axis: each tile of K and V is
+// staged in shared memory and used by all 32 query rows of the block, while
+// each row keeps its running maximum m, sum l and accumulator acc in
+// registers.  A warp owns eight rows; lane j scores key j of the tile
+// against each of them (float4 reads of the q rows, broadcast, and of the
+// padded K row), then the warp holds the 32 weights and each lane
+// accumulates D/32 columns of p.V.  Arithmetic on the CUDA cores bounds it.
+//
+// Both: GQA comes from the index (head h reads KV head h / g, no repeated KV
+// is written); no length has to be a multiple of a tile; the strides of the
+// batch, head and sequence axes are arguments (the head dimension has unit
+// stride), so the model's (B, S, H, D) tensors are read in place and the
+// output keeps q's stride order.  A row whose running maximum is still
+// NEG_INF at the end returns 0.
 //
 // Plain C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns the first CUDA error.
@@ -36,32 +76,29 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+struct Strides {
+  long long b, h, s;  // in elements; the last axis has unit stride
+};
+
+// ---------------------------------------------------------------------------
+// float32: CUDA-core kernel
+// ---------------------------------------------------------------------------
+
+namespace f32 {
 
 constexpr int kWarps = 4;
 constexpr int kRows = 8;                      // query rows per warp
 constexpr int kBlockQ = kWarps * kRows;       // 32
 constexpr int kBlockK = 32;                   // one key per lane
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-struct Strides {
-  long long b, h, s;  // in elements; the last axis has unit stride
-};
 
 // a K row is padded to D + 4 floats, so that the lanes' float4 reads of
 // their rows fall in distinct banks
@@ -72,12 +109,12 @@ struct Tile {
       sizeof(float) * (kBlockQ * D + kBlockK * kStride + kBlockK * D);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides sq,
-                 Strides sk, Strides sv, Strides so, int group, int len_q,
-                 int len_k, float scale, int causal, int window) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides sq,
+              Strides sk, Strides sv, Strides so, int group, int len_q,
+              int len_k, float scale, int causal, int window) {
   constexpr int KS = Tile<D>::kStride;
   constexpr int DC = (D + 31) / 32;           // columns of p.V per lane
   extern __shared__ float4 smem4[];
@@ -89,15 +126,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
-  T* ob = o + b * so.b + h * so.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
   for (int idx = threadIdx.x; idx < kBlockQ * D; idx += kWarps * 32) {
     const int r = idx / D, c = idx - r * D;
     const int qi = q0 + r;
-    qs[idx] = qi < len_q ? to_f32(qb[qi * sq.s + c]) * scale : 0.f;
+    qs[idx] = qi < len_q ? qb[qi * sq.s + c] * scale : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][DC];
@@ -120,8 +157,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, c = idx - r * D;
       const int kj = k0 + r;
       const bool in = kj < len_k;
-      ks[r * KS + c] = in ? to_f32(kb[kj * sk.s + c]) : 0.f;
-      vs[r * D + c] = in ? to_f32(vb[kj * sv.s + c]) : 0.f;
+      ks[r * KS + c] = in ? kb[kj * sk.s + c] : 0.f;
+      vs[r * D + c] = in ? vb[kj * sv.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -199,13 +236,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = lane + 32 * c;
-      if (col < D)
-        ob[qi * so.s + col] = from_f32<T>(empty ? 0.f : acc[r][c] / lr);
+      if (col < D) ob[qi * so.s + col] = empty ? 0.f : acc[r][c] / lr;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
            Strides sk, Strides sv, Strides so, int batch, int heads,
            int group, int len_q, int len_k, float scale, int causal,
@@ -214,39 +250,346 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
   // once per instantiation (and so never inside a CUDA-graph capture after
   // a first eager call): allow more than 48 KB of dynamic shared memory
   static const cudaError_t configured = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (configured != cudaSuccess) return (int)configured;
   const dim3 grid((len_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_fwd_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, sv, so, group,
-      len_q, len_k, scale, causal, window);
+  flash_fwd_f32<D><<<grid, kWarps * 32, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk,
+      sv, so, group, len_q, len_k, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int head_dim, const void* q, const void* k, const void* v,
-             void* o, Strides sq, Strides sk, Strides sv, Strides so,
-             int batch, int heads, int group, int len_q, int len_k,
-             float scale, int causal, int window, cudaStream_t s) {
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = kWarps * 16;          // 64 query rows, 16 per warp
+
+template <int D>
+struct Cfg {
+  static constexpr int kChunks = D / 8;       // 16-byte chunks of a row
+  static constexpr int kBlockK = D > 128 ? 32 : 64;
+  static constexpr bool kQInRegs = D <= 128;
+  static constexpr int kTileBytes = kBlockK * D * 2;   // one K or V tile
+  static constexpr int kQBytes = kBlockQ * D * 2;
+  static constexpr int kRingBytes = 2 * 2 * kTileBytes;  // 2 stages x (K, V)
+  // Q is staged in stage 1 when it moves on to registers before the ring
+  // needs that stage; else it keeps a region of its own
+  static constexpr int kSmemBytes =
+      kQInRegs ? kRingBytes : kRingBytes + kQBytes;
+  static_assert(!kQInRegs || kQBytes <= 2 * kTileBytes, "Q fits stage 1");
+  static_assert((kBlockK * kChunks) % kThreads == 0, "whole copy rounds");
+  static_assert((kBlockQ * kChunks) % kThreads == 0, "whole copy rounds");
+};
+
+// Byte offset of 16-byte chunk c of row r in a tile of C chunks a row.
+// The chunk index is XORed with the row's place among the rows that share
+// a 128-byte line pattern, so the eight row addresses of one ldmatrix 8x8
+// read fall in eight distinct bank groups.
+template <int C>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  constexpr int kRowsPerLine = C >= 8 ? 1 : 8 / C;
+  constexpr int kMask = (C >= 8 ? 8 : C) - 1;
+  return (uint32_t)((r * C + (c ^ ((r / kRowsPerLine) & kMask))) * 16);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  // src-size 0 reads nothing and fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a . b on a 16x8x16 tile: bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as one bf16x2 register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [row0, row0 + ROWS) of a (len, D) matrix with row stride `stride`
+// into a swizzled tile at `dst`; rows at or past `len` are zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
+                                          long long stride, int row0,
+                                          int len, int tid) {
+  constexpr int C = D / 8;
+#pragma unroll
+  for (int it = 0; it < ROWS * C / kThreads; ++it) {
+    const int i = it * kThreads + tid;
+    const int r = i / C, c = i % C;
+    const bool in = row0 + r < len;
+    const bf16* src = base + (in ? (long long)(row0 + r) * stride : 0) + c * 8;
+    cp_async16(dst + swz<C>(r, c), src, in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   Strides sq, Strides sk, Strides sv, Strides so, int heads,
+                   int batch, int group, int len_q, int len_k,
+                   float scale_log2, int causal, int window, int n_qtiles) {
+  using Cf = Cfg<D>;
+  constexpr int C = Cf::kChunks;
+  constexpr int BK = Cf::kBlockK;
+  constexpr int NT = BK / 8;        // key n-tiles of S
+  constexpr int KD = D / 16;        // k-steps of Q K^T
+  constexpr int DT = D / 8;         // d n-tiles of O
+  extern __shared__ uint4 smem_tc[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_tc);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;     // fragment row, column pair
+  const int hb = heads * batch;
+  // heavy first: the first blocks take the last (causally largest) q tile
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / hb);
+  const int h = (int)(blockIdx.x % hb) % heads;
+  const int b = (int)(blockIdx.x % hb) / heads;
+  const int kvh = h / group;
+  const int q0 = qt * kBlockQ;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+  bf16* ob = o + b * so.b + h * so.h;
+
+  const uint32_t ring = sbase;
+  const uint32_t qsm =
+      Cf::kQInRegs ? ring + 2 * Cf::kTileBytes : ring + Cf::kRingBytes;
+
+  // keys that some row of this block may see: [k_lo, k_hi)
+  const int q_last = min(q0 + kBlockQ, len_q) - 1;
+  const int k_hi = causal ? min(len_k, q_last + 1) : len_k;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_first = k_lo / BK;
+  const int t_end = (k_hi + BK - 1) / BK;
+
+  load_tile<D, kBlockQ>(qsm, qb, sq.s, q0, len_q, tid);
+  cp_async_commit();
+  if (t_first < t_end) {
+    load_tile<D, BK>(ring, kb, sk.s, t_first * BK, len_k, tid);
+    load_tile<D, BK>(ring + Cf::kTileBytes, vb, sv.s, t_first * BK, len_k,
+                     tid);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();               // this thread's Q copies have landed
+  __syncthreads();                  // and everyone's
+
+  // Q fragments of this warp's 16 rows: ldmatrix x4 = (rows 0-7, 8-15) x
+  // (columns 0-7, 8-15) of each 16-wide k-step
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = lane >> 4;
+  uint32_t qf[Cf::kQInRegs ? KD : 1][4];
+  if constexpr (Cf::kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      ldsm_x4(qsm + swz<C>(a_row, kk * 2 + a_col), qf[kk]);
+    __syncthreads();                // stage 1 is free for the ring
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + g;        // rows of c0,c1; +8 for c2,c3
+
+  // ldmatrix lane addressing of the K (S = Q K^T) and V (O += P V) tiles
+  const int kb_row = (lane & 7) + (lane >> 4) * 8, kb_col = (lane >> 3) & 1;
+  const int vb_row = (lane & 7) + ((lane >> 3) & 1) * 8, vb_col = lane >> 4;
+
+  for (int t = t_first; t < t_end; ++t) {
+    const uint32_t ks = ring + ((t - t_first) & 1) * 2 * Cf::kTileBytes;
+    const uint32_t vs = ks + Cf::kTileBytes;
+    if (t + 1 < t_end) {            // the next tile, into the other stage
+      const uint32_t nk = ring + ((t + 1 - t_first) & 1) * 2 * Cf::kTileBytes;
+      load_tile<D, BK>(nk, kb, sk.s, (t + 1) * BK, len_k, tid);
+      load_tile<D, BK>(nk + Cf::kTileBytes, vb, sv.s, (t + 1) * BK, len_k,
+                       tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // tile t has landed
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x BK keys per warp
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (Cf::kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldsm_x4(qsm + swz<C>(a_row, kk * 2 + a_col), a);
+      }
+#pragma unroll
+      for (int nn = 0; nn < NT / 2; ++nn) {
+        uint32_t bk[4];
+        ldsm_x4(ks + swz<C>(nn * 16 + kb_row, kk * 2 + kb_col), bk);
+        mma(s[2 * nn], a, bk[0], bk[1]);
+        mma(s[2 * nn + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // the mask, only on tiles that straddle an edge
+    const int k0 = t * BK;
+    if (k0 + BK > len_k || (causal && k0 + BK - 1 > q0) ||
+        (window > 0 && k0 < q0 + kBlockQ - window)) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = row0 + (e >> 1) * 8;
+          const int kj = k0 + nt * 8 + 2 * tq + (e & 1);
+          bool ok = kj < len_k;
+          if (causal) ok = ok && qi >= kj;
+          if (window > 0) ok = ok && qi - kj < window;
+          if (!ok) s[nt][e] = kNegInf;
+        }
+    }
+
+    // online softmax, per row half (c0,c1: row g; c2,c3: row g + 8)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = m_r[half];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * half], s[nt][2 * half + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, 2));
+      const float corr = exp2f((m_r[half] - mx) * scale_log2);
+      m_r[half] = mx;
+      const float msc = mx == kNegInf ? 0.f : mx * scale_log2;
+      float psum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 2 * half; e < 2 * half + 2; ++e) {
+          const float p = exp2f(fmaf(s[nt][e], scale_log2, -msc));
+          s[nt][e] = p;
+          psum += p;
+        }
+      l_r[half] = fmaf(l_r[half], corr, psum);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        acc[dt][2 * half] *= corr;
+        acc[dt][2 * half + 1] *= corr;
+      }
+    }
+
+    // O += P V: P's C fragments are the A fragments of the next product
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t bv[4];
+        ldsm_x4_trans(vs + swz<C>(kk * 16 + vb_row, dn * 2 + vb_col), bv);
+        mma(acc[2 * dn], a, bv[0], bv[1]);
+        mma(acc[2 * dn + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();                // stage read; the next prefetch reuses it
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float l = l_r[half];
+    l += __shfl_xor_sync(kFullMask, l, 1);
+    l += __shfl_xor_sync(kFullMask, l, 2);
+    const int qi = row0 + half * 8;
+    if (qi >= len_q) continue;
+    const bool empty = m_r[half] <= kNegInf * 0.5f;
+    const float inv = empty ? 0.f : 1.f / fmaxf(l, 1e-30f);
+    bf16* orow = ob + (long long)qi * so.s + 2 * tq;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+          pack_bf16(acc[dt][2 * half] * inv, acc[dt][2 * half + 1] * inv);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
+           Strides sk, Strides sv, Strides so, int batch, int heads,
+           int group, int len_q, int len_k, float scale_log2, int causal,
+           int window, cudaStream_t stream) {
+  constexpr int smem = Cfg<D>::kSmemBytes;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      flash_fwd_bf16_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (configured != cudaSuccess) return (int)configured;
+  const int n_qtiles = (len_q + kBlockQ - 1) / kBlockQ;
+  const long long blocks = (long long)n_qtiles * heads * batch;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_fwd_bf16_mma<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, sq, sk, sv,
+      so, heads, batch, group, len_q, len_k, scale_log2, causal, window,
+      n_qtiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// f(std::integral_constant<int, D>) for the head dim D: one instance of
+// either kernel per head dim
+template <class F>
+int by_head_dim(int head_dim, F f) {
   switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, sq, sk, sv, so, batch, heads, group,
-                           len_q, len_k, scale, causal, window, s);
-    case 32:
-      return launch<T, 32>(q, k, v, o, sq, sk, sv, so, batch, heads, group,
-                           len_q, len_k, scale, causal, window, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, sq, sk, sv, so, batch, heads, group,
-                           len_q, len_k, scale, causal, window, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, sq, sk, sv, so, batch, heads, group,
-                            len_q, len_k, scale, causal, window, s);
-    case 256:
-      return launch<T, 256>(q, k, v, o, sq, sk, sv, so, batch, heads, group,
-                            len_q, len_k, scale, causal, window, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -258,7 +601,8 @@ extern "C" {
 // head_dim), each given by its batch, head and sequence strides (elements).
 // head_dim is one of 16, 32, 64, 128, 256; heads % kv_heads == 0; len_q
 // and len_k at least 1 and below 2^31; window <= 0 means no window, and
-// a window is below 2^31.
+// a window is below 2^31.  bf16 != 0: bfloat16 tensors, every row 16-byte
+// aligned (the tensor-core kernel); else float32 (the CUDA-core kernel).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long q_sb, long long q_sh, long long q_ss,
                         long long k_sb, long long k_sh, long long k_ss,
@@ -273,13 +617,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const int group = heads / kv_heads;
   const int win = window > 0 ? (int)window : 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(head_dim, q, k, v, o, sq, sk, sv, so,
-                                   batch, heads, group, (int)len_q,
-                                   (int)len_k, (float)scale, causal, win, s);
-  return dispatch<float>(head_dim, q, k, v, o, sq, sk, sv, so, batch, heads,
-                         group, (int)len_q, (int)len_k, (float)scale, causal,
-                         win, s);
+  const int lq = (int)len_q, lk = (int)len_k;
+  if (bf16) {  // the scale folded with log2 e into the exp2 argument
+    const float scale_log2 = (float)(scale * 1.4426950408889634);
+    return by_head_dim(head_dim, [&](auto d) {
+      return tc::launch<decltype(d)::value>(q, k, v, o, sq, sk, sv, so, batch,
+                                            heads, group, lq, lk, scale_log2,
+                                            causal, win, s);
+    });
+  }
+  return by_head_dim(head_dim, [&](auto d) {
+    return f32::launch<decltype(d)::value>(q, k, v, o, sq, sk, sv, so, batch,
+                                           heads, group, lq, lk, (float)scale,
+                                           causal, win, s);
+  });
 }
 
 }  // extern "C"

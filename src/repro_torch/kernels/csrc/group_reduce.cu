@@ -4,23 +4,35 @@
 //   (m, m) sub-matrix turned into a slowdown scale ref_bw / min, or 1.0 when
 //   the minimum is not finite or not positive.  Replaces the Pallas kernel
 //   group_min_scale / _min_scale_kernel of the JAX package's
-//   kernels/group_reduce.py.
+//   kernels/group_reduce.py.  It has two addressings of one fold:
+//   - the sub form takes the gathered (n_groups, m, m) sub-matrices;
+//   - the gather form, which the annealing engine calls, takes the (n, n)
+//     bandwidth table, a (rows, width) permutation and the group geometry,
+//     and per row folds every group's scale into max(., 1.0).  Group
+//     gi = (a, t), a = gi / inner, t = gi % inner, has member j at
+//     perm[row, a * outer + t + j * step]; its sub-matrix is
+//     table[member i, member j], read in place and never written out.  One
+//     launch replaces gather + sub kernel + amax + clamp_min.
 // group_max: row-wise maximum of an (n_rows, m) matrix.  Replaces group_max /
 //   _max_kernel of the same file.
 //
-// Bound: both are bound by bytes.  Every input value is read once and takes
-// part in one comparison; one value per group goes out.  The design is one
-// warp per group (or row): the lanes stride over the group's contiguous
-// values, so neighbouring lanes read neighbouring addresses, then fold with
-// shuffles; lane 0 applies the guard and the divide.  There is no padding of
-// the group count to a block multiple: the ragged edge is masked by the
-// `group < n_groups` test.  Nothing is staged in shared memory, because no
-// value is used twice.
+// Bound: all are bound by bytes.  Every input value is read once and takes
+// part in one comparison; one value per group (or per row of the gather
+// form) goes out.  The design is one warp per group (or row): the lanes
+// stride over the group's values, then fold with shuffles; lane 0 applies
+// the guard and the divide.  The gather form runs one block per permutation
+// row with a warp per group, up to 32 warps (they take the row's groups in
+// turn when there are more), so that the dependent loads of the groups
+// (permutation, then table) are in flight together; the warps' maxima fold
+// through shared memory.  There is no padding of the group count to
+// a block multiple: the ragged edge is masked by the `group < n_groups`
+// test.
 //
 // Bit contract: min and max do not depend on the order of the fold, and the
 // divide is a correctly rounded IEEE divide (`/` on double; `__fdiv_rn` on
-// float), so the results equal the plain PyTorch versions bit for bit.  The
-// library is built with -fmad=false.  Inputs are NaN-free by contract (the
+// float), and max(., 1.0) is exact, so the results equal the plain PyTorch
+// versions bit for bit.  The library is built with -fmad=false.  Inputs are
+// NaN-free by contract (the
 // bandwidth and slowdown matrices the engine gathers from hold no NaN):
 // fmin/fmax would drop a NaN where torch.amin/amax propagate it.
 //
@@ -34,6 +46,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxGatherWarps = 32;      // a block of the gather form
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ double rn_div(double a, double b) { return a / b; }
@@ -71,6 +84,43 @@ __global__ void min_scale_kernel(const T* __restrict__ sub, T ref_bw,
   }
 }
 
+// One block per permutation row: max over the row's groups of the group's
+// min scale, clamped below at 1.0.
+template <typename T>
+__global__ void gather_min_scale_kernel(const T* __restrict__ table,
+                                        long long n_tab,
+                                        const long long* __restrict__ perm,
+                                        long long width, T ref_bw,
+                                        T* __restrict__ out, int n_groups,
+                                        int m, int inner, int outer,
+                                        int step) {
+  __shared__ T warp_max[kMaxGatherWarps];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  const long long* row = perm + (long long)blockIdx.x * width;
+  const int mm = m * m;
+  T best = -inf_of<T>();
+  for (int gi = warp; gi < n_groups; gi += n_warps) {
+    const long long* g = row + (long long)(gi / inner) * outer + gi % inner;
+    T v = inf_of<T>();
+    for (int e = lane; e < mm; e += kWarp) {
+      const int i = e / m, j = e - i * m;
+      v = fmin(v, table[g[i * step] * n_tab + g[j * step]]);
+    }
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      v = fmin(v, __shfl_xor_sync(kFullMask, v, off));
+    const bool ok = isfinite(v) && v > T(0);
+    best = fmax(best, ok ? rn_div(ref_bw, v) : T(1));
+  }
+  if (lane == 0) warp_max[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T r = warp_max[0];
+    for (int w = 1; w < n_warps; ++w) r = fmax(r, warp_max[w]);
+    out[blockIdx.x] = fmax(r, T(1));
+  }
+}
+
 template <typename T>
 __global__ void row_max_kernel(const T* __restrict__ vals,
                                T* __restrict__ out, long long n_rows, int m) {
@@ -88,6 +138,11 @@ __global__ void row_max_kernel(const T* __restrict__ vals,
 
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+inline unsigned gather_threads(int n_groups) {
+  return (unsigned)(kWarp * (n_groups < kMaxGatherWarps ? n_groups
+                                                         : kMaxGatherWarps));
 }
 
 }  // namespace
@@ -109,6 +164,33 @@ int group_min_scale_f32(const void* sub, double ref_bw, void* out,
       <<<blocks_for(n_groups), kWarp * kWarpsPerBlock, 0,
          (cudaStream_t)stream>>>((const float*)sub, (float)ref_bw,
                                  (float*)out, n_groups, mm);
+  return (int)cudaGetLastError();
+}
+
+// table: (n_tab, n_tab); perm: (rows, width) int64 entries in [0, n_tab);
+// out: (rows,).  Every group position a * outer + t + j * step lies in
+// [0, width) (the wrapper checks it).
+int group_min_scale_gather_f64(const void* table, long long n_tab,
+                               const void* perm, long long rows,
+                               long long width, double ref_bw, void* out,
+                               int n_groups, int m, int inner, int outer,
+                               int step, void* stream) {
+  gather_min_scale_kernel<double>
+      <<<(unsigned)rows, gather_threads(n_groups), 0, (cudaStream_t)stream>>>(
+          (const double*)table, n_tab, (const long long*)perm, width, ref_bw,
+          (double*)out, n_groups, m, inner, outer, step);
+  return (int)cudaGetLastError();
+}
+
+int group_min_scale_gather_f32(const void* table, long long n_tab,
+                               const void* perm, long long rows,
+                               long long width, double ref_bw, void* out,
+                               int n_groups, int m, int inner, int outer,
+                               int step, void* stream) {
+  gather_min_scale_kernel<float>
+      <<<(unsigned)rows, gather_threads(n_groups), 0, (cudaStream_t)stream>>>(
+          (const float*)table, n_tab, (const long long*)perm, width,
+          (float)ref_bw, (float*)out, n_groups, m, inner, outer, step);
   return (int)cudaGetLastError();
 }
 

@@ -3,19 +3,33 @@
 ``flash_attention`` replaces the Pallas kernel ``flash_attention``
 (``_kernel``) of the JAX package's ``kernels/flash_attention.py``: causal or
 sliding-window softmax attention with grouped KV heads, forward only.  It is
-CUDA C++ (``csrc/flash_attention.cu``): one block per (32 query rows, head,
-batch), a loop over key tiles of 32 staged in shared memory in place of the
-TPU's sequential grid axis, online softmax with the running maximum, sum and
-accumulator in float32 registers, GQA by indexing (head ``h`` reads KV head
-``h // (H // KV)``; no repeated KV is written), and key tiles that no row of
-the block may see skipped.  On the model's prefill shapes the card could do
-the work in the time of its bytes on the tensor cores; this first kernel
-takes its products on the CUDA cores in float32, so its arithmetic bounds it.
+CUDA C++ (``csrc/flash_attention.cu``), two kernels picked by the inputs'
+type, both counted in ``flash_attention.launches``:
 
-Unlike the Pallas wrapper, no length has to be a multiple of a block: the
-ragged tails of ``Sq`` and ``Sk`` are masked.  The kernel takes the batch,
-head and sequence strides of each tensor (the head dimension must have unit
-stride), so the model hands it transposed views of its ``(B, S, H, D)``
+- bfloat16 (the model's type) runs on the tensor cores, in the manner of
+  FlashAttention-2: one block of four warps per (64 query rows, head,
+  batch), Q fragments held in registers, K and V tiles of 64 keys through a
+  two-stage ``cp.async`` ring in swizzled shared memory, ``S = Q K^T`` and
+  ``O += P V`` as ``mma.sync`` m16n8k16 products with float32 accumulators,
+  and the online softmax on the accumulator fragments.  P is rounded to
+  bfloat16 for ``P V`` while the row sums use the float32 weights; the
+  error against the float32 plain version stays well inside the reference's
+  bfloat16 tolerance of 2e-2.  16-byte copies need every row 16-byte
+  aligned: the wrapper raises ``ValueError`` on a bfloat16 tensor whose
+  pointer or whose batch, head or sequence stride is not a multiple of 8
+  elements (the model's tensors always are).
+- float32 stays on the CUDA cores (one block per 32 query rows, key tiles of
+  32 staged in shared memory): tensor cores would mean TF32, which breaks
+  the float32 tolerance of 2e-5.
+
+Both: a loop over key tiles in place of the TPU's sequential grid axis,
+online softmax with the running maximum and sum in float32, GQA by indexing
+(head ``h`` reads KV head ``h // (H // KV)``; no repeated KV is written),
+and key tiles that no row of the block may see skipped.  Unlike the Pallas
+wrapper, no length has to be a multiple of a block: the ragged tails of
+``Sq`` and ``Sk`` are masked.  The kernels take the batch, head and
+sequence strides of each tensor (the head dimension must have unit stride),
+so the model hands them transposed views of its ``(B, S, H, D)``
 activations without a copy, and the output keeps ``q``'s stride order.
 
 The plain version :func:`flash_attention_ref` is ``attention_ref`` of the
@@ -102,6 +116,23 @@ def _check(q, k, v, window) -> None:
             or b >= 2 ** 16 or h >= 2 ** 16:
         raise ValueError(f"unsupported sizes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, window {window}")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_aligned(name, t)
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """Every row of a bfloat16 tensor 16-byte aligned: the pointer, and the
+    stride of each of its batch, head and sequence axes longer than 1, a
+    multiple of 8 elements."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the bfloat16 kernel needs a 16-byte "
+                         f"aligned pointer, got offset {t.data_ptr() % 16}")
+    for axis, what in enumerate(("batch", "head", "sequence")):
+        if t.shape[axis] > 1 and t.stride(axis) % 8:
+            raise ValueError(f"{name}: the bfloat16 kernel needs a {what} "
+                             f"stride that is a multiple of 8 elements, got "
+                             f"{t.stride(axis)}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -109,7 +140,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """CUDA version of :func:`flash_attention_ref` (float32 or bfloat16;
     head dim one of :data:`HEAD_DIMS`).
 
-    A CPU tensor goes through the plain version; a CUDA tensor launches the
+    The inputs' type picks the kernel: bfloat16 runs the tensor-core kernel
+    (rows 16-byte aligned, else ``ValueError``), float32 the CUDA-core one.
+    A CPU tensor goes through the plain version; a CUDA tensor launches a
     kernel or raises.
     """
     window = int(window)

@@ -16,6 +16,13 @@ only has to stream: one warp per group, lanes on neighbouring addresses, a
 shuffle fold, no shared memory, and the leading batch axes flattened by the
 wrapper so that one launch covers every chain of every candidate.
 
+The min-scale kernel has a second addressing, :func:`group_min_scale_gather`,
+which the annealing engine calls: it reads each group's sub-matrix in place
+from the ``(n, n)`` bandwidth table through the permutation, and folds each
+permutation row's group scales into ``max(., 1.0)`` — one launch for what
+was a gather, the sub-form kernel, ``amax`` and ``clamp_min``, and no
+``sub`` in device memory.  It counts in ``group_min_scale.launches``.
+
 The plain versions (``*_ref``) compute the same values with ``torch.amin`` /
 ``torch.amax``; min and max are order-free and the divide is a correctly
 rounded IEEE divide, so kernel and plain version agree bit for bit.  A
@@ -32,6 +39,7 @@ import torch
 from ._build import launch as _launch
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
+_GATHER_FNS = {dt: f"group_min_scale_gather_{s}" for dt, s in _DTYPES.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -105,10 +113,121 @@ def group_min_scale(sub: torch.Tensor, ref_bw: float) -> torch.Tensor:
     return out
 
 
-#: Number of kernel launches made by the wrapper (never the plain version),
-#: and the same count split by the input's shape as the caller gave it.
+#: Number of kernel launches made by the wrappers of either addressing (never
+#: the plain versions), and the same count split by the input's shape as the
+#: caller gave it: ``sub.shape`` for the sub form,
+#: ``("gather", rows, width, n_tab, m, inner, outer, step)`` for the gather
+#: form.
 group_min_scale.launches = 0
 group_min_scale.shapes = Counter()
+
+
+# ---------------------------------------------------------------------------
+# the gather form: groups read in place through the permutation
+# ---------------------------------------------------------------------------
+
+def tp_geometry(tp: int) -> tuple:
+    """``(m, inner, outer, step)`` of the TP groups of a flat permutation:
+    ``perm.reshape(B, -1, tp)``."""
+    return (tp, 1, tp, 1)
+
+
+def cp_geometry(tp: int, cp: int) -> tuple:
+    """``(m, inner, outer, step)`` of the CP groups of a flat permutation:
+    ``perm.reshape(B, -1, cp, tp).transpose(2, 3).reshape(B, -1, cp)``."""
+    return (cp, tp, cp * tp, tp)
+
+
+def group_positions(width: int, m: int, inner: int, outer: int,
+                    step: int) -> torch.Tensor:
+    """``(width // m, m)`` int64 positions in a permutation row: group
+    ``gi = (a, t)`` with ``a = gi // inner``, ``t = gi % inner`` has member
+    ``j`` at ``a * outer + t + j * step``."""
+    gi = torch.arange(width // m)
+    j = torch.arange(m)
+    return ((gi // inner) * outer + gi % inner)[:, None] + j[None, :] * step
+
+
+def group_min_scale_gather_ref(table: torch.Tensor, perm: torch.Tensor,
+                               ref_bw: float, m: int, inner: int, outer: int,
+                               step: int) -> torch.Tensor:
+    """Per permutation row, the largest group slowdown scale, at least 1.0.
+
+    Args:
+        table: ``(n, n)`` pairwise link bandwidths (self links ``inf``).
+        perm: ``(rows, width)`` int64 permutation rows, entries in
+            ``[0, n)``.
+        ref_bw: scalar bandwidth the profiled time was measured at.
+        m, inner, outer, step: group geometry (:func:`group_positions`;
+            :func:`tp_geometry`, :func:`cp_geometry`).
+
+    Returns:
+        ``(rows,)``: ``clamp_min(amax(group_min_scale_ref(sub)), 1.0)``
+        with ``sub = table[g[..., :, None], g[..., None, :]]`` for the
+        members ``g`` of every group of the row — the engine's sequence.
+    """
+    pos = group_positions(perm.shape[1], m, inner, outer, step)
+    g = perm[:, pos.to(perm.device)]
+    sub = table[g[:, :, :, None], g[:, :, None, :]]
+    return torch.clamp_min(group_min_scale_ref(sub, ref_bw).amax(dim=1), 1.0)
+
+
+def group_min_scale_gather(table: torch.Tensor, perm: torch.Tensor,
+                           ref_bw: float, m: int, inner: int, outer: int,
+                           step: int) -> torch.Tensor:
+    """CUDA version of :func:`group_min_scale_gather_ref` (bit-equal
+    output): one launch per call, ``sub`` never materialised.
+
+    ``table`` is ``(n, n)``, contiguous, float64 or float32; ``perm`` is
+    ``(rows, width)``, contiguous int64 on the same device, and ``width`` a
+    multiple of ``m`` whose groups all lie inside the row.  A CPU tensor
+    goes through the plain version; a CUDA tensor launches the kernel or
+    raises.
+    """
+    # the checks read only cheap tensor properties (no torch.device or
+    # torch.Size objects on the card's path): this is called once per TP /
+    # CP scale per annealing step
+    if not isinstance(table, torch.Tensor) or \
+            not isinstance(perm, torch.Tensor):
+        raise TypeError("table and perm must be torch.Tensors")
+    fn_name = _GATHER_FNS.get(table.dtype)
+    if fn_name is None:
+        raise TypeError(f"table must be float64 or float32, got "
+                        f"{table.dtype}")
+    if perm.dtype != torch.int64:
+        raise TypeError(f"perm must be int64, got {perm.dtype}")
+    if table.dim() != 2 or perm.dim() != 2:
+        raise ValueError(f"want table (n, n) and perm (rows, width); got "
+                         f"{tuple(table.shape)}, {tuple(perm.shape)}")
+    n_tab, n_cols = table.shape
+    rows, width = perm.shape
+    if n_tab != n_cols:
+        raise ValueError(f"table must be square, got {tuple(table.shape)}")
+    if not (table.is_contiguous() and perm.is_contiguous()):
+        raise ValueError("table and perm must be contiguous")
+    if table.get_device() != perm.get_device():
+        raise ValueError("table and perm lie on different devices")
+    if min(m, inner, outer, step) < 1 or width < m or width % m \
+            or (width // m) % inner \
+            or (width // m // inner - 1) * outer + inner - 1 \
+            + (m - 1) * step >= width or max(rows, width) >= 2 ** 31:
+        raise ValueError(f"group geometry m={m}, inner={inner}, "
+                         f"outer={outer}, step={step} does not tile a row "
+                         f"of width {width}")
+    if not table.is_cuda:
+        if table.device.type != "cpu":
+            raise ValueError(f"unsupported device {table.device}")
+        return group_min_scale_gather_ref(table, perm, ref_bw, m, inner,
+                                          outer, step)
+    out = table.new_empty(rows)
+    if rows:
+        _launch(fn_name, table, table.data_ptr(), n_tab, perm.data_ptr(),
+                rows, width, float(ref_bw), out.data_ptr(), width // m, m,
+                inner, outer, step)
+        group_min_scale.launches += 1
+        group_min_scale.shapes["gather", rows, width, n_tab, m, inner, outer,
+                               step] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 They build the CUDA kernels with ``nvcc``, launch them, and hold them and
 the engine on the card against the plain PyTorch versions and the host
 NumPy engine: the group reduces bit for bit, the model kernels (rmsnorm,
-flash_attention, selective_scan) at the JAX package's kernel tolerances.  Without a CUDA device every test here skips with a reason
+flash_attention, selective_scan) at the JAX package's kernel tolerances.
+The gather form of ``group_min_scale`` is held bit-equal to its plain
+version, and the bfloat16 tensor-core attention kernel to the float32 plain
+version within 2e-2, at long and wide shapes too.  Without a CUDA device
+every test here skips with a reason
 (decided inside the test, never at import).  This file imports ``torch``
 and ``repro_torch`` only, so it also runs on a machine without JAX:
 
@@ -82,6 +86,39 @@ def test_group_max_kernel_bit_equal_to_plain(n, m, dtype):
     torch.cuda.synchronize()
     assert gr.group_max.launches == before + 1
     assert torch.equal(got, gr.group_max_ref(vals))
+
+
+#: (rows, tp, cp, n): ragged row and group counts, m in {2, 4, 8, 16}, TP
+#: groups (cp == 1) and CP groups (members tp apart), up to a plan's sizes.
+GATHER_CASES = [(1, 2, 1, 6), (3, 4, 1, 28), (33, 8, 1, 128), (5, 16, 1, 48),
+                (7, 1, 2, 10), (4, 2, 4, 24), (130, 4, 8, 128),
+                (2, 2, 16, 64), (32, 8, 2, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("rows,tp,cp,n", GATHER_CASES, ids=str)
+def test_group_min_scale_gather_kernel_bit_equal_to_plain(rows, tp, cp, n,
+                                                           dtype):
+    _need_cuda()
+    rng = np.random.default_rng(rows * 131 + n)
+    table = rng.uniform(0.5, 300.0, size=(n, n)) * 1e9
+    np.fill_diagonal(table, np.inf)
+    table[0, 1] = table[1, 0] = 0.0                   # a degenerate link
+    perm = np.stack([rng.permutation(n) for _ in range(rows)])
+    table = torch.from_numpy(table).to(dtype).cuda()
+    perm = torch.from_numpy(perm).cuda()
+    geom = gr.tp_geometry(tp) if cp == 1 else gr.cp_geometry(tp, cp)
+    for ref_bw in (25e9, 1e8):                        # scaled, clamped
+        before = gr.group_min_scale.launches
+        got = gr.group_min_scale_gather(table, perm, ref_bw, *geom)
+        torch.cuda.synchronize()
+        assert gr.group_min_scale.launches == before + 1
+        assert got.shape == (rows,) and got.dtype == dtype
+        want = gr.group_min_scale_gather_ref(table, perm, ref_bw, *geom)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), gr.group_min_scale_gather_ref(
+            table.cpu(), perm.cpu(), ref_bw, *geom))
 
 
 def test_wrappers_raise_on_cuda_tensors_they_do_not_take():
@@ -201,22 +238,27 @@ def test_rmsnorm_kernel_mixed_types_and_strided_rows():
     _close(rn.rmsnorm(x32, wb), rn.rmsnorm_ref(x32, wb), 1e-5)
 
 
+def _attention_inputs(case, dtype, layout):
+    b, h, kv, sq, sk, d, causal, window = case
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    if layout == "bhsd":
+        return (_randn(rng, (b, h, sq, d), dtype),
+                _randn(rng, (b, kv, sk, d), dtype),
+                _randn(rng, (b, kv, sk, d), dtype))
+    # the model's (B, S, H, D), viewed
+    return (_randn(rng, (b, sq, h, d), dtype).transpose(1, 2),
+            _randn(rng, (b, sk, kv, d), dtype).transpose(1, 2),
+            _randn(rng, (b, sk, kv, d), dtype).transpose(1, 2))
+
+
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", FA_SHAPES, ids=str)
 def test_flash_attention_kernel_matches_plain(case, dtype, layout):
     _need_cuda()
-    b, h, kv, sq, sk, d, causal, window = case
-    rng = np.random.default_rng(sq * 7 + sk + d)
-    if layout == "bhsd":
-        q = _randn(rng, (b, h, sq, d), dtype)
-        k = _randn(rng, (b, kv, sk, d), dtype)
-        v = _randn(rng, (b, kv, sk, d), dtype)
-    else:                          # the model's (B, S, H, D), viewed
-        q = _randn(rng, (b, sq, h, d), dtype).transpose(1, 2)
-        k = _randn(rng, (b, sk, kv, d), dtype).transpose(1, 2)
-        v = _randn(rng, (b, sk, kv, d), dtype).transpose(1, 2)
+    causal, window = case[6], case[7]
+    q, k, v = _attention_inputs(case, dtype, layout)
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -225,6 +267,46 @@ def test_flash_attention_kernel_matches_plain(case, dtype, layout):
     _close(got, fa.flash_attention_ref(q, k, v, causal=causal,
                                        window=window),
            2e-5 if dtype == torch.float32 else 2e-2)
+
+
+#: Long and wide cases of the bfloat16 tensor-core kernel: 2048 keys
+#: (causal; a short query block against them; a window of 1000 keys) and
+#: D = 256 (gemma3-12b's head dim: key tiles of 32, Q read from shared
+#: memory), ragged and windowed.
+FA_BF16_EXTRA = [
+    (1, 4, 2, 2048, 2048, 128, True, 0), (2, 4, 1, 100, 2048, 64, False, 0),
+    (1, 4, 2, 2048, 2048, 64, True, 1000), (1, 2, 1, 300, 300, 256, True, 0),
+    (1, 4, 2, 130, 200, 256, False, 0), (1, 2, 2, 257, 257, 256, True, 50),
+]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("case", FA_BF16_EXTRA, ids=str)
+def test_flash_attention_tensor_cores_long_and_wide(case, layout):
+    _need_cuda()
+    causal, window = case[6], case[7]
+    q, k, v = _attention_inputs(case, torch.bfloat16, layout)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.stride() == q.stride()
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, fa.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window), 2e-2)
+
+
+def test_flash_attention_bf16_refuses_misaligned_views():
+    _need_cuda()
+    base = torch.zeros(1, 2, 16, 36, dtype=torch.bfloat16, device="cuda")
+    before = fa.flash_attention.launches
+    for view, what in ((base[..., 1:33], "pointer"),
+                       (base[..., :32], "sequence stride")):
+        with pytest.raises(ValueError, match=what):
+            fa.flash_attention(view, view, view)
+    assert fa.flash_attention.launches == before
+    f = base[..., 1:33].float()                        # float32 takes it
+    assert fa.flash_attention(f, f, f).shape == f.shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -109,3 +109,107 @@ def test_cpu_calls_do_not_count_as_launches():
 def test_wrappers_refuse_what_the_kernels_do_not_take(bad, err):
     with pytest.raises(err):
         bad()
+
+
+# ---------------------------------------------------------------------------
+# the gather form: groups read through the permutation, folded per row
+# ---------------------------------------------------------------------------
+
+#: (name, tp, cp, n): TP groups, CP groups with tp = 1, and CP groups whose
+#: members sit tp apart (cp > 1 and tp > 1), as the engine forms them.
+GEOMETRIES = [("tp", 4, 1, 32), ("tp8", 8, 1, 64), ("cp", 1, 4, 32),
+              ("cp-tp", 4, 2, 32), ("cp4-tp2", 2, 4, 48)]
+
+
+def _table(rng, n):
+    """A ``bw_noself``-like table: self links inf, one degenerate link."""
+    t = rng.uniform(0.5, 300.0, size=(n, n)) * 1e9
+    np.fill_diagonal(t, np.inf)
+    t[0, 1] = 0.0
+    return t
+
+
+def _members(perm, tp, cp, scale):
+    """The engine's groups of each row, by its own reshapes (NumPy)."""
+    b = perm.shape[0]
+    if scale == "tp":
+        return perm.reshape(b, -1, tp)
+    return perm.reshape(b, -1, cp, tp).transpose(0, 1, 3, 2) \
+        .reshape(b, -1, cp)
+
+
+@pytest.mark.parametrize("ref_bw", [25e9, 1e8], ids=["scaled", "clamped"])
+@pytest.mark.parametrize("name,tp,cp,n", GEOMETRIES,
+                         ids=[g[0] for g in GEOMETRIES])
+def test_gather_form_plain_bit_equal_to_jax(name, tp, cp, n, ref_bw):
+    rng = np.random.default_rng(n * 7 + tp + 3 * cp)
+    table = _table(rng, n)
+    perm = np.stack([rng.permutation(n) for _ in range(5)])
+    scale = "cp" if cp > 1 else "tp"
+    g = _members(perm, tp, cp, scale)
+    sub = table[g[:, :, :, None], g[:, :, None, :]]
+    with jax.enable_x64(True):
+        per_group = ref_gr.group_min_scale_ref(
+            jnp.asarray(sub.reshape(-1, *sub.shape[2:])), ref_bw)
+        want = np.asarray(jnp.maximum(
+            1.0, per_group.reshape(sub.shape[:2]).max(axis=1)))
+    assert want.dtype == np.float64
+    geom = gr.tp_geometry(tp) if scale == "tp" else gr.cp_geometry(tp, cp)
+    tt, pt = torch.from_numpy(table), torch.from_numpy(perm)
+    got_plain = gr.group_min_scale_gather_ref(tt, pt, ref_bw, *geom).numpy()
+    got_wrap = gr.group_min_scale_gather(tt, pt, ref_bw, *geom).numpy()
+    assert got_plain.shape == (5,)
+    for got in (got_plain, got_wrap):
+        assert got.tobytes() == want.tobytes()
+    if ref_bw == 1e8:
+        assert (got_plain == 1.0).all()
+    else:
+        assert (got_plain > 1.0).all()
+
+
+@pytest.mark.parametrize("name,tp,cp,n", GEOMETRIES,
+                         ids=[g[0] for g in GEOMETRIES])
+def test_group_positions_replay_the_engines_reshapes(name, tp, cp, n):
+    perm = np.stack([np.random.default_rng(s).permutation(n)
+                     for s in range(3)])
+    scale = "cp" if cp > 1 else "tp"
+    geom = gr.tp_geometry(tp) if scale == "tp" else gr.cp_geometry(tp, cp)
+    pos = gr.group_positions(n, *geom).numpy()
+    assert (perm[:, pos] == _members(perm, tp, cp, scale)).all()
+
+
+def test_gather_form_cpu_calls_do_not_count_as_launches():
+    before = (gr.group_min_scale.launches, dict(gr.group_min_scale.shapes))
+    table = torch.from_numpy(_table(np.random.default_rng(1), 8))
+    gr.group_min_scale_gather(table, torch.arange(8)[None], 1e9,
+                              *gr.tp_geometry(2))
+    assert (gr.group_min_scale.launches,
+            dict(gr.group_min_scale.shapes)) == before
+
+
+_T8 = torch.ones(8, 8, dtype=torch.float64)
+_P8 = torch.arange(8)[None]
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda: gr.group_min_scale_gather(_T8.half(), _P8, 1.0, 2, 1, 2, 1),
+     TypeError),
+    (lambda: gr.group_min_scale_gather(_T8, _P8.int(), 1.0, 2, 1, 2, 1),
+     TypeError),
+    (lambda: gr.group_min_scale_gather(_T8[:, :4], _P8, 1.0, 2, 1, 2, 1),
+     ValueError),
+    (lambda: gr.group_min_scale_gather(_T8, _P8[0], 1.0, 2, 1, 2, 1),
+     ValueError),
+    (lambda: gr.group_min_scale_gather(_T8, _P8, 1.0, 3, 1, 3, 1),
+     ValueError),
+    (lambda: gr.group_min_scale_gather(_T8, _P8, 1.0, 2, 2, 4, 3),
+     ValueError),
+    (lambda: gr.group_min_scale_gather(_T8, _P8.repeat(2, 2)[:, ::2], 1.0,
+                                       2, 1, 2, 1), ValueError),
+    (lambda: gr.group_min_scale_gather(_T8.numpy(), _P8, 1.0, 2, 1, 2, 1),
+     TypeError),
+], ids=["f16-table", "int32-perm", "table-not-square", "perm-1d",
+        "m-not-dividing", "group-past-row", "perm-strided", "ndarray"])
+def test_gather_form_refuses_what_the_kernel_does_not_take(bad, err):
+    with pytest.raises(err):
+        bad()

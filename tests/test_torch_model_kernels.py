@@ -137,6 +137,78 @@ def test_flash_attention_strided_views_match_contiguous():
                                atol=0)
 
 
+def _emulate_tensor_core_kernel(q, k, v, causal, window, block_k=64):
+    """The bfloat16 tensor-core kernel's arithmetic, replayed in float32 on
+    the CPU: q.k of bfloat16 values in float32 (the products are exact),
+    online softmax over key tiles of ``block_k`` with running (m, l) in
+    float32, the scale folded with log2 e into exp2, a row max still at
+    NEG_INF giving weight 0, P rounded to bfloat16 before ``P V`` while l
+    sums the float32 weights, and the output rounded to bfloat16."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, kv, h // kv, sq, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    c = torch.tensor((1.0 / d ** 0.5) * np.log2(np.e), dtype=torch.float32)
+    neg = torch.tensor(fa.NEG_INF, dtype=torch.float32)
+    ok = fa._allowed(sq, sk, causal, window, "cpu")
+    m = torch.full(qf.shape[:-1], fa.NEG_INF)
+    lsum = torch.zeros(qf.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, sk, block_k):
+        s = qf @ kf[..., k0:k0 + block_k, :].transpose(-1, -2)
+        s = torch.where(ok[:, k0:k0 + block_k], s, neg)
+        mx = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp2((m - mx) * c)
+        msc = torch.where(mx == neg, torch.zeros_like(mx), mx * c)
+        p = torch.exp2(s * c - msc[..., None])
+        lsum = lsum * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] \
+            + p.bfloat16().float() @ vf[..., k0:k0 + block_k, :]
+        m = mx
+    out = acc / lsum.clamp_min(1e-30)[..., None]
+    out = torch.where((m <= fa.NEG_INF * 0.5)[..., None],
+                      torch.zeros_like(out), out)
+    return out.reshape(b, h, sq, d).to(torch.bfloat16)
+
+
+#: FA_CASES and one long causal case (qwen2-7b's head dim, 4096 keys).
+EMU_CASES = FA_CASES + [(1, 2, 1, 4096, 4096, 128, True, 0, True)]
+
+
+@pytest.mark.parametrize("case", EMU_CASES,
+                         ids=[str(c[:8]) for c in EMU_CASES])
+def test_tensor_core_numerics_within_bf16_tolerance_of_jax_oracle(case):
+    """Before any card: the bfloat16 kernel's rounding points (P to
+    bfloat16, l from float32 weights, exp2 with the folded scale) keep the
+    output within the reference's bfloat16 tolerance of 2e-2."""
+    causal, window = case[6], case[7]
+    (qj, kj, vj), (qt, kt, vt) = _fa_inputs(case[:8] + (True,))
+    got = _emulate_tensor_core_kernel(qt, kt, vt, causal, window)
+    want = ref.attention_ref(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(_np32(got), _np32(want), rtol=2e-2, atol=2e-2)
+    # the emulation is no copy of the plain version: P in bfloat16 moves it
+    assert not torch.equal(got, fa.flash_attention_ref(
+        qt, kt, vt, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("view,what", [
+    (lambda: torch.zeros(1, 2, 16, 40, dtype=torch.bfloat16)[..., 1:33],
+     "pointer"),
+    (lambda: torch.zeros(1, 2, 16, 36, dtype=torch.bfloat16)[..., :32],
+     "sequence stride"),
+    (lambda: torch.zeros(1, 2, 16 * 32 + 4, dtype=torch.bfloat16)
+     [..., :16 * 32].reshape(1, 2, 16, 32), "head stride"),
+], ids=["pointer", "sequence-stride", "head-stride"])
+def test_bf16_kernel_refuses_a_misaligned_view(view, what):
+    q = view()
+    assert q.dtype == torch.bfloat16 and q.stride(-1) == 1
+    with pytest.raises(ValueError, match=what):
+        fa.flash_attention(q, q, q)
+    # the float32 kernel takes any row alignment
+    out = fa.flash_attention(q.float(), q.float(), q.float())
+    assert out.shape == q.shape
+
+
 # ---------------------------------------------------------------------------
 # selective scan
 # ---------------------------------------------------------------------------
