@@ -15,29 +15,34 @@ failed assertion (non-zero exit, no final line).
 
 Phases: ``env``, ``build`` (with the ``ptxas`` report: the bfloat16 D=128
 attention instance must not spill, and the cost of reading the stream
-handle both ways), ``kernels`` (group-reduce kernels bit-equal at ragged
-shapes, both addressings of ``group_min_scale``), ``plan_uniform``
+handle and the device index both ways), ``kernels`` (group-reduce kernels
+bit-equal at ragged shapes, both forms of ``group_min_scale`` and of
+``group_max``), ``plan_uniform``
 (gpt-3.1b on 128 GPUs, estimator fitted on the card), ``plan_tiered``
 (gpt-11.1b on a 1024-GPU mixed fleet, hierarchical search),
-``kernels_at_path_shapes``, ``model_kernels`` (rmsnorm, flash_attention,
-selective_scan against their plain versions at ragged shapes, float32 and
-bfloat16, and the tensor-core attention at 2048 keys and D=256; a
-misaligned bfloat16 view is refused), ``generate_qwen2_7b`` and
-``generate_falcon_mamba_7b`` (full width and depth, batch 4, prompt 512,
-32 tokens, weights from a seeded generator on the card; exact launch
-counts), ``slice_check_*`` (each model at full width and 2 layers: the
-card's prefill logits against the host's, and the first decode step
-against ``forward_logits`` at the next position), and
-``model_kernels_at_path_shapes``; with ``--profile`` also ``profile_sa``
-and ``profile_generate_*`` (torch.profiler: device busy and idle share).
+``kernels_at_path_shapes``, ``model_kernels`` (rmsnorm in both forms,
+flash_attention, selective_scan against their plain versions at ragged
+shapes, float32 and bfloat16, and the tensor-core attention at 2048 keys
+and D=256; a misaligned bfloat16 view is refused), ``generate_qwen2_7b``
+and ``generate_falcon_mamba_7b`` (full width and depth, batch 4, prompt
+512, 32 tokens, weights from a seeded generator on the card; exact launch
+counts, and the split of plain and residual norms), ``slice_check_*``
+(each model at full width and 2 layers: the card's prefill logits against
+the host's, and the first decode step against ``forward_logits`` at the
+next position), ``model_kernels_at_path_shapes`` and ``host_cost`` (host
+microseconds of one call of each redesigned wrapper and of its library
+call); with ``--profile`` also ``profile_sa`` and ``profile_generate_*``
+(torch.profiler: device busy and idle share).
 Each plan is made twice — SA on the card
 (``backend="torch"``) and on the host (``backend="numpy"``) — and the two
 Plan JSONs must be byte-equal once the backend's name is dropped.  The
 wrappers record every input shape the main paths hand them; the path-shape
-phases check the kernels and take their times at exactly those shapes (the
-engine calls the gather form of ``group_min_scale``, timed beside
-``unfused_ms``: the gather, the sub-form kernel, ``amax`` and ``clamp_min``
-it replaces).
+phases check the kernels and take their times at exactly those shapes.
+The forms that fuse their callers' ATen operations are timed beside
+``unfused_ms``, the sequence each replaces: the gather form of
+``group_min_scale`` (gather, sub-form kernel, ``amax``, ``clamp_min``), the
+gather form of ``group_max`` (gather, row-max kernel, multiply, ``amax``)
+and the residual form of ``rmsnorm`` (an ATen add, then the plain form).
 Then one ``{"kernels": [...]}`` line for all five kernels, the
 ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 """
@@ -94,6 +99,13 @@ RAGGED_MAX = [(1, 3), (9, 16), (257, 8)]
 #: m in {2, 4, 8, 16}.
 RAGGED_GATHER = [(1, 2, 1, 6), (7, 4, 1, 28), (3, 1, 16, 48),
                  (130, 2, 4, 64), (9, 8, 2, 32)]
+#: Ragged gather-form cases of ``group_max`` (rows, pp, nc): one stage,
+#: more stages than warps in a block, more members than lanes.
+RAGGED_MAX_GATHER = [(1, 1, 3), (3, 3, 16), (5, 40, 3), (4, 2, 512),
+                     (257, 1, 8)]
+#: ``group_max`` launches of ``plan_tiered`` (all of the gather form): one
+#: per tiered score of its hierarchical search.
+TIERED_GROUP_MAX_LAUNCHES = 63
 WRAPPERS = {
     "group_min_scale": gr.group_min_scale,
     "group_max": gr.group_max,
@@ -208,6 +220,24 @@ def time_ms(fn, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: Rounds of each comparison of times (a kernel against its plain version,
+#: its library call and the sequence it replaced; a wrapper's host time
+#: against its library call's).
+ROUNDS = 5
+
+
+def interleaved(measure, fns: dict, rounds: int = ROUNDS) -> dict:
+    """``{name: median of rounds measure(fn) values}``, the functions taken
+    in turns (the order reversed every other round), so that a drift in
+    the shared host's speed falls on all of them alike."""
+    got = {name: [] for name in fns}
+    names = list(fns)
+    for i in range(rounds):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            got[name].append(measure(fns[name]))
+    return {name: float(np.median(v)) for name, v in got.items()}
+
+
 def device_ms(fn, reps: int = 50, replays: int = 5) -> float:
     """Mean milliseconds of one ``fn()`` on the device alone: ``reps`` calls
     are captured into a CUDA graph and the replay is timed, so the host's
@@ -254,11 +284,11 @@ def check_kernel(name, shape, device, timed: bool) -> dict:
            "max_abs_err": float((got - want).abs().max())}
     if timed:
         b_ms, b_by = bound(x, got.numel())
-        row.update(ms=time_ms(lambda: kernel(x)),
-                   device_ms=device_ms(lambda: kernel(x)),
-                   plain_ms=time_ms(lambda: plain(x)),
-                   library_ms=time_ms(lambda: library(x)),
-                   bound_ms=b_ms, bound_by=b_by)
+        row.update(**interleaved(time_ms, {
+            "ms": lambda: kernel(x), "plain_ms": lambda: plain(x),
+            "library_ms": lambda: library(x)}),
+            device_ms=device_ms(lambda: kernel(x)),
+            bound_ms=b_ms, bound_by=b_by)
     return row
 
 
@@ -338,12 +368,78 @@ def check_gather(key: tuple, device, timed: bool) -> dict:
         assert torch.equal(unfused(), got)
         sub = gathered()
         b_ms, b_by = gather_bound(key, table, perm)
-        row.update(ms=time_ms(fused), device_ms=device_ms(fused),
-                   plain_ms=time_ms(lambda: gr.group_min_scale_gather_ref(
-                       table, perm, REF_BW, *geom)),
-                   library_ms=time_ms(lambda: torch.amin(sub, dim=(-2, -1))),
-                   unfused_ms=time_ms(unfused),
-                   bound_ms=b_ms, bound_by=b_by)
+        row.update(**interleaved(time_ms, {
+            "ms": fused,
+            "plain_ms": lambda: gr.group_min_scale_gather_ref(
+                table, perm, REF_BW, *geom),
+            "library_ms": lambda: torch.amin(sub, dim=(-2, -1)),
+            "unfused_ms": unfused}),
+            device_ms=device_ms(fused), bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
+def max_gather_inputs(key: tuple, dtype, device) -> tuple:
+    """``(slow, perm, cw)`` for one ``group_max`` gather key ``("gather",
+    rows, pp, nc, n)``: slowdowns of two tiers and a degraded one, random
+    permutation rows, stage weights of a tiered score's size."""
+    _, rows, pp, nc, n = key
+    rng = np.random.default_rng(zlib.crc32(repr(key).encode()))
+    slow = rng.choice([1.0, 2.0, 3.25], size=n) \
+        * rng.uniform(1.0, 1.01, size=n)
+    perm = np.stack([rng.permutation(n)[:pp * nc] for _ in range(rows)])
+    cw = rng.uniform(0.5, 2.0, size=(rows, pp)) * 1e-3
+    return tuple(torch.from_numpy(a).to(device) if a.dtype == np.int64
+                 else torch.from_numpy(a).to(dtype).to(device)
+                 for a in (slow, perm, cw))
+
+
+def check_max_gather(key: tuple, device, timed: bool) -> dict:
+    """The gather form of ``group_max`` against its plain version, both
+    outputs bit-equal in both dtypes; with ``timed`` also the float64
+    times: the wrapper, the device alone, the plain version, ``torch.amax``
+    over the gathered slowdowns (``library_ms``) and the engine's former
+    sequence of gather, row-max kernel, multiply and ``amax``
+    (``unfused_ms``), with the bound."""
+    _, rows, pp, nc, n = key
+    for dtype in (torch.float32, torch.float64):
+        slow, perm, cw = max_gather_inputs(key, dtype, device)
+        got = gr.group_max_gather(slow, perm, cw, nc)
+        torch.cuda.synchronize()
+        want = gr.group_max_gather_ref(slow, perm, cw, nc)
+        assert got[0].shape == (rows, pp) and got[1].shape == (rows,)
+        assert got[0].dtype == got[1].dtype == dtype
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            (key, dtype)
+    row = {"name": "group_max", "form": "gather", "shape": [rows, pp, nc],
+           "n": n, "bit_equal": True,
+           "max_abs_err": max(float((g - w).abs().max())
+                              for g, w in zip(got, want))}
+    if timed:
+        def unfused():
+            c_x = cw * gr.group_max(slow[perm.view(rows, pp, nc)])
+            return c_x, c_x.amax(dim=1)
+
+        def fused():
+            return gr.group_max_gather(slow, perm, cw, nc)
+
+        assert all(torch.equal(a, b) for a, b in zip(unfused(), got))
+        gathered = slow[perm.view(rows, pp, nc)]
+        # each input read once (the distinct slowdowns the rows reach), each
+        # output written once; a comparison per member, a multiply and a
+        # comparison per stage
+        reached = int(torch.unique(perm).numel())
+        item = slow.element_size()
+        t_bytes = (perm.numel() * perm.element_size()
+                   + (reached + cw.numel() + rows * pp + rows) * item) \
+            / HBM_BYTES_PER_S
+        t_ops = (perm.numel() + 2 * rows * pp) / OPS_PER_S
+        row.update(**interleaved(time_ms, {
+            "ms": fused,
+            "plain_ms": lambda: gr.group_max_gather_ref(slow, perm, cw, nc),
+            "library_ms": lambda: torch.amax(gathered, dim=-1),
+            "unfused_ms": unfused}),
+            device_ms=device_ms(fused), bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
     return row
 
 
@@ -354,18 +450,25 @@ def check_ragged(device) -> list:
              for c in RAGGED_GATHER]
     rows += [check_kernel("group_max", (n, m), device, False)
              for n, m in RAGGED_MAX]
+    rows += [check_max_gather(("gather", b, pp, nc, pp * nc), device, False)
+             for b, pp, nc in RAGGED_MAX_GATHER]
     # what the kernels do not take is refused, not routed elsewhere
     sub = make_input("group_min_scale", (2, 3, 4, 4), torch.float64, device)
     vals = make_input("group_max", (9, 16), torch.float64, device)
     table, perm = gather_inputs(gather_key(2, 4, 1, 16), torch.float64,
                                 device)
+    slow, mperm, cw = max_gather_inputs(("gather", 2, 2, 4, 8),
+                                        torch.float64, device)
     for bad in (lambda: gr.group_min_scale(sub.to(torch.float16), REF_BW),
                 lambda: gr.group_min_scale(sub[..., :3], REF_BW),
                 lambda: gr.group_max(vals.T),
                 lambda: gr.group_min_scale_gather(table, perm.int(), REF_BW,
                                                   4, 1, 4, 1),
                 lambda: gr.group_min_scale_gather(table, perm, REF_BW,
-                                                  3, 1, 3, 1)):
+                                                  3, 1, 3, 1),
+                lambda: gr.group_max_gather(slow, mperm.int(), cw, 4),
+                lambda: gr.group_max_gather(slow, mperm, cw.float(), 4),
+                lambda: gr.group_max_gather(slow, mperm, cw, 3)):
         try:
             bad()
         except (TypeError, ValueError):
@@ -382,8 +485,12 @@ def check_path_shapes(device, shapes_by_phase: dict) -> list:
         seen = sorted({sh for by_kernel in shapes_by_phase.values()
                        for sh in by_kernel[name]}, key=repr)
         for shape in seen:
-            row = (check_gather(shape, device, True) if shape[0] == "gather"
-                   else check_kernel(name, shape, device, True))
+            if shape[0] != "gather":
+                row = check_kernel(name, shape, device, True)
+            elif name == "group_min_scale":
+                row = check_gather(shape, device, True)
+            else:
+                row = check_max_gather(shape, device, True)
             row["launches"] = {phase: by_kernel[name].get(shape, 0)
                                for phase, by_kernel
                                in shapes_by_phase.items()}
@@ -490,11 +597,16 @@ def plan_tiered(device) -> tuple:
                             (A100_TIER, V100_TIER), (0.5, 0.5),
                             gpus_per_node=8, seed=7)
     w = Workload(configs.get("gpt-11.1b"), 2048, 1024)
-    return run_plan(
+    line, launches, shapes = run_plan(
         "plan_tiered", w, spec, SearchSpace(max_tp=8, max_micro=4),
         dict(sa_seconds=600.0, sa_iters=200, n_chains=4, sa_topk=2,
              hierarchical=True),
         None, device, must_launch=("group_min_scale", "group_max"))
+    # every tiered score took the gather form of group_max: one launch
+    assert launches["group_max"] == TIERED_GROUP_MAX_LAUNCHES, launches
+    assert all(k[0] == "gather" for k in shapes["group_max"]), \
+        shapes["group_max"]
+    return line, launches, shapes
 
 
 def trace(fn) -> dict:
@@ -554,7 +666,8 @@ def profile_sa(device) -> dict:
 TOL = {"rmsnorm": (1e-5, 3e-2), "flash_attention": (2e-5, 2e-2),
        "selective_scan": (2e-4, 2e-4)}
 RAGGED_RMS = [((rows, d), dt) for rows in (1, 2, 7, 33, 64, 70)
-              for d in (32, 128, 384, 3584) for dt in ("float32", "bfloat16")]
+              for d in (32, 128, 384, 3584, 4096)
+              for dt in ("float32", "bfloat16")]
 #: (b, h, kv, sq, sk, d, causal, window): the JAX package's sweep
 #: (``FA_CASES``), a length that is no multiple of a tile, a window that
 #: masks whole key tiles, and rows with no allowed key.
@@ -577,7 +690,10 @@ RAGGED_SCAN = [(2, 64, 32, 8), (1, 96, 16, 4), (2, 128, 64, 16),
                (1, 50, 24, 8), (1, 17, 100, 16)]
 
 
-def _dtype(name: str) -> torch.dtype:
+def _dtype(name) -> torch.dtype:
+    """A dtype, or its name (``"bfloat16"``, ``"torch.bfloat16"``)."""
+    if isinstance(name, torch.dtype):
+        return name
     return getattr(torch, name.split(".")[-1])
 
 
@@ -592,6 +708,11 @@ def model_inputs(name: str, key: tuple, device) -> tuple:
     (``dt_rank + 2N`` wide).  Returns ``(args, kwargs)``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(zlib.crc32(repr(key).encode()))
+    if name == "rmsnorm" and key[0] == "add":        # the residual form
+        _, shape, xt, wt = key
+        return ((_randn(gen, shape, _dtype(xt), device, 3.0),
+                 _randn(gen, shape, _dtype(xt), device),
+                 _randn(gen, shape[-1:], _dtype(wt), device), 1e-5), {})
     if name == "rmsnorm":
         shape, xt, wt = key
         return ((_randn(gen, shape, _dtype(xt), device, 3.0),
@@ -618,6 +739,10 @@ def model_inputs(name: str, key: tuple, device) -> tuple:
 def model_library(name: str, key: tuple):
     """One PyTorch call that computes the same function, or None; timed
     as a yardstick only, and used nowhere in the package."""
+    if name == "rmsnorm" and key[0] == "add":
+        d = key[1][-1]
+        return lambda x, r, w, eps: torch.nn.functional.rms_norm(
+            x + r, (d,), w, eps)
     if name == "rmsnorm":
         d = key[0][-1]
         return lambda x, w, eps: torch.nn.functional.rms_norm(x, (d,), w,
@@ -639,8 +764,9 @@ def model_bound(name: str, key: tuple, args, outs) -> tuple:
     count only the (query, key) pairs this mask allows."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors + list(outs))
-    if name == "rmsnorm":
-        ops, rate = 4 * args[0].numel(), OPS_PER_S
+    if name == "rmsnorm":          # an add too in the residual form
+        ops = (5 if key[0] == "add" else 4) * args[0].numel()
+        rate = OPS_PER_S
     elif name == "flash_attention":
         qs, ks, causal, window, dt = key
         pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu").sum())
@@ -656,6 +782,7 @@ def model_bound(name: str, key: tuple, args, outs) -> tuple:
 
 MODEL_CALLS = {
     "rmsnorm": (rn.rmsnorm, rn.rmsnorm_ref),
+    "add_rmsnorm": (rn.add_rmsnorm, rn.add_rmsnorm_ref),
     "flash_attention": (fa.flash_attention, fa.flash_attention_ref),
     "selective_scan": (ss.selective_scan, ss.selective_scan_ref),
 }
@@ -664,14 +791,20 @@ MODEL_CALLS = {
 def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
     """Kernel vs plain version on the same inputs, within the stated
     tolerance; with ``timed`` also ``ms`` (one wrapper call), ``device_ms``
-    (CUDA-graph replay), ``plain_ms``, ``library_ms`` and the bound."""
-    kernel, plain = MODEL_CALLS[name]
+    (CUDA-graph replay), ``plain_ms``, ``library_ms`` and the bound.  A
+    residual-form key of ``rmsnorm`` (``("add", ...)``) checks the sum
+    ``s`` bit for bit, and is timed beside ``unfused_ms``: an ATen add,
+    then the plain form's kernel."""
+    form = "add" if name == "rmsnorm" and key[0] == "add" else None
+    kernel, plain = MODEL_CALLS["add_rmsnorm" if form else name]
     args, kw = model_inputs(name, key, device)
     got = kernel(*args, **kw)
     torch.cuda.synchronize()
     want = plain(*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    if form:
+        assert torch.equal(got[0], want[0]), (name, key, "s = x + r")
     tol = TOL[name][1 if got[0].dtype == torch.bfloat16 else 0]
     err = 0.0
     for g, w in zip(got, want):
@@ -682,15 +815,21 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         err = max(err, float(diff.max()))
     row = {"name": name, "key": json.loads(json.dumps(key, default=str)),
            "tol": tol, "max_abs_err": err}
+    if form:
+        row["form"] = form
     if timed:
         library = model_library(name, key)
         b_ms, b_by = model_bound(name, key, args, got)
-        row.update(ms=time_ms(lambda: kernel(*args, **kw), reps=0),
-                   device_ms=device_ms(lambda: kernel(*args, **kw)),
-                   plain_ms=time_ms(lambda: plain(*args, **kw), reps=0),
-                   library_ms=(None if library is None else
-                               time_ms(lambda: library(*args, **kw),
-                                       reps=0)),
+        fns = {"ms": lambda: kernel(*args, **kw),
+               "plain_ms": lambda: plain(*args, **kw)}
+        if library is not None:
+            fns["library_ms"] = lambda: library(*args, **kw)
+        if form:
+            x, r, w, eps = args
+            fns["unfused_ms"] = lambda: rn.rmsnorm(x + r, w, eps)
+        row.update({"library_ms": None,
+                    **interleaved(lambda fn: time_ms(fn, reps=0), fns)})
+        row.update(device_ms=device_ms(lambda: kernel(*args, **kw)),
                    bound_ms=b_ms, bound_by=b_by)
     return row
 
@@ -698,6 +837,9 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
 def check_model_ragged(device) -> list:
     rows = [check_model_kernel("rmsnorm", (shape, dt, dt), device, False)
             for shape, dt in RAGGED_RMS]
+    rows += [check_model_kernel("rmsnorm", ("add", shape, dt, dt), device,
+                                False)
+             for shape, dt in RAGGED_RMS]
     for dt in ("float32", "bfloat16"):
         rows += [check_model_kernel(
             "flash_attention", ((b, h, sq, d), (b, kv, sk, d), causal,
@@ -721,6 +863,11 @@ def check_model_ragged(device) -> list:
                 lambda: fa.flash_attention(odd[..., 1:33], odd[..., 1:33],
                                            odd[..., 1:33]),       # pointer
                 lambda: rn.rmsnorm(x.half(), torch.ones(8, device=device)),
+                lambda: rn.add_rmsnorm(x, x.bfloat16(),
+                                       torch.ones(8, device=device)),
+                lambda: rn.add_rmsnorm(x, x.transpose(1, 2).contiguous()
+                                       .transpose(1, 2),
+                                       torch.ones(8, device=device)),
                 lambda: ss.selective_scan(x, x, bn, bn,
                                           torch.ones(8, 32, device=device))):
         try:
@@ -785,12 +932,15 @@ def run_generate(name: str, arch: str, device) -> tuple:
     else:
         want["selective_scan"] = cfg.n_layers      # per prefill
     assert launches == want, (name, launches, want)
-    d = cfg.d_model
-    prefill_norm = ((GEN_BATCH, GEN_PROMPT, d), "torch.bfloat16",
-                    "torch.bfloat16")
-    step_norm = ((GEN_BATCH, 1, d), "torch.bfloat16", "torch.bfloat16")
-    assert shapes["rmsnorm"] == {prefill_norm: norms - 1,
-                                 step_norm: 1 + norms * steps}, shapes
+    # per prefill one plain norm over the sequence, norms - 2 residual
+    # ones and one plain norm of the last row; per step one plain and
+    # norms - 1 residual ones
+    d, bf = cfg.d_model, torch.bfloat16
+    seq, last = (GEN_BATCH, GEN_PROMPT, d), (GEN_BATCH, 1, d)
+    split = {(seq, bf, bf): 1, ("add", seq, bf, bf): norms - 2,
+             (last, bf, bf): 1 + steps,
+             ("add", last, bf, bf): (norms - 1) * steps}
+    assert shapes["rmsnorm"] == split, shapes["rmsnorm"]
     line = {
         "phase": name, "model": cfg.name, "n_layers": cfg.n_layers,
         "d_model": d, "vocab": cfg.vocab_size, "batch": GEN_BATCH,
@@ -801,9 +951,11 @@ def run_generate(name: str, arch: str, device) -> tuple:
         "peak_memory_bytes": res["peak_bytes"],
         "launches": launches,
         "launches_per_prefill": {"rmsnorm": norms,
+                                 "rmsnorm_residual_form": norms - 2,
                                  "flash_attention": want["flash_attention"],
                                  "selective_scan": want["selective_scan"]},
-        "launches_per_decode_step": {"rmsnorm": norms},
+        "launches_per_decode_step": {"rmsnorm": norms,
+                                     "rmsnorm_residual_form": norms - 1},
         "sample": toks[0, :8].tolist(),
     }
     del res
@@ -920,21 +1072,117 @@ def ptxas_spills(log: str) -> dict:
     return spills
 
 
-def stream_read_us(n: int = 20000) -> dict:
-    """Host microseconds of one read of the current stream's handle: the
-    public ``torch.cuda.current_stream().cuda_stream`` against the raw
-    reader the wrappers' launch path uses."""
+def launch_path_reads_us(n: int = 20000) -> dict:
+    """Host microseconds of one read of the current stream's handle and of
+    the current device's index: the public ``torch.cuda`` calls against
+    the raw readers the wrappers' launch path uses."""
     index = torch.cuda.current_device()
     out = {}
-    for name, fn in (
-            ("public", lambda i: torch.cuda.current_stream(i).cuda_stream),
-            ("raw", _build.current_raw_stream)):
-        assert fn(index) == torch.cuda.current_stream(index).cuda_stream
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn(index)
-        out[f"{name}_us"] = (time.perf_counter() - t0) / n * 1e6
+    for what, pair in (
+            ("stream", (("public", lambda: torch.cuda.current_stream(
+                index).cuda_stream),
+                        ("raw", lambda: _build.current_raw_stream(index)))),
+            ("device", (("public", torch.cuda.current_device),
+                        ("raw", _build.current_raw_device)))):
+        assert pair[0][1]() == pair[1][1]()
+        for name, fn in pair:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            out.setdefault(f"{what}_read_us", {})[f"{name}_us"] = \
+                (time.perf_counter() - t0) / n * 1e6
     return out
+
+
+#: Back-to-back calls of one wrapper (or library call) in each round of
+#: ``host_cost``.
+HOST_COST_CALLS = 2000
+
+
+def host_us(fn, n: int = HOST_COST_CALLS) -> float:
+    """Host microseconds of one call of ``fn``: ``n`` back-to-back calls
+    timed by ``perf_counter``, after a warm-up and a synchronise.  The
+    calls enqueue device work shorter than their own host time, so the
+    card keeps up and the clock reads the host's share alone."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def host_cost(device, max_key: tuple) -> dict:
+    """Host microseconds of one call of each redesigned wrapper and of the
+    PyTorch call(s) it is set against: ``group_max`` in both forms at the
+    tiered plan's gather key ``max_key`` (against ``amax`` of the gathered
+    slowdowns), ``rmsnorm`` in both forms at the falcon-mamba-7b decode
+    shape (against ``F.rms_norm``, and ``x + r`` then ``F.rms_norm``)."""
+    _, b, pp, nc, _ = max_key
+    slow, perm, cw = max_gather_inputs(max_key, torch.float64, device)
+    gathered = slow[perm.view(b, pp, nc)]
+    shape, bf = (GEN_BATCH, 1, 4096), torch.bfloat16
+    (x, r, w, eps), _ = model_inputs("rmsnorm", ("add", shape, bf, bf),
+                                     device)
+    d = shape[-1]
+    rms_norm = torch.nn.functional.rms_norm
+    calls = {
+        "group_max": (lambda: gr.group_max(gathered),
+                      lambda: torch.amax(gathered, dim=-1)),
+        "group_max_gather": (lambda: gr.group_max_gather(slow, perm, cw, nc),
+                             lambda: torch.amax(gathered, dim=-1)),
+        "rmsnorm": (lambda: rn.rmsnorm(x, w, eps),
+                    lambda: rms_norm(x, (d,), w, eps)),
+        "add_rmsnorm": (lambda: rn.add_rmsnorm(x, r, w, eps),
+                        lambda: rms_norm(x + r, (d,), w, eps)),
+    }
+    fns = {}
+    for name, (wrapper, library) in calls.items():
+        fns[name, "wrapper_us"] = wrapper
+        fns[name, "library_us"] = library
+    fns["add_rmsnorm", "aten_add_us"] = lambda: x + r
+    # where a wrapper call's host time goes: its output allocations, the
+    # ctypes call that launches the kernel (arguments prepared), and the
+    # rest (checks, counters, the launch path's device and stream reads)
+    stream = _build.current_raw_stream(x.get_device())
+    s_, y_ = torch.empty_like(x), torch.empty_like(x)
+    c_x, c_max = torch.empty_like(cw), cw.new_empty(b)
+    launches = {
+        "rmsnorm": ("rmsnorm_fwd", (x.data_ptr(), w.data_ptr(),
+                                    y_.data_ptr(), x.numel() // d, d, eps,
+                                    3, stream), 1),
+        "add_rmsnorm": ("add_rmsnorm_fwd", (
+            x.data_ptr(), r.data_ptr(), w.data_ptr(), s_.data_ptr(),
+            y_.data_ptr(), x.numel() // d, d, eps, 3, stream), 2),
+        "group_max_gather": ("group_max_gather_f64", (
+            slow.data_ptr(), perm.data_ptr(), cw.data_ptr(),
+            c_x.data_ptr(), c_max.data_ptr(), b, pp, nc, stream), 2),
+    }
+    fns["empty_like", "us"] = lambda: torch.empty_like(x)
+    for name, (fn_name, args, _) in launches.items():
+        fn = _build._fns[fn_name]
+        assert fn(*args) == 0
+        fns[name, "ctypes_launch_us"] = lambda fn=fn, args=args: fn(*args)
+    times = interleaved(host_us, fns)
+    out = {}
+    for (name, what), us in times.items():
+        out.setdefault(name, {})[what] = us
+    alloc_us = out.pop("empty_like")["us"]
+    for name, (_, _, n_out) in launches.items():
+        t = out[name]
+        t.update(empty_like_us=alloc_us, n_outputs=n_out,
+                 rest_us=t["wrapper_us"] - n_out * alloc_us
+                 - t["ctypes_launch_us"])
+    return {"phase": "host_cost", "calls": HOST_COST_CALLS,
+            "group_max_key": list(max_key), "rmsnorm_shape": list(shape),
+            "library": {"group_max": "torch.amax(gathered, -1)",
+                        "group_max_gather": "torch.amax(gathered, -1)",
+                        "rmsnorm": "F.rms_norm",
+                        "add_rmsnorm": "x + r, then F.rms_norm"},
+            "host_us": out}
 
 
 # ---------------------------------------------------------------------------
@@ -981,7 +1229,7 @@ def main() -> int:
                       for s in _build.sources()],
           "flags": list(_build.NVCC_FLAGS),
           "attention_bf16_d128_spill_bytes": list(d128[0]),
-          "stream_read_us": stream_read_us(),
+          **launch_path_reads_us(),
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if ln.startswith("==") or "Compiling entry" in ln
                     or "Used" in ln or "spill" in ln]})
@@ -1020,21 +1268,36 @@ def main() -> int:
         device, {"generate_qwen2_7b": shapes_q,
                  "generate_falcon_mamba_7b": shapes_f})
     emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
+    emit(host_cost(device, max(shapes_t["group_max"],
+                               key=shapes_t["group_max"].get)))
 
     main_path = {name: launches_u[name] + launches_t[name]
                  for name in PLAN_KERNELS}
     main_path.update({name: launches_q[name] + launches_f[name]
                       for name in MODEL_KERNELS})
 
+    def launched(r):
+        return sum(r["launches"].values())
+
     def summary(name):
         """One line per kernel: its launches on the main paths (the two
         plans, or the two generate phases), and the times at the shape the
-        paths launched most often (``per_shape`` has every shape)."""
+        paths launched most often; ``forms`` has the same for each form's
+        most launched shape, and ``per_shape`` every shape."""
         mine = [r for r in rows + model_rows if r["name"] == name]
         assert main_path[name] > 0, f"{name} was never launched"
-        assert sum(sum(r["launches"].values()) for r in mine) \
-            == main_path[name]
-        top = max(mine, key=lambda r: sum(r["launches"].values()))
+        assert sum(launched(r) for r in mine) == main_path[name]
+        top = max(mine, key=launched)
+        forms = {}
+        for r in mine:
+            form = r.get("form", "plain")
+            forms.setdefault(form, []).append(r)
+        forms = {form: {"launches": sum(launched(r) for r in rs),
+                        **{k: v for k, v in max(rs, key=launched).items()
+                           if k in ("shape", "key", "ms", "device_ms",
+                                    "plain_ms", "bound_ms", "library_ms",
+                                    "unfused_ms")}}
+                 for form, rs in forms.items()}
         return {"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": KERNELS[name],
                 "shape": top.get("shape", top.get("key")),
@@ -1048,7 +1311,7 @@ def main() -> int:
                 "library_ms": top["library_ms"],
                 **({"unfused_ms": top["unfused_ms"]}
                    if "unfused_ms" in top else {}),
-                "per_shape": mine}
+                "forms": forms, "per_shape": mine}
 
     emit({"kernels": [summary(name) for name in KERNELS]})
     print(smi, flush=True)

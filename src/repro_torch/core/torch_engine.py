@@ -28,7 +28,10 @@ a CUDA device these are the hand-written CUDA kernels, one launch for the
 whole batch; on the CPU the wrappers use their plain versions.  Each TP or
 CP scale is one launch of the gather form of ``group_min_scale``, which
 reads every group's bandwidths from ``bw_noself`` through the permutation
-and returns the clamped per-row maximum.
+and returns the clamped per-row maximum; the tiered per-stage compute term
+is one launch of the gather form of ``group_max``, which reads each stage's
+member slowdowns through the permutation and returns the weighted stage
+maxima and their per-row maximum.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..kernels.group_reduce import (cp_geometry, group_max,
+from ..kernels.group_reduce import (cp_geometry, group_max_gather,
                                     group_min_scale_gather, tp_geometry)
 from .cluster import ClusterSpec, compute_slowdowns
 from .dedication import PairCache
@@ -292,14 +295,15 @@ class TorchDedicationEngine:
         t_cm = t_tp + sc["tsum_cp"] * cp_scale
         if self.tiered or self.nonuniform:
             if self.tiered:
-                sv = group_max(env["slow"][perm.reshape(B, pp, nc)])
-                c_x = sc["cw"] * sv
+                # cw * (max member slowdown of each stage) and its row max:
+                # one launch on the card
+                c_x, c_max = group_max_gather(env["slow"], perm, sc["cw"], nc)
             else:
                 # homogeneous fleet, non-uniform stage_work: the NumPy
                 # engine's stage scales are all 1.0, and cw * 1.0 == cw
                 # exactly, so using cw directly preserves bit parity
                 c_x = sc["cw"]
-            c_max = c_x.amax(dim=1)
+                c_max = c_x.amax(dim=1)
             c_sum = np_pairwise_sum(c_x, pp)
             if self.vpp == 1:
                 t_bubble = float(pp) * (c_max + t_cm) + t_pp

@@ -22,9 +22,10 @@ report is kept beside the library (:func:`build_log`).
 
 :func:`launch` is the one call path of every wrapper, so it is kept lean:
 each ``ctypes`` function is bound once, with its ``argtypes`` set, and the
-stream handle is read raw (``torch._C._cuda_getCurrentRawStream``) rather
-than through a ``torch.cuda.Stream`` object, which costs microseconds more
-per call.
+current device index and the stream handle are read raw
+(``torch._C._cuda_getDevice``, ``torch._C._cuda_getCurrentRawStream``)
+rather than through ``torch.cuda.current_device()`` and a
+``torch.cuda.Stream`` object, which cost microseconds more per call.
 """
 from __future__ import annotations
 
@@ -139,7 +140,7 @@ def load_library() -> ctypes.CDLL:
     """The built library with every function's ``argtypes`` set (pointers
     and the stream as ``c_void_p`` — ctypes would otherwise cut them to 32
     bits; element counts and strides as ``c_longlong``)."""
-    global _lib, current_raw_stream
+    global _lib, current_raw_device, current_raw_stream
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
@@ -158,8 +159,13 @@ def load_library() -> ctypes.CDLL:
         # (vals, out, n_rows, m, stream)
         "group_max_f64": [vp, vp, ll, ci, vp],
         "group_max_f32": [vp, vp, ll, ci, vp],
-        # rmsnorm.cu: (x, w, out, rows, d, eps, x_bf16, w_bf16, stream)
-        "rmsnorm_fwd": [vp, vp, vp, ll, ci, dbl, ci, ci, vp],
+        # (slow, perm, cw, c_x, c_max, rows, pp, nc, stream)
+        "group_max_gather_f64": [vp] * 5 + [ll, ci, ci, vp],
+        "group_max_gather_f32": [vp] * 5 + [ll, ci, ci, vp],
+        # rmsnorm.cu: (x, w, y, rows, d, eps, types, stream) and
+        # (x, r, w, s, y, rows, d, eps, types, stream)
+        "rmsnorm_fwd": [vp, vp, vp, ll, ci, dbl, ci, vp],
+        "add_rmsnorm_fwd": [vp] * 5 + [ll, ci, dbl, ci, vp],
         # flash_attention.cu: (q, k, v, o, 4 x (batch, head, seq) strides,
         #   batch, heads, kv_heads, len_q, len_k, head_dim, scale, causal,
         #   window, bf16, stream)
@@ -175,27 +181,31 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = types
         fn.restype = ci
         _fns[name] = fn
+    current_raw_device = torch._C._cuda_getDevice
     current_raw_stream = torch._C._cuda_getCurrentRawStream
     _lib = lib
     return lib
 
 
-#: ``torch._C._cuda_getCurrentRawStream``: the current stream's handle of a
-#: device index, read without building a ``torch.cuda.Stream`` (only CUDA
+#: ``torch._C._cuda_getDevice``: the current device's index, read without
+#: ``torch.cuda.current_device()``'s lazy-initialisation check (only CUDA
 #: builds of torch have it; bound by :func:`load_library`).
+current_raw_device = None
+#: ``torch._C._cuda_getCurrentRawStream``: the current stream's handle of a
+#: device index, read without building a ``torch.cuda.Stream`` (bound by
+#: :func:`load_library`, like :data:`current_raw_device`).
 current_raw_stream = None
 
 
-def launch(fn_name: str, x: torch.Tensor, *args) -> None:
-    """Call one C entry point on PyTorch's current stream of ``x``'s device
-    (made current for the call when it is not), and raise on a refused
-    launch."""
+def launch(fn_name: str, index: int, *args) -> None:
+    """Call one C entry point on PyTorch's current stream of the CUDA
+    device ``index`` (made current for the call when it is not), and raise
+    on a refused launch."""
     fn = _fns.get(fn_name)
     if fn is None:
         load_library()
         fn = _fns[fn_name]
-    index = x.get_device()
-    if index == torch.cuda.current_device():
+    if index == current_raw_device():
         rc = fn(*args, current_raw_stream(index))
     else:
         with torch.cuda.device(index):

@@ -14,7 +14,12 @@
 //     table[member i, member j], read in place and never written out.  One
 //     launch replaces gather + sub kernel + amax + clamp_min.
 // group_max: row-wise maximum of an (n_rows, m) matrix.  Replaces group_max /
-//   _max_kernel of the same file.
+//   _max_kernel of the same file.  It too has a gather form, which the
+//   annealing engine's tiered score calls: it takes the (n,) per-GPU
+//   slowdowns, a (rows, pp * nc) permutation and the (rows, pp) stage
+//   weights, and per row writes c_x[s] = cw[s] * max_j slow[perm[s * nc + j]]
+//   and c_max = max_s c_x[s].  One launch replaces the gather, the row-max
+//   kernel, the multiply and amax.
 //
 // Bound: all are bound by bytes.  Every input value is read once and takes
 // part in one comparison; one value per group (or per row of the gather
@@ -24,14 +29,18 @@
 // row with a warp per group, up to 32 warps (they take the row's groups in
 // turn when there are more), so that the dependent loads of the groups
 // (permutation, then table) are in flight together; the warps' maxima fold
-// through shared memory.  There is no padding of the group count to
+// through shared memory.  The gather form of group_max has the same layout:
+// one block per row, a warp per stage, lanes over the stage's nc members
+// (the slowdown vector is a few KB and stays in L1/L2), and lane 0 applies
+// the stage weight.  There is no padding of the group count to
 // a block multiple: the ragged edge is masked by the `group < n_groups`
 // test.
 //
-// Bit contract: min and max do not depend on the order of the fold, and the
+// Bit contract: min and max do not depend on the order of the fold, the
 // divide is a correctly rounded IEEE divide (`/` on double; `__fdiv_rn` on
-// float), and max(., 1.0) is exact, so the results equal the plain PyTorch
-// versions bit for bit.  The library is built with -fmad=false.  Inputs are
+// float), the stage weight is one correctly rounded multiply, and
+// max(., 1.0) is exact, so the results equal the plain PyTorch versions bit
+// for bit.  The library is built with -fmad=false.  Inputs are
 // NaN-free by contract (the
 // bandwidth and slowdown matrices the engine gathers from hold no NaN):
 // fmin/fmax would drop a NaN where torch.amin/amax propagate it.
@@ -136,6 +145,39 @@ __global__ void row_max_kernel(const T* __restrict__ vals,
   if (lane == 0) out[row] = v;
 }
 
+// One block per permutation row: per stage s (a warp each, warps taking
+// stages in turn when pp > 32) the largest member slowdown times the stage
+// weight, and the row's largest such product.
+template <typename T>
+__global__ void gather_max_kernel(const T* __restrict__ slow,
+                                  const long long* __restrict__ perm,
+                                  const T* __restrict__ cw,
+                                  T* __restrict__ c_x, T* __restrict__ c_max,
+                                  int pp, int nc) {
+  __shared__ T warp_max[kMaxGatherWarps];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int n_warps = blockDim.x / kWarp;
+  const long long first = (long long)blockIdx.x * pp;   // row's first stage
+  T best = -inf_of<T>();
+  for (int s = warp; s < pp; s += n_warps) {
+    const long long* g = perm + (first + s) * nc;
+    T v = -inf_of<T>();
+    for (int j = lane; j < nc; j += kWarp) v = fmax(v, slow[g[j]]);
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      v = fmax(v, __shfl_xor_sync(kFullMask, v, off));
+    const T c = cw[first + s] * v;
+    if (lane == 0) c_x[first + s] = c;
+    best = fmax(best, c);
+  }
+  if (lane == 0) warp_max[warp] = best;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T r = warp_max[0];
+    for (int w = 1; w < n_warps; ++w) r = fmax(r, warp_max[w]);
+    c_max[blockIdx.x] = r;
+  }
+}
+
 inline unsigned blocks_for(long long n) {
   return (unsigned)((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -208,6 +250,28 @@ int group_max_f32(const void* vals, void* out, long long n_rows, int m,
   row_max_kernel<float>
       <<<blocks_for(n_rows), kWarp * kWarpsPerBlock, 0,
          (cudaStream_t)stream>>>((const float*)vals, (float*)out, n_rows, m);
+  return (int)cudaGetLastError();
+}
+
+// slow: (n,); perm: (rows, pp * nc) int64 entries in [0, n); cw, c_x:
+// (rows, pp); c_max: (rows,).  rows >= 1, pp >= 1, nc >= 1.
+int group_max_gather_f64(const void* slow, const void* perm, const void* cw,
+                         void* c_x, void* c_max, long long rows, int pp,
+                         int nc, void* stream) {
+  gather_max_kernel<double>
+      <<<(unsigned)rows, gather_threads(pp), 0, (cudaStream_t)stream>>>(
+          (const double*)slow, (const long long*)perm, (const double*)cw,
+          (double*)c_x, (double*)c_max, pp, nc);
+  return (int)cudaGetLastError();
+}
+
+int group_max_gather_f32(const void* slow, const void* perm, const void* cw,
+                         void* c_x, void* c_max, long long rows, int pp,
+                         int nc, void* stream) {
+  gather_max_kernel<float>
+      <<<(unsigned)rows, gather_threads(pp), 0, (cudaStream_t)stream>>>(
+          (const float*)slow, (const long long*)perm, (const float*)cw,
+          (float*)c_x, (float*)c_max, pp, nc);
   return (int)cudaGetLastError();
 }
 

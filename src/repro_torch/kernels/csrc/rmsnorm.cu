@@ -1,27 +1,39 @@
-// RMSNorm (CUDA C++, sm_90a).
+// RMSNorm, and RMSNorm of a residual sum (CUDA C++, sm_90a).
 //
-// out = (x * rsqrt(mean(x^2) + eps)) * w over the last axis, computed in
-// float32 and written in x's type.  Replaces the Pallas kernel `rmsnorm`
-// (`_kernel`) of the JAX package's kernels/rmsnorm.py.
+// rmsnorm:      y = (x * rsqrt(mean(x^2) + eps)) * w over the last axis,
+//               computed in float32 and written in x's type.  Replaces the
+//               Pallas kernel `rmsnorm` (`_kernel`) of the JAX package's
+//               kernels/rmsnorm.py.
+// add_rmsnorm:  s = x + r, rounded to x's type as PyTorch's add rounds it
+//               (both operands to float32, one float32 add, round to
+//               nearest even), stored; then y = rmsnorm(s).  The model's
+//               residual stream goes through it: one launch for the add
+//               and the norm that follows it, where there were two.
 //
 // Bound: bytes.  Each row is read, reduced and written once; the arithmetic
-// is four operations an element.  The design is one block of 128 threads
-// per row: the threads stride over the row (neighbouring threads on
-// neighbouring addresses), fold their float32 sums of squares with warp
-// shuffles and one shared-memory step, then read the row a second time —
-// from L1/L2, where a row of a few KB still lies — to scale and write it.
-// The Pallas wrapper shrinks its row block to a divisor of the row count;
-// here every row is its own block, so a ragged row count needs no masking.
+// is four operations an element (five with the add).  The design is one
+// block of 128 threads per row: the threads stride over the row in 16-byte
+// packs (8 bfloat16 or 4 float32 values, neighbouring threads on
+// neighbouring packs) where the row width and every pointer allow it, one
+// element at a time otherwise; they fold their float32 sums of squares with
+// warp shuffles and one shared-memory step, then read the row a second time
+// — from L1/L2, where a row of a few KB still lies — to scale and write it.
+// The add form sums the squares of the rounded s, stores s in the first
+// pass and reads it back in the second (each thread reads only the packs it
+// wrote, after a barrier).  Every row is its own block, so a ragged row
+// count needs no masking.
 //
 // Order of operations as in the reference (models/layers.py rms_norm):
 // mean = sum / d, r = rsqrt(mean + eps), out = (x * r) * w.  `rsqrtf` is
-// within 2 ulp of the correctly rounded value.
+// within 2 ulp of the correctly rounded value.  The library is built with
+// -fmad=false, so s is bit-equal to PyTorch's x + r.
 //
 // Plain C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -41,23 +53,43 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename TX, typename TW>
+// kVec values of one type, loaded and stored as one aligned access.
+template <typename T, int kVec>
+struct alignas(sizeof(T) * kVec) Pack {
+  T v[kVec];
+};
+
+template <typename TX, typename TW, bool kAdd, int kVec>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-               TX* __restrict__ out, int d, float eps) {
+norm_kernel(const TX* __restrict__ x, const TX* __restrict__ r,
+            const TW* __restrict__ w, TX* s, TX* __restrict__ y, int d,
+            float eps) {
+  using PX = Pack<TX, kVec>;
+  using PW = Pack<TW, kVec>;
   __shared__ float partial[kThreads / 32];
   __shared__ float scale;
-  const long long row = blockIdx.x;
-  const TX* xr = x + row * d;
-  TX* orow = out + row * d;
+  const long long off = (long long)blockIdx.x * d;
+  const int packs = d / kVec;
+  const PX* xr = reinterpret_cast<const PX*>(x + off);
+  PX* sr = kAdd ? reinterpret_cast<PX*>(s + off) : nullptr;
 
   float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += kThreads) {
-    const float v = to_f32(xr[i]);
-    ss += v * v;
+  for (int i = threadIdx.x; i < packs; i += kThreads) {
+    PX a = xr[i];
+    if constexpr (kAdd) {
+      const PX b = reinterpret_cast<const PX*>(r + off)[i];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        a.v[k] = from_f32<TX>(to_f32(a.v[k]) + to_f32(b.v[k]));
+      sr[i] = a;
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float v = to_f32(a.v[k]);
+      ss += v * v;
+    }
   }
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(kFullMask, ss, off);
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(kFullMask, ss, o);
   if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -67,34 +99,81 @@ rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     scale = rsqrtf(total / (float)d + eps);
   }
   __syncthreads();
-  const float r = scale;
-  for (int i = threadIdx.x; i < d; i += kThreads)
-    orow[i] = from_f32<TX>((to_f32(xr[i]) * r) * to_f32(w[i]));
+  const float rs = scale;
+  const PX* src = kAdd ? sr : xr;
+  const PW* wr = reinterpret_cast<const PW*>(w);
+  PX* yr = reinterpret_cast<PX*>(y + off);
+  for (int i = threadIdx.x; i < packs; i += kThreads) {
+    const PX a = src[i];
+    const PW g = wr[i];
+    PX o;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      o.v[k] = from_f32<TX>((to_f32(a.v[k]) * rs) * to_f32(g.v[k]));
+    yr[i] = o;
+  }
 }
 
-template <typename TX, typename TW>
-int launch(const void* x, const void* w, void* out, long long rows, int d,
-           float eps, cudaStream_t stream) {
-  rmsnorm_kernel<TX, TW><<<(unsigned)rows, kThreads, 0, stream>>>(
-      (const TX*)x, (const TW*)w, (TX*)out, d, eps);
+inline bool aligned(const void* p, size_t bytes) {
+  return (uintptr_t)p % bytes == 0;
+}
+
+// 16-byte packs where the width and every pointer allow them, else one
+// element at a time.
+template <typename TX, typename TW, bool kAdd>
+int launch(const void* x, const void* r, const void* w, void* s, void* y,
+           long long rows, int d, float eps, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(TX);
+  const bool packed = d % kVec == 0 && aligned(x, 16) && aligned(y, 16) &&
+                      aligned(w, sizeof(TW) * kVec) &&
+                      (!kAdd || (aligned(r, 16) && aligned(s, 16)));
+  if (packed)
+    norm_kernel<TX, TW, kAdd, kVec><<<(unsigned)rows, kThreads, 0, stream>>>(
+        (const TX*)x, (const TX*)r, (const TW*)w, (TX*)s, (TX*)y, d, eps);
+  else
+    norm_kernel<TX, TW, kAdd, 1><<<(unsigned)rows, kThreads, 0, stream>>>(
+        (const TX*)x, (const TX*)r, (const TW*)w, (TX*)s, (TX*)y, d, eps);
   return (int)cudaGetLastError();
+}
+
+// types: bit 0 set for a bfloat16 x (and r, s, y), bit 1 for a bfloat16 w;
+// float32 otherwise.
+template <bool kAdd>
+int dispatch(const void* x, const void* r, const void* w, void* s, void* y,
+             long long rows, int d, double eps, int types, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float e = (float)eps;
+  switch (types) {
+    case 0:
+      return launch<float, float, kAdd>(x, r, w, s, y, rows, d, e, st);
+    case 1:
+      return launch<__nv_bfloat16, float, kAdd>(x, r, w, s, y, rows, d, e,
+                                                st);
+    case 2:
+      return launch<float, __nv_bfloat16, kAdd>(x, r, w, s, y, rows, d, e,
+                                                st);
+    default:
+      return launch<__nv_bfloat16, __nv_bfloat16, kAdd>(x, r, w, s, y, rows,
+                                                        d, e, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, out: (rows, d) contiguous; w: (d,).  x_bf16 / w_bf16 pick bfloat16
-// over float32 for each.  rows must be at least 1 and below 2^31.
-int rmsnorm_fwd(const void* x, const void* w, void* out, long long rows,
-                int d, double eps, int x_bf16, int w_bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const float e = (float)eps;
-  if (x_bf16 && w_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d, e, s);
-  if (x_bf16) return launch<__nv_bfloat16, float>(x, w, out, rows, d, e, s);
-  if (w_bf16) return launch<float, __nv_bfloat16>(x, w, out, rows, d, e, s);
-  return launch<float, float>(x, w, out, rows, d, e, s);
+// x, y: (rows, d) contiguous; w: (d,).  rows at least 1 and below 2^31.
+int rmsnorm_fwd(const void* x, const void* w, void* y, long long rows, int d,
+                double eps, int types, void* stream) {
+  return dispatch<false>(x, nullptr, w, nullptr, y, rows, d, eps, types,
+                         stream);
+}
+
+// x, r, s, y: (rows, d) contiguous, one type; w: (d,).
+int add_rmsnorm_fwd(const void* x, const void* r, const void* w, void* s,
+                    void* y, long long rows, int d, double eps, int types,
+                    void* stream) {
+  return dispatch<true>(x, r, w, s, y, rows, d, eps, types, stream);
 }
 
 }  // extern "C"

@@ -154,7 +154,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)          # q's stride order when q is dense
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
-    launch("flash_attention_fwd", q, q.data_ptr(), k.data_ptr(),
+    launch("flash_attention_fwd", q.get_device(), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(),
            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            *out.stride()[:3], b, h, kv, sq, sk, d, 1.0 / (d ** 0.5),

@@ -22,6 +22,11 @@ from the ``(n, n)`` bandwidth table through the permutation, and folds each
 permutation row's group scales into ``max(., 1.0)`` — one launch for what
 was a gather, the sub-form kernel, ``amax`` and ``clamp_min``, and no
 ``sub`` in device memory.  It counts in ``group_min_scale.launches``.
+``group_max`` has a gather form too, :func:`group_max_gather`, which the
+tiered score calls: it reads each stage's member slowdowns through the
+permutation, multiplies each stage's maximum by its stage weight and folds
+the row's maximum — one launch for what was a gather, the row-max kernel, a
+multiply and ``amax``.  It counts in ``group_max.launches``.
 
 The plain versions (``*_ref``) compute the same values with ``torch.amin`` /
 ``torch.amax``; min and max are order-free and the divide is a correctly
@@ -40,6 +45,7 @@ from ._build import launch as _launch
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 _GATHER_FNS = {dt: f"group_min_scale_gather_{s}" for dt, s in _DTYPES.items()}
+_MAX_GATHER_FNS = {dt: f"group_max_gather_{s}" for dt, s in _DTYPES.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +111,7 @@ def group_min_scale(sub: torch.Tensor, ref_bw: float) -> torch.Tensor:
     out = torch.empty(lead, dtype=sub.dtype, device=sub.device)
     n_groups = out.numel()
     if n_groups:
-        _launch(f"group_min_scale_{suffix}", sub, sub.data_ptr(),
+        _launch(f"group_min_scale_{suffix}", sub.get_device(), sub.data_ptr(),
                 float(ref_bw), out.data_ptr(), n_groups,
                 sub.shape[-1] * sub.shape[-2])
         group_min_scale.launches += 1
@@ -221,9 +227,9 @@ def group_min_scale_gather(table: torch.Tensor, perm: torch.Tensor,
                                           outer, step)
     out = table.new_empty(rows)
     if rows:
-        _launch(fn_name, table, table.data_ptr(), n_tab, perm.data_ptr(),
-                rows, width, float(ref_bw), out.data_ptr(), width // m, m,
-                inner, outer, step)
+        _launch(fn_name, table.get_device(), table.data_ptr(), n_tab,
+                perm.data_ptr(), rows, width, float(ref_bw), out.data_ptr(),
+                width // m, m, inner, outer, step)
         group_min_scale.launches += 1
         group_min_scale.shapes["gather", rows, width, n_tab, m, inner, outer,
                                step] += 1
@@ -248,20 +254,102 @@ def group_max(vals: torch.Tensor) -> torch.Tensor:
     the plain version; a CUDA tensor launches the kernel or raises.
     """
     suffix = _check(vals, "vals", 2)
-    if vals.device.type == "cpu":
+    if not vals.is_cuda:
+        if vals.device.type != "cpu":
+            raise ValueError(f"unsupported device {vals.device}")
         return group_max_ref(vals)
-    if vals.device.type != "cuda":
-        raise ValueError(f"unsupported device {vals.device}")
-    lead = vals.shape[:-1]
-    out = torch.empty(lead, dtype=vals.dtype, device=vals.device)
+    shape = vals.shape
+    out = vals.new_empty(shape[:-1])
     n_rows = out.numel()
     if n_rows:
-        _launch(f"group_max_{suffix}", vals, vals.data_ptr(),
-                out.data_ptr(), n_rows, vals.shape[-1])
+        _launch(f"group_max_{suffix}", vals.get_device(), vals.data_ptr(),
+                out.data_ptr(), n_rows, shape[-1])
         group_max.launches += 1
-        group_max.shapes[tuple(vals.shape)] += 1
+        group_max.shapes[shape] += 1
     return out
 
 
+#: Number of kernel launches made by the wrappers of either form (never the
+#: plain versions), and the same count split by input: ``vals.shape`` for
+#: :func:`group_max`, ``("gather", rows, pp, nc, n)`` for
+#: :func:`group_max_gather`.
 group_max.launches = 0
 group_max.shapes = Counter()
+
+
+# ---------------------------------------------------------------------------
+# the gather form: stage members read through the permutation
+# ---------------------------------------------------------------------------
+
+def group_max_gather_ref(slow: torch.Tensor, perm: torch.Tensor,
+                         cw: torch.Tensor, nc: int) -> tuple:
+    """Per permutation row, the weighted per-stage compute slowdowns and
+    their maximum.
+
+    Args:
+        slow: ``(n,)`` per-GPU compute slowdowns.
+        perm: ``(rows, pp * nc)`` int64 permutation rows, entries in
+            ``[0, n)``; stage ``s`` is ``perm[:, s * nc:(s + 1) * nc]``.
+        cw: ``(rows, pp)`` stage weights, of ``slow``'s type.
+        nc: members per stage.
+
+    Returns:
+        ``(c_x, c_max)``: ``c_x = cw * group_max_ref(slow[perm.reshape(rows,
+        pp, nc)])`` ``(rows, pp)`` and ``c_max = c_x.amax(dim=1)``
+        ``(rows,)`` — the engine's sequence.
+    """
+    c_x = cw * group_max_ref(slow[perm.reshape(cw.shape[0], cw.shape[1],
+                                               nc)])
+    return c_x, c_x.amax(dim=1)
+
+
+def group_max_gather(slow: torch.Tensor, perm: torch.Tensor,
+                     cw: torch.Tensor, nc: int) -> tuple:
+    """CUDA version of :func:`group_max_gather_ref` (bit-equal outputs):
+    one launch per call, the gathered slowdowns never materialised.
+
+    ``slow`` is ``(n,)`` and ``cw`` ``(rows, pp)``, both of one type
+    (float64 or float32); ``perm`` is ``(rows, pp * nc)`` int64; all
+    contiguous and on one device.  A CPU tensor goes through the plain
+    version; a CUDA tensor launches the kernel or raises.
+    """
+    if not (isinstance(slow, torch.Tensor) and isinstance(perm, torch.Tensor)
+            and isinstance(cw, torch.Tensor)):
+        raise TypeError("slow, perm and cw must be torch.Tensors")
+    fn_name = _MAX_GATHER_FNS.get(slow.dtype)
+    if fn_name is None or cw.dtype is not slow.dtype:
+        raise TypeError(f"slow and cw must be both float64 or both float32, "
+                        f"got {slow.dtype} and {cw.dtype}")
+    if perm.dtype is not torch.int64:
+        raise TypeError(f"perm must be int64, got {perm.dtype}")
+    if slow.dim() != 1 or perm.dim() != 2 or cw.dim() != 2:
+        raise ValueError(f"want slow (n,), perm (rows, width) and cw (rows, "
+                         f"pp); got {tuple(slow.shape)}, "
+                         f"{tuple(perm.shape)}, {tuple(cw.shape)}")
+    rows, width = perm.shape
+    pp = cw.shape[1]
+    n = slow.shape[0]
+    if nc < 1 or pp < 1 or n < 1 or width != pp * nc \
+            or cw.shape[0] != rows or max(rows, width) >= 2 ** 31:
+        raise ValueError(f"{pp} stages of nc={nc} members do not tile "
+                         f"permutation rows {tuple(perm.shape)} with stage "
+                         f"weights {tuple(cw.shape)} over {n} slowdowns")
+    if not (slow.is_contiguous() and perm.is_contiguous()
+            and cw.is_contiguous()):
+        raise ValueError("slow, perm and cw must be contiguous")
+    index = perm.get_device()
+    if slow.get_device() != index or cw.get_device() != index:
+        raise ValueError("slow, perm and cw lie on different devices")
+    if not perm.is_cuda:
+        if perm.device.type != "cpu":
+            raise ValueError(f"unsupported device {perm.device}")
+        return group_max_gather_ref(slow, perm, cw, nc)
+    c_x = torch.empty_like(cw)
+    c_max = cw.new_empty(rows)
+    if rows:
+        _launch(fn_name, index, slow.data_ptr(), perm.data_ptr(),
+                cw.data_ptr(), c_x.data_ptr(), c_max.data_ptr(), rows, pp,
+                nc)
+        group_max.launches += 1
+        group_max.shapes["gather", rows, pp, nc, n] += 1
+    return c_x, c_max

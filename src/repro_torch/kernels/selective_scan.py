@@ -112,7 +112,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     h0 = None if h0 is None else h0.contiguous()
     y = torch.empty((b, s, d), dtype=torch.float32, device=x.device)
     h = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
-    launch("selective_scan_fwd", x, x.data_ptr(), dt.data_ptr(),
+    launch("selective_scan_fwd", x.get_device(), x.data_ptr(), dt.data_ptr(),
            B.data_ptr(), C.data_ptr(), A.data_ptr(),
            None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),

@@ -3,18 +3,20 @@
 Plain functions over explicit tensors, as in the JAX package's
 ``models/layers.py``.  Norms and softmax-adjacent reductions run in float32
 whatever the activation type.  :func:`rms_norm` goes through the
-``rmsnorm`` kernel (CUDA on the card, its plain version on the CPU).  The
+``rmsnorm`` kernel (CUDA on the card, its plain version on the CPU), and
+:func:`residual_norm` through its residual form ``add_rmsnorm`` when a
+branch output is still to be added to the residual stream.  The
 initialisers draw from an explicit ``torch.Generator`` on the generator's
 device.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..kernels.rmsnorm import rmsnorm
+from ..kernels.rmsnorm import add_rmsnorm, rmsnorm
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -22,6 +24,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     """``(x * rsqrt(mean(x**2) + eps)) * weight`` in float32, cast back to
     ``x.dtype``."""
     return rmsnorm(x, weight, eps)
+
+
+def residual_norm(x: torch.Tensor, pending: Optional[torch.Tensor],
+                  weight: torch.Tensor, eps: float = 1e-5) -> tuple:
+    """``(x + pending, rms_norm(x + pending))`` in one launch, or ``(x,
+    rms_norm(x))`` when no branch output is pending (``pending`` None).
+
+    The model's blocks hand their output on as ``pending`` instead of
+    adding it to the residual stream ``x`` themselves, so that the add
+    and the next norm are one call of the ``add_rmsnorm`` kernel; the sum
+    is bit-equal to ``x + pending``."""
+    if pending is None:
+        return x, rmsnorm(x, weight, eps)
+    return add_rmsnorm(x, pending, weight, eps)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

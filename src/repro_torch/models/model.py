@@ -7,7 +7,9 @@ so heterogeneous caches stay exact: full KV rows for global-attention
 layers, ring buffers for sliding-window layers (gemma3 locals), SSM state
 and conv tails for Mamba layers.  :func:`decode_step` updates the cache in
 place, where the reference donates it to ``jit`` (``donate_argnums``) and
-gets a new one back.  ``loss_fn`` waits for the training slice.
+gets a new one back.  In a decode step each block's output is added to the
+residual stream by the norm that follows it, the final norm included (one
+``add_rmsnorm`` launch each).  ``loss_fn`` waits for the training slice.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from .._device import DeviceLike, resolve_device
 from . import mamba as mam
 from .attention import decode_attention
 from .config import ModelConfig
-from .layers import rms_norm
+from .layers import residual_norm, rms_norm
 from .sharding import ShardCtx
 from .transformer import (_out_proj, _proj_qkv, check_family, init_params,
                           layer_params, layer_plan, mlp_block, run_stack)
@@ -176,12 +178,15 @@ def _segments(plan, shared_at=()) -> List[Tuple[tuple, List[int], dict]]:
     return segs
 
 
-def _decode_layer_body(x, lp, ck, cv, cfg, ctx, pos: int, *, kind,
-                       cache_kind, window, theta):
-    """One attention layer of a decode step.  ``ck, cv`` ``(b, S, KV, hd)``
-    are the layer's cache rows; the new token's key and value are written
-    into them in place.  Returns ``(x, ck, cv)``."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+def _decode_layer_body(x, pending, lp, ck, cv, cfg, ctx, pos: int, *,
+                       kind, cache_kind, window, theta):
+    """One attention layer of a decode step on the residual stream ``x``
+    plus the previous layer's ``pending`` output (None before the first
+    layer).  ``ck, cv`` ``(b, S, KV, hd)`` are the layer's cache rows; the
+    new token's key and value are written into them in place.  Returns
+    ``(x, pending)``: the stream so far and this layer's MLP output, not
+    yet added."""
+    x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _proj_qkv(h, lp, cfg, positions, theta)
@@ -192,9 +197,9 @@ def _decode_layer_body(x, lp, ck, cv, cfg, ctx, pos: int, *, kind,
     ck[:, slot:slot + 1] = k.to(ck.dtype)
     cv[:, slot:slot + 1] = v.to(cv.dtype)
     o = decode_attention(q, ck, cv, last)
-    x = x + _out_proj(o, lp["wo"])
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_block(h, lp), ck, cv
+    x, h = residual_norm(x, _out_proj(o, lp["wo"]), lp["ln2"],
+                         cfg.norm_eps)
+    return x, mlp_block(h, lp)
 
 
 def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
@@ -209,6 +214,8 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
     pos = int(pos)
     plan, meta = layer_plan(cfg)
     x = params["tok_embed"][token]                      # (b, 1, d)
+    # each block's output is added to the stream by the next norm
+    pending = None
     for sig, idxs, _ in _segments(plan, meta["shared_at"]):
         kind, cache_kind, window, theta = sig
         for i in idxs:
@@ -217,19 +224,19 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
                 ckey, vkey = ("k", "v") if cache_kind == "full" else \
                     ("k_ring", "v_ring")
                 row = plan[i]["cache"][1]
-                x, _, _ = _decode_layer_body(
-                    x, lp, cache[ckey][row], cache[vkey][row], cfg, ctx, pos,
-                    kind=kind, cache_kind=cache_kind, window=window,
-                    theta=theta)
+                x, pending = _decode_layer_body(
+                    x, pending, lp, cache[ckey][row], cache[vkey][row], cfg,
+                    ctx, pos, kind=kind, cache_kind=cache_kind,
+                    window=window, theta=theta)
             else:                                       # mamba1 layer
                 row = plan[i]["ssm_row"]
-                h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+                x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
                 y, (hs, cc) = mam.mamba1_block(
                     h[:, 0], lp, cfg, h0=cache["ssm"][row],
                     conv0=cache["conv"][row], single_step=True)
                 cache["ssm"][row] = hs
                 cache["conv"][row] = cc.to(cache["conv"].dtype)
-                x = x + y[:, None]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                pending = y[:, None]
+    _, x = residual_norm(x, pending, params["final_norm"], cfg.norm_eps)
     logits = _project_logits(x, params, cfg)
     return logits[:, 0], cache

@@ -8,7 +8,10 @@ plain Python loop over layers: the reference's ``lax.scan`` and remat exist
 for compile size and training memory, and this slice runs no backward pass.
 
 Full-sequence attention goes through the ``flash_attention`` kernel and
-every norm through the ``rmsnorm`` kernel.  The ``moe``, ``hybrid``,
+every norm through the ``rmsnorm`` kernel.  Each block's output is carried
+to the next norm as a pending residual, which that norm adds in the same
+launch (``layers.residual_norm``); :func:`run_stack` completes the stream
+before it returns.  The ``moe``, ``hybrid``,
 ``vlm`` and ``audio`` families raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
@@ -22,7 +25,7 @@ from .._device import DeviceLike, resolve_device
 from ..kernels.flash_attention import flash_attention
 from . import mamba as mam
 from .config import ModelConfig
-from .layers import apply_rope, dense_init, rms_norm, swiglu
+from .layers import apply_rope, dense_init, residual_norm, swiglu
 from .sharding import ShardCtx
 
 #: Families whose layers the port has not yet, and the ROADMAP item that
@@ -217,18 +220,21 @@ def mlp_block(x, p):
 # forward (prefill): a loop over layers
 # ---------------------------------------------------------------------------
 
-def _layer_body(x, lp, cfg: ModelConfig, ctx: ShardCtx, entry, positions):
-    """One layer; returns ``(x, cache_ys)`` with ``cache_ys`` the layer's
-    ``(k, v)`` or ``(ssm state, conv tail)``."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+def _layer_body(x, pending, lp, cfg: ModelConfig, ctx: ShardCtx, entry,
+                positions):
+    """One layer on the residual stream ``x`` plus the previous layer's
+    ``pending`` output (None before the first layer).  Returns ``(x,
+    pending, cache_ys)``: the stream so far, this layer's last block output
+    (not yet added), and the layer's ``(k, v)`` or ``(ssm state, conv
+    tail)``."""
+    x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
     if entry["kind"] == "attn":
         a, kv_cache = attn_block(h, lp, cfg, ctx, positions, entry["window"],
                                  entry["theta"])
-        x = x + a
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + mlp_block(h, lp), kv_cache
+        x, h = residual_norm(x, a, lp["ln2"], cfg.norm_eps)
+        return x, mlp_block(h, lp), kv_cache
     y, (hstate, conv_tail) = mam.mamba1_block(h, lp, cfg)
-    return x + y, (hstate, conv_tail)
+    return x, y, (hstate, conv_tail)
 
 
 def layer_params(params, i: int) -> Dict[str, torch.Tensor]:
@@ -244,11 +250,14 @@ def run_stack(x, params, cfg: ModelConfig, ctx: ShardCtx, positions,
     check_family(cfg)
     plan, _ = layer_plan(cfg)
     caches = []
+    pending = None
     for i, entry in enumerate(plan):
-        x, c = _layer_body(x, layer_params(params, i), cfg, ctx, entry,
-                           positions)
+        x, pending, c = _layer_body(x, pending, layer_params(params, i), cfg,
+                                    ctx, entry, positions)
         if collect_cache:
             caches.append(c)
+    if pending is not None:
+        x = x + pending
     if not collect_cache:
         return x, ()
     return x, tuple(torch.stack(parts, 0) for parts in zip(*caches))

@@ -4,9 +4,11 @@ They build the CUDA kernels with ``nvcc``, launch them, and hold them and
 the engine on the card against the plain PyTorch versions and the host
 NumPy engine: the group reduces bit for bit, the model kernels (rmsnorm,
 flash_attention, selective_scan) at the JAX package's kernel tolerances.
-The gather form of ``group_min_scale`` is held bit-equal to its plain
-version, and the bfloat16 tensor-core attention kernel to the float32 plain
-version within 2e-2, at long and wide shapes too.  Without a CUDA device
+The gather forms of ``group_min_scale`` and ``group_max`` are held
+bit-equal to their plain versions, the residual form of ``rmsnorm`` bit-equal
+in its sum and within the norm's tolerance, and the bfloat16 tensor-core
+attention kernel to the float32 plain version within 2e-2, at long and wide
+shapes too.  Without a CUDA device
 every test here skips with a reason
 (decided inside the test, never at import).  This file imports ``torch``
 and ``repro_torch`` only, so it also runs on a machine without JAX:
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import annealing, cluster, dedication, plan, simulator
 from repro_torch.core.memory import enumerate_confs
 from repro_torch.core.torch_engine import TorchDedicationEngine
@@ -26,7 +29,11 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import group_reduce as gr
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import selective_scan as ss
+from repro_torch.launch import generate as gen_cli
+from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import ShardCtx
+from repro_torch.models.transformer import init_params
 
 pytestmark = pytest.mark.gpu
 
@@ -121,6 +128,40 @@ def test_group_min_scale_gather_kernel_bit_equal_to_plain(rows, tp, cp, n,
             table.cpu(), perm.cpu(), ref_bw, *geom))
 
 
+#: (B, pp, nc): the CPU tests' cases, more stages than warps in a block
+#: (pp 40), more members than lanes (nc 512), and a tiered plan's size.
+MAX_GATHER_CASES = [(1, 1, 3), (3, 3, 16), (16, 8, 4), (257, 1, 8),
+                    (5, 40, 3), (4, 2, 512), (64, 8, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("b,pp,nc", MAX_GATHER_CASES, ids=str)
+def test_group_max_gather_kernel_bit_equal_to_plain(b, pp, nc, dtype):
+    _need_cuda()
+    rng = np.random.default_rng(b * 131 + pp * 7 + nc)
+    n = pp * nc
+    slow = torch.from_numpy(rng.uniform(1.0, 3.0, size=n)).to(dtype).cuda()
+    perm = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(b)]))
+    perm = perm.cuda()
+    cw = torch.from_numpy(rng.uniform(0.5, 2.0, size=(b, pp))).to(dtype)
+    cw = cw.cuda()
+    before = gr.group_max.launches
+    key = ("gather", b, pp, nc, n)
+    before_key = gr.group_max.shapes[key]
+    c_x, c_max = gr.group_max_gather(slow, perm, cw, nc)
+    torch.cuda.synchronize()
+    assert gr.group_max.launches == before + 1
+    assert gr.group_max.shapes[key] == before_key + 1
+    assert c_x.shape == (b, pp) and c_max.shape == (b,)
+    assert c_x.dtype == c_max.dtype == dtype
+    want = gr.group_max_gather_ref(slow, perm, cw, nc)
+    assert torch.equal(c_x, want[0]) and torch.equal(c_max, want[1])
+    host = gr.group_max_gather_ref(slow.cpu(), perm.cpu(), cw.cpu(), nc)
+    assert torch.equal(c_x.cpu(), host[0])
+    assert torch.equal(c_max.cpu(), host[1])
+
+
 def test_wrappers_raise_on_cuda_tensors_they_do_not_take():
     _need_cuda()
     sub = torch.ones(4, 2, 4, dtype=torch.float64, device="cuda")
@@ -131,6 +172,15 @@ def test_wrappers_raise_on_cuda_tensors_they_do_not_take():
     empty = gr.group_max(torch.ones(0, 4, dtype=torch.float64,
                                     device="cuda"))
     assert empty.shape == (0,)
+    slow = torch.ones(6, dtype=torch.float64, device="cuda")
+    perm = torch.arange(6, device="cuda")[None]
+    cw = torch.ones(1, 2, dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError):
+        gr.group_max_gather(slow, perm.int(), cw, 3)
+    with pytest.raises(ValueError):
+        gr.group_max_gather(slow, perm, cw, 2)
+    with pytest.raises(ValueError):                    # perm on the host
+        gr.group_max_gather(slow, perm.cpu(), cw, 3)
 
 
 def test_score_on_the_card_hex_equal_to_host_engine():
@@ -236,6 +286,72 @@ def test_rmsnorm_kernel_mixed_types_and_strided_rows():
     x32 = _randn(rng, (6, 256), torch.float32)
     wb = _randn(rng, (256,), torch.bfloat16)
     _close(rn.rmsnorm(x32, wb), rn.rmsnorm_ref(x32, wb), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES + [(7, 100)], ids=str)
+def test_add_rmsnorm_kernel_matches_plain(shape, dtype):
+    _need_cuda()
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = _randn(rng, shape, dtype, 3.0)
+    r = _randn(rng, shape, dtype)
+    w = _randn(rng, shape[-1:], dtype)
+    before = rn.rmsnorm.launches
+    key = ("add", x.shape, dtype, dtype)
+    before_key = rn.rmsnorm.shapes[key]
+    s, y = rn.add_rmsnorm(x, r, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.launches == before + 1
+    assert rn.rmsnorm.shapes[key] == before_key + 1
+    assert s.shape == y.shape == x.shape and s.dtype == y.dtype == dtype
+    want_s, want_y = rn.add_rmsnorm_ref(x, r, w, 1e-5)
+    assert torch.equal(s, want_s)
+    _close(y, want_y, 1e-5 if dtype == torch.float32 else 3e-2)
+
+
+def test_add_rmsnorm_kernel_unaligned_rows_and_mixed_types():
+    _need_cuda()
+    rng = np.random.default_rng(9)
+    # a 2-byte offset: the kernel takes one element at a time
+    flat = _randn(rng, (6 * 256 + 1,), torch.bfloat16)
+    x = flat[1:].view(6, 256)
+    r = _randn(rng, (6, 256), torch.bfloat16)
+    for w in (_randn(rng, (256,), torch.float32),
+              _randn(rng, (256,), torch.bfloat16)):
+        s, y = rn.add_rmsnorm(x, r, w)
+        want_s, want_y = rn.add_rmsnorm_ref(x, r, w)
+        assert torch.equal(s, want_s)
+        _close(y, want_y, 3e-2)
+    with pytest.raises(TypeError):
+        rn.add_rmsnorm(x, r.float(), w)
+    with pytest.raises(ValueError):
+        rn.add_rmsnorm(x, r.T.contiguous().T, w)        # not contiguous
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "falcon-mamba-7b"])
+def test_generation_norms_split_plain_and_residual_on_the_card(arch):
+    """A prefill launches one plain norm over the sequence, ``norms - 2``
+    residual norms and one plain norm of the last row; a decode step one
+    plain and ``norms - 1`` residual ones."""
+    _need_cuda()
+    cfg = configs.get(arch).reduced()
+    params = init_params(cfg, seed=0)
+    ctx = ShardCtx()
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    norms = 1 + (2 if cfg.family == "dense" else 1) * cfg.n_layers
+    rn.rmsnorm.launches = 0
+    rn.rmsnorm.shapes.clear()
+    _, cache = M.prefill(params, cfg, ctx, toks[:, :16])
+    M.decode_step(params, cfg, ctx, toks[:, 16:],
+                  gen_cli.grow_cache(cache, 1), 16)
+    torch.cuda.synchronize()
+    dt, d = params["final_norm"].dtype, cfg.d_model
+    assert rn.rmsnorm.launches == 2 * norms
+    assert dict(rn.rmsnorm.shapes) == {
+        ((2, 16, d), dt, dt): 1, ("add", (2, 16, d), dt, dt): norms - 2,
+        ((2, 1, d), dt, dt): 2, ("add", (2, 1, d), dt, dt): norms - 1}
 
 
 def _attention_inputs(case, dtype, layout):

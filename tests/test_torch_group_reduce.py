@@ -2,7 +2,8 @@
 
 The plain PyTorch versions are held bit-equal (float64) to the JAX
 package's ``*_ref`` functions and to its Pallas kernels run in interpret
-mode, on the same NumPy inputs.  The CUDA kernels themselves can only run
+mode, on the same NumPy inputs; the gather forms to the engine's sequence
+of gather, JAX reduce and the folds around it.  The CUDA kernels themselves can only run
 on a card: their tests (``tests/test_torch_gpu.py``) carry the ``gpu``
 marker and skip without one.
 float64 on the JAX side comes from the scoped ``jax.enable_x64`` — never a
@@ -211,5 +212,92 @@ _P8 = torch.arange(8)[None]
 ], ids=["f16-table", "int32-perm", "table-not-square", "perm-1d",
         "m-not-dividing", "group-past-row", "perm-strided", "ndarray"])
 def test_gather_form_refuses_what_the_kernel_does_not_take(bad, err):
+    with pytest.raises(err):
+        bad()
+
+
+# ---------------------------------------------------------------------------
+# group_max, gather form: stage members read through the permutation
+# ---------------------------------------------------------------------------
+
+#: (B, pp, nc): the row-max shapes above as (B * pp, nc), with the stages
+#: of one permutation row split as a tiered score splits them.
+MAX_GATHER_CASES = [(1, 1, 3), (3, 3, 16), (16, 8, 4), (257, 1, 8)]
+
+
+def _max_gather_inputs(b, pp, nc):
+    rng = np.random.default_rng(b * 131 + pp * 7 + nc)
+    n = pp * nc
+    slow = rng.uniform(1.0, 3.0, size=n)
+    slow[rng.integers(n)] = 1.0                  # ties with the fast tier
+    perm = np.stack([rng.permutation(n) for _ in range(b)])
+    cw = rng.uniform(0.5, 2.0, size=(b, pp)) * 1e-3
+    return slow, perm, cw
+
+
+@pytest.mark.parametrize("b,pp,nc", MAX_GATHER_CASES, ids=str)
+def test_group_max_gather_plain_bit_equal_to_jax(b, pp, nc):
+    slow, perm, cw = _max_gather_inputs(b, pp, nc)
+    with jax.enable_x64(True):
+        sv = ref_gr.group_max_ref(jnp.asarray(slow)[perm.reshape(b * pp,
+                                                                   nc)])
+        c_x_want = jnp.asarray(cw) * sv.reshape(b, pp)
+        want = (np.asarray(c_x_want), np.asarray(c_x_want.max(axis=1)))
+    assert want[0].dtype == np.float64
+    args = (torch.from_numpy(slow), torch.from_numpy(perm),
+            torch.from_numpy(cw), nc)
+    got_plain = gr.group_max_gather_ref(*args)
+    got_wrap = gr.group_max_gather(*args)           # CPU: the plain version
+    assert got_plain[0].shape == (b, pp) and got_plain[1].shape == (b,)
+    for got in (got_plain, got_wrap):
+        for g, w in zip(got, want):
+            assert g.numpy().tobytes() == w.tobytes()
+
+
+def test_group_max_gather_plain_bit_equal_to_pallas_interpret():
+    b, pp, nc = 9, 4, 16
+    slow, perm, cw = _max_gather_inputs(b, pp, nc)
+    with jax.enable_x64(True):
+        sv = ref_gr.group_max(jnp.asarray(slow)[perm.reshape(b * pp, nc)],
+                              interpret=True)
+        c_x_want = np.asarray(jnp.asarray(cw) * sv.reshape(b, pp))
+    c_x, c_max = gr.group_max_gather_ref(torch.from_numpy(slow),
+                                         torch.from_numpy(perm),
+                                         torch.from_numpy(cw), nc)
+    assert c_x.numpy().tobytes() == c_x_want.tobytes()
+    assert c_max.numpy().tobytes() == c_x_want.max(axis=1).tobytes()
+
+
+def test_group_max_gather_cpu_calls_do_not_count_as_launches():
+    before = (gr.group_max.launches, dict(gr.group_max.shapes))
+    slow, perm, cw = (torch.from_numpy(a) for a in _max_gather_inputs(2, 2,
+                                                                        3))
+    gr.group_max_gather(slow, perm, cw, 3)
+    assert (gr.group_max.launches, dict(gr.group_max.shapes)) == before
+
+
+_S6 = torch.ones(6, dtype=torch.float64)
+_PM6 = torch.arange(6)[None]
+_CW2 = torch.ones(1, 2, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda: gr.group_max_gather(_S6, _PM6, _CW2.float(), 3), TypeError),
+    (lambda: gr.group_max_gather(_S6.half(), _PM6, _CW2.half(), 3),
+     TypeError),
+    (lambda: gr.group_max_gather(_S6, _PM6.int(), _CW2, 3), TypeError),
+    (lambda: gr.group_max_gather(_S6.numpy(), _PM6, _CW2, 3), TypeError),
+    (lambda: gr.group_max_gather(_S6, _PM6, _CW2, 2), ValueError),
+    (lambda: gr.group_max_gather(_S6, _PM6.repeat(2, 1), _CW2, 3),
+     ValueError),
+    (lambda: gr.group_max_gather(_S6, _PM6[0], _CW2, 3), ValueError),
+    (lambda: gr.group_max_gather(_S6, _PM6, _CW2, 0), ValueError),
+    (lambda: gr.group_max_gather(_S6, _PM6.repeat(1, 2)[:, ::2], _CW2, 3),
+     ValueError),
+    (lambda: gr.group_max_gather(_S6, _PM6, _CW2.repeat(1, 2)[:, ::2], 3),
+     ValueError),
+], ids=["mixed-types", "f16", "int32-perm", "ndarray", "nc-not-tiling",
+        "cw-rows", "perm-1d", "nc-0", "perm-strided", "cw-strided"])
+def test_group_max_gather_refuses_what_the_kernel_does_not_take(bad, err):
     with pytest.raises(err):
         bad()

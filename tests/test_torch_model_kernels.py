@@ -1,9 +1,10 @@
 """Model kernels of the PyTorch package against the JAX package's.
 
-Each plain PyTorch version (``rmsnorm_ref``, ``flash_attention_ref``,
-``selective_scan_ref``) is held to the JAX package's oracle in
-``repro.kernels.ref`` on the same NumPy inputs, at the reference's own
-tolerances (``tests/test_kernels.py``); one small case per kernel also runs
+Each plain PyTorch version (``rmsnorm_ref``, ``add_rmsnorm_ref``,
+``flash_attention_ref``, ``selective_scan_ref``) is held to the JAX
+package's oracle in ``repro.kernels.ref`` on the same NumPy inputs, at the
+reference's own tolerances (``tests/test_kernels.py``); the residual form's
+sum is held bit-equal to jnp's add.  One small case per kernel also runs
 the Pallas kernel in interpret mode.  On the CPU each wrapper takes its plain
 version and counts no launch.  The CUDA kernels can only run on a card:
 their tests (``tests/test_torch_gpu.py``) carry the ``gpu`` marker and skip
@@ -326,5 +327,67 @@ def test_cpu_calls_do_not_count_as_launches():
 ], ids=["rms-f16", "rms-w-shape", "fa-head-dim", "fa-groups", "fa-types",
         "fa-head-stride", "scan-n", "scan-A-type", "scan-mixed"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(call, err):
+    with pytest.raises(err):
+        call()
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm, residual form: s = x + r, then the norm of s
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,d,bf16", RMS_CASES)
+def test_add_rmsnorm_plain_matches_jax_add_and_oracle(rows, d, bf16):
+    rng = np.random.default_rng(rows * 1000 + d + 7)
+    xj, xt = _pair(rng.standard_normal((rows, d)).astype(np.float32) * 3,
+                   bf16)
+    rj, rt = _pair(rng.standard_normal((rows, d)).astype(np.float32), bf16)
+    wj, wt = _pair(rng.standard_normal(d).astype(np.float32), bf16)
+    sj = xj + rj
+    want_y = ref.rmsnorm_ref(sj, wj)
+    tol = 3e-2 if bf16 else 1e-5
+    for s, y in (rn.add_rmsnorm_ref(xt, rt, wt), rn.add_rmsnorm(xt, rt, wt)):
+        assert s.dtype == y.dtype == xt.dtype
+        assert s.shape == y.shape == xt.shape
+        # the sum is bit-equal to jnp's add in either type
+        assert s.view(torch.int16 if bf16 else torch.int32).numpy() \
+            .tobytes() == np.asarray(sj).tobytes()
+        np.testing.assert_allclose(_np32(y), _np32(want_y), rtol=tol,
+                                   atol=tol)
+
+
+def test_add_rmsnorm_pallas_interpret_case():
+    rng = np.random.default_rng(6)
+    xj, xt = _pair(rng.standard_normal((20, 128)).astype(np.float32), False)
+    rj, rt = _pair(rng.standard_normal((20, 128)).astype(np.float32), False)
+    wj, wt = _pair(rng.standard_normal(128).astype(np.float32), False)
+    out = pallas_rms(xj + rj, wj, interpret=True, block_rows=8)
+    s, y = rn.add_rmsnorm_ref(xt, rt, wt)
+    np.testing.assert_allclose(_np32(y), _np32(out), rtol=1e-5, atol=1e-5)
+
+
+def test_add_rmsnorm_cpu_calls_do_not_count_as_launches():
+    before = (rn.rmsnorm.launches, dict(rn.rmsnorm.shapes))
+    x = torch.ones(3, 32)
+    rn.add_rmsnorm(x, x, torch.ones(32))
+    assert (rn.rmsnorm.launches, dict(rn.rmsnorm.shapes)) == before
+
+
+_X = torch.ones(3, 8)
+
+
+@pytest.mark.parametrize("call,err", [
+    (lambda: rn.add_rmsnorm(_X, _X.bfloat16(), torch.ones(8)), TypeError),
+    (lambda: rn.add_rmsnorm(_X.half(), _X.half(), torch.ones(8)), TypeError),
+    (lambda: rn.add_rmsnorm(_X, _X.numpy(), torch.ones(8)), TypeError),
+    (lambda: rn.add_rmsnorm(_X, torch.ones(1, 8), torch.ones(8)),
+     ValueError),
+    (lambda: rn.add_rmsnorm(_X, _X, torch.ones(4)), ValueError),
+    (lambda: rn.add_rmsnorm(_X, torch.ones(8, 3).T, torch.ones(8)),
+     ValueError),
+    (lambda: rn.add_rmsnorm(torch.ones(3, 16)[:, ::2], _X, torch.ones(8)),
+     ValueError),
+], ids=["mixed-types", "f16", "ndarray", "broadcast", "w-width",
+        "r-strided", "x-strided"])
+def test_add_rmsnorm_refuses_what_the_kernel_does_not_take(call, err):
     with pytest.raises(err):
         call()

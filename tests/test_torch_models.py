@@ -372,3 +372,37 @@ def test_init_cache_matches_reference_shapes(arch, overrides):
         assert tuple(mine[k].shape) == theirs[k].shape, k
         assert str(mine[k].dtype).split(".")[-1] == str(theirs[k].dtype), k
         assert not mine[k].any()
+
+
+@pytest.mark.parametrize("arch,overrides,s", ARCHS, ids=[a[0] for a in ARCHS])
+def test_norms_take_the_pending_residual_in_one_call(arch, overrides, s,
+                                                     monkeypatch):
+    """With ``norms = 1 + k * L`` (k = 2 dense, 1 Mamba1) a prefill makes
+    one plain norm over the sequence, ``norms - 2`` residual ones over the
+    sequence and one plain norm of the last row; a decode step one plain
+    and ``norms - 1`` residual ones — the split the card's launch counts
+    show."""
+    cfg = configs.get(arch).reduced(**overrides)
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    calls = []
+    rmsnorm, add_rmsnorm = layers.rmsnorm, layers.add_rmsnorm
+
+    def plain(x, w, eps):
+        calls.append(("plain", x.shape[1]))
+        return rmsnorm(x, w, eps)
+
+    def fused(x, r, w, eps):
+        calls.append(("add", x.shape[1]))
+        return add_rmsnorm(x, r, w, eps)
+
+    monkeypatch.setattr(layers, "rmsnorm", plain)
+    monkeypatch.setattr(layers, "add_rmsnorm", fused)
+    norms = 1 + (2 if cfg.family == "dense" else 1) * cfg.n_layers
+    toks = torch.from_numpy(_rng(4).integers(0, cfg.vocab_size, (2, s + 1)))
+    last, cache = M.prefill(params, cfg, CTX, toks[:, :s])
+    assert calls == [("plain", s)] + [("add", s)] * (norms - 2) \
+        + [("plain", 1)]
+    calls.clear()
+    M.decode_step(params, cfg, CTX, toks[:, s:], gen_cli.grow_cache(cache, 1),
+                  s)
+    assert calls == [("plain", 1)] + [("add", 1)] * (norms - 1)
