@@ -13,20 +13,29 @@ kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
 non-zero without them.  Every phase prints one JSON line; any mismatch is a
 failed assertion (non-zero exit, no final line).
 
-Phases: ``env``, ``build`` (with the ``ptxas`` report: the bfloat16 D=128
-attention instance must not spill, and the cost of reading the stream
-handle and the device index both ways), ``kernels`` (group-reduce kernels
+Phases: ``env`` (with the SM count and maximum SM clock that set the
+exponentials' rate of the scan's bound), ``build`` (with the ``ptxas``
+report: the bfloat16 D=128 attention instance must not spill, the scan's
+registers and spills per instance, none of which may spill, and the cost
+of reading the stream handle and the device index both ways), ``kernels``
+(group-reduce kernels
 bit-equal at ragged shapes, both forms of ``group_min_scale`` and of
 ``group_max``), ``plan_uniform``
 (gpt-3.1b on 128 GPUs, estimator fitted on the card), ``plan_tiered``
 (gpt-11.1b on a 1024-GPU mixed fleet, hierarchical search),
 ``kernels_at_path_shapes``, ``model_kernels`` (rmsnorm in both forms,
-flash_attention, selective_scan against their plain versions at ragged
+flash_attention, selective_scan in both forms — the fused one over a
+sequence and as a decode step — against their plain versions at ragged
 shapes, float32 and bfloat16, and the tensor-core attention at 2048 keys
-and D=256; a misaligned bfloat16 view is refused), ``generate_qwen2_7b``
+and D=256; a misaligned bfloat16 view is refused), ``scan_at_falcon_shapes``
+(the plain-form scan at falcon-mamba-7b's prefill shape in both types, and
+the fused form at its prefill and step shapes in float32, checked and
+timed), ``scan_by_batch`` (the plain form at that prefill shape with batch
+1, 4 and 16, beside the warps an SM holds at each), ``generate_qwen2_7b``
 and ``generate_falcon_mamba_7b`` (full width and depth, batch 4, prompt
 512, 32 tokens, weights from a seeded generator on the card; exact launch
-counts, and the split of plain and residual norms), ``slice_check_*``
+counts, the split of plain and residual norms, and falcon's scans all in
+the fused form: one a layer per prefill and per step), ``slice_check_*``
 (each model at full width and 2 layers: the card's prefill logits against
 the host's, and the first decode step against ``forward_logits`` at the
 next position), ``model_kernels_at_path_shapes`` and ``host_cost`` (host
@@ -41,8 +50,11 @@ phases check the kernels and take their times at exactly those shapes.
 The forms that fuse their callers' ATen operations are timed beside
 ``unfused_ms``, the sequence each replaces: the gather form of
 ``group_min_scale`` (gather, sub-form kernel, ``amax``, ``clamp_min``), the
-gather form of ``group_max`` (gather, row-max kernel, multiply, ``amax``)
-and the residual form of ``rmsnorm`` (an ATen add, then the plain form).
+gather form of ``group_max`` (gather, row-max kernel, multiply, ``amax``),
+the residual form of ``rmsnorm`` (an ATen add, then the plain form) and
+the fused scan (ATen's bias add, softplus and ``-exp(A_log)``, the plain
+form's kernel or, for a step, ATen's one-step update and the copy into the
+cache row, then the D skip, the gate and the cast).
 Then one ``{"kernels": [...]}`` line for all five kernels, the
 ``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
 """
@@ -79,6 +91,7 @@ from repro_torch.launch import generate as gen_cli  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.layers import silu  # noqa: E402
 from repro_torch.models.sharding import ShardCtx  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 
@@ -89,6 +102,19 @@ from repro_torch.models.transformer import init_params  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+#: Exponentials a clock on one SM (the special function units: 16 a clock
+#: on compute capability 9.0, CUDA programming guide's throughput table);
+#: the rate of the card is this times its SMs and its maximum SM clock,
+#: both read in ``main`` (``EXP_PER_S``).
+EXP_PER_SM_CLOCK = 16
+EXP_PER_S = None
+#: Per-SM limits of compute capability 9.0 (CUDA programming guide's table
+#: of technical specifications) that set how many blocks of a kernel an SM
+#: holds, with its shared memory per SM read from the device: 32-bit
+#: registers, allocated to a warp in units of 256; shared memory the system
+#: keeps per block; blocks; threads.
+REGS_PER_SM, REG_UNIT, SMEM_PER_BLOCK_RESERVED = 65536, 256, 1024
+BLOCKS_PER_SM, THREADS_PER_SM = 32, 2048
 
 #: Ragged shapes (groups or rows, m) checked besides the main path's own,
 #: which are not listed here: the wrappers record every shape the two plan
@@ -663,8 +689,12 @@ def profile_sa(device) -> dict:
 #: the JAX package's own, from its kernel tests (``tests/test_kernels.py``).
 #: The sums run in another order, ``rsqrtf``/``expf`` are within 2 ulp, and
 #: in bfloat16 an output may round to the neighbouring value.
+#: The fused scan's output is held at the bfloat16 kernel tolerance in that
+#: type (one rounding of a gated product may land on the neighbouring
+#: value), its float32 state at the scan's 2e-4 in either type.
 TOL = {"rmsnorm": (1e-5, 3e-2), "flash_attention": (2e-5, 2e-2),
        "selective_scan": (2e-4, 2e-4)}
+TOL_FUSED_STATE = 2e-4
 RAGGED_RMS = [((rows, d), dt) for rows in (1, 2, 7, 33, 64, 70)
               for d in (32, 128, 384, 3584, 4096)
               for dt in ("float32", "bfloat16")]
@@ -685,9 +715,15 @@ RAGGED_FA_BF16 = [
     (1, 4, 2, 2048, 2048, 128, True, 0), (2, 4, 1, 100, 2048, 64, False, 0),
     (1, 2, 1, 300, 300, 256, True, 0), (1, 2, 2, 257, 257, 256, True, 50),
 ]
-#: (b, s, d, n): the JAX package's sweep (``SCAN_CASES``) and a ragged one.
+#: (b, s, d, n): the JAX package's sweep (``SCAN_CASES``), a ragged one,
+#: and an odd width and state size.
 RAGGED_SCAN = [(2, 64, 32, 8), (1, 96, 16, 4), (2, 128, 64, 16),
-               (1, 50, 24, 8), (1, 17, 100, 16)]
+               (1, 50, 24, 8), (1, 17, 100, 16), (2, 21, 45, 7)]
+#: falcon-mamba-7b's scan at batch 4: prefill (S 512) and decode-step shape.
+FALCON_SCAN, FALCON_STEP = (4, 512, 8192, 16), (4, 1, 8192, 16)
+#: Threads and channels a block of the scan kernel
+#: (``csrc/selective_scan.cu``: 4 lanes a channel, two channels a thread).
+SCAN_BLOCK_THREADS, SCAN_BLOCK_CHANNELS = 64, 32
 
 
 def _dtype(name) -> torch.dtype:
@@ -725,6 +761,8 @@ def model_inputs(name: str, key: tuple, device) -> tuple:
         k = _randn(gen, (b, sk, kv, d), _dtype(dt), device).transpose(1, 2)
         v = _randn(gen, (b, sk, kv, d), _dtype(dt), device).transpose(1, 2)
         return (q, k, v), {"causal": causal, "window": window}
+    if key[0] == "fused":
+        return fused_inputs(gen, key, device)
     (b, s, d), n, dt = key
     dt_rank = -(-d // 32)            # d_inner = 2 d_model, dt_rank = d_model/16
     x = _randn(gen, (b, s, d), _dtype(dt), device, 0.5)
@@ -733,7 +771,31 @@ def model_inputs(name: str, key: tuple, device) -> tuple:
     proj = _randn(gen, (b, s, dt_rank + 2 * n), _dtype(dt), device)
     B, C = proj[..., dt_rank:dt_rank + n], proj[..., dt_rank + n:]
     A = -torch.exp(_randn(gen, (d, n), torch.float32, device, 0.3))
-    return (x, delta, B, C, A), {}
+    h0 = _randn(gen, (b, d, n), torch.float32, device)
+    return (x, delta, B, C, A, h0), {}
+
+
+def fused_inputs(gen, key: tuple, device) -> tuple:
+    """Inputs of the fused scan as ``mamba1_block`` hands them: ``x`` after
+    ``silu``, ``dt`` a new GEMM output, ``B, C`` column slices of one
+    projection (``dt_rank + 2N`` wide), ``z`` the second half of ``xz``,
+    ``A_log`` near ``log(1..N)``, and ``h_out`` the tensor ``h0`` itself (a
+    decode cache row, updated in place)."""
+    _, (b, s, d), n, dt, step = key
+    io = _dtype(dt)
+    rank = -(-d // 32)
+    xz = _randn(gen, (b, s, 2 * d), io, device)
+    x = silu(xz[..., :d].float()).to(io)
+    proj = _randn(gen, (b, s, rank + 2 * n), io, device)
+    A_log = (torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                    device=device)).expand(d, n)
+             + _randn(gen, (d, n), torch.float32, device, 0.1))
+    h = _randn(gen, (b, d, n), torch.float32, device)
+    return ((x, _randn(gen, (b, s, d), io, device, 0.5),
+             _randn(gen, (d,), torch.float32, device, 0.5) - 2.0,
+             proj[..., rank:rank + n], proj[..., rank + n:],
+             A_log.contiguous(), _randn(gen, (d,), torch.float32, device),
+             xz[..., d:], h, h), {"step": step})
 
 
 def model_library(name: str, key: tuple):
@@ -757,10 +819,12 @@ def model_library(name: str, key: tuple):
 
 
 def model_bound(name: str, key: tuple, args, outs) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes over the memory rate (each
-    input read once, each output written once) and operations over the
-    peak rate for the inputs' type — bfloat16 products at the tensor-core
-    rate, everything else at the float32 rate.  The attention's operations
+    """(bound_ms, bound_by): the largest of bytes over the memory rate
+    (each input read once, each output written once) and operations over
+    the peak rate for the inputs' type — bfloat16 products at the
+    tensor-core rate, everything else at the float32 rate — and, for the
+    scan, its ``b*S*D*N`` exponentials over the special function units'
+    rate (``EXP_PER_S``; ``bound_by`` "exp").  The attention's operations
     count only the (query, key) pairs this mask allows."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors + list(outs))
@@ -772,12 +836,17 @@ def model_bound(name: str, key: tuple, args, outs) -> tuple:
         pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu").sum())
         ops = 4 * qs[0] * qs[1] * qs[3] * pairs
         rate = BF16_OPS_PER_S if "bfloat16" in dt else OPS_PER_S
-    else:
-        x, n = args[0], key[1]
+    else:                          # either form of the scan
+        x, n = args[0], (key[2] if key[0] == "fused" else key[1])
         ops, rate = 7 * x.numel() * n + x.numel(), OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+        if key[0] == "fused":      # h_out is h0: its bytes count once each way
+            nbytes -= args[-1].numel() * 4
+        t_exp = x.numel() * n / EXP_PER_S
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / rate}
+    if name == "selective_scan":
+        terms["exp"] = t_exp
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
 
 
 MODEL_CALLS = {
@@ -785,7 +854,20 @@ MODEL_CALLS = {
     "add_rmsnorm": (rn.add_rmsnorm, rn.add_rmsnorm_ref),
     "flash_attention": (fa.flash_attention, fa.flash_attention_ref),
     "selective_scan": (ss.selective_scan, ss.selective_scan_ref),
+    "selective_scan_fused": (ss.selective_scan_fused,
+                             ss.selective_scan_fused_ref),
 }
+
+
+def _form(name: str, key: tuple):
+    """The form a shape key names: None for a plain-form key, "add" for
+    the residual form of ``rmsnorm``, "fused" / "fused_step" for the fused
+    scan over a sequence / for a decode step."""
+    if name == "rmsnorm" and key[0] == "add":
+        return "add"
+    if name == "selective_scan" and key[0] == "fused":
+        return "fused_step" if key[-1] else "fused"
+    return None
 
 
 def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
@@ -794,23 +876,40 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
     (CUDA-graph replay), ``plain_ms``, ``library_ms`` and the bound.  A
     residual-form key of ``rmsnorm`` (``("add", ...)``) checks the sum
     ``s`` bit for bit, and is timed beside ``unfused_ms``: an ATen add,
-    then the plain form's kernel."""
-    form = "add" if name == "rmsnorm" and key[0] == "add" else None
-    kernel, plain = MODEL_CALLS["add_rmsnorm" if form else name]
+    then the plain form's kernel.  A fused-scan key (``("fused", ...)``)
+    gives each side its own copy of the state it updates in place, and is
+    timed beside ``unfused_ms``: its plain version with the plain form's
+    kernel for the scan over a sequence (the ATen sequence that
+    ``mamba1_block`` ran before the fused form)."""
+    form = _form(name, key)
+    call = {"add": "add_rmsnorm", "fused": "selective_scan_fused",
+            "fused_step": "selective_scan_fused"}.get(form, name)
+    kernel, plain = MODEL_CALLS[call]
     args, kw = model_inputs(name, key, device)
-    got = kernel(*args, **kw)
+    fused = call == "selective_scan_fused"
+
+    def own_state(a):              # (..., h0, h_out) -> a fresh shared copy
+        h = a[-1].clone()
+        return a[:-2] + (h, h)
+
+    got = kernel(*(own_state(args) if fused else args), **kw)
     torch.cuda.synchronize()
-    want = plain(*args, **kw)
+    want = plain(*(own_state(args) if fused else args), **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    if form:
+    if form == "add":
         assert torch.equal(got[0], want[0]), (name, key, "s = x + r")
     tol = TOL[name][1 if got[0].dtype == torch.bfloat16 else 0]
+    tols = [tol] * len(got)
+    if fused:
+        tol = [2e-2 if got[0].dtype == torch.bfloat16 else 2e-4,
+               TOL_FUSED_STATE]
+        tols = tol
     err = 0.0
-    for g, w in zip(got, want):
+    for g, w, t in zip(got, want, tols):
         assert g.shape == w.shape and g.dtype == w.dtype, (name, key)
         diff = (g.float() - w.float()).abs()
-        assert bool((diff <= tol + tol * w.float().abs()).all()), \
+        assert bool((diff <= t + t * w.float().abs()).all()), \
             (name, key, float(diff.max()))
         err = max(err, float(diff.max()))
     row = {"name": name, "key": json.loads(json.dumps(key, default=str)),
@@ -824,9 +923,12 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
                "plain_ms": lambda: plain(*args, **kw)}
         if library is not None:
             fns["library_ms"] = lambda: library(*args, **kw)
-        if form:
+        if form == "add":
             x, r, w, eps = args
             fns["unfused_ms"] = lambda: rn.rmsnorm(x + r, w, eps)
+        if fused:
+            fns["unfused_ms"] = lambda: plain(*args, scan=ss.selective_scan,
+                                              **kw)
         row.update({"library_ms": None,
                     **interleaved(lambda fn: time_ms(fn, reps=0), fns)})
         row.update(device_ms=device_ms(lambda: kernel(*args, **kw)),
@@ -848,6 +950,10 @@ def check_model_ragged(device) -> list:
         rows += [check_model_kernel("selective_scan", ((b, s, d), n, dt),
                                     device, False)
                  for b, s, d, n in RAGGED_SCAN]
+        rows += [check_model_kernel(
+            "selective_scan", ("fused", (b, 1 if step else s, d), n, dt,
+                               step), device, False)
+            for b, s, d, n in RAGGED_SCAN for step in (False, True)]
     rows += [check_model_kernel(
         "flash_attention", ((b, h, sq, d), (b, kv, sk, d), causal, window,
                             "bfloat16"), device, False)
@@ -857,6 +963,8 @@ def check_model_ragged(device) -> list:
     x = torch.ones(1, 4, 8, device=device)
     bn = torch.ones(1, 4, 32, device=device)
     odd = torch.ones(1, 2, 8, 36, dtype=torch.bfloat16, device=device)
+    w8, b2 = torch.ones(8, device=device), torch.ones(1, 4, 2, device=device)
+    a2 = torch.zeros(8, 2, device=device)
     for bad in (lambda: fa.flash_attention(q, q, q),
                 lambda: fa.flash_attention(odd[..., :32], odd[..., :32],
                                            odd[..., :32]),        # stride 36
@@ -869,7 +977,15 @@ def check_model_ragged(device) -> list:
                                        .transpose(1, 2),
                                        torch.ones(8, device=device)),
                 lambda: ss.selective_scan(x, x, bn, bn,
-                                          torch.ones(8, 32, device=device))):
+                                          torch.ones(8, 32, device=device)),
+                lambda: ss.selective_scan_fused(
+                    x, x, w8, bn, bn, torch.ones(8, 32, device=device), w8,
+                    x),
+                lambda: ss.selective_scan_fused(
+                    x, x.bfloat16(), w8, b2, b2, a2, w8, x),
+                lambda: ss.selective_scan_fused(
+                    x, x, w8, b2, b2, a2, w8, x,
+                    h_out=torch.zeros(1, 8, 3, device=device))):
         try:
             bad()
         except (TypeError, ValueError):
@@ -893,6 +1009,60 @@ def check_model_path_shapes(device, shapes_by_phase: dict) -> list:
                                in shapes_by_phase.items()}
             rows.append(row)
     return rows
+
+
+def check_scan_at_falcon_shapes(device) -> list:
+    """Both forms of the scan at falcon-mamba-7b's shapes where the
+    generate phases do not reach them: the plain form (which the model no
+    longer launches) at the prefill shape in both types, with ``h0``; the
+    fused form at the prefill and the step shape in float32 (the path runs
+    them in bfloat16).  Checked and timed, no launches on the path."""
+    b, s, d, n = FALCON_SCAN
+    keys = [((b, s, d), n, dt) for dt in ("bfloat16", "float32")]
+    keys += [("fused", (b, shape[1], d), n, "float32", shape is FALCON_STEP)
+             for shape in (FALCON_SCAN, FALCON_STEP)]
+    rows = [check_model_kernel("selective_scan", key, device, True)
+            for key in keys]
+    for row in rows:
+        row["launches"] = {}
+    return rows
+
+
+def resident_blocks(regs: int, smem: int, threads: int) -> int:
+    """Blocks of a kernel (``regs`` registers a thread, ``smem`` bytes of
+    static shared memory, ``threads`` a block) that one SM holds at once:
+    the least of what its registers, its shared memory, its threads and its
+    block slots allow."""
+    warps = -(-threads // 32)
+    regs_warp = -(-regs * 32 // REG_UNIT) * REG_UNIT
+    smem_sm = torch.cuda.get_device_properties(0) \
+        .shared_memory_per_multiprocessor
+    return min(REGS_PER_SM // (regs_warp * warps),
+               smem_sm // (smem + SMEM_PER_BLOCK_RESERVED),
+               THREADS_PER_SM // threads, BLOCKS_PER_SM)
+
+
+def scan_by_batch(device, scan_regs: dict) -> dict:
+    """``device_ms`` of the plain form at falcon-mamba-7b's prefill shape in
+    bfloat16 with batch 1, 4 and 16, beside the warps an SM holds at each
+    (the blocks an SM is handed, up to what its registers and shared
+    memory allow for the kernel's ``ptxas`` figures, two warps a block)."""
+    b, s, d, n = FALCON_SCAN
+    inst = scan_regs["bf16 plain"]
+    cap = resident_blocks(inst["registers"], inst["smem"], SCAN_BLOCK_THREADS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"phase": "scan_by_batch", "shape": [s, d, n], "dtype": "bfloat16",
+           "resident_blocks_per_sm_max": cap}
+    for rows in (1, 4, 16):
+        args, _ = model_inputs("selective_scan", ((rows, s, d), n,
+                                                  "bfloat16"), device)
+        blocks = rows * -(-d // SCAN_BLOCK_CHANNELS)
+        out[f"batch_{rows}"] = {
+            "device_ms": device_ms(lambda args=args: ss.selective_scan(*args)),
+            "blocks": blocks,
+            "resident_warps_per_sm": min(blocks / sms, cap)
+            * SCAN_BLOCK_THREADS / 32}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -929,8 +1099,8 @@ def run_generate(name: str, arch: str, device) -> tuple:
     want["rmsnorm"] = norms * (1 + steps)          # per prefill, per step
     if cfg.family == "dense":
         want["flash_attention"] = cfg.n_layers     # per prefill
-    else:
-        want["selective_scan"] = cfg.n_layers      # per prefill
+    else:                                          # per prefill, per step
+        want["selective_scan"] = cfg.n_layers * (1 + steps)
     assert launches == want, (name, launches, want)
     # per prefill one plain norm over the sequence, norms - 2 residual
     # ones and one plain norm of the last row; per step one plain and
@@ -941,6 +1111,16 @@ def run_generate(name: str, arch: str, device) -> tuple:
              (last, bf, bf): 1 + steps,
              ("add", last, bf, bf): (norms - 1) * steps}
     assert shapes["rmsnorm"] == split, shapes["rmsnorm"]
+    # the scan only in its fused form: one a layer per prefill and per step
+    scans = {}
+    if cfg.family != "dense":
+        di, n = cfg.d_inner, cfg.ssm_state
+        scans = {("fused", (GEN_BATCH, GEN_PROMPT, di), n, bf, False):
+                 cfg.n_layers,
+                 ("fused", (GEN_BATCH, 1, di), n, bf, True):
+                 cfg.n_layers * steps}
+    assert shapes["selective_scan"] == scans, shapes["selective_scan"]
+    fused = cfg.n_layers if scans else 0
     line = {
         "phase": name, "model": cfg.name, "n_layers": cfg.n_layers,
         "d_model": d, "vocab": cfg.vocab_size, "batch": GEN_BATCH,
@@ -953,9 +1133,11 @@ def run_generate(name: str, arch: str, device) -> tuple:
         "launches_per_prefill": {"rmsnorm": norms,
                                  "rmsnorm_residual_form": norms - 2,
                                  "flash_attention": want["flash_attention"],
-                                 "selective_scan": want["selective_scan"]},
+                                 "selective_scan_fused": fused,
+                                 "selective_scan_plain_form": 0},
         "launches_per_decode_step": {"rmsnorm": norms,
-                                     "rmsnorm_residual_form": norms - 1},
+                                     "rmsnorm_residual_form": norms - 1,
+                                     "selective_scan_fused": fused},
         "sample": toks[0, :8].tolist(),
     }
     del res
@@ -1072,6 +1254,33 @@ def ptxas_spills(log: str) -> dict:
     return spills
 
 
+def scan_ptxas(log: str) -> dict:
+    """{"<type> <form>": {"registers": r, "smem": bytes, "spill_bytes":
+    [stores, loads]}} of every instance of the scan kernel in a ``ptxas -v``
+    log."""
+    out, current = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S*scan_kernel\S*)", ln)
+        if m:
+            name = m.group(1)
+            current = (f"{'bf16' if 'bfloat16' in name else 'f32'} "
+                       f"{'fused' if 'Lb1E' in name else 'plain'}")
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[current]["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+            out[current]["smem"] = int(m.group(2))
+            current = None
+    return out
+
+
 def launch_path_reads_us(n: int = 20000) -> dict:
     """Host microseconds of one read of the current stream's handle and of
     the current device's index: the public ``torch.cuda`` calls against
@@ -1120,7 +1329,9 @@ def host_cost(device, max_key: tuple) -> dict:
     PyTorch call(s) it is set against: ``group_max`` in both forms at the
     tiered plan's gather key ``max_key`` (against ``amax`` of the gathered
     slowdowns), ``rmsnorm`` in both forms at the falcon-mamba-7b decode
-    shape (against ``F.rms_norm``, and ``x + r`` then ``F.rms_norm``)."""
+    shape (against ``F.rms_norm``, and ``x + r`` then ``F.rms_norm``), and
+    the fused scan at its decode-step shape (against the ATen sequence it
+    replaced, its plain version)."""
     _, b, pp, nc, _ = max_key
     slow, perm, cw = max_gather_inputs(max_key, torch.float64, device)
     gathered = slow[perm.view(b, pp, nc)]
@@ -1129,6 +1340,9 @@ def host_cost(device, max_key: tuple) -> dict:
                                      device)
     d = shape[-1]
     rms_norm = torch.nn.functional.rms_norm
+    b_, _, d_, n_ = FALCON_STEP
+    scan_args, scan_kw = model_inputs(
+        "selective_scan", ("fused", (b_, 1, d_), n_, bf, True), device)
     calls = {
         "group_max": (lambda: gr.group_max(gathered),
                       lambda: torch.amax(gathered, dim=-1)),
@@ -1138,6 +1352,9 @@ def host_cost(device, max_key: tuple) -> dict:
                     lambda: rms_norm(x, (d,), w, eps)),
         "add_rmsnorm": (lambda: rn.add_rmsnorm(x, r, w, eps),
                         lambda: rms_norm(x + r, (d,), w, eps)),
+        "selective_scan_fused": (
+            lambda: ss.selective_scan_fused(*scan_args, **scan_kw),
+            lambda: ss.selective_scan_fused_ref(*scan_args, **scan_kw)),
     }
     fns = {}
     for name, (wrapper, library) in calls.items():
@@ -1150,6 +1367,7 @@ def host_cost(device, max_key: tuple) -> dict:
     stream = _build.current_raw_stream(x.get_device())
     s_, y_ = torch.empty_like(x), torch.empty_like(x)
     c_x, c_max = torch.empty_like(cw), cw.new_empty(b)
+    scan_out = scan_args[0].new_empty(scan_args[0].shape)
     launches = {
         "rmsnorm": ("rmsnorm_fwd", (x.data_ptr(), w.data_ptr(),
                                     y_.data_ptr(), x.numel() // d, d, eps,
@@ -1160,6 +1378,13 @@ def host_cost(device, max_key: tuple) -> dict:
         "group_max_gather": ("group_max_gather_f64", (
             slow.data_ptr(), perm.data_ptr(), cw.data_ptr(),
             c_x.data_ptr(), c_max.data_ptr(), b, pp, nc, stream), 2),
+        "selective_scan_fused": ("selective_scan_fused_fwd", (
+            *(scan_args[i].data_ptr() for i in (0, 1, 3, 4, 7, 5, 2, 6, 8)),
+            scan_out.data_ptr(), scan_args[9].data_ptr(),
+            *(v for t in (scan_args[0], scan_args[1], scan_args[3],
+                          scan_args[4], scan_args[7])
+              for v in t.stride()[:2]),
+            b_, 1, d_, n_, 1, 1, stream), 1),
     }
     fns["empty_like", "us"] = lambda: torch.empty_like(x)
     for name, (fn_name, args, _) in launches.items():
@@ -1181,7 +1406,10 @@ def host_cost(device, max_key: tuple) -> dict:
             "library": {"group_max": "torch.amax(gathered, -1)",
                         "group_max_gather": "torch.amax(gathered, -1)",
                         "rmsnorm": "F.rms_norm",
-                        "add_rmsnorm": "x + r, then F.rms_norm"},
+                        "add_rmsnorm": "x + r, then F.rms_norm",
+                        "selective_scan_fused": "the ATen sequence it "
+                        "replaced (selective_scan_fused_ref)"},
+            "scan_key": ["fused", [b_, 1, d_], n_, "bfloat16", True],
             "host_us": out}
 
 
@@ -1207,10 +1435,18 @@ def main() -> int:
     assert not torch.backends.cudnn.allow_tf32
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    global EXP_PER_S
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_PER_S = EXP_PER_SM_CLOCK * sms * clock_mhz * 1e6
     emit({"phase": "env", "device": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "nvidia_smi": smi})
+          "nvidia_smi": smi, "sm_count": sms, "max_sm_clock_mhz": clock_mhz,
+          "exp_per_s": EXP_PER_S})
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -1222,6 +1458,10 @@ def main() -> int:
     d128 = [v for k, v in spills.items()
             if "flash_fwd_bf16_mma" in k and "ILi128E" in k]
     assert d128 == [(0, 0)], ("bf16 D=128 attention spills", d128)
+    scan_regs = scan_ptxas(log)
+    assert len(scan_regs) == 2 * 2, scan_regs       # 2 types x 2 forms
+    assert all(v["spill_bytes"] == [0, 0] for v in scan_regs.values()), \
+        ("a scan instance spills", scan_regs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_now": _build.last_build_seconds is not None,
           "library": os.path.relpath(str(lib), ROOT),
@@ -1229,6 +1469,7 @@ def main() -> int:
                       for s in _build.sources()],
           "flags": list(_build.NVCC_FLAGS),
           "attention_bf16_d128_spill_bytes": list(d128[0]),
+          "scan_ptxas": scan_regs,
           **launch_path_reads_us(),
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if ln.startswith("==") or "Compiling entry" in ln
@@ -1250,6 +1491,9 @@ def main() -> int:
 
     model_ragged = check_model_ragged(device)
     emit({"phase": "model_kernels", "kernels": model_ragged})
+    scan_rows = check_scan_at_falcon_shapes(device)
+    emit({"phase": "scan_at_falcon_shapes", "kernels": scan_rows})
+    emit(scan_by_batch(device, scan_regs))
     line_q, launches_q, shapes_q = run_generate("generate_qwen2_7b",
                                                 "qwen2-7b", device)
     emit(line_q)
@@ -1284,7 +1528,8 @@ def main() -> int:
         plans, or the two generate phases), and the times at the shape the
         paths launched most often; ``forms`` has the same for each form's
         most launched shape, and ``per_shape`` every shape."""
-        mine = [r for r in rows + model_rows if r["name"] == name]
+        mine = [r for r in rows + model_rows + scan_rows
+                if r["name"] == name]
         assert main_path[name] > 0, f"{name} was never launched"
         assert sum(launched(r) for r in mine) == main_path[name]
         top = max(mine, key=launched)

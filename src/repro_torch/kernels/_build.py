@@ -172,9 +172,13 @@ def load_library() -> ctypes.CDLL:
         "flash_attention_fwd": [vp, vp, vp, vp] + [ll] * 12
         + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
         # selective_scan.cu: (x, dt, B, C, A, h0, y, h_out,
-        #   4 x (batch, time) strides, batch, len, d, n, bf16, stream)
+        #   4 x (batch, time) strides, batch, len, d, n, bf16, stream) and
+        #   (x, dt, B, C, z, A_log, dt_bias, D, h0, out, h_out,
+        #   5 x (batch, time) strides, batch, len, d, n, bf16, step, stream)
         "selective_scan_fwd": [vp] * 8 + [ll] * 8
         + [ll, ll, ci, ci, ci, vp],
+        "selective_scan_fused_fwd": [vp] * 11 + [ll] * 10
+        + [ll, ll, ci, ci, ci, ci, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

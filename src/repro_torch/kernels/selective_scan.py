@@ -1,24 +1,38 @@
-"""Mamba1 selective-scan kernel of the model stack, with its plain version.
+"""Mamba1 selective-scan kernel of the model stack, with its plain versions.
 
 ``selective_scan`` replaces the Pallas kernel ``selective_scan``
 (``_kernel``) of the JAX package's ``kernels/selective_scan.py``: the
 recurrence ``h = exp(dt * A) * h + (dt * x) * B``, ``y = sum_N h * C``
-over the sequence.  It is CUDA C++ (``csrc/selective_scan.cu``): one thread
-per (batch, channel) holds its ``N`` state values in registers and walks the
-sequence in order, so the ``(B, S, D, N)`` trajectory never reaches device
-memory — the point of the Pallas kernel.  It is bound by bytes (one read of
-``x, dt, B, C``, one write of ``y``); the design overlaps the loads of 16
-steps at a time and keeps every access coalesced across channels.
+over the sequence.  It is CUDA C++ (``csrc/selective_scan.cu``): each
+channel's ``N`` states are split over four threads, which keep them in
+registers and walk the sequence in order, so the ``(B, S, D, N)``
+trajectory never reaches device memory — the point of the Pallas kernel.
+It is bound by its ``b*S*D*N`` exponentials (the special function units'
+rate), not by its bytes; the design stages the inputs of the next chunks
+by ``cp.async`` while one is computed and spends one ``ex2`` and two fused
+multiply-adds a state and step.
 
-The kernel takes the batch and time strides of ``x, dt, B, C`` (each must
-have a unit-stride last axis), so the model's ``dt, B, C`` — column slices
-of one projection — go in without a copy.  ``N`` is at most 16 (Mamba1's
-state size).
+The kernel has a second form, :func:`selective_scan_fused`, which
+``mamba1_block`` calls on both its branches (the sequence, and a decode
+step): it takes ``dt`` before the bias and the softplus, ``A`` as
+``A_log``, and the gate ``z``, and returns the gated output in ``x``'s type
+— the bias add, softplus, ``-exp(A_log)``, the ``D`` skip, the gate and the
+cast in the same launch as the scan, where they were some twenty ATen
+launches.  It can write the final state into a given tensor, which may be
+``h0`` itself (the decode cache, updated in place).  It counts in
+``selective_scan.launches``.
 
-The plain version :func:`selective_scan_ref` is the time-major recurrence of
+Both take the batch and time strides of ``x, dt, B, C`` (and ``z``; each
+must have a unit-stride last axis), so the model's ``dt, B, C`` — column
+slices of one projection — and ``z`` — half of the input projection — go
+in without a copy.  ``N`` is at most 16 (Mamba1's state size).
+
+The plain versions (``*_ref``) are the time-major recurrence of
 ``selective_scan_ref`` in the JAX package's ``kernels/ref.py``, with an
-optional initial state.  A wrapper takes the plain version only for a tensor
-that lies on the CPU; for a CUDA tensor it launches the kernel or raises.
+optional initial state, and the ATen sequence of ``mamba1_block`` that the
+fused form replaces, op for op.  A wrapper takes the plain version only for
+a tensor that lies on the CPU; for a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -31,6 +45,14 @@ from ._build import launch
 
 N_MAX = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it —
+    ``logaddexp(x, 0)`` in float32, cast back — and not ``F.softplus``,
+    which returns ``x`` itself above 20."""
+    xf = x.to(torch.float32)
+    return torch.logaddexp(xf, torch.zeros_like(xf)).to(x.dtype)
 
 
 def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -53,6 +75,50 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         h = a * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def selective_scan_step(x, dt, B, C, A, h):
+    """One decode step.  ``x, dt`` ``(b, D)``; ``B, C`` ``(b, N)``; ``h``
+    ``(b, D, N)`` float32.  Returns ``(y (b, D), h_new)``, float32."""
+    a = torch.exp(dt.to(torch.float32)[..., None] * A.to(torch.float32))
+    h_new = a * h + (dt * x).to(torch.float32)[..., None] \
+        * B[:, None, :].to(torch.float32)
+    y = torch.einsum("bdn,bn->bd", h_new, C.to(torch.float32))
+    return y, h_new
+
+
+def selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z, h0=None,
+                             h_out=None, *, step: bool = False,
+                             scan=selective_scan_ref):
+    """The ATen sequence of ``mamba1_block`` from the bias add to the cast:
+    ``softplus(dt + dt_bias)``, ``A = -exp(A_log)``, the scan (``scan``
+    over the sequence, the one-step update when ``step``, which needs
+    ``S == 1``), ``y + D * x``, the gate ``y * silu(z)`` and the cast to
+    ``x``'s type.
+
+    ``x, dt, z`` ``(b, S, D)`` and ``B, C`` ``(b, S, N)`` in one type;
+    ``dt_bias, D`` ``(D,)`` and ``A_log`` ``(D, N)`` float32; ``h0``
+    ``(b, D, N)`` float32 or None (zeros).  Returns ``(out (b, S, D), h)``;
+    with ``h_out`` the final state is copied into it and ``h`` is
+    ``h_out``.
+    """
+    A = -torch.exp(A_log.to(torch.float32))
+    dt = softplus(dt + dt_bias.to(dt.dtype))
+    if step:
+        if h0 is None:
+            h0 = torch.zeros((x.shape[0],) + A.shape, dtype=torch.float32,
+                             device=x.device)
+        y, h = selective_scan_step(x[:, 0], dt[:, 0], B[:, 0], C[:, 0], A,
+                                   h0)
+        y = y[:, None]
+    else:
+        y, h = scan(x, dt, B, C, A, h0)
+    y = y + D.to(torch.float32) * x.to(torch.float32)
+    zf = z.to(torch.float32)
+    y = y * (zf * torch.sigmoid(zf))
+    if h_out is not None:
+        h = h_out.copy_(h)
+    return y.to(x.dtype), h
 
 
 def _check(x, dt, B, C, A, h0) -> None:
@@ -123,7 +189,100 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return y, h
 
 
-#: Number of kernel launches made by the wrapper (never the plain version),
-#: and the same count split by (x shape, N, dtype).
+def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
+                         dt_bias: torch.Tensor, B: torch.Tensor,
+                         C: torch.Tensor, A_log: torch.Tensor,
+                         D: torch.Tensor, z: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None,
+                         h_out: Optional[torch.Tensor] = None, *,
+                         step: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CUDA version of :func:`selective_scan_fused_ref`: ``x, dt, B, C, z``
+    views of one type (float32 or bfloat16) with a unit-stride last axis;
+    ``dt_bias, A_log, D, h0, h_out`` float32.
+
+    Returns ``(out, h)``: ``out`` ``(b, S, D)`` in ``x``'s type, ``h``
+    ``(b, D, N)`` float32 — ``h_out`` when given (contiguous; it may be
+    ``h0`` itself, which is then updated in place).  A CPU tensor goes
+    through the plain version; a CUDA tensor launches the kernel or raises.
+    """
+    # plain attribute reads and comparisons: a decode step calls this once
+    # a layer
+    io, f32 = x.dtype, torch.float32
+    code = _DTYPES.get(io)
+    if (code is None or dt.dtype is not io or B.dtype is not io
+            or C.dtype is not io or z.dtype is not io):
+        raise TypeError(f"x, dt, B, C, z must share one type, float32 or "
+                        f"bfloat16; got {x.dtype}, {dt.dtype}, {B.dtype}, "
+                        f"{C.dtype}, {z.dtype}")
+    if (dt_bias.dtype is not f32 or A_log.dtype is not f32
+            or D.dtype is not f32
+            or (h0 is not None and h0.dtype is not f32)
+            or (h_out is not None and h_out.dtype is not f32)):
+        raise TypeError("dt_bias, A_log, D, h0 and h_out must be float32")
+    shape = x.shape
+    b, s, d = shape if len(shape) == 3 else (0, 0, 0)
+    n = A_log.shape[-1]
+    seq, state = (b, s, n), (b, d, n)
+    if (len(shape) != 3 or dt.shape != shape or z.shape != shape
+            or B.shape != seq or C.shape != seq or A_log.shape != (d, n)
+            or dt_bias.shape != (d,) or D.shape != (d,)
+            or (h0 is not None and h0.shape != state)
+            or (h_out is not None and h_out.shape != state)):
+        raise ValueError(
+            f"want x, dt, z (b,S,D), B, C (b,S,N), A_log (D,N), dt_bias, D "
+            f"(D,), h0, h_out (b,D,N); got x {tuple(shape)}, dt "
+            f"{tuple(dt.shape)}, z {tuple(z.shape)}, B {tuple(B.shape)}, C "
+            f"{tuple(C.shape)}, A_log {tuple(A_log.shape)}, dt_bias "
+            f"{tuple(dt_bias.shape)}, D {tuple(D.shape)}, h0 "
+            f"{None if h0 is None else tuple(h0.shape)}, h_out "
+            f"{None if h_out is None else tuple(h_out.shape)}")
+    if not (1 <= n <= N_MAX) or min(b, s, d) < 1 or b >= 2 ** 16 \
+            or s >= 2 ** 31 or (step and s != 1):
+        raise ValueError(f"unsupported sizes: b {b}, S {s}, D {d}, N {n} "
+                         f"(N at most {N_MAX}; S = 1 for a step)")
+    if (x.stride(2) != 1 or dt.stride(2) != 1 or B.stride(2) != 1
+            or C.stride(2) != 1 or z.stride(2) != 1):
+        raise ValueError("x, dt, B, C, z need a unit-stride last axis")
+    if h_out is not None and not h_out.is_contiguous():
+        raise ValueError("h_out must be contiguous")
+    index = x.get_device()
+    if (dt.get_device() != index or B.get_device() != index
+            or C.get_device() != index or z.get_device() != index
+            or dt_bias.get_device() != index
+            or A_log.get_device() != index or D.get_device() != index
+            or (h0 is not None and h0.get_device() != index)
+            or (h_out is not None and h_out.get_device() != index)):
+        raise ValueError(f"all inputs must be on {x.device}")
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
+        return selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z,
+                                        h0, h_out, step=step)
+    if not (dt_bias.is_contiguous() and A_log.is_contiguous()
+            and D.is_contiguous()):
+        dt_bias, A_log, D = (dt_bias.contiguous(), A_log.contiguous(),
+                             D.contiguous())
+    if h0 is not None and not h0.is_contiguous():
+        h0 = h0.contiguous()
+    out = x.new_empty(shape)
+    if h_out is None:
+        h_out = x.new_empty(state, dtype=f32)
+    launch("selective_scan_fused_fwd", index, x.data_ptr(), dt.data_ptr(),
+           B.data_ptr(), C.data_ptr(), z.data_ptr(), A_log.data_ptr(),
+           dt_bias.data_ptr(), D.data_ptr(),
+           None if h0 is None else h0.data_ptr(), out.data_ptr(),
+           h_out.data_ptr(), x.stride(0), x.stride(1), dt.stride(0),
+           dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+           z.stride(0), z.stride(1), b, s, d, n, code, int(step))
+    selective_scan.launches += 1
+    selective_scan.shapes["fused", shape, n, io, bool(step)] += 1
+    return out, h_out
+
+
+#: Number of kernel launches made by either wrapper (never the plain
+#: versions), and the same count split by input: ``(x shape, N, dtype
+#: name)`` for :func:`selective_scan`, ``("fused", x.shape, N, x.dtype,
+#: step)`` for :func:`selective_scan_fused`.
 selective_scan.launches = 0
 selective_scan.shapes = Counter()

@@ -1,13 +1,17 @@
 """Mamba1 block: causal depthwise convolution, selective scan and gate.
 
-Port of the Mamba1 half of the JAX package's ``models/mamba.py``.  The
-sequence scan of :func:`mamba1_block` goes through the ``selective_scan``
-kernel (CUDA on the card, its plain time-major recurrence on the CPU); the
-reference computes the same recurrence as a chunked associative scan, so the
-two agree to float32 rounding.  A decode step runs the one-step recurrence
-:func:`selective_scan_step` in plain PyTorch, as the reference does.
-Mamba2 (``ssd_scan``, ``ssd_step``, ``mamba2_block``) waits for the hybrid
-slice (ROADMAP Queue A 8).
+Port of the Mamba1 half of the JAX package's ``models/mamba.py``.  Both
+branches of :func:`mamba1_block` — the sequence and a decode step — go
+through the fused form of the ``selective_scan`` kernel
+(``selective_scan_fused``: the bias add, softplus, ``-exp(A_log)``, the
+recurrence, the ``D`` skip and the gate in one launch on the card; on the
+CPU the ATen sequence it replaces, op for op).  The reference computes the
+sequence's recurrence as a chunked associative scan, so the two agree to
+float32 rounding.  ``softplus`` and the one-step recurrence
+``selective_scan_step`` live beside the kernel's plain versions in
+``kernels/selective_scan.py`` and are re-exported here.  Mamba2
+(``ssd_scan``, ``ssd_step``, ``mamba2_block``) waits for the hybrid slice
+(ROADMAP Queue A 8).
 """
 from __future__ import annotations
 
@@ -16,16 +20,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.selective_scan import selective_scan
+from ..kernels.selective_scan import (selective_scan_fused,  # noqa: F401
+                                      selective_scan_step, softplus)
 from .layers import silu
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it —
-    ``logaddexp(x, 0)`` in float32, cast back — and not ``F.softplus``,
-    which returns ``x`` itself above 20."""
-    xf = x.to(torch.float32)
-    return torch.logaddexp(xf, torch.zeros_like(xf)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -59,43 +56,35 @@ def causal_conv1d_step(x_t: torch.Tensor, cache: torch.Tensor,
                        w: torch.Tensor, b: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step.  ``x_t`` ``(B, C)``; ``cache`` ``(B, W-1, C)`` past
-    inputs.  Returns ``(y (B, C), new cache)``."""
+    inputs.  Returns ``(y (B, C), new cache)``; ``y`` is contiguous (the
+    einsum may hand back a transposed layout, and the scan reads rows of
+    unit stride), made so by the cast where there is one (bfloat16) and by
+    a copy otherwise."""
     window = torch.cat([cache, x_t[:, None]], dim=1)            # (B, W, C)
     y = torch.einsum("bwc,wc->bc", window.to(torch.float32),
                      w.to(torch.float32))
     if b is not None:
         y = y + b.to(torch.float32)
-    return y.to(x_t.dtype), window[:, 1:]
-
-
-# ---------------------------------------------------------------------------
-# one-step recurrence (decode)
-# ---------------------------------------------------------------------------
-
-def selective_scan_step(x, dt, B, C, A, h):
-    """One decode step.  ``x, dt`` ``(b, D)``; ``B, C`` ``(b, N)``; ``h``
-    ``(b, D, N)`` float32.  Returns ``(y (b, D), h_new)``, float32."""
-    a = torch.exp(dt.to(torch.float32)[..., None] * A.to(torch.float32))
-    h_new = a * h + (dt * x).to(torch.float32)[..., None] \
-        * B[:, None, :].to(torch.float32)
-    y = torch.einsum("bdn,bn->bd", h_new, C.to(torch.float32))
-    return y, h_new
+    y = y.to(x_t.dtype, memory_format=torch.contiguous_format)
+    return y.contiguous(), window[:, 1:]
 
 
 # ---------------------------------------------------------------------------
 # the block
 # ---------------------------------------------------------------------------
 
-def mamba1_block(x, p, cfg, *, h0=None, conv0=None, single_step=False):
+def mamba1_block(x, p, cfg, *, h0=None, conv0=None, single_step=False,
+                 h_out=None):
     """``x`` ``(B, S, d_model)``, or ``(B, d_model)`` when ``single_step``.
 
     Params ``p``: in_proj (d, 2*di), conv_w (W, di), conv_b (di,),
     x_proj (di, dt_rank+2N), dt_w (dt_rank, di), dt_bias (di,),
     A_log (di, N), D (di,), out_proj (di, d).
-    Returns ``(y, (h, conv_cache))``.
+    Returns ``(y, (h, conv_cache))``.  With ``h_out`` (``(B, di, N)``
+    float32) the final state is written into it and ``h`` is ``h_out``;
+    it may be ``h0`` itself, which is then updated in place.
     """
     n = cfg.ssm_state
-    A = -torch.exp(p["A_log"].to(torch.float32))
     splits = [cfg.dt_rank, n, n]
 
     xz = x @ p["in_proj"]
@@ -110,11 +99,11 @@ def mamba1_block(x, p, cfg, *, h0=None, conv0=None, single_step=False):
     xi = silu(xi)
     proj = xi @ p["x_proj"]
     dt, B_, C_ = torch.split(proj, splits, dim=-1)
-    dt = softplus(dt @ p["dt_w"] + p["dt_bias"].to(dt.dtype))
+    dt = dt @ p["dt_w"]
+    if single_step:                 # a sequence of one, viewed in place
+        xi, dt, B_, C_, z = (t[:, None] for t in (xi, dt, B_, C_, z))
+    y, h = selective_scan_fused(xi, dt, p["dt_bias"], B_, C_, p["A_log"],
+                                p["D"], z, h0, h_out, step=single_step)
     if single_step:
-        y, h = selective_scan_step(xi, dt, B_, C_, A, h0)
-    else:
-        y, h = selective_scan(xi, dt, B_, C_, A, h0)
-    y = y + p["D"].to(torch.float32) * xi.to(torch.float32)
-    y = y * silu(z.to(torch.float32))
-    return y.to(x.dtype) @ p["out_proj"], (h, conv_cache)
+        y = y[:, 0]
+    return y @ p["out_proj"], (h, conv_cache)

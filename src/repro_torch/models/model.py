@@ -208,7 +208,8 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
     padded_vocab), cache)``.
 
     The cache is updated in place and returned (the reference donates its
-    buffers to ``jit`` instead); full-attention rows need room for
+    buffers to ``jit`` instead): a Mamba layer's scan writes its new state
+    over the old one in its ``ssm`` row; full-attention rows need room for
     position ``pos``."""
     check_family(cfg)
     pos = int(pos)
@@ -231,10 +232,10 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
             else:                                       # mamba1 layer
                 row = plan[i]["ssm_row"]
                 x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
-                y, (hs, cc) = mam.mamba1_block(
-                    h[:, 0], lp, cfg, h0=cache["ssm"][row],
-                    conv0=cache["conv"][row], single_step=True)
-                cache["ssm"][row] = hs
+                ssm = cache["ssm"][row]       # updated in place
+                y, (_, cc) = mam.mamba1_block(
+                    h[:, 0], lp, cfg, h0=ssm, conv0=cache["conv"][row],
+                    single_step=True, h_out=ssm)
                 cache["conv"][row] = cc.to(cache["conv"].dtype)
                 pending = y[:, None]
     _, x = residual_norm(x, pending, params["final_norm"], cfg.norm_eps)

@@ -8,7 +8,10 @@ The gather forms of ``group_min_scale`` and ``group_max`` are held
 bit-equal to their plain versions, the residual form of ``rmsnorm`` bit-equal
 in its sum and within the norm's tolerance, and the bfloat16 tensor-core
 attention kernel to the float32 plain version within 2e-2, at long and wide
-shapes too.  Without a CUDA device
+shapes too.  The scan is held to its plain version at every lane count, and
+its fused Mamba1 form (bias, softplus, scan, D skip, gate in one launch) at
+falcon-mamba-7b's prefill and decode-step shapes with the model's views and
+the decode cache's state updated in place.  Without a CUDA device
 every test here skips with a reason
 (decided inside the test, never at import).  This file imports ``torch``
 and ``repro_torch`` only, so it also runs on a machine without JAX:
@@ -450,6 +453,118 @@ def test_selective_scan_kernel_matches_plain(shape, dtype):
     _close(h, hr, 2e-4)
 
 
+@pytest.mark.parametrize("shape", [(2, 64, 32, 8), (1, 50, 24, 8),
+                                   (1, 17, 100, 16), (1, 21, 45, 7)],
+                         ids=str)
+def test_selective_scan_with_h0_matches_plain(shape):
+    """Every shape with a start state, in both types, bfloat16 views with a
+    misaligned projection (B and C at an odd column) included."""
+    _need_cuda()
+    b, s, d, n = shape
+    rng = np.random.default_rng(sum(shape) + 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _randn(rng, (b, s, d), dtype, 0.5)
+        dt = (torch.nn.functional.softplus(_randn(rng, (b, s, d),
+                                                  torch.float32)) * 0.1
+              ).to(dtype)
+        proj = _randn(rng, (b, s, 3 + 2 * n), dtype)
+        B, C = proj[..., 3:3 + n], proj[..., 3 + n:]
+        A = -torch.exp(_randn(rng, (d, n), torch.float32, 0.3))
+        h0 = _randn(rng, (b, d, n), torch.float32)
+        y, h = ss.selective_scan(x, dt, B, C, A, h0)
+        yr, hr = ss.selective_scan_ref(x, dt, B, C, A, h0)
+        _close(y, yr, 2e-4)
+        _close(h, hr, 2e-4)
+
+
+#: (b, s, d, n, dt_rank): the fused form at the scan sweep, a ragged width,
+#: falcon-mamba-7b's prefill and decode-step shapes (dt_rank 256), a
+#: projection whose B and C start at an odd column, and an odd width and
+#: state size (a thread's second channel out of range, padded states).
+FUSED_SHAPES = [(2, 64, 32, 8, 2), (1, 50, 24, 8, 2), (1, 17, 100, 16, 4),
+                (2, 40, 64, 16, 3), (4, 512, 8192, 16, 256),
+                (4, 1, 8192, 16, 256), (3, 1, 100, 16, 3),
+                (2, 19, 45, 7, 3)]
+
+
+def _fused_inputs(shape, dtype, seed):
+    """Inputs laid out as ``mamba1_block`` hands them: ``dt, B, C`` from one
+    projection (``dt`` through ``dt_w`` is a new tensor; ``B, C`` column
+    slices), ``z`` the second half of ``xz``, and ``h0`` a state of the
+    decode cache."""
+    b, s, d, n, rank = shape
+    rng = np.random.default_rng(seed)
+    xz = _randn(rng, (b, s, 2 * d), dtype)
+    x = torch.nn.functional.silu(xz[..., :d].float()).to(dtype)
+    proj = _randn(rng, (b, s, rank + 2 * n), dtype)
+    dt = _randn(rng, (b, s, d), dtype, 0.5)
+    dt_bias = _randn(rng, (d,), torch.float32, 0.5) - 2.0
+    A_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device="cuda"
+                                   )).expand(d, n) \
+        + _randn(rng, (d, n), torch.float32, 0.1)
+    D = _randn(rng, (d,), torch.float32)
+    h0 = _randn(rng, (b, d, n), torch.float32)
+    return (x, dt, dt_bias, proj[..., rank:rank + n], proj[..., rank + n:],
+            A_log.contiguous(), D, xz[..., d:]), h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", FUSED_SHAPES, ids=str)
+def test_selective_scan_fused_kernel_matches_plain(shape, dtype):
+    """``out`` within the JAX package's kernel tolerance of its type (2e-4
+    float32, 2e-2 bfloat16), the float32 state within 2e-4; ``h_out``
+    aliasing ``h0`` is updated in place; one launch a call."""
+    _need_cuda()
+    args, h0 = _fused_inputs(shape, dtype, sum(shape))
+    assert not args[3].is_contiguous() and not args[7].is_contiguous()
+    step = shape[1] == 1
+    want_out, want_h = ss.selective_scan_fused_ref(*args, h0.clone(),
+                                                   step=step)
+    before = ss.selective_scan.launches
+    key = ("fused", args[0].shape, shape[3], dtype, step)
+    seen = ss.selective_scan.shapes[key]
+    state = h0.clone()
+    out, h = ss.selective_scan_fused(*args, state, state, step=step)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == before + 1
+    assert ss.selective_scan.shapes[key] == seen + 1
+    assert h is state and out.dtype == dtype and out.is_contiguous()
+    _close(out, want_out, 2e-2 if dtype == torch.bfloat16 else 2e-4)
+    _close(h, want_h, 2e-4)
+    # without h0 and h_out: a zero start, a new state
+    if not step:
+        out0, h0_ = ss.selective_scan_fused(*args)
+        want0, wanth0 = ss.selective_scan_fused_ref(*args)
+        _close(out0, want0, 2e-2 if dtype == torch.bfloat16 else 2e-4)
+        _close(h0_, wanth0, 2e-4)
+
+
+def test_falcon_block_runs_only_the_fused_scan_on_the_card():
+    """A reduced falcon-mamba-7b prefill and decode step launch the fused
+    form once a layer each (no plain scan), and the decode step writes the
+    new state into the cache row it read."""
+    _need_cuda()
+    cfg = configs.get("falcon-mamba-7b").reduced()
+    params = init_params(cfg, seed=0)
+    ctx = ShardCtx()
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    ss.selective_scan.launches = 0
+    ss.selective_scan.shapes.clear()
+    _, cache = M.prefill(params, cfg, ctx, toks[:, :16])
+    cache = gen_cli.grow_cache(cache, 1)
+    ssm, before = cache["ssm"], cache["ssm"].clone()
+    M.decode_step(params, cfg, ctx, toks[:, 16:], cache, 16)
+    torch.cuda.synchronize()
+    dt, di, n = params["final_norm"].dtype, cfg.d_inner, cfg.ssm_state
+    assert ss.selective_scan.launches == 2 * cfg.n_layers
+    assert dict(ss.selective_scan.shapes) == {
+        ("fused", (2, 16, di), n, dt, False): cfg.n_layers,
+        ("fused", (2, 1, di), n, dt, True): cfg.n_layers}
+    assert cache["ssm"] is ssm and not torch.equal(ssm, before)
+
+
 def test_model_kernel_wrappers_raise_on_what_they_do_not_take():
     _need_cuda()
     q = torch.ones(1, 2, 8, 48, device="cuda")
@@ -464,3 +579,15 @@ def test_model_kernel_wrappers_raise_on_what_they_do_not_take():
     bn = torch.ones(1, 4, 32, device="cuda")
     with pytest.raises(ValueError):                    # N = 32 > 16
         ss.selective_scan(x, x, bn, bn, torch.ones(8, 32, device="cuda"))
+    f = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError):                    # N = 32 > 16
+        ss.selective_scan_fused(x, x, f, bn, bn,
+                                torch.ones(8, 32, device="cuda"), f, x)
+    b2 = torch.ones(1, 4, 2, device="cuda")
+    with pytest.raises(TypeError):                     # mixed types
+        ss.selective_scan_fused(x, x.bfloat16(), f, b2, b2,
+                                torch.ones(8, 2, device="cuda"), f, x)
+    with pytest.raises(ValueError):                    # h_out shape
+        ss.selective_scan_fused(x, x, f, b2, b2,
+                                torch.ones(8, 2, device="cuda"), f, x,
+                                h_out=torch.ones(1, 8, 3, device="cuda"))

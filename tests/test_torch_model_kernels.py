@@ -4,12 +4,16 @@ Each plain PyTorch version (``rmsnorm_ref``, ``add_rmsnorm_ref``,
 ``flash_attention_ref``, ``selective_scan_ref``) is held to the JAX
 package's oracle in ``repro.kernels.ref`` on the same NumPy inputs, at the
 reference's own tolerances (``tests/test_kernels.py``); the residual form's
-sum is held bit-equal to jnp's add.  One small case per kernel also runs
+sum is held bit-equal to jnp's add.  The fused scan's plain version
+(``selective_scan_fused_ref``) is held to the reference model's own
+sequence (``repro.models.mamba``: softplus, scan or one-step update, D
+skip, gate, cast).  One small case per kernel also runs
 the Pallas kernel in interpret mode.  On the CPU each wrapper takes its plain
 version and counts no launch.  The CUDA kernels can only run on a card:
 their tests (``tests/test_torch_gpu.py``) carry the ``gpu`` marker and skip
 without one.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention as pallas_fa
 from repro.kernels.rmsnorm import rmsnorm as pallas_rms
 from repro.kernels.selective_scan import selective_scan as pallas_scan
+from repro.models import mamba as ref_mamba
+from repro.models.layers import silu as ref_silu
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import selective_scan as ss
@@ -389,5 +395,152 @@ _X = torch.ones(3, 8)
 ], ids=["mixed-types", "f16", "ndarray", "broadcast", "w-width",
         "r-strided", "x-strided"])
 def test_add_rmsnorm_refuses_what_the_kernel_does_not_take(call, err):
+    with pytest.raises(err):
+        call()
+
+
+# ---------------------------------------------------------------------------
+# selective scan, fused Mamba1 form: bias, softplus, scan, D skip, gate
+# ---------------------------------------------------------------------------
+
+def _fused_inputs(case, bf16, step):
+    """NumPy inputs of one fused call (``S = 1`` for a step), rounded to
+    bfloat16 in both frameworks where ``bf16``: x, dt (before the bias),
+    B, C, z in the working type; dt_bias, A_log, D, h0 in float32."""
+    b, s, d, n = case
+    s = 1 if step else s
+    rng = np.random.default_rng(sum(case) + 17 * step + 3 * bf16)
+    f = np.float32
+    io = [rng.standard_normal((b, s, d)).astype(f) * 0.5,          # x
+          rng.standard_normal((b, s, d)).astype(f) * 0.5 - 1.0,    # dt
+          rng.standard_normal((b, s, n)).astype(f),                # B
+          rng.standard_normal((b, s, n)).astype(f),                # C
+          rng.standard_normal((b, s, d)).astype(f)]                # z
+    params = [rng.standard_normal(d).astype(f) * 0.5,              # dt_bias
+              (np.log(np.arange(1, n + 1, dtype=f))[None, :]
+               + rng.standard_normal((d, n)).astype(f) * 0.1),     # A_log
+              rng.standard_normal(d).astype(f),                    # D
+              rng.standard_normal((b, d, n)).astype(f)]            # h0
+    io = [_pair(a, bf16) for a in io]
+    params = [(jnp.asarray(a), torch.from_numpy(a.copy())) for a in params]
+    x, dt, B, C, z = io
+    bias, A_log, D, h0 = params
+    return x, dt, bias, B, C, A_log, D, z, h0
+
+
+def _jax_fused(x, dt, bias, B, C, A_log, D, z, h0, step):
+    """The reference model's ``mamba1_block`` from the bias add to the
+    cast, on its own functions."""
+    A = -jnp.exp(A_log.astype(jnp.float32))
+    dt = jax.nn.softplus(dt + bias.astype(dt.dtype))
+    if step:
+        y, h = ref_mamba.selective_scan_step(x[:, 0], dt[:, 0], B[:, 0],
+                                             C[:, 0], A, h0)
+        y = y[:, None]
+    else:
+        y, h = ref_mamba.selective_scan(x, dt, B, C, A, h0=h0, chunk=16)
+    y = y + D.astype(jnp.float32) * x.astype(jnp.float32)
+    y = y * ref_silu(z.astype(jnp.float32))
+    return y.astype(x.dtype), h
+
+
+@pytest.mark.parametrize("step", [False, True], ids=["seq", "step"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SCAN_CASES, ids=str)
+def test_selective_scan_fused_plain_matches_jax_model(case, bf16, step):
+    """float32 within the scan's 2e-4.  bfloat16 within 5e-2:
+    ``jax.nn.softplus`` on bfloat16 rounds its ``exp``, its ``log1p`` and
+    their sum to bfloat16 where the port rounds once, so about a fifth of
+    the ``dt`` values differ by one bfloat16 step (0.4-0.8 %); that moves
+    each term of ``y``'s sum over the states by as much, and a ``y`` that
+    is a small difference of larger terms by more than 2e-2 of itself
+    (largest seen: 0.024 of ``1 + |y|``).  The state is held alike."""
+    pairs = _fused_inputs(case, bf16, step)
+    want_out, want_h = _jax_fused(*(j for j, _ in pairs), step)
+    out, h = ss.selective_scan_fused_ref(*(t for _, t in pairs), step=step)
+    assert out.dtype == pairs[0][1].dtype and h.dtype == torch.float32
+    assert tuple(out.shape) == want_out.shape
+    tol = 5e-2 if bf16 else 2e-4
+    np.testing.assert_allclose(_np32(out), _np32(want_out), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("step", [False, True], ids=["seq", "step"])
+def test_selective_scan_fused_wrapper_updates_the_state_in_place(step):
+    """On the CPU the wrapper is the plain version, bit for bit; with
+    ``h_out`` aliasing ``h0`` the state is read first and then written
+    over, and ``h_out`` is what comes back."""
+    args = [t for _, t in _fused_inputs((2, 24, 16, 8), True, step)]
+    want_out, want_h = ss.selective_scan_fused_ref(*args, step=step)
+    state = args[-1].clone()
+    out, h = ss.selective_scan_fused(*args[:-1], state, state, step=step)
+    assert h is state
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+    out0, h0 = ss.selective_scan_fused(*args[:-1])      # a zero start
+    want0, wanth0 = ss.selective_scan_fused_ref(*args[:-1], step=step) \
+        if step else ss.selective_scan_fused_ref(*args[:-1])
+    if not step:
+        torch.testing.assert_close(out0, want0, rtol=0, atol=0)
+        torch.testing.assert_close(h0, wanth0, rtol=0, atol=0)
+
+
+def test_selective_scan_fused_takes_the_models_views():
+    """``B, C`` column slices of one projection and ``z`` the second half
+    of ``xz`` give what their contiguous copies give, to a float32 ulp
+    (PyTorch's CPU ``sigmoid`` takes a vectorised path on contiguous
+    memory and a scalar one on a strided view)."""
+    args = [t for _, t in _fused_inputs((2, 24, 16, 8), False, False)]
+    x, dt, bias, B, C, A_log, D, z, h0 = args
+    proj = torch.cat([torch.zeros(2, 24, 3), B, C], dim=-1)
+    xz = torch.cat([x, z], dim=-1)
+    Bv, Cv, zv = proj[..., 3:11], proj[..., 11:], xz[..., 16:]
+    assert not (Bv.is_contiguous() or Cv.is_contiguous()
+                or zv.is_contiguous())
+    got = ss.selective_scan_fused(x, dt, bias, Bv, Cv, A_log, D, zv, h0)
+    want = ss.selective_scan_fused(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_selective_scan_fused_cpu_calls_do_not_count_as_launches():
+    before = (ss.selective_scan.launches, dict(ss.selective_scan.shapes))
+    args = [t for _, t in _fused_inputs((1, 8, 16, 4), False, True)]
+    ss.selective_scan_fused(*args, args[-1], step=True)
+    ss.selective_scan_fused(*args[:-1])
+    assert (ss.selective_scan.launches,
+            dict(ss.selective_scan.shapes)) == before
+
+
+_F = [t for _, t in _fused_inputs((1, 4, 8, 2), False, False)]
+
+
+def _fused(**swap):
+    names = ("x", "dt", "dt_bias", "B", "C", "A_log", "D", "z", "h0")
+    kw = dict(zip(names, _F))
+    step = swap.pop("step", False)
+    kw.update(swap)
+    return lambda: ss.selective_scan_fused(**kw, step=step)
+
+
+@pytest.mark.parametrize("call,err", [
+    (_fused(B=torch.ones(1, 4, 17), C=torch.ones(1, 4, 17),
+            A_log=torch.ones(8, 17), h0=None), ValueError),
+    (_fused(dt=_F[1].bfloat16()), TypeError),
+    (_fused(x=_F[0].half(), dt=_F[1].half(), B=_F[3].half(),
+            C=_F[4].half(), z=_F[7].half()), TypeError),
+    (_fused(A_log=_F[5].double()), TypeError),
+    (_fused(h_out=torch.zeros(1, 8, 3)), ValueError),
+    (_fused(h_out=torch.zeros(1, 2, 8).transpose(1, 2)), ValueError),
+    (_fused(h_out=torch.zeros(1, 8, 2, dtype=torch.float64)), TypeError),
+    (_fused(step=True), ValueError),
+    (_fused(z=torch.ones(1, 8, 4).transpose(1, 2)), ValueError),
+    (_fused(D=torch.ones(9)), ValueError),
+], ids=["n-17", "mixed-types", "f16", "A_log-f64", "h_out-shape",
+        "h_out-strided", "h_out-f64", "step-of-4", "z-strided", "D-width"])
+def test_selective_scan_fused_refuses_what_the_kernel_does_not_take(call,
+                                                                    err):
     with pytest.raises(err):
         call()

@@ -175,6 +175,75 @@ def test_mamba1_block_matches_reference(mamba_layer):
     _close(c1, c1r, 1e-5)
 
 
+def _mamba1_block_aten(x, p, cfg, h0=None, conv0=None, single_step=False):
+    """``mamba1_block`` as it ran before the fused scan: ATen's softplus,
+    the plain scan or one-step update, D skip, gate and cast."""
+    from repro_torch.kernels.selective_scan import selective_scan_ref
+    n = cfg.ssm_state
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    xi, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    if single_step:
+        xi, conv_cache = mamba.causal_conv1d_step(xi, conv0, p["conv_w"],
+                                                  p["conv_b"])
+    else:
+        conv_cache = xi[:, -(cfg.ssm_conv - 1):, :].clone()
+        xi = mamba.causal_conv1d(xi, p["conv_w"], p["conv_b"])
+    xi = layers.silu(xi)
+    dt, B_, C_ = torch.split(xi @ p["x_proj"], [cfg.dt_rank, n, n], dim=-1)
+    dt = mamba.softplus(dt @ p["dt_w"] + p["dt_bias"].to(dt.dtype))
+    if single_step:
+        y, h = mamba.selective_scan_step(xi, dt, B_, C_, A, h0)
+    else:
+        y, h = selective_scan_ref(xi, dt, B_, C_, A, h0)
+    y = y + p["D"].to(torch.float32) * xi.to(torch.float32)
+    y = y * layers.silu(z.to(torch.float32))
+    return y.to(x.dtype) @ p["out_proj"], (h, conv_cache)
+
+
+def test_mamba1_block_takes_the_fused_scan_and_keeps_its_bits(mamba_layer,
+                                                              monkeypatch):
+    """Both branches call ``selective_scan_fused`` once (``step`` on the
+    decode branch); on the CPU the block returns what the ATen sequence
+    it replaced returns, bit for bit, and ``h_out`` receives the state."""
+    cfg, _, pt = mamba_layer
+    calls = []
+    fused = mamba.selective_scan_fused
+
+    def spy(*args, step=False):
+        calls.append(step)
+        return fused(*args, step=step)
+
+    monkeypatch.setattr(mamba, "selective_scan_fused", spy)
+    x = _t(_rng(10).standard_normal((2, 12, cfg.d_model)).astype(np.float32))
+    y, (h, tail) = mamba.mamba1_block(x, pt, cfg)
+    y_a, (h_a, tail_a) = _mamba1_block_aten(x, pt, cfg)
+    x1 = _t(_rng(11).standard_normal((2, cfg.d_model)).astype(np.float32))
+    state = h.clone()
+    y1, (h1, c1) = mamba.mamba1_block(x1, pt, cfg, h0=state, conv0=tail,
+                                      single_step=True, h_out=state)
+    y1_a, (h1_a, c1_a) = _mamba1_block_aten(x1, pt, cfg, h0=h_a,
+                                            conv0=tail_a, single_step=True)
+    assert calls == [False, True] and h1 is state
+    for got, want in ((y, y_a), (h, h_a), (tail, tail_a), (y1, y1_a),
+                      (h1, h1_a), (c1, c1_a)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_decode_step_writes_the_ssm_state_in_place():
+    """A Mamba layer's decode step writes its new state over the cache row
+    it read: the same tensor and storage come back, with new values."""
+    cfg = configs.get("falcon-mamba-7b").reduced()
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(_rng(12).integers(0, cfg.vocab_size, (2, 9)))
+    _, cache = M.prefill(params, cfg, CTX, toks[:, :8])
+    cache = gen_cli.grow_cache(cache, 1)
+    ssm, before = cache["ssm"], cache["ssm"].clone()
+    ptr = ssm.data_ptr()
+    _, cache = M.decode_step(params, cfg, CTX, toks[:, 8:], cache, 8)
+    assert cache["ssm"] is ssm and ssm.data_ptr() == ptr
+    assert not torch.equal(ssm, before)
+
+
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
