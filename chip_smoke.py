@@ -5,8 +5,10 @@
 
 Drives the package's two main paths at full size — the planner
 (``Planner.plan``: enumerate, memory prune, profiles, pre-score, simulated-
-annealing dedication on the card) and generation (``launch.generate``:
-prefill and greedy decode of qwen2-7b and falcon-mamba-7b) — builds the
+annealing dedication on the card, and the planner's other entry points:
+the live bandwidth probe, the plan server, elastic replanning and the
+churn replay) and generation (``launch.generate``: prefill and greedy
+decode of qwen2-7b and falcon-mamba-7b) — builds the
 CUDA kernels from the sources in this checkout, holds each kernel against
 its plain PyTorch version, and proves that each path went through its
 kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
@@ -22,10 +24,19 @@ of reading the stream handle and the device index both ways), ``kernels``
 bit-equal at ragged shapes, both forms of ``group_min_scale`` and of
 ``group_max``), ``plan_uniform``
 (gpt-3.1b on 128 GPUs, estimator fitted on the card), ``plan_tiered``
-(gpt-11.1b on a 1024-GPU mixed fleet, hierarchical search),
-``kernels_at_path_shapes``, ``model_kernels`` (rmsnorm in both forms,
-flash_attention, selective_scan in both forms — the fused one over a
-sequence and as a decode step — against their plain versions at ragged
+(gpt-11.1b on a 1024-GPU mixed fleet, hierarchical search), ``probe``
+(``profile_bandwidth_live()`` on the visible cards: 1x1 ``inf`` on one),
+``serve_plan`` (plan_uniform's request through an in-process
+``PlanServer`` and ``PlanClient``: miss, then a hit with the same bytes
+at least 10x faster, three concurrent submits coalesced into one search,
+the verifier, byte-equal to the NumPy backend's), ``replan``
+(``replan_on`` the tiered fleet after node 5 is replaced: warm never
+worse than cold and cheaper, byte-equal to the NumPy backend's),
+``churn`` (``simulate_churn`` over four seeded events on the 128-GPU
+cluster, its report equal to the NumPy backend's; the four phases under
+60 s in all), ``kernels_at_path_shapes``, ``model_kernels`` (rmsnorm in
+both forms, flash_attention, selective_scan in both forms — the fused one
+over a sequence and as a decode step — against their plain versions at ragged
 shapes, float32 and bfloat16, and the tensor-core attention at 2048 keys
 and D=256; a misaligned bfloat16 view is refused), ``scan_at_falcon_shapes``
 (the plain-form scan at falcon-mamba-7b's prefill shape in both types, and
@@ -81,7 +92,9 @@ from repro_torch.core import (MID_RANGE, Budget, PipetteStrategy,  # noqa: E402
                               enumerate_confs, fit_memory_estimator,
                               ground_truth_memory, mape, mixed_fleet_spec,
                               profile_bandwidth)
-from repro_torch.core.cluster import A100_TIER, V100_TIER  # noqa: E402
+from repro_torch.analysis import verify_plan_dict  # noqa: E402
+from repro_torch.core.cluster import (A100_TIER, V100_TIER,  # noqa: E402
+                                      profile_bandwidth_live)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import group_reduce as gr  # noqa: E402
@@ -94,6 +107,10 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import silu  # noqa: E402
 from repro_torch.models.sharding import ShardCtx  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.runtime.churn import (WARM_POLICY, generate_trace,  # noqa: E402
+                                       simulate_churn)
+from repro_torch.runtime.elastic import replan_on  # noqa: E402
+from repro_torch.service import PlanClient, PlanServer  # noqa: E402
 
 #: Published peaks of one H100 SXM used for the bounds: device-memory rate;
 #: the non-tensor-core float32 rate (also an upper bound on the rate of the
@@ -132,6 +149,12 @@ RAGGED_MAX_GATHER = [(1, 1, 3), (3, 3, 16), (5, 40, 3), (4, 2, 512),
 #: ``group_max`` launches of ``plan_tiered`` (all of the gather form): one
 #: per tiered score of its hierarchical search.
 TIERED_GROUP_MAX_LAUNCHES = 63
+#: SA iterations a candidate of each replan of the ``churn`` phase: each
+#: replan anneals every surviving candidate (about 180 at 120-128 GPUs,
+#: in some 30 shape groups), 3-4.5 s a replan at 50 on the card's host.
+CHURN_SA_ITERS = 20
+#: The four phases of the planner's other entry points share this limit.
+OTHER_ENTRY_POINTS_S = 60.0
 WRAPPERS = {
     "group_min_scale": gr.group_min_scale,
     "group_max": gr.group_max,
@@ -528,14 +551,17 @@ def check_path_shapes(device, shapes_by_phase: dict) -> list:
 # the main path: Planner.plan on the card, held against the host backend
 # ---------------------------------------------------------------------------
 
-def strip_backend(plan) -> str:
-    d = plan.to_json_dict()
+def strip_backend(text: str) -> str:
+    """A Plan's JSON text without the field that names the SA backend."""
+    d = json.loads(text)
     d["provenance"]["budget"].pop("backend")
     return json.dumps(d, sort_keys=True)
 
 
 def run_plan(name, workload, spec, space, budget_kw, estimator, device,
              must_launch) -> tuple:
+    """Plan on the card and on the host; returns the phase's line, its
+    launches and shapes, and the card's plan."""
     bw, _ = profile_bandwidth(spec)
 
     def plan_with(backend):
@@ -555,7 +581,7 @@ def run_plan(name, workload, spec, space, budget_kw, estimator, device,
     assert read_launches() == launches      # the host backend launches none
 
     assert plan.feasible, name
-    assert strip_backend(plan) == strip_backend(host_plan), \
+    assert strip_backend(plan.to_json()) == strip_backend(host_plan.to_json()), \
         f"{name}: card plan differs from the host-backend plan"
     n = spec.n_gpus
     assert sorted(plan.mapping.reshape(-1).tolist()) == list(range(n))
@@ -583,7 +609,11 @@ def run_plan(name, workload, spec, space, budget_kw, estimator, device,
         "launches": launches,
         "byte_equal_to_host_backend": True,
     }
-    return line, launches, shapes
+    return line, launches, shapes, plan
+
+
+#: The SA budget of ``plan_uniform``, which ``serve_plan`` submits too.
+UNIFORM_BUDGET = dict(sa_seconds=600.0, sa_iters=2000, n_chains=4, sa_topk=8)
 
 
 def plan_uniform(device) -> tuple:
@@ -607,13 +637,12 @@ def plan_uniform(device) -> tuple:
     truth = [ground_truth_memory(w, c, spec) for c in fit_confs]
     fit_mape = mape(preds, truth)
     assert np.isfinite(preds).all() and fit_mape < 25.0, fit_mape
-    line, launches, shapes = run_plan(
-        "plan_uniform", w, spec, SearchSpace(),
-        dict(sa_seconds=600.0, sa_iters=2000, n_chains=4, sa_topk=8),
-        est, device, must_launch=("group_min_scale",))
+    line, launches, shapes, _ = run_plan(
+        "plan_uniform", w, spec, SearchSpace(), UNIFORM_BUDGET, est, device,
+        must_launch=("group_min_scale",))
     line["estimator"] = {"fit_s": fit_s, "steps": 3000,
                          "mape_on_fit_range_pct": fit_mape}
-    return line, launches, shapes
+    return line, launches, shapes, est
 
 
 def plan_tiered(device) -> tuple:
@@ -623,7 +652,7 @@ def plan_tiered(device) -> tuple:
                             (A100_TIER, V100_TIER), (0.5, 0.5),
                             gpus_per_node=8, seed=7)
     w = Workload(configs.get("gpt-11.1b"), 2048, 1024)
-    line, launches, shapes = run_plan(
+    line, launches, shapes, plan = run_plan(
         "plan_tiered", w, spec, SearchSpace(max_tp=8, max_micro=4),
         dict(sa_seconds=600.0, sa_iters=200, n_chains=4, sa_topk=2,
              hierarchical=True),
@@ -632,7 +661,218 @@ def plan_tiered(device) -> tuple:
     assert launches["group_max"] == TIERED_GROUP_MAX_LAUNCHES, launches
     assert all(k[0] == "gather" for k in shapes["group_max"]), \
         shapes["group_max"]
+    return line, launches, shapes, (w, spec, plan)
+
+
+# ---------------------------------------------------------------------------
+# the planner's other entry points: the live probe, the plan server,
+# elastic replanning, the churn replay
+# ---------------------------------------------------------------------------
+
+def probe() -> dict:
+    """``profile_bandwidth_live()`` on every visible card: ``inf`` on the
+    diagonal, a timed copy between each pair (none on one card)."""
+    t0 = time.perf_counter()
+    bw = profile_bandwidth_live()
+    seconds = time.perf_counter() - t0
+    n = torch.cuda.device_count()
+    assert bw.shape == (n, n), bw.shape
+    assert np.isinf(np.diag(bw)).all()
+    off = bw[~np.eye(n, dtype=bool)]
+    assert np.isfinite(off).all() and (off > 0).all()
+    return {"phase": "probe", "seconds": seconds, "shape": list(bw.shape),
+            "bytes_per_s": [[None if np.isinf(v) else v for v in row]
+                            for row in bw.tolist()]}
+
+
+def _timed_submit(client, req) -> tuple:
+    t0 = time.perf_counter()
+    resp = client.submit(req)
+    return resp, time.perf_counter() - t0
+
+
+def serve_plan(est) -> tuple:
+    """``plan_uniform``'s request through an in-process ``PlanServer``
+    (device resolved at construction, here the card) and a ``PlanClient``
+    on 127.0.0.1: a miss, then a hit with the same bytes at least 10x
+    faster; three concurrent identical submits of a second request run one
+    search; the served plan passes the verifier and equals, without its
+    backend's name, the same request served on the NumPy backend.  The
+    server runs without warm start, so that the two backends' requests
+    search from the same cold start."""
+    spec = MID_RANGE
+    w = Workload(configs.get("gpt-3.1b"), 2048, 512)
+
+    def request(backend, seed=0):
+        return PlanRequest(workload=w, spec=spec, space=SearchSpace(),
+                           budget=Budget(backend=backend, **UNIFORM_BUDGET),
+                           seed=seed)
+
+    server = PlanServer("127.0.0.1", 0, warm_start=False, estimator=est)
+    assert server.device.type == "cuda" and server.device.index is not None
+    thread = server.start_in_thread()
+    t_phase = time.perf_counter()
+    try:
+        client = PlanClient(port=server.port)
+        reset_launches()
+        miss, miss_s = _timed_submit(client, request("torch"))
+        hit, hit_s = _timed_submit(client, request("torch"))
+        searches = server.counters["searches_run"]
+        t0 = time.perf_counter()
+        trio = client.submit_many([request("torch", seed=1)] * 3)
+        trio_s = time.perf_counter() - t0
+        trio_searches = server.counters["searches_run"] - searches
+        torch.cuda.synchronize()
+        launches, shapes = read_launches(), read_shapes()
+        host, host_s = _timed_submit(client, request("numpy"))
+        assert read_launches() == launches      # the host backend: none
+        stats = client.stats()
+    finally:
+        server.stop()
+        thread.join(timeout=120)
+    assert not thread.is_alive(), "plan server did not stop"
+    assert miss["meta"]["cache"] == "miss", miss["meta"]
+    assert hit["meta"]["cache"] == "hit", hit["meta"]
+    assert hit["plan"] == miss["plan"]
+    assert hit_s * 10 <= miss_s, (hit_s, miss_s)
+    assert trio_searches == 1, trio_searches
+    assert len({r["plan"] for r in trio}) == 1
+    assert sorted(r["meta"]["cache"] for r in trio)[-1] == "miss"
+    served = json.loads(miss["plan"])
+    errors = [str(i) for i in verify_plan_dict(served, spec=spec)
+              if i.severity == "error"]
+    assert not errors, errors
+    assert served["provenance"]["budget"]["backend"] == "torch"
+    assert strip_backend(miss["plan"]) == strip_backend(host["plan"])
+    assert launches["group_min_scale"] > 0, launches
+    assert all(k[0] == "gather" for k in shapes["group_min_scale"])
+    line = {"phase": "serve_plan", "model": w.cfg.name,
+            "n_gpus": spec.n_gpus, "budget": UNIFORM_BUDGET,
+            "seconds": time.perf_counter() - t_phase,
+            "miss_s": miss_s, "hit_s": hit_s, "hit_speedup": miss_s / hit_s,
+            "server_miss_s": miss["meta"]["elapsed_s"],
+            "server_hit_s": hit["meta"]["elapsed_s"],
+            "coalesced_trio_s": trio_s, "coalesced_searches": trio_searches,
+            "trio_cache": [r["meta"]["cache"] for r in trio],
+            "numpy_backend_s": host_s, "best": served["best"]["conf"],
+            "byte_equal_to_numpy_backend": True, "verifier_errors": 0,
+            "server_stats": {k: v for k, v in stats.items()
+                             if k != "cache"},
+            "launches": launches}
     return line, launches, shapes
+
+
+def replan(tiered) -> tuple:
+    """``plan_tiered``'s fleet loses node 5, and a spare of its tier joins
+    in its place (last, as a returning node does): ``replan_on`` the new
+    fleet on the card, cold and warm (seeded by the tiered plan projected
+    onto the 1,016 surviving GPUs), and the warm replan on the host's
+    NumPy backend.  127 nodes alone admit no configuration of this
+    workload (1,016 = 8 x 127 GPUs).  The search is flat, so that the warm
+    seed is what separates the two; the budget is ``plan_tiered``'s."""
+    w, spec, incumbent = tiered
+    lost = 5
+    nodes = [i for i in range(spec.n_nodes) if i != lost] + [lost]
+    new_spec = spec.with_node_subset(nodes)
+    survivors = [g for node in nodes[:-1] for g in spec.node_gpus(node)]
+    bw, _ = profile_bandwidth(new_spec)
+    kw = dict(sa_seconds=600.0, sa_iters=200, n_chains=4, sa_topk=2,
+              hierarchical=False, max_tp=8, max_micro=4)
+
+    def run(backend, warm):
+        t0 = time.perf_counter()
+        ep = replan_on(w, new_spec, bw, backend=backend,
+                       incumbent=incumbent if warm else None,
+                       survivors=survivors if warm else None, **kw)
+        torch.cuda.synchronize()
+        return ep, time.perf_counter() - t0
+
+    reset_launches()
+    cold, cold_s = run("torch", False)
+    warm, warm_s = run("torch", True)
+    launches, shapes = read_launches(), read_shapes()
+    host, host_s = run("numpy", True)
+    assert read_launches() == launches
+    assert strip_backend(warm.plan.to_json()) \
+        == strip_backend(host.plan.to_json())
+    oc, ow = cold.plan.overhead, warm.plan.overhead
+    same_best = (warm.plan.conf == cold.plan.conf and np.array_equal(
+        warm.plan.mapping, cold.plan.mapping))
+    # never worse, and cheaper: fewer accepted moves to its best, or the
+    # same best, or -- where neither search moves off its start -- a
+    # strictly better plan from the projected incumbent
+    assert warm.plan.latency <= cold.plan.latency, \
+        (warm.plan.latency, cold.plan.latency)
+    assert ow.sa_accepted_to_best <= oc.sa_accepted_to_best
+    assert (ow.sa_accepted_to_best < oc.sa_accepted_to_best or same_best
+            or warm.plan.latency < cold.plan.latency)
+    assert warm.plan.provenance.lineage["warm_start_projected"] is True
+    assert launches["group_max"] > 0, launches
+    assert all(k[0] == "gather" for k in shapes["group_max"])
+    m = warm.migration
+    line = {"phase": "replan", "model": w.cfg.name,
+            "n_gpus": new_spec.n_gpus, "lost_node": lost,
+            "seconds": cold_s + warm_s + host_s,
+            "cold_s": cold_s, "warm_s": warm_s, "numpy_backend_s": host_s,
+            "cold": {"best": str(cold.plan.conf),
+                     "latency_s": cold.plan.latency,
+                     "sa_accepted": oc.sa_accepted,
+                     "sa_accepted_to_best": oc.sa_accepted_to_best},
+            "warm": {"best": str(warm.plan.conf),
+                     "latency_s": warm.plan.latency,
+                     "sa_accepted": ow.sa_accepted,
+                     "sa_accepted_to_best": ow.sa_accepted_to_best,
+                     "ranks_moved": m.ranks_moved,
+                     "bytes_migrated": m.bytes_migrated,
+                     "downtime_s": m.downtime_s},
+            "byte_equal_to_numpy_backend": True, "launches": launches}
+    return line, launches, shapes
+
+
+def churn() -> tuple:
+    """``simulate_churn`` of the warm policy over the first four events of
+    a seeded trace on ``MID_RANGE`` (seed 3: a preemption, a straggler,
+    the return, a second straggler, so that tiered fleets reach
+    ``group_max``), gpt-3.1b at seq 2048, global batch 512: every replan
+    on the card, then on the host's NumPy backend; the reports' JSON must
+    be equal (they carry no backend).  The policy's budget is made
+    iteration-bound (the wall-clock cap set out of reach)."""
+    import dataclasses
+    spec = MID_RANGE
+    w = Workload(configs.get("gpt-3.1b"), 2048, 512)
+    trace = generate_trace(spec, horizon_s=3600, seed=3)
+    trace = dataclasses.replace(trace, events=trace.events[:4])
+    kinds = [e.kind for e in trace.events]
+    assert kinds == ["preempt", "straggler", "return", "straggler"], kinds
+    policy = dataclasses.replace(WARM_POLICY, sa_iters=CHURN_SA_ITERS,
+                                 sa_seconds=600.0)
+    reset_launches()
+    t0 = time.perf_counter()
+    card = simulate_churn(w, spec, trace, policy)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches, shapes = read_launches(), read_shapes()
+    t0 = time.perf_counter()
+    host = simulate_churn(w, spec, trace, dataclasses.replace(
+        policy, backend="numpy"))
+    host_s = time.perf_counter() - t0
+    assert read_launches() == launches
+    doc = json.dumps(card.to_json_dict(), sort_keys=True)
+    assert doc == json.dumps(host.to_json_dict(), sort_keys=True)
+    assert card.replans == len(trace.events)
+    assert card.bytes_migrated == card.resident_bytes
+    assert card.ranks_moved == card.resident_moved
+    for k in PLAN_KERNELS:
+        assert launches[k] > 0, (k, launches)
+    return ({"phase": "churn", "model": w.cfg.name, "n_gpus": spec.n_gpus,
+             "events": kinds, "policy": policy.name,
+             "sa_iters": CHURN_SA_ITERS, "seconds": card_s + host_s,
+             "card_s": card_s, "numpy_backend_s": host_s,
+             "samples": card.samples, "downtime_s": card.downtime_s,
+             "ranks_moved": card.ranks_moved,
+             "bytes_migrated": card.bytes_migrated,
+             "report_equal_to_numpy_backend": True,
+             "launches": launches}, launches, shapes)
 
 
 def trace(fn) -> dict:
@@ -1478,13 +1718,30 @@ def main() -> int:
     ragged = check_ragged(device)
     emit({"phase": "kernels", "kernels": ragged})
 
-    line_u, launches_u, shapes_u = plan_uniform(device)
+    line_u, launches_u, shapes_u, est = plan_uniform(device)
     emit(line_u)
-    line_t, launches_t, shapes_t = plan_tiered(device)
+    line_t, launches_t, shapes_t, tiered = plan_tiered(device)
     emit(line_t)
 
+    others = [probe()]
+    emit(others[-1])
+    line_s, launches_s, shapes_s = serve_plan(est)
+    others.append(line_s)
+    emit(line_s)
+    line_r, launches_r, shapes_r = replan(tiered)
+    others.append(line_r)
+    emit(line_r)
+    line_c, launches_c, shapes_c = churn()
+    others.append(line_c)
+    emit(line_c)
+    others_s = sum(o["seconds"] for o in others)
+    assert others_s < OTHER_ENTRY_POINTS_S, others_s
+
     rows = check_path_shapes(device, {"plan_uniform": shapes_u,
-                                      "plan_tiered": shapes_t})
+                                      "plan_tiered": shapes_t,
+                                      "serve_plan": shapes_s,
+                                      "replan": shapes_r,
+                                      "churn": shapes_c})
     emit({"phase": "kernels_at_path_shapes", "kernels": rows})
     if args.profile:
         emit(profile_sa(device))
@@ -1516,6 +1773,7 @@ def main() -> int:
                                key=shapes_t["group_max"].get)))
 
     main_path = {name: launches_u[name] + launches_t[name]
+                 + launches_s[name] + launches_r[name] + launches_c[name]
                  for name in PLAN_KERNELS}
     main_path.update({name: launches_q[name] + launches_f[name]
                       for name in MODEL_KERNELS})
@@ -1525,7 +1783,8 @@ def main() -> int:
 
     def summary(name):
         """One line per kernel: its launches on the main paths (the two
-        plans, or the two generate phases), and the times at the shape the
+        plans and the planner's other entry points, or the two generate
+        phases), and the times at the shape the
         paths launched most often; ``forms`` has the same for each form's
         most launched shape, and ``per_shape`` every shape."""
         mine = [r for r in rows + model_rows + scan_rows

@@ -3,7 +3,8 @@
 The paper's key observation (§IV, Fig. 3) is that attained link bandwidth in
 real clusters is heterogeneous and drifts over time, even when nominal specs
 are identical.  On real hardware ``profile_bandwidth`` would time p2p
-transfers (as NCCL-tests / mpiGraph do); without a cluster at hand
+transfers (as NCCL-tests / mpiGraph do) — :func:`profile_bandwidth_live`
+does that on the visible CUDA devices; without a cluster at hand
 we generate *measured-like* matrices whose spread is calibrated to Fig. 3
 (≈2-3x between slowest and fastest inter-node pairs, near-symmetric
 bidirectional rates, day-to-day drift).
@@ -494,6 +495,65 @@ def profile_bandwidth(spec: ClusterSpec, day: int = 0,
     measured = truth * rng.normal(1.0, noise, truth.shape)
     cost_s = 0.934 * spec.n_nodes ** 2
     return measured, cost_s
+
+
+def profile_bandwidth_live(devices=None,
+                           msg_bytes: int = 1 << 20) -> np.ndarray:
+    """Time device-to-device copies of ``msg_bytes`` between ``devices``.
+
+    Args:
+        devices: ``torch.device`` values or strings; ``None`` means every
+            visible CUDA device and raises when there is none.  The CPU
+            is profiled only when named (``["cpu"]`` gives the 1x1
+            ``inf`` matrix).
+        msg_bytes: bytes of each copy.
+
+    Returns:
+        ``(n, n)`` bytes/s matrix, ``bw[i, j]`` the rate of a copy from
+        device ``i`` to device ``j``, ``inf`` on the diagonal.  A copy
+        from a CUDA device is timed with CUDA events on that device,
+        after one untimed copy (peer setup); from the host, by the
+        monotonic clock.
+    """
+    import time
+
+    import torch
+
+    from .._device import resolve_device
+
+    if devices is None:
+        resolve_device(None)                 # raises without a CUDA device
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = [resolve_device(d) for d in devices]
+    n = len(devs)
+    bw = np.zeros((n, n))
+    for i, di in enumerate(devs):
+        xi = torch.ones(msg_bytes // 4, dtype=torch.float32, device=di)
+        for j, dj in enumerate(devs):
+            if i == j:
+                bw[i, j] = float("inf")
+                continue
+            if di.type == "cuda":
+                with torch.cuda.device(di):
+                    xi.to(dj)                           # untimed: peer setup
+                    torch.cuda.synchronize(di)
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    xi.to(dj, non_blocking=True)
+                    end.record()
+                    end.synchronize()
+                    dt = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                y = xi.to(dj)
+                if dj.type == "cuda":
+                    torch.cuda.synchronize(dj)
+                del y
+                dt = time.perf_counter() - t0
+            bw[i, j] = msg_bytes / max(dt, 1e-9)
+    return bw
 
 
 def ring_allreduce_time(msg_bytes: float, group_bw: float, n: int,

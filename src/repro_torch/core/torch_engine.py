@@ -279,10 +279,10 @@ class TorchDedicationEngine:
         sym = env["sym_intra"][ii, jj]
         member_min = sym.amin(dim=3)
         same = torch.isfinite(sym)
-        counts = same.sum(dim=3) + 1  # boolean-mask count: integer, exact in any order
+        counts = torch.count_nonzero(same, dim=3) + 1  # integer, exact
         intra = (env["intra_coef"][counts] / member_min).amax(dim=2)
         is_rep = ~(same & env["jlt"]).any(dim=3)
-        n_reps = is_rep.sum(dim=2)  # boolean-mask count: integer, exact in any order
+        n_reps = torch.count_nonzero(is_rep, dim=2)  # integer, exact
         pair = is_rep[:, :, :, None] & is_rep[:, :, None, :]
         inf = torch.full((), float("inf"), dtype=torch.float64,
                          device=perm.device)

@@ -13,16 +13,18 @@
 // selective_scan_fused_fwd (Mamba1 form): the same recurrence with the
 // block's prologue and epilogue folded in, replaying the order and the
 // roundings of the ATen sequence it replaces (io = x's type):
-//   dt    = round_io(softplus(round_io(dt_raw + round_io(dt_bias))))
-//           softplus(s) = max(s, 0) + log1p(exp(-|s|))   (logaddexp(s, 0))
+//   s     = round_io(dt_raw + round_io(dt_bias))
+//   dt    = round_io(max(s, 0) + round_io(log1p(round_io(exp(-|s|)))))
+//           (JAX's softplus, logaddexp(s, 0), with each op in io's type)
 //   A     = -exp(A_log)
 //   (step: dt * x is rounded to io before the recurrence, as the one-step
 //   update does for a bfloat16 product)
 //   out   = round_io((y + D * x) * (z * sigmoid(z)))
 // so the float32 y, the softplus and the gate never reach device memory.
-// The softplus is libdevice's expf and log1pf, as ATen's, so dt rounds to
-// the same bfloat16 value and the state agrees to float32 rounding; the
-// gate, which only feeds `out`, takes __expf and __fdividef (a few ulp).
+// The softplus is libdevice's expf and log1pf, as ATen's, rounded as
+// ATen rounds each op, so dt takes the same io value and the state agrees
+// to float32 rounding; the gate, which only feeds `out`, takes __expf
+// and __fdividef (a few ulp).
 // h_out may be h0 itself: every lane reads its states before it writes
 // them, and no other thread touches them.
 //
@@ -343,7 +345,8 @@ scan_kernel(const Args p) {
         const float xv = to_f32(sm.xs[slot][t][c]);
         if (FUSED) {
           const float s = round_to<T>(dl + sm.bias[c]);
-          dl = round_to<T>(fmaxf(s, 0.f) + log1pf(expf(-fabsf(s))));
+          const float e = round_to<T>(expf(-fabsf(s)));
+          dl = round_to<T>(fmaxf(s, 0.f) + round_to<T>(log1pf(e)));
         }
         dx = dl * xv;
         if (FUSED && p.step) dx = round_to<T>(dx);

@@ -48,11 +48,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it —
-    ``logaddexp(x, 0)`` in float32, cast back — and not ``F.softplus``,
-    which returns ``x`` itself above 20."""
-    xf = x.to(torch.float32)
-    return torch.logaddexp(xf, torch.zeros_like(xf)).to(x.dtype)
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it, and not
+    ``F.softplus``, which returns ``x`` itself above 20.
+
+    JAX's softplus is ``logaddexp(x, 0)``, which it spells
+    ``max(x, 0) + log1p(exp(-|x|))`` with every op in ``x``'s type: in
+    bfloat16 the ``exp``, the ``log1p`` and the sum each round.  This
+    replays those roundings in ``x``'s type, and so equals it bit for bit
+    on bfloat16.  float32 takes ``logaddexp`` in one op, which differs
+    from JAX's by at most one ulp on some values."""
+    if x.dtype == torch.float32:
+        return torch.logaddexp(x, torch.zeros_like(x))
+    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,

@@ -41,7 +41,14 @@ def residual_norm(x: torch.Tensor, pending: Optional[torch.Tensor],
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
+    """``x * sigmoid(x)`` as the reference computes it.  JAX's sigmoid
+    is ``1 / (1 + exp(-x))`` with each op in ``x``'s type, so in bfloat16
+    the ``exp``, the add and the divide each round; this replays them,
+    where ``torch.sigmoid`` rounds once (a third of bfloat16 values one
+    step away).  float32 keeps ``torch.sigmoid``."""
+    if x.dtype == torch.float32:
+        return x * torch.sigmoid(x)
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

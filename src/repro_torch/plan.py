@@ -12,6 +12,11 @@
     # parameter/optimizer bytes re-fetched, estimated downtime
     python -m repro_torch.plan diff a.json b.json
 
+    # statically verify an artifact against a cluster — no re-search, no
+    # device (schema, conf arithmetic, 1F1B schedulability, mapping
+    # permutation, memory floor, bandwidth/tier digests)
+    python -m repro_torch.plan lint plan.json --cluster mid-range --nodes 2
+
 The search runs on the CUDA device (``--device cuda``, the default, fails
 without one; ``--device cpu`` must be asked for).  The emitted JSON is the
 same artifact ``Planner.plan`` produces in process: byte-reproducible for
@@ -197,6 +202,39 @@ def cmd_diff(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_lint(args: argparse.Namespace) -> int:
+    # deliberately avoids Plan.load: the verifier diagnoses artifacts the
+    # loader would refuse (unknown schema, malformed blocks)
+    import json
+
+    import numpy as np
+
+    from repro_torch.analysis import verify_plan_file
+
+    spec = None
+    if args.cluster:
+        spec = CLUSTERS[args.cluster]
+        if args.nodes:
+            spec = spec.with_nodes(args.nodes)
+    bw = np.load(args.bw) if args.bw else None
+    issues = verify_plan_file(args.path, spec=spec, bw=bw)
+    errors = [i for i in issues if i.severity == "error"]
+    if args.format == "json":
+        print(json.dumps([{"rule": i.rule, "severity": i.severity,
+                           "where": i.where, "message": i.message}
+                          for i in issues], indent=2, sort_keys=True))
+    else:
+        for i in issues:
+            print(i)
+        against = spec.name if spec is not None else "recorded provenance"
+        verdict = ("FAIL — plan cannot execute as recorded"
+                   if errors else "OK — static checks pass")
+        print(f"[lint] {args.path} vs {against}: {len(errors)} error(s), "
+              f"{sum(1 for i in issues if i.severity == 'warning')} "
+              f"warning(s) -> {verdict}", file=sys.stderr)
+    return 1 if errors else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.plan",
@@ -265,6 +303,22 @@ def main(argv=None) -> int:
                    help="restart barrier seconds (default: model default)")
     d.add_argument("--format", choices=("text", "json"), default="text")
     d.set_defaults(fn=cmd_diff)
+
+    v = sub.add_parser(
+        "lint", help="statically verify a Plan JSON against a cluster "
+                     "(no re-search, no device; exit 1 on executability "
+                     "errors)")
+    v.add_argument("path")
+    v.add_argument("--cluster", choices=sorted(CLUSTERS), default=None,
+                   help="check against this simulated cluster preset "
+                        "(default: self-check against recorded provenance)")
+    v.add_argument("--nodes", type=int, default=0,
+                   help="override the preset's node count")
+    v.add_argument("--bw", default=None, metavar="FILE.npy",
+                   help="profiled bandwidth matrix to verify the "
+                        "recorded digest against")
+    v.add_argument("--format", choices=("text", "json"), default="text")
+    v.set_defaults(fn=cmd_lint)
 
     args = ap.parse_args(argv)
     try:

@@ -11,7 +11,10 @@ attention kernel to the float32 plain version within 2e-2, at long and wide
 shapes too.  The scan is held to its plain version at every lane count, and
 its fused Mamba1 form (bias, softplus, scan, D skip, gate in one launch) at
 falcon-mamba-7b's prefill and decode-step shapes with the model's views and
-the decode cache's state updated in place.  Without a CUDA device
+the decode cache's state updated in place.  The planner's other entry
+points run there too: the live bandwidth probe, the plan server, an
+elastic replan and a churn replay, each equal to the host NumPy backend's
+result.  Without a CUDA device
 every test here skips with a reason
 (decided inside the test, never at import).  This file imports ``torch``
 and ``repro_torch`` only, so it also runs on a machine without JAX:
@@ -591,3 +594,94 @@ def test_model_kernel_wrappers_raise_on_what_they_do_not_take():
         ss.selective_scan_fused(x, x, f, b2, b2,
                                 torch.ones(8, 2, device="cuda"), f, x,
                                 h_out=torch.ones(1, 8, 3, device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# the planner's other entry points on the card: the live probe, the plan
+# server, elastic replanning and the churn replay
+# ---------------------------------------------------------------------------
+
+def _without_backend(text):
+    d = json.loads(text)
+    d["provenance"]["budget"].pop("backend")
+    return json.dumps(d, sort_keys=True)
+
+
+def test_live_probe_on_the_visible_cards():
+    _need_cuda()
+    bw = cluster.profile_bandwidth_live()
+    n = torch.cuda.device_count()
+    assert bw.shape == (n, n)
+    assert np.isinf(np.diag(bw)).all()
+    off = bw[~np.eye(n, dtype=bool)]
+    assert np.isfinite(off).all() and (off > 0).all()
+
+
+def test_plan_server_on_the_card_serves_the_numpy_plan():
+    """``PlanServer(device=None)`` resolves the card in the calling
+    thread; its torch-backend plan is the NumPy-backend plan byte for
+    byte (backend dropped), passes the verifier, and the searches
+    launched the gather kernel."""
+    _need_cuda()
+    from repro_torch.analysis import verify_plan_dict
+    from repro_torch.service import PlanClient, PlanServer
+    spec = cluster.MID_RANGE.with_nodes(2)
+    reqs = [plan.PlanRequest(
+        simulator.Workload(GPT, 2048, 32), spec,
+        plan.SearchSpace(max_micro=2),
+        plan.Budget(sa_seconds=600.0, sa_iters=60, sa_topk=2,
+                    backend=b), seed=3) for b in ("torch", "numpy")]
+    server = PlanServer(port=0, warm_start=False)
+    assert server.device.type == "cuda" and server.device.index is not None
+    thread = server.start_in_thread()
+    try:
+        client = PlanClient(port=server.port)
+        before = gr.group_min_scale.launches
+        got, want = (client.submit(r)["plan"] for r in reqs)
+        launched = gr.group_min_scale.launches - before
+    finally:
+        server.stop()
+        thread.join(timeout=60)
+    assert launched > 0
+    assert _without_backend(got) == _without_backend(want)
+    assert not [i for i in verify_plan_dict(json.loads(got), spec=spec)
+                if i.severity == "error"]
+
+
+def test_replan_on_the_card_equals_the_numpy_replan():
+    """A tiered fleet loses one node: the warm replan on the card is the
+    NumPy replan byte for byte and launches ``group_max`` in its gather
+    form."""
+    _need_cuda()
+    from repro_torch.runtime.elastic import replan
+    spec = _mixed()
+    w = simulator.Workload(GPT, 2048, 32)
+    kw = dict(sa_seconds=600.0, sa_iters=60, sa_topk=2, max_micro=2)
+    inc = replan(w, spec, healthy_nodes=8, backend="numpy", **kw).plan
+    before = gr.group_max.launches
+    got = replan(w, spec, healthy_nodes=[0, 1, 2, 4, 5, 6, 7],
+                 incumbent=inc, migration_weight=1e-4, **kw)
+    launched = gr.group_max.launches - before
+    want = replan(w, spec, healthy_nodes=[0, 1, 2, 4, 5, 6, 7],
+                  incumbent=inc, migration_weight=1e-4, backend="numpy",
+                  **kw)
+    assert launched > 0
+    assert _without_backend(got.plan.to_json()) \
+        == _without_backend(want.plan.to_json())
+
+
+def test_churn_replay_on_the_card_equals_numpy():
+    _need_cuda()
+    import dataclasses
+    from repro_torch.runtime.churn import (COLD_POLICY, WARM_POLICY,
+                                           generate_trace, simulate_churn)
+    spec = cluster.MID_RANGE.with_nodes(3)
+    w = simulator.Workload(configs.get("gpt-1.1b").reduced(), 2048, 64)
+    trace = generate_trace(spec, horizon_s=600, seed=1, min_nodes=2)
+    for pol in (WARM_POLICY, COLD_POLICY):
+        pol = dataclasses.replace(pol, sa_iters=40, sa_seconds=600.0)
+        card = simulate_churn(w, spec, trace, pol)
+        host = simulate_churn(w, spec, trace, dataclasses.replace(
+            pol, backend="numpy", device="cpu"))
+        assert json.dumps(card.to_json_dict(), sort_keys=True) \
+            == json.dumps(host.to_json_dict(), sort_keys=True)

@@ -37,6 +37,12 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.models.mamba, repro_torch.models.sharding\n"
         "import repro_torch.models.transformer, repro_torch.models.model\n"
         "import repro_torch.launch.steps, repro_torch.launch.generate\n"
+        "import repro_torch.analysis, repro_torch.analysis.cli\n"
+        "import repro_torch.analysis.plan_verifier\n"
+        "import repro_torch.runtime.elastic, repro_torch.runtime.churn\n"
+        "import repro_torch.service, repro_torch.service.server\n"
+        "import repro_torch.service.client, repro_torch.service.wire\n"
+        "import repro_torch.service.cache, repro_torch.service.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('repro.') or "
         "m.startswith('triton')]\n"
@@ -74,8 +80,8 @@ def test_the_import_pattern_itself(line, blocked):
 
 
 def test_cli_show_and_diff_run_without_a_device(tmp_path):
-    """``show`` and ``diff`` read artifacts only; ``plan`` without a card
-    must fail rather than fall back to the CPU."""
+    """``show``, ``diff`` and ``lint`` read artifacts only; ``plan``
+    without a card must fail rather than fall back to the CPU."""
     golden = os.path.join(ROOT, "tests", "data", "golden_plan_v5.json")
     env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
     run = lambda *a: subprocess.run(  # noqa: E731
@@ -88,7 +94,7 @@ def test_cli_show_and_diff_run_without_a_device(tmp_path):
                "qwen2-7b")
     assert diff.returncode == 0 and '"ranks_moved": 0' in diff.stdout
     lint = run("lint", golden)
-    assert lint.returncode != 0          # not ported: no such sub-command
+    assert lint.returncode == 0 and "OK" in lint.stderr, lint.stderr
     plan = run("plan", "--config", "qwen2-7b", "--reduced", "--nodes", "2",
                "--seq", "128", "--bs-global", "64", "--sa-iters", "20")
     assert plan.returncode != 0 and "CUDA" in plan.stderr
