@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the package's two main paths at full size — the planner
+Drives the package's main paths at full size — the planner
 (``Planner.plan``: enumerate, memory prune, profiles, pre-score, simulated-
 annealing dedication on the card, and the planner's other entry points:
 the live bandwidth probe, the plan server, elastic replanning and the
-churn replay) and generation (``launch.generate``: prefill and greedy
-decode of qwen2-7b and falcon-mamba-7b) — builds the
+churn replay), generation (``launch.generate``: prefill and greedy
+decode of qwen2-7b and falcon-mamba-7b) and training (``launch.train``:
+qwen2-7b at full width and 4 layers, with a crash and a resume) — builds the
 CUDA kernels from the sources in this checkout, holds each kernel against
 its plain PyTorch version, and proves that each path went through its
 kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
@@ -38,7 +39,14 @@ cluster, its report equal to the NumPy backend's; the four phases under
 both forms, flash_attention, selective_scan in both forms — the fused one
 over a sequence and as a decode step — against their plain versions at ragged
 shapes, float32 and bfloat16, and the tensor-core attention at 2048 keys
-and D=256; a misaligned bfloat16 view is refused), ``scan_at_falcon_shapes``
+and D=256; a misaligned bfloat16 view is refused), ``model_kernels_bwd``
+(the backward kernels of rmsnorm, both forms with and without the
+stream's gradient, and of flash_attention, causal and windowed, GQA,
+``Sq != Sk``, rows with no allowed key, strided views, against their plain
+versions in float32 and bfloat16, with the forward's ``lse``; each plain
+backward against autograd of its plain forward; each autograd Function by
+finite differences in float32; the scan's refusal of a gradient),
+``scan_at_falcon_shapes``
 (the plain-form scan at falcon-mamba-7b's prefill shape in both types, and
 the fused form at its prefill and step shapes in float32, checked and
 timed), ``scan_by_batch`` (the plain form at that prefill shape with batch
@@ -49,10 +57,21 @@ counts, the split of plain and residual norms, and falcon's scans all in
 the fused form: one a layer per prefill and per step), ``slice_check_*``
 (each model at full width and 2 layers: the card's prefill logits against
 the host's, and the first decode step against ``forward_logits`` at the
-next position), ``model_kernels_at_path_shapes`` and ``host_cost`` (host
+next position), ``train_qwen2_7b`` (``launch.train.train``: qwen2-7b at
+full width and 4 of its 28 layers — the one cut — bf16, remat, random
+weights from a seeded generator on the card, ``SyntheticCorpus`` batches
+of 4 x 512 in 2 microbatches, AdamW on the reference's cosine schedule, 4
+steps with a checkpoint every 2; exact forward and backward launch counts
+of both norm forms and of the attention; then a run that fails at step 3
+and its resume from the step-2 checkpoint, which must give the same losses
+and final parameters bit for bit), ``slice_check_train`` (qwen2-7b at full
+width and 1 layer, 1 x 64 tokens: a step's loss and every leaf's gradient
+on the card against the host's plain path), ``model_kernels_at_path_shapes``
+(the training phase's forward shapes too), ``bwd_kernels_at_path_shapes``
+and ``host_cost`` (host
 microseconds of one call of each redesigned wrapper and of its library
-call); with ``--profile`` also ``profile_sa`` and ``profile_generate_*``
-(torch.profiler: device busy and idle share).
+call); with ``--profile`` also ``profile_sa``, ``profile_generate_*`` and
+``profile_train`` (torch.profiler: device busy and idle share).
 Each plan is made twice — SA on the card
 (``backend="torch"``) and on the host (``backend="numpy"``) — and the two
 Plan JSONs must be byte-equal once the backend's name is dropped.  The
@@ -66,8 +85,9 @@ the residual form of ``rmsnorm`` (an ATen add, then the plain form) and
 the fused scan (ATen's bias add, softplus and ``-exp(A_log)``, the plain
 form's kernel or, for a step, ATen's one-step update and the copy into the
 cache row, then the D skip, the gate and the cast).
-Then one ``{"kernels": [...]}`` line for all five kernels, the
-``nvidia-smi`` line, and the final ``{"ok": true, ...}`` line.
+Then one ``{"kernels": [...]}`` line for all five kernels and the two
+backward kernels, the ``nvidia-smi`` line, and the final ``{"ok": true,
+...}`` line.
 """
 from __future__ import annotations
 
@@ -75,8 +95,10 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -100,7 +122,10 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import group_reduce as gr  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
+from repro_torch import _tree  # noqa: E402
 from repro_torch.launch import generate as gen_cli  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
 from repro_torch.models import model as M  # noqa: E402
@@ -178,6 +203,11 @@ SOURCES = {
 }
 PLAN_KERNELS = ("group_min_scale", "group_max")
 MODEL_KERNELS = ("rmsnorm", "flash_attention", "selective_scan")
+#: The backward kernels (no TPU counterpart: the JAX package differentiates
+#: its plain jnp by autodiff), by the wrapper whose ``bwd_launches`` counts
+#: them.
+BWD_KERNELS = {"rmsnorm_bwd": "rmsnorm",
+               "flash_attention_bwd": "flash_attention"}
 
 
 def emit(obj: dict) -> None:
@@ -195,11 +225,25 @@ def nvidia_smi_line() -> str:
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "bwd_launches"):
+            fn.bwd_launches = 0
         fn.shapes.clear()
 
 
 def read_launches() -> dict:
+    """Per kernel, its forward launches since the last reset."""
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def read_bwd_launches() -> dict:
+    """Per backward kernel, its launches since the last reset."""
+    return {name: WRAPPERS[w].bwd_launches for name, w in BWD_KERNELS.items()}
+
+
+def is_bwd_key(key) -> bool:
+    """Whether a wrapper's shape key counts a backward launch."""
+    return isinstance(key, tuple) and bool(key) and key[0] in ("bwd",
+                                                               "add_bwd")
 
 
 def read_shapes() -> dict:
@@ -1474,6 +1518,590 @@ def slice_check(name: str, arch: str, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the backward kernels: against their plain versions, and timing
+# ---------------------------------------------------------------------------
+
+#: (float32, bfloat16) tolerance of each backward kernel against its plain
+#: version, relative to the largest magnitude of the plain result: float32
+#: sums in another order (the attention's also ``expf`` within 2 ulp); in
+#: bfloat16 an output may round to the neighbouring value.  The same holds
+#: each plain backward against torch autograd of its plain forward.
+TOL_BWD = {"rmsnorm_bwd": (2e-5, 1e-2), "flash_attention_bwd": (1e-4, 1e-2)}
+#: The forward's log-sum-exp against the plain one (absolute, on finite
+#: rows; rows with no allowed key must be +inf on both sides).
+TOL_LSE = 1e-4
+#: Finite-difference check of each Function in float32 (the kernels take no
+#: float64): the directional derivative of sum(out * W) by a central
+#: difference of step FD_EPS, against <gradient, direction>, relative.
+FD_EPS, FD_TOL = 1e-3, 1e-3
+RAGGED_RMS_BWD = [((rows, d), dt) for rows in (1, 7, 70)
+                  for d in (32, 36, 384, 3584) for dt in ("float32",
+                                                          "bfloat16")]
+#: (b, h, kv, sq, sk, d, causal, window): GQA, Sq != Sk both ways, a
+#: window, rows with no allowed key (the fifth), D = 256, and qwen2-7b's
+#: heads at a ragged length.
+RAGGED_FA_BWD = [
+    (2, 4, 2, 64, 64, 32, True, 0), (1, 4, 1, 50, 90, 64, False, 0),
+    (1, 2, 2, 100, 100, 128, True, 16), (2, 8, 2, 96, 40, 128, True, 0),
+    (1, 2, 2, 64, 16, 16, True, 8), (1, 2, 1, 40, 40, 256, True, 0),
+    (1, 28, 4, 130, 130, 128, True, 0),
+]
+BWD_EPS = 1e-5
+
+
+def bwd_inputs(name: str, key: tuple, device) -> dict:
+    """Random inputs of one backward call at a backward shape key, laid out
+    as the training path hands them: attention tensors are ``(B, S, H,
+    D)`` views as ``(B, H, S, D)``, and ``out`` and ``lse`` come from the
+    forward kernel."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(zlib.crc32(repr(key).encode()))
+    if name == "rmsnorm_bwd":
+        shape, xt, wt = key[1], _dtype(key[2]), _dtype(key[3])
+        with_ds = key[0] == "add_bwd" and key[4]
+        return {"x": _randn(gen, shape, xt, device, 3.0),
+                "w": _randn(gen, shape[-1:], wt, device),
+                "dy": _randn(gen, shape, xt, device),
+                "ds": _randn(gen, shape, xt, device) if with_ds else None}
+    (q, k, v), kw = model_inputs("flash_attention", key[1:], device)
+    b, h, sq, d = q.shape
+    dout = _randn(gen, (b, sq, h, d), q.dtype, device).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=device)
+    out = fa._fwd_cuda(q, k, v, kw["causal"], kw["window"], lse)
+    return {"q": q, "k": k, "v": v, "out": out, "lse": lse, "dout": dout,
+            **kw}
+
+
+def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
+    """``(kernel, plain, library, library_note)`` calls on the inputs
+    ``a``: the backward kernel's wrapper, its plain version, and, when
+    ``timed``, the backward of one PyTorch call computing the forward
+    (autograd of ``F.rms_norm``, of ``x + r`` and ``F.rms_norm`` for the
+    residual form, and for bfloat16 attention SDPA's backward with the
+    flash or efficient backend and ``enable_gqa`` — on KV repeated to the
+    query heads where those backends refuse grouped heads), timed as a
+    yardstick only, or None where there is none."""
+    F = torch.nn.functional
+    if name == "rmsnorm_bwd":
+        x, w, dy, ds = a["x"], a["w"], a["dy"], a["ds"]
+        d = x.shape[-1]
+        kernel = lambda: rn._rmsnorm_bwd_cuda(x, w, dy, BWD_EPS, ds, key)  # noqa: E731
+        plain = lambda: rn.rmsnorm_bwd_ref(x, w, dy, BWD_EPS, ds)  # noqa: E731
+        if not timed:
+            return kernel, plain, None, None
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        if key[0] == "add_bwd":
+            rr = torch.zeros_like(x).requires_grad_()
+            sr = xr + rr
+            yr = F.rms_norm(sr, (d,), wr, BWD_EPS)
+            outs, cots = ((sr, yr), (ds, dy)) if ds is not None else \
+                ((yr,), (dy,))
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                outs, (xr, rr, wr), cots, retain_graph=True)
+        else:
+            yr = F.rms_norm(xr, (d,), wr, BWD_EPS)
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                yr, (xr, wr), dy, retain_graph=True)
+        return kernel, plain, library, "autograd of F.rms_norm"
+    q, k, v, out, lse, dout = (a[n] for n in ("q", "k", "v", "out", "lse",
+                                              "dout"))
+    causal, window = a["causal"], a["window"]
+    kernel = lambda: fa._bwd_cuda(q, k, v, out, lse, dout, causal, window)  # noqa: E731
+    plain = lambda: fa.flash_attention_bwd_ref(  # noqa: E731
+        q, k, v, out, lse, dout, causal=causal, window=window)
+    sq, sk = q.shape[2], k.shape[2]
+    if not (timed and window == 0 and (sq == sk or not causal)
+            and q.dtype == torch.bfloat16):
+        return kernel, plain, None, None
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    group = q.shape[1] // k.shape[1]
+    ql = q.detach().contiguous().requires_grad_()
+    note = "SDPA backward (flash or efficient backend, enable_gqa)"
+    try:
+        kl, vl = (t.detach().contiguous().requires_grad_() for t in (k, v))
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                                enable_gqa=True)
+    except RuntimeError:             # the fused backends refuse grouped KV
+        note = ("SDPA backward (flash or efficient backend) on KV repeated "
+                "to the query heads")
+        kl, vl = (t.detach().repeat_interleave(group, dim=1)
+                  .requires_grad_() for t in (k, v))
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    dl = dout.contiguous()
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        ol, (ql, kl, vl), dl, retain_graph=True)
+    return kernel, plain, library, note
+
+
+def bwd_bound(name: str, key: tuple, a: dict, outs) -> tuple:
+    """(bound_ms, bound_by) of one backward call: the larger of bytes over
+    the memory rate (each input read once, each output written once) and
+    operations over the peak rate for the inputs' type.  The norm's
+    backward counts 11 operations an element (12 with ``ds_in``) at the
+    float32 rate; the attention's its five products over the (query, key)
+    pairs the mask allows, ``10 B H D pairs``, at the tensor-core rate for
+    bfloat16 inputs (the kernel itself uses the CUDA cores)."""
+    ins = [t for t in a.values() if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in ins + list(outs))
+    if name == "rmsnorm_bwd":
+        ops, rate = (12 if a["ds"] is not None else 11) * a["x"].numel(), \
+            OPS_PER_S
+    else:
+        qs, ks, causal, window, dt = key[1:]
+        pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu").sum())
+        ops = 10 * qs[0] * qs[1] * qs[3] * pairs
+        rate = BF16_OPS_PER_S if "bfloat16" in dt else OPS_PER_S
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / rate}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
+
+
+def _max_rel(got, want) -> tuple:
+    """(largest absolute difference, largest magnitude of ``want``)."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max()), float(w.abs().max())
+
+
+def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
+    """Backward kernel vs its plain version on the same inputs, within
+    ``TOL_BWD`` of the largest magnitude (and, for the attention, the
+    forward's ``lse`` vs the plain one); with ``timed`` also ``ms``,
+    ``device_ms``, ``plain_ms``, ``library_ms`` and the bound."""
+    a = bwd_inputs(name, key, device)
+    kernel, plain, library, note = bwd_calls(name, key, a, timed)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    dt = got[0].dtype
+    tol = TOL_BWD[name][1 if dt == torch.bfloat16 else 0]
+    err = 0.0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (name, key)
+        diff, scale = _max_rel(g, w)
+        assert diff <= tol * max(scale, 1e-30), (name, key, diff, scale)
+        err = max(err, diff)
+    row = {"name": name, "key": json.loads(json.dumps(key, default=str)),
+           "tol": tol, "max_abs_err": err}
+    if name == "flash_attention_bwd":
+        _, want_lse = fa.flash_attention_ref(a["q"], a["k"], a["v"],
+                                             causal=a["causal"],
+                                             window=a["window"],
+                                             return_lse=True)
+        fin = torch.isfinite(want_lse)
+        assert torch.equal(torch.isfinite(a["lse"]), fin), (name, key)
+        lse_err = float((a["lse"][fin] - want_lse[fin]).abs().max()) \
+            if bool(fin.any()) else 0.0
+        assert lse_err <= TOL_LSE, (name, key, lse_err)
+        row["lse_max_abs_err"] = lse_err
+        row["rows_without_keys"] = int((~fin).sum())
+        if not bool(fin.all()):          # those rows pass no gradient
+            assert bool((got[0].float().abs().sum(-1)[~fin] == 0).all())
+    if timed:
+        b_ms, b_by = bwd_bound(name, key, a, got)
+        fns = {"ms": kernel, "plain_ms": plain}
+        if library is not None:
+            fns["library_ms"] = library
+        row.update({"library_ms": None, "library": note,
+                    **interleaved(lambda fn: time_ms(fn, reps=0), fns)})
+        row.update(device_ms=device_ms(kernel), bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
+def check_plain_bwd_against_autograd(device) -> list:
+    """Each plain backward against ``torch.autograd.grad`` of its plain
+    forward on the card, in both types, within ``TOL_BWD``."""
+    rows = []
+    for dt in ("float32", "bfloat16"):
+        for shape in ((7, 384), (70, 3584)):
+            for form, key in (("plain", ("bwd", shape, dt, dt)),
+                              ("add", ("add_bwd", shape, dt, dt, True))):
+                a = bwd_inputs("rmsnorm_bwd", key, device)
+                x, w, dy, ds = a["x"], a["w"], a["dy"], a["ds"]
+                xr, wr = x.detach().requires_grad_(), \
+                    w.detach().requires_grad_()
+                if form == "add":
+                    rr = torch.zeros_like(x).requires_grad_()
+                    s_, y_ = rn.add_rmsnorm_ref(xr, rr, wr, BWD_EPS)
+                    auto = torch.autograd.grad((s_, y_), (xr, rr, wr),
+                                               (ds, dy))
+                    auto = (auto[0], auto[2])
+                else:
+                    auto = torch.autograd.grad(rn.rmsnorm_ref(xr, wr,
+                                                              BWD_EPS),
+                                               (xr, wr), dy)
+                mine = rn.rmsnorm_bwd_ref(x, w, dy, BWD_EPS, ds)
+                tol = TOL_BWD["rmsnorm_bwd"][dt == "bfloat16"]
+                err = max(_max_rel(m, t)[0] / max(_max_rel(m, t)[1], 1e-30)
+                          for m, t in zip(mine, auto))
+                assert err <= tol, ("rmsnorm_bwd_ref", key, err)
+                rows.append({"name": "rmsnorm_bwd_ref", "form": form,
+                             "key": json.loads(json.dumps(key, default=str)),
+                             "rel_err_vs_autograd": err})
+        for case in (RAGGED_FA_BWD[2], RAGGED_FA_BWD[4]):
+            b, h, kv, sq, sk, d, causal, window = case
+            key = ("bwd", (b, h, sq, d), (b, kv, sk, d), causal, window, dt)
+            a = bwd_inputs("flash_attention_bwd", key, device)
+            leaves_ = [a[n].detach().requires_grad_() for n in "qkv"]
+            o = fa.flash_attention_ref(*leaves_, causal=causal, window=window)
+            auto = torch.autograd.grad(o, leaves_, a["dout"])
+            with torch.no_grad():
+                o2, lse2 = fa.flash_attention_ref(a["q"], a["k"], a["v"],
+                                                  causal=causal,
+                                                  window=window,
+                                                  return_lse=True)
+            mine = fa.flash_attention_bwd_ref(a["q"], a["k"], a["v"], o2,
+                                              lse2, a["dout"], causal=causal,
+                                              window=window)
+            tol = TOL_BWD["flash_attention_bwd"][dt == "bfloat16"]
+            err = max(_max_rel(m, t)[0] / max(_max_rel(m, t)[1], 1e-30)
+                      for m, t in zip(mine, auto))
+            assert err <= tol, ("flash_attention_bwd_ref", key, err)
+            rows.append({"name": "flash_attention_bwd_ref",
+                         "key": json.loads(json.dumps(key, default=str)),
+                         "rel_err_vs_autograd": err})
+    return rows
+
+
+def finite_difference(fn, inputs: list, device, seed: int) -> dict:
+    """Central-difference directional derivatives of ``L = sum(fn(*inputs)
+    * W)`` (summed in float64) against ``<grad L, u>`` by the Function's
+    backward, for two random directions ``u``; returns the largest
+    relative error."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    leaves_ = [t.detach().requires_grad_() for t in inputs]
+    outs = fn(*leaves_)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    ws = [torch.randn(o.shape, generator=gen, device=device) for o in outs]
+
+    def loss(ts):
+        with torch.no_grad():
+            res = fn(*ts)
+        res = res if isinstance(res, tuple) else (res,)
+        return sum(float((r.double() * w.double()).sum())
+                   for r, w in zip(res, ws))
+
+    grads = torch.autograd.grad(outs, leaves_, ws)
+    worst = 0.0
+    for _ in range(2):
+        us = [torch.randn(t.shape, generator=gen, device=device)
+              for t in inputs]
+        plus = loss([t + FD_EPS * u for t, u in zip(inputs, us)])
+        minus = loss([t - FD_EPS * u for t, u in zip(inputs, us)])
+        fd = (plus - minus) / (2 * FD_EPS)
+        an = sum(float((g.double() * u.double()).sum())
+                 for g, u in zip(grads, us))
+        worst = max(worst, abs(fd - an) / max(abs(an), 1e-30))
+    return {"rel_err": worst}
+
+
+def check_functions_by_finite_differences(device) -> list:
+    """``RMSNormFn``, ``AddRMSNormFn`` and ``FlashAttentionFn`` on the card
+    in float32, by :func:`finite_difference` within ``FD_TOL``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    cases = {
+        "RMSNormFn": (lambda x, w: rn.RMSNormFn.apply(x, w, BWD_EPS),
+                      [rnd(7, 384) * 2, rnd(384)]),
+        "AddRMSNormFn": (lambda x, r, w: rn.AddRMSNormFn.apply(x, r, w,
+                                                                BWD_EPS),
+                         [rnd(7, 384), rnd(7, 384), rnd(384)]),
+    }
+    for causal, window in ((True, 0), (True, 8), (False, 0)):
+        q = rnd(1, 40, 4, 32).transpose(1, 2)
+        k, v = (rnd(1, 33, 2, 32).transpose(1, 2) for _ in range(2))
+        cases[f"FlashAttentionFn causal={causal} window={window}"] = (
+            lambda q, k, v, c=causal, w=window: fa.FlashAttentionFn.apply(
+                q, k, v, c, w), [q, k, v])
+    rows = []
+    for i, (name, (fn, inputs)) in enumerate(cases.items()):
+        res = finite_difference(fn, inputs, device, 100 + i)
+        assert res["rel_err"] <= FD_TOL, (name, res)
+        rows.append({"function": name, "dtype": "float32", "eps": FD_EPS,
+                     "tol": FD_TOL, **res})
+    return rows
+
+
+def check_bwd_ragged(device) -> dict:
+    """The ``model_kernels_bwd`` phase: both backward kernels against their
+    plain versions at ragged shapes in float32 and bfloat16 (the norm in
+    both forms, with and without ``ds_in``), each plain backward against
+    autograd, each Function by finite differences, and the scan's refusal
+    of a gradient."""
+    rows = []
+    for shape, dt in RAGGED_RMS_BWD:
+        for key in (("bwd", shape, dt, dt), ("add_bwd", shape, dt, dt, True),
+                    ("add_bwd", shape, dt, dt, False)):
+            rows.append(check_bwd_kernel("rmsnorm_bwd", key, device, False))
+    for dt in ("float32", "bfloat16"):
+        for b, h, kv, sq, sk, d, causal, window in RAGGED_FA_BWD:
+            rows.append(check_bwd_kernel(
+                "flash_attention_bwd", ("bwd", (b, h, sq, d), (b, kv, sk, d),
+                                        causal, window, dt), device, False))
+    x = torch.ones(1, 4, 8, device=device, requires_grad=True)
+    w8, b2 = torch.ones(8, device=device), torch.ones(1, 4, 2, device=device)
+    try:
+        ss.selective_scan_fused(x, x, w8, b2, b2, torch.zeros(8, 2,
+                                                              device=device),
+                                w8, x)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("selective_scan_fused took a tensor that "
+                             "requires a gradient")
+    assert "Queue A 10b" in refusal
+    return {"phase": "model_kernels_bwd", "kernels": rows,
+            "plain_vs_autograd": check_plain_bwd_against_autograd(device),
+            "finite_differences": check_functions_by_finite_differences(
+                device),
+            "scan_refuses_grad": refusal}
+
+
+def check_bwd_path_shapes(device, bwd_shapes: dict) -> list:
+    """Every backward shape key the training phase launched: checked
+    against the plain version and timed, with its launches there."""
+    rows = []
+    for name, wrapper in BWD_KERNELS.items():
+        for key, n in sorted(bwd_shapes[wrapper].items(), key=repr):
+            row = check_bwd_kernel(name, key, device, True)
+            row["launches"] = {"train_qwen2_7b": n}
+            rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the training path: qwen2-7b at full width, and the slice against the host
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_LAYERS = "qwen2-7b", 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_LR = 4, 2, 3, 3e-4
+SLICE_TRAIN_LAYERS, SLICE_TRAIN_BATCH, SLICE_TRAIN_SEQ = 1, 1, 64
+#: Card against host, one step of qwen2-7b at full width and one layer in
+#: bfloat16: the loss within this of ``1 + |loss|``, and each leaf's
+#: gradient within this relative Frobenius error.  Both sides round every
+#: product and every gradient to bfloat16 (8 significant bits) at
+#: different places and after sums in another order; the host's attention
+#: rounds nothing inside, the card's forward rounds P to bfloat16.
+SLICE_TRAIN_LOSS_TOL, SLICE_TRAIN_GRAD_TOL = 1e-2, 5e-2
+
+
+def train_flops(cfg, params, tokens: int) -> dict:
+    """Operations of one training step: ``6 N tokens`` for the parameters
+    that enter a product (every layer's and the head's; the embedding is a
+    lookup) plus the attention's ``3 x 4 B H D pairs`` a layer (forward and
+    backward); ``hardware`` adds what remat runs again (each layer's
+    forward)."""
+    n_layers = sum(t.numel() for t in _tree.leaves(params["layers"]))
+    n_head = params["lm_head"].numel() if "lm_head" in params else \
+        params["tok_embed"].numel()
+    seqs = tokens // TRAIN_SEQ
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2            # causal, no window
+    attn_fwd = 4 * seqs * cfg.n_heads * cfg.hd * pairs * cfg.n_layers
+    model = 6 * (n_layers + n_head) * tokens + 3 * attn_fwd
+    return {"matmul_params": n_layers + n_head, "model": model,
+            "hardware": model + 2 * n_layers * tokens + attn_fwd}
+
+
+def run_train(device) -> tuple:
+    """``launch.train.train`` on qwen2-7b at full width and
+    ``TRAIN_LAYERS`` layers (the one cut): exact launch counts of both
+    norm forms and the attention, forward (twice a layer under remat) and
+    backward; then the bitwise resume check — a run that fails at step
+    ``TRAIN_FAIL_AT``, resumed from its checkpoint, must give the
+    uninterrupted run's losses and final parameters bit for bit."""
+    cfg = configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    kw = dict(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+              n_micro=TRAIN_MICRO, lr=TRAIN_LR, ckpt_every=TRAIN_CKPT_EVERY,
+              seed=0, device=device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.empty_cache()
+        reset_launches()
+        full = train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "full"), **kw)
+        launches, bwd, shapes = (read_launches(), read_bwd_launches(),
+                                 read_shapes())
+        hist = full["loop"].history
+        flops = train_flops(cfg, full["params"], TRAIN_BATCH * TRAIN_SEQ)
+        run = {"run_s": full["seconds"], "n_params": full["n_params"],
+               "peak_memory_bytes": full["peak_bytes"]}
+        del full["opt_state"]
+        shutil.rmtree(os.path.join(tmp, "full"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "resume"),
+                            fail_at=TRAIN_FAIL_AT, **kw)
+        except RuntimeError as e:
+            assert f"injected failure at step {TRAIN_FAIL_AT}" in str(e), e
+        else:
+            raise AssertionError("the failure was not injected")
+        torch.cuda.empty_cache()
+        resumed = train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "resume"),
+                                  resume=True, **kw)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rh = resumed["loop"].history
+    assert [h["step"] for h in rh] == list(range(TRAIN_CKPT_EVERY,
+                                                 TRAIN_STEPS))
+    losses = [h["loss"] for h in hist]
+    assert [h["loss"] for h in rh] == losses[TRAIN_CKPT_EVERY:], \
+        ([h["loss"] for h in rh], losses)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(
+        _tree.leaves(full["params"]), _tree.leaves(resumed["params"])))
+    assert bit_equal, "resumed parameters differ from the uninterrupted run"
+    assert all(np.isfinite(losses)), losses
+    del full, resumed
+    torch.cuda.empty_cache()
+
+    # exact launch counts: per microbatch, a forward runs 1 plain norm,
+    # 2L - 1 residual ones and the attention in each layer (twice under
+    # remat), then the final plain norm; a backward one of each
+    L, per = TRAIN_LAYERS, TRAIN_STEPS * TRAIN_MICRO
+    bf = torch.bfloat16
+    mb = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model)
+    q_shape = (mb[0], cfg.n_heads, TRAIN_SEQ, cfg.hd)
+    k_shape = (mb[0], cfg.n_kv_heads, TRAIN_SEQ, cfg.hd)
+    want = {k: 0 for k in WRAPPERS}
+    want.update(rmsnorm=per * (2 * 2 * L + 1), flash_attention=per * 2 * L)
+    assert launches == want, (launches, want)
+    want_bwd = {"rmsnorm_bwd": per * (2 * L + 1),
+                "flash_attention_bwd": per * L}
+    assert bwd == want_bwd, (bwd, want_bwd)
+    assert shapes["rmsnorm"] == {
+        (mb, bf, bf): per * 3, ("add", mb, bf, bf): per * 2 * (2 * L - 1),
+        ("bwd", mb, bf, bf): per * 2,
+        ("add_bwd", mb, bf, bf, True): per * (2 * L - 1)}, shapes["rmsnorm"]
+    fa_key = (q_shape, k_shape, True, 0, str(bf))
+    assert shapes["flash_attention"] == {fa_key: per * 2 * L,
+                                         ("bwd",) + fa_key: per * L}, \
+        shapes["flash_attention"]
+
+    warm = [h["dt"] for h in hist[-2:]]
+    warm_s = float(np.mean(warm))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    line = {
+        "phase": "train_qwen2_7b", "model": cfg.name,
+        "cut": f"n_layers {TRAIN_LAYERS} of 28 (full width: d {cfg.d_model}, "
+               f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, "
+               f"vocab {cfg.vocab_size})",
+        "dtype": cfg.dtype, "remat": cfg.remat, "global_batch": TRAIN_BATCH,
+        "seq_len": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "steps": TRAIN_STEPS,
+        "ckpt_every": TRAIN_CKPT_EVERY, "lr": TRAIN_LR, **run,
+        "losses": losses, "step_s": [h["dt"] for h in hist],
+        "warm_step_s": warm_s, "tokens_per_s": tokens / warm_s,
+        "flops_per_step": flops,
+        "mfu": flops["model"] / (warm_s * BF16_OPS_PER_S),
+        "hfu_with_remat": flops["hardware"] / (warm_s * BF16_OPS_PER_S),
+        "launches_fwd": launches, "launches_bwd": bwd,
+        "launches_per_step": {
+            "rmsnorm_fwd_plain": 3 * TRAIN_MICRO,
+            "rmsnorm_fwd_residual": 2 * (2 * L - 1) * TRAIN_MICRO,
+            "rmsnorm_bwd_plain": 2 * TRAIN_MICRO,
+            "rmsnorm_bwd_residual": (2 * L - 1) * TRAIN_MICRO,
+            "flash_attention_fwd": 2 * L * TRAIN_MICRO,
+            "flash_attention_bwd": L * TRAIN_MICRO},
+        "resume": {"fail_at": TRAIN_FAIL_AT,
+                   "resumed_from_step": TRAIN_CKPT_EVERY,
+                   "losses_bit_equal": True, "params_bit_equal": True,
+                   "seconds_fail_and_resume": resume_s},
+    }
+    return line, shapes
+
+
+def profile_train(device) -> dict:
+    """Where the card's time goes in one warm training step of
+    ``run_train``'s size (the third step, after two untraced ones), with
+    no checkpoint: device busy and idle share, and the top kernels."""
+    from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
+                                           SyntheticCorpus)
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    params = init_params(cfg, seed=0, device=device)
+    opt = AdamW(lr=cosine_schedule(TRAIN_LR, 20, TRAIN_STEPS))
+    state = {"params": params, "opt": opt.init(params)}
+    step = train_steps.make_train_step(cfg, ShardCtx(), opt,
+                                       n_micro=TRAIN_MICRO)
+    loader = DataLoader(SyntheticCorpus(cfg.vocab_size, seed=0),
+                        LoaderConfig(TRAIN_BATCH, TRAIN_SEQ))
+
+    def run_step(i):
+        state["params"], state["opt"], m = step(
+            state["params"], state["opt"], loader.batch_at(i))
+        float(m["loss"])
+
+    run_step(0)
+    run_step(1)
+    out = {"phase": "profile_train", "model": cfg.name,
+           "n_layers": TRAIN_LAYERS, "global_batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ, "n_micro": TRAIN_MICRO,
+           "step": trace(lambda: run_step(2))}
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice_check_train(device) -> dict:
+    """qwen2-7b at full width and ``SLICE_TRAIN_LAYERS`` layer, batch
+    ``SLICE_TRAIN_BATCH`` x ``SLICE_TRAIN_SEQ``: one training step's loss
+    and per-leaf gradients on the card (kernels) against the port's host
+    path (``device="cpu"``, plain versions, autograd), on the same weights
+    and tokens."""
+    cfg = configs.get(TRAIN_ARCH).replace(n_layers=SLICE_TRAIN_LAYERS)
+    ctx = ShardCtx()
+    params = init_params(cfg, seed=2, device=device)
+    host = _to_host(params)
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (SLICE_TRAIN_BATCH, SLICE_TRAIN_SEQ + 1),
+                         generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def grads(p_in, dev):
+        p, flat = train_steps._leaves_for_grad(p_in)
+        loss, _ = M.loss_fn(p, cfg, ctx, {k: v.to(dev)
+                                          for k, v in batch.items()})
+        names = [k for k in sorted(p) if k != "layers"]
+        names += [f"layers.{k}[{i}]" for i in range(len(p["layers"]))
+                  for k in sorted(p["layers"][i])]
+        return float(loss), dict(zip(names, torch.autograd.grad(loss, flat)))
+
+    card_loss, card = grads(params, device)
+    t0 = time.perf_counter()
+    host_loss, want = grads(host, "cpu")
+    host_s = time.perf_counter() - t0
+    assert abs(card_loss - host_loss) <= SLICE_TRAIN_LOSS_TOL * (
+        1 + abs(host_loss)), (card_loss, host_loss)
+    errs = {}
+    for name, g in card.items():
+        a, b = g.float().cpu(), want[name].float()
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        num = torch.linalg.vector_norm(a - b, dtype=torch.float64)
+        den = torch.linalg.vector_norm(b, dtype=torch.float64)
+        errs[name] = float(num / den)
+        assert errs[name] <= SLICE_TRAIN_GRAD_TOL, (name, errs[name])
+    del params, host, card, want
+    torch.cuda.empty_cache()
+    return {"phase": "slice_check_train", "model": cfg.name,
+            "n_layers": SLICE_TRAIN_LAYERS, "batch": SLICE_TRAIN_BATCH,
+            "seq_len": SLICE_TRAIN_SEQ, "dtype": cfg.dtype,
+            "tol": {"loss": SLICE_TRAIN_LOSS_TOL,
+                    "grad_rel_fro": SLICE_TRAIN_GRAD_TOL},
+            "loss_card": card_loss, "loss_host": host_loss,
+            "grad_rel_fro": errs, "host_step_s": host_s}
+
+
+# ---------------------------------------------------------------------------
 # the build: ptxas report, and the launch path's stream read
 # ---------------------------------------------------------------------------
 
@@ -1658,10 +2286,10 @@ def host_cost(device, max_key: tuple) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the SA stage, and a prefill and four decode "
-                         "steps of each model, with torch.profiler and "
-                         "print the device's busy and idle share and its "
-                         "top kernels")
+                    help="trace the SA stage, a prefill and four decode "
+                         "steps of each model, and a training step, with "
+                         "torch.profiler and print the device's busy and "
+                         "idle share and its top kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1692,12 +2320,12 @@ def main() -> int:
     lib = _build.build()
     _build.load_library()
     # the tensor-core attention at the model's head dim keeps its
-    # fragments in registers: no spill
+    # fragments in registers: no spill, with and without the lse store
     log = _build.build_log()
     spills = ptxas_spills(log)
     d128 = [v for k, v in spills.items()
             if "flash_fwd_bf16_mma" in k and "ILi128E" in k]
-    assert d128 == [(0, 0)], ("bf16 D=128 attention spills", d128)
+    assert d128 == [(0, 0)] * 2, ("bf16 D=128 attention spills", d128)
     scan_regs = scan_ptxas(log)
     assert len(scan_regs) == 2 * 2, scan_regs       # 2 types x 2 forms
     assert all(v["spill_bytes"] == [0, 0] for v in scan_regs.values()), \
@@ -1748,6 +2376,8 @@ def main() -> int:
 
     model_ragged = check_model_ragged(device)
     emit({"phase": "model_kernels", "kernels": model_ragged})
+    bwd_phase = check_bwd_ragged(device)
+    emit(bwd_phase)
     scan_rows = check_scan_at_falcon_shapes(device)
     emit({"phase": "scan_at_falcon_shapes", "kernels": scan_rows})
     emit(scan_by_batch(device, scan_regs))
@@ -1765,10 +2395,22 @@ def main() -> int:
     emit(slice_check("slice_check_qwen2_7b", "qwen2-7b", device))
     emit(slice_check("slice_check_falcon_mamba_7b", "falcon-mamba-7b",
                      device))
+    line_tr, shapes_tr = run_train(device)
+    emit(line_tr)
+    if args.profile:
+        emit(profile_train(device))
+    emit(slice_check_train(device))
+    fwd_tr = {name: {k: n for k, n in by.items() if not is_bwd_key(k)}
+              for name, by in shapes_tr.items()}
+    bwd_tr = {name: {k: n for k, n in by.items() if is_bwd_key(k)}
+              for name, by in shapes_tr.items()}
     model_rows = check_model_path_shapes(
         device, {"generate_qwen2_7b": shapes_q,
-                 "generate_falcon_mamba_7b": shapes_f})
+                 "generate_falcon_mamba_7b": shapes_f,
+                 "train_qwen2_7b": fwd_tr})
     emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
+    bwd_rows = check_bwd_path_shapes(device, bwd_tr)
+    emit({"phase": "bwd_kernels_at_path_shapes", "kernels": bwd_rows})
     emit(host_cost(device, max(shapes_t["group_max"],
                                key=shapes_t["group_max"].get)))
 
@@ -1776,7 +2418,9 @@ def main() -> int:
                  + launches_s[name] + launches_r[name] + launches_c[name]
                  for name in PLAN_KERNELS}
     main_path.update({name: launches_q[name] + launches_f[name]
+                      + line_tr["launches_fwd"][name]
                       for name in MODEL_KERNELS})
+    main_path.update(line_tr["launches_bwd"])
 
     def launched(r):
         return sum(r["launches"].values())
@@ -1784,7 +2428,7 @@ def main() -> int:
     def summary(name):
         """One line per kernel: its launches on the main paths (the two
         plans and the planner's other entry points, or the two generate
-        phases), and the times at the shape the
+        phases and the training phase), and the times at the shape the
         paths launched most often; ``forms`` has the same for each form's
         most launched shape, and ``per_shape`` every shape."""
         mine = [r for r in rows + model_rows + scan_rows
@@ -1817,7 +2461,30 @@ def main() -> int:
                    if "unfused_ms" in top else {}),
                 "forms": forms, "per_shape": mine}
 
-    emit({"kernels": [summary(name) for name in KERNELS]})
+    def summary_bwd(name):
+        """One line per backward kernel: its launches in the training
+        phase and the times at its most launched shape.  It replaces no
+        TPU kernel: it is the backward of the kernel at ``replaces``,
+        which the JAX package differentiates by autodiff of plain jnp."""
+        wrapper = BWD_KERNELS[name]
+        mine = [r for r in bwd_rows if r["name"] == name]
+        assert main_path[name] > 0, f"{name} was never launched"
+        assert sum(launched(r) for r in mine) == main_path[name]
+        top = max(mine, key=launched)
+        return {"name": name, "route": "cuda", "source": SOURCES[wrapper],
+                "replaces": KERNELS[wrapper],
+                "differentiates": f"{wrapper} (no TPU backward kernel)",
+                "shape": top["key"], "launches": main_path[name],
+                "max_abs_err": max(r["max_abs_err"] for r in
+                                   mine + bwd_phase["kernels"]
+                                   if r["name"] == name),
+                "ms": top["ms"], "device_ms": top["device_ms"],
+                "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+                "bound_by": top["bound_by"],
+                "library_ms": top["library_ms"], "per_shape": mine}
+
+    emit({"kernels": [summary(name) for name in KERNELS]
+          + [summary_bwd(name) for name in BWD_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,15 @@
 """State carried across from the JAX package.
 
-Three kinds of state cross between the packages.  ``Plan`` JSON needs no
-converter: both packages read and write the same schema, byte for byte.
-A fitted memory estimator does: :func:`estimator_from_reference` rebuilds
-it from plain NumPy arrays.  So do model weights:
-:func:`params_from_reference` turns the reference's parameter pytree, as
-nested dicts of NumPy arrays, into the port's dict of tensors with the same
-keys and shapes.  This module imports nothing of the other package — the
-caller pulls the arrays out of the reference objects.
+Four kinds of state cross between the packages.  ``Plan`` JSON needs no
+converter: both packages read and write the same schema, byte for byte (and
+so do checkpoint directories: ``checkpoint/manager.py``).  A fitted memory
+estimator does: :func:`estimator_from_reference` rebuilds it from plain
+NumPy arrays.  So do model weights: :func:`params_from_reference` turns the
+reference's parameter pytree, as nested dicts of NumPy arrays, into the
+port's dict of tensors with the same keys and shapes; and the optimizer's
+state: :func:`opt_state_from_reference` does the same for an ``AdamWState``.
+This module imports nothing of the other package — the caller pulls the
+arrays out of the reference objects.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .core.memory import MemoryEstimator
+from .optim.adamw import AdamWState
 
 
 def estimator_from_reference(params_numpy: Sequence[Mapping[str, np.ndarray]],
@@ -90,3 +93,26 @@ def params_from_reference(tree: Mapping[str, Any],
         return _tensor(node, device)
 
     return walk(tree)
+
+
+def opt_state_from_reference(step: Any, m: Mapping[str, Any],
+                             v: Mapping[str, Any],
+                             device: DeviceLike = None) -> AdamWState:
+    """The reference's ``AdamWState(step, m, v)`` as the port's.
+
+    Args:
+        step: its step counter (an int32 scalar array or an int).
+        m, v: its first and second moments, nested dicts of float32 NumPy
+            arrays with the parameters' keys and shapes.
+        device: where the tensors go (the CUDA device by default).
+
+    Returns:
+        An :class:`~repro_torch.optim.adamw.AdamWState` with an int32 0-d
+        ``step`` and ``m``, ``v`` as :func:`params_from_reference` converts
+        them.
+    """
+    device = resolve_device(device)
+    step_t = torch.full((), int(np.asarray(step)), dtype=torch.int32,
+                        device=device)
+    return AdamWState(step_t, params_from_reference(m, device),
+                      params_from_reference(v, device))

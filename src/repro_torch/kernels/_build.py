@@ -166,10 +166,15 @@ def load_library() -> ctypes.CDLL:
         # (x, r, w, s, y, rows, d, eps, types, stream)
         "rmsnorm_fwd": [vp, vp, vp, ll, ci, dbl, ci, vp],
         "add_rmsnorm_fwd": [vp] * 5 + [ll, ci, dbl, ci, vp],
-        # flash_attention.cu: (q, k, v, o, 4 x (batch, head, seq) strides,
-        #   batch, heads, kv_heads, len_q, len_k, head_dim, scale, causal,
-        #   window, bf16, stream)
-        "flash_attention_fwd": [vp, vp, vp, vp] + [ll] * 12
+        # (x, w, dy, ds, dx, dw, work, rows, d, eps, types, stream)
+        "rmsnorm_bwd": [vp] * 7 + [ll, ci, dbl, ci, vp],
+        # flash_attention.cu: (q, k, v, o, lse, 4 x (batch, head, seq)
+        #   strides, batch, heads, kv_heads, len_q, len_k, head_dim, scale,
+        #   causal, window, bf16, stream) and (q, k, v, o, dout, lse, delta,
+        #   dq, dk, dv, 8 x (batch, head, seq) strides, the same sizes)
+        "flash_attention_fwd": [vp] * 5 + [ll] * 12
+        + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
+        "flash_attention_bwd": [vp] * 10 + [ll] * 24
         + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
         # selective_scan.cu: (x, dt, B, C, A, h0, y, h_out,
         #   4 x (batch, time) strides, batch, len, d, n, bf16, stream) and
@@ -199,6 +204,18 @@ current_raw_device = None
 #: device index, read without building a ``torch.cuda.Stream`` (bound by
 #: :func:`load_library`, like :data:`current_raw_device`).
 current_raw_stream = None
+
+
+def refuse_grad(name: str, reason: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` requires a gradient: a kernel with no backward must not
+    hand back a result cut from the autograd graph.  ``reason`` says where
+    its backward comes from (or why none is needed)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel, so it cannot take a tensor that "
+            f"requires a gradient on the card: {reason}")
 
 
 def launch(fn_name: str, index: int, *args) -> None:

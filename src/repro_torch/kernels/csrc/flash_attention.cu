@@ -109,10 +109,11 @@ struct Tile {
       sizeof(float) * (kBlockQ * D + kBlockK * kStride + kBlockK * D);
 };
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, Strides sq,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, Strides sq,
               Strides sk, Strides sv, Strides so, int group, int len_q,
               int len_k, float scale, int causal, int window) {
   constexpr int KS = Tile<D>::kStride;
@@ -238,26 +239,46 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int col = lane + 32 * c;
       if (col < D) ob[qi * so.s + col] = empty ? 0.f : acc[r][c] / lr;
     }
+    if constexpr (kLse) {              // the scores here carry the scale
+      if (lane == 0)
+        lse[((long long)b * gridDim.y + h) * len_q + qi] =
+            empty ? INFINITY : m[r] + logf(lr);
+    }
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
-           Strides sk, Strides sv, Strides so, int batch, int heads,
-           int group, int len_q, int len_k, float scale, int causal,
-           int window, cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_one(const void* q, const void* k, const void* v, void* o,
+               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+               int batch, int heads, int group, int len_q, int len_k,
+               float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = Tile<D>::kSmemBytes;
   // once per instantiation (and so never inside a CUDA-graph capture after
   // a first eager call): allow more than 48 KB of dynamic shared memory
   static const cudaError_t configured = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (configured != cudaSuccess) return (int)configured;
   const dim3 grid((len_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_fwd_f32<D><<<grid, kWarps * 32, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk,
-      sv, so, group, len_q, len_k, scale, causal, window);
+  flash_fwd_f32<D, kLse><<<grid, kWarps * 32, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, sq,
+      sk, sv, so, group, len_q, len_k, scale, causal, window);
   return (int)cudaGetLastError();
+}
+
+// the lse store is a separate instance, so the kernel that generation runs
+// is the same code as before the training path asked for it
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           Strides sq, Strides sk, Strides sv, Strides so, int batch,
+           int heads, int group, int len_q, int len_k, float scale,
+           int causal, int window, cudaStream_t stream) {
+  return lse ? launch_one<D, true>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                   heads, group, len_q, len_k, scale, causal,
+                                   window, stream)
+             : launch_one<D, false>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                    heads, group, len_q, len_k, scale,
+                                    causal, window, stream);
 }
 
 }  // namespace f32
@@ -363,11 +384,12 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
-                   Strides sq, Strides sk, Strides sv, Strides so, int heads,
+                   float* __restrict__ lse, Strides sq, Strides sk,
+                   Strides sv, Strides so, int heads,
                    int batch, int group, int len_q, int len_k,
                    float scale_log2, int causal, int window, int n_qtiles) {
   using Cf = Cfg<D>;
@@ -549,6 +571,13 @@ flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qi >= len_q) continue;
     const bool empty = m_r[half] <= kNegInf * 0.5f;
     const float inv = empty ? 0.f : 1.f / fmaxf(l, 1e-30f);
+    if constexpr (kLse) {            // natural log, scale applied
+      if (tq == 0)
+        lse[((long long)b * heads + h) * len_q + qi] =
+            empty ? INFINITY
+                  : (m_r[half] * scale_log2 + log2f(fmaxf(l, 1e-30f))) *
+                        0.69314718055994531f;
+    }
     bf16* orow = ob + (long long)qi * so.s + 2 * tq;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
@@ -557,27 +586,433 @@ flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
-           Strides sk, Strides sv, Strides so, int batch, int heads,
-           int group, int len_q, int len_k, float scale_log2, int causal,
-           int window, cudaStream_t stream) {
+template <int D, bool kLse>
+int launch_one(const void* q, const void* k, const void* v, void* o,
+               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+               int batch, int heads, int group, int len_q, int len_k,
+               float scale_log2, int causal, int window,
+               cudaStream_t stream) {
   constexpr int smem = Cfg<D>::kSmemBytes;
   static const cudaError_t configured = cudaFuncSetAttribute(
-      flash_fwd_bf16_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_bf16_mma<D, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (configured != cudaSuccess) return (int)configured;
   const int n_qtiles = (len_q + kBlockQ - 1) / kBlockQ;
   const long long blocks = (long long)n_qtiles * heads * batch;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_fwd_bf16_mma<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, sq, sk, sv,
-      so, heads, batch, group, len_q, len_k, scale_log2, causal, window,
+  flash_fwd_bf16_mma<D, kLse><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, sq, sk,
+      sv, so, heads, batch, group, len_q, len_k, scale_log2, causal, window,
       n_qtiles);
   return (int)cudaGetLastError();
 }
 
+// the lse store is a separate instance, so the kernel that generation runs
+// is the same code as before the training path asked for it
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           Strides sq, Strides sk, Strides sv, Strides so, int batch,
+           int heads, int group, int len_q, int len_k, float scale_log2,
+           int causal, int window, cudaStream_t stream) {
+  return lse ? launch_one<D, true>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                   heads, group, len_q, len_k, scale_log2,
+                                   causal, window, stream)
+             : launch_one<D, false>(q, k, v, o, lse, sq, sk, sv, so, batch,
+                                    heads, group, len_q, len_k, scale_log2,
+                                    causal, window, stream);
+}
+
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// backward (float32 and bfloat16): CUDA-core kernels
+// ---------------------------------------------------------------------------
+//
+// The gradient of the forward above from its log-sum-exp, in the manner of
+// FlashAttention-2's backward, for the training path.  The JAX package has
+// no backward kernel (it differentiates its plain jnp attention by
+// autodiff); this one exists because the port's forward is a kernel.
+//   delta_i = sum_d dO_id O_id, P_ij = exp(s_ij - lse_i) over allowed keys
+//   (0 elsewhere; lse is +inf for a row with no allowed key),
+//   dV_j = sum_i P_ij dO_i, dS_ij = P_ij (dO_i . V_j - delta_i),
+//   dQ_i = scale sum_j dS_ij K_j, dK_j = scale sum_i dS_ij Q_i,
+// with s_ij = scale Q_i . K_j.  Three kernels, no atomics: `delta` (one
+// warp a row); `dq` (one block per 32 query rows, head, batch: a loop over
+// the key tiles the rows may see, as in the float32 forward: lane = key for
+// the dot products, lane = column for the sum into dQ); `dkv` (one block
+// per 32 keys, KV head, batch: a loop over the group's query heads, in
+// order, and over the query tiles that may see the keys; lane = query row
+// for the dot products, lane = column for the sums into dK and dV).  So
+// every sum runs in a fixed order and the gradients are the same bits on
+// every run.  Everything is float32 inside: bfloat16 inputs are widened as
+// they are staged in shared memory, and the outputs are rounded once.
+// Bound: operations (5 products of the forward's size against its 2) at
+// the CUDA cores' float32 rate; this simple form does not use the tensor
+// cores (a later redesign's work).
+
+namespace bwd {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 8;                     // rows (queries or keys) a warp
+constexpr int kBlock = kWarps * kRows;       // 32
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+template <typename T>
+__device__ __forceinline__ T st(float v);
+template <>
+__device__ __forceinline__ float st<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ bool allowed(int qi, int kj, int len_q, int len_k,
+                                        int causal, int window) {
+  bool ok = qi < len_q && kj < len_k;
+  if (causal) ok = ok && qi >= kj;
+  if (window > 0) ok = ok && qi - kj < window;
+  return ok;
+}
+
+// delta[row] = O_row . dO_row for the rows (b, h, i) in that order
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+          float* __restrict__ delta, Strides so, Strides sd, int heads,
+          int len_q, long long rows) {
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;                   // a whole warp at once
+  const int lane = threadIdx.x & 31;
+  const int i = (int)(row % len_q);
+  const long long bh = row / len_q;
+  const int h = (int)(bh % heads), b = (int)(bh / heads);
+  const T* orow = o + b * so.b + h * so.h + i * so.s;
+  const T* drow = dout + b * sd.b + h * sd.h + i * sd.s;
+  float acc = 0.f;
+  for (int c = lane; c < D; c += 32) acc = fmaf(ld(orow + c), ld(drow + c), acc);
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(kFullMask, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+template <int D>
+struct DqTile {                               // rows padded to D + 4 floats
+  static constexpr int kStride = D + 4;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (2 * kBlock * D + 2 * kBlock * kStride);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+       const T* __restrict__ v, const T* __restrict__ dout,
+       const float* __restrict__ lse, const float* __restrict__ delta,
+       T* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sd,
+       Strides sdq, int group, int len_q, int len_k, float scale,
+       int causal, int window) {
+  constexpr int KS = DqTile<D>::kStride;
+  constexpr int DC = (D + 31) / 32;           // columns of dQ a lane
+  extern __shared__ float4 smem_dq[];
+  float* qs = reinterpret_cast<float*>(smem_dq);  // kBlock x D
+  float* gs = qs + kBlock * D;                    // dO rows, kBlock x D
+  float* ks = gs + kBlock * D;                    // kBlock x KS
+  float* vs = ks + kBlock * KS;                   // kBlock x KS
+
+  const int q0 = blockIdx.x * kBlock;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
+  const int kvh = h / group;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* gb = dout + b * sd.b + h * sd.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+  const long long stat = ((long long)b * heads + h) * len_q;
+
+  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
+    const int r = idx / D, c = idx - r * D;
+    const int qi = q0 + r;
+    const bool in = qi < len_q;
+    qs[idx] = in ? ld(qb + qi * sq.s + c) : 0.f;
+    gs[idx] = in ? ld(gb + qi * sd.s + c) : 0.f;
+  }
+  float lse_r[kRows], dl_r[kRows], acc[kRows][DC];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qi = q0 + warp * kRows + r;
+    lse_r[r] = qi < len_q ? lse[stat + qi] : 0.f;
+    dl_r[r] = qi < len_q ? delta[stat + qi] : 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
+  }
+
+  const int q_last = min(q0 + kBlock, len_q) - 1;
+  const int k_hi = causal ? min(len_k, q_last + 1) : len_k;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+
+  for (int k0 = (k_lo / kBlock) * kBlock; k0 < k_hi; k0 += kBlock) {
+    __syncthreads();                          // the previous tile is consumed
+    for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
+      const int r = idx / D, c = idx - r * D;
+      const int kj = k0 + r;
+      const bool in = kj < len_k;
+      ks[r * KS + c] = in ? ld(kb + kj * sk.s + c) : 0.f;
+      vs[r * KS + c] = in ? ld(vb + kj * sv.s + c) : 0.f;
+    }
+    __syncthreads();
+
+    // lane = key of the tile: s = q_r . k_lane, dp = dO_r . v_lane
+    float s[kRows], dp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
+    const float* krow = ks + lane * KS;
+    const float* vrow = vs + lane * KS;
+#pragma unroll 2
+    for (int c = 0; c < D; c += 4) {
+      const float4 kv4 = *reinterpret_cast<const float4*>(krow + c);
+      const float4 vv4 = *reinterpret_cast<const float4*>(vrow + c);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = (warp * kRows + r) * D + c;
+        s[r] = dot4(*reinterpret_cast<const float4*>(qs + row), kv4, s[r]);
+        dp[r] = dot4(*reinterpret_cast<const float4*>(gs + row), vv4, dp[r]);
+      }
+    }
+    const int kj = k0 + lane;
+    float g[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int qi = q0 + warp * kRows + r;
+      const float p = allowed(qi, kj, len_q, len_k, causal, window)
+                          ? expf(s[r] * scale - lse_r[r]) : 0.f;
+      g[r] = p * (dp[r] - dl_r[r]);
+    }
+    // acc += dS . K: lane owns columns lane, lane + 32, ...
+#pragma unroll 4
+    for (int j = 0; j < kBlock; ++j) {
+      float kc[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const int col = lane + 32 * c;
+        kc[c] = col < D ? ks[j * KS + col] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float gj = __shfl_sync(kFullMask, g[r], j);
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(gj, kc[c], acc[r][c]);
+      }
+    }
+  }
+
+  T* db = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qi = q0 + warp * kRows + r;
+    if (qi >= len_q) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < D) db[qi * sdq.s + col] = st<T>(acc[r][c] * scale);
+    }
+  }
+}
+
+template <int D>
+struct DkvTile {
+  static constexpr int kStride = D + 4;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (2 * kBlock * D + 2 * kBlock * kStride + 2 * kBlock);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk,
+        Strides sv, Strides sd, Strides sdk, Strides sdv, int heads,
+        int group, int len_q, int len_k, float scale, int causal,
+        int window) {
+  constexpr int QS = DkvTile<D>::kStride;
+  constexpr int DC = (D + 31) / 32;
+  extern __shared__ float4 smem_dkv[];
+  float* ks = reinterpret_cast<float*>(smem_dkv);  // kBlock x D
+  float* vs = ks + kBlock * D;                      // kBlock x D
+  float* qs = vs + kBlock * D;                      // kBlock x QS
+  float* gs = qs + kBlock * QS;                     // dO rows, kBlock x QS
+  float* lse_s = gs + kBlock * QS;                  // kBlock
+  float* dl_s = lse_s + kBlock;                     // kBlock
+
+  const int k0 = blockIdx.x * kBlock;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+
+  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
+    const int r = idx / D, c = idx - r * D;
+    const int kj = k0 + r;
+    const bool in = kj < len_k;
+    ks[idx] = in ? ld(kb + kj * sk.s + c) : 0.f;
+    vs[idx] = in ? ld(vb + kj * sv.s + c) : 0.f;
+  }
+  float acc_k[kRows][DC], acc_v[kRows][DC];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+
+  // query rows that may see some key of this block: [q_lo, q_hi)
+  const int k_last = min(k0 + kBlock, len_k) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(len_q, k_last + window) : len_q;
+
+  for (int hh = 0; hh < group; ++hh) {       // the group's heads, in order
+    const int h = kvh * group + hh;
+    const T* qb = q + b * sq.b + h * sq.h;
+    const T* gb = dout + b * sd.b + h * sd.h;
+    const long long stat = ((long long)b * heads + h) * len_q;
+    for (int q0 = (q_lo / kBlock) * kBlock; q0 < q_hi; q0 += kBlock) {
+      __syncthreads();                        // the previous tile is consumed
+      for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
+        const int r = idx / D, c = idx - r * D;
+        const int qi = q0 + r;
+        const bool in = qi < len_q;
+        qs[r * QS + c] = in ? ld(qb + qi * sq.s + c) : 0.f;
+        gs[r * QS + c] = in ? ld(gb + qi * sd.s + c) : 0.f;
+      }
+      if (threadIdx.x < kBlock) {
+        const int qi = q0 + threadIdx.x;
+        lse_s[threadIdx.x] = qi < len_q ? lse[stat + qi] : 0.f;
+        dl_s[threadIdx.x] = qi < len_q ? delta[stat + qi] : 0.f;
+      }
+      __syncthreads();
+
+      // lane = query row of the tile: s = q_lane . k_r, dp = dO_lane . v_r
+      float s[kRows], dp[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
+      const float* qrow = qs + lane * QS;
+      const float* grow = gs + lane * QS;
+#pragma unroll 2
+      for (int c = 0; c < D; c += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qrow + c);
+        const float4 g4 = *reinterpret_cast<const float4*>(grow + c);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int row = (warp * kRows + r) * D + c;
+          s[r] = dot4(q4, *reinterpret_cast<const float4*>(ks + row), s[r]);
+          dp[r] = dot4(g4, *reinterpret_cast<const float4*>(vs + row), dp[r]);
+        }
+      }
+      const int qi = q0 + lane;
+      const float lse_i = lse_s[lane], dl_i = dl_s[lane];
+      float p[kRows], g[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int kj = k0 + warp * kRows + r;
+        p[r] = allowed(qi, kj, len_q, len_k, causal, window)
+                   ? expf(s[r] * scale - lse_i) : 0.f;
+        g[r] = p[r] * (dp[r] - dl_i);
+      }
+      // acc_v += P^T dO, acc_k += dS^T Q: lane owns columns
+#pragma unroll 2
+      for (int i = 0; i < kBlock; ++i) {
+        float gc[DC], qc[DC];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const int col = lane + 32 * c;
+          gc[c] = col < D ? gs[i * QS + col] : 0.f;
+          qc[c] = col < D ? qs[i * QS + col] : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float pi = __shfl_sync(kFullMask, p[r], i);
+          const float gi = __shfl_sync(kFullMask, g[r], i);
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            acc_v[r][c] = fmaf(pi, gc[c], acc_v[r][c]);
+            acc_k[r][c] = fmaf(gi, qc[c], acc_k[r][c]);
+          }
+        }
+      }
+    }
+  }
+
+  T* dkb = dk + b * sdk.b + kvh * sdk.h;
+  T* dvb = dv + b * sdv.b + kvh * sdv.h;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int kj = k0 + warp * kRows + r;
+    if (kj >= len_k) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < D) {
+        dkb[kj * sdk.s + col] = st<T>(acc_k[r][c] * scale);
+        dvb[kj * sdv.s + col] = st<T>(acc_v[r][c]);
+      }
+    }
+  }
+}
+
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  Strides sq, sk, sv, so, sd, sdq, sdk, sdv;
+  int batch, heads, group, kv_heads, len_q, len_k;
+  float scale;
+  int causal, window;
+};
+
+template <typename T, int D>
+int launch(const BwdArgs& a, cudaStream_t stream) {
+  constexpr size_t smem_dq = DqTile<D>::kSmemBytes;
+  constexpr size_t smem_dkv = DkvTile<D>::kSmemBytes;
+  // once per instantiation: allow more than 48 KB of dynamic shared memory
+  static const cudaError_t configured = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)DqTile<D>::kSmemBytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(bwd_dkv<T, D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)DkvTile<D>::kSmemBytes);
+  }();
+  if (configured != cudaSuccess) return (int)configured;
+  const long long rows = (long long)a.batch * a.heads * a.len_q;
+  const long long delta_blocks = (rows + kWarps - 1) / kWarps;
+  if (delta_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bwd_delta<T, D><<<(unsigned)delta_blocks, kThreads, 0, stream>>>(
+      (const T*)a.o, (const T*)a.dout, a.delta, a.so, a.sd, a.heads, a.len_q,
+      rows);
+  const dim3 grid_q((a.len_q + kBlock - 1) / kBlock, a.heads, a.batch);
+  bwd_dq<T, D><<<grid_q, kThreads, smem_dq, stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
+      a.delta, (T*)a.dq, a.sq, a.sk, a.sv, a.sd, a.sdq, a.group, a.len_q,
+      a.len_k, a.scale, a.causal, a.window);
+  const dim3 grid_k((a.len_k + kBlock - 1) / kBlock, a.kv_heads, a.batch);
+  bwd_dkv<T, D><<<grid_k, kThreads, smem_dkv, stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
+      a.delta, (T*)a.dk, (T*)a.dv, a.sq, a.sk, a.sv, a.sd, a.sdk, a.sdv,
+      a.heads, a.group, a.len_q, a.len_k, a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
 
 // f(std::integral_constant<int, D>) for the head dim D: one instance of
 // either kernel per head dim
@@ -599,12 +1034,16 @@ extern "C" {
 
 // q, o: (batch, heads, len_q, head_dim); k, v: (batch, kv_heads, len_k,
 // head_dim), each given by its batch, head and sequence strides (elements).
+// lse: null, or (batch, heads, len_q) float32, contiguous: each row's
+// log-sum-exp of its scaled scores over the allowed keys (natural log),
+// +inf for a row with no allowed key, so that exp(s - lse) is 0 there.
 // head_dim is one of 16, 32, 64, 128, 256; heads % kv_heads == 0; len_q
 // and len_k at least 1 and below 2^31; window <= 0 means no window, and
 // a window is below 2^31.  bf16 != 0: bfloat16 tensors, every row 16-byte
 // aligned (the tensor-core kernel); else float32 (the CUDA-core kernel).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        long long q_sb, long long q_sh, long long q_ss,
+                        void* lse, long long q_sb, long long q_sh,
+                        long long q_ss,
                         long long k_sb, long long k_sh, long long k_ss,
                         long long v_sb, long long v_sh, long long v_ss,
                         long long o_sb, long long o_sh, long long o_ss,
@@ -621,15 +1060,54 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (bf16) {  // the scale folded with log2 e into the exp2 argument
     const float scale_log2 = (float)(scale * 1.4426950408889634);
     return by_head_dim(head_dim, [&](auto d) {
-      return tc::launch<decltype(d)::value>(q, k, v, o, sq, sk, sv, so, batch,
-                                            heads, group, lq, lk, scale_log2,
-                                            causal, win, s);
+      return tc::launch<decltype(d)::value>(q, k, v, o, (float*)lse, sq, sk,
+                                            sv, so, batch, heads, group, lq,
+                                            lk, scale_log2, causal, win, s);
     });
   }
   return by_head_dim(head_dim, [&](auto d) {
-    return f32::launch<decltype(d)::value>(q, k, v, o, sq, sk, sv, so, batch,
-                                           heads, group, lq, lk, (float)scale,
-                                           causal, win, s);
+    return f32::launch<decltype(d)::value>(q, k, v, o, (float*)lse, sq, sk,
+                                           sv, so, batch, heads, group, lq,
+                                           lk, (float)scale, causal, win, s);
+  });
+}
+
+// The gradient of flash_attention_fwd: dq, dk, dv (each of its input's
+// shape, type and given strides) from q, k, v, the forward's output o, its
+// lse (batch, heads, len_q) and the output's gradient dout.  delta is a
+// float32 workspace of batch * heads * len_q values.  Types, head dims and
+// sizes as for the forward; rows need no alignment here.
+int flash_attention_bwd(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* delta, void* dq, void* dk, void* dv,
+                        long long q_sb, long long q_sh, long long q_ss,
+                        long long k_sb, long long k_sh, long long k_ss,
+                        long long v_sb, long long v_sh, long long v_ss,
+                        long long o_sb, long long o_sh, long long o_ss,
+                        long long d_sb, long long d_sh, long long d_ss,
+                        long long dq_sb, long long dq_sh, long long dq_ss,
+                        long long dk_sb, long long dk_sh, long long dk_ss,
+                        long long dv_sb, long long dv_sh, long long dv_ss,
+                        int batch, int heads, int kv_heads, long long len_q,
+                        long long len_k, int head_dim, double scale,
+                        int causal, long long window, int bf16,
+                        void* stream) {
+  bwd::BwdArgs a{q, k, v, o, dout, (const float*)lse, (float*)delta, dq, dk,
+                 dv,
+                 Strides{q_sb, q_sh, q_ss}, Strides{k_sb, k_sh, k_ss},
+                 Strides{v_sb, v_sh, v_ss}, Strides{o_sb, o_sh, o_ss},
+                 Strides{d_sb, d_sh, d_ss}, Strides{dq_sb, dq_sh, dq_ss},
+                 Strides{dk_sb, dk_sh, dk_ss}, Strides{dv_sb, dv_sh, dv_ss},
+                 batch, heads, heads / kv_heads, kv_heads, (int)len_q,
+                 (int)len_k, (float)scale, causal,
+                 window > 0 ? (int)window : 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return by_head_dim(head_dim, [&](auto d) {
+      return bwd::launch<__nv_bfloat16, decltype(d)::value>(a, s);
+    });
+  return by_head_dim(head_dim, [&](auto d) {
+    return bwd::launch<float, decltype(d)::value>(a, s);
   });
 }
 

@@ -28,6 +28,20 @@
 // within 2 ulp of the correctly rounded value.  The library is built with
 // -fmad=false, so s is bit-equal to PyTorch's x + r.
 //
+// rmsnorm_bwd: the gradient of either form, for the training path (the
+// JAX package differentiates its plain jnp norm by autodiff and has no
+// backward kernel; this one exists because the port's forward is a kernel).
+// With r = rsqrt(mean(x^2) + eps) and g = w * dy,
+//   dx = r * g - x * r^3 * mean(x * g)  (+ ds_in for the residual form,
+//        whose stored sum s is also read by the residual stream; dr = dx),
+//   dw = sum over rows of dy * (x * r), in float32.
+// Three kernels, all deterministic (no atomics): one block per row for dx,
+// which also stores the row's r; then per-chunk partial sums of dw over a
+// fixed split of the rows (one thread a column, rows in order), and a fold
+// of the chunks' partials in chunk order, cast to w's type.  Bound: bytes
+// (x and dy read twice — the second time from L2 for dx, again for dw —
+// dx written once).
+//
 // Plain C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
 
@@ -114,6 +128,120 @@ norm_kernel(const TX* __restrict__ x, const TX* __restrict__ r,
   }
 }
 
+// Backward, pass 1: one block per row.  dx = r*g - x*(r^3 * dot / d) with
+// g = w*dy and dot = sum(x*g); the sum of squares folds in the forward's
+// order, so r is the forward's.  `ds` (may be null) is added in float32
+// before the one rounding of dx.  r goes to rstd[row] for the dw passes.
+template <typename TX, typename TW, int kVec>
+__global__ void __launch_bounds__(kThreads)
+norm_bwd_rows(const TX* __restrict__ x, const TW* __restrict__ w,
+              const TX* __restrict__ dy, const TX* __restrict__ ds,
+              TX* __restrict__ dx, float* __restrict__ rstd, int d,
+              float eps) {
+  using PX = Pack<TX, kVec>;
+  using PW = Pack<TW, kVec>;
+  __shared__ float partial[2][kThreads / 32];
+  __shared__ float coef[2];
+  const long long off = (long long)blockIdx.x * d;
+  const int packs = d / kVec;
+  const PX* xr = reinterpret_cast<const PX*>(x + off);
+  const PX* gr = reinterpret_cast<const PX*>(dy + off);
+  const PW* wr = reinterpret_cast<const PW*>(w);
+
+  float ss = 0.f, dot = 0.f;
+  for (int i = threadIdx.x; i < packs; i += kThreads) {
+    const PX a = xr[i], g = gr[i];
+    const PW c = wr[i];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const float v = to_f32(a.v[k]);
+      ss += v * v;
+      dot += v * (to_f32(c.v[k]) * to_f32(g.v[k]));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    ss += __shfl_xor_sync(kFullMask, ss, o);
+    dot += __shfl_xor_sync(kFullMask, dot, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    partial[0][threadIdx.x >> 5] = ss;
+    partial[1][threadIdx.x >> 5] = dot;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float tss = 0.f, tdot = 0.f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) {
+      tss += partial[0][i];
+      tdot += partial[1][i];
+    }
+    const float r = rsqrtf(tss / (float)d + eps);
+    coef[0] = r;
+    coef[1] = r * r * r * (tdot / (float)d);
+    rstd[blockIdx.x] = r;
+  }
+  __syncthreads();
+  const float r = coef[0], c3 = coef[1];
+  PX* out = reinterpret_cast<PX*>(dx + off);
+  const PX* sr = ds ? reinterpret_cast<const PX*>(ds + off) : nullptr;
+  for (int i = threadIdx.x; i < packs; i += kThreads) {
+    const PX a = xr[i], g = gr[i];
+    const PW c = wr[i];
+    PX o;
+    if (sr) {
+      const PX e = sr[i];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        o.v[k] = from_f32<TX>(r * (to_f32(c.v[k]) * to_f32(g.v[k])) -
+                              to_f32(a.v[k]) * c3 + to_f32(e.v[k]));
+    } else {
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        o.v[k] = from_f32<TX>(r * (to_f32(c.v[k]) * to_f32(g.v[k])) -
+                              to_f32(a.v[k]) * c3);
+    }
+    out[i] = o;
+  }
+}
+
+constexpr int kDwThreads = 256;
+// Row chunks of the dw partial sums (fewer when there are fewer rows).
+constexpr int kDwChunks = 64;
+
+// Backward, pass 2: partial[chunk][col] = sum over the chunk's rows, in
+// order, of dy * (x * r).  One thread a column, neighbouring threads on
+// neighbouring columns.
+template <typename TX>
+__global__ void __launch_bounds__(kDwThreads)
+norm_bwd_dw_partial(const TX* __restrict__ x, const TX* __restrict__ dy,
+                    const float* __restrict__ rstd,
+                    float* __restrict__ partial, long long rows, int d,
+                    long long rows_per_chunk) {
+  const int col = blockIdx.x * kDwThreads + threadIdx.x;
+  if (col >= d) return;
+  const long long r0 = (long long)blockIdx.y * rows_per_chunk;
+  const long long r1 =
+      r0 + rows_per_chunk < rows ? r0 + rows_per_chunk : rows;
+  float acc = 0.f;
+  for (long long r = r0; r < r1; ++r) {
+    const long long i = r * d + col;
+    acc += to_f32(dy[i]) * (to_f32(x[i]) * rstd[r]);
+  }
+  partial[(long long)blockIdx.y * d + col] = acc;
+}
+
+// Backward, pass 3: dw[col] = the chunks' partials summed in chunk order.
+template <typename TW>
+__global__ void __launch_bounds__(kDwThreads)
+norm_bwd_dw_fold(const float* __restrict__ partial, TW* __restrict__ dw,
+                 int chunks, int d) {
+  const int col = blockIdx.x * kDwThreads + threadIdx.x;
+  if (col >= d) return;
+  float acc = 0.f;
+  for (int c = 0; c < chunks; ++c) acc += partial[(long long)c * d + col];
+  dw[col] = from_f32<TW>(acc);
+}
+
 inline bool aligned(const void* p, size_t bytes) {
   return (uintptr_t)p % bytes == 0;
 }
@@ -158,9 +286,65 @@ int dispatch(const void* x, const void* r, const void* w, void* s, void* y,
   }
 }
 
+template <typename TX, typename TW>
+int launch_bwd(const void* x, const void* w, const void* dy, const void* ds,
+               void* dx, void* dw, float* work, long long rows, int d,
+               float eps, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(TX);
+  const bool packed = d % kVec == 0 && aligned(x, 16) && aligned(dy, 16) &&
+                      aligned(dx, 16) && aligned(w, sizeof(TW) * kVec) &&
+                      (!ds || aligned(ds, 16));
+  float* rstd = work;
+  float* partial = work + rows;
+  if (packed)
+    norm_bwd_rows<TX, TW, kVec><<<(unsigned)rows, kThreads, 0, stream>>>(
+        (const TX*)x, (const TW*)w, (const TX*)dy, (const TX*)ds, (TX*)dx,
+        rstd, d, eps);
+  else
+    norm_bwd_rows<TX, TW, 1><<<(unsigned)rows, kThreads, 0, stream>>>(
+        (const TX*)x, (const TW*)w, (const TX*)dy, (const TX*)ds, (TX*)dx,
+        rstd, d, eps);
+  const int chunks = rows < kDwChunks ? (int)rows : kDwChunks;
+  const long long per = (rows + chunks - 1) / chunks;
+  const unsigned col_blocks = (unsigned)((d + kDwThreads - 1) / kDwThreads);
+  norm_bwd_dw_partial<TX><<<dim3(col_blocks, chunks), kDwThreads, 0,
+                            stream>>>((const TX*)x, (const TX*)dy, rstd,
+                                      partial, rows, d, per);
+  norm_bwd_dw_fold<TW><<<col_blocks, kDwThreads, 0, stream>>>(
+      partial, (TW*)dw, chunks, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// x, dy, ds (null: none), dx: (rows, d) contiguous, x's type; w, dw: (d,),
+// w's type; work: a float32 workspace of rows + min(rows, 64) * d values
+// (each row's r, then the dw partials).  x is the norm's input (the stored
+// sum s for the residual form).
+int rmsnorm_bwd(const void* x, const void* w, const void* dy, const void* ds,
+                void* dx, void* dw, void* work, long long rows, int d,
+                double eps, int types, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float e = (float)eps;
+  float* wk = (float*)work;
+  switch (types) {
+    case 0:
+      return launch_bwd<float, float>(x, w, dy, ds, dx, dw, wk, rows, d, e,
+                                      st);
+    case 1:
+      return launch_bwd<__nv_bfloat16, float>(x, w, dy, ds, dx, dw, wk, rows,
+                                              d, e, st);
+    case 2:
+      return launch_bwd<float, __nv_bfloat16>(x, w, dy, ds, dx, dw, wk, rows,
+                                              d, e, st);
+    default:
+      return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, dy, ds, dx, dw, wk,
+                                                      rows, d, e, st);
+  }
+}
+
 
 // x, y: (rows, d) contiguous; w: (d,).  rows at least 1 and below 2^31.
 int rmsnorm_fwd(const void* x, const void* w, void* y, long long rows, int d,

@@ -32,6 +32,20 @@ sequence strides of each tensor (the head dimension must have unit stride),
 so the model hands them transposed views of its ``(B, S, H, D)``
 activations without a copy, and the output keeps ``q``'s stride order.
 
+Training differentiates it through :class:`FlashAttentionFn`: the forward
+kernel also writes each row's log-sum-exp (``lse``, float32 ``(B, H, Sq)``,
+``+inf`` for a row with no allowed key), and a backward kernel of the same
+source recomputes ``P = exp(S - lse)`` in float32 and returns ``dq, dk,
+dv`` (FlashAttention-2's backward on the CUDA cores: ``delta =
+rowsum(dO O)``, a pass for ``dQ`` and one for ``dK, dV`` that sums a KV
+group's heads in a fixed order; no atomics, so the bits repeat).  The JAX
+package has no backward kernel; :func:`flash_attention_bwd_ref` is this
+one's plain version.  In bfloat16 the forward rounds ``P`` to bfloat16 for
+``P V`` while the backward uses the float32 ``P``, so the gradient is that
+of the float32 function at the bfloat16 inputs.  A CUDA wrapper handed an
+input that requires a gradient, with grad mode on, goes through the
+Function; its backward launches count in ``flash_attention.bwd_launches``.
+
 The plain version :func:`flash_attention_ref` is ``attention_ref`` of the
 JAX package's ``kernels/ref.py`` with the Pallas kernel's one difference: a
 row whose keys are all masked is 0, not the mean of V.  A wrapper takes the
@@ -64,26 +78,76 @@ def _allowed(sq: int, sk: int, causal: bool, window: int,
     return ok
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is in float64 (which no kernel takes:
+    the plain versions accept it so that their gradients can be checked
+    by finite differences)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _scores(q, k, causal, window):
+    """``(s, ok)``: the scaled float32 scores ``(B, KV, G, Sq, Sk)`` (masked
+    ones ``NEG_INF``) and the ``(Sq, Sk)`` mask, as the reference makes
+    them (``q`` scaled first)."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qf = _wide(q).reshape(b, kv, h // kv, sq, d) * (1.0 / (d ** 0.5))
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, _wide(k))
+    ok = _allowed(sq, sk, causal, window, q.device)
+    return torch.where(ok, s, torch.full_like(s, NEG_INF)), ok
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
+                        causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
     """O(S^2)-memory softmax attention in float32.
 
     ``q`` is ``(B, H, Sq, D)``, ``k`` and ``v`` are ``(B, KV, Sk, D)``; the
     scale is ``1/sqrt(D)``; the result is ``(B, H, Sq, D)`` in ``q``'s type,
-    with 0 in every row that has no allowed key.
+    with 0 in every row that has no allowed key.  With ``return_lse`` also
+    each row's log-sum-exp of its scaled scores over the allowed keys,
+    float32 ``(B, H, Sq)``, ``+inf`` for a row with none (as the kernel
+    writes it for the backward).
     """
     b, h, sq, d = q.shape
-    kv, sk = k.shape[1], k.shape[2]
+    s, ok = _scores(q, k, causal, window)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqc,bkcd->bkgqd", p, _wide(v))
+    o = torch.where(ok.any(dim=-1)[:, None], o, torch.zeros_like(o))
+    out = o.reshape(b, h, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(ok.any(dim=-1), torch.logsumexp(s, dim=-1),
+                      torch.full((), float("inf"), device=q.device))
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: int = 0) -> tuple:
+    """``(dq, dk, dv)`` of :func:`flash_attention_ref` by the explicit
+    formulas of the backward kernel, in float32, each cast to its input's
+    type: ``P = exp(S - lse)`` on the allowed keys (0 elsewhere, and in a
+    row with none, whose ``lse`` is ``+inf``), ``delta = rowsum(dO O)``,
+    ``dV = P^T dO``, ``dS = P (dO V^T - delta)``, ``dQ = dS K scale`` and
+    ``dK = dS^T Q scale``, ``dK`` and ``dV`` summed over a KV group's
+    heads.  ``out`` is the forward's output as stored."""
+    b, h, sq, d = q.shape
+    kv = k.shape[1]
     g = h // kv
     scale = 1.0 / (d ** 0.5)
-    qf = q.float().reshape(b, kv, g, sq, d) * scale
-    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k.float())
-    ok = _allowed(sq, sk, causal, window, q.device)
-    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
-    o = torch.where(ok.any(dim=-1)[:, None], o, torch.zeros_like(o))
-    return o.reshape(b, h, sq, d).to(q.dtype)
+    s, ok = _scores(q, k, causal, window)
+    lse5 = lse.to(s.dtype).reshape(b, kv, g, sq, 1)
+    p = torch.where(ok, torch.exp(s - lse5), torch.zeros_like(s))
+    do = _wide(dout).reshape(b, kv, g, sq, d)
+    delta = (do * _wide(out).reshape(b, kv, g, sq, d)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, do)
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", do, _wide(v))
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, _wide(k)) * scale
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, _wide(q).reshape(
+        b, kv, g, sq, d)) * scale
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check(q, k, v, window) -> None:
@@ -151,21 +215,88 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if (q.requires_grad or k.requires_grad or v.requires_grad) \
+            and torch.is_grad_enabled():
+        return FlashAttentionFn.apply(q, k, v, bool(causal), window)
+    return _fwd_cuda(q, k, v, bool(causal), window, None)
+
+
+def _fwd_cuda(q, k, v, causal: bool, window: int, lse) -> torch.Tensor:
+    """One launch of the forward kernel on checked CUDA tensors; writes
+    each row's log-sum-exp into ``lse`` when it is given."""
     out = torch.empty_like(q)          # q's stride order when q is dense
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     launch("flash_attention_fwd", q.get_device(), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(),
+           None if lse is None else lse.data_ptr(),
            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            *out.stride()[:3], b, h, kv, sq, sk, d, 1.0 / (d ** 0.5),
-           int(bool(causal)), window, _DTYPES[q.dtype])
+           int(causal), window, _DTYPES[q.dtype])
     flash_attention.launches += 1
-    flash_attention.shapes[(tuple(q.shape), tuple(k.shape), bool(causal),
+    flash_attention.shapes[(tuple(q.shape), tuple(k.shape), causal,
                             window, str(q.dtype))] += 1
     return out
 
 
-#: Number of kernel launches made by the wrapper (never the plain version),
-#: and the same count split by (q shape, k shape, causal, window, dtype).
+def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int) -> tuple:
+    """One launch of the backward kernel: ``(dq, dk, dv)``, each in its
+    input's shape, type and stride order."""
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    launch("flash_attention_bwd", q.get_device(), q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           *(st for t in (q, k, v, out, dout, dq, dk, dv)
+             for st in t.stride()[:3]),
+           b, h, kv, sq, sk, d, 1.0 / (d ** 0.5), int(causal), window,
+           _DTYPES[q.dtype])
+    flash_attention.bwd_launches += 1
+    flash_attention.shapes[("bwd", tuple(q.shape), tuple(k.shape), causal,
+                            window, str(q.dtype))] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient: the forward kernel with its
+    ``lse`` output, then the backward kernel on the saved ``q, k, v, out,
+    lse``.  On the CPU both sides are the plain versions, so the Function
+    itself can be tested there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.is_cuda:
+            b, h, sq, _ = q.shape
+            lse = torch.empty((b, h, sq), dtype=torch.float32,
+                              device=q.device)
+            out = _fwd_cuda(q, k, v, causal, window, lse)
+        else:
+            out, lse = flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:
+            dq, dk, dv = _bwd_cuda(q, k, v, out, lse, dout, ctx.causal,
+                                   ctx.window)
+        else:
+            dq, dk, dv = flash_attention_bwd_ref(
+                q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+#: Number of forward kernel launches made by the wrapper (never the plain
+#: version), of backward launches (``bwd_launches``), and the same counts
+#: split by (q shape, k shape, causal, window, dtype), a backward's key
+#: led by ``"bwd"``.
 flash_attention.launches = 0
+flash_attention.bwd_launches = 0
 flash_attention.shapes = Counter()

@@ -42,6 +42,10 @@ from collections import Counter
 import torch
 
 from ._build import launch as _launch
+from ._build import refuse_grad
+
+#: Why the group reduces refuse a tensor that requires a gradient.
+NO_BACKWARD = "the planner's score is never differentiated"
 
 _DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 _GATHER_FNS = {dt: f"group_min_scale_gather_{s}" for dt, s in _DTYPES.items()}
@@ -107,6 +111,8 @@ def group_min_scale(sub: torch.Tensor, ref_bw: float) -> torch.Tensor:
         return group_min_scale_ref(sub, ref_bw)
     if sub.device.type != "cuda":
         raise ValueError(f"unsupported device {sub.device}")
+    if sub.requires_grad:
+        refuse_grad("group_min_scale", NO_BACKWARD, sub)
     lead = sub.shape[:-2]
     out = torch.empty(lead, dtype=sub.dtype, device=sub.device)
     n_groups = out.numel()
@@ -225,6 +231,8 @@ def group_min_scale_gather(table: torch.Tensor, perm: torch.Tensor,
             raise ValueError(f"unsupported device {table.device}")
         return group_min_scale_gather_ref(table, perm, ref_bw, m, inner,
                                           outer, step)
+    if table.requires_grad:
+        refuse_grad("group_min_scale_gather", NO_BACKWARD, table)
     out = table.new_empty(rows)
     if rows:
         _launch(fn_name, table.get_device(), table.data_ptr(), n_tab,
@@ -258,6 +266,8 @@ def group_max(vals: torch.Tensor) -> torch.Tensor:
         if vals.device.type != "cpu":
             raise ValueError(f"unsupported device {vals.device}")
         return group_max_ref(vals)
+    if vals.requires_grad:
+        refuse_grad("group_max", NO_BACKWARD, vals)
     shape = vals.shape
     out = vals.new_empty(shape[:-1])
     n_rows = out.numel()
@@ -344,6 +354,8 @@ def group_max_gather(slow: torch.Tensor, perm: torch.Tensor,
         if perm.device.type != "cpu":
             raise ValueError(f"unsupported device {perm.device}")
         return group_max_gather_ref(slow, perm, cw, nc)
+    if slow.requires_grad or cw.requires_grad:
+        refuse_grad("group_max_gather", NO_BACKWARD, slow, cw)
     c_x = torch.empty_like(cw)
     c_max = cw.new_empty(rows)
     if rows:

@@ -15,6 +15,15 @@ residual stream goes through: ``s = x + r`` in ``x``'s type, stored, and
 ``s`` is bit-equal to PyTorch's ``x + r`` (float32 add, one rounding to
 ``x``'s type).  It counts in ``rmsnorm.launches``.
 
+Training differentiates both forms through a backward kernel of the same
+source (``rmsnorm_bwd``: one block a row for ``dx``, then ``dw`` by per-chunk
+partial sums folded in a fixed order, no atomics), bound by
+:class:`RMSNormFn` and :class:`AddRMSNormFn`.  A CUDA wrapper handed an
+input that requires a gradient, with grad mode on, goes through its
+Function; the backward launches count in ``rmsnorm.bwd_launches``.  The JAX
+package has no backward kernel (it differentiates its plain norm by
+autodiff); :func:`rmsnorm_bwd_ref` is the plain version of this one.
+
 The plain versions (``*_ref``) compute the same functions in the order of
 the reference (``models/layers.py::rms_norm``).  The kernel's sum runs in
 another order and ``rsqrtf`` is within 2 ulp, so the norms agree to float32
@@ -27,6 +36,7 @@ once per norm.
 from __future__ import annotations
 
 from collections import Counter
+from typing import Optional
 
 import torch
 
@@ -38,13 +48,20 @@ _X_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _W_CODE = {torch.float32: 0, torch.bfloat16: 2}
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or as it is in float64 (which no kernel takes:
+    the plain versions accept it so that their gradients can be checked
+    by finite differences)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
     """``x * rsqrt(mean(x**2, -1) + eps) * w`` in float32, cast back to
     ``x.dtype``.  ``x`` is ``(..., d)``, ``w`` is ``(d,)``."""
-    x32 = x.float()
+    x32 = _wide(x)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps) * _wide(w)).to(x.dtype)
 
 
 def add_rmsnorm_ref(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
@@ -52,6 +69,28 @@ def add_rmsnorm_ref(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     """``(s, rmsnorm_ref(s, w, eps))`` with ``s = x + r``."""
     s = x + r
     return s, rmsnorm_ref(s, w, eps)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5,
+                    ds_in: Optional[torch.Tensor] = None) -> tuple:
+    """``(dx, dw)``, the gradient of :func:`rmsnorm_ref` at ``x`` for the
+    output gradient ``dy``, in float32, cast to ``x``'s and ``w``'s types.
+
+    With ``r = rsqrt(mean(x**2) + eps)``, ``x̂ = x r`` and ``g = w dy``:
+    ``dx = r (g - x̂ mean(x̂ g))`` and ``dw = sum over rows of dy x̂``.
+    ``ds_in``, the gradient that reaches the norm's input from elsewhere (the
+    residual stream, for the residual form's stored sum ``s``), is added to
+    ``dx`` before its one rounding."""
+    x32, dy32 = _wide(x), _wide(dy)
+    r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    xhat = x32 * r
+    g = _wide(w) * dy32
+    dx = r * (g - xhat * torch.mean(xhat * g, dim=-1, keepdim=True))
+    if ds_in is not None:
+        dx = dx + _wide(ds_in)
+    dw = (dy32 * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def _types(x, w) -> int:
@@ -98,13 +137,26 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     d, index = _width(shape, x, w)
     if not x.is_cuda:
         return rmsnorm_ref(x, w, eps)
+    if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
+        return RMSNormFn.apply(x, w, eps)
+    return _rmsnorm_cuda(x, w, eps, types, d, index)
+
+
+def _rows(x: torch.Tensor, d: int) -> int:
+    rows = x.numel() // d
+    if rows >= 2 ** 31:
+        raise ValueError(f"rmsnorm takes fewer than 2^31 rows, got {rows}")
+    return rows
+
+
+def _rmsnorm_cuda(x, w, eps, types, d, index) -> torch.Tensor:
+    """One launch of the plain form on checked CUDA tensors."""
+    shape = x.shape
     if not x.is_contiguous():
         x = x.contiguous()
     if not w.is_contiguous():
         w = w.contiguous()
-    rows = x.numel() // d
-    if rows >= 2 ** 31:
-        raise ValueError(f"rmsnorm takes fewer than 2^31 rows, got {rows}")
+    rows = _rows(x, d)
     out = torch.empty_like(x)
     if rows:
         launch("rmsnorm_fwd", index, x.data_ptr(), w.data_ptr(),
@@ -140,11 +192,18 @@ def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"r is on {r.device}, x on {x.device}")
     if not x.is_cuda:
         return add_rmsnorm_ref(x, r, w, eps)
+    if (x.requires_grad or r.requires_grad or w.requires_grad) \
+            and torch.is_grad_enabled():
+        return AddRMSNormFn.apply(x, r, w, eps)
+    return _add_rmsnorm_cuda(x, r, w, eps, types, d, index)
+
+
+def _add_rmsnorm_cuda(x, r, w, eps, types, d, index) -> tuple:
+    """One launch of the residual form on checked CUDA tensors."""
+    shape = x.shape
     if not w.is_contiguous():
         w = w.contiguous()
-    rows = x.numel() // d
-    if rows >= 2 ** 31:
-        raise ValueError(f"rmsnorm takes fewer than 2^31 rows, got {rows}")
+    rows = _rows(x, d)
     s = torch.empty_like(x)
     y = torch.empty_like(x)
     if rows:
@@ -155,9 +214,98 @@ def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     return s, y
 
 
-#: Number of kernel launches made by either wrapper (never the plain
-#: versions), and the same count split by input: ``(x.shape, x.dtype,
-#: w.dtype)`` for :func:`rmsnorm`, ``("add", x.shape, x.dtype, w.dtype)``
-#: for :func:`add_rmsnorm`.
+def _rmsnorm_bwd_cuda(x, w, dy, eps, ds_in, key) -> tuple:
+    """One launch of the backward kernel: ``(dx, dw)`` for the norm's input
+    ``x`` (contiguous, on the card), counted under the shape key ``key``."""
+    types = _types(x, w)
+    d = x.shape[-1]
+    dy = dy.contiguous()
+    if ds_in is not None:
+        ds_in = ds_in.contiguous()
+    if not w.is_contiguous():
+        w = w.contiguous()
+    rows = _rows(x, d)
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    if not rows:
+        return dx, dw.zero_()
+    work = torch.empty(rows + min(rows, 64) * d, dtype=torch.float32,
+                       device=x.device)
+    launch("rmsnorm_bwd", x.get_device(), x.data_ptr(), w.data_ptr(),
+           dy.data_ptr(), None if ds_in is None else ds_in.data_ptr(),
+           dx.data_ptr(), dw.data_ptr(), work.data_ptr(), rows, d, eps,
+           types)
+    rmsnorm.bwd_launches += 1
+    rmsnorm.shapes[key] += 1
+    return dx, dw
+
+
+def _bwd(x, w, dy, eps, ds_in, key) -> tuple:
+    """The backward kernel on the card, its plain version on the CPU."""
+    if x.is_cuda:
+        return _rmsnorm_bwd_cuda(x, w, dy, eps, ds_in, key)
+    return rmsnorm_bwd_ref(x, w, dy, eps, ds_in)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """:func:`rmsnorm` with its gradient: the forward kernel, then the
+    backward kernel on the saved input (``rstd`` is recomputed there, in
+    the forward's order).  On the CPU both sides are the plain versions,
+    so the Function itself can be tested there."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        if x.is_cuda:
+            x = x.contiguous()
+            y = _rmsnorm_cuda(x, w, eps, _types(x, w), x.shape[-1],
+                              x.get_device())
+        else:
+            y = rmsnorm_ref(x, w, eps)
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _bwd(x, w, dy, ctx.eps, None,
+                      ("bwd", x.shape, x.dtype, w.dtype))
+        return dx, dw, None
+
+
+class AddRMSNormFn(torch.autograd.Function):
+    """:func:`add_rmsnorm` with its gradient.  The stored sum ``s`` is saved;
+    its gradient from the residual stream (``ds``) enters the backward
+    kernel as ``ds_in``, and ``dx = dr`` is the total gradient of ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, r, w, eps):
+        if x.is_cuda:
+            s, y = _add_rmsnorm_cuda(x, r, w, eps, _types(x, w), x.shape[-1],
+                                     x.get_device())
+        else:
+            s, y = add_rmsnorm_ref(x, r, w, eps)
+        ctx.save_for_backward(s, w)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        s, w = ctx.saved_tensors
+        if dy is None:                    # only the sum was used
+            return ds, ds, torch.zeros_like(w), None
+        dx, dw = _bwd(s, w, dy, ctx.eps, ds,
+                      ("add_bwd", s.shape, s.dtype, w.dtype, ds is not None))
+        return dx, dx, dw, None
+
+
+#: Number of forward kernel launches made by either wrapper (never the
+#: plain versions), of backward launches (``bwd_launches``), and the same
+#: counts split by input: ``(x.shape, x.dtype, w.dtype)`` for
+#: :func:`rmsnorm`, ``("add", x.shape, x.dtype, w.dtype)`` for
+#: :func:`add_rmsnorm`, ``("bwd", ...)`` and ``("add_bwd", ..., ds_in
+#: given)`` for the backward of each.
 rmsnorm.launches = 0
+rmsnorm.bwd_launches = 0
 rmsnorm.shapes = Counter()

@@ -32,7 +32,10 @@ The plain versions (``*_ref``) are the time-major recurrence of
 optional initial state, and the ATen sequence of ``mamba1_block`` that the
 fused form replaces, op for op.  A wrapper takes the plain version only for
 a tensor that lies on the CPU; for a CUDA tensor it launches the kernel or
-raises.
+raises.  Neither form has a backward kernel yet: on the card, a wrapper
+handed an input that requires a gradient (grad mode on) raises
+``NotImplementedError`` naming ROADMAP Queue A 10b rather than return a
+result cut from the graph.  On the CPU the plain versions differentiate.
 """
 from __future__ import annotations
 
@@ -41,9 +44,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._build import launch
+from ._build import launch, refuse_grad
 
 N_MAX = 16
+NO_BACKWARD = ("Mamba1 training on the card comes with ROADMAP Queue A 10b "
+               "(the selective_scan_fused backward kernel); train on the "
+               "CPU meanwhile")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -179,6 +185,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         return selective_scan_ref(x, dt, B, C, A, h0)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    refuse_grad("selective_scan", NO_BACKWARD, x, dt, B, C, A, h0)
     b, s, d = x.shape
     n = A.shape[-1]
     A = A.contiguous()
@@ -266,6 +273,8 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
             raise ValueError(f"unsupported device {x.device}")
         return selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z,
                                         h0, h_out, step=step)
+    refuse_grad("selective_scan_fused", NO_BACKWARD, x, dt, dt_bias, B, C,
+                A_log, D, z, h0)
     if not (dt_bias.is_contiguous() and A_log.is_contiguous()
             and D.is_contiguous()):
         dt_bias, A_log, D = (dt_bias.contiguous(), A_log.contiguous(),

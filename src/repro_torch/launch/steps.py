@@ -1,18 +1,115 @@
-"""Prefill and decode steps used by the generation CLI (``generate.py``).
+"""Train, prefill and decode steps used by the launchers (``train.py``,
+``generate.py``).
 
 The reference wraps these in ``jax.jit``; PyTorch runs them eagerly, so a
-step is a plain closure over the config.  ``make_train_step`` waits for the
-training slice (ROADMAP Queue A 10).
+step is a plain closure over the config.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.sharding import ShardCtx
+from ..optim.adamw import AdamW, AdamWState
+
+
+def _leaves_for_grad(params) -> tuple:
+    """``(p, flat)``: the parameters as the loss takes them, every tensor a
+    detached leaf that requires a gradient and shares its storage, with
+    ``p["layers"]`` a list of per-layer dicts; and those leaves in a fixed
+    order (top-level keys sorted, then layer by layer, keys sorted).
+
+    Slicing a stacked ``(L, ...)`` leaf inside the graph would make the
+    backward of every slice a zero tensor of the whole stack's size (four
+    of 815 M elements at qwen2-7b's width and four layers); per-layer
+    leaves give each layer a gradient of its own size."""
+    top = {k: v.detach().requires_grad_() for k, v in params.items()
+           if k != "layers"}
+    stacked = params["layers"]
+    n = next(iter(stacked.values())).shape[0]
+    layers = [{k: v[i].detach().requires_grad_() for k, v in stacked.items()}
+              for i in range(n)]
+    flat = [top[k] for k in sorted(top)]
+    flat += [lp[k] for lp in layers for k in sorted(lp)]
+    return dict(top, layers=layers), flat
+
+
+def _to_device(batch: Dict[str, Any], device: torch.device) -> dict:
+    """The loader's NumPy batch as int64 tensors on ``device``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device).long()
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
+                    n_micro: int = 1):
+    """Microbatch-accumulation training step (Pipette's ``bs_micro``
+    knob), as the reference's.
+
+    ``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss": loss})``: the batch (the loader's NumPy arrays) goes to the
+    parameters' device and splits into ``n_micro`` microbatches of
+    consecutive rows; each one's forward and backward (each layer under
+    remat when the config asks) adds its gradients, cast to float32, into
+    float32 accumulators of the parameters' stacked shapes, which are
+    divided by ``n_micro`` (with ``n_micro == 1`` the cast gradients are
+    used as they are); then one AdamW update.  The loss is the microbatch
+    losses' mean."""
+    if n_micro < 1:
+        raise ValueError(f"n_micro must be at least 1, got {n_micro}")
+
+    def micro_grads(params, mb, acc, first: bool):
+        p, flat = _leaves_for_grad(params)
+        loss, _ = M.loss_fn(p, cfg, ctx, mb)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        targets = [acc[k] for k in sorted(acc) if k != "layers"]
+        targets += [acc["layers"][k][i]
+                    for i in range(len(p["layers"]))
+                    for k in sorted(acc["layers"])]
+        for t, g in zip(targets, grads):
+            if g is None:                  # not reached by the loss
+                if first:
+                    t.zero_()
+            elif first:
+                t.copy_(g)
+            else:
+                t.add_(g.float())
+        return loss.detach()
+
+    def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
+        device = params["tok_embed"].device
+        batch = _to_device(batch, device)
+        acc = {k: ({kk: torch.empty(vv.shape, dtype=torch.float32,
+                                    device=device)
+                    for kk, vv in v.items()} if k == "layers"
+                   else torch.empty(v.shape, dtype=torch.float32,
+                                    device=device))
+               for k, v in params.items()}
+        if n_micro == 1:
+            loss = micro_grads(params, batch, acc, True)
+        else:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % n_micro:
+                raise ValueError(f"batch of {rows} rows does not split into "
+                                 f"{n_micro} microbatches")
+            size = rows // n_micro
+            lsum = torch.zeros((), dtype=torch.float32, device=device)
+            for j in range(n_micro):
+                mb = {k: v[j * size:(j + 1) * size] for k, v in batch.items()}
+                lsum = lsum + micro_grads(params, mb, acc, j == 0)
+            div = torch.full((), float(n_micro), dtype=torch.float32,
+                             device=device)
+            for t in ([acc[k] for k in acc if k != "layers"]
+                      + list(acc["layers"].values())):
+                t.div_(div)
+            loss = lsum / div
+        new_params, new_opt = opt.update(acc, opt_state, params)
+        return new_params, new_opt, {"loss": loss}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx):

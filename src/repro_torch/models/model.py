@@ -1,4 +1,4 @@
-"""Top-level model API of the generation path: logits, prefill, decode.
+"""Top-level model API: logits, the training loss, prefill, decode.
 
 Port of the JAX package's ``models/model.py`` for the dense and Mamba1
 families.  Decode walks the layers in the reference's segments (runs of
@@ -9,7 +9,8 @@ and conv tails for Mamba layers.  :func:`decode_step` updates the cache in
 place, where the reference donates it to ``jit`` (``donate_argnums``) and
 gets a new one back.  In a decode step each block's output is added to the
 residual stream by the norm that follows it, the final norm included (one
-``add_rmsnorm`` launch each).  ``loss_fn`` waits for the training slice.
+``add_rmsnorm`` launch each).  :func:`loss_fn` is the training objective
+that ``launch/steps.py::make_train_step`` differentiates.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from .sharding import ShardCtx
 from .transformer import (_out_proj, _proj_qkv, check_family, init_params,
                           layer_params, layer_plan, mlp_block, run_stack)
 
-__all__ = ["init_params", "forward_logits", "prefill", "init_cache",
-           "decode_step"]
+__all__ = ["init_params", "forward_logits", "loss_fn", "prefill",
+           "init_cache", "decode_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +81,32 @@ def forward_logits(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
     x, _ = run_stack(x, params, cfg, ctx, positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _project_logits(x, params, cfg)
+
+
+def loss_fn(params, cfg: ModelConfig, ctx: ShardCtx, batch
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy over the valid labels (``labels >= 0``;
+    negative labels are masked), over the padded vocabulary, in float32.
+    Returns ``(loss, {"loss": loss, "tokens": n})``.
+
+    The reference picks each label's logit by an einsum with a one-hot
+    ``(b, s, V)`` float32 tensor.  Every term it adds besides the label's
+    own is ``logit * 0``, an exact zero (no logit is infinite: phantom rows
+    carry -1e30), so taking the label's logit with ``gather`` is bit-equal
+    and never makes the one-hot (1.2 GB at qwen2-7b's vocabulary and a
+    batch of 4 x 512)."""
+    logits = forward_logits(params, cfg, ctx, batch["tokens"],
+                            batch.get("img_embeds"))
+    labels = batch["labels"]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    safe = labels.clamp_min(0).long()
+    picked = torch.gather(lf, -1, safe[..., None])[..., 0]
+    nll = lse - picked
+    mask = (labels >= 0).float()
+    n = torch.clamp_min(mask.sum(), 1.0)
+    loss = (nll * mask).sum() / n
+    return loss, {"loss": loss, "tokens": n}
 
 
 # ---------------------------------------------------------------------------

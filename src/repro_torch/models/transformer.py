@@ -1,11 +1,18 @@
-"""Decoder stack of the dense and SSM families, forward only.
+"""Decoder stack of the dense and SSM families.
 
-Port of the JAX package's ``models/transformer.py`` for the generation path.
-Parameters are one dict with the reference's keys and its layer-stacked
-``(L, ...)`` shapes, so a reference pytree converts key for key
-(:func:`repro_torch.convert.params_from_reference`).  :func:`run_stack` is a
-plain Python loop over layers: the reference's ``lax.scan`` and remat exist
-for compile size and training memory, and this slice runs no backward pass.
+Port of the JAX package's ``models/transformer.py``.  Parameters are one
+dict with the reference's keys and its layer-stacked ``(L, ...)`` shapes, so
+a reference pytree converts key for key
+(:func:`repro_torch.convert.params_from_reference`); the training step
+hands ``params["layers"]`` in as a list of per-layer dicts instead (leaves of
+their own, so that no layer's backward writes a gradient the size of the
+whole stack; :func:`layer_params` takes either).  :func:`run_stack` is a
+plain Python loop over layers in place of the reference's ``lax.scan``.
+When the config asks for remat and a gradient is being taken, each layer
+runs under ``torch.utils.checkpoint`` (non-reentrant), as the reference
+wraps its scanned body in ``jax.checkpoint(..., nothing_saveable)``: only
+the layer's inputs are kept, and its forward runs again in the backward.
+Prefill and decode take no gradient and run each layer once.
 
 Full-sequence attention goes through the ``flash_attention`` kernel and
 every norm through the ``rmsnorm`` kernel.  Each block's output is carried
@@ -20,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..kernels.flash_attention import flash_attention
@@ -238,8 +246,27 @@ def _layer_body(x, pending, lp, cfg: ModelConfig, ctx: ShardCtx, entry,
 
 
 def layer_params(params, i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s slice of the stacked ``params["layers"]``."""
-    return {k: v[i] for k, v in params["layers"].items()}
+    """Layer ``i``'s slice of the stacked ``params["layers"]``, or its dict
+    when ``params["layers"]`` is a list of per-layer dicts."""
+    layers = params["layers"]
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return {k: v[i] for k, v in layers.items()}
+
+
+def _takes_grad(x, params) -> bool:
+    """Whether a gradient is being taken through the stack: grad mode on,
+    and the input or the first layer's parameters require one."""
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(
+        t.requires_grad for t in layer_params(params, 0).values())
+
+
+def _remat_layer(x, pending, lp, cfg, ctx, entry, positions):
+    """:func:`_layer_body` without its cache output, for the checkpoint."""
+    x, pending, _ = _layer_body(x, pending, lp, cfg, ctx, entry, positions)
+    return x, pending
 
 
 def run_stack(x, params, cfg: ModelConfig, ctx: ShardCtx, positions,
@@ -249,11 +276,17 @@ def run_stack(x, params, cfg: ModelConfig, ctx: ShardCtx, positions,
     stacked over layers (the reference's scan outputs), else ``()``."""
     check_family(cfg)
     plan, _ = layer_plan(cfg)
+    remat = cfg.remat and not collect_cache and _takes_grad(x, params)
     caches = []
     pending = None
     for i, entry in enumerate(plan):
-        x, pending, c = _layer_body(x, pending, layer_params(params, i), cfg,
-                                    ctx, entry, positions)
+        lp = layer_params(params, i)
+        if remat:
+            x, pending = checkpoint(_remat_layer, x, pending, lp, cfg, ctx,
+                                    entry, positions, use_reentrant=False)
+            continue
+        x, pending, c = _layer_body(x, pending, lp, cfg, ctx, entry,
+                                    positions)
         if collect_cache:
             caches.append(c)
     if pending is not None:

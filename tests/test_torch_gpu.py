@@ -14,7 +14,11 @@ falcon-mamba-7b's prefill and decode-step shapes with the model's views and
 the decode cache's state updated in place.  The planner's other entry
 points run there too: the live bandwidth probe, the plan server, an
 elastic replan and a churn replay, each equal to the host NumPy backend's
-result.  Without a CUDA device
+result.  So does training: the backward kernels of ``rmsnorm`` (both forms)
+and ``flash_attention`` against their plain versions, the autograd
+Functions the wrappers hand a gradient to, the scan's refusal of one, a
+gradient that reaches every parameter of a dense layer, and a train step
+against the host's and against itself bit for bit.  Without a CUDA device
 every test here skips with a reason
 (decided inside the test, never at import).  This file imports ``torch``
 and ``repro_torch`` only, so it also runs on a machine without JAX:
@@ -685,3 +689,200 @@ def test_churn_replay_on_the_card_equals_numpy():
             pol, backend="numpy", device="cpu"))
         assert json.dumps(card.to_json_dict(), sort_keys=True) \
             == json.dumps(host.to_json_dict(), sort_keys=True)
+
+
+# ---------------------------------------------------------------------------
+# training: the backward kernels, the Functions, the train step
+# ---------------------------------------------------------------------------
+
+#: (rows, d) of the norm backward: packed and unpacked rows, one row, and
+#: more rows than the 64 chunks of the weight gradient's partial sums.
+RMS_BWD_SHAPES = [(1, 32), (7, 384), (70, 4096), (5, 36), (3, 33),
+                  (300, 128)]
+#: (b, h, kv, sq, sk, d, causal, window): GQA, Sq != Sk, a window, rows
+#: with no allowed key (the last), and the head dims the models use.
+FA_BWD_CASES = [(2, 4, 2, 64, 64, 32, True, 0), (1, 4, 1, 50, 90, 64, False, 0),
+                (1, 2, 2, 100, 100, 128, True, 16),
+                (2, 8, 2, 96, 40, 128, True, 0), (1, 2, 1, 40, 40, 256, True, 0),
+                (1, 2, 2, 64, 16, 16, True, 8)]
+
+
+def _rel_close(got, want, tol):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert got.shape == want.shape
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max())
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("with_ds", [False, True], ids=["plain", "ds_in"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", RMS_BWD_SHAPES, ids=str)
+def test_rmsnorm_bwd_kernel_matches_plain(shape, dtype, with_ds):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
+    w = torch.randn(shape[-1], generator=g, device="cuda").to(dtype)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    ds = torch.randn(shape, generator=g, device="cuda").to(dtype) \
+        if with_ds else None
+    before = rn.rmsnorm.bwd_launches
+    dx, dw = rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.bwd_launches == before + 1
+    want_dx, want_dw = rn.rmsnorm_bwd_ref(x, w, dy, 1e-5, ds)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    _rel_close(dx, want_dx, tol)
+    _rel_close(dw, want_dw, tol)
+
+
+def _fa_views(case, dtype, seed):
+    b, h, kv, sq, sk, d, _, _ = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def view(n, s):                   # (B, S, H, D) viewed as (B, H, S, D)
+        return torch.randn((b, s, n, d), generator=g, device="cuda").to(
+            dtype).transpose(1, 2)
+
+    return view(h, sq), view(kv, sk), view(kv, sk), view(h, sq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FA_BWD_CASES, ids=str)
+def test_flash_attention_bwd_kernel_matches_plain(case, dtype):
+    """The forward's ``lse`` against the plain one, then the backward
+    kernel against the plain backward on the same ``out`` and ``lse``."""
+    _need_cuda()
+    *_, causal, window = case
+    q, k, v, do = _fa_views(case, dtype, sum(case[:6]))
+    b, h, sq = q.shape[:3]
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    out = fa._fwd_cuda(q, k, v, causal, window, lse)
+    _, want_lse = fa.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    _rel_close(lse[finite], want_lse[finite], 1e-5)
+    before = fa.flash_attention.bwd_launches
+    got = fa._bwd_cuda(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.bwd_launches == before + 1
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                      window=window)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, t in zip(got, want):
+        assert a.dtype == dtype
+        _rel_close(a, t, tol)
+    if not bool(finite.all()):
+        assert bool((got[0][~finite[..., None].expand_as(got[0])] == 0).all())
+
+
+def test_functions_are_used_on_the_card_under_grad():
+    """A CUDA wrapper handed an input that requires a gradient goes
+    through its Function: a forward launch, then a backward launch."""
+    _need_cuda()
+    x = torch.randn(4, 64, device="cuda", requires_grad=True)
+    w = torch.ones(64, device="cuda", requires_grad=True)
+    counts = (rn.rmsnorm.launches, rn.rmsnorm.bwd_launches,
+              fa.flash_attention.launches, fa.flash_attention.bwd_launches)
+    y = rn.rmsnorm(x, w)
+    s, y2 = rn.add_rmsnorm(x, x, w)
+    q = torch.randn(1, 2, 16, 32, device="cuda", requires_grad=True)
+    o = fa.flash_attention(q, q, q)
+    assert all(t.grad_fn is not None for t in (y, s, y2, o))
+    (y.sum() + s.sum() + y2.sum() + o.sum()).backward()
+    assert (rn.rmsnorm.launches - counts[0], rn.rmsnorm.bwd_launches
+            - counts[1], fa.flash_attention.launches - counts[2],
+            fa.flash_attention.bwd_launches - counts[3]) == (2, 2, 1, 1)
+    assert all(bool(torch.isfinite(t.grad).all()) for t in (x, w, q))
+    with torch.no_grad():
+        assert rn.rmsnorm(x, w).grad_fn is None
+
+
+def test_scan_wrappers_refuse_a_gradient_on_the_card():
+    _need_cuda()
+    from repro_torch.models import mamba
+    cfg = configs.get("falcon-mamba-7b").reduced(n_layers=1)
+    params = init_params(cfg, seed=0, device="cuda")
+    lp = {k: v[0].detach().requires_grad_()
+          for k, v in params["layers"].items()}
+    h = torch.randn(1, 8, cfg.d_model, device="cuda")
+    with pytest.raises(NotImplementedError, match="Queue A 10b"):
+        mamba.mamba1_block(h, lp, cfg)
+    with torch.no_grad():
+        mamba.mamba1_block(h, lp, cfg)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_backward_reaches_every_parameter_of_a_dense_layer(remat):
+    """``loss.backward()`` on a one-layer dense model on the card: every
+    parameter gets a finite gradient, through the backward kernels."""
+    _need_cuda()
+    from repro_torch.launch import steps
+    cfg = configs.get("qwen2-7b").reduced(n_layers=1, dtype="bfloat16",
+                                          remat=remat)
+    params = init_params(cfg, seed=0, device="cuda")
+    p, flat = steps._leaves_for_grad(params)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=g,
+                         device="cuda")
+    before = (rn.rmsnorm.bwd_launches, fa.flash_attention.bwd_launches)
+    loss, _ = M.loss_fn(p, cfg, ShardCtx(), {"tokens": toks,
+                                             "labels": toks.roll(-1, 1)})
+    loss.backward()
+    assert (rn.rmsnorm.bwd_launches - before[0],
+            fa.flash_attention.bwd_launches - before[1]) == (3, 1)
+    for t in flat:
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.float().abs().max()) > 0
+
+
+def test_train_step_on_the_card_matches_the_host():
+    """One float32 step of reduced qwen2-7b: loss and new parameters on the
+    card against the host's plain path (sums in another order)."""
+    _need_cuda()
+    from repro_torch._tree import leaves
+    from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
+                                           SyntheticCorpus)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamW
+    cfg = configs.get("qwen2-7b").reduced(n_layers=2, remat=True)
+    batch = DataLoader(SyntheticCorpus(cfg.vocab_size, 0),
+                       LoaderConfig(4, 32)).batch_at(0)
+    opt = AdamW(lr=1e-5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = init_params(cfg, seed=0, device="cuda")
+        params = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(dev))
+                  for k, v in params.items()}
+        step = make_train_step(cfg, ShardCtx(), opt, n_micro=2)
+        out[dev] = step(params, opt.init(params), batch)
+    assert abs(float(out["cuda"][2]["loss"]) - float(out["cpu"][2]["loss"])) \
+        <= 1e-4
+    for a, b in zip(leaves(out["cuda"][0]), leaves(out["cpu"][0])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=3e-5)
+
+
+def test_train_step_on_the_card_repeats_bit_for_bit():
+    _need_cuda()
+    from repro_torch._tree import leaves
+    from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
+                                           SyntheticCorpus)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamW
+    cfg = configs.get("qwen2-7b").reduced(n_layers=2, dtype="bfloat16",
+                                          remat=True)
+    batch = DataLoader(SyntheticCorpus(cfg.vocab_size, 0),
+                       LoaderConfig(4, 64)).batch_at(0)
+    opt = AdamW(lr=1e-3)
+    outs = []
+    for _ in range(2):
+        params = init_params(cfg, seed=0, device="cuda")
+        step = make_train_step(cfg, ShardCtx(), opt, n_micro=2)
+        outs.append(step(params, opt.init(params), batch))
+    assert float(outs[0][2]["loss"]) == float(outs[1][2]["loss"])
+    for a, b in zip(leaves(outs[0][:2]), leaves(outs[1][:2])):
+        assert torch.equal(a, b)

@@ -43,6 +43,9 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.service, repro_torch.service.server\n"
         "import repro_torch.service.client, repro_torch.service.wire\n"
         "import repro_torch.service.cache, repro_torch.service.__main__\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.compression\n"
+        "import repro_torch.checkpoint.manager, repro_torch.data.pipeline\n"
+        "import repro_torch.runtime.trainer, repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('repro.') or "
         "m.startswith('triton')]\n"
