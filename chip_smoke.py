@@ -19,7 +19,9 @@ failed assertion (non-zero exit, no final line).
 Phases: ``env`` (with the SM count and maximum SM clock that set the
 exponentials' rate of the scan's bound), ``build`` (with the ``ptxas``
 report: the bfloat16 D=128 attention instance must not spill, the scan's
-registers and spills per instance, none of which may spill, and the cost
+registers and spills per instance, none of which may spill, the
+registers and spills of the bfloat16 attention backward's three passes at
+every head dim, none of which may spill at D=128, and the cost
 of reading the stream handle and the device index both ways), ``kernels``
 (group-reduce kernels
 bit-equal at ragged shapes, both forms of ``group_min_scale`` and of
@@ -43,7 +45,8 @@ and D=256; a misaligned bfloat16 view is refused), ``model_kernels_bwd``
 (the backward kernels of rmsnorm, both forms with and without the
 stream's gradient, and of flash_attention, causal and windowed, GQA,
 ``Sq != Sk``, rows with no allowed key, strided views, against their plain
-versions in float32 and bfloat16, with the forward's ``lse``; each plain
+versions in float32 and bfloat16, with the forward's ``lse``, the bfloat16
+attention backward launched twice for the same bits; each plain
 backward against autograd of its plain forward; each autograd Function by
 finite differences in float32; the scan's refusal of a gradient),
 ``scan_at_falcon_shapes``
@@ -67,7 +70,9 @@ and its resume from the step-2 checkpoint, which must give the same losses
 and final parameters bit for bit), ``slice_check_train`` (qwen2-7b at full
 width and 1 layer, 1 x 64 tokens: a step's loss and every leaf's gradient
 on the card against the host's plain path), ``model_kernels_at_path_shapes``
-(the training phase's forward shapes too), ``bwd_kernels_at_path_shapes``
+(the training phase's forward shapes too), ``bwd_kernels_at_path_shapes``,
+``bwd_attention_full_grid`` (the bfloat16 attention backward at qwen2-7b's
+heads and 2048 tokens, where its grid fills the card; off the main path)
 and ``host_cost`` (host
 microseconds of one call of each redesigned wrapper and of its library
 call); with ``--profile`` also ``profile_sa``, ``profile_generate_*`` and
@@ -922,7 +927,10 @@ def churn() -> tuple:
 def trace(fn) -> dict:
     """Run ``fn()`` once under ``torch.profiler``: host wall time, device
     busy time (the sum of the device-side rows: kernels and copies), the
-    idle share, and the top kernels by device time."""
+    idle share, the top kernels by device time, and every kernel of this
+    repository's library: its kernels live in an anonymous namespace, so
+    their names start ``void (anonymous namespace)::``, and name no ATen
+    (``at::``, ``c10::``) type, as the few ATen kernels there do."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -945,7 +953,13 @@ def trace(fn) -> dict:
             "top_by_device_time": [
                 {"name": e.key[:80], "count": e.count,
                  "device_ms": e.self_device_time_total / 1e3}
-                for e in rows[:10]]}
+                for e in rows[:10]],
+            "repo_kernels": [
+                {"name": e.key[:80], "count": e.count,
+                 "device_ms": e.self_device_time_total / 1e3}
+                for e in rows
+                if e.key.startswith("void (anonymous namespace)::")
+                and "at::" not in e.key and "c10::" not in e.key]}
 
 
 def profile_sa(device) -> dict:
@@ -1538,14 +1552,20 @@ RAGGED_RMS_BWD = [((rows, d), dt) for rows in (1, 7, 70)
                   for d in (32, 36, 384, 3584) for dt in ("float32",
                                                           "bfloat16")]
 #: (b, h, kv, sq, sk, d, causal, window): GQA, Sq != Sk both ways, a
-#: window, rows with no allowed key (the fifth), D = 256, and qwen2-7b's
-#: heads at a ragged length.
+#: window, rows with no allowed key (the fifth), D = 256 with a group of two
+#: and of one, qwen2-7b's heads (a group of 7) at a ragged length, and keys
+#: no query may see (the last: causal, Sq < Sk, a window).
 RAGGED_FA_BWD = [
     (2, 4, 2, 64, 64, 32, True, 0), (1, 4, 1, 50, 90, 64, False, 0),
     (1, 2, 2, 100, 100, 128, True, 16), (2, 8, 2, 96, 40, 128, True, 0),
     (1, 2, 2, 64, 16, 16, True, 8), (1, 2, 1, 40, 40, 256, True, 0),
-    (1, 28, 4, 130, 130, 128, True, 0),
+    (1, 28, 4, 130, 130, 128, True, 0), (2, 4, 4, 70, 33, 256, False, 0),
+    (1, 7, 1, 33, 77, 32, True, 20),
 ]
+#: The bfloat16 attention backward where its grid fills the card (not a
+#: shape of the main path): qwen2-7b's heads at 2048 tokens, causal.
+FULL_GRID_FA_BWD = ("bwd", (1, 28, 2048, 128), (1, 4, 2048, 128), True, 0,
+                    "bfloat16")
 BWD_EPS = 1e-5
 
 
@@ -1669,8 +1689,9 @@ def _max_rel(got, want) -> tuple:
 def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
     """Backward kernel vs its plain version on the same inputs, within
     ``TOL_BWD`` of the largest magnitude (and, for the attention, the
-    forward's ``lse`` vs the plain one); with ``timed`` also ``ms``,
-    ``device_ms``, ``plain_ms``, ``library_ms`` and the bound."""
+    forward's ``lse`` vs the plain one, and in bfloat16 a second launch
+    bit-equal to the first); with ``timed`` also ``ms``, ``device_ms``,
+    ``plain_ms``, ``library_ms`` and the bound."""
     a = bwd_inputs(name, key, device)
     kernel, plain, library, note = bwd_calls(name, key, a, timed)
     got = kernel()
@@ -1700,6 +1721,12 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         row["rows_without_keys"] = int((~fin).sum())
         if not bool(fin.all()):          # those rows pass no gradient
             assert bool((got[0].float().abs().sum(-1)[~fin] == 0).all())
+        if dt == torch.bfloat16:         # no atomics: the same bits again
+            again = kernel()
+            torch.cuda.synchronize()
+            row["repeat_bits_equal"] = all(
+                torch.equal(g, a_) for g, a_ in zip(got, again))
+            assert row["repeat_bits_equal"], (name, key)
     if timed:
         b_ms, b_by = bwd_bound(name, key, a, got)
         fns = {"ms": kernel, "plain_ms": plain}
@@ -1875,6 +1902,16 @@ def check_bwd_path_shapes(device, bwd_shapes: dict) -> list:
             row["launches"] = {"train_qwen2_7b": n}
             rows.append(row)
     return rows
+
+
+def check_bwd_full_grid(device) -> dict:
+    """The ``bwd_attention_full_grid`` phase: the bfloat16 attention
+    backward at ``FULL_GRID_FA_BWD``, off the main path, checked and
+    timed beside its bound and SDPA's backward."""
+    row = check_bwd_kernel("flash_attention_bwd", FULL_GRID_FA_BWD, device,
+                           True)
+    torch.cuda.empty_cache()
+    return {"phase": "bwd_attention_full_grid", "kernels": [row]}
 
 
 # ---------------------------------------------------------------------------
@@ -2122,18 +2159,17 @@ def ptxas_spills(log: str) -> dict:
     return spills
 
 
-def scan_ptxas(log: str) -> dict:
-    """{"<type> <form>": {"registers": r, "smem": bytes, "spill_bytes":
-    [stores, loads]}} of every instance of the scan kernel in a ``ptxas -v``
-    log."""
+def ptxas_table(log: str, label) -> dict:
+    """{label(name): {"registers": r, "smem": bytes, "spill_bytes": [stores,
+    loads]}} of every kernel in a ``ptxas -v`` log whose mangled name
+    ``label`` maps to a string (to None: left out)."""
     out, current = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Function properties for (\S*scan_kernel\S*)", ln)
+        m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            name = m.group(1)
-            current = (f"{'bf16' if 'bfloat16' in name else 'f32'} "
-                       f"{'fused' if 'Lb1E' in name else 'plain'}")
-            out[current] = {}
+            current = label(m.group(1))
+            if current is not None:
+                out[current] = {}
             continue
         if current is None:
             continue
@@ -2141,12 +2177,32 @@ def scan_ptxas(log: str) -> dict:
                       ln)
         if m:
             out[current]["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
-        if m:
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:                          # static shared memory, if any
+            smem = re.search(r"(\d+) bytes smem", ln)
             out[current]["registers"] = int(m.group(1))
-            out[current]["smem"] = int(m.group(2))
+            out[current]["smem"] = int(smem.group(1)) if smem else 0
             current = None
     return out
+
+
+def scan_ptxas(log: str) -> dict:
+    """``ptxas_table`` of every instance of the scan kernel, keyed
+    "<type> <form>"."""
+    return ptxas_table(log, lambda name: (
+        f"{'bf16' if 'bfloat16' in name else 'f32'} "
+        f"{'fused' if 'Lb1E' in name else 'plain'}")
+        if "scan_kernel" in name else None)
+
+
+def attention_bwd_ptxas(log: str) -> dict:
+    """``ptxas_table`` of every instance of the bfloat16 tensor-core
+    attention backward (``dkv``, ``dq``, ``fold``), keyed "<pass> D=<d>"."""
+    def label(name):
+        kind = re.search(r"bwd_(dkv_mma|dq_mma|fold)ILi(\d+)E", name)
+        return None if kind is None else \
+            f"{kind.group(1).split('_')[0]} D={kind.group(2)}"
+    return ptxas_table(log, label)
 
 
 def launch_path_reads_us(n: int = 20000) -> dict:
@@ -2330,6 +2386,12 @@ def main() -> int:
     assert len(scan_regs) == 2 * 2, scan_regs       # 2 types x 2 forms
     assert all(v["spill_bytes"] == [0, 0] for v in scan_regs.values()), \
         ("a scan instance spills", scan_regs)
+    bwd_regs = attention_bwd_ptxas(log)
+    assert len(bwd_regs) == 3 * 5, bwd_regs          # 3 passes x 5 dims
+    # and so does its backward at the model's head dim
+    assert all(bwd_regs[f"{p} D=128"]["spill_bytes"] == [0, 0]
+               for p in ("dkv", "dq", "fold")), ("bf16 D=128 attention "
+                                                 "backward spills", bwd_regs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_now": _build.last_build_seconds is not None,
           "library": os.path.relpath(str(lib), ROOT),
@@ -2338,6 +2400,7 @@ def main() -> int:
           "flags": list(_build.NVCC_FLAGS),
           "attention_bf16_d128_spill_bytes": list(d128[0]),
           "scan_ptxas": scan_regs,
+          "attention_bwd_bf16_ptxas": bwd_regs,
           **launch_path_reads_us(),
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if ln.startswith("==") or "Compiling entry" in ln
@@ -2411,6 +2474,7 @@ def main() -> int:
     emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
     bwd_rows = check_bwd_path_shapes(device, bwd_tr)
     emit({"phase": "bwd_kernels_at_path_shapes", "kernels": bwd_rows})
+    emit(check_bwd_full_grid(device))
     emit(host_cost(device, max(shapes_t["group_max"],
                                key=shapes_t["group_max"].get)))
 

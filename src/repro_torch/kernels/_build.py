@@ -171,10 +171,10 @@ def load_library() -> ctypes.CDLL:
         # flash_attention.cu: (q, k, v, o, lse, 4 x (batch, head, seq)
         #   strides, batch, heads, kv_heads, len_q, len_k, head_dim, scale,
         #   causal, window, bf16, stream) and (q, k, v, o, dout, lse, delta,
-        #   dq, dk, dv, 8 x (batch, head, seq) strides, the same sizes)
+        #   work, dq, dk, dv, 8 x (batch, head, seq) strides, the same sizes)
         "flash_attention_fwd": [vp] * 5 + [ll] * 12
         + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
-        "flash_attention_bwd": [vp] * 10 + [ll] * 24
+        "flash_attention_bwd": [vp] * 11 + [ll] * 24
         + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
         # selective_scan.cu: (x, dt, B, C, A, h0, y, h_out,
         #   4 x (batch, time) strides, batch, len, d, n, bf16, stream) and

@@ -1,4 +1,6 @@
-// Causal / sliding-window GQA softmax attention, forward (CUDA C++, sm_90a).
+// Causal / sliding-window GQA softmax attention, forward and backward (CUDA
+// C++, sm_90a).  The forward's kernels are described here; the backward's,
+// for the training path, in their own section below.
 //
 // o[b, h, i] = sum_j softmax_j(s_ij) v[b, h / g, j] with
 // s_ij = (q[b, h, i] / sqrt(D)) . k[b, h / g, j], over the keys j allowed by
@@ -625,7 +627,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// backward (float32 and bfloat16): CUDA-core kernels
+// backward: the shared delta pass, float32 on the CUDA cores
 // ---------------------------------------------------------------------------
 //
 // The gradient of the forward above from its log-sum-exp, in the manner of
@@ -636,19 +638,21 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 //   (0 elsewhere; lse is +inf for a row with no allowed key),
 //   dV_j = sum_i P_ij dO_i, dS_ij = P_ij (dO_i . V_j - delta_i),
 //   dQ_i = scale sum_j dS_ij K_j, dK_j = scale sum_i dS_ij Q_i,
-// with s_ij = scale Q_i . K_j.  Three kernels, no atomics: `delta` (one
-// warp a row); `dq` (one block per 32 query rows, head, batch: a loop over
-// the key tiles the rows may see, as in the float32 forward: lane = key for
-// the dot products, lane = column for the sum into dQ); `dkv` (one block
-// per 32 keys, KV head, batch: a loop over the group's query heads, in
-// order, and over the query tiles that may see the keys; lane = query row
-// for the dot products, lane = column for the sums into dK and dV).  So
-// every sum runs in a fixed order and the gradients are the same bits on
-// every run.  Everything is float32 inside: bfloat16 inputs are widened as
-// they are staged in shared memory, and the outputs are rounded once.
-// Bound: operations (5 products of the forward's size against its 2) at
-// the CUDA cores' float32 rate; this simple form does not use the tensor
-// cores (a later redesign's work).
+// with s_ij = scale Q_i . K_j.  No kernel of either type uses atomics:
+// every sum runs in a fixed order, so the gradients are the same bits on
+// every run (a resumed training run repeats the uninterrupted one).
+//
+// float32 (this namespace): three kernels on the CUDA cores, everything
+// float32 inside, since tensor cores would mean TF32 and break the 1e-4
+// tolerance.  `delta` (one warp a row);
+// `dq` (one block per 32 query rows, head, batch: a loop over the key
+// tiles the rows may see, as in the float32 forward: lane = key for the
+// dot products, lane = column for the sum into dQ); `dkv` (one block per
+// 32 keys, KV head, batch: a loop over the group's query heads, in order,
+// and over the query tiles that may see the keys; lane = query row for
+// the dot products, lane = column for the sums into dK and dV).  Bound:
+// operations (5 products of the forward's size against its 2) at the CUDA
+// cores' float32 rate.
 
 namespace bwd {
 
@@ -656,19 +660,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 8;                     // rows (queries or keys) a warp
 constexpr int kBlock = kWarps * kRows;       // 32
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-template <typename T>
-__device__ __forceinline__ T st(float v);
-template <>
-__device__ __forceinline__ float st<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -686,9 +677,9 @@ __device__ __forceinline__ bool allowed(int qi, int kj, int len_q, int len_k,
 }
 
 // delta[row] = O_row . dO_row for the rows (b, h, i) in that order
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
           float* __restrict__ delta, Strides so, Strides sd, int heads,
           int len_q, long long rows) {
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -697,10 +688,10 @@ bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
   const int i = (int)(row % len_q);
   const long long bh = row / len_q;
   const int h = (int)(bh % heads), b = (int)(bh / heads);
-  const T* orow = o + b * so.b + h * so.h + i * so.s;
-  const T* drow = dout + b * sd.b + h * sd.h + i * sd.s;
+  const float* orow = o + b * so.b + h * so.h + i * so.s;
+  const float* drow = dout + b * sd.b + h * sd.h + i * sd.s;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(ld(orow + c), ld(drow + c), acc);
+  for (int c = lane; c < D; c += 32) acc = fmaf(orow[c], drow[c], acc);
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(kFullMask, acc, off);
   if (lane == 0) delta[row] = acc;
@@ -713,12 +704,12 @@ struct DqTile {                               // rows padded to D + 4 floats
       sizeof(float) * (2 * kBlock * D + 2 * kBlock * kStride);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+       const float* __restrict__ v, const float* __restrict__ dout,
        const float* __restrict__ lse, const float* __restrict__ delta,
-       T* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sd,
+       float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sd,
        Strides sdq, int group, int len_q, int len_k, float scale,
        int causal, int window) {
   constexpr int KS = DqTile<D>::kStride;
@@ -733,18 +724,18 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
   const int kvh = h / group;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* gb = dout + b * sd.b + h * sd.h;
-  const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* gb = dout + b * sd.b + h * sd.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
   const long long stat = ((long long)b * heads + h) * len_q;
 
   for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
     const int r = idx / D, c = idx - r * D;
     const int qi = q0 + r;
     const bool in = qi < len_q;
-    qs[idx] = in ? ld(qb + qi * sq.s + c) : 0.f;
-    gs[idx] = in ? ld(gb + qi * sd.s + c) : 0.f;
+    qs[idx] = in ? qb[qi * sq.s + c] : 0.f;
+    gs[idx] = in ? gb[qi * sd.s + c] : 0.f;
   }
   float lse_r[kRows], dl_r[kRows], acc[kRows][DC];
 #pragma unroll
@@ -766,8 +757,8 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, c = idx - r * D;
       const int kj = k0 + r;
       const bool in = kj < len_k;
-      ks[r * KS + c] = in ? ld(kb + kj * sk.s + c) : 0.f;
-      vs[r * KS + c] = in ? ld(vb + kj * sv.s + c) : 0.f;
+      ks[r * KS + c] = in ? kb[kj * sk.s + c] : 0.f;
+      vs[r * KS + c] = in ? vb[kj * sv.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -815,7 +806,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* db = dq + b * sdq.b + h * sdq.h;
+  float* db = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int qi = q0 + warp * kRows + r;
@@ -823,7 +814,7 @@ bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = lane + 32 * c;
-      if (col < D) db[qi * sdq.s + col] = st<T>(acc[r][c] * scale);
+      if (col < D) db[qi * sdq.s + col] = acc[r][c] * scale;
     }
   }
 }
@@ -835,14 +826,14 @@ struct DkvTile {
       sizeof(float) * (2 * kBlock * D + 2 * kBlock * kStride + 2 * kBlock);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
         const float* __restrict__ lse, const float* __restrict__ delta,
-        T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk,
-        Strides sv, Strides sd, Strides sdk, Strides sdv, int heads,
-        int group, int len_q, int len_k, float scale, int causal,
+        float* __restrict__ dk, float* __restrict__ dv, Strides sq,
+        Strides sk, Strides sv, Strides sd, Strides sdk, Strides sdv,
+        int heads, int group, int len_q, int len_k, float scale, int causal,
         int window) {
   constexpr int QS = DkvTile<D>::kStride;
   constexpr int DC = (D + 31) / 32;
@@ -857,15 +848,15 @@ bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kBlock;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* kb = k + b * sk.b + kvh * sk.h;
-  const T* vb = v + b * sv.b + kvh * sv.h;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
 
   for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
     const int r = idx / D, c = idx - r * D;
     const int kj = k0 + r;
     const bool in = kj < len_k;
-    ks[idx] = in ? ld(kb + kj * sk.s + c) : 0.f;
-    vs[idx] = in ? ld(vb + kj * sv.s + c) : 0.f;
+    ks[idx] = in ? kb[kj * sk.s + c] : 0.f;
+    vs[idx] = in ? vb[kj * sv.s + c] : 0.f;
   }
   float acc_k[kRows][DC], acc_v[kRows][DC];
 #pragma unroll
@@ -880,8 +871,8 @@ bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int hh = 0; hh < group; ++hh) {       // the group's heads, in order
     const int h = kvh * group + hh;
-    const T* qb = q + b * sq.b + h * sq.h;
-    const T* gb = dout + b * sd.b + h * sd.h;
+    const float* qb = q + b * sq.b + h * sq.h;
+    const float* gb = dout + b * sd.b + h * sd.h;
     const long long stat = ((long long)b * heads + h) * len_q;
     for (int q0 = (q_lo / kBlock) * kBlock; q0 < q_hi; q0 += kBlock) {
       __syncthreads();                        // the previous tile is consumed
@@ -889,8 +880,8 @@ bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
         const int r = idx / D, c = idx - r * D;
         const int qi = q0 + r;
         const bool in = qi < len_q;
-        qs[r * QS + c] = in ? ld(qb + qi * sq.s + c) : 0.f;
-        gs[r * QS + c] = in ? ld(gb + qi * sd.s + c) : 0.f;
+        qs[r * QS + c] = in ? qb[qi * sq.s + c] : 0.f;
+        gs[r * QS + c] = in ? gb[qi * sd.s + c] : 0.f;
       }
       if (threadIdx.x < kBlock) {
         const int qi = q0 + threadIdx.x;
@@ -950,8 +941,8 @@ bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + b * sdk.b + kvh * sdk.h;
-  T* dvb = dv + b * sdv.b + kvh * sdv.h;
+  float* dkb = dk + b * sdk.b + kvh * sdk.h;
+  float* dvb = dv + b * sdv.b + kvh * sdv.h;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int kj = k0 + warp * kRows + r;
@@ -960,8 +951,8 @@ bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DC; ++c) {
       const int col = lane + 32 * c;
       if (col < D) {
-        dkb[kj * sdk.s + col] = st<T>(acc_k[r][c] * scale);
-        dvb[kj * sdv.s + col] = st<T>(acc_v[r][c]);
+        dkb[kj * sdk.s + col] = acc_k[r][c] * scale;
+        dvb[kj * sdv.s + col] = acc_v[r][c];
       }
     }
   }
@@ -971,6 +962,7 @@ struct BwdArgs {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
   float* delta;
+  float* work;
   void *dq, *dk, *dv;
   Strides sq, sk, sv, so, sd, sdq, sdk, sdv;
   int batch, heads, group, kv_heads, len_q, len_k;
@@ -978,17 +970,17 @@ struct BwdArgs {
   int causal, window;
 };
 
-template <typename T, int D>
+template <int D>
 int launch(const BwdArgs& a, cudaStream_t stream) {
   constexpr size_t smem_dq = DqTile<D>::kSmemBytes;
   constexpr size_t smem_dkv = DkvTile<D>::kSmemBytes;
   // once per instantiation: allow more than 48 KB of dynamic shared memory
   static const cudaError_t configured = [] {
     cudaError_t e = cudaFuncSetAttribute(
-        bwd_dq<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)DqTile<D>::kSmemBytes);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(bwd_dkv<T, D>,
+    return cudaFuncSetAttribute(bwd_dkv<D>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)DkvTile<D>::kSmemBytes);
   }();
@@ -996,23 +988,597 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
   const long long rows = (long long)a.batch * a.heads * a.len_q;
   const long long delta_blocks = (rows + kWarps - 1) / kWarps;
   if (delta_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  bwd_delta<T, D><<<(unsigned)delta_blocks, kThreads, 0, stream>>>(
-      (const T*)a.o, (const T*)a.dout, a.delta, a.so, a.sd, a.heads, a.len_q,
-      rows);
+  bwd_delta<D><<<(unsigned)delta_blocks, kThreads, 0, stream>>>(
+      (const float*)a.o, (const float*)a.dout, a.delta, a.so, a.sd, a.heads,
+      a.len_q, rows);
   const dim3 grid_q((a.len_q + kBlock - 1) / kBlock, a.heads, a.batch);
-  bwd_dq<T, D><<<grid_q, kThreads, smem_dq, stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
-      a.delta, (T*)a.dq, a.sq, a.sk, a.sv, a.sd, a.sdq, a.group, a.len_q,
-      a.len_k, a.scale, a.causal, a.window);
+  bwd_dq<D><<<grid_q, kThreads, smem_dq, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, a.lse, a.delta, (float*)a.dq, a.sq, a.sk, a.sv,
+      a.sd, a.sdq, a.group, a.len_q, a.len_k, a.scale, a.causal, a.window);
   const dim3 grid_k((a.len_k + kBlock - 1) / kBlock, a.kv_heads, a.batch);
-  bwd_dkv<T, D><<<grid_k, kThreads, smem_dkv, stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
-      a.delta, (T*)a.dk, (T*)a.dv, a.sq, a.sk, a.sv, a.sd, a.sdk, a.sdv,
-      a.heads, a.group, a.len_q, a.len_k, a.scale, a.causal, a.window);
+  bwd_dkv<D><<<grid_k, kThreads, smem_dkv, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, a.lse, a.delta, (float*)a.dk, (float*)a.dv, a.sq,
+      a.sk, a.sv, a.sd, a.sdk, a.sdv, a.heads, a.group, a.len_q, a.len_k,
+      a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// backward, bfloat16: tensor cores
+// ---------------------------------------------------------------------------
+//
+// The same gradient on the tensor cores, in the manner of FlashAttention-2's
+// backward, with the forward's tools: `tc::swz` swizzled tiles, `ldmatrix`
+// / `ldmatrix.trans`, `mma.sync.m16n8k16` bf16 -> f32 and the `cp.async`
+// tile loader.  Bound: at the training shapes the bytes (q, k, v, o, dout
+// read once, the three gradients written once) and the ten products'
+// operations at 989 TFLOP/s are of one size, so the design keeps every
+// product on the tensor cores and every intermediate (S, P, dP, dS) in
+// registers.  Four launches, none with atomics:
+//   - `delta` (bwd_delta_packed): D / 8 lanes a row, 16-byte packs.
+//   - `dkv` (bwd_dkv_mma): one block of four warps per (64 keys, query head,
+//     batch) — per (32 keys, ...) for D = 256 — so a GQA group's heads run
+//     in parallel blocks (448 blocks at q (2, 28, 512, 128) where a block
+//     per KV head gave 128).  K and V of the block stay in swizzled shared
+//     memory; Q, dO, lse and delta tiles of the query rows that may see the
+//     keys stream through a two-stage cp.async ring (32 rows a stage for
+//     D >= 128, else 64); key tile 0, which a causal mask lets see the most
+//     query tiles, starts first.  A warp owns 16 keys (and, for D = 256,
+//     half of the columns of dK and dV: two warps share the keys and both
+//     compute their S^T) and computes S^T = K Q^T and dP^T = V dO^T, then
+//     P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T -
+//     delta) in f32 on the accumulator fragments, and dV += P^T dO, dK +=
+//     dS^T Q with P^T, dS^T moved from the C fragments to bf16 A fragments
+//     in registers (dO and Q read by ldmatrix.trans).  With one head a
+//     group the block writes dK (scaled) and dV in bf16; else it writes its
+//     head's float32 partials into the workspace (B, H, Sk, D), each twice.
+//   - `fold` (bwd_fold, only when a group has more than one head): for each
+//     KV head, the group's partials summed in head order, dK scaled, each
+//     rounded once to bf16.  This fixed order replaces the head loop of the
+//     float32 kernel's dkv pass.
+//   - `dq` (bwd_dq_mma): the forward's layout, one block of four warps per
+//     (64 query rows, head, batch), heavy query tiles first; Q and dO tiles
+//     stay in shared memory, K and V tiles of 64 keys (32 for D = 256) go
+//     through the ring; S = Q K^T, dP = dO V^T, dS in f32, dQ += dS K with
+//     dS rounded to bf16 as the A operand and K read by ldmatrix.trans.
+//     The dQ pass recomputes S and dP, so the backward runs seven products
+//     where the math has five: that is the price of writing every gradient
+//     from the one block that owns it, with no atomics.
+// Numerics: P is rounded to bf16 for P^T dO and dS for dS^T Q and dS K,
+// as FlashAttention-2 does; lse, delta, the exponent and every accumulator
+// stay f32.  The wrapper checks that every row of q, k, v, o, dout is
+// 16-byte aligned for cp.async and the packed loads.
+
+namespace tc_bwd {
+
+using bf16 = __nv_bfloat16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldsm_x4;
+using tc::ldsm_x4_trans;
+using tc::load_tile;
+using tc::mma;
+using tc::pack_bf16;
+using tc::swz;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+// whether some (query, key) pair of [q0, q0 + bq) x [k0, k0 + bk) is not
+// allowed: only such tiles run the per-element mask
+__device__ __forceinline__ bool straddles(int q0, int bq, int k0, int bk,
+                                          int len_q, int len_k, int causal,
+                                          int window) {
+  return q0 + bq > len_q || k0 + bk > len_k ||
+         (causal && k0 + bk - 1 > q0) ||
+         (window > 0 && q0 + bq - 1 - k0 >= window);
+}
+
+// delta[row] = O_row . dO_row for bfloat16 rows that are 16-byte aligned:
+// D / 8 lanes a row, each reading 8 values of O and of dO as one pack, the
+// lanes' sums folded by shuffles
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_delta_packed(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                 float* __restrict__ delta, Strides so, Strides sd,
+                 int heads, int len_q, long long rows) {
+  constexpr int L = D / 8;              // lanes a row
+  constexpr int R = 32 / L;             // rows a warp
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * R + lane / L;
+  const int c = (lane % L) * 8;
+  float acc = 0.f;
+  if (row < rows) {
+    const int i = (int)(row % len_q);
+    const long long bh = row / len_q;
+    const int h = (int)(bh % heads), b = (int)(bh / heads);
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        o + b * so.b + h * so.h + i * so.s + c);
+    const uint4 e = *reinterpret_cast<const uint4*>(
+        dout + b * sd.b + h * sd.h + i * sd.s + c);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* e2 = reinterpret_cast<const __nv_bfloat162*>(&e);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(a2[j]);
+      const float2 y = __bfloat1622float2(e2[j]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(kFullMask, acc, off);
+  if (row < rows && lane % L == 0) delta[row] = acc;
+}
+
+template <int D>
+struct Dkv {
+  static constexpr int kC = D / 8;                      // chunks of a row
+  static constexpr int kSplit = D > 128 ? 2 : 1;        // warps on 16 keys
+  static constexpr int kBlockK = 16 * kWarps / kSplit;  // 64, 32 for D = 256
+  static constexpr int kCols = D / kSplit;              // dK, dV cols a warp
+  static constexpr int kBlockQ = kCols > 64 ? 32 : 64;  // query rows a stage
+  static constexpr int kKvBytes = kBlockK * D * 2;      // K or V
+  static constexpr int kQBytes = kBlockQ * D * 2;       // Q or dO
+  static constexpr int kStageBytes = 2 * kQBytes + 2 * kBlockQ * 4;
+  static constexpr int kSmemBytes = 2 * kKvBytes + 2 * kStageBytes;
+  static_assert((kBlockK * kC) % kThreads == 0, "whole copy rounds");
+  static_assert((kBlockQ * kC) % kThreads == 0, "whole copy rounds");
+  static_assert(2 * kBlockQ <= kThreads, "one lse or delta value a thread");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv,
+            float* __restrict__ dkp, float* __restrict__ dvp, Strides sq,
+            Strides sk, Strides sv, Strides sd, Strides sdk, Strides sdv,
+            int heads, int batch, int group, int len_q, int len_k,
+            float scale, float scale_log2, int causal, int window) {
+  using Cf = Dkv<D>;
+  constexpr int C = Cf::kC;
+  constexpr int BK = Cf::kBlockK;
+  constexpr int BQ = Cf::kBlockQ;
+  constexpr int NQ = BQ / 8;            // query n-tiles of S^T
+  constexpr int KD = D / 16;            // k-steps of K Q^T
+  constexpr int CT = Cf::kCols / 8;     // column n-tiles of dK, dV
+  extern __shared__ uint4 smem_dkv_tc[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_dkv_tc);
+  const char* sgen = reinterpret_cast<const char*>(smem_dkv_tc);
+  const uint32_t ks = sbase, vs = sbase + Cf::kKvBytes;
+  const int ring = 2 * Cf::kKvBytes;    // byte offset of stage 0
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;     // fragment row, column pair
+  const int hb = heads * batch;
+  // key tile 0 first: under a causal mask it sees the most query tiles
+  const int kt = (int)(blockIdx.x / hb);
+  const int h = (int)(blockIdx.x % hb) % heads;
+  const int b = (int)(blockIdx.x % hb) / heads;
+  const int kvh = h / group;
+  const int k0 = kt * BK;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* gb = dout + b * sd.b + h * sd.h;
+  const long long bh = (long long)b * heads + h;
+  const long long stat = bh * len_q;
+
+  // query rows that may see some key of this block: [q_lo, q_hi)
+  const int k_last = min(k0 + BK, len_k) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(len_q, k_last + window) : len_q;
+  const int t_first = q_lo / BQ;
+  const int t_end = q_hi > q_lo ? (q_hi + BQ - 1) / BQ : t_first;
+
+  // Q, dO, lse, delta of query tile t into its stage of the ring
+  auto load_stage = [&](int t) {
+    const uint32_t st = sbase + ring + ((t - t_first) & 1) * Cf::kStageBytes;
+    const int q0 = t * BQ;
+    load_tile<D, BQ>(st, qb, sq.s, q0, len_q, tid);
+    load_tile<D, BQ>(st + Cf::kQBytes, gb, sd.s, q0, len_q, tid);
+    if (tid < 2 * BQ) {                 // lse, then delta
+      const int r = tid % BQ;
+      const bool in = q0 + r < len_q;
+      const float* src = (tid < BQ ? lse : delta) + stat + (in ? q0 + r : 0);
+      cp_async4(st + 2 * Cf::kQBytes + tid * 4, src, in);
+    }
+  };
+
+  load_tile<D, BK>(ks, k + b * sk.b + kvh * sk.h, sk.s, k0, len_k, tid);
+  load_tile<D, BK>(vs, v + b * sv.b + kvh * sv.h, sv.s, k0, len_k, tid);
+  if (t_first < t_end) load_stage(t_first);
+  cp_async_commit();
+
+  float acc_k[CT][4], acc_v[CT][4];
+#pragma unroll
+  for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[ct][e] = acc_v[ct][e] = 0.f;
+
+  const int rw = warp / Cf::kSplit, cw = warp % Cf::kSplit;
+  const int key0 = k0 + rw * 16 + g;          // keys of c0,c1; +8 for c2,c3
+  // ldmatrix lane addressing: A (K, V rows of this warp), B (Q, dO rows as
+  // the n axis), transposed B (dO, Q rows as the k axis)
+  const int a_row = rw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = lane >> 4;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = (lane >> 3) & 1;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8, t_col = lane >> 4;
+
+  for (int t = t_first; t < t_end; ++t) {
+    const int off = ring + ((t - t_first) & 1) * Cf::kStageBytes;
+    const uint32_t qs = sbase + off, gs = qs + Cf::kQBytes;
+    const float* lse_s =
+        reinterpret_cast<const float*>(sgen + off + 2 * Cf::kQBytes);
+    const float* dl_s = lse_s + BQ;
+    if (t + 1 < t_end) load_stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();               // tile t (and K, V) have landed
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries a warp
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ks + swz<C>(a_row, kk * 2 + a_col), ak);
+      ldsm_x4(vs + swz<C>(a_row, kk * 2 + a_col), av);
+#pragma unroll
+      for (int nn = 0; nn < NQ / 2; ++nn) {
+        uint32_t bq[4], bg[4];
+        ldsm_x4(qs + swz<C>(nn * 16 + b_row, kk * 2 + b_col), bq);
+        ldsm_x4(gs + swz<C>(nn * 16 + b_row, kk * 2 + b_col), bg);
+        mma(s[2 * nn], ak, bq[0], bq[1]);
+        mma(s[2 * nn + 1], ak, bq[2], bq[3]);
+        mma(dp[2 * nn], av, bg[0], bg[1]);
+        mma(dp[2 * nn + 1], av, bg[2], bg[3]);
+      }
+    }
+
+    // P^T and dS^T on the fragments (row = key, column = query); the mask
+    // only on tiles that straddle an edge
+    const int q0 = t * BQ;
+    const bool edge =
+        straddles(q0, BQ, k0, BK, len_q, len_k, causal, window);
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt) {
+      const float2 l2 =
+          *reinterpret_cast<const float2*>(lse_s + nt * 8 + 2 * tq);
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(dl_s + nt * 8 + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float li = (e & 1) ? l2.y : l2.x;
+        const float di = (e & 1) ? d2.y : d2.x;
+        float p = exp2f(fmaf(s[nt][e], scale_log2, -(li * kLog2e)));
+        if (edge && !bwd::allowed(q0 + nt * 8 + 2 * tq + (e & 1),
+                                  key0 + (e >> 1) * 8, len_q, len_k, causal,
+                                  window))
+          p = 0.f;
+        s[nt][e] = p;
+        dp[nt][e] = p * (dp[nt][e] - di);
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q: the C fragments are the A fragments
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t ap[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t ad[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              pack_bf16(dp[2 * kk + 1][2],
+                                        dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < CT / 2; ++dn) {
+        const int chunk = cw * (Cf::kCols / 8) + dn * 2 + t_col;
+        uint32_t bg[4], bq[4];
+        ldsm_x4_trans(gs + swz<C>(kk * 16 + t_row, chunk), bg);
+        ldsm_x4_trans(qs + swz<C>(kk * 16 + t_row, chunk), bq);
+        mma(acc_v[2 * dn], ap, bg[0], bg[1]);
+        mma(acc_v[2 * dn + 1], ap, bg[2], bg[3]);
+        mma(acc_k[2 * dn], ad, bq[0], bq[1]);
+        mma(acc_k[2 * dn + 1], ad, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();                  // stage read; the next prefetch reuses it
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kj = key0 + half * 8;
+    if (kj >= len_k) continue;
+#pragma unroll
+    for (int ct = 0; ct < CT; ++ct) {
+      const int col = cw * Cf::kCols + ct * 8 + 2 * tq;
+      const float k0v = acc_k[ct][2 * half], k1v = acc_k[ct][2 * half + 1];
+      const float v0v = acc_v[ct][2 * half], v1v = acc_v[ct][2 * half + 1];
+      if (dkp != nullptr) {           // this head's partials, unscaled
+        const long long at = (bh * len_k + kj) * D + col;
+        *reinterpret_cast<float2*>(dkp + at) = make_float2(k0v, k1v);
+        *reinterpret_cast<float2*>(dvp + at) = make_float2(v0v, v1v);
+      } else {
+        *reinterpret_cast<uint32_t*>(dk + b * sdk.b + kvh * sdk.h +
+                                     kj * sdk.s + col) =
+            pack_bf16(k0v * scale, k1v * scale);
+        *reinterpret_cast<uint32_t*>(dv + b * sdv.b + kvh * sdv.h +
+                                     kj * sdv.s + col) = pack_bf16(v0v, v1v);
+      }
+    }
+  }
+}
+
+// dK, dV of KV head kvh = scale * (sum over the group's heads, in order, of
+// the partials), one thread per 4 columns of a key row
+template <int D>
+__global__ void __launch_bounds__(256)
+bwd_fold(const float* __restrict__ dkp, const float* __restrict__ dvp,
+         bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk,
+         Strides sdv, int kv_heads, int group, int len_k, float scale,
+         long long n4) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  constexpr int kQuads = D / 4;
+  const int c = (int)(i % kQuads) * 4;
+  const long long row = i / kQuads;           // (b, kvh, j)
+  const int j = (int)(row % len_k);
+  const long long bk = row / len_k;
+  const int kvh = (int)(bk % kv_heads), b = (int)(bk / kv_heads);
+  const long long head = (long long)len_k * D;
+  const long long base = bk * group * head + (long long)j * D + c;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int hh = 0; hh < group; ++hh) {
+    const float4 a = *reinterpret_cast<const float4*>(dkp + base + hh * head);
+    const float4 e = *reinterpret_cast<const float4*>(dvp + base + hh * head);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += e.x; sv.y += e.y; sv.z += e.z; sv.w += e.w;
+  }
+  *reinterpret_cast<uint2*>(dk + b * sdk.b + kvh * sdk.h + j * sdk.s + c) =
+      make_uint2(pack_bf16(sk.x * scale, sk.y * scale),
+                 pack_bf16(sk.z * scale, sk.w * scale));
+  *reinterpret_cast<uint2*>(dv + b * sdv.b + kvh * sdv.h + j * sdv.s + c) =
+      make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+}
+
+template <int D>
+struct Dq {
+  static constexpr int kC = D / 8;
+  static constexpr int kBlockQ = kWarps * 16;           // 64, 16 a warp
+  static constexpr int kBlockK = D > 128 ? 32 : 64;
+  static constexpr int kQBytes = kBlockQ * D * 2;       // Q or dO
+  static constexpr int kKvBytes = kBlockK * D * 2;      // K or V
+  static constexpr int kSmemBytes = 2 * kQBytes + 2 * 2 * kKvBytes;
+  static_assert((kBlockK * kC) % kThreads == 0, "whole copy rounds");
+  static_assert((kBlockQ * kC) % kThreads == 0, "whole copy rounds");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
+           Strides sd, Strides sdq, int heads, int batch, int group,
+           int len_q, int len_k, float scale, float scale_log2, int causal,
+           int window, int n_qtiles) {
+  using Cf = Dq<D>;
+  constexpr int C = Cf::kC;
+  constexpr int BQ = Cf::kBlockQ;
+  constexpr int BK = Cf::kBlockK;
+  constexpr int NT = BK / 8;            // key n-tiles of S
+  constexpr int KD = D / 16;            // k-steps of Q K^T
+  constexpr int DT = D / 8;             // d n-tiles of dQ
+  extern __shared__ uint4 smem_dq_tc[];
+  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_dq_tc);
+  const uint32_t qs = sbase, gs = sbase + Cf::kQBytes;
+  const uint32_t ring = sbase + 2 * Cf::kQBytes;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int hb = heads * batch;
+  // heavy first: the first blocks take the last (causally largest) q tile
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / hb);
+  const int h = (int)(blockIdx.x % hb) % heads;
+  const int b = (int)(blockIdx.x % hb) / heads;
+  const int kvh = h / group;
+  const int q0 = qt * BQ;
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+  const long long stat = ((long long)b * heads + h) * len_q;
+
+  // keys that some row of this block may see: [k_lo, k_hi)
+  const int q_last = min(q0 + BQ, len_q) - 1;
+  const int k_hi = causal ? min(len_k, q_last + 1) : len_k;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_first = k_lo / BK;
+  const int t_end = (k_hi + BK - 1) / BK;
+
+  load_tile<D, BQ>(qs, q + b * sq.b + h * sq.h, sq.s, q0, len_q, tid);
+  load_tile<D, BQ>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, len_q, tid);
+  if (t_first < t_end) {
+    load_tile<D, BK>(ring, kb, sk.s, t_first * BK, len_k, tid);
+    load_tile<D, BK>(ring + Cf::kKvBytes, vb, sv.s, t_first * BK, len_k,
+                     tid);
+  }
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + g;        // rows of c0,c1; +8 for c2,c3
+  float lse2[2], dl[2];                       // lse in log2 units, delta
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = row0 + half * 8;
+    lse2[half] = qi < len_q ? lse[stat + qi] * kLog2e : INFINITY;
+    dl[half] = qi < len_q ? delta[stat + qi] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = lane >> 4;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = (lane >> 3) & 1;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8, t_col = lane >> 4;
+
+  for (int t = t_first; t < t_end; ++t) {
+    const uint32_t ks = ring + ((t - t_first) & 1) * 2 * Cf::kKvBytes;
+    const uint32_t vs = ks + Cf::kKvBytes;
+    if (t + 1 < t_end) {            // the next tile, into the other stage
+      const uint32_t nk = ring + ((t + 1 - t_first) & 1) * 2 * Cf::kKvBytes;
+      load_tile<D, BK>(nk, kb, sk.s, (t + 1) * BK, len_k, tid);
+      load_tile<D, BK>(nk + Cf::kKvBytes, vb, sv.s, (t + 1) * BK, len_k,
+                       tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // tile t (and Q, dO) have landed
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: 16 rows x BK keys a warp
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ag[4];
+      ldsm_x4(qs + swz<C>(a_row, kk * 2 + a_col), aq);
+      ldsm_x4(gs + swz<C>(a_row, kk * 2 + a_col), ag);
+#pragma unroll
+      for (int nn = 0; nn < NT / 2; ++nn) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(ks + swz<C>(nn * 16 + b_row, kk * 2 + b_col), bk);
+        ldsm_x4(vs + swz<C>(nn * 16 + b_row, kk * 2 + b_col), bv);
+        mma(s[2 * nn], aq, bk[0], bk[1]);
+        mma(s[2 * nn + 1], aq, bk[2], bk[3]);
+        mma(dp[2 * nn], ag, bv[0], bv[1]);
+        mma(dp[2 * nn + 1], ag, bv[2], bv[3]);
+      }
+    }
+
+    // dS = P (dP - delta), P = exp2(S scale log2 e - lse log2 e); the mask
+    // only on tiles that straddle an edge
+    const int k0 = t * BK;
+    const bool edge =
+        straddles(q0, BQ, k0, BK, len_q, len_k, causal, window);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int half = e >> 1;
+        float p = exp2f(fmaf(s[nt][e], scale_log2, -lse2[half]));
+        if (edge && !bwd::allowed(row0 + half * 8, k0 + nt * 8 + 2 * tq +
+                                  (e & 1), len_q, len_k, causal, window))
+          p = 0.f;
+        s[nt][e] = p * (dp[nt][e] - dl[half]);
+      }
+
+    // dQ += dS K: dS's C fragments are the A fragments
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t bk[4];
+        ldsm_x4_trans(ks + swz<C>(kk * 16 + t_row, dn * 2 + t_col), bk);
+        mma(acc[2 * dn], a, bk[0], bk[1]);
+        mma(acc[2 * dn + 1], a, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();                // stage read; the next prefetch reuses it
+  }
+
+  bf16* db = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = row0 + half * 8;
+    if (qi >= len_q) continue;
+    bf16* drow = db + (long long)qi * sdq.s + 2 * tq;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(drow + dt * 8) =
+          pack_bf16(acc[dt][2 * half] * scale, acc[dt][2 * half + 1] * scale);
+  }
+}
+
+template <int D>
+int launch(const bwd::BwdArgs& a, cudaStream_t stream) {
+  using Kv = Dkv<D>;
+  using Qc = Dq<D>;
+  static const cudaError_t configured = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        bwd_dkv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Kv::kSmemBytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(bwd_dq_mma<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Qc::kSmemBytes);
+  }();
+  if (configured != cudaSuccess) return (int)configured;
+  const bool fold = a.group > 1;
+  if (fold && a.work == nullptr) return (int)cudaErrorInvalidValue;
+  const long long hb = (long long)a.heads * a.batch;
+  const long long rows = hb * a.len_q;
+  const long long delta_rows = kWarps * (32 / (D / 8));   // a block's rows
+  const long long delta_blocks = (rows + delta_rows - 1) / delta_rows;
+  const long long kv_blocks = (a.len_k + Kv::kBlockK - 1) / Kv::kBlockK * hb;
+  const int n_qtiles = (a.len_q + Qc::kBlockQ - 1) / Qc::kBlockQ;
+  const long long q_blocks = (long long)n_qtiles * hb;
+  if (kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL ||
+      delta_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const long long part = hb * a.len_k * D;    // one partial, in floats
+  const float scale_log2 = a.scale * kLog2e;
+  bwd_delta_packed<D><<<(unsigned)delta_blocks, kThreads, 0, stream>>>(
+      (const bf16*)a.o, (const bf16*)a.dout, a.delta, a.so, a.sd, a.heads,
+      a.len_q, rows);
+  bwd_dkv_mma<D><<<(unsigned)kv_blocks, kThreads, Kv::kSmemBytes, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+      (const bf16*)a.dout, a.lse, a.delta, (bf16*)a.dk, (bf16*)a.dv,
+      fold ? a.work : nullptr, fold ? a.work + part : nullptr, a.sq, a.sk,
+      a.sv, a.sd, a.sdk, a.sdv, a.heads, a.batch, a.group, a.len_q, a.len_k,
+      a.scale, scale_log2, a.causal, a.window);
+  bwd_dq_mma<D><<<(unsigned)q_blocks, kThreads, Qc::kSmemBytes, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+      (const bf16*)a.dout, a.lse, a.delta, (bf16*)a.dq, a.sq, a.sk, a.sv,
+      a.sd, a.sdq, a.heads, a.batch, a.group, a.len_q, a.len_k, a.scale,
+      scale_log2, a.causal, a.window, n_qtiles);
+  if (fold) {
+    const long long n4 = (long long)a.batch * a.kv_heads * a.len_k * D / 4;
+    const long long blocks = (n4 + 255) / 256;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    bwd_fold<D><<<(unsigned)blocks, 256, 0, stream>>>(
+        a.work, a.work + part, (bf16*)a.dk, (bf16*)a.dv, a.sdk, a.sdv,
+        a.kv_heads, a.group, a.len_k, a.scale, n4);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc_bwd
 
 // f(std::integral_constant<int, D>) for the head dim D: one instance of
 // either kernel per head dim
@@ -1075,11 +1641,15 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 // The gradient of flash_attention_fwd: dq, dk, dv (each of its input's
 // shape, type and given strides) from q, k, v, the forward's output o, its
 // lse (batch, heads, len_q) and the output's gradient dout.  delta is a
-// float32 workspace of batch * heads * len_q values.  Types, head dims and
-// sizes as for the forward; rows need no alignment here.
+// float32 workspace of batch * heads * len_q values; work is a float32
+// workspace of 2 * batch * heads * len_k * head_dim values (each query
+// head's partial dK and dV) when bf16 and heads > kv_heads, and may be
+// null otherwise.  Types, head dims and sizes as for the forward; for
+// bf16 every row of q, k, v and dout is 16-byte aligned, and every row of
+// dq, dk, dv 8-byte aligned.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
-                        void* delta, void* dq, void* dk, void* dv,
+                        void* delta, void* work, void* dq, void* dk, void* dv,
                         long long q_sb, long long q_sh, long long q_ss,
                         long long k_sb, long long k_sh, long long k_ss,
                         long long v_sb, long long v_sh, long long v_ss,
@@ -1092,8 +1662,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         long long len_k, int head_dim, double scale,
                         int causal, long long window, int bf16,
                         void* stream) {
-  bwd::BwdArgs a{q, k, v, o, dout, (const float*)lse, (float*)delta, dq, dk,
-                 dv,
+  bwd::BwdArgs a{q, k, v, o, dout, (const float*)lse, (float*)delta,
+                 (float*)work, dq, dk, dv,
                  Strides{q_sb, q_sh, q_ss}, Strides{k_sb, k_sh, k_ss},
                  Strides{v_sb, v_sh, v_ss}, Strides{o_sb, o_sh, o_ss},
                  Strides{d_sb, d_sh, d_ss}, Strides{dq_sb, dq_sh, dq_ss},
@@ -1104,10 +1674,10 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return by_head_dim(head_dim, [&](auto d) {
-      return bwd::launch<__nv_bfloat16, decltype(d)::value>(a, s);
+      return tc_bwd::launch<decltype(d)::value>(a, s);
     });
   return by_head_dim(head_dim, [&](auto d) {
-    return bwd::launch<float, decltype(d)::value>(a, s);
+    return bwd::launch<decltype(d)::value>(a, s);
   });
 }
 

@@ -35,16 +35,25 @@ activations without a copy, and the output keeps ``q``'s stride order.
 Training differentiates it through :class:`FlashAttentionFn`: the forward
 kernel also writes each row's log-sum-exp (``lse``, float32 ``(B, H, Sq)``,
 ``+inf`` for a row with no allowed key), and a backward kernel of the same
-source recomputes ``P = exp(S - lse)`` in float32 and returns ``dq, dk,
-dv`` (FlashAttention-2's backward on the CUDA cores: ``delta =
-rowsum(dO O)``, a pass for ``dQ`` and one for ``dK, dV`` that sums a KV
-group's heads in a fixed order; no atomics, so the bits repeat).  The JAX
-package has no backward kernel; :func:`flash_attention_bwd_ref` is this
-one's plain version.  In bfloat16 the forward rounds ``P`` to bfloat16 for
-``P V`` while the backward uses the float32 ``P``, so the gradient is that
-of the float32 function at the bfloat16 inputs.  A CUDA wrapper handed an
-input that requires a gradient, with grad mode on, goes through the
-Function; its backward launches count in ``flash_attention.bwd_launches``.
+source recomputes ``P = exp(S - lse)`` and returns ``dq, dk, dv``, in the
+manner of FlashAttention-2's backward (``delta = rowsum(dO O)``, a pass
+for ``dK, dV`` and one for ``dQ``), with no atomics, so the bits repeat:
+
+- bfloat16 runs on the tensor cores: the ``dK, dV`` pass has one block per
+  (64 keys, query head, batch), so a KV group's heads run in parallel; with
+  more than one head a group each block writes its head's float32 partials
+  into a workspace ``(2, B, H, Sk, D)`` that this wrapper allocates, and a
+  fold pass sums them in head order and rounds once.  ``P`` and ``dS`` are
+  rounded to bfloat16 as product operands; everything else is float32.
+  Rows of ``q``, ``k``, ``v`` must be 16-byte aligned (``ValueError``
+  otherwise); an ``out`` or ``dout`` whose rows are not is copied.
+- float32 stays on the CUDA cores (the ``dK, dV`` pass walks a group's
+  heads in order in one block), all float32 inside.
+
+The JAX package has no backward kernel; :func:`flash_attention_bwd_ref` is
+this one's plain version.  A CUDA wrapper handed an input that requires a
+gradient, with grad mode on, goes through the Function; its backward
+launches count in ``flash_attention.bwd_launches``.
 
 The plain version :func:`flash_attention_ref` is ``attention_ref`` of the
 JAX package's ``kernels/ref.py`` with the Pallas kernel's one difference: a
@@ -185,18 +194,26 @@ def _check(q, k, v, window) -> None:
             _check_aligned(name, t)
 
 
-def _check_aligned(name: str, t: torch.Tensor) -> None:
-    """Every row of a bfloat16 tensor 16-byte aligned: the pointer, and the
-    stride of each of its batch, head and sequence axes longer than 1, a
-    multiple of 8 elements."""
+def _misaligned(name: str, t: torch.Tensor):
+    """Why some row of a bfloat16 tensor is not 16-byte aligned, or None:
+    the pointer, and the stride of each of its batch, head and sequence
+    axes longer than 1, must be a multiple of 8 elements."""
     if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the bfloat16 kernel needs a 16-byte "
-                         f"aligned pointer, got offset {t.data_ptr() % 16}")
+        return (f"{name}: the bfloat16 kernel needs a 16-byte aligned "
+                f"pointer, got offset {t.data_ptr() % 16}")
     for axis, what in enumerate(("batch", "head", "sequence")):
         if t.shape[axis] > 1 and t.stride(axis) % 8:
-            raise ValueError(f"{name}: the bfloat16 kernel needs a {what} "
-                             f"stride that is a multiple of 8 elements, got "
-                             f"{t.stride(axis)}")
+            return (f"{name}: the bfloat16 kernel needs a {what} stride "
+                    f"that is a multiple of 8 elements, got "
+                    f"{t.stride(axis)}")
+    return None
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless every row of ``t`` is 16-byte aligned."""
+    why = _misaligned(name, t)
+    if why:
+        raise ValueError(why)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -241,16 +258,31 @@ def _fwd_cuda(q, k, v, causal: bool, window: int, lse) -> torch.Tensor:
 
 def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int) -> tuple:
     """One launch of the backward kernel: ``(dq, dk, dv)``, each in its
-    input's shape, type and stride order."""
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    input's shape, type and stride order.  In bfloat16, rows of ``q``,
+    ``k``, ``v`` must be 16-byte aligned; ``out`` and ``dout`` are copied
+    when theirs are not (or their last stride is not 1)."""
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_aligned(name, t)
+
+    def aligned(t):
+        if t.stride(-1) != 1 or bf16 and _misaligned("", t):
+            return t.clone(memory_format=torch.contiguous_format)
+        return t
+
+    out, dout = aligned(out), aligned(dout)
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # each query head's float32 partial dK and dV, folded in head order
+    work = torch.empty((2, b, h, sk, d), dtype=torch.float32,
+                       device=q.device) if bf16 and h > kv else None
     launch("flash_attention_bwd", q.get_device(), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           delta.data_ptr(), None if work is None else work.data_ptr(),
+           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
            *(st for t in (q, k, v, out, dout, dq, dk, dv)
              for st in t.stride()[:3]),
            b, h, kv, sq, sk, d, 1.0 / (d ** 0.5), int(causal), window,

@@ -15,7 +15,8 @@ the decode cache's state updated in place.  The planner's other entry
 points run there too: the live bandwidth probe, the plan server, an
 elastic replan and a churn replay, each equal to the host NumPy backend's
 result.  So does training: the backward kernels of ``rmsnorm`` (both forms)
-and ``flash_attention`` against their plain versions, the autograd
+and ``flash_attention`` against their plain versions (the bfloat16
+attention backward also bit-equal to itself from launch to launch), the autograd
 Functions the wrappers hand a gradient to, the scan's refusal of one, a
 gradient that reaches every parameter of a dense layer, and a train step
 against the host's and against itself bit for bit.  Without a CUDA device
@@ -699,12 +700,17 @@ def test_churn_replay_on_the_card_equals_numpy():
 #: more rows than the 64 chunks of the weight gradient's partial sums.
 RMS_BWD_SHAPES = [(1, 32), (7, 384), (70, 4096), (5, 36), (3, 33),
                   (300, 128)]
-#: (b, h, kv, sq, sk, d, causal, window): GQA, Sq != Sk, a window, rows
-#: with no allowed key (the last), and the head dims the models use.
+#: (b, h, kv, sq, sk, d, causal, window): GQA, Sq != Sk both ways, a
+#: window, rows with no allowed key (the sixth), every head dim; groups of
+#: one head (no fold in bfloat16), two, four and seven (qwen2-7b's); keys
+#: no query may see (the last: causal with Sq < Sk).
 FA_BWD_CASES = [(2, 4, 2, 64, 64, 32, True, 0), (1, 4, 1, 50, 90, 64, False, 0),
                 (1, 2, 2, 100, 100, 128, True, 16),
                 (2, 8, 2, 96, 40, 128, True, 0), (1, 2, 1, 40, 40, 256, True, 0),
-                (1, 2, 2, 64, 16, 16, True, 8)]
+                (1, 2, 2, 64, 16, 16, True, 8),
+                (1, 14, 2, 130, 130, 128, True, 0),
+                (2, 4, 4, 70, 33, 256, False, 0),
+                (1, 7, 1, 33, 77, 32, True, 20)]
 
 
 def _rel_close(got, want, tol):
@@ -777,6 +783,44 @@ def test_flash_attention_bwd_kernel_matches_plain(case, dtype):
         _rel_close(a, t, tol)
     if not bool(finite.all()):
         assert bool((got[0][~finite[..., None].expand_as(got[0])] == 0).all())
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES, ids=str)
+def test_flash_attention_bwd_bf16_repeats_bit_for_bit(case):
+    """No atomics: two launches on the same inputs give the same bits."""
+    _need_cuda()
+    *_, causal, window = case
+    q, k, v, do = _fa_views(case, torch.bfloat16, sum(case[:6]) + 1)
+    b, h, sq = q.shape[:3]
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    out = fa._fwd_cuda(q, k, v, causal, window, lse)
+    first = fa._bwd_cuda(q, k, v, out, lse, do, causal, window)
+    second = fa._bwd_cuda(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_flash_attention_bwd_bf16_alignment():
+    """The bfloat16 backward refuses a misaligned q, k or v, and copies a
+    misaligned dout (the same gradient as from an aligned one)."""
+    _need_cuda()
+    case = (1, 4, 2, 40, 40, 64, True, 0)
+    q, k, v, do = _fa_views(case, torch.bfloat16, 3)
+    lse = torch.empty((1, 4, 40), dtype=torch.float32, device="cuda")
+    out = fa._fwd_cuda(q, k, v, True, 0, lse)
+    before = fa.flash_attention.bwd_launches
+    base = torch.zeros(1, 4, 40, 72, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="pointer"):
+        fa._bwd_cuda(base[..., 1:65], k, v, out, lse, do, True, 0)
+    assert fa.flash_attention.bwd_launches == before
+    odd = base[..., 1:65]
+    odd.copy_(do)
+    got = fa._bwd_cuda(q, k, v, out, lse, odd, True, 0)
+    want = fa._bwd_cuda(q, k, v, out, lse, do.contiguous(), True, 0)
+    torch.cuda.synchronize()
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
 
 
 def test_functions_are_used_on_the_card_under_grad():

@@ -9,14 +9,21 @@ by ``jax.vjp`` and to torch autograd of the port's plain forwards; the
 Functions (``RMSNormFn``, ``AddRMSNormFn``, ``FlashAttentionFn``), which on
 the CPU run the plain versions on both sides, pass ``gradcheck`` in
 float64.  The backward kernels themselves run only on the card
-(``tests/test_torch_gpu.py`` and ``chip_smoke.py``).
+(``tests/test_torch_gpu.py`` and ``chip_smoke.py``); here a host emulation
+of the bfloat16 tensor-core backward's roundings (``P`` and ``dS`` rounded
+to bfloat16 as product operands) is held to the plain backward within the
+kernel's bfloat16 tolerance, and the attention source is held to the
+determinism rule (no atomics).
 
 Tolerances: float32 against JAX and autograd 2e-5 relative to the
 largest magnitude (sums in another order); bfloat16 one bfloat16 step
-(1e-2) against autograd, both rounding once from float32.
+(1e-2) against autograd, both rounding once from float32, and the
+emulated tensor-core roundings against the plain backward (the kernel's
+``TOL_BWD`` in ``chip_smoke.py``).
 """
 import ast
 import inspect
+import re
 import textwrap
 
 import jax
@@ -211,6 +218,72 @@ def test_lse_is_the_rows_logsumexp():
     s, ok = fa._scores(_t(q), _t(k), True, 5)
     want = torch.logsumexp(s.masked_fill(~ok, float("-inf")), dim=-1)
     torch.testing.assert_close(lse, want.reshape(lse.shape))
+
+
+LOG2E = 1.4426950408889634
+#: The bfloat16 rounding budget's cases: ``FA_CASES`` and qwen2-7b's heads
+#: (28 query, 4 KV, D 128) at the training length, causal.
+TC_CASES = FA_CASES + [(1, 28, 4, 512, 512, 128, True, 0)]
+
+
+def _tc_bwd_emulated(q, k, v, out, lse, dout, causal, window):
+    """The bfloat16 tensor-core backward's arithmetic on the host: products
+    of bfloat16 operands summed in float32; ``P = exp2(S scale log2 e -
+    lse log2 e)`` on the allowed keys; ``P`` rounded to bfloat16 for
+    ``P^T dO`` and ``dS = P (dP - delta)`` for ``dS^T Q`` and ``dS K``;
+    ``dK``, ``dV`` summed over a group's heads in float32, then scaled and
+    rounded once, as the fold does."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / d ** 0.5
+    qf = q.float().reshape(b, kv, g, sq, d)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(b, kv, g, sq, d)
+    ok = fa._allowed(sq, sk, causal, window, "cpu")
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, kf)
+    lse2 = (lse.float() * LOG2E).reshape(b, kv, g, sq, 1)
+    p = torch.where(ok, torch.exp2(s * (scale * LOG2E) - lse2),
+                    torch.zeros_like(s))
+    delta = (do * out.float().reshape(b, kv, g, sq, d)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqd,bkcd->bkgqc", do, vf) - delta)
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p16, do)
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds16, kf) * scale
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds16, qf) * scale
+    return (dq.reshape(b, h, sq, d).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_tensor_core_roundings_fit_the_bf16_tolerance(case):
+    """The tensor-core backward rounds ``P`` and ``dS`` to bfloat16 where
+    the plain backward keeps float32: emulated on bfloat16 inputs, with
+    the forward's bfloat16 ``out`` and its ``lse``, the gradients stay
+    within the kernel's bfloat16 tolerance of the plain backward's."""
+    *_, causal, window = case
+    q, k, v, do = (_t(a, torch.bfloat16) for a in _fa_inputs(case, 14))
+    out, lse = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    got = _tc_bwd_emulated(q, k, v, out, lse, do, causal, window)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                      window=window)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        _close(a, w, BF16_TOL)
+    empty = _empty_rows(case)
+    if bool(empty.any()):
+        assert torch.all(got[0][:, :, empty] == 0)
+
+
+def test_attention_source_uses_no_atomics():
+    """Determinism: the attention kernels sum every gradient in a fixed
+    order (the bfloat16 dK, dV partials folded in head order), so a resumed
+    training run repeats the uninterrupted one bit for bit.  An atomic add
+    would make the order, and so the bits, depend on scheduling."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "atomicAdd" not in src
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
 
 
 #: Small cases for gradcheck, whose Jacobians take a forward pass per
