@@ -9,7 +9,8 @@ annealing dedication on the card, and the planner's other entry points:
 the live bandwidth probe, the plan server, elastic replanning and the
 churn replay), generation (``launch.generate``: prefill and greedy
 decode of qwen2-7b and falcon-mamba-7b) and training (``launch.train``:
-qwen2-7b at full width and 4 layers, with a crash and a resume) — builds the
+qwen2-7b and falcon-mamba-7b at full width and 4 layers, each with a crash
+and a resume) — builds the
 CUDA kernels from the sources in this checkout, holds each kernel against
 its plain PyTorch version, and proves that each path went through its
 kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
@@ -21,7 +22,9 @@ exponentials' rate of the scan's bound), ``build`` (with the ``ptxas``
 report: the bfloat16 D=128 attention instance must not spill, the scan's
 registers and spills per instance, none of which may spill, the
 registers and spills of the bfloat16 attention backward's three passes at
-every head dim, none of which may spill at D=128, and the cost
+every head dim, none of which may spill at D=128, the registers and
+spills of the scan backward's two launches in both types, the bfloat16
+one (the training path's) without a spill, and the cost
 of reading the stream handle and the device index both ways), ``kernels``
 (group-reduce kernels
 bit-equal at ragged shapes, both forms of ``group_min_scale`` and of
@@ -46,9 +49,13 @@ and D=256; a misaligned bfloat16 view is refused), ``model_kernels_bwd``
 stream's gradient, and of flash_attention, causal and windowed, GQA,
 ``Sq != Sk``, rows with no allowed key, strided views, against their plain
 versions in float32 and bfloat16, with the forward's ``lse``, the bfloat16
-attention backward launched twice for the same bits; each plain
+attention backward launched twice for the same bits; the fused scan's
+backward with and without ``h0`` and ``dh_final``, S no multiple of its
+chunk, D no multiple of its block, N in 1, 5, 7, 16, launched twice for
+the same bits in both types; each plain
 backward against autograd of its plain forward; each autograd Function by
-finite differences in float32; the scan's refusal of a gradient),
+finite differences in float32; the refusal of a gradient by the scan's
+decode step and its plain form),
 ``scan_at_falcon_shapes``
 (the plain-form scan at falcon-mamba-7b's prefill shape in both types, and
 the fused form at its prefill and step shapes in float32, checked and
@@ -69,14 +76,19 @@ of both norm forms and of the attention; then a run that fails at step 3
 and its resume from the step-2 checkpoint, which must give the same losses
 and final parameters bit for bit), ``slice_check_train`` (qwen2-7b at full
 width and 1 layer, 1 x 64 tokens: a step's loss and every leaf's gradient
-on the card against the host's plain path), ``model_kernels_at_path_shapes``
-(the training phase's forward shapes too), ``bwd_kernels_at_path_shapes``,
+on the card against the host's plain path), ``train_falcon_mamba_7b`` and
+``slice_check_train_falcon_mamba_7b`` (the same two for falcon-mamba-7b:
+4 of its 64 layers; the fused scan forward twice a layer and its backward
+kernel once, both norm forms, counted exactly),
+``model_kernels_at_path_shapes`` (the training phases' forward shapes
+too), ``bwd_kernels_at_path_shapes``,
 ``bwd_attention_full_grid`` (the bfloat16 attention backward at qwen2-7b's
 heads and 2048 tokens, where its grid fills the card; off the main path)
 and ``host_cost`` (host
 microseconds of one call of each redesigned wrapper and of its library
-call); with ``--profile`` also ``profile_sa``, ``profile_generate_*`` and
-``profile_train`` (torch.profiler: device busy and idle share).
+call); with ``--profile`` also ``profile_sa``, ``profile_generate_*``,
+``profile_train`` and ``profile_train_falcon_mamba_7b`` (torch.profiler:
+device busy and idle share).
 Each plan is made twice — SA on the card
 (``backend="torch"``) and on the host (``backend="numpy"``) — and the two
 Plan JSONs must be byte-equal once the backend's name is dropped.  The
@@ -90,7 +102,7 @@ the residual form of ``rmsnorm`` (an ATen add, then the plain form) and
 the fused scan (ATen's bias add, softplus and ``-exp(A_log)``, the plain
 form's kernel or, for a step, ATen's one-step update and the copy into the
 cache row, then the D skip, the gate and the cast).
-Then one ``{"kernels": [...]}`` line for all five kernels and the two
+Then one ``{"kernels": [...]}`` line for all five kernels and the three
 backward kernels, the ``nvidia-smi`` line, and the final ``{"ok": true,
 ...}`` line.
 """
@@ -212,7 +224,8 @@ MODEL_KERNELS = ("rmsnorm", "flash_attention", "selective_scan")
 #: its plain jnp by autodiff), by the wrapper whose ``bwd_launches`` counts
 #: them.
 BWD_KERNELS = {"rmsnorm_bwd": "rmsnorm",
-               "flash_attention_bwd": "flash_attention"}
+               "flash_attention_bwd": "flash_attention",
+               "selective_scan_fused_bwd": "selective_scan"}
 
 
 def emit(obj: dict) -> None:
@@ -247,8 +260,8 @@ def read_bwd_launches() -> dict:
 
 def is_bwd_key(key) -> bool:
     """Whether a wrapper's shape key counts a backward launch."""
-    return isinstance(key, tuple) and bool(key) and key[0] in ("bwd",
-                                                               "add_bwd")
+    return isinstance(key, tuple) and bool(key) and key[0] in (
+        "bwd", "add_bwd", "fused_bwd")
 
 
 def read_shapes() -> dict:
@@ -1540,7 +1553,8 @@ def slice_check(name: str, arch: str, device) -> dict:
 #: sums in another order (the attention's also ``expf`` within 2 ulp); in
 #: bfloat16 an output may round to the neighbouring value.  The same holds
 #: each plain backward against torch autograd of its plain forward.
-TOL_BWD = {"rmsnorm_bwd": (2e-5, 1e-2), "flash_attention_bwd": (1e-4, 1e-2)}
+TOL_BWD = {"rmsnorm_bwd": (2e-5, 1e-2), "flash_attention_bwd": (1e-4, 1e-2),
+           "selective_scan_fused_bwd": (1e-4, 1e-2)}
 #: The forward's log-sum-exp against the plain one (absolute, on finite
 #: rows; rows with no allowed key must be +inf on both sides).
 TOL_LSE = 1e-4
@@ -1566,6 +1580,12 @@ RAGGED_FA_BWD = [
 #: shape of the main path): qwen2-7b's heads at 2048 tokens, causal.
 FULL_GRID_FA_BWD = ("bwd", (1, 28, 2048, 128), (1, 4, 2048, 128), True, 0,
                     "bfloat16")
+#: (b, S, D, N) of the fused scan's backward: S not a multiple of its chunk
+#: (16), D not a multiple of its 32 channels a block, N at 1, 5, 7 and 16;
+#: each with (h0, dh_final) absent, both present, and dh_final alone.
+RAGGED_SCAN_BWD = [(2, 37, 24, 5), (1, 20, 40, 16), (2, 33, 45, 1),
+                   (1, 17, 100, 16), (3, 5, 9, 7), (2, 64, 32, 8)]
+SCAN_BWD_STARTS = [(False, False), (True, True), (False, True)]
 BWD_EPS = 1e-5
 
 
@@ -1576,6 +1596,21 @@ def bwd_inputs(name: str, key: tuple, device) -> dict:
     forward kernel."""
     gen = torch.Generator(device=device)
     gen.manual_seed(zlib.crc32(repr(key).encode()))
+    if name == "selective_scan_fused_bwd":
+        # ("fused_bwd", x shape, N, dtype[, with h0, with dh_final]); the
+        # training path's keys have neither
+        _, shape, n, dt = key[:4]
+        with_h0, with_dhf = key[4:6] if len(key) > 4 else (False, False)
+        args, _ = fused_inputs(gen, ("fused", tuple(shape), n, dt, False),
+                               device)
+        x, dt_, bias, B, C, A_log, D, z, h0, _ = args
+        b, s, d = x.shape
+        return {"x": x, "dt": dt_, "dt_bias": bias, "B": B, "C": C,
+                "A_log": A_log, "D": D, "z": z,
+                "h0": h0 if with_h0 else None,
+                "dout": _randn(gen, (b, s, d), x.dtype, device),
+                "dh_final": _randn(gen, (b, d, n), torch.float32, device)
+                if with_dhf else None}
     if name == "rmsnorm_bwd":
         shape, xt, wt = key[1], _dtype(key[2]), _dtype(key[3])
         with_ds = key[0] == "add_bwd" and key[4]
@@ -1602,6 +1637,12 @@ def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
     query heads where those backends refuse grouped heads), timed as a
     yardstick only, or None where there is none."""
     F = torch.nn.functional
+    if name == "selective_scan_fused_bwd":
+        args = [a[k] for k in ("x", "dt", "dt_bias", "B", "C", "A_log", "D",
+                               "z", "h0", "dout", "dh_final")]
+        return (lambda: ss._bwd_cuda(*args),
+                lambda: ss.selective_scan_fused_bwd_ref(*args), None,
+                "none (no single PyTorch call computes this backward)")
     if name == "rmsnorm_bwd":
         x, w, dy, ds = a["x"], a["w"], a["dy"], a["ds"]
         d = x.shape[-1]
@@ -1664,10 +1705,15 @@ def bwd_bound(name: str, key: tuple, a: dict, outs) -> tuple:
     backward counts 11 operations an element (12 with ``ds_in``) at the
     float32 rate; the attention's its five products over the (query, key)
     pairs the mask allows, ``10 B H D pairs``, at the tensor-core rate for
-    bfloat16 inputs (the kernel itself uses the CUDA cores)."""
+    bfloat16 inputs (the kernel itself uses the CUDA cores); the scan's
+    its ``b S D N`` exponentials, one a state, at the special function
+    units' rate (``EXP_PER_S``), as the forward's bound counts them."""
     ins = [t for t in a.values() if isinstance(t, torch.Tensor)]
-    nbytes = sum(t.numel() * t.element_size() for t in ins + list(outs))
-    if name == "rmsnorm_bwd":
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in ins + [o for o in outs if o is not None])
+    if name == "selective_scan_fused_bwd":
+        ops, rate = a["x"].numel() * a["A_log"].shape[-1], EXP_PER_S
+    elif name == "rmsnorm_bwd":
         ops, rate = (12 if a["ds"] is not None else 11) * a["x"].numel(), \
             OPS_PER_S
     else:
@@ -1701,7 +1747,11 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
     tol = TOL_BWD[name][1 if dt == torch.bfloat16 else 0]
     err = 0.0
     for g, w in zip(got, want):
+        if w is None:                  # the scan's dh0 without h0
+            assert g is None, (name, key)
+            continue
         assert g.shape == w.shape and g.dtype == w.dtype, (name, key)
+        assert bool(torch.isfinite(g).all()), (name, key)
         diff, scale = _max_rel(g, w)
         assert diff <= tol * max(scale, 1e-30), (name, key, diff, scale)
         err = max(err, diff)
@@ -1721,12 +1771,14 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         row["rows_without_keys"] = int((~fin).sum())
         if not bool(fin.all()):          # those rows pass no gradient
             assert bool((got[0].float().abs().sum(-1)[~fin] == 0).all())
-        if dt == torch.bfloat16:         # no atomics: the same bits again
-            again = kernel()
-            torch.cuda.synchronize()
-            row["repeat_bits_equal"] = all(
-                torch.equal(g, a_) for g, a_ in zip(got, again))
-            assert row["repeat_bits_equal"], (name, key)
+    if name == "flash_attention_bwd" and dt == torch.bfloat16 \
+            or name == "selective_scan_fused_bwd":
+        again = kernel()                 # no atomics: the same bits again
+        torch.cuda.synchronize()
+        row["repeat_bits_equal"] = all(
+            (g is None and a_ is None) or torch.equal(g, a_)
+            for g, a_ in zip(got, again))
+        assert row["repeat_bits_equal"], (name, key)
     if timed:
         b_ms, b_by = bwd_bound(name, key, a, got)
         fns = {"ms": kernel, "plain_ms": plain}
@@ -1827,8 +1879,9 @@ def finite_difference(fn, inputs: list, device, seed: int) -> dict:
 
 
 def check_functions_by_finite_differences(device) -> list:
-    """``RMSNormFn``, ``AddRMSNormFn`` and ``FlashAttentionFn`` on the card
-    in float32, by :func:`finite_difference` within ``FD_TOL``."""
+    """``RMSNormFn``, ``AddRMSNormFn``, ``FlashAttentionFn`` and
+    ``SelectiveScanFusedFn`` (with ``h0``, both outputs weighted) on the
+    card in float32, by :func:`finite_difference` within ``FD_TOL``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
 
@@ -1848,6 +1901,14 @@ def check_functions_by_finite_differences(device) -> list:
         cases[f"FlashAttentionFn causal={causal} window={window}"] = (
             lambda q, k, v, c=causal, w=window: fa.FlashAttentionFn.apply(
                 q, k, v, c, w), [q, k, v])
+    b, s, d, n = 2, 21, 40, 5
+    cases["SelectiveScanFusedFn"] = (
+        ss.SelectiveScanFusedFn.apply,
+        [rnd(b, s, d) * 0.5, rnd(b, s, d) * 0.5 - 1.0, rnd(d) * 0.5,
+         rnd(b, s, n), rnd(b, s, n),
+         torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                device=device)).expand(d, n).contiguous()
+         + rnd(d, n) * 0.1, rnd(d), rnd(b, s, d), rnd(b, d, n)])
     rows = []
     for i, (name, (fn, inputs)) in enumerate(cases.items()):
         res = finite_difference(fn, inputs, device, 100 + i)
@@ -1858,11 +1919,12 @@ def check_functions_by_finite_differences(device) -> list:
 
 
 def check_bwd_ragged(device) -> dict:
-    """The ``model_kernels_bwd`` phase: both backward kernels against their
+    """The ``model_kernels_bwd`` phase: the backward kernels against their
     plain versions at ragged shapes in float32 and bfloat16 (the norm in
-    both forms, with and without ``ds_in``), each plain backward against
-    autograd, each Function by finite differences, and the scan's refusal
-    of a gradient."""
+    both forms, with and without ``ds_in``; the scan with and without
+    ``h0`` and ``dh_final``, launched twice for the same bits), each plain
+    backward against autograd, each Function by finite differences, and
+    the refusal of a gradient by the scan's decode step and plain form."""
     rows = []
     for shape, dt in RAGGED_RMS_BWD:
         for key in (("bwd", shape, dt, dt), ("add_bwd", shape, dt, dt, True),
@@ -1873,34 +1935,52 @@ def check_bwd_ragged(device) -> dict:
             rows.append(check_bwd_kernel(
                 "flash_attention_bwd", ("bwd", (b, h, sq, d), (b, kv, sk, d),
                                         causal, window, dt), device, False))
-    x = torch.ones(1, 4, 8, device=device, requires_grad=True)
-    w8, b2 = torch.ones(8, device=device), torch.ones(1, 4, 2, device=device)
-    try:
-        ss.selective_scan_fused(x, x, w8, b2, b2, torch.zeros(8, 2,
-                                                              device=device),
-                                w8, x)
-    except NotImplementedError as e:
-        refusal = str(e)
-    else:
-        raise AssertionError("selective_scan_fused took a tensor that "
-                             "requires a gradient")
-    assert "Queue A 10b" in refusal
+    for dt in ("float32", "bfloat16"):
+        for b, s, d, n in RAGGED_SCAN_BWD:
+            for with_h0, with_dhf in SCAN_BWD_STARTS:
+                rows.append(check_bwd_kernel(
+                    "selective_scan_fused_bwd",
+                    ("fused_bwd", (b, s, d), n, dt, with_h0, with_dhf),
+                    device, False))
+    x = torch.ones(1, 1, 8, device=device, requires_grad=True)
+    w8, b2 = torch.ones(8, device=device), torch.ones(1, 1, 2, device=device)
+    a_log, h0 = torch.zeros(8, 2, device=device), torch.zeros(1, 8, 2,
+                                                             device=device)
+    refusals = {}
+    for form, call in (
+            ("fused_step", lambda: ss.selective_scan_fused(
+                x, x, w8, b2, b2, a_log, w8, x, h0, step=True)),
+            ("plain", lambda: ss.selective_scan(x, x.detach(), b2, b2,
+                                                -a_log.exp()))):
+        try:
+            call()
+        except NotImplementedError as e:
+            refusals[form] = str(e)
+        else:
+            raise AssertionError(f"the scan's {form} form took a tensor "
+                                 f"that requires a gradient")
+        assert "Queue A 10c" in refusals[form], refusals[form]
     return {"phase": "model_kernels_bwd", "kernels": rows,
             "plain_vs_autograd": check_plain_bwd_against_autograd(device),
             "finite_differences": check_functions_by_finite_differences(
                 device),
-            "scan_refuses_grad": refusal}
+            "scan_refuses_grad": refusals}
 
 
-def check_bwd_path_shapes(device, bwd_shapes: dict) -> list:
-    """Every backward shape key the training phase launched: checked
-    against the plain version and timed, with its launches there."""
+def check_bwd_path_shapes(device, shapes_by_phase: dict) -> list:
+    """Every backward shape key the training phases launched: checked
+    against the plain version and timed, with the launches each phase
+    made there."""
     rows = []
     for name, wrapper in BWD_KERNELS.items():
-        for key, n in sorted(bwd_shapes[wrapper].items(), key=repr):
+        seen = sorted({k for by in shapes_by_phase.values()
+                       for k in by[wrapper]}, key=repr)
+        for key in seen:
             row = check_bwd_kernel(name, key, device, True)
-            row["launches"] = {"train_qwen2_7b": n}
+            row["launches"] = {phase: by[wrapper].get(key, 0)
+                               for phase, by in shapes_by_phase.items()}
             rows.append(row)
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1915,10 +1995,16 @@ def check_bwd_full_grid(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the training path: qwen2-7b at full width, and the slice against the host
+# the training path: qwen2-7b and falcon-mamba-7b at full width, and the
+# slice against the host
 # ---------------------------------------------------------------------------
 
-TRAIN_ARCH, TRAIN_LAYERS = "qwen2-7b", 4
+#: Each trained arch, its number of layers in full, and the suffix of its
+#: phases' names; the first arch's profile and slice phases keep the names
+#: they had before the second's (``profile_train``, ``slice_check_train``).
+TRAIN_ARCHS = {"qwen2-7b": (28, "qwen2_7b"),
+               "falcon-mamba-7b": (64, "falcon_mamba_7b")}
+TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_LR = 4, 2, 3, 3e-4
 SLICE_TRAIN_LAYERS, SLICE_TRAIN_BATCH, SLICE_TRAIN_SEQ = 1, 1, 64
@@ -1927,35 +2013,96 @@ SLICE_TRAIN_LAYERS, SLICE_TRAIN_BATCH, SLICE_TRAIN_SEQ = 1, 1, 64
 #: gradient within this relative Frobenius error.  Both sides round every
 #: product and every gradient to bfloat16 (8 significant bits) at
 #: different places and after sums in another order; the host's attention
-#: rounds nothing inside, the card's forward rounds P to bfloat16.
+#: rounds nothing inside, the card's forward rounds P to bfloat16.  The
+#: same holds for falcon-mamba-7b: the host differentiates the scan's plain
+#: bfloat16 sequence by autograd, rounding its gradients to bfloat16 op by
+#: op, the card's kernel computes them in float32 and rounds once.
 SLICE_TRAIN_LOSS_TOL, SLICE_TRAIN_GRAD_TOL = 1e-2, 5e-2
+
+
+def _train_phase(kind: str, arch: str) -> str:
+    """The name of a profile or slice phase of ``arch``."""
+    return kind if arch == next(iter(TRAIN_ARCHS)) else \
+        f"{kind}_{TRAIN_ARCHS[arch][1]}"
 
 
 def train_flops(cfg, params, tokens: int) -> dict:
     """Operations of one training step: ``6 N tokens`` for the parameters
     that enter a product (every layer's and the head's; the embedding is a
-    lookup) plus the attention's ``3 x 4 B H D pairs`` a layer (forward and
-    backward); ``hardware`` adds what remat runs again (each layer's
-    forward)."""
+    lookup) plus, for a dense model, the attention's ``3 x 4 B H D pairs``
+    a layer (forward and backward); a Mamba1 model's scan is not counted.
+    ``hardware`` adds what remat runs again (each layer's forward)."""
     n_layers = sum(t.numel() for t in _tree.leaves(params["layers"]))
     n_head = params["lm_head"].numel() if "lm_head" in params else \
         params["tok_embed"].numel()
     seqs = tokens // TRAIN_SEQ
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2            # causal, no window
-    attn_fwd = 4 * seqs * cfg.n_heads * cfg.hd * pairs * cfg.n_layers
+    attn_fwd = 4 * seqs * cfg.n_heads * cfg.hd * pairs * cfg.n_layers \
+        if cfg.family == "dense" else 0
     model = 6 * (n_layers + n_head) * tokens + 3 * attn_fwd
     return {"matmul_params": n_layers + n_head, "model": model,
             "hardware": model + 2 * n_layers * tokens + attn_fwd}
 
 
-def run_train(device) -> tuple:
-    """``launch.train.train`` on qwen2-7b at full width and
-    ``TRAIN_LAYERS`` layers (the one cut): exact launch counts of both
-    norm forms and the attention, forward (twice a layer under remat) and
-    backward; then the bitwise resume check — a run that fails at step
-    ``TRAIN_FAIL_AT``, resumed from its checkpoint, must give the
-    uninterrupted run's losses and final parameters bit for bit."""
-    cfg = configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+def train_launches(cfg) -> tuple:
+    """``(forward launches, backward launches, shape keys, per step)`` of a
+    ``run_train`` run of ``cfg``: per microbatch a forward runs 1 plain
+    norm, then each layer's blocks (twice under remat) — a dense layer 2
+    norms (the first layer's first plain, every other residual) and the
+    attention, a Mamba1 layer 1 norm (plain in the first layer) and the
+    fused scan — and the final plain norm; a backward one of each, the
+    residual norms' with the stream's gradient."""
+    L, micro, per = cfg.n_layers, TRAIN_MICRO, TRAIN_STEPS * TRAIN_MICRO
+    bf = torch.bfloat16
+    mb = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model)
+    norms_per_layer = 2 if cfg.family == "dense" else 1
+    residual = norms_per_layer * L - 1
+    step = {"rmsnorm_fwd_plain": 3 * micro,
+            "rmsnorm_fwd_residual": 2 * residual * micro,
+            "rmsnorm_bwd_plain": 2 * micro,
+            "rmsnorm_bwd_residual": residual * micro}
+    want = {k: 0 for k in WRAPPERS}
+    want["rmsnorm"] = per * (2 * norms_per_layer * L + 1)
+    want_bwd = {k: 0 for k in BWD_KERNELS}
+    want_bwd["rmsnorm_bwd"] = per * (residual + 2)
+    shapes = {k: {} for k in WRAPPERS}
+    shapes["rmsnorm"] = {(mb, bf, bf): per * 3,
+                         ("add", mb, bf, bf): per * 2 * residual,
+                         ("bwd", mb, bf, bf): per * 2,
+                         ("add_bwd", mb, bf, bf, True): per * residual}
+    if cfg.family == "dense":
+        q_shape = (mb[0], cfg.n_heads, TRAIN_SEQ, cfg.hd)
+        k_shape = (mb[0], cfg.n_kv_heads, TRAIN_SEQ, cfg.hd)
+        fa_key = (q_shape, k_shape, True, 0, str(bf))
+        want["flash_attention"] = per * 2 * L
+        want_bwd["flash_attention_bwd"] = per * L
+        shapes["flash_attention"] = {fa_key: per * 2 * L,
+                                     ("bwd",) + fa_key: per * L}
+        step.update(flash_attention_fwd=2 * L * micro,
+                    flash_attention_bwd=L * micro)
+    else:
+        x_shape = (mb[0], TRAIN_SEQ, cfg.d_inner)
+        n = cfg.ssm_state
+        want["selective_scan"] = per * 2 * L
+        want_bwd["selective_scan_fused_bwd"] = per * L
+        shapes["selective_scan"] = {("fused", x_shape, n, bf, False):
+                                    per * 2 * L,
+                                    ("fused_bwd", x_shape, n, bf): per * L}
+        step.update(selective_scan_fused_fwd=2 * L * micro,
+                    selective_scan_fused_bwd=L * micro)
+    return want, want_bwd, shapes, step
+
+
+def run_train(device, arch: str) -> tuple:
+    """``launch.train.train`` on ``arch`` at full width and
+    ``TRAIN_LAYERS`` layers (the one cut): exact forward (twice a layer
+    under remat) and backward launch counts of every kernel and form on
+    the path (:func:`train_launches`); then the bitwise resume check — a
+    run that fails at step ``TRAIN_FAIL_AT``, resumed from its checkpoint,
+    must give the uninterrupted run's losses and final parameters bit for
+    bit."""
+    full_layers, suffix = TRAIN_ARCHS[arch]
+    cfg = configs.get(arch).replace(n_layers=TRAIN_LAYERS)
     assert cfg.remat and cfg.dtype == "bfloat16"
     kw = dict(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
               n_micro=TRAIN_MICRO, lr=TRAIN_LR, ckpt_every=TRAIN_CKPT_EVERY,
@@ -2001,37 +2148,23 @@ def run_train(device) -> tuple:
     del full, resumed
     torch.cuda.empty_cache()
 
-    # exact launch counts: per microbatch, a forward runs 1 plain norm,
-    # 2L - 1 residual ones and the attention in each layer (twice under
-    # remat), then the final plain norm; a backward one of each
-    L, per = TRAIN_LAYERS, TRAIN_STEPS * TRAIN_MICRO
-    bf = torch.bfloat16
-    mb = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model)
-    q_shape = (mb[0], cfg.n_heads, TRAIN_SEQ, cfg.hd)
-    k_shape = (mb[0], cfg.n_kv_heads, TRAIN_SEQ, cfg.hd)
-    want = {k: 0 for k in WRAPPERS}
-    want.update(rmsnorm=per * (2 * 2 * L + 1), flash_attention=per * 2 * L)
+    want, want_bwd, want_shapes, per_step = train_launches(cfg)
     assert launches == want, (launches, want)
-    want_bwd = {"rmsnorm_bwd": per * (2 * L + 1),
-                "flash_attention_bwd": per * L}
     assert bwd == want_bwd, (bwd, want_bwd)
-    assert shapes["rmsnorm"] == {
-        (mb, bf, bf): per * 3, ("add", mb, bf, bf): per * 2 * (2 * L - 1),
-        ("bwd", mb, bf, bf): per * 2,
-        ("add_bwd", mb, bf, bf, True): per * (2 * L - 1)}, shapes["rmsnorm"]
-    fa_key = (q_shape, k_shape, True, 0, str(bf))
-    assert shapes["flash_attention"] == {fa_key: per * 2 * L,
-                                         ("bwd",) + fa_key: per * L}, \
-        shapes["flash_attention"]
+    for name, by in want_shapes.items():
+        assert shapes[name] == by, (name, shapes[name], by)
 
     warm = [h["dt"] for h in hist[-2:]]
     warm_s = float(np.mean(warm))
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    width = (f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+             f"{cfg.d_ff}" if cfg.family == "dense" else
+             f"d {cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, "
+             f"dt_rank {cfg.dt_rank}")
     line = {
-        "phase": "train_qwen2_7b", "model": cfg.name,
-        "cut": f"n_layers {TRAIN_LAYERS} of 28 (full width: d {cfg.d_model}, "
-               f"heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, "
-               f"vocab {cfg.vocab_size})",
+        "phase": f"train_{suffix}", "model": cfg.name,
+        "cut": f"n_layers {TRAIN_LAYERS} of {full_layers} (full width: "
+               f"{width}, vocab {cfg.vocab_size})",
         "dtype": cfg.dtype, "remat": cfg.remat, "global_batch": TRAIN_BATCH,
         "seq_len": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "steps": TRAIN_STEPS,
         "ckpt_every": TRAIN_CKPT_EVERY, "lr": TRAIN_LR, **run,
@@ -2041,13 +2174,7 @@ def run_train(device) -> tuple:
         "mfu": flops["model"] / (warm_s * BF16_OPS_PER_S),
         "hfu_with_remat": flops["hardware"] / (warm_s * BF16_OPS_PER_S),
         "launches_fwd": launches, "launches_bwd": bwd,
-        "launches_per_step": {
-            "rmsnorm_fwd_plain": 3 * TRAIN_MICRO,
-            "rmsnorm_fwd_residual": 2 * (2 * L - 1) * TRAIN_MICRO,
-            "rmsnorm_bwd_plain": 2 * TRAIN_MICRO,
-            "rmsnorm_bwd_residual": (2 * L - 1) * TRAIN_MICRO,
-            "flash_attention_fwd": 2 * L * TRAIN_MICRO,
-            "flash_attention_bwd": L * TRAIN_MICRO},
+        "launches_per_step": per_step,
         "resume": {"fail_at": TRAIN_FAIL_AT,
                    "resumed_from_step": TRAIN_CKPT_EVERY,
                    "losses_bit_equal": True, "params_bit_equal": True,
@@ -2056,14 +2183,14 @@ def run_train(device) -> tuple:
     return line, shapes
 
 
-def profile_train(device) -> dict:
+def profile_train(device, arch: str) -> dict:
     """Where the card's time goes in one warm training step of
     ``run_train``'s size (the third step, after two untraced ones), with
     no checkpoint: device busy and idle share, and the top kernels."""
     from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
                                            SyntheticCorpus)
     from repro_torch.optim.adamw import AdamW, cosine_schedule
-    cfg = configs.get(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    cfg = configs.get(arch).replace(n_layers=TRAIN_LAYERS)
     params = init_params(cfg, seed=0, device=device)
     opt = AdamW(lr=cosine_schedule(TRAIN_LR, 20, TRAIN_STEPS))
     state = {"params": params, "opt": opt.init(params)}
@@ -2079,7 +2206,8 @@ def profile_train(device) -> dict:
 
     run_step(0)
     run_step(1)
-    out = {"phase": "profile_train", "model": cfg.name,
+    phase = _train_phase("profile_train", arch)
+    out = {"phase": phase, "model": cfg.name,
            "n_layers": TRAIN_LAYERS, "global_batch": TRAIN_BATCH,
            "seq_len": TRAIN_SEQ, "n_micro": TRAIN_MICRO,
            "step": trace(lambda: run_step(2))}
@@ -2088,13 +2216,13 @@ def profile_train(device) -> dict:
     return out
 
 
-def slice_check_train(device) -> dict:
-    """qwen2-7b at full width and ``SLICE_TRAIN_LAYERS`` layer, batch
+def slice_check_train(device, arch: str) -> dict:
+    """``arch`` at full width and ``SLICE_TRAIN_LAYERS`` layer, batch
     ``SLICE_TRAIN_BATCH`` x ``SLICE_TRAIN_SEQ``: one training step's loss
     and per-leaf gradients on the card (kernels) against the port's host
     path (``device="cpu"``, plain versions, autograd), on the same weights
     and tokens."""
-    cfg = configs.get(TRAIN_ARCH).replace(n_layers=SLICE_TRAIN_LAYERS)
+    cfg = configs.get(arch).replace(n_layers=SLICE_TRAIN_LAYERS)
     ctx = ShardCtx()
     params = init_params(cfg, seed=2, device=device)
     host = _to_host(params)
@@ -2111,7 +2239,8 @@ def slice_check_train(device) -> dict:
         names = [k for k in sorted(p) if k != "layers"]
         names += [f"layers.{k}[{i}]" for i in range(len(p["layers"]))
                   for k in sorted(p["layers"][i])]
-        return float(loss), dict(zip(names, torch.autograd.grad(loss, flat)))
+        return float(loss.detach()), dict(zip(names,
+                                              torch.autograd.grad(loss, flat)))
 
     card_loss, card = grads(params, device)
     t0 = time.perf_counter()
@@ -2129,7 +2258,8 @@ def slice_check_train(device) -> dict:
         assert errs[name] <= SLICE_TRAIN_GRAD_TOL, (name, errs[name])
     del params, host, card, want
     torch.cuda.empty_cache()
-    return {"phase": "slice_check_train", "model": cfg.name,
+    phase = _train_phase("slice_check_train", arch)
+    return {"phase": phase, "model": cfg.name,
             "n_layers": SLICE_TRAIN_LAYERS, "batch": SLICE_TRAIN_BATCH,
             "seq_len": SLICE_TRAIN_SEQ, "dtype": cfg.dtype,
             "tol": {"loss": SLICE_TRAIN_LOSS_TOL,
@@ -2193,6 +2323,15 @@ def scan_ptxas(log: str) -> dict:
         f"{'bf16' if 'bfloat16' in name else 'f32'} "
         f"{'fused' if 'Lb1E' in name else 'plain'}")
         if "scan_kernel" in name else None)
+
+
+def scan_bwd_ptxas(log: str) -> dict:
+    """``ptxas_table`` of the scan backward's two kernels in both types,
+    keyed "<type> <main|fold>"."""
+    return ptxas_table(log, lambda name: (
+        f"{'bf16' if 'bfloat16' in name else 'f32'} "
+        f"{'main' if 'scan_bwd_kernel' in name else 'fold'}")
+        if "scan_bwd_" in name else None)
 
 
 def attention_bwd_ptxas(log: str) -> dict:
@@ -2386,6 +2525,10 @@ def main() -> int:
     assert len(scan_regs) == 2 * 2, scan_regs       # 2 types x 2 forms
     assert all(v["spill_bytes"] == [0, 0] for v in scan_regs.values()), \
         ("a scan instance spills", scan_regs)
+    scan_bwd_regs = scan_bwd_ptxas(log)
+    assert len(scan_bwd_regs) == 2 * 2, scan_bwd_regs   # 2 types x 2 kernels
+    assert scan_bwd_regs["bf16 main"]["spill_bytes"] == [0, 0], \
+        ("the bf16 scan backward spills", scan_bwd_regs)
     bwd_regs = attention_bwd_ptxas(log)
     assert len(bwd_regs) == 3 * 5, bwd_regs          # 3 passes x 5 dims
     # and so does its backward at the model's head dim
@@ -2400,6 +2543,7 @@ def main() -> int:
           "flags": list(_build.NVCC_FLAGS),
           "attention_bf16_d128_spill_bytes": list(d128[0]),
           "scan_ptxas": scan_regs,
+          "scan_bwd_ptxas": scan_bwd_regs,
           "attention_bwd_bf16_ptxas": bwd_regs,
           **launch_path_reads_us(),
           "ptxas": [ln.strip() for ln in log.splitlines()
@@ -2458,19 +2602,23 @@ def main() -> int:
     emit(slice_check("slice_check_qwen2_7b", "qwen2-7b", device))
     emit(slice_check("slice_check_falcon_mamba_7b", "falcon-mamba-7b",
                      device))
-    line_tr, shapes_tr = run_train(device)
-    emit(line_tr)
-    if args.profile:
-        emit(profile_train(device))
-    emit(slice_check_train(device))
-    fwd_tr = {name: {k: n for k, n in by.items() if not is_bwd_key(k)}
-              for name, by in shapes_tr.items()}
-    bwd_tr = {name: {k: n for k, n in by.items() if is_bwd_key(k)}
-              for name, by in shapes_tr.items()}
+    train_lines, fwd_tr, bwd_tr = [], {}, {}
+    for arch in TRAIN_ARCHS:
+        line_tr, shapes_tr = run_train(device, arch)
+        emit(line_tr)
+        if args.profile:
+            emit(profile_train(device, arch))
+        emit(slice_check_train(device, arch))
+        train_lines.append(line_tr)
+        fwd_tr[line_tr["phase"]] = {
+            name: {k: n for k, n in by.items() if not is_bwd_key(k)}
+            for name, by in shapes_tr.items()}
+        bwd_tr[line_tr["phase"]] = {
+            name: {k: n for k, n in by.items() if is_bwd_key(k)}
+            for name, by in shapes_tr.items()}
     model_rows = check_model_path_shapes(
         device, {"generate_qwen2_7b": shapes_q,
-                 "generate_falcon_mamba_7b": shapes_f,
-                 "train_qwen2_7b": fwd_tr})
+                 "generate_falcon_mamba_7b": shapes_f, **fwd_tr})
     emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
     bwd_rows = check_bwd_path_shapes(device, bwd_tr)
     emit({"phase": "bwd_kernels_at_path_shapes", "kernels": bwd_rows})
@@ -2482,9 +2630,11 @@ def main() -> int:
                  + launches_s[name] + launches_r[name] + launches_c[name]
                  for name in PLAN_KERNELS}
     main_path.update({name: launches_q[name] + launches_f[name]
-                      + line_tr["launches_fwd"][name]
+                      + sum(t["launches_fwd"][name] for t in train_lines)
                       for name in MODEL_KERNELS})
-    main_path.update(line_tr["launches_bwd"])
+    main_path.update({name: sum(t["launches_bwd"][name]
+                                for t in train_lines)
+                      for name in BWD_KERNELS})
 
     def launched(r):
         return sum(r["launches"].values())
@@ -2492,7 +2642,7 @@ def main() -> int:
     def summary(name):
         """One line per kernel: its launches on the main paths (the two
         plans and the planner's other entry points, or the two generate
-        phases and the training phase), and the times at the shape the
+        phases and the two training phases), and the times at the shape the
         paths launched most often; ``forms`` has the same for each form's
         most launched shape, and ``per_shape`` every shape."""
         mine = [r for r in rows + model_rows + scan_rows
@@ -2527,7 +2677,7 @@ def main() -> int:
 
     def summary_bwd(name):
         """One line per backward kernel: its launches in the training
-        phase and the times at its most launched shape.  It replaces no
+        phases and the times at its most launched shape.  It replaces no
         TPU kernel: it is the backward of the kernel at ``replaces``,
         which the JAX package differentiates by autodiff of plain jnp."""
         wrapper = BWD_KERNELS[name]

@@ -184,6 +184,12 @@ def load_library() -> ctypes.CDLL:
         + [ll, ll, ci, ci, ci, vp],
         "selective_scan_fused_fwd": [vp] * 11 + [ll] * 10
         + [ll, ll, ci, ci, ci, ci, vp],
+        # (x, dt, B, C, z, A_log, dt_bias, D, h0, dout, dh_final, dx, ddt,
+        #  dB, dC, dz, ddt_bias, dD, dA_log, dh0, work, work elements,
+        #  6 x (batch, time) strides, batch, len, d, n, chunk, channels,
+        #  bf16, stream)
+        "selective_scan_fused_bwd": [vp] * 21 + [ll] * 13
+        + [ll, ll, ci, ci, ci, ci, ci, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

@@ -60,6 +60,46 @@
 //    which says what else was tried and what is left open: more resident
 //    warps an SM, or splitting time across blocks).
 //
+// selective_scan_fused_bwd (backward of the fused form over a sequence;
+// no TPU counterpart: the JAX package differentiates its plain jnp): the
+// nine gradients dx, d(dt_raw), dz (b, S, D) and dB, dC (b, S, N) in the
+// inputs' type, d(dt_bias), dD (D,), dA_log (D, N) and dh0 (b, D, N) in
+// float32.  With a_t = exp(dt_t A), y_t the scan's output before the skip
+// and g = silu(z):
+//   dz = dout (y + D x) silu'(z),  dy = dout g
+//   dh_t = a_{t+1} dh_{t+1} + dy_t C_t        (from dh_final, or 0)
+//   dC_t = sum_D dy_t h_t,  dB_t = sum_D dh_t dt_t x_t
+//   d(dt)_t = sum_N dh_t (A a_t h_{t-1} + x_t B_t)
+//   dx = dy D + dt sum_N dh_t B_t
+//   dA_log = A sum_{b,t} dh_t dt_t a_t h_{t-1},  dD = sum_{b,t} dy x
+//   d(dt_raw) = d(dt) sigmoid(dt_raw + dt_bias),  d(dt_bias) its sum
+//   dh0 = a_1 dh_1
+// Bound: the same b*S*D*N exponentials as the forward (0.032 ms for
+// falcon-mamba-7b's training microbatch, 2 x 512 x 8192 x 16, on an
+// H100), just above its bytes (0.035 ms: x, dt, z, dout read and dx,
+// ddt, dz written in bfloat16).  Design (simple first; the ROADMAP has its
+// redesign):
+//  * The forward's states are recomputed, never stored: a block of
+//    kBwdChannels channels (4 lanes a channel, one channel a thread) walks
+//    the sequence forward once and writes the state entering every chunk
+//    of kBwdChunk steps to a float32 workspace (b, chunks, D, N), each
+//    thread its own values; then it walks the chunks in reverse, reads the
+//    chunk's boundary back, recomputes the chunk's states into registers
+//    with the forward's arithmetic (the bfloat16 softplus replay, one
+//    ex2.approx of dt * A * log2 e and one fmaf a state and step, y summed
+//    over the lanes in the forward's order), and runs the reverse
+//    recurrence over them, computing a_t again.
+//  * No float atomics: dB and dC (sums over D) leave each block as float32
+//    partials (2, b, blocks, S, N), summed first over a warp's 8 channels
+//    by a butterfly of shuffles and then over the block's 4 warps in
+//    order; dA_log, dD and d(dt_bias) (sums over the batch) as per-sequence
+//    partials.  A second launch folds every partial in index order.  So
+//    two launches give the same bits, which a bitwise training resume
+//    needs.
+//  * Inputs are staged a chunk at a time into shared memory by plain loads
+//    (zeros past the sequence, the channels and N); the chunk's dx, ddt
+//    and dz leave in coalesced rows.
+//
 // Plain C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
 
@@ -443,6 +483,375 @@ int dispatch(Args& p, long long batch, int bf16, cudaStream_t stream) {
               : launch<float, FUSED>(p, batch, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// backward of the fused form
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdChannels = 32;                 // channels per block
+constexpr int kBwdChunk = 16;                    // time steps per chunk
+constexpr int kBwdNL = kNMax / kLanes;           // states a lane holds
+constexpr int kBwdThreads = kBwdChannels * kLanes;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+struct BwdArgs {
+  const void* x;
+  const void* dt;
+  const void* bm;
+  const void* cm;
+  const void* z;
+  const void* dout;
+  const float* a_log;
+  const float* dt_bias;
+  const float* dskip;
+  const float* h0;          // or NULL
+  const float* dh_final;    // or NULL
+  void* dx;
+  void* ddt;
+  void* dbm;
+  void* dcm;
+  void* dz;
+  float* ddt_bias;
+  float* ddskip;
+  float* da_log;
+  float* dh0;               // or NULL
+  float* bound;             // (batch, chunks, d, n)
+  float* bc_part;           // (2, batch, blocks, len, n): dB, dC
+  float* da_part;           // (batch, d, n)
+  float* vec_part;          // (2, batch, d): d(dt_bias), dD
+  long long x_sb, x_st, dt_sb, dt_st, b_sb, b_st, c_sb, c_st, z_sb, z_st,
+      o_sb, o_st;
+  int batch, len, d, n, chunks, blocks;
+};
+
+template <typename T>
+struct __align__(16) BwdSmem {
+  T xs[kBwdChunk][kBwdChannels];
+  T ds[kBwdChunk][kBwdChannels];
+  T zs[kBwdChunk][kBwdChannels];
+  T os[kBwdChunk][kBwdChannels];
+  T bs[kBwdChunk][kNMax];
+  T cs[kBwdChunk][kNMax];
+  float delta[kBwdChunk][kBwdChannels];   // dt (after the softplus)
+  float dtx[kBwdChunk][kBwdChannels];     // dt * x
+  float sig[kBwdChunk][kBwdChannels];     // sigmoid(dt_raw + bias)
+  float gx[kBwdChunk][kBwdChannels];      // the chunk's dx, ddt_raw, dz
+  float gdt[kBwdChunk][kBwdChannels];
+  float gz[kBwdChunk][kBwdChannels];
+  float red[kBwdChunk][kBwdWarps][2][kNMax];   // each warp's dB, dC sums
+  float bias[kBwdChannels];
+  float dskip[kBwdChannels];
+};
+
+// Rows [0, rows) of `cols` columns from c0 of a view (row stride st) into
+// dense shared rows of W; zeros elsewhere (past rows, past cols).
+template <typename T, int W>
+__device__ __forceinline__ void load_tile(T (*dst)[W], const T* src,
+                                          long long st, int rows, int c0,
+                                          int cols, int tid) {
+  for (int i = tid; i < kBwdChunk * W; i += kBwdThreads) {
+    const int t = i / W, c = i % W;
+    dst[t][c] = t < rows && c0 + c < cols ? src[t * st + c0 + c]
+                                          : from_f32<T>(0.f);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+scan_bwd_kernel(const BwdArgs p) {
+  constexpr int L = kLanes, NL = kBwdNL, TC = kBwdChunk;
+  static_assert(2 * NL == 32 / L, "the butterfly scatters a thread's 2 NL "
+                "dB, dC terms over a warp's 32 / L channels");
+  __shared__ BwdSmem<T> sm;
+  const int tid = threadIdx.x;
+  const int lane = tid % L, c = tid / L;        // channel within the block
+  const int warp = tid / 32, wl = tid % 32;
+  const int b = blockIdx.y, blk = blockIdx.x;
+  const int c0 = blk * kBwdChannels, ch = c0 + c;
+  const int d = p.d, n = p.n, len = p.len, chunks = p.chunks;
+  const bool ch_in = ch < d;
+  const unsigned full = 0xffffffffu;
+
+  const T* xg = (const T*)p.x + b * p.x_sb;
+  const T* dg = (const T*)p.dt + b * p.dt_sb;
+  const T* bg = (const T*)p.bm + b * p.b_sb;
+  const T* cg = (const T*)p.cm + b * p.c_sb;
+  const T* zg = (const T*)p.z + b * p.z_sb;
+  const T* og = (const T*)p.dout + b * p.o_sb;
+  const long long state = ((long long)b * d + ch) * n;
+
+  // A (for dA and d(dt)), A * log2 e (the forward's exponent), the state
+  float aneg[NL], a2[NL], h[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int k = lane * NL + i;
+    const bool in = ch_in && k < n;
+    const float av = in ? -expf(p.a_log[(long long)ch * n + k]) : 0.f;
+    aneg[i] = av;
+    a2[i] = av * kLog2e;
+    h[i] = in && p.h0 != nullptr ? p.h0[state + k] : 0.f;
+  }
+  for (int i = tid; i < kBwdChannels; i += kBwdThreads) {
+    const bool in = c0 + i < d;
+    sm.bias[i] = in ? round_to<T>(p.dt_bias[c0 + i]) : 0.f;
+    sm.dskip[i] = in ? p.dskip[c0 + i] : 0.f;
+  }
+
+  // dt (the forward's bfloat16 softplus replay), dt * x and the softplus'
+  // slope of chunk k, from the staged tiles; zeros out of range
+  auto prologue = [&](int rows) {
+    for (int i = tid; i < TC * kBwdChannels; i += kBwdThreads) {
+      const int t = i / kBwdChannels, cc = i % kBwdChannels;
+      float dl = 0.f, dx = 0.f, sg = 0.f;
+      if (t < rows && c0 + cc < d) {
+        const float raw = to_f32(sm.ds[t][cc]);
+        const float xv = to_f32(sm.xs[t][cc]);
+        const float s = round_to<T>(raw + sm.bias[cc]);
+        const float e = round_to<T>(expf(-fabsf(s)));
+        dl = round_to<T>(fmaxf(s, 0.f) + round_to<T>(log1pf(e)));
+        dx = dl * xv;
+        sg = 1.f / (1.f + expf(-s));
+      }
+      sm.delta[t][cc] = dl;
+      sm.dtx[t][cc] = dx;
+      sm.sig[t][cc] = sg;
+    }
+  };
+
+  auto bound_at = [&](int k) {
+    return p.bound + (((long long)b * chunks + k) * d + ch) * n;
+  };
+
+  // 1. forward: the state entering every chunk, to the workspace
+  for (int k = 0; k < chunks; ++k) {
+    if (ch_in) {
+      float* bo = bound_at(k);
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+        if (lane * NL + i < n) bo[lane * NL + i] = h[i];
+    }
+    if (k == chunks - 1) break;        // the last chunk's end is not needed
+    const int t0 = k * TC;
+    __syncthreads();                   // the previous chunk's tiles are read
+    load_tile(sm.xs, xg + t0 * p.x_st, p.x_st, TC, c0, d, tid);
+    load_tile(sm.ds, dg + t0 * p.dt_st, p.dt_st, TC, c0, d, tid);
+    load_tile(sm.bs, bg + t0 * p.b_st, p.b_st, TC, 0, n, tid);
+    __syncthreads();
+    prologue(TC);
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      const float dl = sm.delta[t][c], dx = sm.dtx[t][c];
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const float bv = to_f32(sm.bs[t][lane * NL + i]);
+        h[i] = fmaf(ex2(dl * a2[i]), h[i], dx * bv);
+      }
+    }
+  }
+
+  // 2. reverse, a chunk at a time
+  float carry[NL], dA[NL];
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const int k = lane * NL + i;
+    carry[i] = ch_in && k < n && p.dh_final != nullptr
+                   ? p.dh_final[state + k] : 0.f;
+    dA[i] = 0.f;
+  }
+  float acc_bias = 0.f, acc_d = 0.f;   // lane 0's sums over its channel's t
+  for (int k = chunks - 1; k >= 0; --k) {
+    const int t0 = k * TC, rows = min(TC, len - t0);
+    __syncthreads();                   // the previous chunk's smem is free
+    load_tile(sm.xs, xg + t0 * p.x_st, p.x_st, rows, c0, d, tid);
+    load_tile(sm.ds, dg + t0 * p.dt_st, p.dt_st, rows, c0, d, tid);
+    load_tile(sm.zs, zg + t0 * p.z_st, p.z_st, rows, c0, d, tid);
+    load_tile(sm.os, og + t0 * p.o_st, p.o_st, rows, c0, d, tid);
+    load_tile(sm.bs, bg + t0 * p.b_st, p.b_st, rows, 0, n, tid);
+    load_tile(sm.cs, cg + t0 * p.c_st, p.c_st, rows, 0, n, tid);
+    __syncthreads();
+    prologue(rows);
+    __syncthreads();
+
+    // the chunk's states, recomputed from its boundary as the forward
+    // computes them, and y summed over the lanes in the forward's order
+    float hin[NL], hs[TC][NL], ys[TC];
+    if (ch_in) {
+      const float* bo = bound_at(k);
+#pragma unroll
+      for (int i = 0; i < NL; ++i)
+        hin[i] = lane * NL + i < n ? bo[lane * NL + i] : 0.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NL; ++i) hin[i] = 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      if (t < rows) {
+        const float dl = sm.delta[t][c], dx = sm.dtx[t][c];
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          const float prev = t > 0 ? hs[t > 0 ? t - 1 : 0][i] : hin[i];
+          const float bv = to_f32(sm.bs[t][lane * NL + i]);
+          const float cv = to_f32(sm.cs[t][lane * NL + i]);
+          hs[t][i] = fmaf(ex2(dl * a2[i]), prev, dx * bv);
+          acc = fmaf(hs[t][i], cv, acc);
+        }
+        const int base = wl & ~(L - 1);
+        float y = __shfl_sync(full, acc, base);
+#pragma unroll
+        for (int l = 1; l < L; ++l) y += __shfl_sync(full, acc, base + l);
+        ys[t] = y;
+      }
+    }
+
+    // the reverse recurrence over the chunk
+#pragma unroll
+    for (int t = TC - 1; t >= 0; --t) {
+      if (t < rows) {
+        const float dl = sm.delta[t][c], dxv = sm.dtx[t][c];
+        const float xv = to_f32(sm.xs[t][c]);
+        const float zf = to_f32(sm.zs[t][c]);
+        const float go = to_f32(sm.os[t][c]);
+        const float sz = 1.f / (1.f + expf(-zf));
+        const float gate = zf * sz;
+        const float dy = go * gate;
+        float vals[2 * NL];            // this thread's dB, dC terms
+        float sb = 0.f, sa = 0.f;      // sum_N dh B, sum_N dh h_prev a A
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          const float bv = to_f32(sm.bs[t][lane * NL + i]);
+          const float cv = to_f32(sm.cs[t][lane * NL + i]);
+          const float a = ex2(dl * a2[i]);
+          const float g = fmaf(dy, cv, carry[i]);          // dL/dh_t
+          const float prev = t > 0 ? hs[t > 0 ? t - 1 : 0][i] : hin[i];
+          const float gha = g * prev * a;
+          sb = fmaf(g, bv, sb);
+          sa = fmaf(gha, aneg[i], sa);
+          dA[i] = fmaf(gha, dl, dA[i]);
+          vals[i] = g * dxv;
+          vals[NL + i] = dy * hs[t][i];
+          carry[i] = a * g;
+        }
+        // over the channel's 4 lanes (the same sum on every lane)
+        sb += __shfl_xor_sync(full, sb, 1);
+        sb += __shfl_xor_sync(full, sb, 2);
+        sa += __shfl_xor_sync(full, sa, 1);
+        sa += __shfl_xor_sync(full, sa, 2);
+        // over the warp's 8 channels: a butterfly that leaves the sum of
+        // value (wl >> 2) & 7 on each thread
+#pragma unroll
+        for (int st = 0; st < 3; ++st) {
+          const int half = NL >> st, mask = 16 >> st;
+          const bool upper = (wl & mask) != 0;
+#pragma unroll
+          for (int j = 0; j < half; ++j) {
+            const float send = upper ? vals[j] : vals[j + half];
+            const float keep = upper ? vals[j + half] : vals[j];
+            vals[j] = keep + __shfl_xor_sync(full, send, mask);
+          }
+        }
+        const int sel = (wl >> 2) & 7;
+        sm.red[t][warp][sel / NL][lane * NL + sel % NL] = vals[0];
+        if (lane == 0) {
+          const float ddt = (sa + xv * sb) * sm.sig[t][c];
+          sm.gx[t][c] = dy * sm.dskip[c] + dl * sb;
+          sm.gdt[t][c] = ddt;
+          sm.gz[t][c] =
+              go * (ys[t] + sm.dskip[c] * xv) * (sz + gate * (1.f - sz));
+          acc_bias += ddt;
+          acc_d += dy * xv;
+        }
+      }
+    }
+    __syncthreads();
+
+    // the chunk's dx, ddt_raw, dz in rows; its dB, dC partials
+    for (int i = tid; i < TC * kBwdChannels; i += kBwdThreads) {
+      const int t = i / kBwdChannels, cc = i % kBwdChannels;
+      if (t >= rows || c0 + cc >= d) continue;
+      const long long o = ((long long)b * len + t0 + t) * d + c0 + cc;
+      ((T*)p.dx)[o] = from_f32<T>(sm.gx[t][cc]);
+      ((T*)p.ddt)[o] = from_f32<T>(sm.gdt[t][cc]);
+      ((T*)p.dz)[o] = from_f32<T>(sm.gz[t][cc]);
+    }
+    for (int i = tid; i < 2 * TC * kNMax; i += kBwdThreads) {
+      const int which = i / (TC * kNMax), r = i % (TC * kNMax);
+      const int t = r / kNMax, k2 = r % kNMax;
+      if (t >= rows || k2 >= n) continue;
+      float v = sm.red[t][0][which][k2];
+#pragma unroll
+      for (int w = 1; w < kBwdWarps; ++w) v += sm.red[t][w][which][k2];
+      p.bc_part[((((long long)which * p.batch + b) * p.blocks + blk) * len +
+                 t0 + t) * n + k2] = v;
+    }
+  }
+
+  if (ch_in) {
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      const int k = lane * NL + i;
+      if (k >= n) continue;
+      p.da_part[state + k] = dA[i];
+      if (p.dh0 != nullptr) p.dh0[state + k] = carry[i];
+    }
+    if (lane == 0) {
+      p.vec_part[(long long)b * d + ch] = acc_bias;
+      p.vec_part[((long long)p.batch + b) * d + ch] = acc_d;
+    }
+  }
+}
+
+// Every partial folded in index order: dB, dC over the blocks (rounded to
+// T once), dA_log, d(dt_bias), dD over the batch (float32).
+template <typename T>
+__global__ void scan_bwd_fold(const BwdArgs p) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long seq = (long long)p.batch * p.len * p.n;
+  const long long dn = (long long)p.d * p.n;
+  if (i < 2 * seq) {
+    const int which = (int)(i / seq);
+    const long long r = i % seq;
+    const long long bb = r / ((long long)p.len * p.n);
+    const long long tn = r % ((long long)p.len * p.n);
+    const float* src = p.bc_part +
+                       ((long long)which * p.batch + bb) * p.blocks *
+                           p.len * p.n + tn;
+    float v = 0.f;
+    for (int blk = 0; blk < p.blocks; ++blk)
+      v += src[(long long)blk * p.len * p.n];
+    ((T*)(which ? p.dcm : p.dbm))[r] = from_f32<T>(v);
+  } else if (i < 2 * seq + dn) {
+    const long long j = i - 2 * seq;
+    float v = 0.f;
+    for (int bb = 0; bb < p.batch; ++bb) v += p.da_part[bb * dn + j];
+    p.da_log[j] = -expf(p.a_log[j]) * v;
+  } else if (i < 2 * seq + dn + 2 * (long long)p.d) {
+    const long long j = i - 2 * seq - dn;
+    const int which = (int)(j / p.d);
+    const long long jj = j % p.d;
+    float v = 0.f;
+    for (int bb = 0; bb < p.batch; ++bb)
+      v += p.vec_part[((long long)which * p.batch + bb) * p.d + jj];
+    (which ? p.ddskip : p.ddt_bias)[jj] = v;
+  }
+}
+
+template <typename T>
+int launch_bwd(BwdArgs& p, cudaStream_t stream) {
+  const dim3 grid(p.blocks, p.batch);
+  scan_bwd_kernel<T><<<grid, kBwdThreads, 0, stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long total = 2LL * p.batch * p.len * p.n +
+                          (long long)p.d * p.n + 2LL * p.d;
+  const int threads = 256;
+  scan_bwd_fold<T><<<(unsigned)((total + threads - 1) / threads), threads,
+                     0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -525,6 +934,89 @@ int selective_scan_fused_fwd(
   p.n = n;
   p.step = step;
   return dispatch<true>(p, batch, bf16, (cudaStream_t)stream);
+}
+
+
+// The backward of the fused form over a sequence (not a step).  x, dt
+// (dt_raw), B, C, z and dout: views by their batch and time strides, all
+// float32 or all bfloat16, as the forward's; a_log (d, n), dt_bias and
+// dskip (d,), h0 and dh_final (batch, d, n) float32 contiguous, h0 and
+// dh_final NULL for zeros.  Writes dx, ddt, dz (batch, len, d) and dB, dC
+// (batch, len, n) contiguous in x's type, d(dt_bias), dD (d,), dA_log
+// (d, n) and, when h0 is given, dh0 (batch, d, n) float32 contiguous.
+// work: work_floats float32 elements, at least batch * chunks * d * n +
+// 2 * batch * blocks * len * n + batch * d * n + 2 * batch * d (chunks =
+// ceil(len / chunk), blocks = ceil(d / channels)); chunk and channels must
+// be kBwdChunk and kBwdChannels (else, or with too small a workspace,
+// cudaErrorInvalidValue).  Two launches: the reverse scan, then the fold
+// of its partials.
+int selective_scan_fused_bwd(
+    const void* x, const void* dt, const void* bm, const void* cm,
+    const void* z, const void* a_log, const void* dt_bias, const void* dskip,
+    const void* h0, const void* dout, const void* dh_final, void* dx,
+    void* ddt, void* dbm, void* dcm, void* dz, void* ddt_bias, void* ddskip,
+    void* da_log, void* dh0, void* work, long long work_floats,
+    long long x_sb, long long x_st,
+    long long dt_sb, long long dt_st, long long b_sb, long long b_st,
+    long long c_sb, long long c_st, long long z_sb, long long z_st,
+    long long o_sb, long long o_st, long long batch, long long len, int d,
+    int n, int chunk, int channels, int bf16, void* stream) {
+  if (n < 1 || n > kNMax || chunk != kBwdChunk || channels != kBwdChannels ||
+      batch < 1 || batch >= 65536 || len < 1 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  BwdArgs p = {};
+  p.x = x;
+  p.dt = dt;
+  p.bm = bm;
+  p.cm = cm;
+  p.z = z;
+  p.dout = dout;
+  p.a_log = (const float*)a_log;
+  p.dt_bias = (const float*)dt_bias;
+  p.dskip = (const float*)dskip;
+  p.h0 = (const float*)h0;
+  p.dh_final = (const float*)dh_final;
+  p.dx = dx;
+  p.ddt = ddt;
+  p.dbm = dbm;
+  p.dcm = dcm;
+  p.dz = dz;
+  p.ddt_bias = (float*)ddt_bias;
+  p.ddskip = (float*)ddskip;
+  p.da_log = (float*)da_log;
+  p.dh0 = (float*)dh0;
+  p.x_sb = x_sb;
+  p.x_st = x_st;
+  p.dt_sb = dt_sb;
+  p.dt_st = dt_st;
+  p.b_sb = b_sb;
+  p.b_st = b_st;
+  p.c_sb = c_sb;
+  p.c_st = c_st;
+  p.z_sb = z_sb;
+  p.z_st = z_st;
+  p.o_sb = o_sb;
+  p.o_st = o_st;
+  p.batch = (int)batch;
+  p.len = (int)len;
+  p.d = d;
+  p.n = n;
+  p.chunks = (int)((len + kBwdChunk - 1) / kBwdChunk);
+  p.blocks = (d + kBwdChannels - 1) / kBwdChannels;
+  if (work_floats < batch * p.chunks * (long long)d * n +
+                        2 * batch * p.blocks * len * n +
+                        batch * (long long)d * n + 2 * batch * d)
+    return (int)cudaErrorInvalidValue;
+  float* w = (float*)work;
+  p.bound = w;
+  w += batch * p.chunks * (long long)d * n;
+  p.bc_part = w;
+  w += 2 * batch * p.blocks * len * n;
+  p.da_part = w;
+  w += batch * (long long)d * n;
+  p.vec_part = w;
+  return bf16 ? launch_bwd<__nv_bfloat16>(p, (cudaStream_t)stream)
+              : launch_bwd<float>(p, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -32,10 +32,30 @@ The plain versions (``*_ref``) are the time-major recurrence of
 optional initial state, and the ATen sequence of ``mamba1_block`` that the
 fused form replaces, op for op.  A wrapper takes the plain version only for
 a tensor that lies on the CPU; for a CUDA tensor it launches the kernel or
-raises.  Neither form has a backward kernel yet: on the card, a wrapper
-handed an input that requires a gradient (grad mode on) raises
-``NotImplementedError`` naming ROADMAP Queue A 10b rather than return a
-result cut from the graph.  On the CPU the plain versions differentiate.
+raises.
+
+Training differentiates the fused form over a sequence through
+:class:`SelectiveScanFusedFn`: on the card its forward is the fused
+kernel and its backward a second kernel of the same source
+(``selective_scan_fused_bwd``), which recomputes the forward's states
+rather than store the ``(b, S, D, N)`` trajectory: each block walks its
+channels forward once, keeping the state at every chunk boundary in a
+float32 workspace, then walks the chunks in reverse, recomputes a chunk's
+states from its boundary in registers with the forward's arithmetic (the
+bfloat16 softplus replay, ``exp2`` of ``dt * A * log2 e``) and runs the
+reverse recurrence ``dh_t = a_{t+1} dh_{t+1} + dy_t C_t`` over it.  Sums
+across blocks (``dB, dC`` over the channels, ``dA_log, dD, dt_bias`` over
+the batch) are float32 partials folded by a second launch in a fixed
+order, with no atomics, so two launches give the same bits.  Its plain
+version :func:`selective_scan_fused_bwd_ref` is the same reverse
+recurrence in float32 torch, with the same chunks; the JAX package has no
+backward kernel (it differentiates its plain jnp).  Backward launches
+count in ``selective_scan.bwd_launches``.  On the card a wrapper handed
+an input that requires a gradient (grad mode on) goes through the
+Function, or, for what no training path differentiates — the decode
+step, a state written into ``h_out``, and the plain form — raises
+``NotImplementedError`` naming the ROADMAP rather than return a result
+cut from the graph.  On the CPU the plain versions differentiate.
 """
 from __future__ import annotations
 
@@ -47,9 +67,14 @@ import torch
 from ._build import launch, refuse_grad
 
 N_MAX = 16
-NO_BACKWARD = ("Mamba1 training on the card comes with ROADMAP Queue A 10b "
-               "(the selective_scan_fused backward kernel); train on the "
-               "CPU meanwhile")
+NO_BACKWARD = ("no training path differentiates the decode step, a state "
+               "written into h_out or the plain form; their backward is "
+               "ROADMAP Queue A 10c (the fused form over a sequence, with "
+               "h_out=None, has one: SelectiveScanFusedFn)")
+#: Time steps a chunk and channels a block of the backward kernel
+#: (``kBwdChunk`` and ``kBwdChannels`` in ``csrc/selective_scan.cu``, which
+#: refuses other values); the plain backward takes the same chunks.
+BWD_CHUNK, BWD_CHANNELS = 16, 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -132,6 +157,93 @@ def selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z, h0=None,
     if h_out is not None:
         h = h_out.copy_(h)
     return y.to(x.dtype), h
+
+
+def selective_scan_fused_bwd_ref(x, dt, dt_bias, B, C, A_log, D, z, h0,
+                                 dout, dh_final=None, *,
+                                 chunk: int = BWD_CHUNK) -> tuple:
+    """Gradients of :func:`selective_scan_fused_ref` over a sequence (not a
+    step): the explicit reverse recurrence in float32, not autograd.
+
+    Inputs as the forward's (``h0`` may be None), ``dout`` ``(b, S, D)``
+    the gradient of ``out`` and ``dh_final`` ``(b, D, N)`` that of the
+    final state (None: zero).  Like the kernel, it walks the sequence
+    forward once, keeping the state entering every ``chunk`` steps, then
+    walks the chunks in reverse, recomputing each chunk's states from its
+    boundary, with ``a_t = exp(dt_t A)``, ``y_t = sum_N h_t C_t`` and
+    ``dy = dout * silu(z)``:
+
+    - ``dh_t = a_{t+1} dh_{t+1} + dy_t C_t`` from ``dh_final``;
+    - ``dC_t = sum_D dy_t h_t``, ``dB_t = sum_D dh_t dt_t x_t``;
+    - ``d(dt)_t = sum_N dh_t (A a_t h_{t-1} + x_t B_t)``,
+      ``dx = dy D + dt sum_N dh_t B_t``;
+    - ``dA_log = A sum_{b,t} dh_t dt_t a_t h_{t-1}``, ``dD = sum dy x``;
+    - ``ddt_raw = d(dt) sigmoid(dt_raw + dt_bias)`` (the sum rounded to
+      the inputs' type, as the forward's), ``ddt_bias`` its sum over
+      ``(b, t)``; ``dz = dout (y + D x) silu'(z)``; ``dh0 = a_1 dh_1``.
+
+    Returns ``(dx, ddt, ddt_bias, dB, dC, dA_log, dD, dz, dh0)`` in the
+    forward's argument order: ``dx, ddt, dB, dC, dz`` in the inputs' type
+    (rounded once), the rest float32, ``dh0`` None when ``h0`` is.
+    """
+    io, f32 = x.dtype, torch.float32
+    b, s, d = x.shape
+    n = A_log.shape[-1]
+    xf, zf, Bf, Cf, gof = (t.to(f32) for t in (x, z, B, C, dout))
+    A = -torch.exp(A_log.to(f32))
+    raw = dt + dt_bias.to(io)
+    dtf = softplus(raw).to(f32)
+    sig = torch.sigmoid(raw.to(f32))
+    dtx = dtf * xf
+    Df = D.to(f32)
+    sz = torch.sigmoid(zf)
+    gate = zf * sz
+    dgate = sz * (1 + zf * (1 - sz))                 # silu'(z)
+
+    def step(h, t):
+        a = torch.exp(dtf[:, t, :, None] * A)
+        return a, a * h + dtx[:, t, :, None] * Bf[:, t, None, :]
+
+    h = (torch.zeros((b, d, n), dtype=f32, device=x.device) if h0 is None
+         else h0.to(f32))
+    bounds = []
+    for t in range(s):
+        if t % chunk == 0:
+            bounds.append(h)
+        h = step(h, t)[1]
+    carry = (torch.zeros((b, d, n), dtype=f32, device=x.device)
+             if dh_final is None else dh_final.to(f32))
+    dx, ddt, dz = (torch.empty((b, s, d), dtype=f32, device=x.device)
+                   for _ in range(3))
+    dB, dC = (torch.empty((b, s, n), dtype=f32, device=x.device)
+              for _ in range(2))
+    dA = torch.zeros((b, d, n), dtype=f32, device=x.device)
+    for k in reversed(range(len(bounds))):
+        t0, t1 = k * chunk, min(s, (k + 1) * chunk)
+        hs, decay = [bounds[k]], []
+        for t in range(t0, t1):
+            a, h = step(hs[-1], t)
+            hs.append(h)
+            decay.append(a)
+        for t in reversed(range(t0, t1)):
+            h_t, h_prev, a = hs[t - t0 + 1], hs[t - t0], decay[t - t0]
+            y = torch.einsum("bdn,bn->bd", h_t, Cf[:, t])
+            dy = gof[:, t] * gate[:, t]
+            dz[:, t] = gof[:, t] * (y + Df * xf[:, t]) * dgate[:, t]
+            g = dy[..., None] * Cf[:, t, None, :] + carry      # dL/dh_t
+            dC[:, t] = torch.einsum("bd,bdn->bn", dy, h_t)
+            dB[:, t] = torch.einsum("bdn,bd->bn", g, dtx[:, t])
+            gB = torch.einsum("bdn,bn->bd", g, Bf[:, t])
+            gha = g * h_prev * a
+            dA += gha * dtf[:, t, :, None]
+            ddt[:, t] = ((gha * A).sum(-1) + xf[:, t] * gB) * sig[:, t]
+            dx[:, t] = dy * Df + dtf[:, t] * gB
+            carry = a * g
+    ddt_bias = ddt.sum((0, 1))
+    dD = (gof * gate * xf).sum((0, 1))
+    dA_log = A * dA.sum(0)
+    return (dx.to(io), ddt.to(io), ddt_bias, dB.to(io), dC.to(io), dA_log,
+            dD, dz.to(io), None if h0 is None else carry)
 
 
 def _check(x, dt, B, C, A, h0) -> None:
@@ -273,32 +385,135 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
             raise ValueError(f"unsupported device {x.device}")
         return selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z,
                                         h0, h_out, step=step)
-    refuse_grad("selective_scan_fused", NO_BACKWARD, x, dt, dt_bias, B, C,
-                A_log, D, z, h0)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or dt.requires_grad or dt_bias.requires_grad
+            or B.requires_grad or C.requires_grad or A_log.requires_grad
+            or D.requires_grad or z.requires_grad
+            or (h0 is not None and h0.requires_grad)):
+        if step or h_out is not None:
+            refuse_grad("selective_scan_fused (decode step or h_out)",
+                        NO_BACKWARD, x, dt, dt_bias, B, C, A_log, D, z, h0)
+        return SelectiveScanFusedFn.apply(x, dt, dt_bias, B, C, A_log, D, z,
+                                          h0)
+    return _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
+                           step)
+
+
+def _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
+                    step: bool) -> tuple:
+    """One launch of the fused forward kernel on checked CUDA tensors:
+    ``(out, h)``, ``h`` being ``h_out`` when it is given."""
     if not (dt_bias.is_contiguous() and A_log.is_contiguous()
             and D.is_contiguous()):
         dt_bias, A_log, D = (dt_bias.contiguous(), A_log.contiguous(),
                              D.contiguous())
     if h0 is not None and not h0.is_contiguous():
         h0 = h0.contiguous()
+    shape, n = x.shape, A_log.shape[-1]
+    b, s, d = shape
     out = x.new_empty(shape)
     if h_out is None:
-        h_out = x.new_empty(state, dtype=f32)
-    launch("selective_scan_fused_fwd", index, x.data_ptr(), dt.data_ptr(),
-           B.data_ptr(), C.data_ptr(), z.data_ptr(), A_log.data_ptr(),
-           dt_bias.data_ptr(), D.data_ptr(),
+        h_out = x.new_empty((b, d, n), dtype=torch.float32)
+    launch("selective_scan_fused_fwd", x.get_device(), x.data_ptr(),
+           dt.data_ptr(), B.data_ptr(), C.data_ptr(), z.data_ptr(),
+           A_log.data_ptr(), dt_bias.data_ptr(), D.data_ptr(),
            None if h0 is None else h0.data_ptr(), out.data_ptr(),
            h_out.data_ptr(), x.stride(0), x.stride(1), dt.stride(0),
            dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-           z.stride(0), z.stride(1), b, s, d, n, code, int(step))
+           z.stride(0), z.stride(1), b, s, d, n, _DTYPES[x.dtype], int(step))
     selective_scan.launches += 1
-    selective_scan.shapes["fused", shape, n, io, bool(step)] += 1
+    selective_scan.shapes["fused", shape, n, x.dtype, bool(step)] += 1
     return out, h_out
 
 
-#: Number of kernel launches made by either wrapper (never the plain
-#: versions), and the same count split by input: ``(x shape, N, dtype
-#: name)`` for :func:`selective_scan`, ``("fused", x.shape, N, x.dtype,
-#: step)`` for :func:`selective_scan_fused`.
+def _bwd_work_floats(b: int, s: int, d: int, n: int) -> int:
+    """float32 elements of the backward kernel's workspace: the state at
+    each chunk boundary ``(b, chunks, D, N)``, the per-block partials of
+    ``dB`` and ``dC`` ``(2, b, blocks, S, N)``, and the per-sequence
+    partials of ``dA_log`` ``(b, D, N)`` and of ``ddt_bias, dD``
+    ``(2, b, D)``."""
+    chunks = -(-s // BWD_CHUNK)
+    blocks = -(-d // BWD_CHANNELS)
+    return b * chunks * d * n + 2 * b * blocks * s * n + b * d * n + 2 * b * d
+
+
+def _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
+              dh_final) -> tuple:
+    """One call of the backward kernel (a main launch and a fold) on the
+    forward's checked CUDA inputs: the nine gradients of
+    :func:`selective_scan_fused_bwd_ref`, ``dh0`` None when ``h0`` is.
+    ``dout``, the float32 parameters and the states are copied when their
+    layout needs it."""
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dt_bias, A_log, D, h0, dh_final = (
+        t if t is None or t.is_contiguous() else t.contiguous()
+        for t in (dt_bias, A_log, D, h0, dh_final))
+    b, s, d = x.shape
+    n = A_log.shape[-1]
+    f32 = torch.float32
+    dx, ddt, dz = (x.new_empty((b, s, d)) for _ in range(3))
+    dB, dC = (x.new_empty((b, s, n)) for _ in range(2))
+    ddt_bias, dD = (x.new_empty((d,), dtype=f32) for _ in range(2))
+    dA_log = x.new_empty((d, n), dtype=f32)
+    dh0 = None if h0 is None else x.new_empty((b, d, n), dtype=f32)
+    work = x.new_empty((_bwd_work_floats(b, s, d, n),), dtype=f32)
+    launch("selective_scan_fused_bwd", x.get_device(), x.data_ptr(),
+           dt.data_ptr(), B.data_ptr(), C.data_ptr(), z.data_ptr(),
+           A_log.data_ptr(), dt_bias.data_ptr(), D.data_ptr(),
+           None if h0 is None else h0.data_ptr(), dout.data_ptr(),
+           None if dh_final is None else dh_final.data_ptr(),
+           dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+           dz.data_ptr(), ddt_bias.data_ptr(), dD.data_ptr(),
+           dA_log.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+           work.data_ptr(), work.numel(), x.stride(0), x.stride(1),
+           dt.stride(0), dt.stride(1), B.stride(0), B.stride(1), C.stride(0),
+           C.stride(1), z.stride(0), z.stride(1), dout.stride(0),
+           dout.stride(1), b, s, d, n, BWD_CHUNK, BWD_CHANNELS,
+           _DTYPES[x.dtype])
+    selective_scan.bwd_launches += 1
+    selective_scan.shapes["fused_bwd", x.shape, n, x.dtype] += 1
+    return dx, ddt, ddt_bias, dB, dC, dA_log, dD, dz, dh0
+
+
+class SelectiveScanFusedFn(torch.autograd.Function):
+    """:func:`selective_scan_fused` over a sequence (no step, no
+    ``h_out``) with its gradient: the fused forward kernel, then the
+    backward kernel on the saved inputs (it recomputes the states).  On
+    the CPU both sides are the plain versions, so the Function itself can
+    be tested there.  The gradients of ``out`` and of the final state may
+    each be absent (None: zero)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dt_bias, B, C, A_log, D, z, h0):
+        ctx.set_materialize_grads(False)
+        if x.is_cuda:
+            out, h = _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0,
+                                     None, False)
+        else:
+            out, h = selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D,
+                                              z, h0)
+        ctx.save_for_backward(x, dt, dt_bias, B, C, A_log, D, z, h0)
+        return out, h
+
+    @staticmethod
+    def backward(ctx, dout, dh_final):
+        x, dt, dt_bias, B, C, A_log, D, z, h0 = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(x)
+        if x.is_cuda:
+            return _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
+                             dh_final)
+        return selective_scan_fused_bwd_ref(x, dt, dt_bias, B, C, A_log, D,
+                                            z, h0, dout, dh_final)
+
+
+#: Number of forward kernel launches made by either wrapper (never the
+#: plain versions), of backward calls (``bwd_launches``, one per call of
+#: the backward kernel), and the same counts split by input: ``(x shape,
+#: N, dtype name)`` for :func:`selective_scan`, ``("fused", x.shape, N,
+#: x.dtype, step)`` for :func:`selective_scan_fused`, ``("fused_bwd",
+#: x.shape, N, x.dtype)`` for a backward.
 selective_scan.launches = 0
+selective_scan.bwd_launches = 0
 selective_scan.shapes = Counter()

@@ -12,9 +12,10 @@ dedication, and hands the plan to the loop, which keeps it beside the
 checkpoints as ``plan.json``; microbatch accumulation (``--n-micro``)
 stands in for Pipette's ``bs_micro`` knob.  ``--smoke`` trains the reduced
 config of the arch, ``--layers N`` its first N layers at full width.
-Weights are random, drawn from ``--seed`` on the device.  A Mamba1 arch
-trains on the CPU; on the card its scan has no backward kernel yet and
-raises (ROADMAP Queue A 10b).
+Weights are random, drawn from ``--seed`` on the device.  The dense and
+Mamba1 families train on the card, where each kernel on the path takes its
+gradient from a backward kernel (``rmsnorm_bwd``, ``flash_attention_bwd``,
+``selective_scan_fused_bwd``).
 """
 from __future__ import annotations
 

@@ -5,9 +5,11 @@ branches of :func:`mamba1_block` — the sequence and a decode step — go
 through the fused form of the ``selective_scan`` kernel
 (``selective_scan_fused``: the bias add, softplus, ``-exp(A_log)``, the
 recurrence, the ``D`` skip and the gate in one launch on the card; on the
-CPU the ATen sequence it replaces, op for op).  The reference computes the
-sequence's recurrence as a chunked associative scan, so the two agree to
-float32 rounding.  ``softplus`` and the one-step recurrence
+CPU the ATen sequence it replaces, op for op).  Training takes the
+sequence branch's gradient on the card from the scan's backward kernel,
+through ``SelectiveScanFusedFn``; the decode step is never differentiated.
+The reference computes the sequence's recurrence as a chunked associative
+scan, so the two agree to float32 rounding.  ``softplus`` and the one-step recurrence
 ``selective_scan_step`` live beside the kernel's plain versions in
 ``kernels/selective_scan.py`` and are re-exported here.  Mamba2
 (``ssd_scan``, ``ssd_step``, ``mamba2_block``) waits for the hybrid slice

@@ -16,9 +16,12 @@ points run there too: the live bandwidth probe, the plan server, an
 elastic replan and a churn replay, each equal to the host NumPy backend's
 result.  So does training: the backward kernels of ``rmsnorm`` (both forms)
 and ``flash_attention`` against their plain versions (the bfloat16
-attention backward also bit-equal to itself from launch to launch), the autograd
-Functions the wrappers hand a gradient to, the scan's refusal of one, a
-gradient that reaches every parameter of a dense layer, and a train step
+attention backward also bit-equal to itself from launch to launch), the
+fused scan's backward against its plain version at ragged shapes and at
+falcon-mamba-7b's training microbatch (bit-equal to itself too), the
+autograd Functions the wrappers hand a gradient to, the scan forms that
+still refuse one, a gradient that reaches every parameter of a dense and
+of a Mamba1 layer, a Mamba1 train step's launch counts, and a train step
 against the host's and against itself bit for bit.  Without a CUDA device
 every test here skips with a reason
 (decided inside the test, never at import).  This file imports ``torch``
@@ -845,18 +848,169 @@ def test_functions_are_used_on_the_card_under_grad():
         assert rn.rmsnorm(x, w).grad_fn is None
 
 
-def test_scan_wrappers_refuse_a_gradient_on_the_card():
+#: (b, S, D, N, rank) of the fused scan's backward: S not a multiple of the
+#: kernel's chunk (16), D not a multiple of its 32 channels a block, N at
+#: 1, 5, 7 and 16 (B, C at odd columns of the projection), and the
+#: training microbatch of falcon-mamba-7b (the last).
+SCAN_BWD_SHAPES = [(2, 37, 24, 5, 3), (1, 20, 40, 16, 2), (2, 33, 45, 1, 3),
+                   (1, 17, 100, 16, 4), (2, 64, 32, 8, 2), (3, 5, 9, 7, 1),
+                   (2, 512, 8192, 16, 256)]
+#: Kernel against plain backward, relative to each gradient's largest
+#: magnitude: float32 sums in another order and ``ex2.approx`` in both
+#: recomputes; in bfloat16 an output may round to the neighbouring value.
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _scan_bwd_call(shape, dtype, with_h0, with_dhf):
+    args, h0 = _fused_inputs(shape, dtype, sum(shape))
+    rng = np.random.default_rng(sum(shape) + 1)
+    b, s, d, n, _ = shape
+    dout = _randn(rng, (b, s, d), dtype)
+    dhf = _randn(rng, (b, d, n), torch.float32) if with_dhf else None
+    return (*args, h0 if with_h0 else None), dout, dhf
+
+
+@pytest.mark.parametrize("start", ["zero", "h0+dh", "dh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES, ids=str)
+def test_selective_scan_fused_bwd_kernel_matches_plain(shape, dtype, start):
+    """The nine gradients of the backward kernel against the plain
+    backward, on the model's views; one backward call a call."""
     _need_cuda()
-    from repro_torch.models import mamba
-    cfg = configs.get("falcon-mamba-7b").reduced(n_layers=1)
-    params = init_params(cfg, seed=0, device="cuda")
-    lp = {k: v[0].detach().requires_grad_()
-          for k, v in params["layers"].items()}
-    h = torch.randn(1, 8, cfg.d_model, device="cuda")
-    with pytest.raises(NotImplementedError, match="Queue A 10b"):
-        mamba.mamba1_block(h, lp, cfg)
+    args, dout, dhf = _scan_bwd_call(shape, dtype, "h0" in start,
+                                     "dh" in start)
+    before = ss.selective_scan.bwd_launches
+    got = ss._bwd_cuda(*args, dout, dhf)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.bwd_launches == before + 1
+    want = ss.selective_scan_fused_bwd_ref(*args, dout, dhf)
+    for name, g, w in zip(("x", "dt", "dt_bias", "B", "C", "A_log", "D",
+                           "z", "h0"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= SCAN_BWD_TOL[dtype] * max(
+            float(w.float().abs().max()), 1e-30), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES[:3] + SCAN_BWD_SHAPES[-1:],
+                         ids=str)
+def test_selective_scan_fused_bwd_repeats_bit_for_bit(shape, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    _need_cuda()
+    args, dout, dhf = _scan_bwd_call(shape, dtype, True, True)
+    first = ss._bwd_cuda(*args, dout, dhf)
+    again = ss._bwd_cuda(*args, dout, dhf)
+    torch.cuda.synchronize()
+    for a, c in zip(first, again):
+        assert torch.equal(a, c)
+
+
+def test_scan_function_is_used_on_the_card_under_grad():
+    """The fused wrapper hands a sequence that requires a gradient to
+    ``SelectiveScanFusedFn`` (a forward launch, then a backward call); the
+    step form, ``h_out`` and the plain form refuse, naming the ROADMAP."""
+    _need_cuda()
+    (x, dt, bias, B, C, A_log, D, z), h0 = _fused_inputs((2, 19, 45, 7, 3),
+                                                         torch.float32, 3)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, bias, A_log, D, z)]
+    xl, dtl, bl, al, dl, zl = leaves
+    counts = (ss.selective_scan.launches, ss.selective_scan.bwd_launches)
+    out, h = ss.selective_scan_fused(xl, dtl, bl, B, C, al, dl, zl)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    assert (ss.selective_scan.launches - counts[0],
+            ss.selective_scan.bwd_launches - counts[1]) == (1, 1)
+    assert all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+    with pytest.raises(NotImplementedError, match="Queue A 10c"):
+        ss.selective_scan_fused(xl[:, :1], dtl[:, :1], bl, B[:, :1],
+                                C[:, :1], al, dl, zl[:, :1], h0, step=True)
+    with pytest.raises(NotImplementedError, match="Queue A 10c"):
+        ss.selective_scan_fused(xl, dtl, bl, B, C, al, dl, zl, h0,
+                                torch.empty_like(h0))
+    A = -torch.exp(A_log)
+    with pytest.raises(NotImplementedError, match="Queue A 10c"):
+        ss.selective_scan(xl, dtl.detach(), B.contiguous(), C.contiguous(), A)
     with torch.no_grad():
-        mamba.mamba1_block(h, lp, cfg)
+        assert ss.selective_scan_fused(xl, dtl, bl, B, C, al, dl,
+                                       zl)[0].grad_fn is None
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_backward_reaches_every_parameter_of_a_mamba1_layer(remat):
+    """``loss.backward()`` on a one-layer falcon-mamba-7b on the card:
+    every parameter gets a finite gradient, through the scan's backward
+    kernel (one call) and the norms' (the layer's and the final norm)."""
+    _need_cuda()
+    from repro_torch.launch import steps
+    cfg = configs.get("falcon-mamba-7b").reduced(n_layers=1,
+                                                 dtype="bfloat16",
+                                                 remat=remat)
+    params = init_params(cfg, seed=0, device="cuda")
+    p, flat = steps._leaves_for_grad(params)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), generator=g,
+                         device="cuda")
+    before = (ss.selective_scan.launches, ss.selective_scan.bwd_launches,
+              rn.rmsnorm.bwd_launches)
+    loss, _ = M.loss_fn(p, cfg, ShardCtx(), {"tokens": toks,
+                                             "labels": toks.roll(-1, 1)})
+    loss.backward()
+    assert (ss.selective_scan.launches - before[0],
+            ss.selective_scan.bwd_launches - before[1],
+            rn.rmsnorm.bwd_launches - before[2]) == (2 if remat else 1, 1, 2)
+    for t in flat:
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.float().abs().max()) > 0
+
+
+def test_mamba1_train_step_launch_counts():
+    """One bfloat16 train step of a two-layer falcon-mamba-7b in two
+    microbatches under remat: per microbatch the fused scan runs forward
+    twice a layer and backward once; the norms run 3 plain and 2 (L - 1)
+    residual forwards, 2 plain and L - 1 residual backwards; and a second
+    run repeats the step bit for bit."""
+    _need_cuda()
+    from repro_torch._tree import leaves
+    from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
+                                           SyntheticCorpus)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamW
+    cfg = configs.get("falcon-mamba-7b").reduced(n_layers=2,
+                                                 dtype="bfloat16", remat=True)
+    batch = DataLoader(SyntheticCorpus(cfg.vocab_size, 0),
+                       LoaderConfig(4, 40)).batch_at(0)
+    opt = AdamW(lr=1e-3)
+    outs = []
+    for _ in range(2):
+        params = init_params(cfg, seed=0, device="cuda")
+        step = make_train_step(cfg, ShardCtx(), opt, n_micro=2)
+        ss.selective_scan.shapes.clear()
+        rn.rmsnorm.shapes.clear()
+        outs.append(step(params, opt.init(params), batch))
+        torch.cuda.synchronize()
+        L, micro = cfg.n_layers, 2
+        fwd = sum(v for k, v in ss.selective_scan.shapes.items()
+                  if k[0] == "fused")
+        bwd = sum(v for k, v in ss.selective_scan.shapes.items()
+                  if k[0] == "fused_bwd")
+        assert (fwd, bwd) == (micro * 2 * L, micro * L)
+        norms = {}
+        for k, v in rn.rmsnorm.shapes.items():
+            kind = k[0] if isinstance(k[0], str) else "plain"
+            norms[kind] = norms.get(kind, 0) + v
+        assert norms == {"plain": micro * 3, "add": micro * 2 * (L - 1),
+                         "bwd": micro * 2, "add_bwd": micro * (L - 1)}
+    assert bool(np.isfinite(float(outs[0][2]["loss"])))
+    assert float(outs[0][2]["loss"]) == float(outs[1][2]["loss"])
+    for a, b in zip(leaves(outs[0][:2]), leaves(outs[1][:2])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("remat", [False, True])

@@ -286,6 +286,17 @@ def test_attention_source_uses_no_atomics():
     assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
 
 
+def test_scan_source_uses_no_atomics():
+    """The same rule for the scan's backward: ``dB``, ``dC`` (sums over the
+    channels) and ``dA_log``, ``dD``, ``ddt_bias`` (sums over the batch)
+    leave each block as float32 partials that a second launch folds in
+    index order."""
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    assert "atomicAdd" not in src
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
+    assert "selective_scan_fused_bwd" in src
+
+
 #: Small cases for gradcheck, whose Jacobians take a forward pass per
 #: input element: causal, a window, and rows with no allowed key (rows 4
 #: to 7 of the last).  The plain versions take any head dim.
@@ -313,7 +324,7 @@ MODULES = (rn, fa, ss, gr)
 GUARDED = {"rmsnorm": "RMSNormFn.apply", "add_rmsnorm": "AddRMSNormFn.apply",
            "flash_attention": "FlashAttentionFn.apply",
            "selective_scan": "refuse_grad", "selective_scan_fused":
-           "refuse_grad", "group_min_scale": "refuse_grad",
+           "SelectiveScanFusedFn.apply", "group_min_scale": "refuse_grad",
            "group_min_scale_gather": "refuse_grad",
            "group_max": "refuse_grad", "group_max_gather": "refuse_grad"}
 
@@ -367,12 +378,32 @@ def test_every_launch_is_behind_a_function_or_a_refusal():
 
 
 def test_refusal_names_the_roadmap_item():
+    """What the scan still refuses on the card under a gradient — the
+    decode step, a state written into ``h_out``, the plain form — names
+    its ROADMAP entry; the refusal checks grad mode and the tensors."""
     x = torch.ones(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue A 10b"):
-        _build.refuse_grad("selective_scan_fused", ss.NO_BACKWARD, None, x)
+    with pytest.raises(NotImplementedError, match="Queue A 10c"):
+        _build.refuse_grad("selective_scan_fused (decode step or h_out)",
+                           ss.NO_BACKWARD, None, x)
+    with pytest.raises(NotImplementedError, match="decode step"):
+        _build.refuse_grad("selective_scan", ss.NO_BACKWARD, x)
     _build.refuse_grad("selective_scan_fused", ss.NO_BACKWARD, x.detach())
     with torch.no_grad():
         _build.refuse_grad("selective_scan_fused", ss.NO_BACKWARD, x)
+
+
+def test_fused_scan_refuses_only_the_step_and_h_out_under_a_gradient():
+    """By source: the fused wrapper's CUDA branch refuses a gradient for
+    the step form and ``h_out`` and hands every other input that requires
+    one to ``SelectiveScanFusedFn``; the plain form refuses it outright."""
+    defs = _functions(ss)
+    fused = ast.unparse(defs["selective_scan_fused"])
+    refuse = fused.find("refuse_grad(")
+    assert 0 <= fused.find("if step or h_out is not None:") < refuse \
+        < fused.find("SelectiveScanFusedFn.apply(") < fused.find(
+            "_fused_fwd_cuda(")
+    plain = ast.unparse(defs["selective_scan"])
+    assert 0 <= plain.find("refuse_grad(") < plain.find("launch(")
 
 
 def test_plain_paths_differentiate_on_the_host():
