@@ -20,11 +20,13 @@ failed assertion (non-zero exit, no final line).
 Phases: ``env`` (with the SM count and maximum SM clock that set the
 exponentials' rate of the scan's bound), ``build`` (with the ``ptxas``
 report: the bfloat16 D=128 attention instance must not spill, the scan's
-registers and spills per instance, none of which may spill, the
-registers and spills of the bfloat16 attention backward's three passes at
-every head dim, none of which may spill at D=128, the registers and
-spills of the scan backward's two launches in both types, the bfloat16
-one (the training path's) without a spill, and the cost
+registers and spills per instance — plain, fused, and fused_bound, the
+training forward that keeps the chunk boundaries — none of which may
+spill, the registers and spills of the bfloat16 attention backward's
+three passes at every head dim, none of which may spill at D=128, the
+registers, spills and dynamic shared memory of the scan backward's two
+launches in both types, the bfloat16 one (the training path's) without a
+spill and holding 4 blocks an SM, and the cost
 of reading the stream handle and the device index both ways), ``kernels``
 (group-reduce kernels
 bit-equal at ragged shapes, both forms of ``group_min_scale`` and of
@@ -52,7 +54,9 @@ versions in float32 and bfloat16, with the forward's ``lse``, the bfloat16
 attention backward launched twice for the same bits; the fused scan's
 backward with and without ``h0`` and ``dh_final``, S no multiple of its
 chunk, D no multiple of its block, N in 1, 5, 7, 16, launched twice for
-the same bits in both types; each plain
+the same bits in both types, fed by the forward kernel's chunk
+boundaries, which are held to the plain walk's, and the forward's outputs
+bit-equal to the generation instance's; each plain
 backward against autograd of its plain forward; each autograd Function by
 finite differences in float32; the refusal of a gradient by the scan's
 decode step and its plain form),
@@ -78,8 +82,9 @@ and final parameters bit for bit), ``slice_check_train`` (qwen2-7b at full
 width and 1 layer, 1 x 64 tokens: a step's loss and every leaf's gradient
 on the card against the host's plain path), ``train_falcon_mamba_7b`` and
 ``slice_check_train_falcon_mamba_7b`` (the same two for falcon-mamba-7b:
-4 of its 64 layers; the fused scan forward twice a layer and its backward
-kernel once, both norm forms, counted exactly),
+4 of its 64 layers; the fused scan forward twice a layer, in its instance
+that keeps the chunk boundaries, and its backward kernel once, both norm
+forms, counted exactly),
 ``model_kernels_at_path_shapes`` (the training phases' forward shapes
 too), ``bwd_kernels_at_path_shapes``,
 ``bwd_attention_full_grid`` (the bfloat16 attention backward at qwen2-7b's
@@ -102,9 +107,11 @@ the residual form of ``rmsnorm`` (an ATen add, then the plain form) and
 the fused scan (ATen's bias add, softplus and ``-exp(A_log)``, the plain
 form's kernel or, for a step, ATen's one-step update and the copy into the
 cache row, then the D skip, the gate and the cast).
-Then one ``{"kernels": [...]}`` line for all five kernels and the three
-backward kernels, the ``nvidia-smi`` line, and the final ``{"ok": true,
-...}`` line.
+Then one ``{"kernels": [...]}`` line for all five kernels, the training
+forward of the scan (``selective_scan_fused_bound``, its instance that
+keeps the chunk boundaries, beside the generation instance on the same
+inputs) and the three backward kernels, the ``nvidia-smi`` line, and the
+final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -1035,6 +1042,9 @@ FALCON_SCAN, FALCON_STEP = (4, 512, 8192, 16), (4, 1, 8192, 16)
 #: Threads and channels a block of the scan kernel
 #: (``csrc/selective_scan.cu``: 4 lanes a channel, two channels a thread).
 SCAN_BLOCK_THREADS, SCAN_BLOCK_CHANNELS = 64, 32
+#: Threads of a block of the scan backward's main kernel (``kBwdThreads``)
+#: and the blocks an SM must hold (``kBwdBlocksPerSM``, its launch bound).
+SCAN_BWD_THREADS, SCAN_BWD_BLOCKS_PER_SM = 4 * ss.BWD_CHANNELS, 4
 
 
 def _dtype(name) -> torch.dtype:
@@ -1074,6 +1084,10 @@ def model_inputs(name: str, key: tuple, device) -> tuple:
         return (q, k, v), {"causal": causal, "window": window}
     if key[0] == "fused":
         return fused_inputs(gen, key, device)
+    if key[0] == "fused_bound":      # the training forward: no state given
+        (args, _) = fused_inputs(gen, ("fused",) + tuple(key[1:]) + (False,),
+                                 device)
+        return args[:-2] + (None,), {}
     (b, s, d), n, dt = key
     dt_rank = -(-d // 32)            # d_inner = 2 d_model, dt_rank = d_model/16
     x = _randn(gen, (b, s, d), _dtype(dt), device, 0.5)
@@ -1147,8 +1161,8 @@ def model_bound(name: str, key: tuple, args, outs) -> tuple:
         pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu").sum())
         ops = 4 * qs[0] * qs[1] * qs[3] * pairs
         rate = BF16_OPS_PER_S if "bfloat16" in dt else OPS_PER_S
-    else:                          # either form of the scan
-        x, n = args[0], (key[2] if key[0] == "fused" else key[1])
+    else:                          # any form of the scan
+        x, n = args[0], (key[1] if len(key) == 3 else key[2])
         ops, rate = 7 * x.numel() * n + x.numel(), OPS_PER_S
         if key[0] == "fused":      # h_out is h0: its bytes count once each way
             nbytes -= args[-1].numel() * 4
@@ -1160,6 +1174,22 @@ def model_bound(name: str, key: tuple, args, outs) -> tuple:
     return terms[by] * 1e3, by
 
 
+def fused_bound_kernel(x, dt, dt_bias, B, C, A_log, D, z, h0=None):
+    """The training path's forward of the fused scan (what
+    ``SelectiveScanFusedFn`` launches): the kernel's instance that also
+    keeps the state entering every chunk.  ``(out, h, bounds)``."""
+    bounds = ss._bounds_for(x, A_log.shape[-1])
+    out, h = ss._fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, None,
+                                False, bounds)
+    return out, h, bounds
+
+
+def fused_bound_plain(x, dt, dt_bias, B, C, A_log, D, z, h0=None):
+    """Its plain version: ``(out, h, bounds)``."""
+    return ss.selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z, h0,
+                                       bounds=True)
+
+
 MODEL_CALLS = {
     "rmsnorm": (rn.rmsnorm, rn.rmsnorm_ref),
     "add_rmsnorm": (rn.add_rmsnorm, rn.add_rmsnorm_ref),
@@ -1167,17 +1197,21 @@ MODEL_CALLS = {
     "selective_scan": (ss.selective_scan, ss.selective_scan_ref),
     "selective_scan_fused": (ss.selective_scan_fused,
                              ss.selective_scan_fused_ref),
+    "selective_scan_fused_bound": (fused_bound_kernel, fused_bound_plain),
 }
 
 
 def _form(name: str, key: tuple):
     """The form a shape key names: None for a plain-form key, "add" for
     the residual form of ``rmsnorm``, "fused" / "fused_step" for the fused
-    scan over a sequence / for a decode step."""
+    scan over a sequence / for a decode step, "fused_bound" for its
+    instance that keeps the chunk boundaries (the training forward)."""
     if name == "rmsnorm" and key[0] == "add":
         return "add"
     if name == "selective_scan" and key[0] == "fused":
         return "fused_step" if key[-1] else "fused"
+    if name == "selective_scan" and key[0] == "fused_bound":
+        return "fused_bound"
     return None
 
 
@@ -1191,10 +1225,15 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
     gives each side its own copy of the state it updates in place, and is
     timed beside ``unfused_ms``: its plain version with the plain form's
     kernel for the scan over a sequence (the ATen sequence that
-    ``mamba1_block`` ran before the fused form)."""
+    ``mamba1_block`` ran before the fused form).  A ``("fused_bound",
+    ...)`` key (the training forward) also holds the chunk boundaries
+    within ``TOL_FUSED_STATE`` of the plain walk's, and is timed beside
+    the generation instance on the same inputs (``without_bounds_ms``,
+    ``without_bounds_device_ms``)."""
     form = _form(name, key)
     call = {"add": "add_rmsnorm", "fused": "selective_scan_fused",
-            "fused_step": "selective_scan_fused"}.get(form, name)
+            "fused_step": "selective_scan_fused",
+            "fused_bound": "selective_scan_fused_bound"}.get(form, name)
     kernel, plain = MODEL_CALLS[call]
     args, kw = model_inputs(name, key, device)
     fused = call == "selective_scan_fused"
@@ -1212,9 +1251,9 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         assert torch.equal(got[0], want[0]), (name, key, "s = x + r")
     tol = TOL[name][1 if got[0].dtype == torch.bfloat16 else 0]
     tols = [tol] * len(got)
-    if fused:
+    if fused or form == "fused_bound":
         tol = [2e-2 if got[0].dtype == torch.bfloat16 else 2e-4,
-               TOL_FUSED_STATE]
+               TOL_FUSED_STATE] + [TOL_FUSED_STATE] * (form == "fused_bound")
         tols = tol
     err = 0.0
     for g, w, t in zip(got, want, tols):
@@ -1240,10 +1279,15 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         if fused:
             fns["unfused_ms"] = lambda: plain(*args, scan=ss.selective_scan,
                                               **kw)
+        if form == "fused_bound":
+            without = lambda: ss._fused_fwd_cuda(*args, None, False)  # noqa: E731
+            fns["without_bounds_ms"] = without
         row.update({"library_ms": None,
                     **interleaved(lambda fn: time_ms(fn, reps=0), fns)})
         row.update(device_ms=device_ms(lambda: kernel(*args, **kw)),
                    bound_ms=b_ms, bound_by=b_by)
+        if form == "fused_bound":
+            row["without_bounds_device_ms"] = device_ms(without)
     return row
 
 
@@ -1593,7 +1637,9 @@ def bwd_inputs(name: str, key: tuple, device) -> dict:
     """Random inputs of one backward call at a backward shape key, laid out
     as the training path hands them: attention tensors are ``(B, S, H,
     D)`` views as ``(B, H, S, D)``, and ``out`` and ``lse`` come from the
-    forward kernel."""
+    forward kernel; so do the scan's chunk boundaries (``bounds``), which
+    are held within ``TOL_FUSED_STATE`` of the plain walk's, the forward's
+    outputs bit-equal to the generation instance's."""
     gen = torch.Generator(device=device)
     gen.manual_seed(zlib.crc32(repr(key).encode()))
     if name == "selective_scan_fused_bwd":
@@ -1605,12 +1651,21 @@ def bwd_inputs(name: str, key: tuple, device) -> dict:
                                device)
         x, dt_, bias, B, C, A_log, D, z, h0, _ = args
         b, s, d = x.shape
+        h0 = h0 if with_h0 else None
+        fwd = (x, dt_, bias, B, C, A_log, D, z, h0)
+        out, h, bounds = fused_bound_kernel(*fwd)
+        # the generation instance gives the same bits without them
+        out_g, h_g = ss._fused_fwd_cuda(*fwd, None, False)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_g) and torch.equal(h, h_g), (name, key)
+        want = fused_bound_plain(*fwd)[2]
+        assert bool(((bounds - want).abs() <= TOL_FUSED_STATE * (
+            1 + want.abs())).all()), (name, key, "bounds")
         return {"x": x, "dt": dt_, "dt_bias": bias, "B": B, "C": C,
-                "A_log": A_log, "D": D, "z": z,
-                "h0": h0 if with_h0 else None,
+                "A_log": A_log, "D": D, "z": z, "h0": h0,
                 "dout": _randn(gen, (b, s, d), x.dtype, device),
                 "dh_final": _randn(gen, (b, d, n), torch.float32, device)
-                if with_dhf else None}
+                if with_dhf else None, "bounds": bounds}
     if name == "rmsnorm_bwd":
         shape, xt, wt = key[1], _dtype(key[2]), _dtype(key[3])
         with_ds = key[0] == "add_bwd" and key[4]
@@ -1640,7 +1695,7 @@ def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
     if name == "selective_scan_fused_bwd":
         args = [a[k] for k in ("x", "dt", "dt_bias", "B", "C", "A_log", "D",
                                "z", "h0", "dout", "dh_final")]
-        return (lambda: ss._bwd_cuda(*args),
+        return (lambda: ss._bwd_cuda(*args, a["bounds"]),
                 lambda: ss.selective_scan_fused_bwd_ref(*args), None,
                 "none (no single PyTorch call computes this backward)")
     if name == "rmsnorm_bwd":
@@ -1707,8 +1762,11 @@ def bwd_bound(name: str, key: tuple, a: dict, outs) -> tuple:
     pairs the mask allows, ``10 B H D pairs``, at the tensor-core rate for
     bfloat16 inputs (the kernel itself uses the CUDA cores); the scan's
     its ``b S D N`` exponentials, one a state, at the special function
-    units' rate (``EXP_PER_S``), as the forward's bound counts them."""
-    ins = [t for t in a.values() if isinstance(t, torch.Tensor)]
+    units' rate (``EXP_PER_S``), as the forward's bound counts them.  The
+    scan's chunk boundaries are the forward's output, saved for this call
+    by this design, and not an input of the function: not counted."""
+    ins = [t for k, t in a.items() if isinstance(t, torch.Tensor)
+           and k != "bounds"]
     nbytes = sum(t.numel() * t.element_size()
                  for t in ins + [o for o in outs if o is not None])
     if name == "selective_scan_fused_bwd":
@@ -2050,8 +2108,9 @@ def train_launches(cfg) -> tuple:
     norm, then each layer's blocks (twice under remat) — a dense layer 2
     norms (the first layer's first plain, every other residual) and the
     attention, a Mamba1 layer 1 norm (plain in the first layer) and the
-    fused scan — and the final plain norm; a backward one of each, the
-    residual norms' with the stream's gradient."""
+    fused scan, in its instance that keeps the chunk boundaries — and the
+    final plain norm; a backward one of each, the residual norms' with
+    the stream's gradient."""
     L, micro, per = cfg.n_layers, TRAIN_MICRO, TRAIN_STEPS * TRAIN_MICRO
     bf = torch.bfloat16
     mb = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model)
@@ -2085,7 +2144,9 @@ def train_launches(cfg) -> tuple:
         n = cfg.ssm_state
         want["selective_scan"] = per * 2 * L
         want_bwd["selective_scan_fused_bwd"] = per * L
-        shapes["selective_scan"] = {("fused", x_shape, n, bf, False):
+        # every forward goes through SelectiveScanFusedFn, remat's
+        # recompute too: the instance that keeps the chunk boundaries
+        shapes["selective_scan"] = {("fused_bound", x_shape, n, bf):
                                     per * 2 * L,
                                     ("fused_bwd", x_shape, n, bf): per * L}
         step.update(selective_scan_fused_fwd=2 * L * micro,
@@ -2318,10 +2379,13 @@ def ptxas_table(log: str, label) -> dict:
 
 def scan_ptxas(log: str) -> dict:
     """``ptxas_table`` of every instance of the scan kernel, keyed
-    "<type> <form>"."""
+    "<type> <form>": plain, fused, and fused_bound (the fused form's
+    instance that keeps the chunk boundaries)."""
+    forms = {"Lb0ELb0E": "plain", "Lb1ELb0E": "fused",
+             "Lb1ELb1E": "fused_bound"}
     return ptxas_table(log, lambda name: (
         f"{'bf16' if 'bfloat16' in name else 'f32'} "
-        f"{'fused' if 'Lb1E' in name else 'plain'}")
+        f"{next(f for k, f in forms.items() if k in name)}")
         if "scan_kernel" in name else None)
 
 
@@ -2443,7 +2507,7 @@ def host_cost(device, max_key: tuple) -> dict:
             c_x.data_ptr(), c_max.data_ptr(), b, pp, nc, stream), 2),
         "selective_scan_fused": ("selective_scan_fused_fwd", (
             *(scan_args[i].data_ptr() for i in (0, 1, 3, 4, 7, 5, 2, 6, 8)),
-            scan_out.data_ptr(), scan_args[9].data_ptr(),
+            scan_out.data_ptr(), scan_args[9].data_ptr(), None,
             *(v for t in (scan_args[0], scan_args[1], scan_args[3],
                           scan_args[4], scan_args[7])
               for v in t.stride()[:2]),
@@ -2522,13 +2586,30 @@ def main() -> int:
             if "flash_fwd_bf16_mma" in k and "ILi128E" in k]
     assert d128 == [(0, 0)] * 2, ("bf16 D=128 attention spills", d128)
     scan_regs = scan_ptxas(log)
-    assert len(scan_regs) == 2 * 2, scan_regs       # 2 types x 2 forms
+    assert len(scan_regs) == 2 * 3, scan_regs       # 2 types x 3 forms
     assert all(v["spill_bytes"] == [0, 0] for v in scan_regs.values()), \
         ("a scan instance spills", scan_regs)
     scan_bwd_regs = scan_bwd_ptxas(log)
     assert len(scan_bwd_regs) == 2 * 2, scan_bwd_regs   # 2 types x 2 kernels
     assert scan_bwd_regs["bf16 main"]["spill_bytes"] == [0, 0], \
         ("the bf16 scan backward spills", scan_bwd_regs)
+    # its main kernel: SCAN_BWD_BLOCKS_PER_SM blocks (16 warps) an SM, so
+    # the training shape's 512 blocks run in one wave — by the registers
+    # and the (dynamic) shared memory, and by the runtime's calculator
+    scan_bwd_resident = {}
+    for t, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        smem, blocks = ss.bwd_occupancy(dt)
+        main_k = scan_bwd_regs[f"{t} main"]
+        main_k["dynamic_smem"] = smem
+        scan_bwd_resident[t] = {
+            "by_registers_and_smem": resident_blocks(
+                main_k["registers"], main_k["smem"] + smem,
+                SCAN_BWD_THREADS),
+            "cuda_occupancy": blocks}
+    assert min(scan_bwd_resident["bf16"].values()) >= \
+        SCAN_BWD_BLOCKS_PER_SM, ("the bf16 scan backward holds fewer "
+                                 "blocks an SM", scan_bwd_resident,
+                                 scan_bwd_regs)
     bwd_regs = attention_bwd_ptxas(log)
     assert len(bwd_regs) == 3 * 5, bwd_regs          # 3 passes x 5 dims
     # and so does its backward at the model's head dim
@@ -2544,6 +2625,7 @@ def main() -> int:
           "attention_bf16_d128_spill_bytes": list(d128[0]),
           "scan_ptxas": scan_regs,
           "scan_bwd_ptxas": scan_bwd_regs,
+          "scan_bwd_resident_blocks_per_sm": scan_bwd_resident,
           "attention_bwd_bf16_ptxas": bwd_regs,
           **launch_path_reads_us(),
           "ptxas": [ln.strip() for ln in log.splitlines()
@@ -2675,6 +2757,34 @@ def main() -> int:
                    if "unfused_ms" in top else {}),
                 "forms": forms, "per_shape": mine}
 
+    def summary_bound():
+        """The fused scan's training forward in a line of its own: the
+        instance that also keeps the chunk boundaries for the backward
+        kernel (all of the training phases' forward launches of the
+        scan), at its most launched shape, beside the generation
+        instance on the same inputs (``without_bounds_*``)."""
+        mine = [r for r in model_rows if r["name"] == "selective_scan"
+                and r.get("form") == "fused_bound"]
+        launches = sum(launched(r) for r in mine)
+        assert launches == sum(
+            n for by in fwd_tr.values()
+            for k, n in by["selective_scan"].items()
+            if k[0] == "fused_bound") > 0, "no boundary-keeping forward"
+        top = max(mine, key=launched)
+        return {"name": "selective_scan_fused_bound", "route": "cuda",
+                "source": SOURCES["selective_scan"],
+                "replaces": KERNELS["selective_scan"],
+                "instance_of": "selective_scan, fused form over a sequence "
+                               "(keeps the chunk boundaries that "
+                               "selective_scan_fused_bwd reads)",
+                "shape": top["key"], "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                **{k: top[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "without_bounds_ms",
+                    "without_bounds_device_ms")},
+                "per_shape": mine}
+
     def summary_bwd(name):
         """One line per backward kernel: its launches in the training
         phases and the times at its most launched shape.  It replaces no
@@ -2697,7 +2807,7 @@ def main() -> int:
                 "bound_by": top["bound_by"],
                 "library_ms": top["library_ms"], "per_shape": mine}
 
-    emit({"kernels": [summary(name) for name in KERNELS]
+    emit({"kernels": [summary(name) for name in KERNELS] + [summary_bound()]
           + [summary_bwd(name) for name in BWD_KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -178,18 +178,20 @@ def load_library() -> ctypes.CDLL:
         + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
         # selective_scan.cu: (x, dt, B, C, A, h0, y, h_out,
         #   4 x (batch, time) strides, batch, len, d, n, bf16, stream) and
-        #   (x, dt, B, C, z, A_log, dt_bias, D, h0, out, h_out,
+        #   (x, dt, B, C, z, A_log, dt_bias, D, h0, out, h_out, bound,
         #   5 x (batch, time) strides, batch, len, d, n, bf16, step, stream)
         "selective_scan_fwd": [vp] * 8 + [ll] * 8
         + [ll, ll, ci, ci, ci, vp],
-        "selective_scan_fused_fwd": [vp] * 11 + [ll] * 10
+        "selective_scan_fused_fwd": [vp] * 12 + [ll] * 10
         + [ll, ll, ci, ci, ci, ci, vp],
-        # (x, dt, B, C, z, A_log, dt_bias, D, h0, dout, dh_final, dx, ddt,
-        #  dB, dC, dz, ddt_bias, dD, dA_log, dh0, work, work elements,
+        # (x, dt, B, C, z, A_log, dt_bias, D, h0, dout, dh_final, bound, dx,
+        #  ddt, dB, dC, dz, ddt_bias, dD, dA_log, dh0, work, work elements,
         #  6 x (batch, time) strides, batch, len, d, n, chunk, channels,
         #  bf16, stream)
-        "selective_scan_fused_bwd": [vp] * 21 + [ll] * 13
+        "selective_scan_fused_bwd": [vp] * 22 + [ll] * 13
         + [ll, ll, ci, ci, ci, ci, ci, vp],
+        # (bf16, &smem bytes, &blocks an SM): no launch, no stream
+        "selective_scan_fused_bwd_occupancy": [ci, vp, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

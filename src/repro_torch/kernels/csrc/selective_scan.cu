@@ -26,7 +26,10 @@
 // to float32 rounding; the gate, which only feeds `out`, takes __expf
 // and __fdividef (a few ulp).
 // h_out may be h0 itself: every lane reads its states before it writes
-// them, and no other thread touches them.
+// them, and no other thread touches them.  Given a `bound` buffer (the
+// training path, over a sequence), a third instance (BOUND) also stores
+// each lane's float32 state entering every chunk of kChunk steps, for the
+// backward; generation launches the two others, compiled as before.
 //
 // Bound: the exponentials.  Each (t, d) takes N of them, b*S*D*N in all
 // (268 M for falcon-mamba-7b at batch 4, prompt 512), and the special
@@ -77,28 +80,45 @@
 // Bound: the same b*S*D*N exponentials as the forward (0.032 ms for
 // falcon-mamba-7b's training microbatch, 2 x 512 x 8192 x 16, on an
 // H100), just above its bytes (0.035 ms: x, dt, z, dout read and dx,
-// ddt, dz written in bfloat16).  Design (simple first; the ROADMAP has its
-// redesign):
-//  * The forward's states are recomputed, never stored: a block of
-//    kBwdChannels channels (4 lanes a channel, one channel a thread) walks
-//    the sequence forward once and writes the state entering every chunk
-//    of kBwdChunk steps to a float32 workspace (b, chunks, D, N), each
-//    thread its own values; then it walks the chunks in reverse, reads the
-//    chunk's boundary back, recomputes the chunk's states into registers
-//    with the forward's arithmetic (the bfloat16 softplus replay, one
-//    ex2.approx of dt * A * log2 e and one fmaf a state and step, y summed
-//    over the lanes in the forward's order), and runs the reverse
-//    recurrence over them, computing a_t again.
+// ddt, dz written in bfloat16).  A direct design (a thread's chunk of
+// states in registers, a forward walk to find the chunk boundaries, plain
+// loads, per-channel work on every lane) is bound far above that by
+// latency: 224 registers leave 8 warps an SM.  Design:
+//  * The forward hands over its chunk boundaries: the fused forward's
+//    BOUND instance (what the training path launches) stores the float32
+//    state entering every kChunk (= kBwdChunk) steps, (b, chunks, D, N),
+//    with the arithmetic this kernel recomputes with.  No forward walk.
+//  * A block of kBwdChannels channels, 4 lanes a channel (N/4 states a
+//    thread), walks the chunks in reverse.  The states are recomputed from
+//    the chunk's boundary with the forward's arithmetic (the bfloat16
+//    softplus replay, one ex2.approx of dt * A * log2 e and one fmaf a
+//    state and step, y summed over the lanes in the forward's order) in
+//    halves of kBwdHalf steps: the first half walked to its end, its
+//    states kept in shared memory; the second half's recomputed into
+//    registers and walked back; then the first half's.  Two ex2 a state
+//    and step (the reverse computes a_t again), and a thread holds 8 steps
+//    of states, so 128 registers do: kBwdBlocksPerSM (4) blocks, 16 warps,
+//    an SM, and the training shape's 512 blocks run in one wave.  Its
+//    shared memory (53 KB in bfloat16) is dynamic, the SM's carveout at its
+//    largest.
+//  * Per (t, channel) work is done once for the block, not on every lane:
+//    a prologue turns the chunk's tiles into dt, dt * x, dy = dout
+//    silu(z), the softplus' slope and silu'(z) (and B, C into float32,
+//    zeros past the chunk's rows, which makes a step past them a no-op:
+//    no branch between steps); a store pass after the walks forms dx,
+//    d(dt_raw) and dz in coalesced rows and the sums of d(dt_bias) and dD.
+//    A reverse step holds the per-state recurrence, the sums over the
+//    channel's 4 lanes (shuffles) and over the warp's 8 channels.
+//  * Tiles arrive by cp.async into a ring of kBwdStages slots: chunk k-1's
+//    (x, dt, z, dout, B, C) are in flight while chunk k is walked; the
+//    boundary of chunk k-1 is loaded into registers meanwhile.
 //  * No float atomics: dB and dC (sums over D) leave each block as float32
 //    partials (2, b, blocks, S, N), summed first over a warp's 8 channels
 //    by a butterfly of shuffles and then over the block's 4 warps in
 //    order; dA_log, dD and d(dt_bias) (sums over the batch) as per-sequence
-//    partials.  A second launch folds every partial in index order.  So
-//    two launches give the same bits, which a bitwise training resume
-//    needs.
-//  * Inputs are staged a chunk at a time into shared memory by plain loads
-//    (zeros past the sequence, the channels and N); the chunk's dx, ddt
-//    and dz leave in coalesced rows.
+//    partials.  A second launch folds every partial in a fixed order (dB,
+//    dC by kFoldSplit slices of the blocks a output).  So two launches give
+//    the same bits, which a bitwise training resume needs.
 //
 // Plain C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
@@ -176,6 +196,8 @@ struct Args {
   const float* dskip;       // fused form only
   const float* h0;          // may be h_out itself, or NULL
   float* h_out;
+  float* bound;             // (batch, chunks, d, n): the state entering
+                            // each chunk (the BOUND instance only)
   void* y;                  // float32 (plain) or x's type (fused)
   long long x_sb, x_st, dt_sb, dt_st, b_sb, b_st, c_sb, c_st, z_sb, z_st;
   int len, d, n;
@@ -274,8 +296,9 @@ __device__ __forceinline__ void load_f32(float (&v)[N], const T* p) {
 }
 
 // L lanes share each channel's states; a thread holds K neighbouring
-// channels (their N/L states each).
-template <typename T, bool FUSED>
+// channels (their N/L states each).  BOUND (the fused form over a sequence
+// under a gradient) also stores the float32 state entering every chunk.
+template <typename T, bool FUSED, bool BOUND>
 __global__ void __launch_bounds__(kChannels * kLanes / kPerThread)
 scan_kernel(const Args p) {
   constexpr int L = kLanes, K = kPerThread;
@@ -396,6 +419,28 @@ scan_kernel(const Args p) {
     }
   };
 
+  // the state entering chunk k, for the backward: a lane's NL states in
+  // one 16-byte store where N is a multiple of 4, else one by one
+  auto store_bound = [&](int k) {
+    static_assert(NL == 4, "a lane's states are one float4");
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int ch = c0 + cl + j;
+      if (ch >= d) continue;
+      float* bo = p.bound + (((long long)b * chunks + k) * d + ch) * n +
+                  lane * NL;
+      if (n % 4 == 0) {
+        if (lane * NL < n)
+          *reinterpret_cast<float4*>(bo) =
+              make_float4(h[j][0], h[j][1], h[j][2], h[j][3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NL; ++i)
+          if (lane * NL + i < n) bo[i] = h[j][i];
+      }
+    }
+  };
+
   // a step reads this lane's B and C straight from the ring slot; a
   // channel out of range runs on zeros and stores nothing
   auto compute = [&](int k) {
@@ -432,6 +477,7 @@ scan_kernel(const Args p) {
     prologue(k);
     __syncthreads();                      // slot k-1 and sm.ys are free
     issue(k + 2);
+    if constexpr (BOUND) store_bound(k);
     compute(k);
   }
   cp_async_wait<0>();
@@ -462,7 +508,7 @@ int copy_bytes(const void* ptr, long long sb, long long st, long long cols,
   return 0;
 }
 
-template <typename T, bool FUSED>
+template <typename T, bool FUSED, bool BOUND>
 int launch(Args& p, long long batch, cudaStream_t stream) {
   const int es = (int)sizeof(T);
   p.vx = copy_bytes(p.x, p.x_sb, p.x_st, p.d, es);
@@ -471,7 +517,7 @@ int launch(Args& p, long long batch, cudaStream_t stream) {
   p.vc = copy_bytes(p.cm, p.c_sb, p.c_st, p.n, es);
   p.vz = FUSED ? copy_bytes(p.z, p.z_sb, p.z_st, p.d, es) : 0;
   const dim3 grid((p.d + kChannels - 1) / kChannels, (unsigned)batch);
-  scan_kernel<T, FUSED>
+  scan_kernel<T, FUSED, BOUND>
       <<<grid, kChannels * kLanes / kPerThread, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -479,8 +525,11 @@ int launch(Args& p, long long batch, cudaStream_t stream) {
 template <bool FUSED>
 int dispatch(Args& p, long long batch, int bf16, cudaStream_t stream) {
   if (p.n < 1 || p.n > kNMax) return (int)cudaErrorInvalidValue;
-  return bf16 ? launch<__nv_bfloat16, FUSED>(p, batch, stream)
-              : launch<float, FUSED>(p, batch, stream);
+  if (p.bound != nullptr)       // the fused form over a sequence only
+    return bf16 ? launch<__nv_bfloat16, true, true>(p, batch, stream)
+                : launch<float, true, true>(p, batch, stream);
+  return bf16 ? launch<__nv_bfloat16, FUSED, false>(p, batch, stream)
+              : launch<float, FUSED, false>(p, batch, stream);
 }
 
 
@@ -489,10 +538,15 @@ int dispatch(Args& p, long long batch, int bf16, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdChannels = 32;                 // channels per block
-constexpr int kBwdChunk = 16;                    // time steps per chunk
+constexpr int kBwdChunk = kChunk;                // the forward's boundaries
+constexpr int kBwdHalf = kBwdChunk / 2;          // states a thread holds
+constexpr int kBwdStages = 2;                    // ring slots
 constexpr int kBwdNL = kNMax / kLanes;           // states a lane holds
 constexpr int kBwdThreads = kBwdChannels * kLanes;
 constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdBlocksPerSM = 4;               // 16 warps: <= 128 registers
+constexpr int kFoldOut = 32, kFoldSplit = 8;     // the fold's block: outputs
+                                                 // x slices of the partials
 
 struct BwdArgs {
   const void* x;
@@ -506,6 +560,7 @@ struct BwdArgs {
   const float* dskip;
   const float* h0;          // or NULL
   const float* dh_final;    // or NULL
+  const float* bound;       // (batch, chunks, d, n), from the forward
   void* dx;
   void* ddt;
   void* dbm;
@@ -515,54 +570,54 @@ struct BwdArgs {
   float* ddskip;
   float* da_log;
   float* dh0;               // or NULL
-  float* bound;             // (batch, chunks, d, n)
   float* bc_part;           // (2, batch, blocks, len, n): dB, dC
   float* da_part;           // (batch, d, n)
   float* vec_part;          // (2, batch, d): d(dt_bias), dD
   long long x_sb, x_st, dt_sb, dt_st, b_sb, b_st, c_sb, c_st, z_sb, z_st,
       o_sb, o_st;
   int batch, len, d, n, chunks, blocks;
+  int vx, vdt, vb, vc, vz, vo;  // copy width of each view: 16, 4 or 0 bytes
 };
 
+// The ring slots (in the inputs' type); what the chunk's prologue computes
+// once per (t, channel); what its walks leave for the store pass.
 template <typename T>
 struct __align__(16) BwdSmem {
-  T xs[kBwdChunk][kBwdChannels];
-  T ds[kBwdChunk][kBwdChannels];
-  T zs[kBwdChunk][kBwdChannels];
-  T os[kBwdChunk][kBwdChannels];
-  T bs[kBwdChunk][kNMax];
-  T cs[kBwdChunk][kNMax];
-  float delta[kBwdChunk][kBwdChannels];   // dt (after the softplus)
-  float dtx[kBwdChunk][kBwdChannels];     // dt * x
-  float sig[kBwdChunk][kBwdChannels];     // sigmoid(dt_raw + bias)
-  float gx[kBwdChunk][kBwdChannels];      // the chunk's dx, ddt_raw, dz
-  float gdt[kBwdChunk][kBwdChannels];
-  float gz[kBwdChunk][kBwdChannels];
+  T xs[kBwdStages][kBwdChunk][kBwdChannels];
+  T ds[kBwdStages][kBwdChunk][kBwdChannels];
+  T zs[kBwdStages][kBwdChunk][kBwdChannels];
+  T os[kBwdStages][kBwdChunk][kBwdChannels];
+  T bs[kBwdStages][kBwdChunk][kNMax];
+  T cs[kBwdStages][kBwdChunk][kNMax];
+  // dt (after the softplus), dt * x, dy = dout silu(z), sigmoid(dt_raw +
+  // bias): the softplus' slope
+  float4 step[kBwdChunk][kBwdChannels];
+  float dsilu[kBwdChunk][kBwdChannels];   // silu'(z)
+  // the chunk's B and C in float32, zeros past its rows and past n
+  float bf[kBwdChunk][kNMax];
+  float cf[kBwdChunk][kNMax];
+  float ys[kBwdChunk][kBwdChannels];      // the forward's y
+  float2 sums[kBwdChunk][kBwdChannels];   // sum_N dh B, sum_N dh h a A
+  float4 hfirst[kBwdHalf][kBwdThreads];   // the first half's states
   float red[kBwdChunk][kBwdWarps][2][kNMax];   // each warp's dB, dC sums
+  // d(dt_bias), dD of each channel by the store pass' rows of threads
+  float acc[2][kBwdThreads / kBwdChannels][kBwdChannels];
   float bias[kBwdChannels];
   float dskip[kBwdChannels];
 };
 
-// Rows [0, rows) of `cols` columns from c0 of a view (row stride st) into
-// dense shared rows of W; zeros elsewhere (past rows, past cols).
-template <typename T, int W>
-__device__ __forceinline__ void load_tile(T (*dst)[W], const T* src,
-                                          long long st, int rows, int c0,
-                                          int cols, int tid) {
-  for (int i = tid; i < kBwdChunk * W; i += kBwdThreads) {
-    const int t = i / W, c = i % W;
-    dst[t][c] = t < rows && c0 + c < cols ? src[t * st + c0 + c]
-                                          : from_f32<T>(0.f);
-  }
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
 scan_bwd_kernel(const BwdArgs p) {
-  constexpr int L = kLanes, NL = kBwdNL, TC = kBwdChunk;
+  constexpr int L = kLanes, NL = kBwdNL, TC = kBwdChunk, TH = kBwdHalf;
   static_assert(2 * NL == 32 / L, "the butterfly scatters a thread's 2 NL "
                 "dB, dC terms over a warp's 32 / L channels");
-  __shared__ BwdSmem<T> sm;
+  static_assert(kBwdThreads % kBwdChannels == 0, "the store pass keeps a "
+                "channel per thread");
+  static_assert(NL == 4, "a lane's states are one float4");
+  constexpr int kRows = kBwdThreads / kBwdChannels;   // its rows of threads
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  BwdSmem<T>& sm = *reinterpret_cast<BwdSmem<T>*>(bwd_smem);
   const int tid = threadIdx.x;
   const int lane = tid % L, c = tid / L;        // channel within the block
   const int warp = tid / 32, wl = tid % 32;
@@ -580,8 +635,9 @@ scan_bwd_kernel(const BwdArgs p) {
   const T* og = (const T*)p.dout + b * p.o_sb;
   const long long state = ((long long)b * d + ch) * n;
 
-  // A (for dA and d(dt)), A * log2 e (the forward's exponent), the state
-  float aneg[NL], a2[NL], h[NL];
+  // A (for dA and d(dt)), A * log2 e (the forward's exponent), the
+  // gradient of the state (from dh_final) and the sums of dA
+  float aneg[NL], a2[NL], carry[NL], dA[NL];
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     const int k = lane * NL + i;
@@ -589,7 +645,8 @@ scan_bwd_kernel(const BwdArgs p) {
     const float av = in ? -expf(p.a_log[(long long)ch * n + k]) : 0.f;
     aneg[i] = av;
     a2[i] = av * kLog2e;
-    h[i] = in && p.h0 != nullptr ? p.h0[state + k] : 0.f;
+    carry[i] = in && p.dh_final != nullptr ? p.dh_final[state + k] : 0.f;
+    dA[i] = 0.f;
   }
   for (int i = tid; i < kBwdChannels; i += kBwdThreads) {
     const bool in = c0 + i < d;
@@ -597,144 +654,141 @@ scan_bwd_kernel(const BwdArgs p) {
     sm.dskip[i] = in ? p.dskip[c0 + i] : 0.f;
   }
 
-  // dt (the forward's bfloat16 softplus replay), dt * x and the softplus'
-  // slope of chunk k, from the staged tiles; zeros out of range
-  auto prologue = [&](int rows) {
+  // chunk k's tiles into its ring slot; an empty group before the first
+  auto issue = [&](int k) {
+    if (k >= 0) {
+      const int t0 = k * TC, rows = min(TC, len - t0);
+      const int slot = k % kBwdStages;
+      stage<kBwdThreads>(sm.xs[slot], xg + t0 * p.x_st, p.x_st, rows, c0, d,
+                         p.vx, tid);
+      stage<kBwdThreads>(sm.ds[slot], dg + t0 * p.dt_st, p.dt_st, rows, c0,
+                         d, p.vdt, tid);
+      stage<kBwdThreads>(sm.zs[slot], zg + t0 * p.z_st, p.z_st, rows, c0, d,
+                         p.vz, tid);
+      stage<kBwdThreads>(sm.os[slot], og + t0 * p.o_st, p.o_st, rows, c0, d,
+                         p.vo, tid);
+      stage<kBwdThreads>(sm.bs[slot], bg + t0 * p.b_st, p.b_st, rows, 0, n,
+                         p.vb, tid);
+      stage<kBwdThreads>(sm.cs[slot], cg + t0 * p.c_st, p.c_st, rows, 0, n,
+                         p.vc, tid);
+    }
+    cp_async_commit();
+  };
+
+  // this lane's part of the state entering chunk k, as the forward wrote it
+  auto load_bound = [&](int k, float (&h)[NL]) {
+    const float* bo = p.bound + (((long long)b * chunks + k) * d + ch) * n;
+#pragma unroll
+    for (int i = 0; i < NL; ++i)
+      h[i] = ch_in && lane * NL + i < n ? bo[lane * NL + i] : 0.f;
+  };
+
+  float hin[NL], hnext[NL];
+  load_bound(chunks - 1, hnext);
+  issue(chunks - 1);
+  // the sums over t of the store pass' channel (tid % kBwdChannels) in the
+  // rows t = tid / kBwdChannels + kRows j
+  float acc_bias = 0.f, acc_d = 0.f;
+  for (int k = chunks - 1; k >= 0; --k) {
+    const int t0 = k * TC, rows = min(TC, len - t0);
+    const int slot = k % kBwdStages;
+    cp_async_wait<0>();                // chunk k has landed
+    __syncthreads();                   // ... for every thread; chunk k+1's
+                                       // slot and scratch are free
+    issue(k - 1);
+#pragma unroll
+    for (int i = 0; i < NL; ++i) hin[i] = hnext[i];
+    if (k > 0) load_bound(k - 1, hnext);   // read during this chunk
+
+    // once per (t, channel): dt (the forward's bfloat16 softplus replay),
+    // dt * x, dy, the softplus' slope and silu'(z); zeros out of range, so
+    // that a step past the chunk's rows leaves the states and the carried
+    // gradient as they are (a = 1, no input, no dy)
     for (int i = tid; i < TC * kBwdChannels; i += kBwdThreads) {
       const int t = i / kBwdChannels, cc = i % kBwdChannels;
-      float dl = 0.f, dx = 0.f, sg = 0.f;
+      float dl = 0.f, dx = 0.f, dy = 0.f, sg = 0.f, dsl = 0.f;
       if (t < rows && c0 + cc < d) {
-        const float raw = to_f32(sm.ds[t][cc]);
-        const float xv = to_f32(sm.xs[t][cc]);
+        const float raw = to_f32(sm.ds[slot][t][cc]);
+        const float xv = to_f32(sm.xs[slot][t][cc]);
         const float s = round_to<T>(raw + sm.bias[cc]);
         const float e = round_to<T>(expf(-fabsf(s)));
         dl = round_to<T>(fmaxf(s, 0.f) + round_to<T>(log1pf(e)));
         dx = dl * xv;
-        sg = 1.f / (1.f + expf(-s));
+        sg = __fdividef(1.f, 1.f + __expf(-s));
+        const float zf = to_f32(sm.zs[slot][t][cc]);
+        const float sz = __fdividef(1.f, 1.f + __expf(-zf));
+        const float gate = zf * sz;
+        dy = to_f32(sm.os[slot][t][cc]) * gate;
+        dsl = sz + gate * (1.f - sz);
       }
-      sm.delta[t][cc] = dl;
-      sm.dtx[t][cc] = dx;
-      sm.sig[t][cc] = sg;
+      sm.step[t][cc] = make_float4(dl, dx, dy, sg);
+      sm.dsilu[t][cc] = dsl;
     }
-  };
-
-  auto bound_at = [&](int k) {
-    return p.bound + (((long long)b * chunks + k) * d + ch) * n;
-  };
-
-  // 1. forward: the state entering every chunk, to the workspace
-  for (int k = 0; k < chunks; ++k) {
-    if (ch_in) {
-      float* bo = bound_at(k);
-#pragma unroll
-      for (int i = 0; i < NL; ++i)
-        if (lane * NL + i < n) bo[lane * NL + i] = h[i];
+    for (int i = tid; i < TC * kNMax; i += kBwdThreads) {
+      const int t = i / kNMax, k2 = i % kNMax;
+      const bool in = t < rows && k2 < n;
+      sm.bf[t][k2] = in ? to_f32(sm.bs[slot][t][k2]) : 0.f;
+      sm.cf[t][k2] = in ? to_f32(sm.cs[slot][t][k2]) : 0.f;
     }
-    if (k == chunks - 1) break;        // the last chunk's end is not needed
-    const int t0 = k * TC;
-    __syncthreads();                   // the previous chunk's tiles are read
-    load_tile(sm.xs, xg + t0 * p.x_st, p.x_st, TC, c0, d, tid);
-    load_tile(sm.ds, dg + t0 * p.dt_st, p.dt_st, TC, c0, d, tid);
-    load_tile(sm.bs, bg + t0 * p.b_st, p.b_st, TC, 0, n, tid);
-    __syncthreads();
-    prologue(TC);
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < TC; ++t) {
-      const float dl = sm.delta[t][c], dx = sm.dtx[t][c];
-#pragma unroll
-      for (int i = 0; i < NL; ++i) {
-        const float bv = to_f32(sm.bs[t][lane * NL + i]);
-        h[i] = fmaf(ex2(dl * a2[i]), h[i], dx * bv);
-      }
-    }
-  }
-
-  // 2. reverse, a chunk at a time
-  float carry[NL], dA[NL];
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const int k = lane * NL + i;
-    carry[i] = ch_in && k < n && p.dh_final != nullptr
-                   ? p.dh_final[state + k] : 0.f;
-    dA[i] = 0.f;
-  }
-  float acc_bias = 0.f, acc_d = 0.f;   // lane 0's sums over its channel's t
-  for (int k = chunks - 1; k >= 0; --k) {
-    const int t0 = k * TC, rows = min(TC, len - t0);
-    __syncthreads();                   // the previous chunk's smem is free
-    load_tile(sm.xs, xg + t0 * p.x_st, p.x_st, rows, c0, d, tid);
-    load_tile(sm.ds, dg + t0 * p.dt_st, p.dt_st, rows, c0, d, tid);
-    load_tile(sm.zs, zg + t0 * p.z_st, p.z_st, rows, c0, d, tid);
-    load_tile(sm.os, og + t0 * p.o_st, p.o_st, rows, c0, d, tid);
-    load_tile(sm.bs, bg + t0 * p.b_st, p.b_st, rows, 0, n, tid);
-    load_tile(sm.cs, cg + t0 * p.c_st, p.c_st, rows, 0, n, tid);
-    __syncthreads();
-    prologue(rows);
     __syncthreads();
 
-    // the chunk's states, recomputed from its boundary as the forward
-    // computes them, and y summed over the lanes in the forward's order
-    float hin[NL], hs[TC][NL], ys[TC];
-    if (ch_in) {
-      const float* bo = bound_at(k);
+    // y of step t: the lanes' shares summed in the forward's order
+    auto store_y = [&](int t, float acc) {
+      const float p1 = __shfl_down_sync(full, acc, 1);
+      const float p2 = __shfl_down_sync(full, acc, 2);
+      const float p3 = __shfl_down_sync(full, acc, 3);
+      if (lane == 0) sm.ys[t][c] = acc + p1 + p2 + p3;
+    };
+
+    // the states of steps lo .. lo + TH - 1 into hs, from the state `from`
+    // entering step lo, as the forward computes them, and y
+    float hs[TH][NL];
+    auto recompute = [&](int lo, const float (&from)[NL]) {
 #pragma unroll
-      for (int i = 0; i < NL; ++i)
-        hin[i] = lane * NL + i < n ? bo[lane * NL + i] : 0.f;
-    } else {
-#pragma unroll
-      for (int i = 0; i < NL; ++i) hin[i] = 0.f;
-    }
-#pragma unroll
-    for (int t = 0; t < TC; ++t) {
-      if (t < rows) {
-        const float dl = sm.delta[t][c], dx = sm.dtx[t][c];
+      for (int j = 0; j < TH; ++j) {
+        const int t = lo + j;
+        const float4 st = sm.step[t][c];
+        float bv[NL], cv[NL];
+        load_f32<NL>(bv, &sm.bf[t][lane * NL]);
+        load_f32<NL>(cv, &sm.cf[t][lane * NL]);
         float acc = 0.f;
 #pragma unroll
         for (int i = 0; i < NL; ++i) {
-          const float prev = t > 0 ? hs[t > 0 ? t - 1 : 0][i] : hin[i];
-          const float bv = to_f32(sm.bs[t][lane * NL + i]);
-          const float cv = to_f32(sm.cs[t][lane * NL + i]);
-          hs[t][i] = fmaf(ex2(dl * a2[i]), prev, dx * bv);
-          acc = fmaf(hs[t][i], cv, acc);
+          const float prev = j > 0 ? hs[j > 0 ? j - 1 : 0][i] : from[i];
+          hs[j][i] = fmaf(ex2(st.x * a2[i]), prev, st.y * bv[i]);
+          acc = fmaf(hs[j][i], cv[i], acc);
         }
-        const int base = wl & ~(L - 1);
-        float y = __shfl_sync(full, acc, base);
-#pragma unroll
-        for (int l = 1; l < L; ++l) y += __shfl_sync(full, acc, base + l);
-        ys[t] = y;
+        store_y(t, acc);
       }
-    }
+    };
 
-    // the reverse recurrence over the chunk
+    // the reverse recurrence over steps lo + TH - 1 .. lo, whose states
+    // are in hs (`from` entering step lo): this thread's dA, the channel's
+    // sums over N and the warp's sums of dB, dC over its 8 channels
+    auto reverse = [&](int lo, const float (&from)[NL]) {
 #pragma unroll
-    for (int t = TC - 1; t >= 0; --t) {
-      if (t < rows) {
-        const float dl = sm.delta[t][c], dxv = sm.dtx[t][c];
-        const float xv = to_f32(sm.xs[t][c]);
-        const float zf = to_f32(sm.zs[t][c]);
-        const float go = to_f32(sm.os[t][c]);
-        const float sz = 1.f / (1.f + expf(-zf));
-        const float gate = zf * sz;
-        const float dy = go * gate;
+      for (int j = TH - 1; j >= 0; --j) {
+        const int t = lo + j;
+        const float4 st = sm.step[t][c];        // dt, dt * x, dy
+        float bv[NL], cv[NL];
+        load_f32<NL>(bv, &sm.bf[t][lane * NL]);
+        load_f32<NL>(cv, &sm.cf[t][lane * NL]);
         float vals[2 * NL];            // this thread's dB, dC terms
         float sb = 0.f, sa = 0.f;      // sum_N dh B, sum_N dh h_prev a A
 #pragma unroll
         for (int i = 0; i < NL; ++i) {
-          const float bv = to_f32(sm.bs[t][lane * NL + i]);
-          const float cv = to_f32(sm.cs[t][lane * NL + i]);
-          const float a = ex2(dl * a2[i]);
-          const float g = fmaf(dy, cv, carry[i]);          // dL/dh_t
-          const float prev = t > 0 ? hs[t > 0 ? t - 1 : 0][i] : hin[i];
+          const float a = ex2(st.x * a2[i]);
+          const float g = fmaf(st.z, cv[i], carry[i]);          // dL/dh_t
+          const float prev = j > 0 ? hs[j > 0 ? j - 1 : 0][i] : from[i];
           const float gha = g * prev * a;
-          sb = fmaf(g, bv, sb);
+          sb = fmaf(g, bv[i], sb);
           sa = fmaf(gha, aneg[i], sa);
-          dA[i] = fmaf(gha, dl, dA[i]);
-          vals[i] = g * dxv;
-          vals[NL + i] = dy * hs[t][i];
+          dA[i] = fmaf(gha, st.x, dA[i]);
+          vals[i] = g * st.y;
+          vals[NL + i] = st.z * hs[j][i];
           carry[i] = a * g;
         }
-        // over the channel's 4 lanes (the same sum on every lane)
+        // over the channel's 4 lanes
         sb += __shfl_xor_sync(full, sb, 1);
         sb += __shfl_xor_sync(full, sb, 2);
         sa += __shfl_xor_sync(full, sa, 1);
@@ -742,39 +796,75 @@ scan_bwd_kernel(const BwdArgs p) {
         // over the warp's 8 channels: a butterfly that leaves the sum of
         // value (wl >> 2) & 7 on each thread
 #pragma unroll
-        for (int st = 0; st < 3; ++st) {
-          const int half = NL >> st, mask = 16 >> st;
+        for (int s = 0; s < 3; ++s) {
+          const int half = NL >> s, mask = 16 >> s;
           const bool upper = (wl & mask) != 0;
 #pragma unroll
-          for (int j = 0; j < half; ++j) {
-            const float send = upper ? vals[j] : vals[j + half];
-            const float keep = upper ? vals[j + half] : vals[j];
-            vals[j] = keep + __shfl_xor_sync(full, send, mask);
+          for (int q = 0; q < half; ++q) {
+            const float send = upper ? vals[q] : vals[q + half];
+            const float keep = upper ? vals[q + half] : vals[q];
+            vals[q] = keep + __shfl_xor_sync(full, send, mask);
           }
         }
         const int sel = (wl >> 2) & 7;
         sm.red[t][warp][sel / NL][lane * NL + sel % NL] = vals[0];
-        if (lane == 0) {
-          const float ddt = (sa + xv * sb) * sm.sig[t][c];
-          sm.gx[t][c] = dy * sm.dskip[c] + dl * sb;
-          sm.gdt[t][c] = ddt;
-          sm.gz[t][c] =
-              go * (ys[t] + sm.dskip[c] * xv) * (sz + gate * (1.f - sz));
-          acc_bias += ddt;
-          acc_d += dy * xv;
-        }
+        if (lane == 0) sm.sums[t][c] = make_float2(sb, sa);
       }
+    };
+
+    // the first half walked to its end (y on the way, its states kept in
+    // shared memory), the second half's states recomputed into registers
+    // and walked back, then the first half's
+    float hmid[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) hmid[i] = hin[i];
+#pragma unroll
+    for (int t = 0; t < TH; ++t) {
+      const float4 st = sm.step[t][c];
+      float bv[NL], cv[NL];
+      load_f32<NL>(bv, &sm.bf[t][lane * NL]);
+      load_f32<NL>(cv, &sm.cf[t][lane * NL]);
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        hmid[i] = fmaf(ex2(st.x * a2[i]), hmid[i], st.y * bv[i]);
+        acc = fmaf(hmid[i], cv[i], acc);
+      }
+      store_y(t, acc);
+      sm.hfirst[t][tid] = make_float4(hmid[0], hmid[1], hmid[2], hmid[3]);
     }
+    if (rows > TH) {
+      recompute(TH, hmid);
+      reverse(TH, hmid);
+    }
+#pragma unroll
+    for (int j = 0; j < TH; ++j) {
+      const float4 v = sm.hfirst[j][tid];
+      hs[j][0] = v.x;
+      hs[j][1] = v.y;
+      hs[j][2] = v.z;
+      hs[j][3] = v.w;
+    }
+    reverse(0, hin);
     __syncthreads();
 
-    // the chunk's dx, ddt_raw, dz in rows; its dB, dC partials
+    // once per (t, channel): the chunk's dx, ddt_raw and dz in rows, and
+    // the sums of d(dt_bias) and dD; then its dB, dC partials
     for (int i = tid; i < TC * kBwdChannels; i += kBwdThreads) {
       const int t = i / kBwdChannels, cc = i % kBwdChannels;
       if (t >= rows || c0 + cc >= d) continue;
+      const float4 st = sm.step[t][cc];
+      const float2 sum = sm.sums[t][cc];
+      const float xv = to_f32(sm.xs[slot][t][cc]);
+      const float go = to_f32(sm.os[slot][t][cc]);
+      const float ddt = (sum.y + xv * sum.x) * st.w;
       const long long o = ((long long)b * len + t0 + t) * d + c0 + cc;
-      ((T*)p.dx)[o] = from_f32<T>(sm.gx[t][cc]);
-      ((T*)p.ddt)[o] = from_f32<T>(sm.gdt[t][cc]);
-      ((T*)p.dz)[o] = from_f32<T>(sm.gz[t][cc]);
+      ((T*)p.dx)[o] = from_f32<T>(st.z * sm.dskip[cc] + st.x * sum.x);
+      ((T*)p.ddt)[o] = from_f32<T>(ddt);
+      ((T*)p.dz)[o] = from_f32<T>(
+          go * (sm.ys[t][cc] + sm.dskip[cc] * xv) * sm.dsilu[t][cc]);
+      acc_bias += ddt;
+      acc_d += st.z * xv;
     }
     for (int i = tid; i < 2 * TC * kNMax; i += kBwdThreads) {
       const int which = i / (TC * kNMax), r = i % (TC * kNMax);
@@ -796,59 +886,113 @@ scan_bwd_kernel(const BwdArgs p) {
       p.da_part[state + k] = dA[i];
       if (p.dh0 != nullptr) p.dh0[state + k] = carry[i];
     }
-    if (lane == 0) {
-      p.vec_part[(long long)b * d + ch] = acc_bias;
-      p.vec_part[((long long)p.batch + b) * d + ch] = acc_d;
+  }
+  // each channel's sums over the rows of threads, in order
+  sm.acc[0][tid / kBwdChannels][tid % kBwdChannels] = acc_bias;
+  sm.acc[1][tid / kBwdChannels][tid % kBwdChannels] = acc_d;
+  __syncthreads();
+  if (tid < kBwdChannels && c0 + tid < d) {
+    float vb = sm.acc[0][0][tid], vd = sm.acc[1][0][tid];
+#pragma unroll
+    for (int r = 1; r < kRows; ++r) {
+      vb += sm.acc[0][r][tid];
+      vd += sm.acc[1][r][tid];
     }
+    p.vec_part[(long long)b * d + c0 + tid] = vb;
+    p.vec_part[((long long)p.batch + b) * d + c0 + tid] = vd;
   }
 }
 
-// Every partial folded in index order: dB, dC over the blocks (rounded to
-// T once), dA_log, d(dt_bias), dD over the batch (float32).
+// Every partial folded in a fixed order: dB, dC over the blocks (rounded
+// to T once), by blocks of kFoldOut outputs, each thread of a block summing
+// every kFoldSplit-th partial of its output and the first thread the
+// slices in order; dA_log, d(dt_bias), dD over the batch (float32), a
+// thread an output, in the blocks after those.
 template <typename T>
-__global__ void scan_bwd_fold(const BwdArgs p) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kFoldOut * kFoldSplit)
+scan_bwd_fold(const BwdArgs p) {
+  __shared__ float part[kFoldSplit][kFoldOut];
   const long long seq = (long long)p.batch * p.len * p.n;
   const long long dn = (long long)p.d * p.n;
-  if (i < 2 * seq) {
+  const long long bc_blocks = (2 * seq + kFoldOut - 1) / kFoldOut;
+  if (blockIdx.x < bc_blocks) {
+    const int o = threadIdx.x % kFoldOut, sl = threadIdx.x / kFoldOut;
+    const long long i = (long long)blockIdx.x * kFoldOut + o;
     const int which = (int)(i / seq);
     const long long r = i % seq;
-    const long long bb = r / ((long long)p.len * p.n);
-    const long long tn = r % ((long long)p.len * p.n);
-    const float* src = p.bc_part +
-                       ((long long)which * p.batch + bb) * p.blocks *
-                           p.len * p.n + tn;
     float v = 0.f;
-    for (int blk = 0; blk < p.blocks; ++blk)
-      v += src[(long long)blk * p.len * p.n];
-    ((T*)(which ? p.dcm : p.dbm))[r] = from_f32<T>(v);
-  } else if (i < 2 * seq + dn) {
-    const long long j = i - 2 * seq;
+    if (i < 2 * seq) {
+      const long long bb = r / ((long long)p.len * p.n);
+      const long long tn = r % ((long long)p.len * p.n);
+      const float* src = p.bc_part +
+                         ((long long)which * p.batch + bb) * p.blocks *
+                             p.len * p.n + tn;
+      for (int blk = sl; blk < p.blocks; blk += kFoldSplit)
+        v += src[(long long)blk * p.len * p.n];
+    }
+    part[sl][o] = v;
+    __syncthreads();
+    if (sl == 0 && i < 2 * seq) {
+#pragma unroll
+      for (int q = 1; q < kFoldSplit; ++q) v += part[q][o];
+      ((T*)(which ? p.dcm : p.dbm))[r] = from_f32<T>(v);
+    }
+    return;
+  }
+  const long long j =
+      (long long)(blockIdx.x - bc_blocks) * blockDim.x + threadIdx.x;
+  if (j < dn) {
     float v = 0.f;
     for (int bb = 0; bb < p.batch; ++bb) v += p.da_part[bb * dn + j];
     p.da_log[j] = -expf(p.a_log[j]) * v;
-  } else if (i < 2 * seq + dn + 2 * (long long)p.d) {
-    const long long j = i - 2 * seq - dn;
-    const int which = (int)(j / p.d);
-    const long long jj = j % p.d;
+  } else if (j < dn + 2 * (long long)p.d) {
+    const long long jj = j - dn;
+    const int which = (int)(jj / p.d);
+    const long long q = jj % p.d;
     float v = 0.f;
     for (int bb = 0; bb < p.batch; ++bb)
-      v += p.vec_part[((long long)which * p.batch + bb) * p.d + jj];
-    (which ? p.ddskip : p.ddt_bias)[jj] = v;
+      v += p.vec_part[((long long)which * p.batch + bb) * p.d + q];
+    (which ? p.ddskip : p.ddt_bias)[q] = v;
   }
+}
+
+// The main kernel's shared memory, above the 48 KB a block may hold
+// statically: dynamic, allowed by attribute, with the SM's carveout at its
+// largest so that kBwdBlocksPerSM blocks fit.  Returns its bytes, or minus
+// the error.
+template <typename T>
+int bwd_smem_setup() {
+  const int smem = (int)sizeof(BwdSmem<T>);
+  cudaError_t e = cudaFuncSetAttribute(
+      scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(scan_bwd_kernel<T>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e == cudaSuccess ? smem : -(int)e;
 }
 
 template <typename T>
 int launch_bwd(BwdArgs& p, cudaStream_t stream) {
+  const int es = (int)sizeof(T);
+  p.vx = copy_bytes(p.x, p.x_sb, p.x_st, p.d, es);
+  p.vdt = copy_bytes(p.dt, p.dt_sb, p.dt_st, p.d, es);
+  p.vb = copy_bytes(p.bm, p.b_sb, p.b_st, p.n, es);
+  p.vc = copy_bytes(p.cm, p.c_sb, p.c_st, p.n, es);
+  p.vz = copy_bytes(p.z, p.z_sb, p.z_st, p.d, es);
+  p.vo = copy_bytes(p.dout, p.o_sb, p.o_st, p.d, es);
+  const int smem = bwd_smem_setup<T>();
+  if (smem < 0) return -smem;
   const dim3 grid(p.blocks, p.batch);
-  scan_bwd_kernel<T><<<grid, kBwdThreads, 0, stream>>>(p);
+  scan_bwd_kernel<T><<<grid, kBwdThreads, smem, stream>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long total = 2LL * p.batch * p.len * p.n +
-                          (long long)p.d * p.n + 2LL * p.d;
-  const int threads = 256;
-  scan_bwd_fold<T><<<(unsigned)((total + threads - 1) / threads), threads,
-                     0, stream>>>(p);
+  const int threads = kFoldOut * kFoldSplit;
+  const long long bc_blocks =
+      (2LL * p.batch * p.len * p.n + kFoldOut - 1) / kFoldOut;
+  const long long rest = (long long)p.d * p.n + 2LL * p.d;
+  scan_bwd_fold<T><<<(unsigned)(bc_blocks + (rest + threads - 1) / threads),
+                     threads, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -898,15 +1042,18 @@ int selective_scan_fwd(const void* x, const void* dt, const void* bm,
 // (d,), float32 contiguous; h0: (batch, d, n) float32 contiguous, NULL for
 // zeros, or h_out itself; out: (batch, len, d) contiguous, x's type;
 // h_out: (batch, d, n) float32 contiguous.  step: round dt * x to x's type
-// (a one-step update).  Limits as above.
+// (a one-step update).  bound: NULL, or (batch, ceil(len / 16), d, n)
+// float32 contiguous, which then takes the state entering every 16 steps
+// (what selective_scan_fused_bwd reads; not with step).  Limits as above.
 int selective_scan_fused_fwd(
     const void* x, const void* dt, const void* bm, const void* cm,
     const void* z, const void* a_log, const void* dt_bias, const void* dskip,
-    const void* h0, void* out, void* h_out, long long x_sb, long long x_st,
-    long long dt_sb, long long dt_st, long long b_sb, long long b_st,
-    long long c_sb, long long c_st, long long z_sb, long long z_st,
-    long long batch, long long len, int d, int n, int bf16, int step,
-    void* stream) {
+    const void* h0, void* out, void* h_out, void* bound, long long x_sb,
+    long long x_st, long long dt_sb, long long dt_st, long long b_sb,
+    long long b_st, long long c_sb, long long c_st, long long z_sb,
+    long long z_st, long long batch, long long len, int d, int n, int bf16,
+    int step, void* stream) {
+  if (bound != nullptr && step) return (int)cudaErrorInvalidValue;
   Args p = {};
   p.x = x;
   p.dt = dt;
@@ -918,6 +1065,7 @@ int selective_scan_fused_fwd(
   p.dskip = (const float*)dskip;
   p.h0 = (const float*)h0;
   p.h_out = (float*)h_out;
+  p.bound = (float*)bound;
   p.y = out;
   p.x_sb = x_sb;
   p.x_st = x_st;
@@ -941,28 +1089,29 @@ int selective_scan_fused_fwd(
 // (dt_raw), B, C, z and dout: views by their batch and time strides, all
 // float32 or all bfloat16, as the forward's; a_log (d, n), dt_bias and
 // dskip (d,), h0 and dh_final (batch, d, n) float32 contiguous, h0 and
-// dh_final NULL for zeros.  Writes dx, ddt, dz (batch, len, d) and dB, dC
-// (batch, len, n) contiguous in x's type, d(dt_bias), dD (d,), dA_log
-// (d, n) and, when h0 is given, dh0 (batch, d, n) float32 contiguous.
-// work: work_floats float32 elements, at least batch * chunks * d * n +
-// 2 * batch * blocks * len * n + batch * d * n + 2 * batch * d (chunks =
-// ceil(len / chunk), blocks = ceil(d / channels)); chunk and channels must
-// be kBwdChunk and kBwdChannels (else, or with too small a workspace,
-// cudaErrorInvalidValue).  Two launches: the reverse scan, then the fold
-// of its partials.
+// dh_final NULL for zeros; bound: the (batch, chunks, d, n) float32 states
+// that selective_scan_fused_fwd wrote for these inputs (chunks =
+// ceil(len / chunk)), never NULL.  Writes dx, ddt, dz (batch, len, d) and
+// dB, dC (batch, len, n) contiguous in x's type, d(dt_bias), dD (d,),
+// dA_log (d, n) and, when h0 is given, dh0 (batch, d, n) float32
+// contiguous.  work: work_floats float32 elements, at least 2 * batch *
+// blocks * len * n + batch * d * n + 2 * batch * d (blocks = ceil(d /
+// channels)); chunk and channels must be kBwdChunk and kBwdChannels (else,
+// with too small a workspace or no bound, cudaErrorInvalidValue).  Two
+// launches: the reverse scan, then the fold of its partials.
 int selective_scan_fused_bwd(
     const void* x, const void* dt, const void* bm, const void* cm,
     const void* z, const void* a_log, const void* dt_bias, const void* dskip,
-    const void* h0, const void* dout, const void* dh_final, void* dx,
-    void* ddt, void* dbm, void* dcm, void* dz, void* ddt_bias, void* ddskip,
-    void* da_log, void* dh0, void* work, long long work_floats,
-    long long x_sb, long long x_st,
+    const void* h0, const void* dout, const void* dh_final,
+    const void* bound, void* dx, void* ddt, void* dbm, void* dcm, void* dz,
+    void* ddt_bias, void* ddskip, void* da_log, void* dh0, void* work,
+    long long work_floats, long long x_sb, long long x_st,
     long long dt_sb, long long dt_st, long long b_sb, long long b_st,
     long long c_sb, long long c_st, long long z_sb, long long z_st,
     long long o_sb, long long o_st, long long batch, long long len, int d,
     int n, int chunk, int channels, int bf16, void* stream) {
   if (n < 1 || n > kNMax || chunk != kBwdChunk || channels != kBwdChannels ||
-      batch < 1 || batch >= 65536 || len < 1 || d < 1)
+      batch < 1 || batch >= 65536 || len < 1 || d < 1 || bound == nullptr)
     return (int)cudaErrorInvalidValue;
   BwdArgs p = {};
   p.x = x;
@@ -976,6 +1125,7 @@ int selective_scan_fused_bwd(
   p.dskip = (const float*)dskip;
   p.h0 = (const float*)h0;
   p.dh_final = (const float*)dh_final;
+  p.bound = (const float*)bound;
   p.dx = dx;
   p.ddt = ddt;
   p.dbm = dbm;
@@ -1003,13 +1153,10 @@ int selective_scan_fused_bwd(
   p.n = n;
   p.chunks = (int)((len + kBwdChunk - 1) / kBwdChunk);
   p.blocks = (d + kBwdChannels - 1) / kBwdChannels;
-  if (work_floats < batch * p.chunks * (long long)d * n +
-                        2 * batch * p.blocks * len * n +
+  if (work_floats < 2 * batch * p.blocks * len * n +
                         batch * (long long)d * n + 2 * batch * d)
     return (int)cudaErrorInvalidValue;
   float* w = (float*)work;
-  p.bound = w;
-  w += batch * p.chunks * (long long)d * n;
   p.bc_part = w;
   w += 2 * batch * p.blocks * len * n;
   p.da_part = w;
@@ -1017,6 +1164,24 @@ int selective_scan_fused_bwd(
   p.vec_part = w;
   return bf16 ? launch_bwd<__nv_bfloat16>(p, (cudaStream_t)stream)
               : launch_bwd<float>(p, (cudaStream_t)stream);
+}
+
+// The backward's main kernel as the card holds it: the dynamic shared
+// memory of a block (bytes) and the blocks an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for bfloat16 (bf16 == 1)
+// or float32 inputs.
+int selective_scan_fused_bwd_occupancy(int bf16, int* smem_bytes,
+                                       int* blocks_per_sm) {
+  const int smem = bf16 ? bwd_smem_setup<__nv_bfloat16>()
+                        : bwd_smem_setup<float>();
+  if (smem < 0) return -smem;
+  *smem_bytes = smem;
+  return bf16 ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    blocks_per_sm, scan_bwd_kernel<__nv_bfloat16>,
+                    kBwdThreads, smem)
+              : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    blocks_per_sm, scan_bwd_kernel<float>, kBwdThreads,
+                    smem);
 }
 
 }  // extern "C"

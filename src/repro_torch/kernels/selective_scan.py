@@ -36,20 +36,24 @@ raises.
 
 Training differentiates the fused form over a sequence through
 :class:`SelectiveScanFusedFn`: on the card its forward is the fused
-kernel and its backward a second kernel of the same source
-(``selective_scan_fused_bwd``), which recomputes the forward's states
-rather than store the ``(b, S, D, N)`` trajectory: each block walks its
-channels forward once, keeping the state at every chunk boundary in a
-float32 workspace, then walks the chunks in reverse, recomputes a chunk's
-states from its boundary in registers with the forward's arithmetic (the
-bfloat16 softplus replay, ``exp2`` of ``dt * A * log2 e``) and runs the
-reverse recurrence ``dh_t = a_{t+1} dh_{t+1} + dy_t C_t`` over it.  Sums
-across blocks (``dB, dC`` over the channels, ``dA_log, dD, dt_bias`` over
-the batch) are float32 partials folded by a second launch in a fixed
-order, with no atomics, so two launches give the same bits.  Its plain
-version :func:`selective_scan_fused_bwd_ref` is the same reverse
-recurrence in float32 torch, with the same chunks; the JAX package has no
-backward kernel (it differentiates its plain jnp).  Backward launches
+kernel's instance that also keeps the float32 state entering every
+``BWD_CHUNK`` steps (``(b, ceil(S / 16), D, N)``, saved for the
+backward; generation never launches it), and its backward a second
+kernel of the same source (``selective_scan_fused_bwd``), which
+recomputes the forward's states between those boundaries rather than
+store the ``(b, S, D, N)`` trajectory: each block walks the chunks in
+reverse, recomputes a chunk's states from its boundary with the
+forward's arithmetic (the bfloat16 softplus replay, ``exp2`` of ``dt * A
+* log2 e``), eight steps at a time, and runs the reverse recurrence
+``dh_t = a_{t+1} dh_{t+1} + dy_t C_t`` over them.  Sums across blocks
+(``dB, dC`` over the channels, ``dA_log, dD, dt_bias`` over the batch)
+are float32 partials folded by a second launch in a fixed order, with no
+atomics, so two launches give the same bits.  Its plain versions are
+:func:`selective_scan_bounds_ref` (the boundaries) and
+:func:`selective_scan_fused_bwd_ref`, the same reverse recurrence in
+float32 torch with the same chunks, from those boundaries or from its own
+forward walk; the JAX package has no backward kernel (it differentiates
+its plain jnp).  Backward launches
 count in ``selective_scan.bwd_launches``.  On the card a wrapper handed
 an input that requires a gradient (grad mode on) goes through the
 Function, or, for what no training path differentiates — the decode
@@ -125,9 +129,29 @@ def selective_scan_step(x, dt, B, C, A, h):
     return y, h_new
 
 
+def selective_scan_bounds_ref(x, dt, B, C, A, h0=None, *,
+                              chunk: int = BWD_CHUNK):
+    """:func:`selective_scan_ref` that also returns the float32 state
+    entering every ``chunk`` steps, ``(b, ceil(S / chunk), D, N)`` — what
+    the fused forward kernel stores for the backward — as a third
+    output."""
+    xf, dtf, Bf, Cf, Af = (t.float() for t in (x, dt, B, C, A))
+    b, s, d = x.shape
+    h = (torch.zeros((b, d, A.shape[-1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys, bounds = [], []
+    for t in range(s):
+        if t % chunk == 0:
+            bounds.append(h)
+        a = torch.exp(dtf[:, t, :, None] * Af)                  # (b, D, N)
+        h = a * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
+    return torch.stack(ys, dim=1), h, torch.stack(bounds, dim=1)
+
+
 def selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z, h0=None,
                              h_out=None, *, step: bool = False,
-                             scan=selective_scan_ref):
+                             scan=selective_scan_ref, bounds: bool = False):
     """The ATen sequence of ``mamba1_block`` from the bias add to the cast:
     ``softplus(dt + dt_bias)``, ``A = -exp(A_log)``, the scan (``scan``
     over the sequence, the one-step update when ``step``, which needs
@@ -138,10 +162,19 @@ def selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z, h0=None,
     ``dt_bias, D`` ``(D,)`` and ``A_log`` ``(D, N)`` float32; ``h0``
     ``(b, D, N)`` float32 or None (zeros).  Returns ``(out (b, S, D), h)``;
     with ``h_out`` the final state is copied into it and ``h`` is
-    ``h_out``.
+    ``h_out``.  ``bounds`` (over a sequence, with the plain scan) adds a
+    third output, the state entering every ``BWD_CHUNK`` steps
+    (:func:`selective_scan_bounds_ref`), which
+    :func:`selective_scan_fused_bwd_ref` takes as ``bounds=``.
     """
     A = -torch.exp(A_log.to(torch.float32))
     dt = softplus(dt + dt_bias.to(dt.dtype))
+    if bounds:
+        if step or h_out is not None or scan is not selective_scan_ref:
+            raise ValueError("bounds are kept over a sequence, with the "
+                             "plain scan and no h_out")
+        y, h, kept = selective_scan_bounds_ref(x, dt, B, C, A, h0)
+        return _gate(y, x, D, z), h, kept
     if step:
         if h0 is None:
             h0 = torch.zeros((x.shape[0],) + A.shape, dtype=torch.float32,
@@ -151,26 +184,35 @@ def selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z, h0=None,
         y = y[:, None]
     else:
         y, h = scan(x, dt, B, C, A, h0)
+    if h_out is not None:
+        h = h_out.copy_(h)
+    return _gate(y, x, D, z), h
+
+
+def _gate(y, x, D, z):
+    """``(y + D * x) * silu(z)`` in float32, cast to ``x``'s type."""
     y = y + D.to(torch.float32) * x.to(torch.float32)
     zf = z.to(torch.float32)
     y = y * (zf * torch.sigmoid(zf))
-    if h_out is not None:
-        h = h_out.copy_(h)
-    return y.to(x.dtype), h
+    return y.to(x.dtype)
 
 
 def selective_scan_fused_bwd_ref(x, dt, dt_bias, B, C, A_log, D, z, h0,
                                  dout, dh_final=None, *,
-                                 chunk: int = BWD_CHUNK) -> tuple:
+                                 chunk: int = BWD_CHUNK,
+                                 bounds: Optional[torch.Tensor] = None
+                                 ) -> tuple:
     """Gradients of :func:`selective_scan_fused_ref` over a sequence (not a
     step): the explicit reverse recurrence in float32, not autograd.
 
     Inputs as the forward's (``h0`` may be None), ``dout`` ``(b, S, D)``
     the gradient of ``out`` and ``dh_final`` ``(b, D, N)`` that of the
-    final state (None: zero).  Like the kernel, it walks the sequence
-    forward once, keeping the state entering every ``chunk`` steps, then
-    walks the chunks in reverse, recomputing each chunk's states from its
-    boundary, with ``a_t = exp(dt_t A)``, ``y_t = sum_N h_t C_t`` and
+    final state (None: zero).  ``bounds`` is the state entering every
+    ``chunk`` steps, ``(b, ceil(S / chunk), D, N)`` float32, as the
+    forward keeps it (:func:`selective_scan_bounds_ref`); without it, the
+    sequence is walked forward once to find them.  Then, like the kernel,
+    it walks the chunks in reverse, recomputing each chunk's states from
+    its boundary, with ``a_t = exp(dt_t A)``, ``y_t = sum_N h_t C_t`` and
     ``dy = dout * silu(z)``:
 
     - ``dh_t = a_{t+1} dh_{t+1} + dy_t C_t`` from ``dh_final``;
@@ -204,13 +246,14 @@ def selective_scan_fused_bwd_ref(x, dt, dt_bias, B, C, A_log, D, z, h0,
         a = torch.exp(dtf[:, t, :, None] * A)
         return a, a * h + dtx[:, t, :, None] * Bf[:, t, None, :]
 
-    h = (torch.zeros((b, d, n), dtype=f32, device=x.device) if h0 is None
-         else h0.to(f32))
-    bounds = []
-    for t in range(s):
-        if t % chunk == 0:
-            bounds.append(h)
-        h = step(h, t)[1]
+    if bounds is None:
+        kept = _walk_bounds(x, dt, dt_bias, B, A_log, h0, chunk).unbind(1)
+    else:
+        if bounds.shape != (b, -(-s // chunk), d, n):
+            raise ValueError(f"bounds must be (b, ceil(S / {chunk}), D, N) "
+                             f"= {(b, -(-s // chunk), d, n)}, got "
+                             f"{tuple(bounds.shape)}")
+        kept = bounds.to(f32).unbind(1)
     carry = (torch.zeros((b, d, n), dtype=f32, device=x.device)
              if dh_final is None else dh_final.to(f32))
     dx, ddt, dz = (torch.empty((b, s, d), dtype=f32, device=x.device)
@@ -218,9 +261,9 @@ def selective_scan_fused_bwd_ref(x, dt, dt_bias, B, C, A_log, D, z, h0,
     dB, dC = (torch.empty((b, s, n), dtype=f32, device=x.device)
               for _ in range(2))
     dA = torch.zeros((b, d, n), dtype=f32, device=x.device)
-    for k in reversed(range(len(bounds))):
+    for k in reversed(range(len(kept))):
         t0, t1 = k * chunk, min(s, (k + 1) * chunk)
-        hs, decay = [bounds[k]], []
+        hs, decay = [kept[k]], []
         for t in range(t0, t1):
             a, h = step(hs[-1], t)
             hs.append(h)
@@ -244,6 +287,28 @@ def selective_scan_fused_bwd_ref(x, dt, dt_bias, B, C, A_log, D, z, h0,
     dA_log = A * dA.sum(0)
     return (dx.to(io), ddt.to(io), ddt_bias, dB.to(io), dC.to(io), dA_log,
             dD, dz.to(io), None if h0 is None else carry)
+
+
+def _walk_bounds(x, dt, dt_bias, B, A_log, h0, chunk: int) -> torch.Tensor:
+    """The plain backward's own forward walk when it is handed no
+    boundaries: the float32 state entering every ``chunk`` steps, ``(b,
+    ceil(S / chunk), D, N)``, by the recurrence it recomputes chunks
+    with."""
+    f32 = torch.float32
+    b, s, d = x.shape
+    A = -torch.exp(A_log.to(f32))
+    dtf = softplus(dt + dt_bias.to(x.dtype)).to(f32)
+    dtx = dtf * x.to(f32)
+    Bf = B.to(f32)
+    h = (torch.zeros((b, d, A.shape[-1]), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    kept = []
+    for t in range(s):
+        if t % chunk == 0:
+            kept.append(h)
+        a = torch.exp(dtf[:, t, :, None] * A)
+        h = a * h + dtx[:, t, :, None] * Bf[:, t, None, :]
+    return torch.stack(kept, dim=1)
 
 
 def _check(x, dt, B, C, A, h0) -> None:
@@ -400,9 +465,13 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
 
 
 def _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
-                    step: bool) -> tuple:
+                    step: bool, bounds: Optional[torch.Tensor] = None
+                    ) -> tuple:
     """One launch of the fused forward kernel on checked CUDA tensors:
-    ``(out, h)``, ``h`` being ``h_out`` when it is given."""
+    ``(out, h)``, ``h`` being ``h_out`` when it is given.  ``bounds``, a
+    contiguous float32 ``(b, ceil(S / BWD_CHUNK), D, N)`` tensor (over a
+    sequence only), launches the kernel's instance that also stores the
+    state entering every chunk there; generation passes none."""
     if not (dt_bias.is_contiguous() and A_log.is_contiguous()
             and D.is_contiguous()):
         dt_bias, A_log, D = (dt_bias.contiguous(), A_log.contiguous(),
@@ -418,39 +487,56 @@ def _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
            dt.data_ptr(), B.data_ptr(), C.data_ptr(), z.data_ptr(),
            A_log.data_ptr(), dt_bias.data_ptr(), D.data_ptr(),
            None if h0 is None else h0.data_ptr(), out.data_ptr(),
-           h_out.data_ptr(), x.stride(0), x.stride(1), dt.stride(0),
+           h_out.data_ptr(), None if bounds is None else bounds.data_ptr(),
+           x.stride(0), x.stride(1), dt.stride(0),
            dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
            z.stride(0), z.stride(1), b, s, d, n, _DTYPES[x.dtype], int(step))
     selective_scan.launches += 1
-    selective_scan.shapes["fused", shape, n, x.dtype, bool(step)] += 1
+    if bounds is None:
+        selective_scan.shapes["fused", shape, n, x.dtype, bool(step)] += 1
+    else:
+        selective_scan.shapes["fused_bound", shape, n, x.dtype] += 1
     return out, h_out
 
 
+def _bounds_for(x: torch.Tensor, n: int) -> torch.Tensor:
+    """An empty float32 ``(b, ceil(S / BWD_CHUNK), D, N)`` tensor beside
+    ``x``: where the fused forward kernel keeps the state entering every
+    chunk for the backward (:func:`_fused_fwd_cuda`'s ``bounds``)."""
+    b, s, d = x.shape
+    return x.new_empty((b, -(-s // BWD_CHUNK), d, n), dtype=torch.float32)
+
+
 def _bwd_work_floats(b: int, s: int, d: int, n: int) -> int:
-    """float32 elements of the backward kernel's workspace: the state at
-    each chunk boundary ``(b, chunks, D, N)``, the per-block partials of
-    ``dB`` and ``dC`` ``(2, b, blocks, S, N)``, and the per-sequence
-    partials of ``dA_log`` ``(b, D, N)`` and of ``ddt_bias, dD``
-    ``(2, b, D)``."""
-    chunks = -(-s // BWD_CHUNK)
+    """float32 elements of the backward kernel's workspace: the per-block
+    partials of ``dB`` and ``dC`` ``(2, b, blocks, S, N)``, and the
+    per-sequence partials of ``dA_log`` ``(b, D, N)`` and of ``ddt_bias,
+    dD`` ``(2, b, D)``.  (The chunk boundaries come from the forward.)"""
     blocks = -(-d // BWD_CHANNELS)
-    return b * chunks * d * n + 2 * b * blocks * s * n + b * d * n + 2 * b * d
+    return 2 * b * blocks * s * n + b * d * n + 2 * b * d
 
 
-def _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
-              dh_final) -> tuple:
+def _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout, dh_final,
+              bounds) -> tuple:
     """One call of the backward kernel (a main launch and a fold) on the
-    forward's checked CUDA inputs: the nine gradients of
+    forward's checked CUDA inputs and the chunk boundaries its kernel
+    kept (``bounds`` of :func:`_fused_fwd_cuda`): the nine gradients of
     :func:`selective_scan_fused_bwd_ref`, ``dh0`` None when ``h0`` is.
     ``dout``, the float32 parameters and the states are copied when their
     layout needs it."""
+    b, s, d = x.shape
+    n = A_log.shape[-1]
+    if (bounds.shape != (b, -(-s // BWD_CHUNK), d, n)
+            or bounds.dtype != torch.float32 or not bounds.is_contiguous()):
+        raise ValueError(f"bounds must be contiguous float32 (b, ceil(S / "
+                         f"{BWD_CHUNK}), D, N) = "
+                         f"{(b, -(-s // BWD_CHUNK), d, n)}, got "
+                         f"{tuple(bounds.shape)} {bounds.dtype}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     dt_bias, A_log, D, h0, dh_final = (
         t if t is None or t.is_contiguous() else t.contiguous()
         for t in (dt_bias, A_log, D, h0, dh_final))
-    b, s, d = x.shape
-    n = A_log.shape[-1]
     f32 = torch.float32
     dx, ddt, dz = (x.new_empty((b, s, d)) for _ in range(3))
     dB, dC = (x.new_empty((b, s, n)) for _ in range(2))
@@ -463,7 +549,7 @@ def _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
            A_log.data_ptr(), dt_bias.data_ptr(), D.data_ptr(),
            None if h0 is None else h0.data_ptr(), dout.data_ptr(),
            None if dh_final is None else dh_final.data_ptr(),
-           dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+           bounds.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
            dz.data_ptr(), ddt_bias.data_ptr(), dD.data_ptr(),
            dA_log.data_ptr(), None if dh0 is None else dh0.data_ptr(),
            work.data_ptr(), work.numel(), x.stride(0), x.stride(1),
@@ -476,43 +562,66 @@ def _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
     return dx, ddt, ddt_bias, dB, dC, dA_log, dD, dz, dh0
 
 
+def bwd_occupancy(dtype: torch.dtype) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of the backward's main
+    kernel for inputs of ``dtype`` on the current CUDA device, as the CUDA
+    runtime's occupancy calculator gives them (the design wants
+    4 blocks, 16 warps, an SM).  Needs the card."""
+    import ctypes
+    from . import _build
+    _build.load_library()
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _build._fns["selective_scan_fused_bwd_occupancy"](
+        _DTYPES[dtype], ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_fused_bwd_occupancy: cudaError "
+                           f"{rc}")
+    return smem.value, blocks.value
+
+
 class SelectiveScanFusedFn(torch.autograd.Function):
     """:func:`selective_scan_fused` over a sequence (no step, no
-    ``h_out``) with its gradient: the fused forward kernel, then the
-    backward kernel on the saved inputs (it recomputes the states).  On
-    the CPU both sides are the plain versions, so the Function itself can
-    be tested there.  The gradients of ``out`` and of the final state may
+    ``h_out``) with its gradient: the fused forward kernel's instance that
+    keeps the state entering every ``BWD_CHUNK`` steps, then the backward
+    kernel on the saved inputs and those boundaries (it recomputes the
+    states in between).  On the CPU both sides are the plain versions,
+    passing the boundaries the same way, so the Function itself can be
+    tested there.  The gradients of ``out`` and of the final state may
     each be absent (None: zero)."""
 
     @staticmethod
     def forward(ctx, x, dt, dt_bias, B, C, A_log, D, z, h0):
         ctx.set_materialize_grads(False)
         if x.is_cuda:
+            bounds = _bounds_for(x, A_log.shape[-1])
             out, h = _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0,
-                                     None, False)
+                                     None, False, bounds)
         else:
-            out, h = selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D,
-                                              z, h0)
-        ctx.save_for_backward(x, dt, dt_bias, B, C, A_log, D, z, h0)
+            out, h, bounds = selective_scan_fused_ref(
+                x, dt, dt_bias, B, C, A_log, D, z, h0, bounds=True)
+        ctx.save_for_backward(x, dt, dt_bias, B, C, A_log, D, z, h0, bounds)
         return out, h
 
     @staticmethod
     def backward(ctx, dout, dh_final):
-        x, dt, dt_bias, B, C, A_log, D, z, h0 = ctx.saved_tensors
+        x, dt, dt_bias, B, C, A_log, D, z, h0, bounds = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(x)
         if x.is_cuda:
             return _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
-                             dh_final)
+                             dh_final, bounds)
         return selective_scan_fused_bwd_ref(x, dt, dt_bias, B, C, A_log, D,
-                                            z, h0, dout, dh_final)
+                                            z, h0, dout, dh_final,
+                                            bounds=bounds)
 
 
 #: Number of forward kernel launches made by either wrapper (never the
 #: plain versions), of backward calls (``bwd_launches``, one per call of
 #: the backward kernel), and the same counts split by input: ``(x shape,
 #: N, dtype name)`` for :func:`selective_scan`, ``("fused", x.shape, N,
-#: x.dtype, step)`` for :func:`selective_scan_fused`, ``("fused_bwd",
+#: x.dtype, step)`` for :func:`selective_scan_fused`, ``("fused_bound",
+#: x.shape, N, x.dtype)`` for the forward of :class:`SelectiveScanFusedFn`
+#: (the instance that keeps the chunk boundaries), ``("fused_bwd",
 #: x.shape, N, x.dtype)`` for a backward.
 selective_scan.launches = 0
 selective_scan.bwd_launches = 0

@@ -862,12 +862,17 @@ SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 def _scan_bwd_call(shape, dtype, with_h0, with_dhf):
+    """Inputs of one backward call, with the chunk boundaries that the
+    forward kernel kept for them (as ``SelectiveScanFusedFn`` does)."""
     args, h0 = _fused_inputs(shape, dtype, sum(shape))
     rng = np.random.default_rng(sum(shape) + 1)
     b, s, d, n, _ = shape
     dout = _randn(rng, (b, s, d), dtype)
     dhf = _randn(rng, (b, d, n), torch.float32) if with_dhf else None
-    return (*args, h0 if with_h0 else None), dout, dhf
+    args = (*args, h0 if with_h0 else None)
+    bounds = ss._bounds_for(args[0], n)
+    ss._fused_fwd_cuda(*args, None, False, bounds)
+    return args, dout, dhf, bounds
 
 
 @pytest.mark.parametrize("start", ["zero", "h0+dh", "dh"])
@@ -875,13 +880,14 @@ def _scan_bwd_call(shape, dtype, with_h0, with_dhf):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", SCAN_BWD_SHAPES, ids=str)
 def test_selective_scan_fused_bwd_kernel_matches_plain(shape, dtype, start):
-    """The nine gradients of the backward kernel against the plain
-    backward, on the model's views; one backward call a call."""
+    """The nine gradients of the backward kernel, fed by the forward
+    kernel's chunk boundaries, against the plain backward, on the model's
+    views; one backward call a call."""
     _need_cuda()
-    args, dout, dhf = _scan_bwd_call(shape, dtype, "h0" in start,
-                                     "dh" in start)
+    args, dout, dhf, bounds = _scan_bwd_call(shape, dtype, "h0" in start,
+                                             "dh" in start)
     before = ss.selective_scan.bwd_launches
-    got = ss._bwd_cuda(*args, dout, dhf)
+    got = ss._bwd_cuda(*args, dout, dhf, bounds)
     torch.cuda.synchronize()
     assert ss.selective_scan.bwd_launches == before + 1
     want = ss.selective_scan_fused_bwd_ref(*args, dout, dhf)
@@ -904,12 +910,45 @@ def test_selective_scan_fused_bwd_kernel_matches_plain(shape, dtype, start):
 def test_selective_scan_fused_bwd_repeats_bit_for_bit(shape, dtype):
     """No atomics: two launches on the same inputs give the same bits."""
     _need_cuda()
-    args, dout, dhf = _scan_bwd_call(shape, dtype, True, True)
-    first = ss._bwd_cuda(*args, dout, dhf)
-    again = ss._bwd_cuda(*args, dout, dhf)
+    args, dout, dhf, bounds = _scan_bwd_call(shape, dtype, True, True)
+    first = ss._bwd_cuda(*args, dout, dhf, bounds)
+    again = ss._bwd_cuda(*args, dout, dhf, bounds)
     torch.cuda.synchronize()
     for a, c in zip(first, again):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES, ids=str)
+def test_forward_kernel_keeps_the_chunk_boundaries(shape, dtype, with_h0):
+    """The fused forward's instance that keeps the chunk boundaries: each
+    within 1e-5 of ``1 + |h|`` of the plain walk's (``ex2.approx`` is not
+    ``torch.exp``), and its ``out`` and final state bit-equal to the
+    generation instance's on the same inputs."""
+    _need_cuda()
+    args, h0 = _fused_inputs(shape, dtype, sum(shape))
+    args = (*args, h0 if with_h0 else None)
+    n = shape[3]
+    bounds = ss._bounds_for(args[0], n)
+    out, h = ss._fused_fwd_cuda(*args, None, False, bounds)
+    out_g, h_g = ss._fused_fwd_cuda(*args, None, False)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_g) and torch.equal(h, h_g)
+    want = ss.selective_scan_fused_ref(*args, bounds=True)[2]
+    assert bounds.shape == want.shape == (shape[0], -(-shape[1] // 16),
+                                          shape[2], n)
+    assert bool(((bounds - want).abs() <= 1e-5 * (1 + want.abs())).all())
+
+
+def test_scan_backward_holds_four_blocks_an_sm():
+    """The backward's main kernel is built for 16 resident warps an SM (4
+    blocks of 128 threads: 128 registers, 53 KB of dynamic shared memory
+    in bfloat16), so the training shape's 512 blocks run in one wave."""
+    _need_cuda()
+    smem, blocks = ss.bwd_occupancy(torch.bfloat16)
+    assert blocks >= 4 and smem <= 56 * 1024, (smem, blocks)
 
 
 def test_scan_function_is_used_on_the_card_under_grad():
@@ -997,7 +1036,7 @@ def test_mamba1_train_step_launch_counts():
         torch.cuda.synchronize()
         L, micro = cfg.n_layers, 2
         fwd = sum(v for k, v in ss.selective_scan.shapes.items()
-                  if k[0] == "fused")
+                  if k[0] == "fused_bound")
         bwd = sum(v for k, v in ss.selective_scan.shapes.items()
                   if k[0] == "fused_bwd")
         assert (fwd, bwd) == (micro * 2 * L, micro * L)

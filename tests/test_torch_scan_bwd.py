@@ -278,6 +278,134 @@ def test_plain_backward_is_the_same_for_every_chunk(dtype):
             assert torch.equal(g, w), chunk
 
 
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_forward_keeps_the_boundaries_of_the_backward_walk(dtype, with_h0):
+    """The plain forward's chunk boundaries (``bounds=True``: the state
+    entering every ``BWD_CHUNK`` steps, which the forward kernel keeps for
+    the backward kernel) are the plain backward's own forward walk, bit
+    for bit, at a ragged S; the forward's outputs do not change."""
+    io, params, _ = _inputs((2, 37, 12, 5), 11, with_h0)
+    args = _torch_args(io, params, dtype)
+    out, h, bounds = ss.selective_scan_fused_ref(*args, bounds=True)
+    want_out, want_h = ss.selective_scan_fused_ref(*args)
+    assert torch.equal(out, want_out) and torch.equal(h, want_h)
+    assert bounds.shape == (2, 3, 12, 5) and bounds.dtype == torch.float32
+    x, dt, dt_bias, B, C, A_log, D, z, h0 = args
+    walk = ss._walk_bounds(x, dt, dt_bias, B, A_log, h0, ss.BWD_CHUNK)
+    assert torch.equal(bounds, walk)
+    assert torch.equal(bounds[:, 0], h0 if with_h0 else torch.zeros_like(
+        bounds[:, 0]))
+    with pytest.raises(ValueError, match="bounds"):
+        ss.selective_scan_fused_ref(*args[:-1], None, torch.empty_like(h),
+                                    bounds=True)
+
+
+@pytest.mark.parametrize("start", ["zero", "h0+dh", "dh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plain_backward_from_the_forward_boundaries_is_bit_equal(dtype,
+                                                                  start):
+    """``selective_scan_fused_bwd_ref(..., bounds=...)`` with the plain
+    forward's boundaries gives the bits it gives when it walks forward to
+    find them itself; boundaries of the wrong shape are refused."""
+    io, params, cot = _inputs((2, 37, 12, 5), 12, "h0" in start)
+    args = _torch_args(io, params, dtype)
+    dout = torch.from_numpy(cot[0]).to(dtype)
+    dhf = torch.from_numpy(cot[1]) if "dh" in start else None
+    bounds = ss.selective_scan_fused_ref(*args, bounds=True)[2]
+    want = ss.selective_scan_fused_bwd_ref(*args, dout, dhf)
+    got = ss.selective_scan_fused_bwd_ref(*args, dout, dhf, bounds=bounds)
+    for name, g, w in zip(NAMES, got, want):
+        assert (g is None and w is None) or torch.equal(g, w), name
+    with pytest.raises(ValueError, match="bounds"):
+        ss.selective_scan_fused_bwd_ref(*args, dout, dhf,
+                                        bounds=bounds[:, :2])
+
+
+class _OnCard(torch.Tensor):
+    """A host tensor that says it lies on the card, so that the wrappers'
+    CUDA branches run here as far as their launch (recorded, not made)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+class _Ctx:
+    """What ``SelectiveScanFusedFn.forward`` and ``backward`` use of
+    autograd's context."""
+
+    def set_materialize_grads(self, value):
+        pass
+
+    def save_for_backward(self, *tensors):
+        self.saved_tensors = tensors
+
+
+def test_the_function_hands_both_kernels_the_boundary_buffer(monkeypatch):
+    """The Function's forward launches the fused kernel with a boundary
+    buffer, ``(b, ceil(S / 16), D, N)`` float32, counted under its own
+    shape key, and saves it; its backward hands the backward kernel that
+    buffer and a workspace of ``_bwd_work_floats`` elements (the partials
+    only).  A generation call — over a sequence or a decode step — hands
+    the forward kernel no buffer."""
+    calls = []
+    monkeypatch.setattr(ss, "launch",
+                        lambda name, index, *a: calls.append((name, a)))
+    monkeypatch.setattr(ss.selective_scan, "launches", 0)
+    monkeypatch.setattr(ss.selective_scan, "bwd_launches", 0)
+    monkeypatch.setattr(ss.selective_scan, "shapes", type(
+        ss.selective_scan.shapes)())
+    b, s, d, n = 2, 37, 45, 5
+    io, params, cot = _inputs((b, s, d, n), 13, True)
+    args = [None if t is None else torch.Tensor._make_subclass(_OnCard, t)
+            for t in _torch_args(io, params, torch.bfloat16)]
+    ctx = _Ctx()
+    ss.SelectiveScanFusedFn.forward(ctx, *args)
+    bounds = ctx.saved_tensors[-1]
+    assert bounds.shape == (b, 3, d, n) and bounds.dtype == torch.float32
+    assert bounds.is_contiguous()
+    [(name, a)] = calls
+    assert name == "selective_scan_fused_fwd"
+    assert a[11] == bounds.data_ptr()     # x, dt, B, C, z, A_log, dt_bias,
+    #                                       D, h0, out, h_out, bound
+    dout = torch.Tensor._make_subclass(
+        _OnCard, torch.from_numpy(cot[0]).to(torch.bfloat16))
+    grads = ss.SelectiveScanFusedFn.backward(ctx, dout, None)
+    assert len(grads) == 9 and grads[-1].shape == (b, d, n)
+    name, a = calls[-1]
+    assert name == "selective_scan_fused_bwd"
+    assert a[11] == bounds.data_ptr()     # ..., dout, dh_final, bound
+    assert a[22] == ss._bwd_work_floats(b, s, d, n)
+    assert dict(ss.selective_scan.shapes) == {
+        ("fused_bound", (b, s, d), n, torch.bfloat16): 1,
+        ("fused_bwd", (b, s, d), n, torch.bfloat16): 1}
+    calls.clear()
+    x, dt, dt_bias, B, C, A_log, D, z, h0 = args
+    with torch.no_grad():
+        ss.selective_scan_fused(x, dt, dt_bias, B, C, A_log, D, z, h0)
+        ss.selective_scan_fused(x[:, :1], dt[:, :1], dt_bias, B[:, :1],
+                                C[:, :1], A_log, D, z[:, :1], h0, h0,
+                                step=True)
+    assert [(c[0], c[1][11]) for c in calls] == [
+        ("selective_scan_fused_fwd", None)] * 2
+    with pytest.raises(ValueError, match="bounds"):
+        ss._bwd_cuda(*args, dout, None, bounds[:, :2])
+
+
+def test_bwd_workspace_holds_the_partials_only():
+    """The backward kernel's workspace: the per-block ``dB, dC`` partials
+    ``(2, b, ceil(D / 32), S, N)``, the per-sequence ``dA_log`` partials
+    ``(b, D, N)`` and ``ddt_bias, dD`` partials ``(2, b, D)``; the chunk
+    boundaries are the forward's buffer, not the workspace's."""
+    for b, s, d, n in ((2, 37, 45, 5), (2, 512, 8192, 16), (1, 1, 1, 1)):
+        blocks = -(-d // ss.BWD_CHANNELS)
+        assert ss._bwd_work_floats(b, s, d, n) == \
+            2 * b * blocks * s * n + b * d * n + 2 * b * d
+
+
 def test_function_takes_a_gradient_of_either_output_alone():
     """The final state's gradient may be absent (training drops the state)
     and so may the output's; neither is materialised as zeros by autograd
