@@ -8,9 +8,10 @@ Drives the package's main paths at full size — the planner
 annealing dedication on the card, and the planner's other entry points:
 the live bandwidth probe, the plan server, elastic replanning and the
 churn replay), generation (``launch.generate``: prefill and greedy
-decode of qwen2-7b and falcon-mamba-7b) and training (``launch.train``:
-qwen2-7b and falcon-mamba-7b at full width and 4 layers, each with a crash
-and a resume) — builds the
+decode of qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m,
+llava-next-mistral-7b and musicgen-large) and training (``launch.train``:
+qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m and gpt-1.1b at full width
+and 4 layers, each with a crash and a resume) — builds the
 CUDA kernels from the sources in this checkout, holds each kernel against
 its plain PyTorch version, and proves that each path went through its
 kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
@@ -23,7 +24,9 @@ report: the bfloat16 D=128 attention instance must not spill, the scan's
 registers and spills per instance — plain, fused, and fused_bound, the
 training forward that keeps the chunk boundaries — none of which may
 spill, the registers and spills of the bfloat16 attention backward's
-three passes at every head dim, none of which may spill at D=128, the
+three passes at every head dim, none of which may spill at D=128, every
+bfloat16 attention instance's registers, spills, dynamic shared memory
+and blocks an SM (no spill at the head dims 96, 112, 136), the
 registers, spills and dynamic shared memory of the scan backward's two
 launches in both types, the bfloat16 one (the training path's) without a
 spill and holding 4 blocks an SM, and the cost
@@ -59,19 +62,27 @@ boundaries, which are held to the plain walk's, and the forward's outputs
 bit-equal to the generation instance's; each plain
 backward against autograd of its plain forward; each autograd Function by
 finite differences in float32; the refusal of a gradient by the scan's
-decode step and its plain form),
+decode step and its plain form), ``kernels_at_new_head_dims`` (the
+attention at head dims 96, 112 and 136, forward and backward, both types:
+gpt-1.1b's, kimi-k2-1t-a32b's and gpt-11.1b's training shapes checked and
+timed beside SDPA, and ragged cases, each with its kernel launches),
 ``scan_at_falcon_shapes``
 (the plain-form scan at falcon-mamba-7b's prefill shape in both types, and
 the fused form at its prefill and step shapes in float32, checked and
 timed), ``scan_by_batch`` (the plain form at that prefill shape with batch
-1, 4 and 16, beside the warps an SM holds at each), ``generate_qwen2_7b``
-and ``generate_falcon_mamba_7b`` (full width and depth, batch 4, prompt
-512, 32 tokens, weights from a seeded generator on the card; exact launch
-counts, the split of plain and residual norms, and falcon's scans all in
-the fused form: one a layer per prefill and per step), ``slice_check_*``
-(each model at full width and 2 layers: the card's prefill logits against
-the host's, and the first decode step against ``forward_logits`` at the
-next position), ``train_qwen2_7b`` (``launch.train.train``: qwen2-7b at
+1, 4 and 16, beside the warps an SM holds at each), ``generate_qwen2_7b``,
+``generate_falcon_mamba_7b``, ``generate_granite_moe_3b_a800m``,
+``generate_llava_next_mistral_7b`` (2,880 image embeddings and 8 text
+tokens, the reference's prompt at 512) and ``generate_musicgen_large``
+(full width and depth, batch 4, prompt 512, 32 tokens, weights from a
+seeded generator on the card; exact launch counts, the prefill's one
+attention shape, the split of plain and residual norms, and falcon's
+scans all in the fused form: one a layer per prefill and per step),
+``slice_check_*`` (qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m — in
+float32 and at a capacity that drops nothing — and gpt-1.1b at full width
+and 2 layers: the card's prefill logits against the host's, and the first
+decode step against ``forward_logits`` at the next position),
+``train_qwen2_7b`` (``launch.train.train``: qwen2-7b at
 full width and 4 of its 28 layers — the one cut — bf16, remat, random
 weights from a seeded generator on the card, ``SyntheticCorpus`` batches
 of 4 x 512 in 2 microbatches, AdamW on the reference's cosine schedule, 4
@@ -84,16 +95,20 @@ on the card against the host's plain path), ``train_falcon_mamba_7b`` and
 ``slice_check_train_falcon_mamba_7b`` (the same two for falcon-mamba-7b:
 4 of its 64 layers; the fused scan forward twice a layer, in its instance
 that keeps the chunk boundaries, and its backward kernel once, both norm
-forms, counted exactly),
+forms, counted exactly), ``train_granite_moe_3b_a800m`` and
+``train_gpt_1_1b`` with their ``slice_check_train_*`` (the same for
+granite-moe-3b-a800m, 4 of 32 layers, its slice in float32, and gpt-1.1b,
+4 of 24 layers, head dim 96),
 ``model_kernels_at_path_shapes`` (the training phases' forward shapes
 too), ``bwd_kernels_at_path_shapes``,
 ``bwd_attention_full_grid`` (the bfloat16 attention backward at qwen2-7b's
 heads and 2048 tokens, where its grid fills the card; off the main path)
 and ``host_cost`` (host
 microseconds of one call of each redesigned wrapper and of its library
-call); with ``--profile`` also ``profile_sa``, ``profile_generate_*``,
-``profile_train`` and ``profile_train_falcon_mamba_7b`` (torch.profiler:
-device busy and idle share).
+call); with ``--profile`` also ``profile_sa``, ``profile_generate_*``
+(qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m), ``profile_train`` and
+``profile_train_*`` of the other trained archs (torch.profiler: device
+busy and idle share).
 Each plan is made twice — SA on the card
 (``backend="torch"``) and on the host (``backend="numpy"``) — and the two
 Plan JSONs must be byte-equal once the backend's name is dropped.  The
@@ -155,7 +170,8 @@ from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import silu  # noqa: E402
 from repro_torch.models.sharding import ShardCtx  # noqa: E402
-from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.models.transformer import (ATTENTION_FAMILIES,  # noqa: E402
+                                            init_params)
 from repro_torch.runtime.churn import (WARM_POLICY, generate_trace,  # noqa: E402
                                        simulate_churn)
 from repro_torch.runtime.elastic import replan_on  # noqa: E402
@@ -1425,6 +1441,23 @@ def scan_by_batch(device, scan_regs: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 GEN_BATCH, GEN_PROMPT, GEN_TOKENS = 4, 512, 32
+#: The archs generated at full width and depth, and their phases' names:
+#: the dense, Mamba1, MoE, vlm (2,880 image embeddings and 8 text tokens:
+#: the reference's prompt at 512) and audio families.
+GEN_ARCHS = {"qwen2-7b": "generate_qwen2_7b",
+             "falcon-mamba-7b": "generate_falcon_mamba_7b",
+             "granite-moe-3b-a800m": "generate_granite_moe_3b_a800m",
+             "llava-next-mistral-7b": "generate_llava_next_mistral_7b",
+             "musicgen-large": "generate_musicgen_large"}
+#: Traced under ``--profile``.
+PROFILE_GEN_ARCHS = ("qwen2-7b", "falcon-mamba-7b", "granite-moe-3b-a800m")
+#: The archs held card against host at full width and ``SLICE_LAYERS``
+#: layers, and their phases' names (gpt-1.1b: head dim 96, the training
+#: CLI's default arch).
+SLICE_ARCHS = {"qwen2-7b": "slice_check_qwen2_7b",
+               "falcon-mamba-7b": "slice_check_falcon_mamba_7b",
+               "granite-moe-3b-a800m": "slice_check_granite_moe_3b_a800m",
+               "gpt-1.1b": "slice_check_gpt_1_1b"}
 SLICE_LAYERS, SLICE_PROMPT = 2, 128
 #: Whole-slice tolerance on logits (unit scale: a normalised state times a
 #: head of variance 1/d): both sides round every product to bfloat16 (8
@@ -1436,7 +1469,10 @@ SLICE_TOL_MAX, SLICE_TOL_MEAN = 0.25, 0.02
 
 def run_generate(name: str, arch: str, device) -> tuple:
     """``launch.generate.generate`` at full width and depth; asserts the
-    exact launch count of each kernel."""
+    exact launch count of each kernel (and, with attention, the one shape
+    of the prefill's attention).  A vlm prompt is the config's image
+    embeddings and ``max(GEN_PROMPT - n_img, 8)`` text tokens, as the
+    reference builds it."""
     cfg = configs.get(arch)
     torch.cuda.empty_cache()
     reset_launches()
@@ -1448,27 +1484,34 @@ def run_generate(name: str, arch: str, device) -> tuple:
     toks = res["tokens"]
     assert tuple(toks.shape) == (GEN_BATCH, GEN_TOKENS), toks.shape
     assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
-    steps = res["decode_steps"]
-    norms = 1 + (2 if cfg.family == "dense" else 1) * cfg.n_layers
+    steps, plen = res["decode_steps"], res["prompt_len"]
+    attn = cfg.family in ATTENTION_FAMILIES
+    norms = 1 + (2 if attn else 1) * cfg.n_layers
     want = {k: 0 for k in WRAPPERS}
     want["rmsnorm"] = norms * (1 + steps)          # per prefill, per step
-    if cfg.family == "dense":
+    if attn:
         want["flash_attention"] = cfg.n_layers     # per prefill
     else:                                          # per prefill, per step
         want["selective_scan"] = cfg.n_layers * (1 + steps)
     assert launches == want, (name, launches, want)
+    if attn:
+        fa_key = ((GEN_BATCH, cfg.n_heads, plen, cfg.hd),
+                  (GEN_BATCH, cfg.n_kv_heads, plen, cfg.hd), True, 0,
+                  str(torch.bfloat16))
+        assert shapes["flash_attention"] == {fa_key: cfg.n_layers}, \
+            shapes["flash_attention"]
     # per prefill one plain norm over the sequence, norms - 2 residual
     # ones and one plain norm of the last row; per step one plain and
     # norms - 1 residual ones
     d, bf = cfg.d_model, torch.bfloat16
-    seq, last = (GEN_BATCH, GEN_PROMPT, d), (GEN_BATCH, 1, d)
+    seq, last = (GEN_BATCH, plen, d), (GEN_BATCH, 1, d)
     split = {(seq, bf, bf): 1, ("add", seq, bf, bf): norms - 2,
              (last, bf, bf): 1 + steps,
              ("add", last, bf, bf): (norms - 1) * steps}
     assert shapes["rmsnorm"] == split, shapes["rmsnorm"]
     # the scan only in its fused form: one a layer per prefill and per step
     scans = {}
-    if cfg.family != "dense":
+    if not attn:
         di, n = cfg.d_inner, cfg.ssm_state
         scans = {("fused", (GEN_BATCH, GEN_PROMPT, di), n, bf, False):
                  cfg.n_layers,
@@ -1477,9 +1520,15 @@ def run_generate(name: str, arch: str, device) -> tuple:
     assert shapes["selective_scan"] == scans, shapes["selective_scan"]
     fused = cfg.n_layers if scans else 0
     line = {
-        "phase": name, "model": cfg.name, "n_layers": cfg.n_layers,
-        "d_model": d, "vocab": cfg.vocab_size, "batch": GEN_BATCH,
-        "prompt_len": res["prompt_len"], "gen": GEN_TOKENS,
+        "phase": name, "model": cfg.name, "family": cfg.family,
+        "n_layers": cfg.n_layers, "d_model": d, "vocab": cfg.vocab_size,
+        "batch": GEN_BATCH, "prompt_len": plen, "gen": GEN_TOKENS,
+        **({"image_embeddings": cfg.n_img_tokens,
+            "text_tokens": plen - cfg.n_img_tokens}
+           if cfg.frontend == "vlm" else {}),
+        **({"experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+            "capacity_factor": cfg.capacity_factor}
+           if cfg.family == "moe" else {}),
         "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
         "decode_ms_per_token": res["decode_s"] / steps * 1e3,
         "wall_s_with_init": wall,
@@ -1541,6 +1590,16 @@ def _to_host(tree):
     return tree.cpu()
 
 
+#: Archs whose card-against-host slices run in float32: an MoE router
+#: picks its top k of many experts, and in bfloat16 a logit one step away
+#: between two correct sides (the card's attention kernel against the
+#: host's plain attention) can reorder a near-tie and send a token to
+#: another expert; in float32 the two sides agree to 1e-6 and the checks
+#: hold the MoE path and the float32 attention instance.  The bfloat16
+#: MoE runs in the generate and train phases.
+SLICE_DTYPE = {"granite-moe-3b-a800m": "float32"}
+
+
 def slice_check(name: str, arch: str, device) -> dict:
     """One model at full width and ``SLICE_LAYERS`` layers, batch 1: the
     card's prefill logits (kernels) against the host's (plain versions) on
@@ -1548,6 +1607,14 @@ def slice_check(name: str, arch: str, device) -> dict:
     ``forward_logits`` at the next position — the reference's own
     prefill/decode consistency check."""
     cfg = configs.get(arch).replace(n_layers=SLICE_LAYERS)
+    if arch in SLICE_DTYPE:
+        cfg = cfg.replace(dtype=SLICE_DTYPE[arch])
+    if cfg.family == "moe":
+        # a capacity that drops nothing: the decode step's one token never
+        # fills an expert, where the forward's 129 tokens at the config's
+        # factor drop the assignments past an expert's capacity (the
+        # reference's own consistency test runs its MoE configs at 8)
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts))
     ctx = ShardCtx()
     params = init_params(cfg, seed=1, device=device)
     host = _to_host(params)
@@ -1583,6 +1650,8 @@ def slice_check(name: str, arch: str, device) -> dict:
     torch.cuda.empty_cache()
     return {"phase": name, "model": cfg.name, "n_layers": SLICE_LAYERS,
             "prompt_len": SLICE_PROMPT, "dtype": cfg.dtype,
+            **({"capacity_factor": cfg.capacity_factor}
+               if cfg.family == "moe" else {}),
             "tol": {"max_abs": SLICE_TOL_MAX, "mean_abs": SLICE_TOL_MEAN},
             "prefill_card_vs_host": prefill,
             "decode_vs_forward_logits": decode, "host_prefill_s": host_s}
@@ -1744,9 +1813,14 @@ def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
                 "to the query heads")
         kl, vl = (t.detach().repeat_interleave(group, dim=1)
                   .requires_grad_() for t in (k, v))
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
-                          SDPBackend.EFFICIENT_ATTENTION]):
-            ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        try:
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                ol = F.scaled_dot_product_attention(ql, kl, vl,
+                                                    is_causal=causal)
+        except RuntimeError:         # neither takes this head dim
+            return kernel, plain, None, ("none (SDPA's flash and efficient "
+                                         "backends refuse this head dim)")
     dl = dout.contiguous()
     library = lambda: torch.autograd.grad(  # noqa: E731
         ol, (ql, kl, vl), dl, retain_graph=True)
@@ -2042,6 +2116,56 @@ def check_bwd_path_shapes(device, shapes_by_phase: dict) -> list:
     return rows
 
 
+#: The shipped head dims the attention kernel gained, forward and
+#: backward, in both types: each config's training shape (batch 2, 512
+#: tokens, its heads and KV heads) checked and timed — gpt-1.1b (96, the
+#: training CLI's default arch), kimi-k2-1t-a32b (112, a group of 8) and
+#: gpt-11.1b (136, the 144-wide instance) — and ragged cases: Sq != Sk
+#: both ways, GQA and MHA, a window, no causal mask.
+NEW_DIM_SHAPES = [((2, 20, 512, 96), (2, 20, 512, 96)),
+                  ((2, 64, 512, 112), (2, 8, 512, 112)),
+                  ((2, 32, 512, 136), (2, 32, 512, 136))]
+NEW_DIM_RAGGED = [(2, 4, 2, 130, 130, 96, True, 0),
+                  (1, 4, 4, 77, 200, 96, False, 0),
+                  (1, 8, 1, 100, 100, 112, True, 30),
+                  (2, 2, 2, 64, 50, 112, True, 0),
+                  (1, 4, 2, 150, 150, 136, True, 0),
+                  (1, 2, 2, 33, 90, 136, False, 20),
+                  (1, 8, 2, 257, 257, 136, True, 64)]
+
+
+def check_new_head_dims(device) -> dict:
+    """The ``kernels_at_new_head_dims`` phase: the instances at 96, 112
+    and 136, forward (against ``flash_attention_ref``, ``TOL``) and
+    backward (against ``flash_attention_bwd_ref``, ``TOL_BWD``, the
+    bfloat16 one launched twice for the same bits), each row with the
+    launches of the hand-written kernel it made (the timing runs' too);
+    the training shapes timed beside the plain versions and SDPA."""
+    rows = []
+    for dt in ("float32", "bfloat16"):
+        keys = [(qs, ks, True, 0, dt) for qs, ks in NEW_DIM_SHAPES]
+        keys += [((b, h, sq, d), (b, kv, sk, d), causal, window, dt)
+                 for b, h, kv, sq, sk, d, causal, window in NEW_DIM_RAGGED]
+        for i, key in enumerate(keys):
+            for name, k in (("flash_attention", key),
+                            ("flash_attention_bwd", ("bwd",) + key)):
+                before = (fa.flash_attention.launches,
+                          fa.flash_attention.bwd_launches)
+                check = check_model_kernel if name == "flash_attention" \
+                    else check_bwd_kernel
+                row = check(name, k, device, i < len(NEW_DIM_SHAPES))
+                row["kernel_launches"] = {
+                    "fwd": fa.flash_attention.launches - before[0],
+                    "bwd": fa.flash_attention.bwd_launches - before[1]}
+                assert row["kernel_launches"]["fwd" if name ==
+                                              "flash_attention" else
+                                              "bwd"] >= 1, (name, k)
+                rows.append(row)
+                torch.cuda.empty_cache()
+    return {"phase": "kernels_at_new_head_dims", "head_dims": [96, 112, 136],
+            "kernels": rows}
+
+
 def check_bwd_full_grid(device) -> dict:
     """The ``bwd_attention_full_grid`` phase: the bfloat16 attention
     backward at ``FULL_GRID_FA_BWD``, off the main path, checked and
@@ -2061,7 +2185,9 @@ def check_bwd_full_grid(device) -> dict:
 #: phases' names; the first arch's profile and slice phases keep the names
 #: they had before the second's (``profile_train``, ``slice_check_train``).
 TRAIN_ARCHS = {"qwen2-7b": (28, "qwen2_7b"),
-               "falcon-mamba-7b": (64, "falcon_mamba_7b")}
+               "falcon-mamba-7b": (64, "falcon_mamba_7b"),
+               "granite-moe-3b-a800m": (32, "granite_moe_3b_a800m"),
+               "gpt-1.1b": (24, "gpt_1_1b")}
 TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_LR = 4, 2, 3, 3e-4
@@ -2087,16 +2213,22 @@ def _train_phase(kind: str, arch: str) -> str:
 def train_flops(cfg, params, tokens: int) -> dict:
     """Operations of one training step: ``6 N tokens`` for the parameters
     that enter a product (every layer's and the head's; the embedding is a
-    lookup) plus, for a dense model, the attention's ``3 x 4 B H D pairs``
-    a layer (forward and backward); a Mamba1 model's scan is not counted.
-    ``hardware`` adds what remat runs again (each layer's forward)."""
-    n_layers = sum(t.numel() for t in _tree.leaves(params["layers"]))
+    lookup; of an MoE layer's experts the ``k / E`` a token uses) plus,
+    with attention, its ``3 x 4 B H D pairs`` a layer (forward and
+    backward); a Mamba1 model's scan is not counted.  ``hardware`` adds
+    what remat runs again (each layer's forward)."""
+    leaves = params["layers"]
+    experts = sum(leaves[k].numel() for k in ("e_gate", "e_up", "e_down")
+                  if k in leaves)
+    n_layers = sum(t.numel() for t in _tree.leaves(leaves)) - experts
+    if experts:
+        n_layers += experts * cfg.experts_per_token // cfg.n_experts
     n_head = params["lm_head"].numel() if "lm_head" in params else \
         params["tok_embed"].numel()
     seqs = tokens // TRAIN_SEQ
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2            # causal, no window
     attn_fwd = 4 * seqs * cfg.n_heads * cfg.hd * pairs * cfg.n_layers \
-        if cfg.family == "dense" else 0
+        if cfg.family in ATTENTION_FAMILIES else 0
     model = 6 * (n_layers + n_head) * tokens + 3 * attn_fwd
     return {"matmul_params": n_layers + n_head, "model": model,
             "hardware": model + 2 * n_layers * tokens + attn_fwd}
@@ -2110,11 +2242,13 @@ def train_launches(cfg) -> tuple:
     attention, a Mamba1 layer 1 norm (plain in the first layer) and the
     fused scan, in its instance that keeps the chunk boundaries — and the
     final plain norm; a backward one of each, the residual norms' with
-    the stream's gradient."""
+    the stream's gradient.  An MoE layer counts as a dense one (its
+    experts are plain torch)."""
     L, micro, per = cfg.n_layers, TRAIN_MICRO, TRAIN_STEPS * TRAIN_MICRO
     bf = torch.bfloat16
     mb = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model)
-    norms_per_layer = 2 if cfg.family == "dense" else 1
+    attn = cfg.family in ATTENTION_FAMILIES
+    norms_per_layer = 2 if attn else 1
     residual = norms_per_layer * L - 1
     step = {"rmsnorm_fwd_plain": 3 * micro,
             "rmsnorm_fwd_residual": 2 * residual * micro,
@@ -2129,7 +2263,7 @@ def train_launches(cfg) -> tuple:
                          ("add", mb, bf, bf): per * 2 * residual,
                          ("bwd", mb, bf, bf): per * 2,
                          ("add_bwd", mb, bf, bf, True): per * residual}
-    if cfg.family == "dense":
+    if attn:
         q_shape = (mb[0], cfg.n_heads, TRAIN_SEQ, cfg.hd)
         k_shape = (mb[0], cfg.n_kv_heads, TRAIN_SEQ, cfg.hd)
         fa_key = (q_shape, k_shape, True, 0, str(bf))
@@ -2218,8 +2352,11 @@ def run_train(device, arch: str) -> tuple:
     warm = [h["dt"] for h in hist[-2:]]
     warm_s = float(np.mean(warm))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    width = (f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
-             f"{cfg.d_ff}" if cfg.family == "dense" else
+    width = (f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+             f"head dim {cfg.hd}, d_ff {cfg.d_ff}"
+             + (f", {cfg.n_experts} experts top-{cfg.experts_per_token}"
+                if cfg.family == "moe" else "")
+             if cfg.family in ATTENTION_FAMILIES else
              f"d {cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, "
              f"dt_rank {cfg.dt_rank}")
     line = {
@@ -2284,6 +2421,8 @@ def slice_check_train(device, arch: str) -> dict:
     path (``device="cpu"``, plain versions, autograd), on the same weights
     and tokens."""
     cfg = configs.get(arch).replace(n_layers=SLICE_TRAIN_LAYERS)
+    if arch in SLICE_DTYPE:
+        cfg = cfg.replace(dtype=SLICE_DTYPE[arch])
     ctx = ShardCtx()
     params = init_params(cfg, seed=2, device=device)
     host = _to_host(params)
@@ -2396,6 +2535,38 @@ def scan_bwd_ptxas(log: str) -> dict:
         f"{'bf16' if 'bfloat16' in name else 'f32'} "
         f"{'main' if 'scan_bwd_kernel' in name else 'fold'}")
         if "scan_bwd_" in name else None)
+
+
+def attention_fwd_ptxas(log: str) -> dict:
+    """``ptxas_table`` of every instance of the bfloat16 tensor-core
+    attention forward, keyed "D=<d>" (without the lse store) and "D=<d>
+    lse"."""
+    def label(name):
+        m = re.search(r"flash_fwd_bf16_mmaILi(\d+)ELb([01])E", name)
+        return None if m is None else \
+            f"D={m.group(1)}{' lse' if m.group(2) == '1' else ''}"
+    return ptxas_table(log, label)
+
+
+def attention_instances(log: str) -> dict:
+    """For every head dim of ``fa.HEAD_DIMS``: the bfloat16 forward's and
+    the backward's two tensor-core passes' registers, spills, dynamic
+    shared memory and blocks an SM (the CUDA runtime's occupancy
+    calculator)."""
+    fwd, bwd = attention_fwd_ptxas(log), attention_bwd_ptxas(log)
+    out = {}
+    for d in fa.HEAD_DIMS:
+        occ = fa.occupancy(d)
+        out[f"D={d}"] = {
+            "fwd": {**fwd[f"D={d}"], "dynamic_smem": occ["fwd"][0],
+                    "blocks_per_sm": occ["fwd"][1]},
+            "fwd_lse": fwd[f"D={d} lse"],
+            "dkv": {**bwd[f"dkv D={d}"], "dynamic_smem": occ["dkv"][0],
+                    "blocks_per_sm": occ["dkv"][1]},
+            "dq": {**bwd[f"dq D={d}"], "dynamic_smem": occ["dq"][0],
+                   "blocks_per_sm": occ["dq"][1]},
+            "fold": bwd[f"fold D={d}"]}
+    return out
 
 
 def attention_bwd_ptxas(log: str) -> dict:
@@ -2611,11 +2782,20 @@ def main() -> int:
                                  "blocks an SM", scan_bwd_resident,
                                  scan_bwd_regs)
     bwd_regs = attention_bwd_ptxas(log)
-    assert len(bwd_regs) == 3 * 5, bwd_regs          # 3 passes x 5 dims
+    assert len(bwd_regs) == 3 * len(fa.HEAD_DIMS), bwd_regs  # 3 passes a dim
     # and so does its backward at the model's head dim
     assert all(bwd_regs[f"{p} D=128"]["spill_bytes"] == [0, 0]
                for p in ("dkv", "dq", "fold")), ("bf16 D=128 attention "
                                                  "backward spills", bwd_regs)
+    # the instances of the shipped head dims 96, 112 and 136 (a 144-wide
+    # tile), forward and backward, spill nothing either, and every
+    # instance fits at least one block an SM
+    attention = attention_instances(log)
+    for d in (96, 112, 136):
+        for part, v in attention[f"D={d}"].items():
+            assert v["spill_bytes"] == [0, 0], (d, part, v)
+    assert all(v["blocks_per_sm"] >= 1 for inst in attention.values()
+               for v in inst.values() if "blocks_per_sm" in v), attention
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_now": _build.last_build_seconds is not None,
           "library": os.path.relpath(str(lib), ROOT),
@@ -2627,6 +2807,7 @@ def main() -> int:
           "scan_bwd_ptxas": scan_bwd_regs,
           "scan_bwd_resident_blocks_per_sm": scan_bwd_resident,
           "attention_bwd_bf16_ptxas": bwd_regs,
+          "attention_bf16_instances": attention,
           **launch_path_reads_us(),
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if ln.startswith("==") or "Compiling entry" in ln
@@ -2667,23 +2848,22 @@ def main() -> int:
     emit({"phase": "model_kernels", "kernels": model_ragged})
     bwd_phase = check_bwd_ragged(device)
     emit(bwd_phase)
+    new_dims = check_new_head_dims(device)
+    emit(new_dims)
     scan_rows = check_scan_at_falcon_shapes(device)
     emit({"phase": "scan_at_falcon_shapes", "kernels": scan_rows})
     emit(scan_by_batch(device, scan_regs))
-    line_q, launches_q, shapes_q = run_generate("generate_qwen2_7b",
-                                                "qwen2-7b", device)
-    emit(line_q)
-    line_f, launches_f, shapes_f = run_generate("generate_falcon_mamba_7b",
-                                                "falcon-mamba-7b", device)
-    emit(line_f)
+    gen_launches, gen_shapes = {}, {}
+    for arch, name in GEN_ARCHS.items():
+        line_g, gen_launches[name], gen_shapes[name] = run_generate(
+            name, arch, device)
+        emit(line_g)
     if args.profile:
-        emit(profile_generate("profile_generate_qwen2_7b", "qwen2-7b",
-                              device))
-        emit(profile_generate("profile_generate_falcon_mamba_7b",
-                              "falcon-mamba-7b", device))
-    emit(slice_check("slice_check_qwen2_7b", "qwen2-7b", device))
-    emit(slice_check("slice_check_falcon_mamba_7b", "falcon-mamba-7b",
-                     device))
+        for arch in PROFILE_GEN_ARCHS:
+            emit(profile_generate(
+                "profile_" + GEN_ARCHS[arch], arch, device))
+    for arch, name in SLICE_ARCHS.items():
+        emit(slice_check(name, arch, device))
     train_lines, fwd_tr, bwd_tr = [], {}, {}
     for arch in TRAIN_ARCHS:
         line_tr, shapes_tr = run_train(device, arch)
@@ -2698,9 +2878,7 @@ def main() -> int:
         bwd_tr[line_tr["phase"]] = {
             name: {k: n for k, n in by.items() if is_bwd_key(k)}
             for name, by in shapes_tr.items()}
-    model_rows = check_model_path_shapes(
-        device, {"generate_qwen2_7b": shapes_q,
-                 "generate_falcon_mamba_7b": shapes_f, **fwd_tr})
+    model_rows = check_model_path_shapes(device, {**gen_shapes, **fwd_tr})
     emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
     bwd_rows = check_bwd_path_shapes(device, bwd_tr)
     emit({"phase": "bwd_kernels_at_path_shapes", "kernels": bwd_rows})
@@ -2711,7 +2889,7 @@ def main() -> int:
     main_path = {name: launches_u[name] + launches_t[name]
                  + launches_s[name] + launches_r[name] + launches_c[name]
                  for name in PLAN_KERNELS}
-    main_path.update({name: launches_q[name] + launches_f[name]
+    main_path.update({name: sum(g[name] for g in gen_launches.values())
                       + sum(t["launches_fwd"][name] for t in train_lines)
                       for name in MODEL_KERNELS})
     main_path.update({name: sum(t["launches_bwd"][name]
@@ -2723,10 +2901,11 @@ def main() -> int:
 
     def summary(name):
         """One line per kernel: its launches on the main paths (the two
-        plans and the planner's other entry points, or the two generate
-        phases and the two training phases), and the times at the shape the
-        paths launched most often; ``forms`` has the same for each form's
-        most launched shape, and ``per_shape`` every shape."""
+        plans and the planner's other entry points, or the generate phases
+        and the training phases), and the times at the shape the paths
+        launched most often; ``forms`` has the same for each form's most
+        launched shape, ``per_shape`` every shape, and for the attention
+        ``new_head_dims`` its instances at 96, 112 and 136."""
         mine = [r for r in rows + model_rows + scan_rows
                 if r["name"] == name]
         assert main_path[name] > 0, f"{name} was never launched"
@@ -2748,6 +2927,7 @@ def main() -> int:
                 "launches": main_path[name],
                 "max_abs_err": max(r["max_abs_err"]
                                    for r in mine + ragged + model_ragged
+                                   + new_dims["kernels"]
                                    if r["name"] == name),
                 "ms": top["ms"], "device_ms": top["device_ms"],
                 "plain_ms": top["plain_ms"],
@@ -2755,7 +2935,10 @@ def main() -> int:
                 "library_ms": top["library_ms"],
                 **({"unfused_ms": top["unfused_ms"]}
                    if "unfused_ms" in top else {}),
-                "forms": forms, "per_shape": mine}
+                "forms": forms, "per_shape": mine,
+                **({"new_head_dims": [r for r in new_dims["kernels"]
+                                      if r["name"] == name and "ms" in r]}
+                   if name == "flash_attention" else {})}
 
     def summary_bound():
         """The fused scan's training forward in a line of its own: the
@@ -2801,11 +2984,15 @@ def main() -> int:
                 "shape": top["key"], "launches": main_path[name],
                 "max_abs_err": max(r["max_abs_err"] for r in
                                    mine + bwd_phase["kernels"]
+                                   + new_dims["kernels"]
                                    if r["name"] == name),
                 "ms": top["ms"], "device_ms": top["device_ms"],
                 "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
                 "bound_by": top["bound_by"],
-                "library_ms": top["library_ms"], "per_shape": mine}
+                "library_ms": top["library_ms"], "per_shape": mine,
+                **({"new_head_dims": [r for r in new_dims["kernels"]
+                                      if r["name"] == name and "ms" in r]}
+                   if name == "flash_attention_bwd" else {})}
 
     emit({"kernels": [summary(name) for name in KERNELS] + [summary_bound()]
           + [summary_bwd(name) for name in BWD_KERNELS]})

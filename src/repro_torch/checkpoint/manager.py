@@ -33,9 +33,12 @@ from .._tree import flatten, leaves, structure, unflatten
 
 
 def _to_numpy(x) -> Tuple[np.ndarray, str]:
-    """npz-safe encoding; bfloat16 round-trips bitwise via a uint16 view."""
+    """npz-safe encoding; bfloat16 round-trips bitwise via a uint16 view.
+    A tensor is copied to the host even when it lies there already: the
+    asynchronous writer must not share memory that the optimizer then
+    updates in place (AdamW's moments), or it writes a later step."""
     if isinstance(x, torch.Tensor):
-        t = x.detach().cpu()
+        t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         a = t.numpy()

@@ -176,6 +176,8 @@ def load_library() -> ctypes.CDLL:
         + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
         "flash_attention_bwd": [vp] * 11 + [ll] * 24
         + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
+        # (head_dim, pass, &smem bytes, &blocks an SM): no launch, no stream
+        "flash_attention_occupancy": [ci, ci, vp, vp],
         # selective_scan.cu: (x, dt, B, C, A, h0, y, h_out,
         #   4 x (batch, time) strides, batch, len, d, n, bf16, stream) and
         #   (x, dt, B, C, z, A_log, dt_bias, D, h0, out, h_out, bound,

@@ -19,13 +19,18 @@
 // manner of FlashAttention-2:
 //   - one block of four warps per (64 query rows, head, batch); each warp
 //     owns 16 rows (one m16 tile); its Q fragments are loaded once with
-//     `ldmatrix` and stay in registers (D <= 128; for D = 256 they are read
-//     from shared memory at every key tile, to keep the registers free of
-//     spills);
-//   - K and V tiles of 64 keys (32 for D = 256) go through a two-stage
+//     `ldmatrix` and stay in registers (D <= 128; for D = 136 and 256 they
+//     are read from shared memory at every key tile, to keep the registers
+//     free of spills);
+//   - K and V tiles of 64 keys (32 for D > 128) go through a two-stage
 //     `cp.async` ring in dynamic shared memory, 16-byte chunks XOR-swizzled
 //     by row so that the `ldmatrix` / `ldmatrix.trans` reads of eight rows
-//     hit eight distinct bank groups;
+//     hit eight distinct bank groups (a row of 12, 14 or 18 chunks — D = 96,
+//     112, 144 — is padded in shared memory to 16 or 24, so that the XOR
+//     stays inside the row);
+//   - the products walk D rounded up to 16 (whole k-steps): D = 136 runs a
+//     144-wide tile whose 17th chunk is zero-filled on load and whose last
+//     8 columns are never stored, with the scale of the true D;
 //   - S = Q K^T and O += P V are `mma.sync.m16n8k16` with bf16 operands and
 //     f32 accumulators; V is read with `ldmatrix.trans`; P goes from the f32
 //     accumulator fragment to the bf16 A-operand fragment in registers (the
@@ -297,21 +302,42 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;          // 64 query rows, 16 per warp
 
+// Chunks a row of C 16-byte chunks takes in shared memory: C below 8 (a
+// power of two), else C rounded up to a multiple of 8, so that swz's XOR
+// with r & 7 keeps every chunk inside its row (12 -> 16, 14 -> 16,
+// 18 -> 24; 8, 16 and 32 stay as they are).
+template <int C>
+__host__ __device__ constexpr int pitch() {
+  static_assert(C >= 8 || (C & (C - 1)) == 0, "C below 8 is a power of 2");
+  return C >= 8 ? (C + 7) / 8 * 8 : C;
+}
+
+// A bf16 row of head dim D in shared memory: the products walk kDim, D
+// rounded up to 16 (whole m16n8k16 k-steps), that is kChunks 16-byte
+// chunks, of which the first kLoaded hold the row and the rest (one, at
+// D = 136) are zero-filled on load; kBytes a row with its padding.
+template <int D>
+struct Row {
+  static_assert(D % 8 == 0, "whole 16-byte chunks");
+  static constexpr int kDim = (D + 15) / 16 * 16;
+  static constexpr int kChunks = kDim / 8;
+  static constexpr int kLoaded = D / 8;
+  static constexpr int kBytes = pitch<kChunks>() * 16;
+};
+
 template <int D>
 struct Cfg {
-  static constexpr int kChunks = D / 8;       // 16-byte chunks of a row
-  static constexpr int kBlockK = D > 128 ? 32 : 64;
-  static constexpr bool kQInRegs = D <= 128;
-  static constexpr int kTileBytes = kBlockK * D * 2;   // one K or V tile
-  static constexpr int kQBytes = kBlockQ * D * 2;
+  static constexpr int kChunks = Row<D>::kChunks;
+  static constexpr int kBlockK = Row<D>::kDim > 128 ? 32 : 64;
+  static constexpr bool kQInRegs = Row<D>::kDim <= 128;
+  static constexpr int kTileBytes = kBlockK * Row<D>::kBytes;  // K or V
+  static constexpr int kQBytes = kBlockQ * Row<D>::kBytes;
   static constexpr int kRingBytes = 2 * 2 * kTileBytes;  // 2 stages x (K, V)
   // Q is staged in stage 1 when it moves on to registers before the ring
   // needs that stage; else it keeps a region of its own
   static constexpr int kSmemBytes =
       kQInRegs ? kRingBytes : kRingBytes + kQBytes;
   static_assert(!kQInRegs || kQBytes <= 2 * kTileBytes, "Q fits stage 1");
-  static_assert((kBlockK * kChunks) % kThreads == 0, "whole copy rounds");
-  static_assert((kBlockQ * kChunks) % kThreads == 0, "whole copy rounds");
 };
 
 // Byte offset of 16-byte chunk c of row r in a tile of C chunks a row.
@@ -322,7 +348,8 @@ template <int C>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   constexpr int kRowsPerLine = C >= 8 ? 1 : 8 / C;
   constexpr int kMask = (C >= 8 ? 8 : C) - 1;
-  return (uint32_t)((r * C + (c ^ ((r / kRowsPerLine) & kMask))) * 16);
+  constexpr int kPitch = pitch<C>();
+  return (uint32_t)((r * kPitch + (c ^ ((r / kRowsPerLine) & kMask))) * 16);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -352,6 +379,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
+// the first two matrices of ldsm_x4_trans (addresses from lanes 0-15)
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr,
+                                              uint32_t (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
 
 // d += a . b on a 16x8x16 tile: bf16 operands, f32 accumulators
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -370,19 +405,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // rows [row0, row0 + ROWS) of a (len, D) matrix with row stride `stride`
-// into a swizzled tile at `dst`; rows at or past `len` are zero-filled
+// into a swizzled tile at `dst`; rows at or past `len`, and the chunks past
+// D of a row padded to Row<D>::kDim, are zero-filled.  The last round of
+// copies is partial when ROWS * kChunks is not a multiple of the block
+// (32 x 18 chunks at D = 136).
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
                                           long long stride, int row0,
                                           int len, int tid) {
-  constexpr int C = D / 8;
+  constexpr int C = Row<D>::kChunks, CL = Row<D>::kLoaded, N = ROWS * C;
 #pragma unroll
-  for (int it = 0; it < ROWS * C / kThreads; ++it) {
+  for (int it = 0; it < (N + kThreads - 1) / kThreads; ++it) {
     const int i = it * kThreads + tid;
-    const int r = i / C, c = i % C;
-    const bool in = row0 + r < len;
-    const bf16* src = base + (in ? (long long)(row0 + r) * stride : 0) + c * 8;
-    cp_async16(dst + swz<C>(r, c), src, in);
+    if (N % kThreads == 0 || i < N) {
+      const int r = i / C, c = i % C;
+      const bool in = row0 + r < len && (CL == C || c < CL);
+      const bf16* src = base + (in ? (long long)(row0 + r) * stride + c * 8
+                                   : 0);
+      cp_async16(dst + swz<C>(r, c), src, in);
+    }
   }
 }
 
@@ -398,8 +439,8 @@ flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int C = Cf::kChunks;
   constexpr int BK = Cf::kBlockK;
   constexpr int NT = BK / 8;        // key n-tiles of S
-  constexpr int KD = D / 16;        // k-steps of Q K^T
-  constexpr int DT = D / 8;         // d n-tiles of O
+  constexpr int KD = Row<D>::kDim / 16;   // k-steps of Q K^T
+  constexpr int DT = Row<D>::kDim / 8;    // d n-tiles of O
   extern __shared__ uint4 smem_tc[];
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_tc);
 
@@ -554,7 +595,7 @@ flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
+      for (int dn = 0; dn < DT / 2; ++dn) {
         uint32_t bv[4];
         ldsm_x4_trans(vs + swz<C>(kk * 16 + vb_row, dn * 2 + vb_col), bv);
         mma(acc[2 * dn], a, bv[0], bv[1]);
@@ -582,7 +623,7 @@ flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     bf16* orow = ob + (long long)qi * so.s + 2 * tq;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
+    for (int dt = 0; dt < D / 8; ++dt)     // the padded columns stay unwritten
       *reinterpret_cast<uint32_t*>(orow + dt * 8) =
           pack_bf16(acc[dt][2 * half] * inv, acc[dt][2 * half + 1] * inv);
   }
@@ -1019,17 +1060,19 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
 // operations at 989 TFLOP/s are of one size, so the design keeps every
 // product on the tensor cores and every intermediate (S, P, dP, dS) in
 // registers.  Four launches, none with atomics:
-//   - `delta` (bwd_delta_packed): D / 8 lanes a row, 16-byte packs.
+//   - `delta` (bwd_delta_packed): D / 8 lanes a row (rounded up to a
+//     power of two), 16-byte packs.
 //   - `dkv` (bwd_dkv_mma): one block of four warps per (64 keys, query head,
-//     batch) — per (32 keys, ...) for D = 256 — so a GQA group's heads run
+//     batch) — per (32 keys, ...) for D > 128 — so a GQA group's heads run
 //     in parallel blocks (448 blocks at q (2, 28, 512, 128) where a block
 //     per KV head gave 128).  K and V of the block stay in swizzled shared
 //     memory; Q, dO, lse and delta tiles of the query rows that may see the
 //     keys stream through a two-stage cp.async ring (32 rows a stage for
-//     D >= 128, else 64); key tile 0, which a causal mask lets see the most
-//     query tiles, starts first.  A warp owns 16 keys (and, for D = 256,
+//     D > 64, else 64); key tile 0, which a causal mask lets see the most
+//     query tiles, starts first.  A warp owns 16 keys (and, for D > 128,
 //     half of the columns of dK and dV: two warps share the keys and both
-//     compute their S^T) and computes S^T = K Q^T and dP^T = V dO^T, then
+//     compute their S^T; at D = 136 each half is 72 columns, 9 n-tiles, the
+//     last read by an ldmatrix .x2) and computes S^T = K Q^T and dP^T = V dO^T, then
 //     P^T = exp2(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T -
 //     delta) in f32 on the accumulator fragments, and dV += P^T dO, dK +=
 //     dS^T Q with P^T, dS^T moved from the C fragments to bf16 A fragments
@@ -1042,7 +1085,7 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
 //     float32 kernel's dkv pass.
 //   - `dq` (bwd_dq_mma): the forward's layout, one block of four warps per
 //     (64 query rows, head, batch), heavy query tiles first; Q and dO tiles
-//     stay in shared memory, K and V tiles of 64 keys (32 for D = 256) go
+//     stay in shared memory, K and V tiles of 64 keys (32 for D > 128) go
 //     through the ring; S = Q K^T, dP = dO V^T, dS in f32, dQ += dS K with
 //     dS rounded to bf16 as the A operand and K read by ldmatrix.trans.
 //     The dQ pass recomputes S and dP, so the backward runs seven products
@@ -1051,18 +1094,23 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
 // Numerics: P is rounded to bf16 for P^T dO and dS for dS^T Q and dS K,
 // as FlashAttention-2 does; lse, delta, the exponent and every accumulator
 // stay f32.  The wrapper checks that every row of q, k, v, o, dout is
-// 16-byte aligned for cp.async and the packed loads.
+// 16-byte aligned for cp.async and the packed loads.  Head dims that are
+// not a multiple of 16 (136) run on the forward's zero-padded tiles: the
+// padded columns add 0 to every product and are never stored, and the
+// workspace keeps the true D.
 
 namespace tc_bwd {
 
 using bf16 = __nv_bfloat16;
 using tc::cp_async_commit;
 using tc::cp_async_wait;
+using tc::ldsm_x2_trans;
 using tc::ldsm_x4;
 using tc::ldsm_x4_trans;
 using tc::load_tile;
 using tc::mma;
 using tc::pack_bf16;
+using tc::Row;
 using tc::swz;
 
 constexpr int kWarps = 4;
@@ -1085,22 +1133,33 @@ __device__ __forceinline__ bool straddles(int q0, int bq, int k0, int bk,
          (window > 0 && q0 + bq - 1 - k0 >= window);
 }
 
+// lanes of bwd_delta_packed a row: D / 8 (one 16-byte pack each) rounded
+// up to a power of two, so that a warp's rows are aligned groups of lanes
+// (16 for D = 96 and 112, 32 for D = 136)
+template <int D>
+__host__ __device__ constexpr int delta_lanes() {
+  static_assert(D % 8 == 0 && D <= 256, "whole packs, a row in a warp");
+  int l = 1;
+  while (l < D / 8) l *= 2;
+  return l;
+}
+
 // delta[row] = O_row . dO_row for bfloat16 rows that are 16-byte aligned:
-// D / 8 lanes a row, each reading 8 values of O and of dO as one pack, the
-// lanes' sums folded by shuffles
+// delta_lanes<D>() lanes a row, the first D / 8 each reading 8 values of O
+// and of dO as one pack, the lanes' sums folded by shuffles
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 bwd_delta_packed(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                  float* __restrict__ delta, Strides so, Strides sd,
                  int heads, int len_q, long long rows) {
-  constexpr int L = D / 8;              // lanes a row
+  constexpr int L = delta_lanes<D>();   // lanes a row
   constexpr int R = 32 / L;             // rows a warp
   const int lane = threadIdx.x & 31;
   const long long row =
       ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * R + lane / L;
   const int c = (lane % L) * 8;
   float acc = 0.f;
-  if (row < rows) {
+  if (row < rows && (L == D / 8 || c < D)) {
     const int i = (int)(row % len_q);
     const long long bh = row / len_q;
     const int h = (int)(bh % heads), b = (int)(bh / heads);
@@ -1126,17 +1185,17 @@ bwd_delta_packed(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 
 template <int D>
 struct Dkv {
-  static constexpr int kC = D / 8;                      // chunks of a row
-  static constexpr int kSplit = D > 128 ? 2 : 1;        // warps on 16 keys
-  static constexpr int kBlockK = 16 * kWarps / kSplit;  // 64, 32 for D = 256
-  static constexpr int kCols = D / kSplit;              // dK, dV cols a warp
+  static constexpr int kC = Row<D>::kChunks;            // chunks of a row
+  static constexpr int kDim = Row<D>::kDim;             // D rounded to 16
+  static constexpr int kSplit = kDim > 128 ? 2 : 1;     // warps on 16 keys
+  static constexpr int kBlockK = 16 * kWarps / kSplit;  // 64, 32 past 128
+  static constexpr int kCols = kDim / kSplit;           // dK, dV cols a warp
   static constexpr int kBlockQ = kCols > 64 ? 32 : 64;  // query rows a stage
-  static constexpr int kKvBytes = kBlockK * D * 2;      // K or V
-  static constexpr int kQBytes = kBlockQ * D * 2;       // Q or dO
+  static constexpr int kKvBytes = kBlockK * Row<D>::kBytes;  // K or V
+  static constexpr int kQBytes = kBlockQ * Row<D>::kBytes;   // Q or dO
   static constexpr int kStageBytes = 2 * kQBytes + 2 * kBlockQ * 4;
   static constexpr int kSmemBytes = 2 * kKvBytes + 2 * kStageBytes;
-  static_assert((kBlockK * kC) % kThreads == 0, "whole copy rounds");
-  static_assert((kBlockQ * kC) % kThreads == 0, "whole copy rounds");
+  static_assert(kCols % 8 == 0, "whole n-tiles a warp");
   static_assert(2 * kBlockQ <= kThreads, "one lse or delta value a thread");
 };
 
@@ -1155,8 +1214,9 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int BK = Cf::kBlockK;
   constexpr int BQ = Cf::kBlockQ;
   constexpr int NQ = BQ / 8;            // query n-tiles of S^T
-  constexpr int KD = D / 16;            // k-steps of K Q^T
-  constexpr int CT = Cf::kCols / 8;     // column n-tiles of dK, dV
+  constexpr int KD = Cf::kDim / 16;     // k-steps of K Q^T
+  constexpr int CT = Cf::kCols / 8;     // column n-tiles of dK, dV (9, odd,
+                                        // at D = 136: the last one by x2)
   extern __shared__ uint4 smem_dkv_tc[];
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_dkv_tc);
   const char* sgen = reinterpret_cast<const char*>(smem_dkv_tc);
@@ -1291,7 +1351,7 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                         dp[2 * kk + 1][3])};
 #pragma unroll
       for (int dn = 0; dn < CT / 2; ++dn) {
-        const int chunk = cw * (Cf::kCols / 8) + dn * 2 + t_col;
+        const int chunk = cw * CT + dn * 2 + t_col;
         uint32_t bg[4], bq[4];
         ldsm_x4_trans(gs + swz<C>(kk * 16 + t_row, chunk), bg);
         ldsm_x4_trans(qs + swz<C>(kk * 16 + t_row, chunk), bq);
@@ -1299,6 +1359,14 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma(acc_v[2 * dn + 1], ap, bg[2], bg[3]);
         mma(acc_k[2 * dn], ad, bq[0], bq[1]);
         mma(acc_k[2 * dn + 1], ad, bq[2], bq[3]);
+      }
+      if constexpr (CT % 2 != 0) {
+        const int chunk = cw * CT + CT - 1;
+        uint32_t bg[2], bq[2];
+        ldsm_x2_trans(gs + swz<C>(kk * 16 + t_row, chunk), bg);
+        ldsm_x2_trans(qs + swz<C>(kk * 16 + t_row, chunk), bq);
+        mma(acc_v[CT - 1], ap, bg[0], bg[1]);
+        mma(acc_k[CT - 1], ad, bq[0], bq[1]);
       }
     }
     __syncthreads();                  // stage read; the next prefetch reuses it
@@ -1311,6 +1379,7 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int ct = 0; ct < CT; ++ct) {
       const int col = cw * Cf::kCols + ct * 8 + 2 * tq;
+      if (D != Cf::kDim && col >= D) continue;   // a padded column
       const float k0v = acc_k[ct][2 * half], k1v = acc_k[ct][2 * half + 1];
       const float v0v = acc_v[ct][2 * half], v1v = acc_v[ct][2 * half + 1];
       if (dkp != nullptr) {           // this head's partials, unscaled
@@ -1362,14 +1431,13 @@ bwd_fold(const float* __restrict__ dkp, const float* __restrict__ dvp,
 
 template <int D>
 struct Dq {
-  static constexpr int kC = D / 8;
+  static constexpr int kC = Row<D>::kChunks;
+  static constexpr int kDim = Row<D>::kDim;
   static constexpr int kBlockQ = kWarps * 16;           // 64, 16 a warp
-  static constexpr int kBlockK = D > 128 ? 32 : 64;
-  static constexpr int kQBytes = kBlockQ * D * 2;       // Q or dO
-  static constexpr int kKvBytes = kBlockK * D * 2;      // K or V
+  static constexpr int kBlockK = kDim > 128 ? 32 : 64;
+  static constexpr int kQBytes = kBlockQ * Row<D>::kBytes;   // Q or dO
+  static constexpr int kKvBytes = kBlockK * Row<D>::kBytes;  // K or V
   static constexpr int kSmemBytes = 2 * kQBytes + 2 * 2 * kKvBytes;
-  static_assert((kBlockK * kC) % kThreads == 0, "whole copy rounds");
-  static_assert((kBlockQ * kC) % kThreads == 0, "whole copy rounds");
 };
 
 template <int D>
@@ -1386,8 +1454,8 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int BQ = Cf::kBlockQ;
   constexpr int BK = Cf::kBlockK;
   constexpr int NT = BK / 8;            // key n-tiles of S
-  constexpr int KD = D / 16;            // k-steps of Q K^T
-  constexpr int DT = D / 8;             // d n-tiles of dQ
+  constexpr int KD = Cf::kDim / 16;     // k-steps of Q K^T
+  constexpr int DT = Cf::kDim / 8;      // d n-tiles of dQ
   extern __shared__ uint4 smem_dq_tc[];
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem_dq_tc);
   const uint32_t qs = sbase, gs = sbase + Cf::kQBytes;
@@ -1502,7 +1570,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
+      for (int dn = 0; dn < DT / 2; ++dn) {
         uint32_t bk[4];
         ldsm_x4_trans(ks + swz<C>(kk * 16 + t_row, dn * 2 + t_col), bk);
         mma(acc[2 * dn], a, bk[0], bk[1]);
@@ -1519,7 +1587,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qi >= len_q) continue;
     bf16* drow = db + (long long)qi * sdq.s + 2 * tq;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
+    for (int dt = 0; dt < D / 8; ++dt)     // the padded columns stay unwritten
       *reinterpret_cast<uint32_t*>(drow + dt * 8) =
           pack_bf16(acc[dt][2 * half] * scale, acc[dt][2 * half + 1] * scale);
   }
@@ -1543,7 +1611,8 @@ int launch(const bwd::BwdArgs& a, cudaStream_t stream) {
   if (fold && a.work == nullptr) return (int)cudaErrorInvalidValue;
   const long long hb = (long long)a.heads * a.batch;
   const long long rows = hb * a.len_q;
-  const long long delta_rows = kWarps * (32 / (D / 8));   // a block's rows
+  constexpr int kDeltaLanes = delta_lanes<D>();
+  const long long delta_rows = kWarps * (32 / kDeltaLanes);  // a block's
   const long long delta_blocks = (rows + delta_rows - 1) / delta_rows;
   const long long kv_blocks = (a.len_k + Kv::kBlockK - 1) / Kv::kBlockK * hb;
   const int n_qtiles = (a.len_q + Qc::kBlockQ - 1) / Qc::kBlockQ;
@@ -1588,10 +1657,26 @@ int by_head_dim(int head_dim, F f) {
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 136: return f(std::integral_constant<int, 136>{});
     case 256: return f(std::integral_constant<int, 256>{});
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// dynamic shared memory and blocks an SM of one kernel, by the CUDA
+// runtime's occupancy calculator (no launch)
+template <class K>
+int occupancy_of(K kernel, int threads, int smem, int* smem_bytes,
+                 int* blocks_per_sm) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  *smem_bytes = smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, threads, smem);
 }
 
 }  // namespace
@@ -1603,7 +1688,9 @@ extern "C" {
 // lse: null, or (batch, heads, len_q) float32, contiguous: each row's
 // log-sum-exp of its scaled scores over the allowed keys (natural log),
 // +inf for a row with no allowed key, so that exp(s - lse) is 0 there.
-// head_dim is one of 16, 32, 64, 128, 256; heads % kv_heads == 0; len_q
+// head_dim is one of 16, 32, 64, 96, 112, 128, 136, 256 (136 runs the
+// bfloat16 kernel's 144-wide tile, zero-padded, scaled by the given
+// scale); heads % kv_heads == 0; len_q
 // and len_k at least 1 and below 2^31; window <= 0 means no window, and
 // a window is below 2^31.  bf16 != 0: bfloat16 tensors, every row 16-byte
 // aligned (the tensor-core kernel); else float32 (the CUDA-core kernel).
@@ -1647,6 +1734,32 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 // null otherwise.  Types, head dims and sizes as for the forward; for
 // bf16 every row of q, k, v and dout is 16-byte aligned, and every row of
 // dq, dk, dv 8-byte aligned.
+// Dynamic shared memory and blocks an SM of the bfloat16 tensor-core
+// instance for head_dim: pass 0 the forward (without the lse store), 1 the
+// backward's dK/dV pass, 2 its dQ pass.  Launches nothing.
+int flash_attention_occupancy(int head_dim, int pass, int* smem_bytes,
+                              int* blocks_per_sm) {
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    switch (pass) {
+      case 0:
+        return occupancy_of(tc::flash_fwd_bf16_mma<D, false>, tc::kThreads,
+                            tc::Cfg<D>::kSmemBytes, smem_bytes,
+                            blocks_per_sm);
+      case 1:
+        return occupancy_of(tc_bwd::bwd_dkv_mma<D>, tc_bwd::kThreads,
+                            tc_bwd::Dkv<D>::kSmemBytes, smem_bytes,
+                            blocks_per_sm);
+      case 2:
+        return occupancy_of(tc_bwd::bwd_dq_mma<D>, tc_bwd::kThreads,
+                            tc_bwd::Dq<D>::kSmemBytes, smem_bytes,
+                            blocks_per_sm);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  });
+}
+
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dout, const void* lse,
                         void* delta, void* work, void* dq, void* dk, void* dv,

@@ -70,7 +70,10 @@ import torch
 from ._build import launch
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: Head dims the CUDA kernels take (``by_head_dim`` in the source); 136
+#: runs a 144-wide instance whose last 8 columns are zero-filled on load
+#: and skipped on store
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 136, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -183,10 +186,21 @@ def _check(q, k, v, window) -> None:
     kv, sk = k.shape[1], k.shape[2]
     if kv < 1 or h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    if min(b, h, sq, sk, d) < 1:
+        raise ValueError(f"empty sizes: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
+
+
+def _check_kernel(q, k, v, window) -> None:
+    """The limits of the CUDA kernels alone (the plain versions take any
+    head dim and size): a head dim of :data:`HEAD_DIMS`, lengths and the
+    window below 2**31, batch and heads below 2**16, and for bfloat16
+    every row of q, k, v 16-byte aligned."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
-    if min(b, h, sq, sk) < 1 or max(sq, sk, window) >= 2 ** 31 \
-            or b >= 2 ** 16 or h >= 2 ** 16:
+    if max(sq, sk, window) >= 2 ** 31 or b >= 2 ** 16 or h >= 2 ** 16:
         raise ValueError(f"unsupported sizes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, window {window}")
     if q.dtype == torch.bfloat16:
@@ -219,7 +233,7 @@ def _check_aligned(name: str, t: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """CUDA version of :func:`flash_attention_ref` (float32 or bfloat16;
-    head dim one of :data:`HEAD_DIMS`).
+    on the card the head dim is one of :data:`HEAD_DIMS`, on the CPU any).
 
     The inputs' type picks the kernel: bfloat16 runs the tensor-core kernel
     (rows 16-byte aligned, else ``ValueError``), float32 the CUDA-core one.
@@ -232,6 +246,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _check_kernel(q, k, v, window)
     if (q.requires_grad or k.requires_grad or v.requires_grad) \
             and torch.is_grad_enabled():
         return FlashAttentionFn.apply(q, k, v, bool(causal), window)
@@ -291,6 +306,27 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int) -> tuple:
     flash_attention.shapes[("bwd", tuple(q.shape), tuple(k.shape), causal,
                             window, str(q.dtype))] += 1
     return dq, dk, dv
+
+
+def occupancy(head_dim: int) -> dict:
+    """``{"fwd" | "dkv" | "dq": (dynamic shared memory bytes, blocks an
+    SM)}`` of the bfloat16 tensor-core instances for ``head_dim`` on the
+    current CUDA device, as the CUDA runtime's occupancy calculator gives
+    them (the forward without its ``lse`` store; the backward's two
+    tensor-core passes).  Needs the card; launches nothing."""
+    import ctypes
+    from . import _build
+    _build.load_library()
+    out = {}
+    for i, name in enumerate(("fwd", "dkv", "dq")):
+        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        rc = _build._fns["flash_attention_occupancy"](
+            head_dim, i, ctypes.byref(smem), ctypes.byref(blocks))
+        if rc != 0:
+            raise RuntimeError(f"flash_attention_occupancy({head_dim}, "
+                               f"{name}): cudaError {rc}")
+        out[name] = (smem.value, blocks.value)
+    return out
 
 
 class FlashAttentionFn(torch.autograd.Function):

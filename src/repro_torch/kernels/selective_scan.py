@@ -341,10 +341,17 @@ def _check(x, dt, B, C, A, h0) -> None:
             f"{tuple(x.shape)}, {tuple(dt.shape)}, {tuple(B.shape)}, "
             f"{tuple(C.shape)}, {tuple(A.shape)}, "
             f"{None if h0 is None else tuple(h0.shape)}")
-    if not (1 <= n <= N_MAX) or min(b, s, d) < 1 or b >= 2 ** 16 \
-            or s >= 2 ** 31 or d >= 2 ** 31:
-        raise ValueError(f"unsupported sizes: b {b}, S {s}, D {d}, N {n} "
-                         f"(N at most {N_MAX})")
+    if min(b, s, d, n) < 1:
+        raise ValueError(f"empty sizes: b {b}, S {s}, D {d}, N {n}")
+
+
+def _check_kernel_sizes(b: int, s: int, d: int, n: int) -> None:
+    """The limits of the CUDA kernels alone (the plain versions take any
+    size): N at most :data:`N_MAX`, batch below 2**16, S and D below
+    2**31."""
+    if n > N_MAX or b >= 2 ** 16 or s >= 2 ** 31 or d >= 2 ** 31:
+        raise ValueError(f"the CUDA kernel does not take b {b}, S {s}, "
+                         f"D {d}, N {n} (N at most {N_MAX})")
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -362,9 +369,10 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         return selective_scan_ref(x, dt, B, C, A, h0)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    refuse_grad("selective_scan", NO_BACKWARD, x, dt, B, C, A, h0)
     b, s, d = x.shape
     n = A.shape[-1]
+    _check_kernel_sizes(b, s, d, n)
+    refuse_grad("selective_scan", NO_BACKWARD, x, dt, B, C, A, h0)
     A = A.contiguous()
     h0 = None if h0 is None else h0.contiguous()
     y = torch.empty((b, s, d), dtype=torch.float32, device=x.device)
@@ -428,10 +436,9 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
             f"{tuple(dt_bias.shape)}, D {tuple(D.shape)}, h0 "
             f"{None if h0 is None else tuple(h0.shape)}, h_out "
             f"{None if h_out is None else tuple(h_out.shape)}")
-    if not (1 <= n <= N_MAX) or min(b, s, d) < 1 or b >= 2 ** 16 \
-            or s >= 2 ** 31 or (step and s != 1):
+    if min(b, s, d, n) < 1 or (step and s != 1):
         raise ValueError(f"unsupported sizes: b {b}, S {s}, D {d}, N {n} "
-                         f"(N at most {N_MAX}; S = 1 for a step)")
+                         f"(S = 1 for a step)")
     if (x.stride(2) != 1 or dt.stride(2) != 1 or B.stride(2) != 1
             or C.stride(2) != 1 or z.stride(2) != 1):
         raise ValueError("x, dt, B, C, z need a unit-stride last axis")
@@ -450,6 +457,7 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
             raise ValueError(f"unsupported device {x.device}")
         return selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z,
                                         h0, h_out, step=step)
+    _check_kernel_sizes(b, s, d, n)
     if torch.is_grad_enabled() and (
             x.requires_grad or dt.requires_grad or dt_bias.requires_grad
             or B.requires_grad or C.requires_grad or A_log.requires_grad

@@ -6,7 +6,9 @@ with KV or SSM caches updated in place.
 
 Runs on the CUDA device unless ``--device cpu`` is given (and fails without
 one).  Weights and prompts are random, drawn from ``--seed`` on the device;
-``--smoke`` takes the architecture's ``reduced()`` config.  Prints the
+``--smoke`` takes the architecture's ``reduced()`` config.  A vlm prompt is
+the config's ``n_img_tokens`` patch embeddings followed by ``max(prompt_len
+- n_img_tokens, 8)`` text tokens, as the reference builds it.  Prints the
 prefill seconds and the decode milliseconds per token.
 """
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
+from ..models.frontends import vlm_patch_embeddings
 from ..models.sharding import ShardCtx
 from ..models.transformer import check_family, init_params
 from .steps import make_decode_step, make_prefill_step
@@ -49,9 +52,11 @@ def generate(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     from the prefill's logits).
 
     Returns the prompts, the generated tokens ``(batch, gen)``, the prompt
-    length used (rounded up to a multiple of a sliding window), the prefill
-    seconds, the decode seconds over ``gen - 1`` steps and, on a CUDA
-    device, the peak bytes allocated during the call (weights included).
+    length used (rounded up to a multiple of a sliding window; for a vlm
+    the image embeddings and the text together, ``img_embeds`` beside it),
+    the prefill seconds, the decode seconds over ``gen - 1`` steps and, on
+    a CUDA device, the peak bytes allocated during the call (weights
+    included).
     """
     check_family(cfg)
     device = resolve_device(device)
@@ -66,15 +71,24 @@ def generate(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
         prompt_len += window - prompt_len % window
     gen_rng = torch.Generator(device=device)
     gen_rng.manual_seed(seed)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+    img, s_text = None, prompt_len
+    if cfg.frontend == "vlm":
+        img = vlm_patch_embeddings(gen_rng, batch, cfg.n_img_tokens,
+                                   cfg.d_model)
+        s_text = max(prompt_len - cfg.n_img_tokens, 8)
+        prompt_len = s_text + cfg.n_img_tokens
+    prompts = torch.randint(0, cfg.vocab_size, (batch, s_text),
                             generator=gen_rng, device=device)
     ctx = ShardCtx()
     prefill_step = make_prefill_step(cfg, ctx)
     step = make_decode_step(cfg, ctx)
+    inputs = {"tokens": prompts}
+    if img is not None:
+        inputs["img_embeds"] = img
 
     _sync(device)
     t0 = time.perf_counter()
-    last_logits, cache = prefill_step(params, {"tokens": prompts})
+    last_logits, cache = prefill_step(params, inputs)
     cache = grow_cache(cache, gen)
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -89,7 +103,8 @@ def generate(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     _sync(device)
     t_decode = time.perf_counter() - t0
     return {
-        "prompts": prompts, "tokens": tokens, "prompt_len": prompt_len,
+        "prompts": prompts, "img_embeds": img, "tokens": tokens,
+        "prompt_len": prompt_len,
         "prefill_s": t_prefill, "decode_s": t_decode,
         "decode_steps": gen - 1,
         "peak_bytes": (torch.cuda.max_memory_allocated(device)

@@ -39,9 +39,14 @@ def _leaves_for_grad(params) -> tuple:
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> dict:
-    """The loader's NumPy batch as int64 tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device).long()
-            for k, v in batch.items()}
+    """The loader's NumPy batch on ``device``: integer arrays (tokens,
+    labels) as int64 tensors, float arrays (a vlm's ``img_embeds``) in
+    their own type."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
 
 
 def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,

@@ -1,7 +1,8 @@
 """Top-level model API: logits, the training loss, prefill, decode.
 
-Port of the JAX package's ``models/model.py`` for the dense and Mamba1
-families.  Decode walks the layers in the reference's segments (runs of
+Port of the JAX package's ``models/model.py`` for the dense, MoE, Mamba1,
+vlm and audio families (a vlm prompt carries image embeddings ahead of
+its text, :func:`embed_inputs`).  Decode walks the layers in the reference's segments (runs of
 layers with the same kind, cache kind, window and theta) with a plain loop,
 so heterogeneous caches stay exact: full KV rows for global-attention
 layers, ring buffers for sliding-window layers (gemma3 locals), SSM state
@@ -26,7 +27,8 @@ from .config import ModelConfig
 from .layers import residual_norm, rms_norm
 from .sharding import ShardCtx
 from .transformer import (_out_proj, _proj_qkv, check_family, init_params,
-                          layer_params, layer_plan, mlp_block, run_stack)
+                          layer_params, layer_plan, mlp_block, moe_mlp,
+                          run_stack)
 
 __all__ = ["init_params", "forward_logits", "loss_fn", "prefill",
            "init_cache", "decode_step"]
@@ -37,12 +39,12 @@ __all__ = ["init_params", "forward_logits", "loss_fn", "prefill",
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params, cfg: ModelConfig, tokens, img_embeds=None):
-    """Token embeddings ``(b, s, d)`` and positions ``(b, s)`` int32."""
+    """Token embeddings ``(b, s, d)`` and positions ``(b, s)`` int32; image
+    embeddings ``(b, n_img, d)``, when given, go ahead of the text (cast to
+    the embeddings' type) and ``s`` counts both."""
+    x = params["tok_embed"][tokens]                     # (b, s_text, d)
     if img_embeds is not None:
-        raise NotImplementedError(
-            "image embeddings come with the vlm frontend (ROADMAP Queue A 8, "
-            "models/frontends.py)")
-    x = params["tok_embed"][tokens]                     # (b, s, d)
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -211,8 +213,10 @@ def _decode_layer_body(x, pending, lp, ck, cv, cfg, ctx, pos: int, *,
     plus the previous layer's ``pending`` output (None before the first
     layer).  ``ck, cv`` ``(b, S, KV, hd)`` are the layer's cache rows; the
     new token's key and value are written into them in place.  Returns
-    ``(x, pending)``: the stream so far and this layer's MLP output, not
-    yet added."""
+    ``(x, pending)``: the stream so far and this layer's MLP (or MoE)
+    output, not yet added.  An MoE layer runs ``moe_block`` with its
+    default combine and dispatch, whatever the config's knobs say, as the
+    reference's decode does."""
     x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -226,6 +230,8 @@ def _decode_layer_body(x, pending, lp, ck, cv, cfg, ctx, pos: int, *,
     o = decode_attention(q, ck, cv, last)
     x, h = residual_norm(x, _out_proj(o, lp["wo"]), lp["ln2"],
                          cfg.norm_eps)
+    if kind == "moe":
+        return x, moe_mlp(h, lp, cfg, ctx)
     return x, mlp_block(h, lp)
 
 
@@ -248,7 +254,7 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
         kind, cache_kind, window, theta = sig
         for i in idxs:
             lp = layer_params(params, i)
-            if kind == "attn":
+            if kind in ("attn", "moe"):
                 ckey, vkey = ("k", "v") if cache_kind == "full" else \
                     ("k_ring", "v_ring")
                 row = plan[i]["cache"][1]

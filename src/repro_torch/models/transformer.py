@@ -1,4 +1,4 @@
-"""Decoder stack of the dense and SSM families.
+"""Decoder stack of the dense, MoE, Mamba1, vlm and audio families.
 
 Port of the JAX package's ``models/transformer.py``.  Parameters are one
 dict with the reference's keys and its layer-stacked ``(L, ...)`` shapes, so
@@ -18,8 +18,10 @@ Full-sequence attention goes through the ``flash_attention`` kernel and
 every norm through the ``rmsnorm`` kernel.  Each block's output is carried
 to the next norm as a pending residual, which that norm adds in the same
 launch (``layers.residual_norm``); :func:`run_stack` completes the stream
-before it returns.  The ``moe``, ``hybrid``,
-``vlm`` and ``audio`` families raise ``NotImplementedError`` naming the
+before it returns.  The ``vlm`` and ``audio`` families are dense backbones
+(their frontends are stubs, ``models/frontends.py``); an ``moe`` layer
+runs ``models/moe.py::moe_block`` in place of the MLP.  The ``hybrid``
+family (and Mamba2 layers) raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -33,17 +35,17 @@ from .._device import DeviceLike, resolve_device
 from ..kernels.flash_attention import flash_attention
 from . import mamba as mam
 from .config import ModelConfig
-from .layers import apply_rope, dense_init, residual_norm, swiglu
+from .layers import apply_rope, dense_init, normal, residual_norm, swiglu
+from .moe import moe_block
 from .sharding import ShardCtx
 
 #: Families whose layers the port has not yet, and the ROADMAP item that
 #: brings each.
 NOT_PORTED = {
-    "moe": "ROADMAP Queue A 8 (models/moe.py)",
-    "hybrid": "ROADMAP Queue A 8 (Mamba2 ssd_scan / shared attention)",
-    "vlm": "ROADMAP Queue A 8 (models/frontends.py)",
-    "audio": "ROADMAP Queue A 8 (models/frontends.py)",
+    "hybrid": "ROADMAP Queue A 8c (Mamba2 ssd_scan / shared attention)",
 }
+#: Families whose layers are attention + MLP (or attention + MoE)
+ATTENTION_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -126,6 +128,16 @@ def _mlp_init(gen, cfg: ModelConfig, n: int, dtype):
             "down": dense_init(gen, f, d, n=n, dtype=dtype)}
 
 
+def _moe_init(gen, cfg: ModelConfig, n: int, dtype):
+    """Router (float32, as the reference keeps it) and the experts'
+    stacked ``(n, E, ...)`` weights, each ``N(0, 1) / sqrt(fan_in)``."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": dense_init(gen, d, e, n=n, dtype=torch.float32),
+            "e_gate": normal(gen, (n, e, d, f), float(d ** -0.5), dtype),
+            "e_up": normal(gen, (n, e, d, f), float(d ** -0.5), dtype),
+            "e_down": normal(gen, (n, e, f, d), float(f ** -0.5), dtype)}
+
+
 def _mamba_init(gen, cfg: ModelConfig, n: int, dtype, device):
     d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     f32 = torch.float32
@@ -169,10 +181,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
     norm = torch.ones((n, cfg.d_model), dtype=dtype, device=device)
     layers: Dict[str, Any] = {"ln1": norm}
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_FAMILIES:
         layers.update(_attn_init(gen, cfg, n, dtype, device))
         layers["ln2"] = norm.clone()
-        layers.update(_mlp_init(gen, cfg, n, dtype))
+        if cfg.family == "moe":
+            layers.update(_moe_init(gen, cfg, n, dtype))
+        else:
+            layers.update(_mlp_init(gen, cfg, n, dtype))
     else:                                                   # ssm (Mamba1)
         layers.update(_mamba_init(gen, cfg, n, dtype, device))
     params["layers"] = layers
@@ -224,6 +239,19 @@ def mlp_block(x, p):
     return swiglu(x, p["gate"], p["up"], p["down"])
 
 
+def moe_mlp(x, p, cfg: ModelConfig, ctx: ShardCtx, **knobs):
+    """The MoE block of a layer ``p`` on ``x`` ``(b, s, d)``.  ``knobs``
+    are ``moe_block``'s ``f32_combine`` and ``gather_dispatch``: prefill
+    and training pass the config's, decode leaves the defaults, as the
+    reference does."""
+    moe_p = {"router": p["router"], "gate": p["e_gate"], "up": p["e_up"],
+             "down": p["e_down"]}
+    return moe_block(x, moe_p, k=cfg.experts_per_token,
+                     n_experts=cfg.n_experts,
+                     capacity_factor=cfg.capacity_factor, mesh=ctx.mesh,
+                     **knobs)
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill): a loop over layers
 # ---------------------------------------------------------------------------
@@ -236,11 +264,17 @@ def _layer_body(x, pending, lp, cfg: ModelConfig, ctx: ShardCtx, entry,
     (not yet added), and the layer's ``(k, v)`` or ``(ssm state, conv
     tail)``."""
     x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
-    if entry["kind"] == "attn":
+    if entry["kind"] in ("attn", "moe"):
         a, kv_cache = attn_block(h, lp, cfg, ctx, positions, entry["window"],
                                  entry["theta"])
         x, h = residual_norm(x, a, lp["ln2"], cfg.norm_eps)
-        return x, mlp_block(h, lp), kv_cache
+        if entry["kind"] == "moe":
+            m = moe_mlp(h, lp, cfg, ctx,
+                        f32_combine=cfg.moe_combine_f32_materialize,
+                        gather_dispatch=cfg.moe_gather_dispatch)
+        else:
+            m = mlp_block(h, lp)
+        return x, m, kv_cache
     y, (hstate, conv_tail) = mam.mamba1_block(h, lp, cfg)
     return x, y, (hstate, conv_tail)
 

@@ -826,6 +826,148 @@ def test_flash_attention_bwd_bf16_alignment():
         assert torch.equal(a, c)
 
 
+#: Cases at the head dims of gpt-1.1b (96), kimi-k2 and zamba2 (112) and
+#: gpt-11.1b (136, the 144-wide instance with its padded chunk): GQA and
+#: MHA, ragged Sq and Sk (shorter and longer than each other), causal, a
+#: window, and a mask with no causal bound.
+FA_NEW_DIM_CASES = [(2, 4, 2, 130, 130, 96, True, 0),
+                    (1, 4, 4, 77, 200, 96, False, 0),
+                    (1, 8, 1, 100, 100, 112, True, 30),
+                    (2, 2, 2, 64, 50, 112, True, 0),
+                    (1, 4, 2, 150, 150, 136, True, 0),
+                    (1, 2, 2, 33, 90, 136, False, 20),
+                    (1, 8, 2, 257, 257, 136, True, 64)]
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FA_NEW_DIM_CASES, ids=str)
+def test_flash_attention_new_head_dims_match_plain(case, dtype, layout):
+    """The forward instances at 96, 112 and 136 against the plain version,
+    at the tolerances of the other head dims."""
+    test_flash_attention_kernel_matches_plain(case, dtype, layout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FA_NEW_DIM_CASES, ids=str)
+def test_flash_attention_bwd_new_head_dims_match_plain(case, dtype):
+    """The backward instances at 96, 112 and 136 (lse, then dq, dk, dv)
+    against the plain backward."""
+    test_flash_attention_bwd_kernel_matches_plain(case, dtype)
+
+
+@pytest.mark.parametrize("case", FA_NEW_DIM_CASES, ids=str)
+def test_flash_attention_bwd_new_head_dims_repeat_bit_for_bit(case):
+    test_flash_attention_bwd_bf16_repeats_bit_for_bit(case)
+
+
+def test_flash_attention_136_leaves_neighbouring_columns_alone():
+    """The 144-wide instance writes 136 columns a row: the output and the
+    gradients are views into wider buffers whose other columns must keep
+    their sentinel."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def wide(n, s):
+        t = torch.full((1, s, n, 152), 7.0, device="cuda",
+                       dtype=torch.bfloat16)
+        t[..., :136] = torch.randn((1, s, n, 136), generator=g,
+                                   device="cuda").bfloat16()
+        return t
+
+    qw, kw, vw = wide(4, 70), wide(2, 70), wide(2, 70)
+    q, k, v = (t[..., :136].transpose(1, 2) for t in (qw, kw, vw))
+    lse = torch.empty((1, 4, 70), dtype=torch.float32, device="cuda")
+    out = fa._fwd_cuda(q, k, v, True, 0, lse)
+    _close(out, fa.flash_attention_ref(q, k, v), 2e-2)
+    ow = torch.full((1, 4, 70, 152), 7.0, device="cuda",
+                    dtype=torch.bfloat16)
+    fa.launch("flash_attention_fwd", q.get_device(), q.data_ptr(),
+              k.data_ptr(), v.data_ptr(), ow.data_ptr(), None,
+              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+              *ow.stride()[:3], 1, 4, 2, 70, 70, 136, 1.0 / 136 ** 0.5, 1,
+              0, 1)
+    torch.cuda.synchronize()
+    assert bool((ow[..., 136:] == 7.0).all())
+    assert torch.equal(ow[..., :136], out)
+
+
+@pytest.mark.parametrize("gather,f32", [(False, True), (True, False)],
+                         ids=["scatter-f32", "gather-einsum"])
+def test_moe_backward_repeats_bit_for_bit_on_the_card(gather, f32):
+    """The MoE layer's backward on the card, with drops (capacity factor
+    0.5, the dropped assignments all pointing at slot (0, 0)): two
+    backward passes give the same bits in every gradient, so a resumed
+    training run repeats the uninterrupted one."""
+    _need_cuda()
+    from repro_torch.models import moe
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t, d, f, e, k = 512, 256, 128, 16, 4
+    x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+    router = torch.randn(d, e, generator=g, device="cuda")
+    ws = [(torch.randn(s, generator=g, device="cuda") * 0.05).bfloat16()
+          for s in ((e, d, f), (e, d, f), (e, f, d))]
+    cot = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+
+    def grads():
+        ins = [a.detach().requires_grad_() for a in (x, router, *ws)]
+        y = moe.moe_apply_local(*ins, k=k, n_experts=e, expert_offset=0,
+                                capacity_factor=0.5, f32_combine=f32,
+                                gather_dispatch=gather)
+        y.backward(cot)
+        return [a.grad for a in ins]
+
+    first, second = grads(), grads()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert bool(torch.isfinite(a.float()).all()) and torch.equal(a, b)
+
+
+#: Reduced configs of the families this package gained, at the head dims
+#: that need the new instances where the config has them.
+NEW_FAMILIES = [("granite-moe-3b-a800m", {}),
+                ("kimi-k2-1t-a32b", {"head_dim": 112}),
+                ("llava-next-mistral-7b", {}), ("musicgen-large", {}),
+                ("gpt-1.1b", {"head_dim": 136})]
+
+
+@pytest.mark.parametrize("arch,overrides", NEW_FAMILIES,
+                         ids=[a for a, _ in NEW_FAMILIES])
+def test_new_families_prefill_and_decode_on_the_card(arch, overrides):
+    """Reduced, float32 (no router near-tie can flip between two sums in
+    another order): a prefill launches the attention kernel once a layer,
+    and a decode step after it reproduces ``forward_logits`` at the next
+    position (the reference's consistency check, 2e-3); a vlm prompt
+    carries its image embeddings ahead of the text.  Then bfloat16: the
+    same launches, finite logits."""
+    _need_cuda()
+    from repro_torch.models.frontends import vlm_patch_embeddings
+    for dtype in ("float32", "bfloat16"):
+        cfg = configs.get(arch).reduced(dtype=dtype, **overrides)
+        params = init_params(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(4)
+        toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=g,
+                             device="cuda")
+        img = vlm_patch_embeddings(g, 2, cfg.n_img_tokens, cfg.d_model,
+                                   getattr(torch, dtype)) \
+            if cfg.frontend == "vlm" else None
+        ctx = ShardCtx()
+        before = fa.flash_attention.launches
+        last, cache = M.prefill(params, cfg, ctx, toks[:, :16], img)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + cfg.n_layers
+        assert bool(torch.isfinite(last.float()).all())
+        if dtype == "bfloat16":
+            continue
+        pos = 16 + (cfg.n_img_tokens if img is not None else 0)
+        logits, _ = M.decode_step(params, cfg, ctx, toks[:, 16:],
+                                  gen_cli.grow_cache(cache, 1), pos)
+        full = M.forward_logits(params, cfg, ctx, toks, img)
+        _close(logits, full[:, pos], 2e-3)
+
+
 def test_functions_are_used_on_the_card_under_grad():
     """A CUDA wrapper handed an input that requires a gradient goes
     through its Function: a forward launch, then a backward launch."""

@@ -163,6 +163,63 @@ def test_gradients_match_value_and_grad(arch, remat):
     _check_grads(grads, jax.tree.map(np.asarray, rgrads))
 
 
+#: The shipped head dims the attention kernel did not take before:
+#: gpt-1.1b's 96 (``launch/train.py``'s default arch), kimi-k2's and
+#: zamba2's 112, gpt-11.1b's 136.
+@pytest.mark.parametrize("head_dim", [96, 112, 136])
+def test_gpt_at_the_shipped_head_dims_matches_reference(head_dim):
+    """Reduced gpt-1.1b at each head dim: ``forward_logits`` (2e-3),
+    ``loss_fn`` and every leaf's gradient against the reference's
+    ``chunked_attention`` model."""
+    rcfg, cfg = _cfgs("gpt-1.1b", head_dim=head_dim)
+    rp, params = _ref_params(rcfg)
+    batch = _batch(cfg.vocab_size)
+    got = M.forward_logits(params, cfg, CTX, _torch_batch(batch)["tokens"])
+    want = RM.forward_logits(rp, rcfg, RCTX, batch["tokens"])
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-3, atol=2e-3)
+    (rloss, _), rgrads = jax.value_and_grad(RM.loss_fn, has_aux=True)(
+        rp, rcfg, RCTX, batch)
+    loss, grads = _port_grads(params, cfg, batch)
+    assert abs(float(loss) - float(rloss)) <= LOSS_TOL * (1 + float(rloss))
+    _check_grads(grads, jax.tree.map(np.asarray, rgrads))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "kimi-k2-1t-a32b",
+                                  "llava-next-mistral-7b", "musicgen-large"])
+def test_arch_smoke_train_step_matches_reference(arch):
+    """The reference's ``test_arch_smoke_train_step`` on the port's new
+    families (a batch of 2 x 24 tokens; llava's image embeddings ahead of
+    them, labels over both), held to the reference: the loss, every
+    leaf's gradient against ``jax.value_and_grad``, and the logits'
+    shape."""
+    rcfg, cfg = _cfgs(arch)
+    rp, params = _ref_params(rcfg)
+    b, s = 2, 24
+    n_img = cfg.n_img_tokens if cfg.frontend == "vlm" else 0
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32), "labels": rng.integers(0, cfg.vocab_size,
+                                          (b, s + n_img)).astype(np.int32)}
+    if n_img:
+        batch["img_embeds"] = (rng.standard_normal((b, n_img, cfg.d_model))
+                               / np.sqrt(cfg.d_model)).astype(np.float32)
+    (rloss, _), rgrads = jax.value_and_grad(RM.loss_fn, has_aux=True)(
+        rp, rcfg, RCTX, batch)
+    p, flat = steps._leaves_for_grad(params)
+    tb = steps._to_device(batch, torch.device("cpu"))
+    loss, _ = M.loss_fn(p, cfg, CTX, tb)
+    assert bool(torch.isfinite(loss))
+    assert abs(float(loss) - float(rloss)) <= LOSS_TOL * (1 + float(rloss))
+    grads = torch.autograd.grad(loss, flat)
+    named = [(k, None) for k in sorted(k for k in p if k != "layers")]
+    named += [(k, i) for i in range(len(p["layers"]))
+              for k in sorted(p["layers"][i])]
+    _check_grads(list(zip(named, grads)), jax.tree.map(np.asarray, rgrads))
+    logits = M.forward_logits(params, cfg, CTX, tb["tokens"],
+                              tb.get("img_embeds"))
+    assert tuple(logits.shape) == (b, s + n_img, cfg.padded_vocab)
+
+
 def test_stacked_leaves_get_one_layer_gradients():
     """The step differentiates per-layer leaves that share the stacked
     parameters' storage: each gradient has one layer's shape, and the

@@ -61,6 +61,23 @@ def test_checkpoint_roundtrip(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+def test_async_save_snapshots_host_tensors_updated_in_place(tmp_path):
+    """An asynchronous save writes the values a tensor had when ``save``
+    returned, though the caller then updates it in place (as AdamW does
+    its moments): a host tensor is copied, not shared with the writer."""
+    mgr = CheckpointManager(tmp_path, keep=2, async_save=True)
+    t = {"m": torch.ones((1 << 22,)), "v": torch.full((1 << 22,), 2.0)}
+    want = {k: v.clone() for k, v in t.items()}
+    mgr.save(1, t)
+    for v in t.values():
+        v.mul_(3.0)                       # before the writer has finished
+    mgr.wait()
+    restored, step = mgr.restore(want)
+    assert step == 1
+    for k in want:
+        assert torch.equal(restored[k], want[k]), k
+
+
 def test_checkpoint_keep_k_and_latest(tmp_path):
     mgr = CheckpointManager(tmp_path, keep=2, async_save=False)
     t = _tree_of(1)
