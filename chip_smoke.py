@@ -9,9 +9,10 @@ annealing dedication on the card, and the planner's other entry points:
 the live bandwidth probe, the plan server, elastic replanning and the
 churn replay), generation (``launch.generate``: prefill and greedy
 decode of qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m,
-llava-next-mistral-7b and musicgen-large) and training (``launch.train``:
-qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m and gpt-1.1b at full width
-and 4 layers, each with a crash and a resume) — builds the
+llava-next-mistral-7b, musicgen-large and the hybrid zamba2-7b) and
+training (``launch.train``: qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m
+and gpt-1.1b at full width and 4 layers, zamba2-7b at 12, each with a
+crash and a resume) — builds the
 CUDA kernels from the sources in this checkout, holds each kernel against
 its plain PyTorch version, and proves that each path went through its
 kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
@@ -66,27 +67,36 @@ decode step and its plain form), ``kernels_at_new_head_dims`` (the
 attention at head dims 96, 112 and 136, forward and backward, both types:
 gpt-1.1b's, kimi-k2-1t-a32b's and gpt-11.1b's training shapes checked and
 timed beside SDPA, and ragged cases, each with its kernel launches),
-``scan_at_falcon_shapes``
+``flash_vs_chunked_attention`` (the attention kernel in both types
+against the port's ``chunked_attention``, float32 plain torch, at
+zamba2-7b's prefill and at a sliding window: an oracle written apart
+from the kernel's plain version), ``scan_at_falcon_shapes``
 (the plain-form scan at falcon-mamba-7b's prefill shape in both types, and
 the fused form at its prefill and step shapes in float32, checked and
 timed), ``scan_by_batch`` (the plain form at that prefill shape with batch
 1, 4 and 16, beside the warps an SM holds at each), ``generate_qwen2_7b``,
 ``generate_falcon_mamba_7b``, ``generate_granite_moe_3b_a800m``,
 ``generate_llava_next_mistral_7b`` (2,880 image embeddings and 8 text
-tokens, the reference's prompt at 512) and ``generate_musicgen_large``
-(full width and depth, batch 4, prompt 512, 32 tokens, weights from a
-seeded generator on the card; exact launch counts, the prefill's one
-attention shape, the split of plain and residual norms, and falcon's
-scans all in the fused form: one a layer per prefill and per step),
-``slice_check_*`` (qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m — in
-float32 and at a capacity that drops nothing — and gpt-1.1b at full width
-and 2 layers: the card's prefill logits against the host's, and the first
-decode step against ``forward_logits`` at the next position),
+tokens, the reference's prompt at 512), ``generate_musicgen_large`` and
+``generate_zamba2_7b`` (81 Mamba2 layers, the weight-tied attention block
+after 13 of them) (full width and depth, batch 4, prompt 512, 32 tokens,
+weights from a seeded generator on the card; exact launch counts, the
+prefill's one attention shape, the split of plain, residual and — for
+the hybrid — gated norms, and falcon's scans all in the fused form: one a
+layer per prefill and per step), ``slice_check_*`` (qwen2-7b,
+falcon-mamba-7b, granite-moe-3b-a800m — in float32 and at a capacity that
+drops nothing —, gpt-1.1b and zamba2-7b — its shared block's period cut
+to the slice — at full width and 2 layers: the card's prefill logits
+against the host's, and the first decode step against ``forward_logits``
+at the next position), ``ssd_at_zamba2_shapes`` (CUDA-event times of the
+plain-torch SSD and of a whole Mamba2 block at zamba2-7b's prefill and
+step),
 ``train_qwen2_7b`` (``launch.train.train``: qwen2-7b at
 full width and 4 of its 28 layers — the one cut — bf16, remat, random
 weights from a seeded generator on the card, ``SyntheticCorpus`` batches
 of 4 x 512 in 2 microbatches, AdamW on the reference's cosine schedule, 4
-steps with a checkpoint every 2; exact forward and backward launch counts
+steps (the uninterrupted run saving its final checkpoint only); exact
+forward and backward launch counts
 of both norm forms and of the attention; then a run that fails at step 3
 and its resume from the step-2 checkpoint, which must give the same losses
 and final parameters bit for bit), ``slice_check_train`` (qwen2-7b at full
@@ -97,8 +107,9 @@ on the card against the host's plain path), ``train_falcon_mamba_7b`` and
 that keeps the chunk boundaries, and its backward kernel once, both norm
 forms, counted exactly), ``train_granite_moe_3b_a800m`` and
 ``train_gpt_1_1b`` with their ``slice_check_train_*`` (the same for
-granite-moe-3b-a800m, 4 of 32 layers, its slice in float32, and gpt-1.1b,
-4 of 24 layers, head dim 96),
+granite-moe-3b-a800m, 4 of 32 layers, its slice in float32, gpt-1.1b,
+4 of 24 layers, head dim 96, and zamba2-7b, 12 of 81 layers so that the
+shared block runs twice, its slice at 1 layer with the block after it),
 ``model_kernels_at_path_shapes`` (the training phases' forward shapes
 too), ``bwd_kernels_at_path_shapes``,
 ``bwd_attention_full_grid`` (the bfloat16 attention backward at qwen2-7b's
@@ -106,7 +117,8 @@ heads and 2048 tokens, where its grid fills the card; off the main path)
 and ``host_cost`` (host
 microseconds of one call of each redesigned wrapper and of its library
 call); with ``--profile`` also ``profile_sa``, ``profile_generate_*``
-(qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m), ``profile_train`` and
+(qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m, zamba2-7b),
+``profile_train`` and
 ``profile_train_*`` of the other trained archs (torch.profiler: device
 busy and idle share).
 Each plan is made twice — SA on the card
@@ -125,8 +137,9 @@ cache row, then the D skip, the gate and the cast).
 Then one ``{"kernels": [...]}`` line for all five kernels, the training
 forward of the scan (``selective_scan_fused_bound``, its instance that
 keeps the chunk boundaries, beside the generation instance on the same
-inputs) and the three backward kernels, the ``nvidia-smi`` line, and the
-final ``{"ok": true, ...}`` line.
+inputs) and the three backward kernels (after a ``run`` line with the
+whole run's seconds; each new phase prints its own), the ``nvidia-smi``
+line, and the final ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -171,7 +184,7 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import silu  # noqa: E402
 from repro_torch.models.sharding import ShardCtx  # noqa: E402
 from repro_torch.models.transformer import (ATTENTION_FAMILIES,  # noqa: E402
-                                            init_params)
+                                            init_params, layer_plan)
 from repro_torch.runtime.churn import (WARM_POLICY, generate_trace,  # noqa: E402
                                        simulate_churn)
 from repro_torch.runtime.elastic import replan_on  # noqa: E402
@@ -1148,8 +1161,10 @@ def model_library(name: str, key: tuple):
             x + r, (d,), w, eps)
     if name == "rmsnorm":
         d = key[0][-1]
-        return lambda x, w, eps: torch.nn.functional.rms_norm(x, (d,), w,
-                                                              eps)
+        # one type for F.rms_norm: a bfloat16 weight of a float32 input
+        # (Mamba2's gated norm) is cast to float32, as the kernel reads it
+        return lambda x, w, eps: torch.nn.functional.rms_norm(
+            x, (d,), w.to(x.dtype), eps)
     if name == "flash_attention":
         qs, ks, causal, window, _ = key
         if window == 0 and (qs[2] == ks[2] or not causal):
@@ -1448,17 +1463,61 @@ GEN_ARCHS = {"qwen2-7b": "generate_qwen2_7b",
              "falcon-mamba-7b": "generate_falcon_mamba_7b",
              "granite-moe-3b-a800m": "generate_granite_moe_3b_a800m",
              "llava-next-mistral-7b": "generate_llava_next_mistral_7b",
-             "musicgen-large": "generate_musicgen_large"}
+             "musicgen-large": "generate_musicgen_large",
+             "zamba2-7b": "generate_zamba2_7b"}
 #: Traced under ``--profile``.
-PROFILE_GEN_ARCHS = ("qwen2-7b", "falcon-mamba-7b", "granite-moe-3b-a800m")
+PROFILE_GEN_ARCHS = ("qwen2-7b", "falcon-mamba-7b", "granite-moe-3b-a800m",
+                     "zamba2-7b")
 #: The archs held card against host at full width and ``SLICE_LAYERS``
 #: layers, and their phases' names (gpt-1.1b: head dim 96, the training
 #: CLI's default arch).
 SLICE_ARCHS = {"qwen2-7b": "slice_check_qwen2_7b",
                "falcon-mamba-7b": "slice_check_falcon_mamba_7b",
                "granite-moe-3b-a800m": "slice_check_granite_moe_3b_a800m",
-               "gpt-1.1b": "slice_check_gpt_1_1b"}
+               "gpt-1.1b": "slice_check_gpt_1_1b",
+               "zamba2-7b": "slice_check_zamba2_7b"}
 SLICE_LAYERS, SLICE_PROMPT = 2, 128
+
+
+def slice_cut(arch: str, n_layers: int) -> dict:
+    """The config overrides of a slice of ``arch`` at ``n_layers`` layers:
+    a hybrid's shared block also runs after every ``n_layers``-th layer
+    (its period cut to the slice's depth), or a slice shallower than the
+    period would never apply it."""
+    cut = {"n_layers": n_layers}
+    if configs.get(arch).hybrid_attn_period:
+        cut["hybrid_attn_period"] = n_layers
+    return cut
+
+
+def hybrid_generate_counts(cfg, plen: int, steps: int) -> tuple:
+    """``(rmsnorm launches, shape split, flash_attention launches, per
+    prefill, per step)`` of a hybrid generate: per prefill one plain norm
+    over the sequence (the first ``ln1``), ``L - 1`` residual ``ln1``s and
+    two residual norms per shared-block application, ``L`` gated norms
+    (float32 input, the config's weight type, ``d_inner`` wide) and one
+    plain norm of the last row; per step the same with the final norm
+    residual, every norm over one row, and one attention launch per
+    application in the prefill only."""
+    _, meta = layer_plan(cfg)
+    L, apps = cfg.n_layers, len(meta["shared_at"])
+    d, di, bf = cfg.d_model, cfg.d_inner, torch.bfloat16
+    f32, wt = torch.float32, _dtype(cfg.dtype)
+    seq, last = (GEN_BATCH, plen, d), (GEN_BATCH, 1, d)
+    norms = 2 * L + 2 * apps + 1
+    split = {(seq, bf, bf): 1, ("add", seq, bf, bf): L - 1 + 2 * apps,
+             ((GEN_BATCH, plen, di), f32, wt): L,
+             (last, bf, bf): 1 + steps,
+             ((GEN_BATCH, di), f32, wt): L * steps,
+             ("add", last, bf, bf): (L + 2 * apps) * steps}
+    per_prefill = {"rmsnorm": norms, "rmsnorm_residual_form": L - 1 + 2 * apps,
+                   "rmsnorm_gated_float32_input": L,
+                   "flash_attention": apps, "selective_scan_fused": 0,
+                   "selective_scan_plain_form": 0}
+    per_step = {"rmsnorm": norms, "rmsnorm_residual_form": L + 2 * apps,
+                "rmsnorm_gated_float32_input": L, "flash_attention": 0,
+                "selective_scan_fused": 0}
+    return norms * (1 + steps), split, apps, per_prefill, per_step
 #: Whole-slice tolerance on logits (unit scale: a normalised state times a
 #: head of variance 1/d): both sides round every product to bfloat16 (8
 #: significant bits), at different places and after sums in another order,
@@ -1485,33 +1544,38 @@ def run_generate(name: str, arch: str, device) -> tuple:
     assert tuple(toks.shape) == (GEN_BATCH, GEN_TOKENS), toks.shape
     assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
     steps, plen = res["decode_steps"], res["prompt_len"]
+    hybrid = cfg.family == "hybrid"
     attn = cfg.family in ATTENTION_FAMILIES
     norms = 1 + (2 if attn else 1) * cfg.n_layers
     want = {k: 0 for k in WRAPPERS}
     want["rmsnorm"] = norms * (1 + steps)          # per prefill, per step
-    if attn:
-        want["flash_attention"] = cfg.n_layers     # per prefill
-    else:                                          # per prefill, per step
+    n_attn = cfg.n_layers if attn else 0
+    if hybrid:
+        want["rmsnorm"], split, n_attn, per_prefill, per_step = \
+            hybrid_generate_counts(cfg, plen, steps)
+    elif not attn:                                 # per prefill, per step
         want["selective_scan"] = cfg.n_layers * (1 + steps)
+    want["flash_attention"] = n_attn               # per prefill
     assert launches == want, (name, launches, want)
-    if attn:
+    if n_attn:
         fa_key = ((GEN_BATCH, cfg.n_heads, plen, cfg.hd),
                   (GEN_BATCH, cfg.n_kv_heads, plen, cfg.hd), True, 0,
                   str(torch.bfloat16))
-        assert shapes["flash_attention"] == {fa_key: cfg.n_layers}, \
+        assert shapes["flash_attention"] == {fa_key: n_attn}, \
             shapes["flash_attention"]
     # per prefill one plain norm over the sequence, norms - 2 residual
     # ones and one plain norm of the last row; per step one plain and
-    # norms - 1 residual ones
+    # norms - 1 residual ones (a hybrid's split: hybrid_generate_counts)
     d, bf = cfg.d_model, torch.bfloat16
     seq, last = (GEN_BATCH, plen, d), (GEN_BATCH, 1, d)
-    split = {(seq, bf, bf): 1, ("add", seq, bf, bf): norms - 2,
-             (last, bf, bf): 1 + steps,
-             ("add", last, bf, bf): (norms - 1) * steps}
+    if not hybrid:
+        split = {(seq, bf, bf): 1, ("add", seq, bf, bf): norms - 2,
+                 (last, bf, bf): 1 + steps,
+                 ("add", last, bf, bf): (norms - 1) * steps}
     assert shapes["rmsnorm"] == split, shapes["rmsnorm"]
     # the scan only in its fused form: one a layer per prefill and per step
     scans = {}
-    if not attn:
+    if not attn and not hybrid:
         di, n = cfg.d_inner, cfg.ssm_state
         scans = {("fused", (GEN_BATCH, GEN_PROMPT, di), n, bf, False):
                  cfg.n_layers,
@@ -1529,20 +1593,25 @@ def run_generate(name: str, arch: str, device) -> tuple:
         **({"experts": cfg.n_experts, "top_k": cfg.experts_per_token,
             "capacity_factor": cfg.capacity_factor}
            if cfg.family == "moe" else {}),
+        **({"ssm": f"Mamba2 (plain-torch SSD), d_inner {cfg.d_inner}, "
+                   f"{cfg.n_ssm_heads} heads of {cfg.ssm_head_dim}, N "
+                   f"{cfg.ssm_state}",
+            "shared_block_after_layers": layer_plan(cfg)[1]["shared_at"]}
+           if hybrid else {}),
         "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
         "decode_ms_per_token": res["decode_s"] / steps * 1e3,
         "wall_s_with_init": wall,
         "peak_memory_bytes": res["peak_bytes"],
         "launches": launches,
-        "launches_per_prefill": {"rmsnorm": norms,
-                                 "rmsnorm_residual_form": norms - 2,
-                                 "flash_attention": want["flash_attention"],
-                                 "selective_scan_fused": fused,
-                                 "selective_scan_plain_form": 0},
-        "launches_per_decode_step": {"rmsnorm": norms,
-                                     "rmsnorm_residual_form": norms - 1,
-                                     "selective_scan_fused": fused},
+        "launches_per_prefill": per_prefill if hybrid else {
+            "rmsnorm": norms, "rmsnorm_residual_form": norms - 2,
+            "flash_attention": want["flash_attention"],
+            "selective_scan_fused": fused, "selective_scan_plain_form": 0},
+        "launches_per_decode_step": per_step if hybrid else {
+            "rmsnorm": norms, "rmsnorm_residual_form": norms - 1,
+            "selective_scan_fused": fused},
         "sample": toks[0, :8].tolist(),
+        "seconds": time.perf_counter() - t0,
     }
     del res
     torch.cuda.empty_cache()
@@ -1606,7 +1675,9 @@ def slice_check(name: str, arch: str, device) -> dict:
     the same weights, and the card's first decode step against
     ``forward_logits`` at the next position — the reference's own
     prefill/decode consistency check."""
-    cfg = configs.get(arch).replace(n_layers=SLICE_LAYERS)
+    t_phase = time.perf_counter()
+    cut = slice_cut(arch, SLICE_LAYERS)
+    cfg = configs.get(arch).replace(**cut)
     if arch in SLICE_DTYPE:
         cfg = cfg.replace(dtype=SLICE_DTYPE[arch])
     if cfg.family == "moe":
@@ -1649,12 +1720,14 @@ def slice_check(name: str, arch: str, device) -> dict:
     del params, host, card_cache, full
     torch.cuda.empty_cache()
     return {"phase": name, "model": cfg.name, "n_layers": SLICE_LAYERS,
+            **({"cut": cut} if len(cut) > 1 else {}),
             "prompt_len": SLICE_PROMPT, "dtype": cfg.dtype,
             **({"capacity_factor": cfg.capacity_factor}
                if cfg.family == "moe" else {}),
             "tol": {"max_abs": SLICE_TOL_MAX, "mean_abs": SLICE_TOL_MEAN},
             "prefill_card_vs_host": prefill,
-            "decode_vs_forward_logits": decode, "host_prefill_s": host_s}
+            "decode_vs_forward_logits": decode, "host_prefill_s": host_s,
+            "seconds": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -1775,16 +1848,17 @@ def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
         if not timed:
             return kernel, plain, None, None
         xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        wc = wr.to(x.dtype)            # one type for F.rms_norm
         if key[0] == "add_bwd":
             rr = torch.zeros_like(x).requires_grad_()
             sr = xr + rr
-            yr = F.rms_norm(sr, (d,), wr, BWD_EPS)
+            yr = F.rms_norm(sr, (d,), wc, BWD_EPS)
             outs, cots = ((sr, yr), (ds, dy)) if ds is not None else \
                 ((yr,), (dy,))
             library = lambda: torch.autograd.grad(  # noqa: E731
                 outs, (xr, rr, wr), cots, retain_graph=True)
         else:
-            yr = F.rms_norm(xr, (d,), wr, BWD_EPS)
+            yr = F.rms_norm(xr, (d,), wc, BWD_EPS)
             library = lambda: torch.autograd.grad(  # noqa: E731
                 yr, (xr, wr), dy, retain_graph=True)
         return kernel, plain, library, "autograd of F.rms_norm"
@@ -1885,7 +1959,10 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         assert g.shape == w.shape and g.dtype == w.dtype, (name, key)
         assert bool(torch.isfinite(g).all()), (name, key)
         diff, scale = _max_rel(g, w)
-        assert diff <= tol * max(scale, 1e-30), (name, key, diff, scale)
+        # each output at its own type's tolerance (the gated norm's dw is
+        # bfloat16 beside a float32 dx)
+        t = TOL_BWD[name][1 if g.dtype == torch.bfloat16 else 0]
+        assert diff <= t * max(scale, 1e-30), (name, key, diff, scale)
         err = max(err, diff)
     row = {"name": name, "key": json.loads(json.dumps(key, default=str)),
            "tol": tol, "max_abs_err": err}
@@ -2166,6 +2243,96 @@ def check_new_head_dims(device) -> dict:
             "kernels": rows}
 
 
+#: The attention kernel against the port's ``chunked_attention`` (plain
+#: torch in float32, written independently of the kernel's plain version):
+#: ``(b, S, H, KV, D, window)``, causal — zamba2-7b's prefill (its shared
+#: block: MHA 32, head dim 112) and gemma3-12b's sliding-window layers
+#: (16/8 heads of 256, window 1024) at 2,048 tokens.
+FA_ORACLE_SHAPES = [(4, 512, 32, 32, 112, 0), (1, 2048, 16, 8, 256, 1024)]
+
+
+def check_flash_against_chunked(device) -> dict:
+    """The ``flash_vs_chunked_attention`` phase: the kernel in both types
+    at ``FA_ORACLE_SHAPES`` against ``chunked_attention`` on the same
+    inputs (upcast from bfloat16), at the kernel's tolerance (``TOL``:
+    2e-5 float32, 2e-2 bfloat16, absolute plus relative).  Off the main
+    path: its launches are not counted there."""
+    from repro_torch.models.attention import chunked_attention
+    t0 = time.perf_counter()
+    rows = []
+    for b, s_len, h, kv, d, window in FA_ORACLE_SHAPES:
+        gen = torch.Generator(device=device).manual_seed(s_len + d)
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(gen, (b, s_len, h, d), dt, device)
+            k = _randn(gen, (b, s_len, kv, d), dt, device)
+            v = _randn(gen, (b, s_len, kv, d), dt, device)
+            got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=True,
+                                     window=window).transpose(1, 2)
+            want = chunked_attention(q.float(), k.float(), v.float(),
+                                     causal=True, window=window)
+            torch.cuda.synchronize()
+            tol = TOL["flash_attention"][1 if dt == torch.bfloat16 else 0]
+            diff = (got.float() - want).abs()
+            assert bool(torch.isfinite(got).all())
+            assert bool((diff <= tol + tol * want.abs()).all()), \
+                ((b, s_len, h, kv, d, window), dt, float(diff.max()))
+            rows.append({"q": [b, s_len, h, d], "kv_heads": kv,
+                         "window": window, "causal": True,
+                         "dtype": str(dt), "tol": tol,
+                         "max_abs_err": float(diff.max()),
+                         "max_abs_oracle": float(want.abs().max())})
+            del q, k, v, got, want, diff
+        torch.cuda.empty_cache()
+    return {"phase": "flash_vs_chunked_attention",
+            "oracle": "repro_torch.models.attention.chunked_attention "
+                      "(float32, plain torch)", "cases": rows,
+            "seconds": time.perf_counter() - t0}
+
+
+def ssd_at_zamba2_shapes(device) -> dict:
+    """The ``ssd_at_zamba2_shapes`` phase: CUDA-event times of Mamba2's
+    plain-torch SSD at zamba2-7b's generate shapes (``ssd_scan`` over the
+    prompt, x (4, 512, 112, 64), N 64, chunk 128; ``ssd_step``, one
+    token) and of the whole ``mamba2_block`` at both, bfloat16 weights of
+    one layer: the SSD's share of a layer.  Plain torch in the reference
+    too: no kernel, no launches counted."""
+    from repro_torch.models import mamba
+    t0 = time.perf_counter()
+    cfg = configs.get("zamba2-7b")
+    b, s_len = GEN_BATCH, GEN_PROMPT
+    h, p, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator(device=device).manual_seed(7)
+    bf = torch.bfloat16
+    x = _randn(gen, (b, s_len, h, p), bf, device, 0.5)
+    dt = (torch.nn.functional.softplus(_randn(gen, (b, s_len, h),
+                                              torch.float32, device))
+          * 0.1).to(bf)
+    B = _randn(gen, (b, s_len, n), bf, device)
+    C = _randn(gen, (b, s_len, n), bf, device)
+    A = -torch.arange(1, h + 1, dtype=torch.float32, device=device)
+    state = _randn(gen, (b, h, p, n), torch.float32, device)
+    lp = {k: v[0] for k, v in init_params(
+        cfg.replace(n_layers=1), seed=3, device=device)["layers"].items()}
+    xs = _randn(gen, (b, s_len, cfg.d_model), bf, device)
+    _, (h_seq, tail) = mamba.mamba2_block(xs, lp, cfg)
+    x1 = _randn(gen, (b, cfg.d_model), bf, device)
+    fns = {"ssd_scan_prefill_ms": lambda: mamba.ssd_scan(x, dt, B, C, A),
+           "ssd_step_ms": lambda: mamba.ssd_step(
+               x[:, 0], dt[:, 0], B[:, 0], C[:, 0], A, state),
+           "mamba2_block_prefill_ms": lambda: mamba.mamba2_block(xs, lp,
+                                                                 cfg),
+           "mamba2_block_step_ms": lambda: mamba.mamba2_block(
+               x1, lp, cfg, h0=h_seq, conv0=tail, single_step=True)}
+    times = interleaved(lambda fn: time_ms(fn, reps=0), fns)
+    del x, dt, B, C, state, lp, xs, h_seq, tail, x1
+    torch.cuda.empty_cache()
+    return {"phase": "ssd_at_zamba2_shapes", "model": cfg.name,
+            "prefill": {"x": [b, s_len, h, p], "N": n, "chunk": 128},
+            "step": {"x": [b, h, p], "N": n},
+            **times, "seconds": time.perf_counter() - t0}
+
+
 def check_bwd_full_grid(device) -> dict:
     """The ``bwd_attention_full_grid`` phase: the bfloat16 attention
     backward at ``FULL_GRID_FA_BWD``, off the main path, checked and
@@ -2181,14 +2348,17 @@ def check_bwd_full_grid(device) -> dict:
 # slice against the host
 # ---------------------------------------------------------------------------
 
-#: Each trained arch, its number of layers in full, and the suffix of its
-#: phases' names; the first arch's profile and slice phases keep the names
-#: they had before the second's (``profile_train``, ``slice_check_train``).
-TRAIN_ARCHS = {"qwen2-7b": (28, "qwen2_7b"),
-               "falcon-mamba-7b": (64, "falcon_mamba_7b"),
-               "granite-moe-3b-a800m": (32, "granite_moe_3b_a800m"),
-               "gpt-1.1b": (24, "gpt_1_1b")}
-TRAIN_LAYERS = 4
+#: Each trained arch, its number of layers in full, the suffix of its
+#: phases' names and the layers it trains at full width (the one cut: 4,
+#: and 12 of zamba2-7b's 81, so that its shared block runs twice, after
+#: layers 5 and 11, and its gradient sums two applications); the first
+#: arch's profile and slice phases keep the names they had before the
+#: second's (``profile_train``, ``slice_check_train``).
+TRAIN_ARCHS = {"qwen2-7b": (28, "qwen2_7b", 4),
+               "falcon-mamba-7b": (64, "falcon_mamba_7b", 4),
+               "granite-moe-3b-a800m": (32, "granite_moe_3b_a800m", 4),
+               "gpt-1.1b": (24, "gpt_1_1b", 4),
+               "zamba2-7b": (81, "zamba2_7b", 12)}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 512, 2
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_LR = 4, 2, 3, 3e-4
 SLICE_TRAIN_LAYERS, SLICE_TRAIN_BATCH, SLICE_TRAIN_SEQ = 1, 1, 64
@@ -2215,23 +2385,30 @@ def train_flops(cfg, params, tokens: int) -> dict:
     that enter a product (every layer's and the head's; the embedding is a
     lookup; of an MoE layer's experts the ``k / E`` a token uses) plus,
     with attention, its ``3 x 4 B H D pairs`` a layer (forward and
-    backward); a Mamba1 model's scan is not counted.  ``hardware`` adds
-    what remat runs again (each layer's forward)."""
+    backward); a Mamba1 model's scan and a Mamba2 model's SSD (its chunk
+    products, plain torch) are not counted.  A hybrid's shared block
+    counts once per application, its attention too.  ``hardware`` adds
+    what remat runs again (each layer's forward; the shared block runs
+    outside remat)."""
     leaves = params["layers"]
     experts = sum(leaves[k].numel() for k in ("e_gate", "e_up", "e_down")
                   if k in leaves)
     n_layers = sum(t.numel() for t in _tree.leaves(leaves)) - experts
     if experts:
         n_layers += experts * cfg.experts_per_token // cfg.n_experts
+    apps = len(layer_plan(cfg)[1]["shared_at"])
+    n_shared = apps * sum(t.numel() for t in _tree.leaves(
+        params.get("shared", {})))
     n_head = params["lm_head"].numel() if "lm_head" in params else \
         params["tok_embed"].numel()
     seqs = tokens // TRAIN_SEQ
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2            # causal, no window
-    attn_fwd = 4 * seqs * cfg.n_heads * cfg.hd * pairs * cfg.n_layers \
-        if cfg.family in ATTENTION_FAMILIES else 0
-    model = 6 * (n_layers + n_head) * tokens + 3 * attn_fwd
-    return {"matmul_params": n_layers + n_head, "model": model,
-            "hardware": model + 2 * n_layers * tokens + attn_fwd}
+    n_attn = cfg.n_layers if cfg.family in ATTENTION_FAMILIES else apps
+    attn_fwd = 4 * seqs * cfg.n_heads * cfg.hd * pairs * n_attn
+    remat_attn = attn_fwd if cfg.family in ATTENTION_FAMILIES else 0
+    model = 6 * (n_layers + n_shared + n_head) * tokens + 3 * attn_fwd
+    return {"matmul_params": n_layers + n_shared + n_head, "model": model,
+            "hardware": model + 2 * n_layers * tokens + remat_attn}
 
 
 def train_launches(cfg) -> tuple:
@@ -2243,10 +2420,14 @@ def train_launches(cfg) -> tuple:
     fused scan, in its instance that keeps the chunk boundaries — and the
     final plain norm; a backward one of each, the residual norms' with
     the stream's gradient.  An MoE layer counts as a dense one (its
-    experts are plain torch)."""
+    experts are plain torch).  A hybrid's Mamba2 layer runs 1 norm and
+    its gated norm (twice under remat), its shared block (outside remat,
+    once) two residual norms and the attention per application."""
     L, micro, per = cfg.n_layers, TRAIN_MICRO, TRAIN_STEPS * TRAIN_MICRO
     bf = torch.bfloat16
     mb = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model)
+    if cfg.family == "hybrid":
+        return hybrid_train_launches(cfg, mb, micro, per)
     attn = cfg.family in ATTENTION_FAMILIES
     norms_per_layer = 2 if attn else 1
     residual = norms_per_layer * L - 1
@@ -2288,16 +2469,60 @@ def train_launches(cfg) -> tuple:
     return want, want_bwd, shapes, step
 
 
+def hybrid_train_launches(cfg, mb: tuple, micro: int, per: int) -> tuple:
+    """:func:`train_launches` of a hybrid: per microbatch a forward runs
+    the first ``ln1`` plain (twice: remat), ``L - 1`` residual ``ln1``s
+    and ``L`` gated norms (each twice), two residual norms per
+    shared-block application (once) and the final plain norm; the
+    attention once per application; a backward one of each."""
+    L = cfg.n_layers
+    apps = len(layer_plan(cfg)[1]["shared_at"])
+    bf, wt = torch.bfloat16, _dtype(cfg.dtype)
+    gated = ((mb[0], TRAIN_SEQ, cfg.d_inner), torch.float32, wt)
+    residual_fwd = 2 * (L - 1) + 2 * apps
+    residual_bwd = L - 1 + 2 * apps
+    q_shape = (mb[0], cfg.n_heads, TRAIN_SEQ, cfg.hd)
+    k_shape = (mb[0], cfg.n_kv_heads, TRAIN_SEQ, cfg.hd)
+    fa_key = (q_shape, k_shape, True, 0, str(bf))
+    want = {k: 0 for k in WRAPPERS}
+    want["rmsnorm"] = per * (3 + residual_fwd + 2 * L)
+    want["flash_attention"] = per * apps
+    want_bwd = {k: 0 for k in BWD_KERNELS}
+    want_bwd["rmsnorm_bwd"] = per * (2 + residual_bwd + L)
+    want_bwd["flash_attention_bwd"] = per * apps
+    shapes = {k: {} for k in WRAPPERS}
+    shapes["rmsnorm"] = {(mb, bf, bf): per * 3,
+                         ("add", mb, bf, bf): per * residual_fwd,
+                         gated: per * 2 * L,
+                         ("bwd", mb, bf, bf): per * 2,
+                         ("bwd",) + gated: per * L,
+                         ("add_bwd", mb, bf, bf, True): per * residual_bwd}
+    shapes["flash_attention"] = {fa_key: per * apps,
+                                 ("bwd",) + fa_key: per * apps}
+    step = {"rmsnorm_fwd_plain": 3 * micro,
+            "rmsnorm_fwd_residual": residual_fwd * micro,
+            "rmsnorm_fwd_gated": 2 * L * micro,
+            "rmsnorm_bwd_plain": 2 * micro,
+            "rmsnorm_bwd_gated": L * micro,
+            "rmsnorm_bwd_residual": residual_bwd * micro,
+            "flash_attention_fwd": apps * micro,
+            "flash_attention_bwd": apps * micro}
+    return want, want_bwd, shapes, step
+
+
 def run_train(device, arch: str) -> tuple:
-    """``launch.train.train`` on ``arch`` at full width and
-    ``TRAIN_LAYERS`` layers (the one cut): exact forward (twice a layer
+    """``launch.train.train`` on ``arch`` at full width and its
+    ``TRAIN_ARCHS`` layers (the one cut): exact forward (twice a layer
     under remat) and backward launch counts of every kernel and form on
     the path (:func:`train_launches`); then the bitwise resume check — a
     run that fails at step ``TRAIN_FAIL_AT``, resumed from its checkpoint,
     must give the uninterrupted run's losses and final parameters bit for
-    bit."""
-    full_layers, suffix = TRAIN_ARCHS[arch]
-    cfg = configs.get(arch).replace(n_layers=TRAIN_LAYERS)
+    bit.  The uninterrupted run saves only its final checkpoint (nothing
+    reads its others; each is 10–20 GB at these sizes), so its steps are
+    timed without a checkpoint being written beside them."""
+    t_phase = time.perf_counter()
+    full_layers, suffix, n_layers = TRAIN_ARCHS[arch]
+    cfg = configs.get(arch).replace(n_layers=n_layers)
     assert cfg.remat and cfg.dtype == "bfloat16"
     kw = dict(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
               n_micro=TRAIN_MICRO, lr=TRAIN_LR, ckpt_every=TRAIN_CKPT_EVERY,
@@ -2306,7 +2531,8 @@ def run_train(device, arch: str) -> tuple:
     try:
         torch.cuda.empty_cache()
         reset_launches()
-        full = train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "full"), **kw)
+        full = train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "full"),
+                               **dict(kw, ckpt_every=TRAIN_STEPS))
         launches, bwd, shapes = (read_launches(), read_bwd_launches(),
                                  read_shapes())
         hist = full["loop"].history
@@ -2352,24 +2578,36 @@ def run_train(device, arch: str) -> tuple:
     warm = [h["dt"] for h in hist[-2:]]
     warm_s = float(np.mean(warm))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    width = (f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
-             f"head dim {cfg.hd}, d_ff {cfg.d_ff}"
-             + (f", {cfg.n_experts} experts top-{cfg.experts_per_token}"
-                if cfg.family == "moe" else "")
-             if cfg.family in ATTENTION_FAMILIES else
-             f"d {cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, "
-             f"dt_rank {cfg.dt_rank}")
+    if cfg.family in ATTENTION_FAMILIES:
+        width = (f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+                 f"head dim {cfg.hd}, d_ff {cfg.d_ff}"
+                 + (f", {cfg.n_experts} experts top-{cfg.experts_per_token}"
+                    if cfg.family == "moe" else ""))
+    elif cfg.family == "hybrid":
+        width = (f"d {cfg.d_model}, Mamba2 d_inner {cfg.d_inner}, "
+                 f"{cfg.n_ssm_heads} heads of {cfg.ssm_head_dim}, N "
+                 f"{cfg.ssm_state}; shared block {cfg.n_heads}/"
+                 f"{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+                 f"after layers {layer_plan(cfg)[1]['shared_at']}")
+    else:
+        width = (f"d {cfg.d_model}, d_inner {cfg.d_inner}, N "
+                 f"{cfg.ssm_state}, dt_rank {cfg.dt_rank}")
     line = {
         "phase": f"train_{suffix}", "model": cfg.name,
-        "cut": f"n_layers {TRAIN_LAYERS} of {full_layers} (full width: "
+        "cut": f"n_layers {n_layers} of {full_layers} (full width: "
                f"{width}, vocab {cfg.vocab_size})",
         "dtype": cfg.dtype, "remat": cfg.remat, "global_batch": TRAIN_BATCH,
         "seq_len": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "steps": TRAIN_STEPS,
-        "ckpt_every": TRAIN_CKPT_EVERY, "lr": TRAIN_LR, **run,
+        "ckpt_every": TRAIN_CKPT_EVERY,
+        "ckpt_every_uninterrupted_run": TRAIN_STEPS, "lr": TRAIN_LR, **run,
         "losses": losses, "step_s": [h["dt"] for h in hist],
         "warm_step_s": warm_s, "tokens_per_s": tokens / warm_s,
         "flops_per_step": flops,
         "mfu": flops["model"] / (warm_s * BF16_OPS_PER_S),
+        **({"mfu_note": "6 N tokens and the shared block's attention; the "
+                        "SSD's own chunk products (plain torch, float32) "
+                        "are not counted"}
+           if cfg.family == "hybrid" else {}),
         "hfu_with_remat": flops["hardware"] / (warm_s * BF16_OPS_PER_S),
         "launches_fwd": launches, "launches_bwd": bwd,
         "launches_per_step": per_step,
@@ -2377,6 +2615,7 @@ def run_train(device, arch: str) -> tuple:
                    "resumed_from_step": TRAIN_CKPT_EVERY,
                    "losses_bit_equal": True, "params_bit_equal": True,
                    "seconds_fail_and_resume": resume_s},
+        "seconds": time.perf_counter() - t_phase,
     }
     return line, shapes
 
@@ -2388,7 +2627,8 @@ def profile_train(device, arch: str) -> dict:
     from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
                                            SyntheticCorpus)
     from repro_torch.optim.adamw import AdamW, cosine_schedule
-    cfg = configs.get(arch).replace(n_layers=TRAIN_LAYERS)
+    n_layers = TRAIN_ARCHS[arch][2]
+    cfg = configs.get(arch).replace(n_layers=n_layers)
     params = init_params(cfg, seed=0, device=device)
     opt = AdamW(lr=cosine_schedule(TRAIN_LR, 20, TRAIN_STEPS))
     state = {"params": params, "opt": opt.init(params)}
@@ -2406,7 +2646,7 @@ def profile_train(device, arch: str) -> dict:
     run_step(1)
     phase = _train_phase("profile_train", arch)
     out = {"phase": phase, "model": cfg.name,
-           "n_layers": TRAIN_LAYERS, "global_batch": TRAIN_BATCH,
+           "n_layers": n_layers, "global_batch": TRAIN_BATCH,
            "seq_len": TRAIN_SEQ, "n_micro": TRAIN_MICRO,
            "step": trace(lambda: run_step(2))}
     del params, state
@@ -2420,7 +2660,9 @@ def slice_check_train(device, arch: str) -> dict:
     and per-leaf gradients on the card (kernels) against the port's host
     path (``device="cpu"``, plain versions, autograd), on the same weights
     and tokens."""
-    cfg = configs.get(arch).replace(n_layers=SLICE_TRAIN_LAYERS)
+    t_phase = time.perf_counter()
+    cut = slice_cut(arch, SLICE_TRAIN_LAYERS)
+    cfg = configs.get(arch).replace(**cut)
     if arch in SLICE_DTYPE:
         cfg = cfg.replace(dtype=SLICE_DTYPE[arch])
     ctx = ShardCtx()
@@ -2436,7 +2678,7 @@ def slice_check_train(device, arch: str) -> dict:
         p, flat = train_steps._leaves_for_grad(p_in)
         loss, _ = M.loss_fn(p, cfg, ctx, {k: v.to(dev)
                                           for k, v in batch.items()})
-        names = [k for k in sorted(p) if k != "layers"]
+        names = leaf_names({k: v for k, v in p.items() if k != "layers"})
         names += [f"layers.{k}[{i}]" for i in range(len(p["layers"]))
                   for k in sorted(p["layers"][i])]
         return float(loss.detach()), dict(zip(names,
@@ -2460,12 +2702,24 @@ def slice_check_train(device, arch: str) -> dict:
     torch.cuda.empty_cache()
     phase = _train_phase("slice_check_train", arch)
     return {"phase": phase, "model": cfg.name,
-            "n_layers": SLICE_TRAIN_LAYERS, "batch": SLICE_TRAIN_BATCH,
+            "n_layers": SLICE_TRAIN_LAYERS,
+            **({"cut": cut} if len(cut) > 1 else {}),
+            "batch": SLICE_TRAIN_BATCH,
             "seq_len": SLICE_TRAIN_SEQ, "dtype": cfg.dtype,
             "tol": {"loss": SLICE_TRAIN_LOSS_TOL,
                     "grad_rel_fro": SLICE_TRAIN_GRAD_TOL},
             "loss_card": card_loss, "loss_host": host_loss,
-            "grad_rel_fro": errs, "host_step_s": host_s}
+            "grad_rel_fro": errs, "host_step_s": host_s,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Dotted key paths of ``tree``'s leaves in ``_tree.leaves`` order
+    (keys sorted, recursively: a hybrid's ``shared.wq``)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
 
 
 # ---------------------------------------------------------------------------
@@ -2721,6 +2975,7 @@ def main() -> int:
                          "torch.profiler and print the device's busy and "
                          "idle share and its top kernels")
     args = ap.parse_args()
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script only runs on a GPU", file=sys.stderr)
@@ -2850,6 +3105,7 @@ def main() -> int:
     emit(bwd_phase)
     new_dims = check_new_head_dims(device)
     emit(new_dims)
+    emit(check_flash_against_chunked(device))
     scan_rows = check_scan_at_falcon_shapes(device)
     emit({"phase": "scan_at_falcon_shapes", "kernels": scan_rows})
     emit(scan_by_batch(device, scan_regs))
@@ -2864,6 +3120,7 @@ def main() -> int:
                 "profile_" + GEN_ARCHS[arch], arch, device))
     for arch, name in SLICE_ARCHS.items():
         emit(slice_check(name, arch, device))
+    emit(ssd_at_zamba2_shapes(device))
     train_lines, fwd_tr, bwd_tr = [], {}, {}
     for arch in TRAIN_ARCHS:
         line_tr, shapes_tr = run_train(device, arch)
@@ -2994,6 +3251,7 @@ def main() -> int:
                                       if r["name"] == name and "ms" in r]}
                    if name == "flash_attention_bwd" else {})}
 
+    emit({"phase": "run", "seconds": time.perf_counter() - t_run})
     emit({"kernels": [summary(name) for name in KERNELS] + [summary_bound()]
           + [summary_bwd(name) for name in BWD_KERNELS]})
     print(smi, flush=True)

@@ -33,8 +33,9 @@ def _sync(device: torch.device) -> None:
 
 
 def grow_cache(cache: Dict[str, Any], n: int) -> Dict[str, Any]:
-    """Give the full-attention rows (``k``, ``v``) room for ``n`` more
-    positions; ring and SSM caches keep their size."""
+    """Give the full-attention rows (``k``, ``v``, a hybrid's shared-block
+    rows among them) room for ``n`` more positions; ring and SSM caches
+    keep their size."""
     out = dict(cache)
     for key in ("k", "v"):
         if key in cache:

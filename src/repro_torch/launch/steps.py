@@ -11,6 +11,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .._tree import leaves, tree_map
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.sharding import ShardCtx
@@ -21,19 +22,21 @@ def _leaves_for_grad(params) -> tuple:
     """``(p, flat)``: the parameters as the loss takes them, every tensor a
     detached leaf that requires a gradient and shares its storage, with
     ``p["layers"]`` a list of per-layer dicts; and those leaves in a fixed
-    order (top-level keys sorted, then layer by layer, keys sorted).
+    order: every entry but ``layers`` in the reference's leaf order (keys
+    sorted, recursively: a hybrid's ``shared`` block is a dict of its
+    own), then layer by layer, keys sorted.
 
     Slicing a stacked ``(L, ...)`` leaf inside the graph would make the
     backward of every slice a zero tensor of the whole stack's size (four
     of 815 M elements at qwen2-7b's width and four layers); per-layer
     leaves give each layer a gradient of its own size."""
-    top = {k: v.detach().requires_grad_() for k, v in params.items()
-           if k != "layers"}
+    top = tree_map(lambda v: v.detach().requires_grad_(),
+                   {k: v for k, v in params.items() if k != "layers"})
     stacked = params["layers"]
     n = next(iter(stacked.values())).shape[0]
     layers = [{k: v[i].detach().requires_grad_() for k, v in stacked.items()}
               for i in range(n)]
-    flat = [top[k] for k in sorted(top)]
+    flat = leaves(top)
     flat += [lp[k] for lp in layers for k in sorted(lp)]
     return dict(top, layers=layers), flat
 
@@ -70,7 +73,8 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
         p, flat = _leaves_for_grad(params)
         loss, _ = M.loss_fn(p, cfg, ctx, mb)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        targets = [acc[k] for k in sorted(acc) if k != "layers"]
+        # the accumulators in the order of ``flat``
+        targets = leaves({k: v for k, v in acc.items() if k != "layers"})
         targets += [acc["layers"][k][i]
                     for i in range(len(p["layers"]))
                     for k in sorted(acc["layers"])]
@@ -87,12 +91,8 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
     def train_step(params, opt_state: AdamWState, batch: Dict[str, Any]):
         device = params["tok_embed"].device
         batch = _to_device(batch, device)
-        acc = {k: ({kk: torch.empty(vv.shape, dtype=torch.float32,
-                                    device=device)
-                    for kk, vv in v.items()} if k == "layers"
-                   else torch.empty(v.shape, dtype=torch.float32,
-                                    device=device))
-               for k, v in params.items()}
+        acc = tree_map(lambda v: torch.empty(v.shape, dtype=torch.float32,
+                                             device=device), params)
         if n_micro == 1:
             loss = micro_grads(params, batch, acc, True)
         else:
@@ -107,8 +107,7 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
                 lsum = lsum + micro_grads(params, mb, acc, j == 0)
             div = torch.full((), float(n_micro), dtype=torch.float32,
                              device=device)
-            for t in ([acc[k] for k in acc if k != "layers"]
-                      + list(acc["layers"].values())):
+            for t in leaves(acc):
                 t.div_(div)
             loss = lsum / div
         new_params, new_opt = opt.update(acc, opt_state, params)

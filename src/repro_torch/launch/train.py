@@ -12,11 +12,12 @@ dedication, and hands the plan to the loop, which keeps it beside the
 checkpoints as ``plan.json``; microbatch accumulation (``--n-micro``)
 stands in for Pipette's ``bs_micro`` knob.  ``--smoke`` trains the reduced
 config of the arch, ``--layers N`` its first N layers at full width.
-Weights are random, drawn from ``--seed`` on the device.  The dense, MoE,
-vlm, audio and Mamba1 families train on the card, where each kernel on the
-path takes its gradient from a backward kernel (``rmsnorm_bwd``,
-``flash_attention_bwd``, ``selective_scan_fused_bwd``); the default arch,
-gpt-1.1b, has head dim 96.
+Weights are random, drawn from ``--seed`` on the device.  Every family
+trains on the card (dense, MoE, vlm, audio, Mamba1 and the hybrid
+zamba2-7b), where each kernel on the path takes its gradient from a
+backward kernel (``rmsnorm_bwd``, ``flash_attention_bwd``,
+``selective_scan_fused_bwd``) and the plain-torch parts (the MoE layer,
+Mamba2's SSD) from autograd; the default arch, gpt-1.1b, has head dim 96.
 """
 from __future__ import annotations
 

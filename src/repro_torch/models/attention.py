@@ -1,17 +1,103 @@
-"""Attention outside the prefill kernel: single-token decode against a KV
-cache, and the O(S^2) oracle of the tests.
+"""Attention outside the prefill kernel: the chunked flash-pattern
+attention, single-token decode against a KV cache, and the O(S^2) oracle
+of the tests.
 
-Both are plain PyTorch, as their counterparts in the JAX package's
+All three are plain PyTorch, as their counterparts in the JAX package's
 ``models/attention.py`` compute outside any Pallas kernel.  Full-sequence
-attention of a prefill goes through the ``flash_attention`` kernel
-(:func:`repro_torch.models.transformer.attn_block`).  Layouts are the
-reference's: ``(b, S, heads, head_dim)``.
+attention of a prefill or a training step goes through the
+``flash_attention`` kernel (:func:`repro_torch.models.transformer.
+attn_block`); :func:`chunked_attention` is the reference's pure-jnp path,
+kept for the pipeline-parallel step (ROADMAP Queue A 11), and an oracle
+of the kernel written independently of its plain version.  Layouts are
+the reference's: ``(b, S, heads, head_dim)``.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
+from .layers import pick_chunk
+
 NEG_INF = -1e30
+#: Why ``chunked_attention`` refuses a ``block_constrain``: sharding the
+#: q-block dim needs a device mesh, which the port has not yet.
+NO_BLOCK_CONSTRAIN = ("chunked_attention: block_constrain shards the q-block "
+                      "dim over a device mesh; the port's mesh comes with "
+                      "ROADMAP Queue A 11")
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_offset: int = 0, chunk_q: int = 512,
+                      chunk_k: int = 1024, min_q_blocks: int = 1,
+                      block_constrain: Optional[Callable] = None
+                      ) -> torch.Tensor:
+    """Flash-pattern attention in float32: ``q`` ``(b, Sq, H, hd)``, ``k,
+    v`` ``(b, Sk, KV, hd)`` (GQA when ``KV < H``); query ``i`` sits at
+    position ``q_offset + i``.  Causal and sliding-window (``window > 0``)
+    masks; a row with no allowed key comes out as zeros.
+
+    The queries run in ``nq`` blocks of ``cq`` (the largest divisor of
+    ``Sq`` at most ``chunk_q``, lowered until ``min_q_blocks`` divides
+    ``nq``), all blocks at once as one batched dim (the reference's
+    ``vmap``); the keys in blocks of ``ck``, with the online-softmax
+    recurrence, so that no ``(Sq, Sk)`` score matrix is made beyond a
+    ``(cq, ck)`` tile per block.  ``q`` is scaled by ``1/sqrt(hd)`` in
+    float32 before the product; masked scores are ``NEG_INF`` (-1e30).
+    Returns ``q``'s type.  ``block_constrain`` (the reference's q-block
+    sharding hook) must be None: anything else raises
+    ``NotImplementedError``."""
+    if block_constrain is not None:
+        raise NotImplementedError(NO_BLOCK_CONSTRAIN)
+    b, sq, h, hd = q.shape
+    _, sk, kv, _ = k.shape
+    g = h // kv
+    scale = 1.0 / (hd ** 0.5)
+    f32 = torch.float32
+
+    cq = pick_chunk(sq, chunk_q)
+    if min_q_blocks > 1:
+        while cq > 1 and (sq // cq) % min_q_blocks:
+            cq -= 1
+        cq = pick_chunk(sq, cq)
+    ck = pick_chunk(sk, chunk_k)
+    nq, nk = sq // cq, sk // ck
+    window = int(window)
+
+    qc = q.reshape(b, nq, cq, kv, g, hd).to(f32) * scale
+    kc = k.reshape(b, nk, ck, kv, hd).to(f32)
+    vc = v.reshape(b, nk, ck, kv, hd).to(f32)
+    q_pos = q_offset + torch.arange(sq, device=q.device).reshape(nq, cq)
+    k_pos = torch.arange(sk, device=q.device).reshape(nk, ck)
+
+    m = torch.full((b, nq, kv, g, cq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, nq, kv, g, cq), dtype=f32, device=q.device)
+    acc = torch.zeros((b, nq, kv, g, cq, hd), dtype=f32, device=q.device)
+    for j in range(nk):
+        s = torch.einsum("bnqkgd,bckd->bnkgqc", qc, kc[:, j])
+        delta = q_pos[:, :, None] - k_pos[j][None, None, :]      # (nq,cq,ck)
+        ok = torch.ones_like(delta, dtype=torch.bool)
+        if causal:
+            ok &= delta >= 0
+        if window > 0:
+            ok &= delta < window
+        s = torch.where(ok[None, :, None, None], s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bnkgqc,bckd->bnkgqd", p, vc[:, j])
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    # rows with no allowed key (padded windows, negative offsets) -> 0
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    out = torch.where(m[..., None] <= NEG_INF * 0.5, torch.zeros_like(out),
+                      out)
+    # (b, nq, kv, g, cq, hd) -> (b, nq, cq, kv, g, hd)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, hd)
+    return out.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -40,6 +40,16 @@ def residual_norm(x: torch.Tensor, pending: Optional[torch.Tensor],
     return add_rmsnorm(x, pending, weight, eps)
 
 
+def pick_chunk(s: int, target: int) -> int:
+    """Largest divisor of ``s`` that is at most ``target`` (at least 1): the
+    chunk length of the chunked attention and of Mamba2's SSD, as the
+    reference picks it."""
+    c = min(s, target)
+    while s % c:
+        c -= 1
+    return c
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` as the reference computes it.  JAX's sigmoid
     is ``1 / (1 + exp(-x))`` with each op in ``x``'s type, so in bfloat16

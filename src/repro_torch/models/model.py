@@ -1,12 +1,14 @@
 """Top-level model API: logits, the training loss, prefill, decode.
 
-Port of the JAX package's ``models/model.py`` for the dense, MoE, Mamba1,
-vlm and audio families (a vlm prompt carries image embeddings ahead of
-its text, :func:`embed_inputs`).  Decode walks the layers in the reference's segments (runs of
-layers with the same kind, cache kind, window and theta) with a plain loop,
-so heterogeneous caches stay exact: full KV rows for global-attention
-layers, ring buffers for sliding-window layers (gemma3 locals), SSM state
-and conv tails for Mamba layers.  :func:`decode_step` updates the cache in
+Port of the JAX package's ``models/model.py`` for every family: dense,
+MoE, SSM (Mamba1, Mamba2), hybrid, vlm and audio (a vlm prompt carries
+image embeddings ahead of its text, :func:`embed_inputs`).  Decode walks
+the layers in the reference's segments (runs of layers with the same
+kind, cache kind, window and theta) with a plain loop, so heterogeneous
+caches stay exact: full KV rows for global-attention layers, ring buffers
+for sliding-window layers (gemma3 locals), SSM state and conv tails for
+Mamba layers, and the rows of the hybrid's weight-tied attention block
+after the full-attention layers' (one row per application).  :func:`decode_step` updates the cache in
 place, where the reference donates it to ``jit`` (``donate_argnums``) and
 gets a new one back.  In a decode step each block's output is added to the
 residual stream by the norm that follows it, the final norm included (one
@@ -123,15 +125,20 @@ def prefill(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
     layers, ``k_ring, v_ring`` ``(n_ring, b, window, KV, hd)`` for
     sliding-window layers (``S`` must be a multiple of the window), and
     ``ssm`` ``(L, b, d_inner, N)`` float32 and ``conv`` ``(L, b, W-1,
-    d_inner)`` for Mamba layers."""
+    d_inner)`` for Mamba1 layers (``(L, b, H, P, N)`` and ``(L, b, W-1,
+    d_inner + 2N)`` for Mamba2).  A hybrid's ``k, v`` are its shared
+    block's, one row per application."""
     x, positions = embed_inputs(params, cfg, tokens, img_embeds)
     x, raw = run_stack(x, params, cfg, ctx, positions, collect_cache=True)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _project_logits(x, params, cfg)
 
-    plan, _ = layer_plan(cfg)
+    plan, meta = layer_plan(cfg)
     cache: Dict[str, Any] = {}
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
+        if meta["shared_at"]:
+            raw, shared_kv = raw
+            cache["k"], cache["v"] = shared_kv
         cache["ssm"], cache["conv"] = raw
         return logits[:, 0], cache
     k, v = raw                                          # (L, b, S, KV, hd)
@@ -161,7 +168,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device: DeviceLike = None
                ) -> Dict[str, Any]:
     """Zero caches of the shapes :func:`prefill` returns, for ``seq_len``
-    positions of full attention."""
+    positions of full attention (the hybrid's shared rows after the
+    full-attention layers')."""
     check_family(cfg)
     device = resolve_device(device)
     plan, meta = layer_plan(cfg)
@@ -171,19 +179,23 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     def z(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
-    if meta["full"]:
-        cache["k"] = z((meta["full"], batch, seq_len, kv, hd))
-        cache["v"] = z((meta["full"], batch, seq_len, kv, hd))
+    n_full = meta["full"] + len(meta["shared_at"])
+    if n_full:
+        cache["k"] = z((n_full, batch, seq_len, kv, hd))
+        cache["v"] = z((n_full, batch, seq_len, kv, hd))
     if meta["ring"]:
         w = next(e["cache"][2] for e in plan
                  if e.get("cache", ("",))[0] == "ring")
         cache["k_ring"] = z((meta["ring"], batch, w, kv, hd))
         cache["v_ring"] = z((meta["ring"], batch, w, kv, hd))
     if meta["ssm"]:
-        cache["ssm"] = z((meta["ssm"], batch, cfg.d_inner, cfg.ssm_state),
-                         torch.float32)
-        cache["conv"] = z((meta["ssm"], batch, cfg.ssm_conv - 1,
-                           cfg.d_inner))
+        if cfg.ssm_variant == "mamba2":
+            state = (cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+            conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        else:
+            state, conv_dim = (cfg.d_inner, cfg.ssm_state), cfg.d_inner
+        cache["ssm"] = z((meta["ssm"], batch) + state, torch.float32)
+        cache["conv"] = z((meta["ssm"], batch, cfg.ssm_conv - 1, conv_dim))
     return cache
 
 
@@ -243,13 +255,16 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
     The cache is updated in place and returned (the reference donates its
     buffers to ``jit`` instead): a Mamba layer's scan writes its new state
     over the old one in its ``ssm`` row; full-attention rows need room for
-    position ``pos``."""
+    position ``pos``.  A hybrid runs its shared block after each segment
+    that ends in ``meta["shared_at"]``, on cache row ``meta["full"]`` plus
+    the number of applications before it."""
     check_family(cfg)
     pos = int(pos)
     plan, meta = layer_plan(cfg)
     x = params["tok_embed"][token]                      # (b, 1, d)
     # each block's output is added to the stream by the next norm
     pending = None
+    shared_seen = 0
     for sig, idxs, _ in _segments(plan, meta["shared_at"]):
         kind, cache_kind, window, theta = sig
         for i in idxs:
@@ -262,15 +277,23 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
                     x, pending, lp, cache[ckey][row], cache[vkey][row], cfg,
                     ctx, pos, kind=kind, cache_kind=cache_kind,
                     window=window, theta=theta)
-            else:                                       # mamba1 layer
+            else:                                       # mamba layer
                 row = plan[i]["ssm_row"]
                 x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
                 ssm = cache["ssm"][row]       # updated in place
-                y, (_, cc) = mam.mamba1_block(
+                y, (_, cc) = mam.BLOCKS[kind](
                     h[:, 0], lp, cfg, h0=ssm, conv0=cache["conv"][row],
                     single_step=True, h_out=ssm)
                 cache["conv"][row] = cc.to(cache["conv"].dtype)
                 pending = y[:, None]
+        if idxs[-1] in meta["shared_at"]:
+            # hybrid: the weight-tied attention block, on its own cache row
+            row = meta["full"] + shared_seen
+            x, pending = _decode_layer_body(
+                x, pending, params["shared"], cache["k"][row],
+                cache["v"][row], cfg, ctx, pos, kind="attn",
+                cache_kind="full", window=0, theta=cfg.rope_theta)
+            shared_seen += 1
     _, x = residual_norm(x, pending, params["final_norm"], cfg.norm_eps)
     logits = _project_logits(x, params, cfg)
     return logits[:, 0], cache

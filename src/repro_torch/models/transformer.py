@@ -1,4 +1,5 @@
-"""Decoder stack of the dense, MoE, Mamba1, vlm and audio families.
+"""Decoder stack of the dense, MoE, SSM (Mamba1, Mamba2), hybrid, vlm and
+audio families.
 
 Port of the JAX package's ``models/transformer.py``.  Parameters are one
 dict with the reference's keys and its layer-stacked ``(L, ...)`` shapes, so
@@ -21,8 +22,10 @@ launch (``layers.residual_norm``); :func:`run_stack` completes the stream
 before it returns.  The ``vlm`` and ``audio`` families are dense backbones
 (their frontends are stubs, ``models/frontends.py``); an ``moe`` layer
 runs ``models/moe.py::moe_block`` in place of the MLP.  The ``hybrid``
-family (and Mamba2 layers) raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+family (zamba2) stacks Mamba2 layers and runs one weight-tied attention +
+MLP block, ``params["shared"]``, after every ``hybrid_attn_period``-th
+layer (:func:`shared_attn_apply`); as in the reference that block runs
+outside the per-layer remat, and the pending residual carries across it.
 """
 from __future__ import annotations
 
@@ -40,24 +43,19 @@ from .moe import moe_block
 from .sharding import ShardCtx
 
 #: Families whose layers the port has not yet, and the ROADMAP item that
-#: brings each.
-NOT_PORTED = {
-    "hybrid": "ROADMAP Queue A 8c (Mamba2 ssd_scan / shared attention)",
-}
+#: brings each (none: every family of the JAX package is ported).
+NOT_PORTED: Dict[str, str] = {}
 #: Families whose layers are attention + MLP (or attention + MoE)
 ATTENTION_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this package cannot run."""
+    """Raise ``NotImplementedError`` for a family this package cannot run
+    (one listed in :data:`NOT_PORTED`)."""
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to the "
             f"PyTorch package yet; it comes with {NOT_PORTED[cfg.family]}")
-    if cfg.family == "ssm" and cfg.ssm_variant != "mamba1":
-        raise NotImplementedError(
-            f"{cfg.name}: only Mamba1 layers are ported; "
-            f"{cfg.ssm_variant!r} comes with {NOT_PORTED['hybrid']}")
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +139,21 @@ def _moe_init(gen, cfg: ModelConfig, n: int, dtype):
 def _mamba_init(gen, cfg: ModelConfig, n: int, dtype, device):
     d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     f32 = torch.float32
+    if cfg.ssm_variant == "mamba2":
+        nh, conv_dim = cfg.n_ssm_heads, di + 2 * N
+        a0 = torch.log(torch.arange(1, nh + 1, dtype=f32, device=device))
+        return {
+            "in_proj": dense_init(gen, d, 2 * di + 2 * N + nh, n=n,
+                                  dtype=dtype),
+            "conv_w": dense_init(gen, cfg.ssm_conv, conv_dim, n=n,
+                                 dtype=dtype),
+            "conv_b": torch.zeros((n, conv_dim), dtype=dtype, device=device),
+            "A_log": a0.expand(n, nh).contiguous(),
+            "D": torch.ones((n, nh), dtype=f32, device=device),
+            "dt_bias": torch.zeros((n, nh), dtype=f32, device=device),
+            "norm_w": torch.ones((n, di), dtype=dtype, device=device),
+            "out_proj": dense_init(gen, di, d, n=n, dtype=dtype),
+        }
     a0 = torch.log(torch.arange(1, N + 1, dtype=f32, device=device))
     return {
         "in_proj": dense_init(gen, d, 2 * di, n=n, dtype=dtype),
@@ -188,9 +201,20 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             layers.update(_moe_init(gen, cfg, n, dtype))
         else:
             layers.update(_mlp_init(gen, cfg, n, dtype))
-    else:                                                   # ssm (Mamba1)
+    else:                                               # ssm, hybrid
         layers.update(_mamba_init(gen, cfg, n, dtype, device))
     params["layers"] = layers
+
+    if cfg.hybrid_attn_period:
+        # the weight-tied block: one set of weights, no layer axis
+        shared = {"ln1": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device)}
+        shared.update({k: v[0] for k, v in _attn_init(
+            gen, cfg, 1, dtype, device).items()})
+        shared["ln2"] = shared["ln1"].clone()
+        shared.update({k: v[0] for k, v in _mlp_init(gen, cfg, 1,
+                                                     dtype).items()})
+        params["shared"] = shared
     return params
 
 
@@ -239,6 +263,19 @@ def mlp_block(x, p):
     return swiglu(x, p["gate"], p["up"], p["down"])
 
 
+def shared_attn_apply(x, pending, shared, cfg: ModelConfig, ctx: ShardCtx,
+                      positions):
+    """The hybrid's weight-tied block on the stream ``x`` plus the previous
+    layer's ``pending`` output: attention (full, causal, the config's
+    theta) and MLP, each behind its norm.  Returns ``(x, pending, (k,
+    v))``: the MLP's output is left pending for the next norm, as a
+    layer's is."""
+    x, h = residual_norm(x, pending, shared["ln1"], cfg.norm_eps)
+    a, kv = attn_block(h, shared, cfg, ctx, positions, 0, cfg.rope_theta)
+    x, h = residual_norm(x, a, shared["ln2"], cfg.norm_eps)
+    return x, mlp_block(h, shared), kv
+
+
 def moe_mlp(x, p, cfg: ModelConfig, ctx: ShardCtx, **knobs):
     """The MoE block of a layer ``p`` on ``x`` ``(b, s, d)``.  ``knobs``
     are ``moe_block``'s ``f32_combine`` and ``gather_dispatch``: prefill
@@ -275,7 +312,7 @@ def _layer_body(x, pending, lp, cfg: ModelConfig, ctx: ShardCtx, entry,
         else:
             m = mlp_block(h, lp)
         return x, m, kv_cache
-    y, (hstate, conv_tail) = mam.mamba1_block(h, lp, cfg)
+    y, (hstate, conv_tail) = mam.BLOCKS[entry["kind"]](h, lp, cfg)
     return x, y, (hstate, conv_tail)
 
 
@@ -307,24 +344,40 @@ def run_stack(x, params, cfg: ModelConfig, ctx: ShardCtx, positions,
               collect_cache: bool = False):
     """``x`` ``(b, s, d)`` -> ``(x, caches)``; with ``collect_cache`` the
     caches are the per-layer ``(k, v)`` or ``(ssm state, conv tail)``
-    stacked over layers (the reference's scan outputs), else ``()``."""
+    stacked over layers (the reference's scan outputs), else ``()``.
+
+    A hybrid config runs the shared block after each layer in
+    ``meta["shared_at"]``, outside the layer's remat, as the reference runs
+    it between its scanned segments; its caches are then ``((ssm, conv),
+    (k, v))`` with the shared block's ``(k, v)`` stacked over its
+    applications (the layers' caches alone when it runs nowhere)."""
     check_family(cfg)
-    plan, _ = layer_plan(cfg)
+    plan, meta = layer_plan(cfg)
+    shared_at = set(meta["shared_at"])
     remat = cfg.remat and not collect_cache and _takes_grad(x, params)
-    caches = []
+    caches, shared_kv = [], []
     pending = None
     for i, entry in enumerate(plan):
         lp = layer_params(params, i)
         if remat:
             x, pending = checkpoint(_remat_layer, x, pending, lp, cfg, ctx,
                                     entry, positions, use_reentrant=False)
-            continue
-        x, pending, c = _layer_body(x, pending, lp, cfg, ctx, entry,
-                                    positions)
-        if collect_cache:
-            caches.append(c)
+        else:
+            x, pending, c = _layer_body(x, pending, lp, cfg, ctx, entry,
+                                        positions)
+            if collect_cache:
+                caches.append(c)
+        if i in shared_at:
+            x, pending, kv = shared_attn_apply(x, pending, params["shared"],
+                                               cfg, ctx, positions)
+            if collect_cache:
+                shared_kv.append(kv)
     if pending is not None:
         x = x + pending
     if not collect_cache:
         return x, ()
-    return x, tuple(torch.stack(parts, 0) for parts in zip(*caches))
+    stacked = tuple(torch.stack(parts, 0) for parts in zip(*caches))
+    if shared_at:
+        return x, (stacked, tuple(torch.stack(parts, 0)
+                                  for parts in zip(*shared_kv)))
+    return x, stacked

@@ -22,7 +22,11 @@ falcon-mamba-7b's training microbatch (bit-equal to itself too), the
 autograd Functions the wrappers hand a gradient to, the scan forms that
 still refuse one, a gradient that reaches every parameter of a dense and
 of a Mamba1 layer, a Mamba1 train step's launch counts, and a train step
-against the host's and against itself bit for bit.  Without a CUDA device
+against the host's and against itself bit for bit.  The hybrid family
+(zamba2-7b) adds the ``rmsnorm`` type pair of Mamba2's gated norm (a
+float32 input, a bfloat16 weight, d 7168), forward and backward, a
+reduced zamba2 prefill and decode, and its train step against the host's
+and against itself.  Without a CUDA device
 every test here skips with a reason
 (decided inside the test, never at import).  This file imports ``torch``
 and ``repro_torch`` only, so it also runs on a machine without JAX:
@@ -1262,6 +1266,120 @@ def test_train_step_on_the_card_repeats_bit_for_bit():
         params = init_params(cfg, seed=0, device="cuda")
         step = make_train_step(cfg, ShardCtx(), opt, n_micro=2)
         outs.append(step(params, opt.init(params), batch))
+    assert float(outs[0][2]["loss"]) == float(outs[1][2]["loss"])
+    for a, b in zip(leaves(outs[0][:2]), leaves(outs[1][:2])):
+        assert torch.equal(a, b)
+
+
+#: Mamba2's gated norm at zamba2-7b's d_inner: (rows, 7168), float32 x with
+#: a bfloat16 weight (type code 2): the prefill's (4, 512), the training
+#: microbatch's (2, 512), a decode step's (4,), and a ragged count.
+GATED_NORM_SHAPES = [(4, 512, 7168), (2, 512, 7168), (4, 7168), (7, 7168)]
+
+
+@pytest.mark.parametrize("shape", GATED_NORM_SHAPES, ids=str)
+def test_rmsnorm_float32_x_bfloat16_w_at_zamba2_width(shape):
+    """The forward kernel against its plain version (float32 output, 1e-5
+    of the largest magnitude), then ``RMSNormFn``'s backward kernel: ``dx``
+    in float32 (2e-5), ``dw`` in bfloat16 (1e-2: one bfloat16 step)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device="cuda") * 3
+    w = torch.randn(shape[-1], generator=g, device="cuda").bfloat16()
+    key = (torch.Size(shape), torch.float32, torch.bfloat16)
+    before = rn.rmsnorm.shapes[key]
+    y = rn.rmsnorm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.shapes[key] == before + 1
+    assert y.dtype == torch.float32
+    _rel_close(y, rn.rmsnorm_ref(x, w, 1e-5), 1e-5)
+    xg = x.clone().requires_grad_()
+    wg = w.clone().requires_grad_()
+    dy = torch.randn(shape, generator=g, device="cuda")
+    before = rn.rmsnorm.bwd_launches
+    dx, dw = torch.autograd.grad(rn.rmsnorm(xg, wg, 1e-5), (xg, wg), dy)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm.bwd_launches == before + 1
+    assert dx.dtype == torch.float32 and dw.dtype == torch.bfloat16
+    want_dx, want_dw = rn.rmsnorm_bwd_ref(x, w, dy, 1e-5)
+    _rel_close(dx, want_dx, 2e-5)
+    _rel_close(dw, want_dw, 1e-2)
+
+
+def _zamba2(dtype, **kw):
+    return configs.get("zamba2-7b").reduced(dtype=dtype, **kw)
+
+
+def test_zamba2_prefill_and_decode_on_the_card():
+    """Reduced zamba2-7b (six Mamba2 layers, the shared block after layers
+    2 and 5), float32: a prefill launches the attention kernel once per
+    shared-block application and one gated norm a layer at the float32 /
+    float32 pair, and a decode step after it reproduces
+    ``forward_logits`` at the next position (2e-3).  Then bfloat16: the
+    same launches, the gated norms at the float32 / bfloat16 pair, finite
+    logits."""
+    _need_cuda()
+    for dtype in ("float32", "bfloat16"):
+        cfg = _zamba2(dtype)
+        params = init_params(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(4)
+        toks = torch.randint(0, cfg.vocab_size, (2, 17), generator=g,
+                             device="cuda")
+        ctx = ShardCtx()
+        before = fa.flash_attention.launches
+        gated = (torch.Size((2, 16, cfg.d_inner)), torch.float32,
+                 getattr(torch, dtype))
+        before_gated = rn.rmsnorm.shapes[gated]
+        last, cache = M.prefill(params, cfg, ctx, toks[:, :16])
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 2
+        assert rn.rmsnorm.shapes[gated] == before_gated + cfg.n_layers
+        assert bool(torch.isfinite(last.float()).all())
+        if dtype == "bfloat16":
+            continue
+        logits, _ = M.decode_step(params, cfg, ctx, toks[:, 16:],
+                                  gen_cli.grow_cache(cache, 1), 16)
+        full = M.forward_logits(params, cfg, ctx, toks)
+        _close(logits, full[:, 16], 2e-3)
+
+
+def _zamba2_step(dev, dtype, lr):
+    from repro_torch._tree import tree_map
+    from repro_torch.data.pipeline import (DataLoader, LoaderConfig,
+                                           SyntheticCorpus)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamW
+    cfg = _zamba2(dtype, n_layers=2, hybrid_attn_period=1, remat=True)
+    batch = DataLoader(SyntheticCorpus(cfg.vocab_size, 0),
+                       LoaderConfig(4, 32)).batch_at(0)
+    opt = AdamW(lr=lr)
+    params = tree_map(lambda t: t.to(dev),
+                      init_params(cfg, seed=0, device="cuda"))
+    step = make_train_step(cfg, ShardCtx(), opt, n_micro=2)
+    return step(params, opt.init(params), batch)
+
+
+def test_zamba2_train_step_on_the_card_matches_the_host():
+    """One float32 step of reduced zamba2-7b (two layers, the shared block
+    after each, remat): the loss and every new parameter, the nested
+    ``shared`` leaves included, on the card against the host's plain path
+    (sums in another order)."""
+    _need_cuda()
+    from repro_torch._tree import leaves
+    card = _zamba2_step("cuda", "float32", 1e-5)
+    host = _zamba2_step("cpu", "float32", 1e-5)
+    assert abs(float(card[2]["loss"]) - float(host[2]["loss"])) <= 1e-4
+    for a, b in zip(leaves(card[0]), leaves(host[0])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=3e-5)
+
+
+def test_zamba2_train_step_on_the_card_repeats_bit_for_bit():
+    """bfloat16: the plain-torch SSD's backward (no ``index_add``,
+    ``scatter_add`` or ``gather``) and the kernels' backward give the same
+    bits twice."""
+    _need_cuda()
+    from repro_torch._tree import leaves
+    outs = [_zamba2_step("cuda", "bfloat16", 1e-3) for _ in range(2)]
     assert float(outs[0][2]["loss"]) == float(outs[1][2]["loss"])
     for a, b in zip(leaves(outs[0][:2]), leaves(outs[1][:2])):
         assert torch.equal(a, b)

@@ -3,7 +3,9 @@
 ``loss_fn``, the per-leaf gradients (``jax.value_and_grad`` of the
 reference's ``loss_fn``), and five ``make_train_step`` steps (AdamW on the
 cosine schedule, ``n_micro`` 1 and 2) of ``reduced()`` qwen2-7b (dense,
-GQA, QKV bias) and falcon-mamba-7b (Mamba1), in float32, from the
+GQA, QKV bias), falcon-mamba-7b (Mamba1) and zamba2-7b (hybrid: six
+Mamba2 layers, the weight-tied block after layers 2 and 5, so its gradient
+sums two applications), in float32, from the
 reference's weights (``params_from_reference``) and its initial optimizer
 state (``opt_state_from_reference``), on the same NumPy batches.  Then the
 reference's system tests of training (``tests/test_system.py``), case by
@@ -54,7 +56,11 @@ from repro_torch.models.transformer import init_params
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 
 RCTX, CTX = RefShardCtx(), ShardCtx()
-ARCHS = ["qwen2-7b", "falcon-mamba-7b"]
+ARCHS = ["qwen2-7b", "falcon-mamba-7b", "zamba2-7b"]
+#: ``reduced()`` overrides of the five-step tests: two layers, and for the
+#: hybrid the shared block after each of them (period 1), so that its
+#: gradient still sums two applications.
+STEP_OVERRIDES = {"zamba2-7b": {"n_layers": 2, "hybrid_attn_period": 1}}
 LOSS_TOL = 1e-4
 GRAD_FRO_TOL, GRAD_MAX_TOL = 1e-3, 2e-3
 STEP_RTOL, STEP_ATOL = 2e-3, 2e-4
@@ -121,20 +127,38 @@ def test_loss_fn_gather_is_the_one_hot_einsum_bit_for_bit():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _paths(tree, prefix=()):
+    """The key paths of ``tree``'s leaves, in ``_tree.leaves`` order."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree) for q in _paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def _named(p):
+    """``(path, layer)`` of each leaf ``steps._leaves_for_grad`` returns, in
+    its order: the top-level entries' key paths (a hybrid's ``shared``
+    block nested), then each layer's keys."""
+    named = [(q, None) for q in _paths({k: v for k, v in p.items()
+                                        if k != "layers"})]
+    named += [((k,), i) for i in range(len(p["layers"]))
+              for k in sorted(p["layers"][i])]
+    return named
+
+
 def _port_grads(params, cfg, batch):
     p, flat = steps._leaves_for_grad(params)
     loss, _ = M.loss_fn(p, cfg, CTX, _torch_batch(batch))
     grads = torch.autograd.grad(loss, flat)
-    named = [(k, None) for k in sorted(k for k in p if k != "layers")]
-    named += [(k, i) for i in range(len(p["layers"]))
-              for k in sorted(p["layers"][i])]
-    return loss.detach(), list(zip(named, grads))
+    return loss.detach(), list(zip(_named(p), grads))
 
 
 def _check_grads(port, ref):
-    for (key, layer), g in port:
-        want = np.asarray(ref[key] if layer is None
-                          else ref["layers"][key][layer], np.float32)
+    for (path, layer), g in port:
+        node = ref if layer is None else ref["layers"]
+        for k in path:
+            node = node[k]
+        key = "/".join(path)
+        want = np.asarray(node if layer is None else node[layer], np.float32)
         got = _f32(g)
         assert got.shape == want.shape, key
         scale = float(np.abs(want).max())
@@ -148,11 +172,14 @@ def _check_grads(port, ref):
 @pytest.mark.parametrize("arch,remat", [("qwen2-7b", False),
                                         ("qwen2-7b", True),
                                         ("falcon-mamba-7b", False),
-                                        ("falcon-mamba-7b", True)])
+                                        ("falcon-mamba-7b", True),
+                                        ("zamba2-7b", False),
+                                        ("zamba2-7b", True)])
 def test_gradients_match_value_and_grad(arch, remat):
     """Every leaf's gradient against ``jax.value_and_grad`` of the
     reference's ``loss_fn``; with ``remat`` each layer runs under the
-    checkpoint on both sides."""
+    checkpoint on both sides (a hybrid's shared block outside it, on both
+    sides: its leaves, nested under ``shared``, sum two applications)."""
     rcfg, cfg = _cfgs(arch, remat=remat)
     rp, params = _ref_params(rcfg)
     batch = _batch(cfg.vocab_size)
@@ -211,10 +238,8 @@ def test_arch_smoke_train_step_matches_reference(arch):
     assert bool(torch.isfinite(loss))
     assert abs(float(loss) - float(rloss)) <= LOSS_TOL * (1 + float(rloss))
     grads = torch.autograd.grad(loss, flat)
-    named = [(k, None) for k in sorted(k for k in p if k != "layers")]
-    named += [(k, i) for i in range(len(p["layers"]))
-              for k in sorted(p["layers"][i])]
-    _check_grads(list(zip(named, grads)), jax.tree.map(np.asarray, rgrads))
+    _check_grads(list(zip(_named(p), grads)),
+                 jax.tree.map(np.asarray, rgrads))
     logits = M.forward_logits(params, cfg, CTX, tb["tokens"],
                               tb.get("img_embeds"))
     assert tuple(logits.shape) == (b, s + n_img, cfg.padded_vocab)
@@ -234,6 +259,61 @@ def test_stacked_leaves_get_one_layer_gradients():
     grads = torch.autograd.grad(loss, flat)
     assert all(g.shape == t.shape for g, t in zip(grads, flat))
     assert not wq.requires_grad and wq.grad is None
+
+
+def test_leaves_for_grad_flattens_nested_subtrees():
+    """A nested subtree beside ``layers`` (the hybrid's ``shared`` block, a
+    dict of tensors) becomes leaves of its own, in ``_tree.leaves`` order
+    (keys sorted, recursively) — the order the accumulators, AdamW and the
+    checkpoint walk — each a leaf that requires a gradient and shares its
+    parameter's storage."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g)
+
+    params = {"tok_embed": r(8, 4), "final_norm": r(4),
+              "shared": {"wq": r(4, 2), "ln1": r(4),
+                         "inner": {"b": r(3), "a": r(2)}},
+              "layers": {"w": r(2, 4, 4), "ln1": r(2, 4)}}
+    p, flat = steps._leaves_for_grad(params)
+    top = leaves({k: v for k, v in params.items() if k != "layers"})
+    assert len(flat) == len(top) + 2 * 2
+    for got, want in zip(flat, top + [params["layers"][k][i]
+                                      for i in range(2)
+                                      for k in ("ln1", "w")]):
+        assert got.is_leaf and got.requires_grad
+        assert got.data_ptr() == want.data_ptr() and got.shape == want.shape
+    assert p["shared"]["inner"]["a"] is flat[1]        # final_norm, then a
+    assert [q for q, _ in _named(p)][:6] == [
+        ("final_norm",), ("shared", "inner", "a"), ("shared", "inner", "b"),
+        ("shared", "ln1"), ("shared", "wq"), ("tok_embed",)]
+
+
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_train_step_over_a_nested_shared_block(n_micro):
+    """A train step of reduced zamba2-7b, whose ``params["shared"]`` is a
+    dict of nine tensors: every shared leaf gets an update, the loss is
+    finite, and two runs give the same bits."""
+    _, cfg = _cfgs("zamba2-7b", n_layers=2, hybrid_attn_period=1)
+    opt = AdamW(lr=1e-3)
+    batch = DataLoader(SyntheticCorpus(cfg.vocab_size, 0),
+                       LoaderConfig(4, 16)).batch_at(0)
+    outs = []
+    for _ in range(2):
+        params = init_params(cfg, seed=0, device="cpu")
+        assert sorted(params["shared"]) == ["down", "gate", "ln1", "ln2",
+                                            "up", "wk", "wo", "wq", "wv"]
+        step = make_train_step(cfg, CTX, opt, n_micro=n_micro)
+        new, state, m = step(params, opt.init(params), batch)
+        assert np.isfinite(float(m["loss"]))
+        for k, v in new["shared"].items():
+            assert not torch.equal(v, params["shared"][k]), k
+            assert float(state.m["shared"][k].abs().max()) > 0, k
+        outs.append((new, float(m["loss"])))
+    assert outs[0][1] == outs[1][1]
+    for a, b in zip(leaves(outs[0][0]), leaves(outs[1][0])):
+        assert torch.equal(a, b)
 
 
 def test_remat_is_used_only_under_a_gradient(monkeypatch):
@@ -270,7 +350,7 @@ def test_remat_is_used_only_under_a_gradient(monkeypatch):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("n_micro", [1, 2])
 def test_train_steps_track_reference(arch, n_micro):
-    rcfg, cfg = _cfgs(arch, n_layers=2)
+    rcfg, cfg = _cfgs(arch, **STEP_OVERRIDES.get(arch, {"n_layers": 2}))
     rp, params = _ref_params(rcfg, seed=1)
     ropt = ref_adamw.AdamW(lr=ref_adamw.cosine_schedule(STEP_LR, 2, 5))
     opt = AdamW(lr=cosine_schedule(STEP_LR, 2, 5))
@@ -431,6 +511,31 @@ def test_train_cli_layers_cut_and_resume(tmp_path):
     assert [h["loss"] for h in hist] == \
         [h["loss"] for h in full["loop"].history[2:]]
     for a, b in zip(leaves(full["params"]), leaves(resumed["params"])):
+        assert torch.equal(a, b)
+
+
+def test_hybrid_train_resume_is_bitwise(tmp_path):
+    """Reduced zamba2-7b through ``TrainLoop``: a run that fails at step 3
+    and resumes from its step-2 checkpoint (the nested ``shared`` block
+    and its AdamW moments among the leaves) gives the uninterrupted run's
+    losses and parameters bit for bit."""
+    cfg = configs.get("zamba2-7b").reduced(n_layers=3, remat=True)
+    kw = dict(steps=4, global_batch=2, seq_len=16, n_micro=2, lr=3e-4,
+              ckpt_every=2, device="cpu")
+    full = train_cli.train(cfg, ckpt_dir=str(tmp_path / "a"), **kw)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        train_cli.train(cfg, ckpt_dir=str(tmp_path / "b"), fail_at=3, **kw)
+    resumed = train_cli.train(cfg, ckpt_dir=str(tmp_path / "b"),
+                              resume=True, **kw)
+    hist = resumed["loop"].history
+    assert [h["step"] for h in hist] == [2, 3]
+    assert [h["loss"] for h in hist] == \
+        [h["loss"] for h in full["loop"].history[2:]]
+    assert sorted(resumed["params"]["shared"]) == \
+        sorted(full["params"]["shared"])
+    for a, b in zip(leaves(full["params"]), leaves(resumed["params"])):
+        assert torch.equal(a, b)
+    for a, b in zip(leaves(full["opt_state"]), leaves(resumed["opt_state"])):
         assert torch.equal(a, b)
 
 
