@@ -12,7 +12,8 @@ decode of qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m,
 llava-next-mistral-7b, musicgen-large and the hybrid zamba2-7b) and
 training (``launch.train``: qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m
 and gpt-1.1b at full width and 4 layers, zamba2-7b at 12, each with a
-crash and a resume) — builds the
+crash and a resume) and pipeline-parallel training (``launch.pp_step``:
+gpt-1.1b at 12 layers, pp 2 x dp 2, four ranks on the card) — builds the
 CUDA kernels from the sources in this checkout, holds each kernel against
 its plain PyTorch version, and proves that each path went through its
 kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
@@ -95,7 +96,7 @@ step),
 full width and 4 of its 28 layers — the one cut — bf16, remat, random
 weights from a seeded generator on the card, ``SyntheticCorpus`` batches
 of 4 x 512 in 2 microbatches, AdamW on the reference's cosine schedule, 4
-steps (the uninterrupted run saving its final checkpoint only); exact
+steps (the uninterrupted and the resumed run saving no checkpoint); exact
 forward and backward launch counts
 of both norm forms and of the attention; then a run that fails at step 3
 and its resume from the step-2 checkpoint, which must give the same losses
@@ -110,6 +111,14 @@ forms, counted exactly), ``train_granite_moe_3b_a800m`` and
 granite-moe-3b-a800m, 4 of 32 layers, its slice in float32, gpt-1.1b,
 4 of 24 layers, head dim 96, and zamba2-7b, 12 of 81 layers so that the
 shared block runs twice, its slice at 1 layer with the block after it),
+``pp_train_gpt_1_1b`` (a Pipette configuration launched as ranks:
+gpt-1.1b at full width and 12 of 24 layers, pp 2 x dp 2 over the permuted
+mapping ``[[[1, 3]], [[0, 2]]]`` through ``mesh_from_mapping``, four
+processes on the card in a ``gloo`` group, ``make_pp_train_step`` for 3
+AdamW steps of 8 x 512 tokens in 4 microbatches; each rank's coordinates,
+layers and groups held to the mapping and its launches to
+:func:`pp_rank_launches`; then the same at pp 1 x dp 2, two processes,
+whose losses and every layer's parameters must be bit-equal),
 ``model_kernels_at_path_shapes`` (the training phases' forward shapes
 too), ``bwd_kernels_at_path_shapes``,
 ``bwd_attention_full_grid`` (the bfloat16 attention backward at qwen2-7b's
@@ -175,7 +184,11 @@ from repro_torch.kernels import group_reduce as gr  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import selective_scan as ss  # noqa: E402
 from repro_torch import _tree  # noqa: E402
+from repro_torch.core import Conf  # noqa: E402
+from repro_torch.launch import collectives  # noqa: E402
 from repro_torch.launch import generate as gen_cli  # noqa: E402
+from repro_torch.launch.mesh import mesh_from_mapping  # noqa: E402
+from repro_torch.launch.pp_step import make_pp_train_step  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
@@ -2517,9 +2530,10 @@ def run_train(device, arch: str) -> tuple:
     the path (:func:`train_launches`); then the bitwise resume check — a
     run that fails at step ``TRAIN_FAIL_AT``, resumed from its checkpoint,
     must give the uninterrupted run's losses and final parameters bit for
-    bit.  The uninterrupted run saves only its final checkpoint (nothing
-    reads its others; each is 10–20 GB at these sizes), so its steps are
-    timed without a checkpoint being written beside them."""
+    bit.  Only the failing run saves (at step ``TRAIN_CKPT_EVERY``, the
+    checkpoint the resume reads): the uninterrupted and the resumed run
+    write none, since nothing would read one (each is 10–20 GB at these
+    sizes), so their steps are timed without a writer beside them."""
     t_phase = time.perf_counter()
     full_layers, suffix, n_layers = TRAIN_ARCHS[arch]
     cfg = configs.get(arch).replace(n_layers=n_layers)
@@ -2532,7 +2546,8 @@ def run_train(device, arch: str) -> tuple:
         torch.cuda.empty_cache()
         reset_launches()
         full = train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "full"),
-                               **dict(kw, ckpt_every=TRAIN_STEPS))
+                               **dict(kw, ckpt_every=TRAIN_STEPS + 1,
+                                      save_final=False))
         launches, bwd, shapes = (read_launches(), read_bwd_launches(),
                                  read_shapes())
         hist = full["loop"].history
@@ -2540,7 +2555,7 @@ def run_train(device, arch: str) -> tuple:
         run = {"run_s": full["seconds"], "n_params": full["n_params"],
                "peak_memory_bytes": full["peak_bytes"]}
         del full["opt_state"]
-        shutil.rmtree(os.path.join(tmp, "full"))
+        shutil.rmtree(os.path.join(tmp, "full"), ignore_errors=True)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         try:
@@ -2552,7 +2567,8 @@ def run_train(device, arch: str) -> tuple:
             raise AssertionError("the failure was not injected")
         torch.cuda.empty_cache()
         resumed = train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "resume"),
-                                  resume=True, **kw)
+                                  resume=True, save_final=False,
+                                  **dict(kw, ckpt_every=TRAIN_STEPS + 1))
         resume_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2599,7 +2615,10 @@ def run_train(device, arch: str) -> tuple:
         "dtype": cfg.dtype, "remat": cfg.remat, "global_batch": TRAIN_BATCH,
         "seq_len": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "steps": TRAIN_STEPS,
         "ckpt_every": TRAIN_CKPT_EVERY,
-        "ckpt_every_uninterrupted_run": TRAIN_STEPS, "lr": TRAIN_LR, **run,
+        "saves": {"uninterrupted_run": [], "failing_run": list(range(
+            TRAIN_CKPT_EVERY, TRAIN_FAIL_AT + 1, TRAIN_CKPT_EVERY)),
+                  "resumed_run": []},
+        "lr": TRAIN_LR, **run,
         "losses": losses, "step_s": [h["dt"] for h in hist],
         "warm_step_s": warm_s, "tokens_per_s": tokens / warm_s,
         "flops_per_step": flops,
@@ -2711,6 +2730,265 @@ def slice_check_train(device, arch: str) -> dict:
             "loss_card": card_loss, "loss_host": host_loss,
             "grad_rel_fro": errs, "host_step_s": host_s,
             "seconds": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel training: a Pipette mapping as ranks on the card
+# ---------------------------------------------------------------------------
+
+#: ``pp_train_gpt_1_1b``: gpt-1.1b at full width, cut to ``PP_LAYERS`` of
+#: its 24 layers, trained ``PP_STEPS`` steps by ``launch/pp_step.py`` under
+#: the Pipette configuration ``PP_CONF`` (pp, tp, dp, bs_micro, bs_global:
+#: 4 microbatches of 2 sequences, one a data rank) over the permuted
+#: mapping ``PP_MAPPING`` (the rank at ``[x, y, z]`` is GPU f(x, y, z)),
+#: four processes on the one card in a ``gloo`` group; then the same
+#: layers, weights and batches at pp 1 x dp 2 (``PP1_CONF``, the same data
+#: mapping, no pipe), whose losses and parameters must be bit-equal.
+PP_ARCH, PP_LAYERS, PP_SEQ, PP_STEPS = "gpt-1.1b", 12, 512, 3
+PP_CONF, PP_MAPPING = (2, 1, 2, 1, 8), [[[1, 3]], [[0, 2]]]
+PP1_CONF, PP1_MAPPING = (1, 1, 2, 1, 8), [[[1, 0]]]
+#: the spawn's limit (the ranks are killed past it) and the phase's budget
+PP_SPAWN_S, PP_PHASE_S = 300.0, 75.0
+
+
+def pp_rank_launches(cfg, layers: int, n_mb: int, last: bool, steps: int,
+                     mb: tuple) -> tuple:
+    """``(forward launches, backward launches, shape keys)`` of one rank of
+    ``pp_train`` over ``steps`` steps: per microbatch its stage's
+    ``layers`` dense layers run 2 norms and the attention in the forward
+    (under ``no_grad``) and again in remat's recompute, and one backward
+    of each; the last stage adds the head's final norm, forward and
+    backward, once a microbatch (the head is outside remat).  No residual
+    form: ``_dense_layer`` completes the stream itself."""
+    per = steps * n_mb
+    bf = torch.bfloat16
+    head = 1 if last else 0
+    want = {k: 0 for k in WRAPPERS}
+    want["rmsnorm"] = per * (2 * 2 * layers + head)
+    want["flash_attention"] = per * 2 * layers
+    want_bwd = {k: 0 for k in BWD_KERNELS}
+    want_bwd["rmsnorm_bwd"] = per * (2 * layers + head)
+    want_bwd["flash_attention_bwd"] = per * layers
+    q_shape = (mb[0], cfg.n_heads, mb[1], cfg.hd)
+    k_shape = (mb[0], cfg.n_kv_heads, mb[1], cfg.hd)
+    fa_key = (q_shape, k_shape, True, 0, str(bf))
+    shapes = {k: {} for k in WRAPPERS}
+    shapes["rmsnorm"] = {(mb, bf, bf): want["rmsnorm"],
+                         ("bwd", mb, bf, bf): want_bwd["rmsnorm_bwd"]}
+    shapes["flash_attention"] = {
+        fa_key: want["flash_attention"],
+        ("bwd",) + fa_key: want_bwd["flash_attention_bwd"]}
+    return want, want_bwd, shapes
+
+
+def _pp_batches(cfg, conf) -> list:
+    """``PP_STEPS`` global batches of ``conf.bs_global`` sequences, as
+    ``(n_mb, bs_global / n_mb, S)`` tokens and labels, from one seed."""
+    rng = np.random.default_rng(23)
+    out = []
+    for _ in range(PP_STEPS):
+        toks = rng.integers(0, cfg.vocab_size,
+                            (conf.bs_global, PP_SEQ + 1), dtype=np.int64)
+        out.append((toks[:, :-1].reshape(conf.n_mb, -1, PP_SEQ),
+                    toks[:, 1:].reshape(conf.n_mb, -1, PP_SEQ)))
+    return out
+
+
+def pp_rank(rank: int, world: int, conf_t: tuple, mapping) -> dict:
+    """One rank of ``pp_train`` (a spawned process on the card): its stage
+    of the weights (drawn whole from seed 0 and cut), ``PP_STEPS`` steps
+    of ``make_pp_train_step``, its launch counts, and a digest of every
+    layer of its parameters after the last step."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch.optim.adamw import AdamW
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    _build.load_library()
+    cfg = configs.get(PP_ARCH).replace(n_layers=PP_LAYERS)
+    conf = Conf(*conf_t)
+    mesh = mesh_from_mapping(conf, np.asarray(mapping))
+    c = mesh.coords(rank)
+    pp = mesh.shape["pipe"]
+    per = PP_LAYERS // pp
+    s = c["pipe"]
+    full = init_params(cfg, seed=0, device=device)
+    params = {"stages": {k: v[s * per:(s + 1) * per].clone()
+                         for k, v in full["layers"].items()},
+              "shared": {k: full[k] for k in ("tok_embed", "final_norm",
+                                               "lm_head")}}
+    del full
+    torch.cuda.empty_cache()
+    groups = {a: dist.get_process_group_ranks(mesh.group(a))
+              for a in mesh.axis_names}
+    report = {"rank": rank, "coords": c, "layers": [s * per, (s + 1) * per],
+              "groups": groups}
+    print(f"[pp_train] rank {rank}: coords {c}, layers "
+          f"{s * per}..{(s + 1) * per - 1}, groups {groups}", flush=True)
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    step, *_ = make_pp_train_step(cfg, mesh, opt, pipe_axis="pipe",
+                                  data_axis="data", n_mb=conf.n_mb,
+                                  remat=True)
+    nd, z = mesh.shape["data"], c["data"]
+    batches = []
+    for toks, lbls in _pp_batches(cfg, conf):
+        rows = toks.shape[1] // nd
+        cut = slice(z * rows, (z + 1) * rows)
+        batches.append({"tokens_mb": toks[:, cut], "labels_mb": lbls[:, cut]})
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    collectives.reset_stats()
+    losses, step_s = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches, bwd, shapes = (read_launches(), read_bwd_launches(),
+                             read_shapes())
+    staged = dict(collectives.STATS)
+    digests = {}
+    for k in sorted(params["stages"]):
+        for j in range(per):
+            t = params["stages"][k][j].contiguous().view(torch.uint8).cpu()
+            digests[f"{k}[{s * per + j}]"] = hashlib.blake2b(
+                t.numpy().tobytes(), digest_size=16).hexdigest()
+    for k in sorted(params["shared"]):
+        t = params["shared"][k].contiguous().view(torch.uint8).cpu()
+        digests[k] = hashlib.blake2b(t.numpy().tobytes(),
+                                     digest_size=16).hexdigest()
+    assert _build.last_build_seconds is None, "a rank ran nvcc"
+    return dict(report, losses=losses, step_s=step_s,
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                staged_bytes_per_step={k: v / PP_STEPS
+                                       for k, v in staged.items()},
+                launches_fwd=launches, launches_bwd=bwd, shapes=shapes,
+                digests=digests)
+
+
+def _pp_check_run(cfg, conf_t, mapping, results) -> None:
+    """Each rank's coordinates, layer range and group ranks against the
+    mapping, and its launch counts against :func:`pp_rank_launches`."""
+    mapping = np.asarray(mapping)
+    conf = Conf(*conf_t)
+    pp = conf.pp
+    per = PP_LAYERS // pp
+    mb = (conf.bs_micro, PP_SEQ, cfg.d_model)
+    for r in results:
+        x, y, z = (int(v) for v in np.argwhere(mapping == r["rank"])[0])
+        assert r["coords"] == {"pipe": x, "model": y, "data": z}, r
+        assert r["layers"] == [x * per, (x + 1) * per], r
+        assert r["groups"] == {"pipe": sorted(mapping[:, y, z].tolist()),
+                               "model": sorted(mapping[x, :, z].tolist()),
+                               "data": sorted(mapping[x, y, :].tolist())}, r
+        want, want_bwd, shapes = pp_rank_launches(
+            cfg, per, conf.n_mb, x == pp - 1, PP_STEPS, mb)
+        assert r["launches_fwd"] == want, (r["rank"], r["launches_fwd"],
+                                           want)
+        assert r["launches_bwd"] == want_bwd, (r["rank"], r["launches_bwd"],
+                                               want_bwd)
+        for name, by in shapes.items():
+            assert r["shapes"][name] == by, (r["rank"], name,
+                                             r["shapes"][name], by)
+
+
+def pp_train() -> tuple:
+    """``pp_train_gpt_1_1b``: the pp 2 x dp 2 run and the pp 1 x dp 2 run
+    (:func:`pp_rank` in spawned processes, the kernels built by this
+    process before), their checks, and the run's line; returns ``(line,
+    shapes)`` with the pp run's summed launches and shape counts."""
+    t_phase = time.perf_counter()
+    cfg = configs.get(PP_ARCH).replace(n_layers=PP_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, conf_t, mapping in (("pp2_dp2", PP_CONF, PP_MAPPING),
+                                  ("pp1_dp2", PP1_CONF, PP1_MAPPING)):
+        t0 = time.perf_counter()
+        world = int(np.asarray(mapping).size)
+        results = collectives.spawn(pp_rank, world, (conf_t, mapping),
+                                    timeout=PP_SPAWN_S)
+        _pp_check_run(cfg, conf_t, mapping, results)
+        runs[name] = {"results": results,
+                      "seconds": time.perf_counter() - t0}
+    pp_res, ref_res = runs["pp2_dp2"]["results"], runs["pp1_dp2"]["results"]
+    # one loss per step, the same on every rank of a run and in both runs
+    losses = pp_res[0]["losses"]
+    assert all(r["losses"] == losses for r in pp_res + ref_res), \
+        [r["losses"] for r in pp_res + ref_res]
+    assert all(np.isfinite(losses)), losses
+
+    def digests(results):
+        out = {}
+        for r in results:
+            for k, v in r["digests"].items():
+                # the data replicas of a stage hold the same bits
+                assert out.setdefault(k, v) == v, (k, r["rank"])
+        return out
+
+    d_pp, d_ref = digests(pp_res), digests(ref_res)
+    assert len(d_ref) == len(d_pp) == 9 * PP_LAYERS + 3, len(d_pp)
+    differ = sorted(k for k in d_ref if d_pp.get(k) != d_ref[k])
+    assert not differ, ("pp 2 and pp 1 parameters differ", differ)
+
+    launches = {k: sum(r["launches_fwd"][k] for r in pp_res)
+                for k in WRAPPERS}
+    bwd = {k: sum(r["launches_bwd"][k] for r in pp_res)
+           for k in BWD_KERNELS}
+    shapes = {name: {} for name in WRAPPERS}
+    for r in pp_res:
+        for name, by in r["shapes"].items():
+            for key, n in by.items():
+                shapes[name][key] = shapes[name].get(key, 0) + n
+    step_s = [max(r["step_s"][i] for r in pp_res) for i in range(PP_STEPS)]
+    ref_step_s = [max(r["step_s"][i] for r in ref_res)
+                  for i in range(PP_STEPS)]
+    seconds = time.perf_counter() - t_phase
+    assert seconds <= PP_PHASE_S, ("pp_train_gpt_1_1b over its budget",
+                                   seconds)
+    conf = Conf(*PP_CONF)
+    line = {
+        "phase": "pp_train_gpt_1_1b", "model": cfg.name,
+        "cut": f"n_layers {PP_LAYERS} of 24, {PP_LAYERS // conf.pp} a stage "
+               f"(full width: d {cfg.d_model}, heads {cfg.n_heads} of "
+               f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size})",
+        "conf": {"pp": conf.pp, "tp": conf.tp, "dp": conf.dp,
+                 "bs_micro": conf.bs_micro, "bs_global": conf.bs_global,
+                 "n_mb": conf.n_mb},
+        "mapping": PP_MAPPING, "axes": ["pipe", "model", "data"],
+        "processes": len(pp_res), "backend": "gloo (host-staged)",
+        "seq_len": PP_SEQ, "steps": PP_STEPS, "lr": TRAIN_LR,
+        "dtype": cfg.dtype, "remat": True,
+        "ranks": [{k: r[k] for k in ("rank", "coords", "layers", "groups",
+                                     "peak_memory_bytes",
+                                     "staged_bytes_per_step", "step_s")}
+                  for r in pp_res],
+        "losses": losses, "step_s": step_s,
+        "peak_memory_bytes_max": max(r["peak_memory_bytes"]
+                                     for r in pp_res),
+        "pp1_dp2": {"mapping": PP1_MAPPING, "step_s": ref_step_s,
+                    "peak_memory_bytes_max": max(r["peak_memory_bytes"]
+                                                 for r in ref_res),
+                    "seconds": runs["pp1_dp2"]["seconds"]},
+        "bit_equal_to_pp1_dp2": {"losses": True,
+                                 "params": f"{len(d_pp)} digests (every "
+                                           f"layer's leaves and the shared "
+                                           f"ones)"},
+        "launches_fwd": launches, "launches_bwd": bwd,
+        "launches_per_rank_formula": "per microbatch: 2 norms + 1 attention "
+                                     "a layer, twice (remat), 1 backward "
+                                     "each; the last stage's head norm "
+                                     "once, forward and backward",
+        "pp2_dp2_seconds": runs["pp2_dp2"]["seconds"],
+        "seconds": seconds,
+    }
+    return line, shapes
+
 
 
 def leaf_names(tree, prefix: str = "") -> list:
@@ -3135,6 +3413,15 @@ def main() -> int:
         bwd_tr[line_tr["phase"]] = {
             name: {k: n for k, n in by.items() if is_bwd_key(k)}
             for name, by in shapes_tr.items()}
+    line_pp, shapes_pp = pp_train()
+    emit(line_pp)
+    train_lines.append(line_pp)
+    fwd_tr[line_pp["phase"]] = {
+        name: {k: n for k, n in by.items() if not is_bwd_key(k)}
+        for name, by in shapes_pp.items()}
+    bwd_tr[line_pp["phase"]] = {
+        name: {k: n for k, n in by.items() if is_bwd_key(k)}
+        for name, by in shapes_pp.items()}
     model_rows = check_model_path_shapes(device, {**gen_shapes, **fwd_tr})
     emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
     bwd_rows = check_bwd_path_shapes(device, bwd_tr)

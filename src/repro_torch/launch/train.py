@@ -36,7 +36,8 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
           n_micro: int, lr: float, ckpt_dir: str, ckpt_every: int,
           resume: bool = False, metrics: Optional[str] = None,
           fail_at: Optional[int] = None, seed: int = 0,
-          device: DeviceLike = None, plan: Any = None) -> Dict[str, Any]:
+          device: DeviceLike = None, plan: Any = None,
+          save_final: bool = True) -> Dict[str, Any]:
     """Train ``cfg`` from random weights (seed ``seed``) on
     ``SyntheticCorpus`` batches through :class:`~repro_torch.runtime.
     trainer.TrainLoop` and ``make_train_step``, with AdamW on the
@@ -45,7 +46,8 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     Returns the loop (its ``history`` holds each step's loss and seconds),
     the final parameters and optimizer state, the run's seconds and, on a
     CUDA device, the peak bytes allocated during it.  Raises the loop's
-    ``RuntimeError`` at ``fail_at``.
+    ``RuntimeError`` at ``fail_at``.  ``save_final=False`` skips the
+    checkpoint after the last step (``TrainLoopConfig.save_final``).
     """
     from ..data.pipeline import DataLoader, LoaderConfig, SyntheticCorpus
     from ..models.sharding import ShardCtx
@@ -63,7 +65,8 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
                         LoaderConfig(global_batch, seq_len))
     loop = TrainLoop(
         TrainLoopConfig(total_steps=steps, ckpt_every=ckpt_every,
-                        ckpt_dir=ckpt_dir, metrics_path=metrics),
+                        ckpt_dir=ckpt_dir, metrics_path=metrics,
+                        save_final=save_final),
         step_fn, loader, fail_at_step=fail_at, plan=plan)
     if device.type == "cuda":
         torch.cuda.synchronize(device)

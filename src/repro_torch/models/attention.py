@@ -7,8 +7,9 @@ All three are plain PyTorch, as their counterparts in the JAX package's
 attention of a prefill or a training step goes through the
 ``flash_attention`` kernel (:func:`repro_torch.models.transformer.
 attn_block`); :func:`chunked_attention` is the reference's pure-jnp path,
-kept for the pipeline-parallel step (ROADMAP Queue A 11), and an oracle
-of the kernel written independently of its plain version.  Layouts are
+kept as an oracle of the kernel written independently of its plain
+version (the pipeline-parallel step, ``launch/pp_step.py``, runs the
+kernel where the reference runs this function).  Layouts are
 the reference's: ``(b, S, heads, head_dim)``.
 """
 from __future__ import annotations
@@ -20,11 +21,11 @@ import torch
 from .layers import pick_chunk
 
 NEG_INF = -1e30
-#: Why ``chunked_attention`` refuses a ``block_constrain``: sharding the
-#: q-block dim needs a device mesh, which the port has not yet.
+#: Why ``chunked_attention`` refuses a ``block_constrain``: the q-block
+#: dim sharded over the model axis is the model under an active context.
 NO_BLOCK_CONSTRAIN = ("chunked_attention: block_constrain shards the q-block "
-                      "dim over a device mesh; the port's mesh comes with "
-                      "ROADMAP Queue A 11")
+                      "dim over the model axis of a mesh; the sequence-"
+                      "sharded attention comes with ROADMAP Queue A 11b")
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

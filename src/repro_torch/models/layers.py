@@ -112,6 +112,8 @@ def normal(gen: torch.Generator, shape: Sequence[int], scale: float,
     shape is drawn one leading slice at a time, so the float32 temporary is
     one layer's size, not the whole stack's."""
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.is_meta:                      # shapes only (``param_shapes``)
+        return out
     slices = out if len(shape) > 2 else out[None]
     for s in slices:
         s.copy_(torch.randn(s.shape, generator=gen, dtype=torch.float32,

@@ -27,13 +27,13 @@ from . import mamba as mam
 from .attention import decode_attention
 from .config import ModelConfig
 from .layers import residual_norm, rms_norm
-from .sharding import ShardCtx
+from .sharding import P, ShardCtx, refuse_active
 from .transformer import (_out_proj, _proj_qkv, check_family, init_params,
                           layer_params, layer_plan, mlp_block, moe_mlp,
                           run_stack)
 
 __all__ = ["init_params", "forward_logits", "loss_fn", "prefill",
-           "init_cache", "decode_step"]
+           "init_cache", "decode_step", "cache_pspecs"]
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +81,7 @@ def _project_logits(x, params, cfg: ModelConfig):
 def forward_logits(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
                    img_embeds=None):
     """Logits ``(b, s, padded_vocab)`` of every position."""
+    refuse_active(ctx, "forward_logits")
     x, positions = embed_inputs(params, cfg, tokens, img_embeds)
     x, _ = run_stack(x, params, cfg, ctx, positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -99,6 +100,7 @@ def loss_fn(params, cfg: ModelConfig, ctx: ShardCtx, batch
     carry -1e30), so taking the label's logit with ``gather`` is bit-equal
     and never makes the one-hot (1.2 GB at qwen2-7b's vocabulary and a
     batch of 4 x 512)."""
+    refuse_active(ctx, "loss_fn")
     logits = forward_logits(params, cfg, ctx, batch["tokens"],
                             batch.get("img_embeds"))
     labels = batch["labels"]
@@ -128,6 +130,7 @@ def prefill(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
     d_inner)`` for Mamba1 layers (``(L, b, H, P, N)`` and ``(L, b, W-1,
     d_inner + 2N)`` for Mamba2).  A hybrid's ``k, v`` are its shared
     block's, one row per application."""
+    refuse_active(ctx, "prefill")
     x, positions = embed_inputs(params, cfg, tokens, img_embeds)
     x, raw = run_stack(x, params, cfg, ctx, positions, collect_cache=True)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
@@ -158,6 +161,28 @@ def prefill(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
                              f"sliding window {w} (ring caches)")
         cache["k_ring"], cache["v_ring"] = k[idx, :, -w:], v[idx, :, -w:]
     return logits[:, 0], cache
+
+
+def cache_pspecs(cfg: ModelConfig, ctx: ShardCtx, batch: int) -> Dict[str, P]:
+    """Specs of the decode cache, the reference's: the batch over the data
+    axes when it divides them, the sequence dim of full KV rows over the
+    model axis (and over the data axes too when the batch does not
+    divide), Mamba channels over the model axis."""
+    dp = ctx.dp if ctx.dp else None
+    nd = 1
+    for a in (ctx.dp or ()):
+        nd *= ctx.n(a)
+    bspec = dp if (batch % max(nd, 1) == 0 and nd > 1) else None
+    seq_axes = ctx.tp if bspec is not None else (ctx.tp,) + tuple(ctx.dp)
+    specs = {"k": P(None, bspec, seq_axes, None, None),
+             "k_ring": P(None, bspec, None, None, None)}
+    specs["v"], specs["v_ring"] = specs["k"], specs["k_ring"]
+    if cfg.ssm_variant == "mamba2":
+        specs["ssm"] = P(None, bspec, ctx.tp, None, None)
+    else:
+        specs["ssm"] = P(None, bspec, ctx.tp, None)
+    specs["conv"] = P(None, bspec, None, ctx.tp)
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +283,7 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
     position ``pos``.  A hybrid runs its shared block after each segment
     that ends in ``meta["shared_at"]``, on cache row ``meta["full"]`` plus
     the number of applications before it."""
+    refuse_active(ctx, "decode_step")
     check_family(cfg)
     pos = int(pos)
     plan, meta = layer_plan(cfg)

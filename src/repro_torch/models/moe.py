@@ -27,20 +27,21 @@ advanced indexing, whose backward sums a token's k slots with the
 accumulating ``index_put``, which on CUDA sorts its indices and sums
 each run in order.
 
-The expert-parallel path of ``moe_block`` (``shard_map`` over a mesh) is
-not ported: with a mesh it raises, naming ROADMAP Queue A 11.
+Expert parallelism.  Given a mesh, :func:`moe_block` runs the body of
+the reference's ``shard_map`` on this rank: its data shard of the tokens,
+replicated over the model axis, is routed to every expert, and only the
+rank's own experts (``e_pad / n_model`` of the expert dim padded to the
+model axis) are computed; with ``fsdp`` their weights are first gathered
+over the data axes.  The partial outputs are summed over the model group.
+:func:`shard_moe_params` cuts a rank's blocks out of the whole weights.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from .layers import silu
-
-NO_MESH = ("moe_block's expert-parallel path over a mesh is not ported to "
-           "the PyTorch package; it comes with the launch and distribution "
-           "slice (ROADMAP Queue A 11)")
 
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, k: int):
@@ -130,19 +131,100 @@ def moe_apply_local(x: torch.Tensor, w_router: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _expert_specs(data_axes: Sequence[str], model_axis: str, fsdp: bool):
+    """Specs of ``gate``/``up`` ``(E, d, f)`` and ``down`` ``(E, f, d)``:
+    experts over the model axis, with ``fsdp`` ``f`` over the data axes."""
+    from .sharding import P
+    da = tuple(data_axes) if fsdp else None
+    return P(model_axis, None, da), P(model_axis, da, None)
+
+
+def pad_experts(w: torch.Tensor, n_model: int) -> torch.Tensor:
+    """The expert dim (dim 0) padded with zero experts to a multiple of
+    ``n_model`` (granite's 40 experts on a 16-way axis: 48).  The router
+    never routes to them, so the result is exact."""
+    e = w.shape[0]
+    e_pad = -(-e // n_model) * n_model
+    if e_pad == e:
+        return w
+    return torch.cat([w, w.new_zeros((e_pad - e,) + tuple(w.shape[1:]))])
+
+
+def shard_moe_params(params, mesh, rank: int, *,
+                     data_axes: Sequence[str] = (),
+                     model_axis: str = "model", fsdp: bool = False):
+    """``rank``'s blocks of whole MoE weights (``router`` ``(d, E)``,
+    ``gate``, ``up`` ``(E, d, f)``, ``down`` ``(E, f, d)``), as the
+    reference's ``shard_map`` hands them to its body: the router whole,
+    the expert dim padded to the model axis and cut over it, and with
+    ``fsdp`` the ``f`` dim cut over the data axes."""
+    from .sharding import shard_leaf
+    s3, sd = _expert_specs(data_axes, model_axis, fsdp)
+    n_model = mesh.shape[model_axis]
+    return {"router": params["router"],
+            **{k: shard_leaf(pad_experts(params[k], n_model),
+                             sd if k == "down" else s3, mesh,
+                             rank).contiguous()
+               for k in ("gate", "up", "down")}}
+
+
+def _check_mesh(mesh) -> None:
+    """``mesh`` must be a port :class:`~repro_torch.launch.mesh.Mesh` with
+    a process group of its size up."""
+    import torch.distributed as dist
+    from ..launch.mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"moe_block's mesh must be a repro_torch.launch.mesh"
+                        f".Mesh, got {type(mesh).__name__}")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("moe_block's expert-parallel path runs one "
+                           "process per rank: no torch.distributed process "
+                           "group is up (launch/collectives.init_group)")
+
+
 def moe_block(x: torch.Tensor, params, *, k: int, n_experts: int,
               capacity_factor: float, mesh: Optional[object] = None,
-              f32_combine: bool = True,
+              data_axes: Sequence[str] = (), model_axis: str = "model",
+              fsdp: bool = False, f32_combine: bool = True,
               gather_dispatch: bool = False) -> torch.Tensor:
     """MoE layer on ``x`` ``(B, S, d)``: ``params`` holds ``router``
     ``(d, E)``, ``gate``, ``up`` ``(E, d, f)`` and ``down`` ``(E, f, d)``.
-    Local path only; a mesh raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(NO_MESH)
+
+    With ``mesh`` (a port ``Mesh``, a process group up), the
+    expert-parallel path on this rank: ``x`` is its block ``(B / dp, S,
+    d)`` (the batch over ``data_axes``, replicated over ``model_axis``),
+    ``params`` its blocks (:func:`shard_moe_params`), and the result its
+    block of the output.  Under grad, the gradient of ``x`` and of the
+    router is summed over the model group (every model rank's experts
+    read them), and with ``fsdp`` an expert weight's over the data group
+    (the gather's reduce-scatter); a weight replicated over the data axes
+    keeps this data shard's part, which the training step reduces."""
     b, s, d = x.shape
+    if mesh is None:
+        y = moe_apply_local(
+            x.reshape(-1, d), params["router"], params["gate"],
+            params["up"], params["down"], k=k, n_experts=n_experts,
+            expert_offset=0, capacity_factor=capacity_factor,
+            f32_combine=f32_combine, gather_dispatch=gather_dispatch)
+        return y.reshape(b, s, d)
+    _check_mesh(mesh)
+    import torch.distributed as dist
+    from ..launch import collectives as C
+    ma = model_axis
+    e_per = -(-n_experts // mesh.shape[ma])
+    w_gate, w_up, w_down = params["gate"], params["up"], params["down"]
+    if fsdp:
+        for ax in reversed(tuple(data_axes)):
+            w_gate = C.gather_over(w_gate, mesh, ax, 2)
+            w_up = C.gather_over(w_up, mesh, ax, 2)
+            w_down = C.gather_over(w_down, mesh, ax, 1)
+    my = mesh.coords(dist.get_rank())[ma] * e_per
+    x_in = C.copy_to(x, mesh, ma)
+    router = C.copy_to(params["router"], mesh, ma)
     y = moe_apply_local(
-        x.reshape(-1, d), params["router"], params["gate"], params["up"],
-        params["down"], k=k, n_experts=n_experts, expert_offset=0,
+        x_in.reshape(-1, d), router, w_gate, w_up, w_down, k=k,
+        n_experts=n_experts, expert_offset=my,
         capacity_factor=capacity_factor, f32_combine=f32_combine,
         gather_dispatch=gather_dispatch)
+    y = C.sum_over(y, mesh, ma)
     return y.reshape(b, s, d)

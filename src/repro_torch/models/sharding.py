@@ -1,32 +1,216 @@
-"""Sharding context of the model functions, in its single-device form.
+"""Sharding policy: partition specs of parameters and activations on a
+rank mesh.
 
-The JAX package's ``models/sharding.py`` threads a ``ShardCtx`` (mesh and
-axis names) through every model function and constrains activations to
-partition specs.  The port runs the model on one device, so only the
-inactive context exists here: no mesh, and :meth:`ShardCtx.constrain` is
-the identity.  Partition specs for a mesh (``param_spec``, ``tree_pspecs``)
-wait for the launch and distribution slice.
+Port of the JAX package's ``models/sharding.py``.  The policy is the
+reference's, rule for rule:
+
+  * TP (the model axis): attention heads (replicated when the head count
+    does not divide the axis), MLP hidden, expert dim, vocabulary.
+  * FSDP (the data axes named in ``fsdp``): the d_model-ish dim of each
+    weight.
+  * Activations: batch over the data axes; the residual stream replicated
+    over the model axis.
+
+A spec is a :class:`P`, one entry per tensor dim: ``None``, an axis name,
+or a tuple of names (split major to minor).  The reference hands its
+specs to XLA, which partitions the program.  The port runs one process
+per rank, so a spec is used to cut a whole tensor down to one rank's
+block (:func:`shard_leaf`) and to describe it as ``torch.distributed``
+placements (:func:`tree_shardings`).
+
+The model under an active context (tensor and FSDP sharding of the dense
+weights, which XLA partitions implicitly, and the sequence-sharded
+attention) is ROADMAP Queue A 11b: the model's entry points refuse an
+active context (:func:`refuse_active`) rather than run unsharded in
+silence, and :meth:`ShardCtx.constrain` is the identity.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional, Tuple
+
+#: Why the model's entry points refuse an active context.
+NO_ACTIVE_MODEL = ("the model under an active ShardCtx (tensor and FSDP "
+                   "sharding of its weights, sequence-sharded attention) "
+                   "is not ported to the PyTorch package; it comes with "
+                   "ROADMAP Queue A 11b")
+
+
+class P(tuple):
+    """A partition spec: ``P("data", None, ("pod", "data"))``.  A tuple of
+    one name is that name (``P(("data",)) == P("data")``), as
+    ``jax.sharding.PartitionSpec`` normalises it."""
+
+    def __new__(cls, *parts):
+        norm = []
+        for p in parts:
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                if len(p) == 1:
+                    p = p[0]
+            norm.append(p)
+        return super().__new__(cls, norm)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry, major first (``()`` for None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    mesh: Optional[object] = None
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the PyTorch package runs the model on one device; a mesh "
-                "comes with the launch and distribution slice (ROADMAP "
-                "Queue A 11)")
+    """Mesh and axis roles of the model functions.  ``mesh`` is a
+    :class:`repro_torch.launch.mesh.Mesh` or any object with a ``shape``
+    dict (axis name -> size); ``dp`` the batch axes, ``tp`` the model
+    axis, ``fsdp`` the weight-shard axes (a subset of ``dp``)."""
+    mesh: Optional[Any] = None
+    dp: Tuple[str, ...] = ()
+    tp: str = ""
+    fsdp: Tuple[str, ...] = ()
 
     @property
     def active(self) -> bool:
-        return False
+        return self.mesh is not None
+
+    def n(self, axis: str) -> int:
+        return self.mesh.shape[axis] if self.mesh else 1
 
     def constrain(self, x, spec=None):
         return x
+
+
+def refuse_active(ctx: Optional[ShardCtx], where: str) -> None:
+    """Raise ``NotImplementedError`` naming Queue A 11b when ``ctx`` is
+    active: the model entry point ``where`` runs on one rank's whole
+    tensors only."""
+    if ctx is not None and ctx.active:
+        raise NotImplementedError(f"{where}: {NO_ACTIVE_MODEL}")
+
+
+def _div(dim: int, ctx: ShardCtx, axis) -> bool:
+    if not ctx.active or not axis:
+        return False
+    ns = 1
+    for a in spec_axes(axis):
+        ns *= ctx.n(a)
+    return dim % ns == 0
+
+
+def head_specs(ctx: ShardCtx, n_heads: int, head_dim: int,
+               layer_stacked: bool):
+    """Specs of the in-projections ``(L, d, H, hd)`` and the out-projection
+    ``(L, H, hd, d)``: the model axis on ``H`` when it divides the head
+    count, else the heads stay replicated over it (sharding ``hd`` would
+    make every score block a model-axis all-reduce)."""
+    lead = (None,) if layer_stacked else ()
+    f = ctx.fsdp if ctx.fsdp else None
+    if _div(n_heads, ctx, ctx.tp):
+        return P(*lead, f, ctx.tp, None), P(*lead, ctx.tp, None, f)
+    return P(*lead, f, None, None), P(*lead, None, None, f)
+
+
+def param_spec(name: str, shape, cfg, ctx: ShardCtx) -> P:
+    """Partition spec of one named parameter (leaf names are unique): the
+    reference's table, trimmed or padded to the leaf's rank, with every
+    axis that does not divide its dim dropped."""
+    if not ctx.active:
+        return P()
+    t, f = ctx.tp, (ctx.fsdp if ctx.fsdp else None)
+    L = (None,)                                    # stacked-layer dim
+    hs_in, hs_out = head_specs(ctx, cfg.n_heads or 1, cfg.hd or 1, True)
+    table = {
+        "tok_embed": P(t, f), "lm_head": P(f, t), "final_norm": P(None),
+        "wq": hs_in, "wk": hs_in, "wv": hs_in, "wo": hs_out,
+        "bq": P(*L, None, None), "bk": P(*L, None, None),
+        "bv": P(*L, None, None),
+        "ln1": P(*L, None), "ln2": P(*L, None),
+        "gate": P(*L, f, t), "up": P(*L, f, t), "down": P(*L, t, f),
+        "router": P(*L, None, None),
+        "e_gate": P(*L, t, None, f), "e_up": P(*L, t, None, f),
+        "e_down": P(*L, t, f, None),
+        "in_proj": P(*L, f, t), "out_proj": P(*L, t, f),
+        "conv_w": P(*L, None, t), "conv_b": P(*L, t),
+        "x_proj": P(*L, t, None), "dt_w": P(*L, None, t),
+        "dt_bias": P(*L, t),
+        "A_log": P(*L, t, None) if len(shape) == 3 else P(*L, t),
+        "D": P(*L, t), "norm_w": P(*L, t),
+    }
+    if name not in table:
+        return P(*([None] * len(shape)))
+    parts = list(table[name])
+    if len(parts) > len(shape):
+        parts = parts[len(parts) - len(shape):]
+    parts += [None] * (len(shape) - len(parts))
+    clean = []
+    for dim, ax in zip(shape, parts):
+        n = 1
+        for a in spec_axes(ax):
+            n *= ctx.n(a)
+        clean.append(ax if ax is None or dim % n == 0 else None)
+    return P(*clean)
+
+
+def _shape_of(leaf) -> tuple:
+    """A leaf's shape: a tensor's, an array's or a ``ShapeDtype``'s
+    (:func:`~repro_torch.models.transformer.param_shapes`)."""
+    return tuple(leaf.shape)
+
+
+def tree_pspecs(params, cfg, ctx: ShardCtx):
+    """The spec of every leaf of a nested dict, keyed by its leaf name."""
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return param_spec(prefix, _shape_of(node), cfg, ctx)
+    return walk(params, "")
+
+
+def placements(spec: P, mesh, ndim: int) -> tuple:
+    """``torch.distributed`` placements of ``spec`` on ``mesh``, one per
+    mesh dim in axis order: ``Shard(i)`` where the axis names tensor dim
+    ``i``, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims = {}
+    for i, entry in enumerate(tuple(spec) + (None,) * (ndim - len(spec))):
+        for a in spec_axes(entry):
+            dims[a] = i
+    return tuple(Shard(dims[a]) if a in dims else Replicate()
+                 for a in mesh.axis_names)
+
+
+def tree_shardings(params, cfg, ctx: ShardCtx):
+    """Every leaf's placements on ``ctx.mesh`` (:func:`placements` of its
+    :func:`tree_pspecs` spec)."""
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        shape = _shape_of(node)
+        return placements(param_spec(prefix, shape, cfg, ctx), ctx.mesh,
+                          len(shape))
+    return walk(params, "")
+
+
+def shard_leaf(x, spec: P, mesh, rank: int):
+    """``rank``'s local block of the whole tensor ``x`` under ``spec`` on
+    ``mesh`` (a view of ``x``; ``.contiguous()`` makes it a tensor of its
+    own).  A dim split over a tuple of axes is split major to minor (the
+    first axis the slowest), as JAX splits it."""
+    coords = mesh.coords(rank)
+    index = []
+    for i, dim in enumerate(x.shape):
+        entry = spec[i] if i < len(spec) else None
+        idx, n = 0, 1
+        for a in spec_axes(entry):
+            idx = idx * mesh.shape[a] + coords[a]
+            n *= mesh.shape[a]
+        if dim % n:
+            raise ValueError(f"dim {i} of {tuple(x.shape)} does not divide "
+                             f"{n} ({entry!r})")
+        size = dim // n
+        index.append(slice(idx * size, (idx + 1) * size))
+    return x[tuple(index)]

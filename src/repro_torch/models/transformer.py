@@ -29,6 +29,7 @@ outside the per-layer remat, and the pending residual carries across it.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -40,7 +41,7 @@ from . import mamba as mam
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, normal, residual_norm, swiglu
 from .moe import moe_block
-from .sharding import ShardCtx
+from .sharding import P, ShardCtx, refuse_active
 
 #: Families whose layers the port has not yet, and the ROADMAP item that
 #: brings each (none: every family of the JAX package is ported).
@@ -177,8 +178,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     :func:`repro_torch.convert.params_from_reference` instead."""
     check_family(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    if device.type == "meta":
+        gen = _MetaGenerator()
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     n = cfg.n_layers
     vp = cfg.padded_vocab
@@ -216,6 +220,32 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                                                      dtype).items()})
         params["shared"] = shared
     return params
+
+
+class _MetaGenerator:
+    """Stands in for ``torch.Generator``, which has no meta device: the
+    initialisers allocate on its ``device`` and draw nothing there."""
+    device = torch.device("meta")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf's shape and type, without its values (the reference's
+    ``jax.ShapeDtypeStruct``); ``spec`` is its partition spec, where one
+    is attached (``launch/pp_step.py``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: Any = None
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """A :class:`ShapeDtype` for every leaf of :func:`init_params`, in the
+    same tree, with nothing drawn or allocated (the reference's
+    ``jax.eval_shape(init_params)``): the parameters are made on the meta
+    device, so that kimi-k2's trillion parameters cost no memory."""
+    from .._tree import tree_map
+    return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype),
+                    init_params(cfg, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -281,17 +311,26 @@ def moe_mlp(x, p, cfg: ModelConfig, ctx: ShardCtx, **knobs):
     are ``moe_block``'s ``f32_combine`` and ``gather_dispatch``: prefill
     and training pass the config's, decode leaves the defaults, as the
     reference does."""
+    refuse_active(ctx, "the MoE layer")
     moe_p = {"router": p["router"], "gate": p["e_gate"], "up": p["e_up"],
              "down": p["e_down"]}
     return moe_block(x, moe_p, k=cfg.experts_per_token,
                      n_experts=cfg.n_experts,
-                     capacity_factor=cfg.capacity_factor, mesh=ctx.mesh,
-                     **knobs)
+                     capacity_factor=cfg.capacity_factor, **knobs)
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill): a loop over layers
 # ---------------------------------------------------------------------------
+
+def _residual_spec(ctx: ShardCtx, cfg=None) -> P:
+    """Spec of the residual stream ``(b, s, d)``: the batch over the data
+    axes, and with ``cfg.seq_shard_residuals`` the sequence over the model
+    axis (Megatron-style sequence parallelism), as the reference's."""
+    if cfg is not None and cfg.seq_shard_residuals:
+        return P(ctx.dp if ctx.dp else None, ctx.tp, None)
+    return P(ctx.dp if ctx.dp else None, None, None)
+
 
 def _layer_body(x, pending, lp, cfg: ModelConfig, ctx: ShardCtx, entry,
                 positions):
@@ -351,6 +390,7 @@ def run_stack(x, params, cfg: ModelConfig, ctx: ShardCtx, positions,
     it between its scanned segments; its caches are then ``((ssm, conv),
     (k, v))`` with the shared block's ``(k, v)`` stacked over its
     applications (the layers' caches alone when it runs nowhere)."""
+    refuse_active(ctx, "run_stack")
     check_family(cfg)
     plan, meta = layer_plan(cfg)
     shared_at = set(meta["shared_at"])

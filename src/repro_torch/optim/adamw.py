@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -63,21 +63,27 @@ class AdamW:
         return torch.full((), float(self.lr), dtype=torch.float32,
                           device=step.device)
 
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params,
+               sq_norm: Optional[torch.Tensor] = None):
         """``(new_params, new_state)`` from ``grads`` (any float type; cast
         to float32 first), ``state`` and ``params``.  ``state.m`` and
         ``state.v`` are updated in place; ``grads`` and ``params`` are left
-        as they are."""
+        as they are.  ``sq_norm``, when given, is the float32 squared norm
+        of the whole gradient that the grad clip takes, in place of the
+        sum over ``grads`` (a pipeline stage holds part of the model's
+        gradient; ``launch/pp_step.py`` sums the rest)."""
         flat_p, flat_g = leaves(params), leaves(grads)
         flat_m, flat_v = leaves(state.m), leaves(state.v)
         if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
             raise ValueError("grads, state and params differ in structure")
         scale = None
         if self.grad_clip > 0:
-            total = 0
-            for g in flat_g:
-                g = g.float()
-                total = total + torch.sum(g * g)
+            total = sq_norm
+            if total is None:
+                total = 0
+                for g in flat_g:
+                    g = g.float()
+                    total = total + torch.sum(g * g)
             norm = torch.sqrt(total)
             scale = torch.clamp_max(
                 _scalar(self.grad_clip, norm) / (norm + 1e-9), 1.0)

@@ -74,6 +74,9 @@ class TrainLoopConfig:
     keep: int = 3
     log_every: int = 10
     metrics_path: Optional[str] = None
+    #: save after the last step too, whatever ``ckpt_every`` says (the
+    #: reference always does); False keeps only the ``ckpt_every`` saves
+    save_final: bool = True
 
 
 class TrainLoop:
@@ -129,8 +132,9 @@ class TrainLoop:
                 if metrics_file and step % self.cfg.log_every == 0:
                     metrics_file.write(json.dumps(rec) + "\n")
                     metrics_file.flush()
-                if (step + 1) % self.cfg.ckpt_every == 0 or \
-                        (step + 1) == self.cfg.total_steps:
+                if (step + 1) % self.cfg.ckpt_every == 0 or (
+                        self.cfg.save_final
+                        and (step + 1) == self.cfg.total_steps):
                     self.ckpt.save(step + 1, (params, opt_state))
             return params, opt_state
         finally:

@@ -1383,3 +1383,64 @@ def test_zamba2_train_step_on_the_card_repeats_bit_for_bit():
     assert float(outs[0][2]["loss"]) == float(outs[1][2]["loss"])
     for a, b in zip(leaves(outs[0][:2]), leaves(outs[1][:2])):
         assert torch.equal(a, b)
+
+
+def test_host_staged_p2p_is_bit_exact():
+    """A bfloat16 and a float32 CUDA tensor sent from one rank to another
+    of a ``gloo`` group (two processes on the one card, staged through
+    pinned host memory) arrive with every bit, NaN and -0.0 too."""
+    _need_cuda()
+    import torch_dist_workers as W
+    from repro_torch.launch import collectives as C
+    rng = np.random.default_rng(0)
+    bits16 = rng.integers(-2 ** 15, 2 ** 15, (3, 257), dtype=np.int16)
+    bits32 = rng.integers(-2 ** 31, 2 ** 31, (5, 129), dtype=np.int32)
+    bits16[0, :2] = [-32768, 0x7FC0]                 # -0.0, a NaN
+    arrays = {"bf16": (bits16, "bfloat16"), "f32": (bits32, "float32")}
+    got = C.spawn(W.staged_p2p_on_gpu, 2, (arrays,), timeout=120.0)
+    received = dict(got[1])
+    np.testing.assert_array_equal(received["bf16"], bits16)
+    np.testing.assert_array_equal(received["f32"], bits32)
+
+
+def test_pp_train_step_world_of_one_on_the_card_matches_the_host():
+    """``make_pp_train_step`` on a mesh of one rank (no process group: the
+    pipe and data lines are this process), one float32 step of a small
+    dense config on the card (the ``rmsnorm`` and ``flash_attention``
+    kernels and their backward kernels) against the same step on the host
+    (their plain versions): the loss and every parameter."""
+    _need_cuda()
+    from repro_torch._tree import leaves
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.pp_step import make_pp_train_step
+    from repro_torch.optim.adamw import AdamW
+    cfg = ModelConfig(name="pp1", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=256,
+                      head_dim=16, dtype="float32", remat=True)
+    mesh = Mesh(np.zeros((1, 1, 1), dtype=np.int64), ("pipe", "model",
+                                                        "data"))
+    rng = np.random.default_rng(1)
+    batch = {k: rng.integers(0, 256, (2, 2, 32)) for k in ("tokens_mb",
+                                                            "labels_mb")}
+    full = init_params(cfg, seed=0, device="cuda")
+    opt = AdamW(lr=1e-5)
+    out = {}
+    launches = {}
+    for dev in ("cuda", "cpu"):
+        params = {"stages": {k: v.to(dev) for k, v in full["layers"].items()},
+                  "shared": {k: full[k].to(dev) for k in (
+                      "tok_embed", "final_norm", "lm_head")}}
+        step, *_ = make_pp_train_step(cfg, mesh, opt, pipe_axis="pipe",
+                                      data_axis="data", n_mb=2)
+        fa_before, rn_before = fa.flash_attention.launches, \
+            rn.rmsnorm.bwd_launches
+        out[dev] = step(params, opt.init(params), batch)
+        launches[dev] = (fa.flash_attention.launches - fa_before,
+                         rn.rmsnorm.bwd_launches - rn_before)
+    # 2 microbatches x 2 layers, forward and remat's recompute; a norm
+    # backward a layer twice and the head's, a microbatch
+    assert launches == {"cuda": (8, 10), "cpu": (0, 0)}
+    assert abs(float(out["cuda"][2]["loss"]) - float(out["cpu"][2]["loss"])) \
+        <= 1e-4
+    for a, b in zip(leaves(out["cuda"][0]), leaves(out["cpu"][0])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=3e-5)

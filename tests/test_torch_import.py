@@ -46,6 +46,8 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.optim.adamw, repro_torch.optim.compression\n"
         "import repro_torch.checkpoint.manager, repro_torch.data.pipeline\n"
         "import repro_torch.runtime.trainer, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.collectives\n"
+        "import repro_torch.launch.pipeline, repro_torch.launch.pp_step\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('repro.') or "
         "m.startswith('triton')]\n"

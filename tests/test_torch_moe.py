@@ -18,8 +18,12 @@ import pytest
 import torch
 
 from repro.models import moe as ref_moe
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import moe
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import silu
+from repro_torch.models.sharding import ShardCtx
+from repro_torch.models.transformer import moe_mlp
 
 FORMS = list(itertools.product([False, True], [True, False]))
 FORM_IDS = [f"{'gather' if g else 'scatter'}-{'f32' if c else 'einsum'}"
@@ -220,9 +224,28 @@ def test_moe_block_local_path_and_mesh_refusal():
     assert tuple(got.shape) == (b, s, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
+    # the expert-parallel path takes a port Mesh, with a process group up
+    # (it runs, against the reference's, in tests/test_torch_distributed.py)
+    with pytest.raises(TypeError, match="repro_torch.launch.mesh.Mesh"):
         moe.moe_block(_t(x3), {n: _t(a) for n, a in p.items()},
                       mesh=object(), **kw)
+    mesh = Mesh(np.arange(2).reshape(1, 2), ("data", "model"))
+    with pytest.raises(RuntimeError, match="no torch.distributed process "
+                                           "group is up"):
+        moe.moe_block(_t(x3), {n: _t(a) for n, a in p.items()}, mesh=mesh,
+                      data_axes=("data",), **kw)
+    # the MoE layer inside the model under an active context is 11b
+    lp = {"router": _t(router), "e_gate": _t(wg), "e_up": _t(wu),
+          "e_down": _t(wd)}
+    cfg = ModelConfig(name="m", family="moe", n_layers=1, d_model=d,
+                      n_heads=2, n_kv_heads=2, d_ff=f, vocab_size=16,
+                      n_experts=e, experts_per_token=k, capacity_factor=1.25,
+                      dtype="float32")
+    ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model")
+    with pytest.raises(NotImplementedError, match="Queue A 11b"):
+        moe_mlp(_t(x3), lp, cfg, ctx)
+    np.testing.assert_allclose(moe_mlp(_t(x3), lp, cfg, ShardCtx()).numpy(),
+                               got.numpy(), rtol=0, atol=0)
 
 
 def test_moe_silu_is_the_layers_one():

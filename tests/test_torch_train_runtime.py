@@ -246,6 +246,25 @@ def test_trainloop_failure_recovery_bitwise(tmp_path):
         [h["loss"] for h in loop.history[5:]]
 
 
+@pytest.mark.parametrize("save_final", [True, False])
+def test_trainloop_final_save_is_the_references_unless_turned_off(
+        tmp_path, save_final):
+    """The loop saves after its last step whatever ``ckpt_every`` says, as
+    the reference's does; ``save_final=False`` keeps only the
+    ``ckpt_every`` saves (a run whose last checkpoint nothing reads)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    _, step = _toy_step_fn()
+    params = {"w": torch.zeros((8, 8))}
+    loop = TrainLoop(TrainLoopConfig(total_steps=5, ckpt_every=2,
+                                     ckpt_dir=str(tmp_path),
+                                     save_final=save_final),
+                     step, DataLoader(SyntheticCorpus(9, 1),
+                                      LoaderConfig(2, 8)))
+    loop.run(params, AdamW(lr=0.05).init(params), resume=False)
+    assert CheckpointManager(str(tmp_path)).latest_step() == \
+        (5 if save_final else 4)
+
+
 def test_trainloop_keeps_the_plan_beside_its_checkpoints(tmp_path):
     from repro_torch.core.plan import Plan
     golden = Plan.load("tests/data/golden_plan_v5.json")

@@ -1,0 +1,181 @@
+"""Rank bodies of ``tests/test_torch_distributed.py``, in a module of their
+own so that the spawned ranks import ``torch`` and the PyTorch package
+only (not ``jax``, which the test module imports).  Each body takes its
+rank, the world size and NumPy inputs, and returns NumPy results."""
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch import collectives as C
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.pipeline import pipeline_loss_fn
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def tanh_pipeline(rank, world, case):
+    """The reference's pipeline case on this rank: ``case`` holds the
+    mapping and axis names, the ``(L, d, d)`` stage weights, the shared
+    ``embed`` and ``head``, the ``(n_mb, mb, S)`` tokens and labels, and
+    the data axis (``""`` for none).  Returns the loss, this rank's stage
+    gradient, the shared gradients, and its pipe and data lines."""
+    mesh = Mesh(case["ranks"], case["axes"])
+    axis, data_axis = "pipe", case["data_axis"]
+    pp = mesh.shape[axis]
+    c = mesh.coords(rank)
+    L = case["w"].shape[0]
+    per = L // pp
+    w = _t(case["w"][c[axis] * per:(c[axis] + 1) * per]).requires_grad_()
+    shared = {k: _t(case[k]).requires_grad_() for k in ("embed", "head")}
+    toks, lbls = _t(case["tokens"]), _t(case["labels"])
+    if data_axis:
+        nd = mesh.shape[data_axis]
+        mb = toks.shape[1] // nd
+        cut = slice(c[data_axis] * mb, (c[data_axis] + 1) * mb)
+        toks, lbls = toks[:, cut], lbls[:, cut]
+
+    def embed_fn(sh, t):
+        return sh["embed"][t]
+
+    def stage_fn(st, x):
+        for j in range(st["w"].shape[0]):
+            x = torch.tanh(x @ st["w"][j])
+        return x
+
+    def head_loss_fn(sh, h, lbl):
+        lg = h @ sh["head"]
+        lse = torch.logsumexp(lg, -1)
+        pick = torch.gather(lg, -1, lbl[..., None].long())[..., 0]
+        return torch.mean(lse - pick)
+
+    loss_fn = pipeline_loss_fn(embed_fn, stage_fn, head_loss_fn, mesh,
+                               axis=axis, remat=case["remat"],
+                               data_axis=data_axis)
+    loss = loss_fn({"w": w}, shared, toks, lbls)
+    out = {"loss": float(loss), "stage": c[axis], "w": w.grad.numpy(),
+           "embed": shared["embed"].grad.numpy(),
+           "head": shared["head"].grad.numpy(),
+           "pipe_line": mesh.axis_ranks(axis, rank),
+           "pipe_group": dist.get_process_group_ranks(mesh.group(axis))}
+    if data_axis:
+        out["data_line"] = mesh.axis_ranks(data_axis, rank)
+        out["data_group"] = dist.get_process_group_ranks(
+            mesh.group(data_axis))
+        dm = mesh.device_mesh("cpu")
+        out["device_mesh"] = {
+            a: dist.get_process_group_ranks(dm.get_group(a))
+            for a in mesh.axis_names}
+    return out
+
+
+def _count_kernel_calls() -> dict:
+    """Count the calls of the ``rmsnorm`` and ``flash_attention`` wrappers
+    on the pipeline step's path: ``fwd`` every call (a forward launch on
+    the card), ``bwd`` those under grad with an input that requires one
+    (a call through the autograd Function: one backward launch)."""
+    from repro_torch.launch import pp_step
+    from repro_torch.models import layers
+    counts = {}
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+        counts[name] = {"fwd": 0, "bwd": 0}
+
+        def call(*args, **kw):
+            counts[name]["fwd"] += 1
+            if torch.is_grad_enabled() and any(
+                    isinstance(a, torch.Tensor) and a.requires_grad
+                    for a in args):
+                counts[name]["bwd"] += 1
+            return real(*args, **kw)
+        setattr(mod, name, call)
+
+    spy(layers, "rmsnorm")
+    spy(pp_step, "flash_attention")
+    return counts
+
+
+def pp_train_step(rank, world, case):
+    """One step of ``make_pp_train_step`` on this rank: returns the loss
+    and this rank's parameters after the update."""
+    from repro_torch.launch.pp_step import make_pp_train_step
+    from repro_torch.optim.adamw import AdamW
+    mesh = Mesh(case["ranks"], case["axes"])
+    cfg = case["cfg"]
+    counts = _count_kernel_calls()
+    opt = AdamW(lr=1e-3, eps=case["eps"])
+    step, *_ = make_pp_train_step(cfg, mesh, opt,
+                                  pipe_axis=case["pipe_axis"],
+                                  data_axis=case["data_axis"],
+                                  n_mb=case["n_mb"], remat=case["remat"])
+    c = mesh.coords(rank)
+    pp = mesh.shape[case["pipe_axis"]]
+    per = cfg.n_layers // pp
+    s = c[case["pipe_axis"]]
+    params = {"stages": {k: _t(v[s * per:(s + 1) * per]).clone()
+                         for k, v in case["layers"].items()},
+              "shared": {k: _t(v).clone() for k, v in case["shared"].items()}}
+    nd = mesh.shape[case["data_axis"]]
+    mb = case["tokens"].shape[1] // nd
+    cut = slice(c[case["data_axis"]] * mb, (c[case["data_axis"]] + 1) * mb)
+    batch = {"tokens_mb": case["tokens"][:, cut],
+             "labels_mb": case["labels"][:, cut]}
+    state = opt.init(params)
+    new, state, m = step(params, state, batch)
+    return {"loss": float(m["loss"]), "stage": s, "calls": counts,
+            "stages": {k: v.numpy() for k, v in new["stages"].items()},
+            "shared": {k: v.numpy() for k, v in new["shared"].items()}}
+
+
+def four_rank_cases(rank, world, cases):
+    """The 4-rank cases of one spawn, in turn: the two pipelines, then the
+    train step (whose wrapper spies stay installed in this process)."""
+    return {"pp4": tanh_pipeline(rank, world, cases["pp4"]),
+            "pp2dp2": tanh_pipeline(rank, world, cases["pp2dp2"]),
+            "step": pp_train_step(rank, world, cases["step"])}
+
+
+def moe_expert_parallel(rank, world, case):
+    """``moe_block`` on the (data, model) mesh for every case of
+    ``case["cases"]``: this rank's output block and the gradients of its
+    ``x`` block and expert blocks (and of the router) under the loss
+    ``sum(y * cot)``."""
+    from repro_torch.models.moe import moe_block, shard_moe_params
+    mesh = Mesh(case["ranks"], ("data", "model"))
+    c = mesh.coords(rank)
+    out = []
+    for cs in case["cases"]:
+        nd = mesh.shape["data"]
+        b = cs["x"].shape[0] // nd
+        cut = slice(c["data"] * b, (c["data"] + 1) * b)
+        x = _t(cs["x"][cut]).requires_grad_()
+        whole = {k: _t(cs[k]) for k in ("router", "gate", "up", "down")}
+        local = shard_moe_params(whole, mesh, rank, data_axes=("data",),
+                                 fsdp=cs["fsdp"])
+        local = {k: v.clone().requires_grad_() for k, v in local.items()}
+        y = moe_block(x, local, k=cs["k"], n_experts=cs["e"],
+                      capacity_factor=8.0, mesh=mesh, data_axes=("data",),
+                      model_axis="model", fsdp=cs["fsdp"])
+        torch.sum(y * _t(cs["cot"][cut])).backward()
+        out.append({"y": y.detach().numpy(), "dx": x.grad.numpy(),
+                    **{"d" + k: v.grad.numpy() for k, v in local.items()}})
+    return {"coords": c, "cases": out}
+
+
+def staged_p2p_on_gpu(rank, world, arrays):
+    """Rank 0 sends each CUDA tensor to rank 1 through the host staging of
+    ``gloo``; rank 1 returns what it received, as NumPy bits."""
+    dev = torch.device("cuda", 0)
+    got = []
+    for name, (a, dtype) in arrays.items():
+        t = _t(a).view(getattr(torch, dtype))
+        if rank == 0:
+            C.send(t.to(dev), 1).wait()
+        else:
+            r = C.recv(t.shape, t.dtype, dev, 0)
+            got.append((name, r.cpu().view(torch.int16 if dtype ==
+                                           "bfloat16" else torch.int32)
+                        .numpy()))
+    return got
