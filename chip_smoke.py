@@ -71,7 +71,10 @@ timed beside SDPA, and ragged cases, each with its kernel launches),
 ``flash_vs_chunked_attention`` (the attention kernel in both types
 against the port's ``chunked_attention``, float32 plain torch, at
 zamba2-7b's prefill and at a sliding window: an oracle written apart
-from the kernel's plain version), ``scan_at_falcon_shapes``
+from the kernel's plain version), ``kernels_with_q_offset`` (the
+attention with a query offset, forward and backward in both types, at
+ragged offsets against its plain versions, and at gpt-3.1b's shares
+against ``chunked_attention(q_offset=)``), ``scan_at_falcon_shapes``
 (the plain-form scan at falcon-mamba-7b's prefill shape in both types, and
 the fused form at its prefill and step shapes in float32, checked and
 timed), ``scan_by_batch`` (the plain form at that prefill shape with batch
@@ -119,8 +122,17 @@ AdamW steps of 8 x 512 tokens in 4 microbatches; each rank's coordinates,
 layers and groups held to the mapping and its launches to
 :func:`pp_rank_launches`; then the same at pp 1 x dp 2, two processes,
 whose losses and every layer's parameters must be bit-equal),
-``model_kernels_at_path_shapes`` (the training phases' forward shapes
-too), ``bwd_kernels_at_path_shapes``,
+``tp_train_gpt_1_1b`` (the same model, weights and batches at (pp 1,
+tp 2, dp 2) with FSDP over the mapping ``[[[3, 1], [0, 2]]]``: the
+model under an active ``ShardCtx`` through ``make_train_step`` in four
+processes on the card, 3 steps, held to one process's run within the
+stated tolerances, launches against :func:`tp_rank_launches`, bytes by
+kind), ``tp_models_on_card`` (gpt-3.1b's sequence-sharded attention on
+(data 1, model 4) and granite-moe-3b-a800m's expert-parallel MoE in
+float32 on (data 2, model 2) with FSDP, 4 layers each, one step each
+against one process), ``model_kernels_at_path_shapes`` (the training
+phases' forward shapes too, the attention's query offsets among them,
+timed beside SDPA with a boolean mask), ``bwd_kernels_at_path_shapes``,
 ``bwd_attention_full_grid`` (the bfloat16 attention backward at qwen2-7b's
 heads and 2048 tokens, where its grid fills the card; off the main path)
 and ``host_cost`` (host
@@ -1117,13 +1129,15 @@ def model_inputs(name: str, key: tuple, device) -> tuple:
         return ((_randn(gen, shape, _dtype(xt), device, 3.0),
                  _randn(gen, shape[-1:], _dtype(wt), device), 1e-5), {})
     if name == "flash_attention":
-        qs, ks, causal, window, dt = key
+        # (q shape, k shape, causal, window, dtype[, q_offset])
+        qs, ks, causal, window, dt = key[:5]
         b, h, sq, d = qs
         kv, sk = ks[1], ks[2]
         q = _randn(gen, (b, sq, h, d), _dtype(dt), device).transpose(1, 2)
         k = _randn(gen, (b, sk, kv, d), _dtype(dt), device).transpose(1, 2)
         v = _randn(gen, (b, sk, kv, d), _dtype(dt), device).transpose(1, 2)
-        return (q, k, v), {"causal": causal, "window": window}
+        return (q, k, v), {"causal": causal, "window": window,
+                           "q_offset": _q_offset(key)}
     if key[0] == "fused":
         return fused_inputs(gen, key, device)
     if key[0] == "fused_bound":      # the training forward: no state given
@@ -1140,6 +1154,22 @@ def model_inputs(name: str, key: tuple, device) -> tuple:
     A = -torch.exp(_randn(gen, (d, n), torch.float32, device, 0.3))
     h0 = _randn(gen, (b, d, n), torch.float32, device)
     return (x, delta, B, C, A, h0), {}
+
+
+def _q_offset(key: tuple) -> int:
+    """The query offset of an attention shape key (forward or backward):
+    its sixth entry after the ``"bwd"`` tag, 0 when it has none."""
+    body = key[1:] if key[0] == "bwd" else key
+    return body[5] if len(body) > 5 else 0
+
+
+def _masked_sdpa(q, k, v, causal, window, q_offset):
+    """SDPA with an explicit boolean mask (``is_causal`` takes no query
+    offset): the keys each row may see, ``fa._allowed``'s."""
+    mask = fa._allowed(q.shape[2], k.shape[2], causal, window, q.device,
+                       q_offset)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
 
 
 def fused_inputs(gen, key: tuple, device) -> tuple:
@@ -1179,9 +1209,12 @@ def model_library(name: str, key: tuple):
         return lambda x, w, eps: torch.nn.functional.rms_norm(
             x, (d,), w.to(x.dtype), eps)
     if name == "flash_attention":
-        qs, ks, causal, window, _ = key
+        qs, ks, causal, window, _ = key[:5]
+        if _q_offset(key):             # a share of a sequence's rows
+            return lambda q, k, v, causal, window, q_offset: \
+                _masked_sdpa(q, k, v, causal, window, q_offset)
         if window == 0 and (qs[2] == ks[2] or not causal):
-            return lambda q, k, v, causal, window: \
+            return lambda q, k, v, causal, window, q_offset: \
                 torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, is_causal=causal, enable_gqa=True)
     return None
@@ -1201,8 +1234,9 @@ def model_bound(name: str, key: tuple, args, outs) -> tuple:
         ops = (5 if key[0] == "add" else 4) * args[0].numel()
         rate = OPS_PER_S
     elif name == "flash_attention":
-        qs, ks, causal, window, dt = key
-        pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu").sum())
+        qs, ks, causal, window, dt = key[:5]
+        pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu",
+                                _q_offset(key)).sum())
         ops = 4 * qs[0] * qs[1] * qs[3] * pairs
         rate = BF16_OPS_PER_S if "bfloat16" in dt else OPS_PER_S
     else:                          # any form of the scan
@@ -1832,7 +1866,8 @@ def bwd_inputs(name: str, key: tuple, device) -> dict:
     b, h, sq, d = q.shape
     dout = _randn(gen, (b, sq, h, d), q.dtype, device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=device)
-    out = fa._fwd_cuda(q, k, v, kw["causal"], kw["window"], lse)
+    out = fa._fwd_cuda(q, k, v, kw["causal"], kw["window"], lse,
+                       kw["q_offset"])
     return {"q": q, "k": k, "v": v, "out": out, "lse": lse, "dout": dout,
             **kw}
 
@@ -1877,11 +1912,23 @@ def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
         return kernel, plain, library, "autograd of F.rms_norm"
     q, k, v, out, lse, dout = (a[n] for n in ("q", "k", "v", "out", "lse",
                                               "dout"))
-    causal, window = a["causal"], a["window"]
-    kernel = lambda: fa._bwd_cuda(q, k, v, out, lse, dout, causal, window)  # noqa: E731
+    causal, window, off = a["causal"], a["window"], a["q_offset"]
+    kernel = lambda: fa._bwd_cuda(q, k, v, out, lse, dout, causal, window,  # noqa: E731
+                                  off)
     plain = lambda: fa.flash_attention_bwd_ref(  # noqa: E731
-        q, k, v, out, lse, dout, causal=causal, window=window)
+        q, k, v, out, lse, dout, causal=causal, window=window, q_offset=off)
     sq, sk = q.shape[2], k.shape[2]
+    if timed and off and q.dtype == torch.bfloat16:
+        # a share of a sequence's rows: SDPA with an explicit boolean mask
+        # (is_causal takes no offset), its backward by autograd
+        ql, kl, vl = (t.detach().contiguous().requires_grad_()
+                      for t in (q, k, v))
+        ol = _masked_sdpa(ql, kl, vl, causal, window, off)
+        dl = dout.contiguous()
+        library = lambda: torch.autograd.grad(  # noqa: E731
+            ol, (ql, kl, vl), dl, retain_graph=True)
+        return kernel, plain, library, ("SDPA backward with an explicit "
+                                         "boolean mask (enable_gqa)")
     if not (timed and window == 0 and (sq == sk or not causal)
             and q.dtype == torch.bfloat16):
         return kernel, plain, None, None
@@ -1936,8 +1983,9 @@ def bwd_bound(name: str, key: tuple, a: dict, outs) -> tuple:
         ops, rate = (12 if a["ds"] is not None else 11) * a["x"].numel(), \
             OPS_PER_S
     else:
-        qs, ks, causal, window, dt = key[1:]
-        pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu").sum())
+        qs, ks, causal, window, dt = key[1:6]
+        pairs = int(fa._allowed(qs[2], ks[2], causal, window, "cpu",
+                                _q_offset(key)).sum())
         ops = 10 * qs[0] * qs[1] * qs[3] * pairs
         rate = BF16_OPS_PER_S if "bfloat16" in dt else OPS_PER_S
     terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / rate}
@@ -1983,7 +2031,8 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         _, want_lse = fa.flash_attention_ref(a["q"], a["k"], a["v"],
                                              causal=a["causal"],
                                              window=a["window"],
-                                             return_lse=True)
+                                             return_lse=True,
+                                             q_offset=a["q_offset"])
         fin = torch.isfinite(want_lse)
         assert torch.equal(torch.isfinite(a["lse"]), fin), (name, key)
         lse_err = float((a["lse"][fin] - want_lse[fin]).abs().max()) \
@@ -2301,6 +2350,70 @@ def check_flash_against_chunked(device) -> dict:
             "oracle": "repro_torch.models.attention.chunked_attention "
                       "(float32, plain torch)", "cases": rows,
             "seconds": time.perf_counter() - t0}
+
+
+#: (b, h, kv, sq, sk, d, causal, window, q_offset) of the attention with a
+#: query offset, off the main path: K of exactly ``q_offset + sq`` rows
+#: (the model's call) and longer, a window across the offset, fewer keys
+#: than the last row's position, GQA, D = 256, no causal mask, offsets no
+#: multiple of a tile.
+RAGGED_FA_OFFSET = [
+    (1, 4, 2, 50, 90, 64, True, 0, 40), (2, 4, 4, 64, 256, 128, True, 0, 100),
+    (1, 2, 1, 70, 200, 32, True, 48, 130), (1, 2, 2, 33, 33, 16, True, 0, 7),
+    (1, 8, 2, 128, 512, 128, True, 0, 384), (2, 2, 2, 40, 60, 256, False,
+                                             16, 20),
+]
+#: gpt-3.1b's sequence-sharded attention: 22 heads of 128, 512 rows on a
+#: 4-way model axis, 128 a rank, against the keys up to each share's end.
+Q_OFFSET_MODEL = [(2, 22, 22, 128, off + 128, 128, off)
+                  for off in (0, 128, 256, 384)]
+
+
+def check_q_offset(device) -> dict:
+    """The ``kernels_with_q_offset`` phase: the attention kernel with a
+    query offset, forward and backward in both types, against its plain
+    versions at ``RAGGED_FA_OFFSET`` (``TOL``, ``TOL_BWD``, the lse, and
+    the bfloat16 backward twice for the same bits), and the forward at
+    gpt-3.1b's sequence-sharded shapes against ``chunked_attention(
+    q_offset=)`` (float32 plain torch, an oracle written apart from the
+    plain version).  Off the main path: its launches are not counted
+    there (the main path's offsets are checked and timed with the other
+    path shapes)."""
+    from repro_torch.models.attention import chunked_attention
+    t0 = time.perf_counter()
+    fwd, bwd, oracle = [], [], []
+    for b, h, kv, sq, sk, d, causal, window, off in RAGGED_FA_OFFSET:
+        for dt in ("float32", "bfloat16"):
+            key = ((b, h, sq, d), (b, kv, sk, d), causal, window, dt, off)
+            fwd.append(check_model_kernel("flash_attention", key, device,
+                                          False))
+            bwd.append(check_bwd_kernel("flash_attention_bwd",
+                                        ("bwd",) + key, device, False))
+    for b, h, kv, sq, sk, d, off in Q_OFFSET_MODEL:
+        gen = torch.Generator(device=device).manual_seed(off + 1)
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(gen, (b, sq, h, d), dt, device)
+            k = _randn(gen, (b, sk, kv, d), dt, device)
+            v = _randn(gen, (b, sk, kv, d), dt, device)
+            got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=True,
+                                     q_offset=off).transpose(1, 2)
+            want = chunked_attention(q.float(), k.float(), v.float(),
+                                     causal=True, q_offset=off)
+            torch.cuda.synchronize()
+            tol = TOL["flash_attention"][1 if dt == torch.bfloat16 else 0]
+            diff = (got.float() - want).abs()
+            assert bool(torch.isfinite(got).all())
+            assert bool((diff <= tol + tol * want.abs()).all()), \
+                ((b, sq, h, d, off), dt, float(diff.max()))
+            oracle.append({"q": [b, sq, h, d], "k_rows": sk, "q_offset": off,
+                           "dtype": str(dt), "tol": tol,
+                           "max_abs_err": float(diff.max())})
+    torch.cuda.empty_cache()
+    return {"phase": "kernels_with_q_offset", "kernels": fwd + bwd,
+            "oracle": "repro_torch.models.attention.chunked_attention("
+                      "q_offset=) (float32, plain torch)",
+            "oracle_cases": oracle, "seconds": time.perf_counter() - t0}
 
 
 def ssd_at_zamba2_shapes(device) -> dict:
@@ -2991,6 +3104,591 @@ def pp_train() -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel training: the model under an active ShardCtx
+# ---------------------------------------------------------------------------
+
+#: ``tp_train_gpt_1_1b``: ``pp_train_gpt_1_1b``'s model and batches
+#: (gpt-1.1b at full width, 12 of 24 layers, bf16, remat) trained
+#: ``TP_STEPS`` steps by ``make_train_step`` under ``ShardCtx(mesh,
+#: dp=("data",), tp="model", fsdp=("data",))`` for the Pipette
+#: configuration ``TP_CONF`` (pp 1, tp 2, dp 2, bs_micro 2, bs_global 8:
+#: 2 microbatches a data rank) over the permuted mapping ``TP_MAPPING``,
+#: four processes on the card; held to the same weights and batches
+#: trained by ``make_train_step`` with ``ShardCtx()`` in this process.
+TP_CONF, TP_MAPPING, TP_STEPS = (1, 2, 2, 2, 8), [[[3, 1], [0, 2]]], PP_STEPS
+TP_SPAWN_S, TP_PHASE_S = 300.0, 75.0
+#: Tolerances of the tensor-parallel run against the one process, stated
+#: before the first run on the card.  Both run the same kernels on the
+#: same bfloat16 weights; the tensor-parallel ranks sum the row-parallel
+#: products' bfloat16 partials (``wo``, ``down``) over the model axis,
+#: where one device rounds one float32 sum, so each block's output moves
+#: by up to a bfloat16 rounding (2**-8 of itself), and the vocabulary's
+#: logsumexp adds in another order.  A step's loss: within ``TP_LOSS_TOL``
+#: (absolute, at a loss of 11.3; a missing reduction moves it by more
+#: than 1).  The parameters and AdamW's first moment after the last step:
+#: the ranks that hold the same block must hold the same bits (the
+#: digests of :func:`block_sums`); each leaf's update (after minus
+#: before) within ``TP_UPDATE_TOL`` of the one process's update in
+#: relative Frobenius norm (the elements whose gradient lies within the
+#: two runs' bfloat16 noise of 0 move either way: AdamW moves an element
+#: by about ``lr`` a step, by the sign of its moments; a leaf cut into
+#: the wrong blocks is 1 or more off); and each leaf's first moment, the
+#: float32 average of its clipped gradients, within ``TP_MOMENT_TOL`` of
+#: the one process's, relative: a gradient summed over too few ranks or
+#: rows is off by its missing share, which the sign-like update hides and
+#: bfloat16 weights that do not move (the norms' ones at this ``lr``)
+#: cannot show.
+#: ``tools/tp_faults.py`` reads these checks on runs with a fault
+#: planted.
+TP_LOSS_TOL, TP_UPDATE_TOL, TP_MOMENT_TOL = 1e-2, 0.5, 0.1
+#: ``tp_models_on_card``: one spawn of four processes, two cases, each
+#: held to one process.  gpt-3.1b (22 heads on a 4-way model axis: the
+#: sequence-sharded attention, 128 rows a rank, the kernel's q_offset)
+#: at full width and 4 of 32 layers, bf16, (data 1, model 4): a loss and
+#: a train step of 2 x 512; granite-moe-3b-a800m (24 heads, 40 experts:
+#: the expert-parallel MoE inside the model) at full width and 4 of 32
+#: layers in float32 (where no router near-tie can send a token to
+#: another expert), (data 2, model 2) with FSDP, at the capacity factor
+#: E / k = 5 (an expert's capacity is the tokens routed, so neither side
+#: drops one): a train step of 4 x 512.  The loss within
+#: ``TP_LOSS_TOL`` (bf16) or ``TPM_F32_LOSS_TOL`` (float32); the
+#: parameters as ``tp_train``'s, after one step.
+TPM_CASES = {
+    "gpt-3.1b": {"layers": 4, "dtype": "bfloat16", "ranks": [[2, 0, 3, 1]],
+                 "fsdp": False, "batch": 2, "loss": True},
+    "granite-moe-3b-a800m": {"layers": 4, "dtype": "float32",
+                             "ranks": [[1, 3], [2, 0]], "fsdp": True,
+                             "batch": 4, "loss": False},
+}
+TPM_SEQ, TPM_F32_LOSS_TOL = 512, 1e-4
+TPM_SPAWN_S, TPM_PHASE_S = 300.0, 45.0
+
+
+def tp_rank_launches(cfg, tp: int, n_micro: int, steps: int,
+                     mb: tuple) -> tuple:
+    """``(forward launches, backward launches, shape keys)`` of one rank of
+    a ``make_train_step`` run under a context whose model axis ``tp``
+    divides the heads: :func:`train_launches`' count (per microbatch 2
+    norms and the attention a layer, twice under remat, and the final
+    norm; one backward of each) on the rank's microbatch ``mb`` ``(b, S,
+    d)`` and its ``H / tp`` query heads, against the KV heads they read
+    (``KV / tp`` when those divide, else as ``transformer._kv_heads``
+    picks them)."""
+    from repro_torch.models.transformer import _kv_heads
+    if cfg.n_heads % tp:
+        raise ValueError(f"{cfg.n_heads} heads do not divide {tp}")
+    L, per = cfg.n_layers, steps * n_micro
+    dt = getattr(torch, cfg.dtype)
+    residual = 2 * L - 1
+    want = {k: 0 for k in WRAPPERS}
+    want["rmsnorm"] = per * (4 * L + 1)
+    want["flash_attention"] = per * 2 * L
+    want_bwd = {k: 0 for k in BWD_KERNELS}
+    want_bwd["rmsnorm_bwd"] = per * (residual + 2)
+    want_bwd["flash_attention_bwd"] = per * L
+    h, group = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_kv_heads % tp:
+        _, group = _kv_heads(0, h, group)
+    fa_key = ((mb[0], h, mb[1], cfg.hd), (mb[0], h // group, mb[1], cfg.hd),
+              True, 0, str(dt))
+    shapes = {k: {} for k in WRAPPERS}
+    shapes["rmsnorm"] = {(mb, dt, dt): per * 3,
+                         ("add", mb, dt, dt): per * 2 * residual,
+                         ("bwd", mb, dt, dt): per * 2,
+                         ("add_bwd", mb, dt, dt, True): per * residual}
+    shapes["flash_attention"] = {fa_key: per * 2 * L,
+                                 ("bwd",) + fa_key: per * L}
+    return want, want_bwd, shapes
+
+
+def _global_batch(toks, lbls) -> dict:
+    """``_pp_batches``' ``(n_mb, rows, S)`` arrays as one global batch of
+    consecutive microbatches (``make_train_step``'s split gives them
+    back)."""
+    s = toks.shape[-1]
+    return {"tokens": toks.reshape(-1, s), "labels": lbls.reshape(-1, s)}
+
+
+def _rank_setup():
+    """A spawned rank's card and the library the parent built."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.load_library()
+    return torch.device("cuda", 0)
+
+
+def tp_rank(rank: int, world: int, conf_t: tuple, mapping,
+            ref: list) -> dict:
+    """One rank of ``tp_train`` (a spawned process on the card): its
+    blocks of the weights (drawn whole from seed 0 and cut), ``TP_STEPS``
+    steps of ``make_train_step`` under the context on its rows of
+    ``_pp_batches``, its launch counts and bytes by kind, and its blocks
+    of the parameters and of AdamW's first moment after the last step
+    against the one process's trees ``ref`` (:func:`block_sums`; the
+    parent's tensors on the card, shared with this process: the rank
+    empties the list, so that its handles on them are gone when it
+    returns and the parent can free them)."""
+    import torch.distributed as dist
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim.adamw import AdamW
+    t_start = time.perf_counter()
+    device = _rank_setup()
+    cfg = configs.get(PP_ARCH).replace(n_layers=PP_LAYERS)
+    conf = Conf(*conf_t)
+    mesh = mesh_from_mapping(conf, np.asarray(mapping))
+    ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model", fsdp=("data",))
+    c = mesh.coords(rank)
+    t0 = time.perf_counter()
+    full = init_params(cfg, seed=0, device=device)
+    params = sh.shard_params(full, cfg, ctx, rank)
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    times = {"setup_s": t0 - t_start, "init_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    groups = {a: dist.get_process_group_ranks(mesh.group(a))
+              for a in mesh.axis_names}
+    times["groups_s"] = time.perf_counter() - t0
+    print(f"[tp_train] rank {rank}: coords {c}, groups {groups}", flush=True)
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    step = train_steps.make_train_step(cfg, ctx, opt, n_micro=conf.n_mb)
+    batches = [train_steps.shard_batch(_global_batch(t, lb), ctx, rank,
+                                       conf.n_mb)
+               for t, lb in _pp_batches(cfg, conf)]
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    collectives.reset_stats()
+    losses, step_s = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches, bwd, shapes = (read_launches(), read_bwd_launches(),
+                             read_shapes())
+    staged = dict(collectives.STATS)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    sums = block_sums(params, state.m, tuple(ref), cfg, ctx, rank)
+    ref.clear()
+    times["compare_s"] = time.perf_counter() - t0
+    assert _build.last_build_seconds is None, "a rank ran nvcc"
+    return {"rank": rank, "coords": c, "groups": groups, "losses": losses,
+            "sums": sums,
+            "step_s": step_s, "peak_memory_bytes": peak, "times": times,
+            "staged_bytes_per_step": {k: v / TP_STEPS
+                                      for k, v in staged.items()},
+            "launches_fwd": launches, "launches_bwd": bwd, "shapes": shapes}
+
+
+def _one_process_run(cfg, batches: list, device, n_micro: int,
+                     lr: float, loss_batch=None) -> tuple:
+    """``(params before, params after, AdamW's first moment after, losses,
+    loss of loss_batch)``: ``make_train_step`` with ``ShardCtx()`` in this
+    process on the weights drawn whole from seed 0 (the ranks' draw), one
+    step a batch."""
+    from repro_torch.optim.adamw import AdamW
+    params = init_params(cfg, seed=0, device=device)
+    before = _tree.tree_map(torch.clone, params)
+    loss0 = None
+    if loss_batch is not None:
+        with torch.no_grad():
+            loss0 = float(M.loss_fn(params, cfg, ShardCtx(), {
+                k: torch.as_tensor(v, device=device).long()
+                for k, v in loss_batch.items()})[0])
+    opt = AdamW(lr=lr)
+    state = opt.init(params)
+    step = train_steps.make_train_step(cfg, ShardCtx(), opt, n_micro=n_micro)
+    losses = []
+    for batch in batches:
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return before, params, state.m, losses, loss0
+
+
+def _leaf_specs(cfg, ctx) -> list:
+    """Each parameter leaf's spec under ``ctx``, in ``_tree.leaves``
+    order (layers stacked)."""
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.transformer import param_shapes
+
+    def walk(node):
+        if isinstance(node, dict):
+            return [x for k in sorted(node) for x in walk(node[k])]
+        return [node]
+    return walk(sh.tree_pspecs(param_shapes(cfg), cfg, ctx))
+
+
+#: Elements a chunk of :func:`_digest` reads at once.
+DIGEST_CHUNK = 1 << 24
+
+
+def _digest(t) -> tuple:
+    """Two sums of ``t``'s bits read as integers, the second weighted by
+    position, chunk by chunk (a chunk's sum wraps at 64 bits alike on
+    every rank): blocks of the same bits have the same digest."""
+    x = t.detach().contiguous().view(-1)
+    x = x.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        x.element_size()])
+    s1 = s2 = 0
+    for i in range(0, x.numel(), DIGEST_CHUNK):
+        c = x[i:i + DIGEST_CHUNK].long()
+        pos = torch.arange(i + 1, i + 1 + c.numel(), device=c.device)
+        s1 += int(c.sum())
+        s2 += int((c * pos).sum())
+    return s1, s2
+
+
+def block_sums(params, moment, ref, cfg, ctx, rank: int) -> dict:
+    """What a rank reports of its blocks for :func:`param_readings`: per
+    tree (``params``, and ``moment``, AdamW's first moment) and leaf, its
+    block against the same block of the one process's whole trees ``ref``
+    (``(before, after, moment)`` of :func:`_one_process_run`): ``(sum of
+    squared differences, sum of squares of the one process's update or
+    moment, largest difference, digest of the block's bits)``."""
+    from repro_torch.models import sharding as sh
+    before, after, m_ref = ref
+    specs = _leaf_specs(cfg, ctx)
+    out = {}
+    for tree, mine, want, base in (("params", params, after, before),
+                                   ("moment", moment, m_ref, None)):
+        bases = _tree.leaves(base) if base is not None else [None] * len(
+            specs)
+        rows = {}
+        for name, g, w, b, spec in zip(leaf_names(want), _tree.leaves(mine),
+                                       _tree.leaves(want), bases, specs):
+            w = sh.shard_leaf(w, spec, ctx.mesh, rank).float()
+            d = g.float() - w
+            if b is not None:
+                w = w - sh.shard_leaf(b, spec, ctx.mesh, rank).float()
+            rows[name] = (float(torch.sum(d * d, dtype=torch.float64)),
+                          float(torch.sum(w * w, dtype=torch.float64)),
+                          float(d.abs().max()), _digest(g))
+        out[tree] = rows
+    return out
+
+
+def param_readings(sums: list, cfg, ctx) -> dict:
+    """The ranks' :func:`block_sums` (``sums[r]`` rank ``r``'s) put
+    together, per tree and leaf: ``rel_err``, the Frobenius norm of the
+    difference from the one process over that of its update (the
+    parameters) or of its moment, each block counted once (the lowest
+    rank that holds it); ``max_abs_diff``; and ``replicas_agree``,
+    whether the ranks that hold the same block hold the same bits."""
+    import math
+    from repro_torch.models import sharding as sh
+    specs = _leaf_specs(cfg, ctx)
+    out = {}
+    for tree in ("params", "moment"):
+        rows = {}
+        for name, spec in zip(sums[0][tree], specs):
+            held = {}
+            for r, mine in enumerate(sums):
+                key = tuple(ctx.mesh.coords(r)[a] for entry in spec
+                            for a in sh.spec_axes(entry))
+                held.setdefault(key, []).append(mine[tree][name])
+            diff = math.fsum(h[0][0] for h in held.values())
+            base = math.fsum(h[0][1] for h in held.values())
+            rows[name] = {
+                "rel_err": math.sqrt(diff) / max(math.sqrt(base), 1e-30),
+                "max_abs_diff": max(x[2] for h in held.values() for x in h),
+                "replicas_agree": all(len({x[3] for x in h}) == 1
+                                      for h in held.values())}
+        out[tree] = rows
+    return out
+
+
+def _compare_params(sums: list, cfg, ctx) -> dict:
+    """:func:`param_readings` of the ranks' blocks against the one
+    process, asserted: the ranks that hold the same block of the
+    parameters or of the first moment hold the same bits, each leaf's
+    update error is within ``TP_UPDATE_TOL`` and its first moment's
+    within ``TP_MOMENT_TOL``; returns the largest of each error and of
+    the parameters' elementwise difference."""
+    got = param_readings(sums, cfg, ctx)
+    for tree, tol in (("params", TP_UPDATE_TOL), ("moment", TP_MOMENT_TOL)):
+        for name, row in got[tree].items():
+            assert row["replicas_agree"], (tree, name, "replicas differ")
+            assert row["rel_err"] <= tol, (tree, name, row)
+    return {"leaves": len(got["params"]),
+            "max_abs_diff": max(r["max_abs_diff"]
+                                for r in got["params"].values()),
+            "max_update_rel_err": max(r["rel_err"]
+                                      for r in got["params"].values()),
+            "max_moment_rel_err": max(r["rel_err"]
+                                      for r in got["moment"].values())}
+
+
+def tp_train(device, pp_loss=None) -> tuple:
+    """``tp_train_gpt_1_1b``: the one-process run, then the (pp 1, tp 2,
+    dp 2) run on the same weights and batches (:func:`tp_rank` in four
+    spawned processes, which time their steps with nothing else on the
+    card), their comparison, each rank's coordinates, groups and
+    launches (against :func:`tp_rank_launches`), and the run's line, with
+    ``pp_train_gpt_1_1b``'s first loss ``pp_loss`` beside its own;
+    returns ``(line, shapes)`` with the ranks' summed shape counts."""
+    t_phase = time.perf_counter()
+    cfg = configs.get(PP_ARCH).replace(n_layers=PP_LAYERS)
+    conf = Conf(*TP_CONF)
+    mapping = np.asarray(TP_MAPPING)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    batches = [_global_batch(t, lb) for t, lb in _pp_batches(cfg, conf)]
+    t0 = time.perf_counter()
+    ref = _one_process_run(cfg, batches, device, conf.n_mb, TRAIN_LR)
+    ref_losses = ref[3]
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = collectives.spawn(tp_rank, int(mapping.size),
+                                (TP_CONF, TP_MAPPING, list(ref[:3])),
+                                timeout=TP_SPAWN_S)
+    spawn_s = time.perf_counter() - t0
+    del ref
+    torch.cuda.ipc_collect()            # the ranks' handles on it are gone
+    mb = (conf.bs_micro, PP_SEQ, cfg.d_model)
+    want, want_bwd, want_shapes = tp_rank_launches(
+        cfg, conf.tp, conf.n_mb, TP_STEPS, mb)
+    for r in results:
+        x, y, z = (int(v) for v in np.argwhere(mapping == r["rank"])[0])
+        assert r["coords"] == {"pipe": x, "model": y, "data": z}, r
+        assert r["groups"] == {
+            "pipe": sorted(mapping[:, y, z].tolist()),
+            "model": sorted(mapping[x, :, z].tolist()),
+            "data": sorted(mapping[x, y, :].tolist())}, r
+        assert r["launches_fwd"] == want, (r["rank"], r["launches_fwd"])
+        assert r["launches_bwd"] == want_bwd, (r["rank"],
+                                               r["launches_bwd"])
+        for name, by in want_shapes.items():
+            assert r["shapes"][name] == by, (r["rank"], name,
+                                             r["shapes"][name])
+    losses = results[0]["losses"]
+    assert all(r["losses"] == losses for r in results), \
+        [r["losses"] for r in results]
+    diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    assert all(np.isfinite(losses)) and max(diffs) <= TP_LOSS_TOL, \
+        (losses, ref_losses)
+    ctx = ShardCtx(mesh=mesh_from_mapping(conf, mapping),
+                   dp=("data",), tp="model", fsdp=("data",))
+    cmp = _compare_params([r["sums"] for r in results], cfg, ctx)
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches_fwd"][k] for r in results)
+                for k in WRAPPERS}
+    bwd = {k: sum(r["launches_bwd"][k] for r in results)
+           for k in BWD_KERNELS}
+    shapes = {name: {} for name in WRAPPERS}
+    for r in results:
+        for name, by in r["shapes"].items():
+            for key, n in by.items():
+                shapes[name][key] = shapes[name].get(key, 0) + n
+    step_s = [max(r["step_s"][i] for r in results) for i in range(TP_STEPS)]
+    seconds = time.perf_counter() - t_phase
+    assert seconds <= TP_PHASE_S, ("tp_train_gpt_1_1b over its budget",
+                                   seconds)
+    line = {
+        "phase": "tp_train_gpt_1_1b", "model": cfg.name,
+        "cut": f"n_layers {PP_LAYERS} of 24 (full width: d {cfg.d_model}, "
+               f"heads {cfg.n_heads} of {cfg.hd}, {cfg.n_heads // conf.tp} "
+               f"a rank, d_ff {cfg.d_ff}, vocab {cfg.vocab_size})",
+        "conf": {"pp": conf.pp, "tp": conf.tp, "dp": conf.dp,
+                 "bs_micro": conf.bs_micro, "bs_global": conf.bs_global,
+                 "n_mb": conf.n_mb},
+        "mapping": TP_MAPPING, "axes": ["pipe", "model", "data"],
+        "ctx": {"dp": ["data"], "tp": "model", "fsdp": ["data"]},
+        "processes": len(results), "backend": "gloo (host-staged)",
+        "seq_len": PP_SEQ, "steps": TP_STEPS, "lr": TRAIN_LR,
+        "dtype": cfg.dtype, "remat": True,
+        "ranks": [{k: r[k] for k in ("rank", "coords", "groups",
+                                     "peak_memory_bytes",
+                                     "staged_bytes_per_step", "step_s",
+                                     "times")}
+                  for r in results],
+        "losses": losses, "one_process_losses": ref_losses,
+        "loss_abs_diff": diffs, "tol": {"loss": TP_LOSS_TOL,
+                                        "update_rel": TP_UPDATE_TOL,
+                                        "moment_rel": TP_MOMENT_TOL},
+        "params": cmp, "pp_train_gpt_1_1b_first_loss": pp_loss,
+        "step_s": step_s, "warm_step_s": max(step_s[1:]),
+        "peak_memory_bytes_max": max(r["peak_memory_bytes"]
+                                     for r in results),
+        "launches_fwd": launches, "launches_bwd": bwd,
+        "launches_per_rank_formula": "tp_rank_launches: per microbatch 2 "
+                                     "norms + 1 attention a layer, twice "
+                                     "(remat), 1 backward each, and the "
+                                     "final norm, at H / tp heads",
+        "one_process_seconds": one_s, "spawn_seconds": spawn_s,
+        "seconds": seconds,
+    }
+    return line, shapes
+
+
+def tp_models_rank(rank: int, world: int, refs: dict) -> dict:
+    """One rank of ``tp_models_on_card``: each case of ``TPM_CASES`` in
+    turn on its own mesh of the four processes (the same weights drawn
+    whole from seed 0 and cut, its rows of a batch from one seed), the
+    loss where the case asks, one ``make_train_step`` step, and its blocks
+    after it against the one process's trees ``refs[arch]``
+    (:func:`block_sums`; popped, as :func:`tp_rank` empties its list);
+    its launches and shapes over both cases."""
+    import torch.distributed as dist
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim.adamw import AdamW
+    t_start = time.perf_counter()
+    device = _rank_setup()
+    reset_launches()
+    out = {"rank": rank, "cases": {},
+           "setup_s": time.perf_counter() - t_start}
+    for arch, case in TPM_CASES.items():
+        t0 = time.perf_counter()
+        cfg, mesh, ctx, batch = _tpm_setup(arch, case)
+        full = init_params(cfg, seed=0, device=device)
+        params = sh.shard_params(full, cfg, ctx, rank)
+        del full
+        torch.cuda.empty_cache()
+        mine = train_steps.shard_batch(batch, ctx, rank)
+        res = {"coords": mesh.coords(rank)}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for a in mesh.axis_names:       # the groups, made collectively
+            mesh.group(a)
+        dist.barrier()
+        res.update(init_s=t1 - t0, groups_s=time.perf_counter() - t1)
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        if case["loss"]:
+            with torch.no_grad():
+                res["loss_only"] = float(M.loss_fn(params, cfg, ctx, {
+                    k: torch.as_tensor(v, device=device).long()
+                    for k, v in mine.items()})[0])
+            res["loss_s"] = time.perf_counter() - t0
+        opt = AdamW(lr=TRAIN_LR)
+        step = train_steps.make_train_step(cfg, ctx, opt)
+        params, state, m = step(params, opt.init(params), mine)
+        res["loss"] = float(m["loss"])
+        torch.cuda.synchronize()
+        res.update(seconds=time.perf_counter() - t0,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   staged_bytes=dict(collectives.STATS))
+        t0 = time.perf_counter()
+        res["sums"] = block_sums(params, state.m, refs.pop(arch), cfg, ctx,
+                                 rank)
+        res["compare_s"] = time.perf_counter() - t0
+        del params, state
+        torch.cuda.empty_cache()
+        out["cases"][arch] = res
+    out.update(launches_fwd=read_launches(), launches_bwd=read_bwd_launches(),
+               shapes=read_shapes())
+    assert _build.last_build_seconds is None, "a rank ran nvcc"
+    return out
+
+
+def _tpm_setup(arch: str, case: dict) -> tuple:
+    """``(cfg, mesh, ctx, global batch)`` of a ``tp_models_on_card``
+    case."""
+    from repro_torch.launch.mesh import Mesh
+    cfg = configs.get(arch).replace(n_layers=case["layers"],
+                                    dtype=case["dtype"])
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=float(cfg.n_experts
+                                                // cfg.experts_per_token))
+    mesh = Mesh(np.asarray(case["ranks"]), ("data", "model"))
+    ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model",
+                   fsdp=("data",) if case["fsdp"] else ())
+    rng = np.random.default_rng(len(arch))
+    toks = rng.integers(0, cfg.vocab_size, (case["batch"], TPM_SEQ + 1),
+                        dtype=np.int64)
+    return cfg, mesh, ctx, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def tp_models(device) -> tuple:
+    """``tp_models_on_card``: each case in this process, then
+    :func:`tp_models_rank` in four spawned processes, held to it; returns
+    ``(line, shapes)`` with the ranks' summed shape counts."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cases, refs = {}, {}
+    t0 = time.perf_counter()
+    for arch, case in TPM_CASES.items():
+        cfg, _, _, batch = _tpm_setup(arch, case)
+        refs[arch] = _one_process_run(
+            cfg, [batch], device, 1, TRAIN_LR,
+            loss_batch=batch if case["loss"] else None)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = collectives.spawn(tp_models_rank, 4,
+                                ({a: r[:3] for a, r in refs.items()},),
+                                timeout=TPM_SPAWN_S)
+    spawn_s = time.perf_counter() - t0
+    for arch, case in TPM_CASES.items():
+        cfg, mesh, ctx, batch = _tpm_setup(arch, case)
+        got = [r["cases"][arch] for r in results]
+        for rank, r in enumerate(got):
+            assert r["coords"] == mesh.coords(rank), (arch, rank, r)
+        loss = got[0]["loss"]
+        assert all(r["loss"] == loss for r in got), [r["loss"] for r in got]
+        ref_losses, ref_loss0 = refs.pop(arch)[3:]
+        tol = TP_LOSS_TOL if cfg.dtype == "bfloat16" else TPM_F32_LOSS_TOL
+        assert abs(loss - ref_losses[0]) <= tol, (arch, loss, ref_losses)
+        row = {"layers": f"{case['layers']} of "
+                         f"{configs.get(arch).n_layers}",
+               "dtype": cfg.dtype, "mesh": {"data": mesh.shape["data"],
+                                            "model": mesh.shape["model"]},
+               "ranks": case["ranks"], "fsdp": case["fsdp"],
+               "batch": [case["batch"], TPM_SEQ],
+               "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+               "attention": "sequence-sharded (q_offset)"
+               if cfg.n_heads % mesh.shape["model"] else "heads",
+               "loss": loss, "one_process_loss": ref_losses[0], "tol": tol}
+        if case["loss"]:
+            l0 = got[0]["loss_only"]
+            assert all(r["loss_only"] == l0 for r in got)
+            assert abs(l0 - ref_loss0) <= tol, (arch, l0, ref_loss0)
+            row.update(loss_fn=l0, one_process_loss_fn=ref_loss0)
+        if cfg.family == "moe":
+            row.update(n_experts=cfg.n_experts,
+                       capacity_factor=cfg.capacity_factor)
+        row["params"] = _compare_params([r["sums"] for r in got], cfg, ctx)
+        row["ranks_detail"] = [
+            {"rank": i, **{k: r[k] for k in (
+                "coords", "seconds", "peak_memory_bytes", "staged_bytes",
+                "init_s", "groups_s", "compare_s", "loss_s") if k in r}}
+            for i, r in enumerate(got)]
+        cases[arch] = row
+    torch.cuda.ipc_collect()            # the ranks' handles on refs are gone
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches_fwd"][k] for r in results)
+                for k in WRAPPERS}
+    bwd = {k: sum(r["launches_bwd"][k] for r in results)
+           for k in BWD_KERNELS}
+    shapes = {name: {} for name in WRAPPERS}
+    for r in results:
+        for name, by in r["shapes"].items():
+            for key, n in by.items():
+                shapes[name][key] = shapes[name].get(key, 0) + n
+    # the sequence-sharded attention ran at every rank's offset but the
+    # first's (whose key has none)
+    n = len(TPM_CASES["gpt-3.1b"]["ranks"][0])
+    offsets = sorted({fa_key[5] for fa_key in shapes["flash_attention"]
+                      if fa_key[0] != "bwd" and len(fa_key) > 5})
+    assert offsets == [m * TPM_SEQ // n for m in range(1, n)], offsets
+    seconds = time.perf_counter() - t_phase
+    assert seconds <= TPM_PHASE_S, ("tp_models_on_card over its budget",
+                                    seconds)
+    return {"phase": "tp_models_on_card", "cases": cases,
+            "launches_fwd": launches, "launches_bwd": bwd,
+            "q_offsets_launched": [0] + offsets,
+            "rank_setup_s": [r["setup_s"] for r in results],
+            "one_process_seconds": one_s, "spawn_seconds": spawn_s,
+            "seconds": seconds}, shapes
+
+
 def leaf_names(tree, prefix: str = "") -> list:
     """Dotted key paths of ``tree``'s leaves in ``_tree.leaves`` order
     (keys sorted, recursively: a hybrid's ``shared.wq``)."""
@@ -3384,6 +4082,8 @@ def main() -> int:
     new_dims = check_new_head_dims(device)
     emit(new_dims)
     emit(check_flash_against_chunked(device))
+    q_offset_phase = check_q_offset(device)
+    emit(q_offset_phase)
     scan_rows = check_scan_at_falcon_shapes(device)
     emit({"phase": "scan_at_falcon_shapes", "kernels": scan_rows})
     emit(scan_by_batch(device, scan_regs))
@@ -3422,6 +4122,17 @@ def main() -> int:
     bwd_tr[line_pp["phase"]] = {
         name: {k: n for k, n in by.items() if is_bwd_key(k)}
         for name, by in shapes_pp.items()}
+    for run in (lambda: tp_train(device, line_pp["losses"][0]),
+                lambda: tp_models(device)):
+        line_x, shapes_x = run()
+        emit(line_x)
+        train_lines.append(line_x)
+        fwd_tr[line_x["phase"]] = {
+            name: {k: n for k, n in by.items() if not is_bwd_key(k)}
+            for name, by in shapes_x.items()}
+        bwd_tr[line_x["phase"]] = {
+            name: {k: n for k, n in by.items() if is_bwd_key(k)}
+            for name, by in shapes_x.items()}
     model_rows = check_model_path_shapes(device, {**gen_shapes, **fwd_tr})
     emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
     bwd_rows = check_bwd_path_shapes(device, bwd_tr)
@@ -3472,6 +4183,7 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"]
                                    for r in mine + ragged + model_ragged
                                    + new_dims["kernels"]
+                                   + q_offset_phase["kernels"]
                                    if r["name"] == name),
                 "ms": top["ms"], "device_ms": top["device_ms"],
                 "plain_ms": top["plain_ms"],
@@ -3529,6 +4241,7 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in
                                    mine + bwd_phase["kernels"]
                                    + new_dims["kernels"]
+                                   + q_offset_phase["kernels"]
                                    if r["name"] == name),
                 "ms": top["ms"], "device_ms": top["device_ms"],
                 "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],

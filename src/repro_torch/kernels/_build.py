@@ -170,12 +170,13 @@ def load_library() -> ctypes.CDLL:
         "rmsnorm_bwd": [vp] * 7 + [ll, ci, dbl, ci, vp],
         # flash_attention.cu: (q, k, v, o, lse, 4 x (batch, head, seq)
         #   strides, batch, heads, kv_heads, len_q, len_k, head_dim, scale,
-        #   causal, window, bf16, stream) and (q, k, v, o, dout, lse, delta,
-        #   work, dq, dk, dv, 8 x (batch, head, seq) strides, the same sizes)
+        #   causal, window, q_offset, bf16, stream) and (q, k, v, o, dout,
+        #   lse, delta, work, dq, dk, dv, 8 x (batch, head, seq) strides, the
+        #   same sizes)
         "flash_attention_fwd": [vp] * 5 + [ll] * 12
-        + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
+        + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ll, ci, vp],
         "flash_attention_bwd": [vp] * 11 + [ll] * 24
-        + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ci, vp],
+        + [ci, ci, ci, ll, ll, ci, dbl, ci, ll, ll, ci, vp],
         # (head_dim, pass, &smem bytes, &blocks an SM): no launch, no stream
         "flash_attention_occupancy": [ci, ci, vp, vp],
         # selective_scan.cu: (x, dt, B, C, A, h0, y, h_out,

@@ -4,8 +4,16 @@
 //
 // o[b, h, i] = sum_j softmax_j(s_ij) v[b, h / g, j] with
 // s_ij = (q[b, h, i] / sqrt(D)) . k[b, h / g, j], over the keys j allowed by
-// the mask: j < Sk, and i >= j when causal, and i - j < window when
-// window > 0.  A row with no allowed key is 0.  Replaces the Pallas kernel
+// the mask: j < Sk, and p_i >= j when causal, and p_i - j < window when
+// window > 0, where query row i sits at position p_i = q_off + i (q_off 0
+// but for a share of a sequence's rows: the sequence-sharded attention of
+// the model under a tensor-parallel context).  A row with no allowed key
+// is 0.  Every tile range and mask test below reads the position; the
+// index of a row in q, o, lse stays i, and with q_off = 0 each kernel
+// computes what it did before the offset.  The heavy-first tile orders
+// stay heaviest-first under an offset (a query tile's key count still
+// grows with its index, a key tile's query count still falls), with less
+// spread between the first and the last.  Replaces the Pallas kernel
 // `flash_attention` (`_kernel`) of the JAX package's
 // kernels/flash_attention.py.
 //
@@ -122,7 +130,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
               float* __restrict__ lse, Strides sq,
               Strides sk, Strides sv, Strides so, int group, int len_q,
-              int len_k, float scale, int causal, int window) {
+              int len_k, float scale, int causal, int window, int q_off) {
   constexpr int KS = Tile<D>::kStride;
   constexpr int DC = (D + 31) / 32;           // columns of p.V per lane
   extern __shared__ float4 smem4[];
@@ -154,10 +162,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
   }
 
-  // keys that some row of this block may see: [k_lo, k_hi)
+  // keys that some row of this block may see: [k_lo, k_hi); row i sits at
+  // position q_off + i
   const int q_last = min(q0 + kBlockQ, len_q) - 1;
-  const int k_hi = causal ? min(len_k, q_last + 1) : len_k;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(len_k, q_off + q_last + 1) : len_k;
+  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
 
   for (int k0 = (k_lo / kBlockK) * kBlockK; k0 < k_hi; k0 += kBlockK) {
     __syncthreads();                 // the previous tile is consumed
@@ -195,7 +204,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int qi = q0 + warp * kRows + r;
-      const int delta = qi - kj;
+      const int delta = q_off + qi - kj;
       bool ok = kj < len_k;
       if (causal) ok = ok && delta >= 0;
       if (window > 0) ok = ok && delta < window;
@@ -258,7 +267,8 @@ template <int D, bool kLse>
 int launch_one(const void* q, const void* k, const void* v, void* o,
                float* lse, Strides sq, Strides sk, Strides sv, Strides so,
                int batch, int heads, int group, int len_q, int len_k,
-               float scale, int causal, int window, cudaStream_t stream) {
+               float scale, int causal, int window, int q_off,
+               cudaStream_t stream) {
   constexpr size_t smem = Tile<D>::kSmemBytes;
   // once per instantiation (and so never inside a CUDA-graph capture after
   // a first eager call): allow more than 48 KB of dynamic shared memory
@@ -269,7 +279,7 @@ int launch_one(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((len_q + kBlockQ - 1) / kBlockQ, heads, batch);
   flash_fwd_f32<D, kLse><<<grid, kWarps * 32, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, sq,
-      sk, sv, so, group, len_q, len_k, scale, causal, window);
+      sk, sv, so, group, len_q, len_k, scale, causal, window, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -279,13 +289,13 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Strides sq, Strides sk, Strides sv, Strides so, int batch,
            int heads, int group, int len_q, int len_k, float scale,
-           int causal, int window, cudaStream_t stream) {
+           int causal, int window, int q_off, cudaStream_t stream) {
   return lse ? launch_one<D, true>(q, k, v, o, lse, sq, sk, sv, so, batch,
                                    heads, group, len_q, len_k, scale, causal,
-                                   window, stream)
+                                   window, q_off, stream)
              : launch_one<D, false>(q, k, v, o, lse, sq, sk, sv, so, batch,
                                     heads, group, len_q, len_k, scale,
-                                    causal, window, stream);
+                                    causal, window, q_off, stream);
 }
 
 }  // namespace f32
@@ -434,7 +444,8 @@ flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    float* __restrict__ lse, Strides sq, Strides sk,
                    Strides sv, Strides so, int heads,
                    int batch, int group, int len_q, int len_k,
-                   float scale_log2, int causal, int window, int n_qtiles) {
+                   float scale_log2, int causal, int window, int q_off,
+                   int n_qtiles) {
   using Cf = Cfg<D>;
   constexpr int C = Cf::kChunks;
   constexpr int BK = Cf::kBlockK;
@@ -462,10 +473,11 @@ flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t qsm =
       Cf::kQInRegs ? ring + 2 * Cf::kTileBytes : ring + Cf::kRingBytes;
 
-  // keys that some row of this block may see: [k_lo, k_hi)
+  // keys that some row of this block may see: [k_lo, k_hi); row i sits at
+  // position q_off + i
   const int q_last = min(q0 + kBlockQ, len_q) - 1;
-  const int k_hi = causal ? min(len_k, q_last + 1) : len_k;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(len_k, q_off + q_last + 1) : len_k;
+  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   const int t_first = k_lo / BK;
   const int t_end = (k_hi + BK - 1) / BK;
 
@@ -543,13 +555,13 @@ flash_fwd_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // the mask, only on tiles that straddle an edge
     const int k0 = t * BK;
-    if (k0 + BK > len_k || (causal && k0 + BK - 1 > q0) ||
-        (window > 0 && k0 < q0 + kBlockQ - window)) {
+    if (k0 + BK > len_k || (causal && k0 + BK - 1 > q_off + q0) ||
+        (window > 0 && k0 < q_off + q0 + kBlockQ - window)) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qi = row0 + (e >> 1) * 8;
+          const int qi = q_off + row0 + (e >> 1) * 8;   // its position
           const int kj = k0 + nt * 8 + 2 * tq + (e & 1);
           bool ok = kj < len_k;
           if (causal) ok = ok && qi >= kj;
@@ -633,7 +645,7 @@ template <int D, bool kLse>
 int launch_one(const void* q, const void* k, const void* v, void* o,
                float* lse, Strides sq, Strides sk, Strides sv, Strides so,
                int batch, int heads, int group, int len_q, int len_k,
-               float scale_log2, int causal, int window,
+               float scale_log2, int causal, int window, int q_off,
                cudaStream_t stream) {
   constexpr int smem = Cfg<D>::kSmemBytes;
   static const cudaError_t configured = cudaFuncSetAttribute(
@@ -646,7 +658,7 @@ int launch_one(const void* q, const void* k, const void* v, void* o,
   flash_fwd_bf16_mma<D, kLse><<<(unsigned)blocks, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, sq, sk,
       sv, so, heads, batch, group, len_q, len_k, scale_log2, causal, window,
-      n_qtiles);
+      q_off, n_qtiles);
   return (int)cudaGetLastError();
 }
 
@@ -656,13 +668,13 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            Strides sq, Strides sk, Strides sv, Strides so, int batch,
            int heads, int group, int len_q, int len_k, float scale_log2,
-           int causal, int window, cudaStream_t stream) {
+           int causal, int window, int q_off, cudaStream_t stream) {
   return lse ? launch_one<D, true>(q, k, v, o, lse, sq, sk, sv, so, batch,
                                    heads, group, len_q, len_k, scale_log2,
-                                   causal, window, stream)
+                                   causal, window, q_off, stream)
              : launch_one<D, false>(q, k, v, o, lse, sq, sk, sv, so, batch,
                                     heads, group, len_q, len_k, scale_log2,
-                                    causal, window, stream);
+                                    causal, window, q_off, stream);
 }
 
 }  // namespace tc
@@ -709,11 +721,13 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
+// query row qi (at position q_off + qi) and key kj
 __device__ __forceinline__ bool allowed(int qi, int kj, int len_q, int len_k,
-                                        int causal, int window) {
+                                        int causal, int window, int q_off) {
   bool ok = qi < len_q && kj < len_k;
-  if (causal) ok = ok && qi >= kj;
-  if (window > 0) ok = ok && qi - kj < window;
+  const int pos = q_off + qi;
+  if (causal) ok = ok && pos >= kj;
+  if (window > 0) ok = ok && pos - kj < window;
   return ok;
 }
 
@@ -752,7 +766,7 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ lse, const float* __restrict__ delta,
        float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sd,
        Strides sdq, int group, int len_q, int len_k, float scale,
-       int causal, int window) {
+       int causal, int window, int q_off) {
   constexpr int KS = DqTile<D>::kStride;
   constexpr int DC = (D + 31) / 32;           // columns of dQ a lane
   extern __shared__ float4 smem_dq[];
@@ -789,8 +803,8 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int q_last = min(q0 + kBlock, len_q) - 1;
-  const int k_hi = causal ? min(len_k, q_last + 1) : len_k;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(len_k, q_off + q_last + 1) : len_k;
+  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
 
   for (int k0 = (k_lo / kBlock) * kBlock; k0 < k_hi; k0 += kBlock) {
     __syncthreads();                          // the previous tile is consumed
@@ -825,7 +839,7 @@ bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int qi = q0 + warp * kRows + r;
-      const float p = allowed(qi, kj, len_q, len_k, causal, window)
+      const float p = allowed(qi, kj, len_q, len_k, causal, window, q_off)
                           ? expf(s[r] * scale - lse_r[r]) : 0.f;
       g[r] = p * (dp[r] - dl_r[r]);
     }
@@ -875,7 +889,7 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
         float* __restrict__ dk, float* __restrict__ dv, Strides sq,
         Strides sk, Strides sv, Strides sd, Strides sdk, Strides sdv,
         int heads, int group, int len_q, int len_k, float scale, int causal,
-        int window) {
+        int window, int q_off) {
   constexpr int QS = DkvTile<D>::kStride;
   constexpr int DC = (D + 31) / 32;
   extern __shared__ float4 smem_dkv[];
@@ -907,8 +921,8 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 
   // query rows that may see some key of this block: [q_lo, q_hi)
   const int k_last = min(k0 + kBlock, len_k) - 1;
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(len_q, k_last + window) : len_q;
+  const int q_lo = causal ? max(0, k0 - q_off) : 0;
+  const int q_hi = window > 0 ? min(len_q, k_last + window - q_off) : len_q;
 
   for (int hh = 0; hh < group; ++hh) {       // the group's heads, in order
     const int h = kvh * group + hh;
@@ -954,7 +968,7 @@ bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int kj = k0 + warp * kRows + r;
-        p[r] = allowed(qi, kj, len_q, len_k, causal, window)
+        p[r] = allowed(qi, kj, len_q, len_k, causal, window, q_off)
                    ? expf(s[r] * scale - lse_i) : 0.f;
         g[r] = p[r] * (dp[r] - dl_i);
       }
@@ -1008,7 +1022,7 @@ struct BwdArgs {
   Strides sq, sk, sv, so, sd, sdq, sdk, sdv;
   int batch, heads, group, kv_heads, len_q, len_k;
   float scale;
-  int causal, window;
+  int causal, window, q_off;
 };
 
 template <int D>
@@ -1036,13 +1050,14 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
   bwd_dq<D><<<grid_q, kThreads, smem_dq, stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
       (const float*)a.dout, a.lse, a.delta, (float*)a.dq, a.sq, a.sk, a.sv,
-      a.sd, a.sdq, a.group, a.len_q, a.len_k, a.scale, a.causal, a.window);
+      a.sd, a.sdq, a.group, a.len_q, a.len_k, a.scale, a.causal, a.window,
+      a.q_off);
   const dim3 grid_k((a.len_k + kBlock - 1) / kBlock, a.kv_heads, a.batch);
   bwd_dkv<D><<<grid_k, kThreads, smem_dkv, stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v,
       (const float*)a.dout, a.lse, a.delta, (float*)a.dk, (float*)a.dv, a.sq,
       a.sk, a.sv, a.sd, a.sdk, a.sdv, a.heads, a.group, a.len_q, a.len_k,
-      a.scale, a.causal, a.window);
+      a.scale, a.causal, a.window, a.q_off);
   return (int)cudaGetLastError();
 }
 
@@ -1124,13 +1139,14 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 }
 
 // whether some (query, key) pair of [q0, q0 + bq) x [k0, k0 + bk) is not
-// allowed: only such tiles run the per-element mask
+// allowed (query row i at position q_off + i): only such tiles run the
+// per-element mask
 __device__ __forceinline__ bool straddles(int q0, int bq, int k0, int bk,
                                           int len_q, int len_k, int causal,
-                                          int window) {
+                                          int window, int q_off) {
   return q0 + bq > len_q || k0 + bk > len_k ||
-         (causal && k0 + bk - 1 > q0) ||
-         (window > 0 && q0 + bq - 1 - k0 >= window);
+         (causal && k0 + bk - 1 > q_off + q0) ||
+         (window > 0 && q_off + q0 + bq - 1 - k0 >= window);
 }
 
 // lanes of bwd_delta_packed a row: D / 8 (one 16-byte pack each) rounded
@@ -1208,7 +1224,8 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             float* __restrict__ dkp, float* __restrict__ dvp, Strides sq,
             Strides sk, Strides sv, Strides sd, Strides sdk, Strides sdv,
             int heads, int batch, int group, int len_q, int len_k,
-            float scale, float scale_log2, int causal, int window) {
+            float scale, float scale_log2, int causal, int window,
+            int q_off) {
   using Cf = Dkv<D>;
   constexpr int C = Cf::kC;
   constexpr int BK = Cf::kBlockK;
@@ -1239,8 +1256,8 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // query rows that may see some key of this block: [q_lo, q_hi)
   const int k_last = min(k0 + BK, len_k) - 1;
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(len_q, k_last + window) : len_q;
+  const int q_lo = causal ? max(0, k0 - q_off) : 0;
+  const int q_hi = window > 0 ? min(len_q, k_last + window - q_off) : len_q;
   const int t_first = q_lo / BQ;
   const int t_end = q_hi > q_lo ? (q_hi + BQ - 1) / BQ : t_first;
 
@@ -1316,7 +1333,7 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // only on tiles that straddle an edge
     const int q0 = t * BQ;
     const bool edge =
-        straddles(q0, BQ, k0, BK, len_q, len_k, causal, window);
+        straddles(q0, BQ, k0, BK, len_q, len_k, causal, window, q_off);
 #pragma unroll
     for (int nt = 0; nt < NQ; ++nt) {
       const float2 l2 =
@@ -1330,7 +1347,7 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float p = exp2f(fmaf(s[nt][e], scale_log2, -(li * kLog2e)));
         if (edge && !bwd::allowed(q0 + nt * 8 + 2 * tq + (e & 1),
                                   key0 + (e >> 1) * 8, len_q, len_k, causal,
-                                  window))
+                                  window, q_off))
           p = 0.f;
         s[nt][e] = p;
         dp[nt][e] = p * (dp[nt][e] - di);
@@ -1448,7 +1465,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv,
            Strides sd, Strides sdq, int heads, int batch, int group,
            int len_q, int len_k, float scale, float scale_log2, int causal,
-           int window, int n_qtiles) {
+           int window, int q_off, int n_qtiles) {
   using Cf = Dq<D>;
   constexpr int C = Cf::kC;
   constexpr int BQ = Cf::kBlockQ;
@@ -1476,8 +1493,8 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // keys that some row of this block may see: [k_lo, k_hi)
   const int q_last = min(q0 + BQ, len_q) - 1;
-  const int k_hi = causal ? min(len_k, q_last + 1) : len_k;
-  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(len_k, q_off + q_last + 1) : len_k;
+  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   const int t_first = k_lo / BK;
   const int t_end = (k_hi + BK - 1) / BK;
 
@@ -1549,7 +1566,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // only on tiles that straddle an edge
     const int k0 = t * BK;
     const bool edge =
-        straddles(q0, BQ, k0, BK, len_q, len_k, causal, window);
+        straddles(q0, BQ, k0, BK, len_q, len_k, causal, window, q_off);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -1557,7 +1574,8 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int half = e >> 1;
         float p = exp2f(fmaf(s[nt][e], scale_log2, -lse2[half]));
         if (edge && !bwd::allowed(row0 + half * 8, k0 + nt * 8 + 2 * tq +
-                                  (e & 1), len_q, len_k, causal, window))
+                                  (e & 1), len_q, len_k, causal, window,
+                                  q_off))
           p = 0.f;
         s[nt][e] = p * (dp[nt][e] - dl[half]);
       }
@@ -1630,12 +1648,12 @@ int launch(const bwd::BwdArgs& a, cudaStream_t stream) {
       (const bf16*)a.dout, a.lse, a.delta, (bf16*)a.dk, (bf16*)a.dv,
       fold ? a.work : nullptr, fold ? a.work + part : nullptr, a.sq, a.sk,
       a.sv, a.sd, a.sdk, a.sdv, a.heads, a.batch, a.group, a.len_q, a.len_k,
-      a.scale, scale_log2, a.causal, a.window);
+      a.scale, scale_log2, a.causal, a.window, a.q_off);
   bwd_dq_mma<D><<<(unsigned)q_blocks, kThreads, Qc::kSmemBytes, stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
       (const bf16*)a.dout, a.lse, a.delta, (bf16*)a.dq, a.sq, a.sk, a.sv,
       a.sd, a.sdq, a.heads, a.batch, a.group, a.len_q, a.len_k, a.scale,
-      scale_log2, a.causal, a.window, n_qtiles);
+      scale_log2, a.causal, a.window, a.q_off, n_qtiles);
   if (fold) {
     const long long n4 = (long long)a.batch * a.kv_heads * a.len_k * D / 4;
     const long long blocks = (n4 + 255) / 256;
@@ -1694,6 +1712,8 @@ extern "C" {
 // and len_k at least 1 and below 2^31; window <= 0 means no window, and
 // a window is below 2^31.  bf16 != 0: bfloat16 tensors, every row 16-byte
 // aligned (the tensor-core kernel); else float32 (the CUDA-core kernel).
+// q_offset >= 0: query row i sits at position q_offset + i, with
+// q_offset + len_q below 2^31.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         void* lse, long long q_sb, long long q_sh,
                         long long q_ss,
@@ -1702,26 +1722,28 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long o_sb, long long o_sh, long long o_ss,
                         int batch, int heads, int kv_heads, long long len_q,
                         long long len_k, int head_dim, double scale,
-                        int causal, long long window, int bf16,
-                        void* stream) {
+                        int causal, long long window, long long q_offset,
+                        int bf16, void* stream) {
   const Strides sq{q_sb, q_sh, q_ss}, sk{k_sb, k_sh, k_ss},
       sv{v_sb, v_sh, v_ss}, so{o_sb, o_sh, o_ss};
   const int group = heads / kv_heads;
   const int win = window > 0 ? (int)window : 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const int lq = (int)len_q, lk = (int)len_k;
+  const int lq = (int)len_q, lk = (int)len_k, qo = (int)q_offset;
   if (bf16) {  // the scale folded with log2 e into the exp2 argument
     const float scale_log2 = (float)(scale * 1.4426950408889634);
     return by_head_dim(head_dim, [&](auto d) {
       return tc::launch<decltype(d)::value>(q, k, v, o, (float*)lse, sq, sk,
                                             sv, so, batch, heads, group, lq,
-                                            lk, scale_log2, causal, win, s);
+                                            lk, scale_log2, causal, win, qo,
+                                            s);
     });
   }
   return by_head_dim(head_dim, [&](auto d) {
     return f32::launch<decltype(d)::value>(q, k, v, o, (float*)lse, sq, sk,
                                            sv, so, batch, heads, group, lq,
-                                           lk, (float)scale, causal, win, s);
+                                           lk, (float)scale, causal, win, qo,
+                                           s);
   });
 }
 
@@ -1773,8 +1795,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         long long dv_sb, long long dv_sh, long long dv_ss,
                         int batch, int heads, int kv_heads, long long len_q,
                         long long len_k, int head_dim, double scale,
-                        int causal, long long window, int bf16,
-                        void* stream) {
+                        int causal, long long window, long long q_offset,
+                        int bf16, void* stream) {
   bwd::BwdArgs a{q, k, v, o, dout, (const float*)lse, (float*)delta,
                  (float*)work, dq, dk, dv,
                  Strides{q_sb, q_sh, q_ss}, Strides{k_sb, k_sh, k_ss},
@@ -1783,7 +1805,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                  Strides{dk_sb, dk_sh, dk_ss}, Strides{dv_sb, dv_sh, dv_ss},
                  batch, heads, heads / kv_heads, kv_heads, (int)len_q,
                  (int)len_k, (float)scale, causal,
-                 window > 0 ? (int)window : 0};
+                 window > 0 ? (int)window : 0, (int)q_offset};
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return by_head_dim(head_dim, [&](auto d) {

@@ -78,9 +78,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _allowed(sq: int, sk: int, causal: bool, window: int,
-             device) -> torch.Tensor:
-    """(sq, sk) mask of the keys each query row may see."""
-    q_pos = torch.arange(sq, device=device)[:, None]
+             device, q_offset: int = 0) -> torch.Tensor:
+    """(sq, sk) mask of the keys each query row may see; row ``i`` sits at
+    position ``q_offset + i``."""
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
     k_pos = torch.arange(sk, device=device)[None, :]
     ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
@@ -97,7 +98,7 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-def _scores(q, k, causal, window):
+def _scores(q, k, causal, window, q_offset=0):
     """``(s, ok)``: the scaled float32 scores ``(B, KV, G, Sq, Sk)`` (masked
     ones ``NEG_INF``) and the ``(Sq, Sk)`` mask, as the reference makes
     them (``q`` scaled first)."""
@@ -105,16 +106,18 @@ def _scores(q, k, causal, window):
     kv, sk = k.shape[1], k.shape[2]
     qf = _wide(q).reshape(b, kv, h // kv, sq, d) * (1.0 / (d ** 0.5))
     s = torch.einsum("bkgqd,bkcd->bkgqc", qf, _wide(k))
-    ok = _allowed(sq, sk, causal, window, q.device)
+    ok = _allowed(sq, sk, causal, window, q.device, q_offset)
     return torch.where(ok, s, torch.full_like(s, NEG_INF)), ok
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False, q_offset: int = 0):
     """O(S^2)-memory softmax attention in float32.
 
-    ``q`` is ``(B, H, Sq, D)``, ``k`` and ``v`` are ``(B, KV, Sk, D)``; the
+    ``q`` is ``(B, H, Sq, D)``, ``k`` and ``v`` are ``(B, KV, Sk, D)``;
+    query row ``i`` sits at position ``q_offset + i`` (the reference's
+    ``chunked_attention(q_offset=)``), key ``j`` at ``j``; the
     scale is ``1/sqrt(D)``; the result is ``(B, H, Sq, D)`` in ``q``'s type,
     with 0 in every row that has no allowed key.  With ``return_lse`` also
     each row's log-sum-exp of its scaled scores over the allowed keys,
@@ -122,7 +125,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     writes it for the backward).
     """
     b, h, sq, d = q.shape
-    s, ok = _scores(q, k, causal, window)
+    s, ok = _scores(q, k, causal, window, q_offset)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bkcd->bkgqd", p, _wide(v))
     o = torch.where(ok.any(dim=-1)[:, None], o, torch.zeros_like(o))
@@ -135,19 +138,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
-                            window: int = 0) -> tuple:
+                            window: int = 0, q_offset: int = 0) -> tuple:
     """``(dq, dk, dv)`` of :func:`flash_attention_ref` by the explicit
     formulas of the backward kernel, in float32, each cast to its input's
     type: ``P = exp(S - lse)`` on the allowed keys (0 elsewhere, and in a
     row with none, whose ``lse`` is ``+inf``), ``delta = rowsum(dO O)``,
     ``dV = P^T dO``, ``dS = P (dO V^T - delta)``, ``dQ = dS K scale`` and
     ``dK = dS^T Q scale``, ``dK`` and ``dV`` summed over a KV group's
-    heads.  ``out`` is the forward's output as stored."""
+    heads.  ``out`` is the forward's output as stored; query row ``i`` sits
+    at position ``q_offset + i``."""
     b, h, sq, d = q.shape
     kv = k.shape[1]
     g = h // kv
     scale = 1.0 / (d ** 0.5)
-    s, ok = _scores(q, k, causal, window)
+    s, ok = _scores(q, k, causal, window, q_offset)
     lse5 = lse.to(s.dtype).reshape(b, kv, g, sq, 1)
     p = torch.where(ok, torch.exp(s - lse5), torch.zeros_like(s))
     do = _wide(dout).reshape(b, kv, g, sq, d)
@@ -162,7 +166,7 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, window, q_offset=0) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)!r}")
@@ -189,20 +193,24 @@ def _check(q, k, v, window) -> None:
     if min(b, h, sq, sk, d) < 1:
         raise ValueError(f"empty sizes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be at least 0, got {q_offset}")
 
 
-def _check_kernel(q, k, v, window) -> None:
+def _check_kernel(q, k, v, window, q_offset=0) -> None:
     """The limits of the CUDA kernels alone (the plain versions take any
-    head dim and size): a head dim of :data:`HEAD_DIMS`, lengths and the
-    window below 2**31, batch and heads below 2**16, and for bfloat16
-    every row of q, k, v 16-byte aligned."""
+    head dim and size): a head dim of :data:`HEAD_DIMS`, lengths, the
+    window and the last query's position below 2**31, batch and heads
+    below 2**16, and for bfloat16 every row of q, k, v 16-byte aligned."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
-    if max(sq, sk, window) >= 2 ** 31 or b >= 2 ** 16 or h >= 2 ** 16:
+    if max(sq, sk, window, q_offset + sq) >= 2 ** 31 or b >= 2 ** 16 \
+            or h >= 2 ** 16:
         raise ValueError(f"unsupported sizes: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, window {window}")
+                         f"{tuple(k.shape)}, window {window}, q_offset "
+                         f"{q_offset}")
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _check_aligned(name, t)
@@ -231,29 +239,42 @@ def _check_aligned(name: str, t: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """CUDA version of :func:`flash_attention_ref` (float32 or bfloat16;
     on the card the head dim is one of :data:`HEAD_DIMS`, on the CPU any).
+    Query row ``i`` sits at position ``q_offset + i``: a share of a
+    sequence's rows against the keys from its start (the model's
+    sequence-sharded attention).
 
     The inputs' type picks the kernel: bfloat16 runs the tensor-core kernel
     (rows 16-byte aligned, else ``ValueError``), float32 the CUDA-core one.
     A CPU tensor goes through the plain version; a CUDA tensor launches a
     kernel or raises.
     """
-    window = int(window)
-    _check(q, k, v, window)
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, window, q_offset)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    _check_kernel(q, k, v, window)
+    _check_kernel(q, k, v, window, q_offset)
     if (q.requires_grad or k.requires_grad or v.requires_grad) \
             and torch.is_grad_enabled():
-        return FlashAttentionFn.apply(q, k, v, bool(causal), window)
-    return _fwd_cuda(q, k, v, bool(causal), window, None)
+        return FlashAttentionFn.apply(q, k, v, bool(causal), window,
+                                      q_offset)
+    return _fwd_cuda(q, k, v, bool(causal), window, None, q_offset)
 
 
-def _fwd_cuda(q, k, v, causal: bool, window: int, lse) -> torch.Tensor:
+def _offset_key(q_offset: int) -> tuple:
+    """A shape key's tail for a query offset: nothing at offset 0, so that
+    the keys of whole-sequence launches keep their form."""
+    return (q_offset,) if q_offset else ()
+
+
+def _fwd_cuda(q, k, v, causal: bool, window: int, lse,
+              q_offset: int = 0) -> torch.Tensor:
     """One launch of the forward kernel on checked CUDA tensors; writes
     each row's log-sum-exp into ``lse`` when it is given."""
     out = torch.empty_like(q)          # q's stride order when q is dense
@@ -264,14 +285,16 @@ def _fwd_cuda(q, k, v, causal: bool, window: int, lse) -> torch.Tensor:
            None if lse is None else lse.data_ptr(),
            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            *out.stride()[:3], b, h, kv, sq, sk, d, 1.0 / (d ** 0.5),
-           int(causal), window, _DTYPES[q.dtype])
+           int(causal), window, q_offset, _DTYPES[q.dtype])
     flash_attention.launches += 1
     flash_attention.shapes[(tuple(q.shape), tuple(k.shape), causal,
-                            window, str(q.dtype))] += 1
+                            window, str(q.dtype))
+                           + _offset_key(q_offset)] += 1
     return out
 
 
-def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int) -> tuple:
+def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int,
+              q_offset: int = 0) -> tuple:
     """One launch of the backward kernel: ``(dq, dk, dv)``, each in its
     input's shape, type and stride order.  In bfloat16, rows of ``q``,
     ``k``, ``v`` must be 16-byte aligned; ``out`` and ``dout`` are copied
@@ -301,10 +324,11 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int) -> tuple:
            *(st for t in (q, k, v, out, dout, dq, dk, dv)
              for st in t.stride()[:3]),
            b, h, kv, sq, sk, d, 1.0 / (d ** 0.5), int(causal), window,
-           _DTYPES[q.dtype])
+           q_offset, _DTYPES[q.dtype])
     flash_attention.bwd_launches += 1
     flash_attention.shapes[("bwd", tuple(q.shape), tuple(k.shape), causal,
-                            window, str(q.dtype))] += 1
+                            window, str(q.dtype))
+                           + _offset_key(q_offset)] += 1
     return dq, dk, dv
 
 
@@ -336,17 +360,18 @@ class FlashAttentionFn(torch.autograd.Function):
     itself can be tested there."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset=0):
         if q.is_cuda:
             b, h, sq, _ = q.shape
             lse = torch.empty((b, h, sq), dtype=torch.float32,
                               device=q.device)
-            out = _fwd_cuda(q, k, v, causal, window, lse)
+            out = _fwd_cuda(q, k, v, causal, window, lse, q_offset)
         else:
             out, lse = flash_attention_ref(q, k, v, causal=causal,
-                                           window=window, return_lse=True)
+                                           window=window, return_lse=True,
+                                           q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
@@ -354,17 +379,19 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if q.is_cuda:
             dq, dk, dv = _bwd_cuda(q, k, v, out, lse, dout, ctx.causal,
-                                   ctx.window)
+                                   ctx.window, ctx.q_offset)
         else:
             dq, dk, dv = flash_attention_bwd_ref(
-                q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+                q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window,
+                q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 #: Number of forward kernel launches made by the wrapper (never the plain
 #: version), of backward launches (``bwd_launches``), and the same counts
 #: split by (q shape, k shape, causal, window, dtype), a backward's key
-#: led by ``"bwd"``.
+#: led by ``"bwd"``, and a launch with a query offset's key followed by
+#: the offset.
 flash_attention.launches = 0
 flash_attention.bwd_launches = 0
 flash_attention.shapes = Counter()

@@ -10,7 +10,17 @@ here, on the group of a :class:`~repro_torch.launch.mesh.Mesh` axis.
 ``gloo`` moves host memory.  A CUDA tensor crosses it staged through
 pinned host memory (a copy out, the transfer, a copy back: bit-exact),
 which also lets several ranks share one GPU, where NCCL refuses two ranks
-on one device.  :data:`STATS` counts the bytes each kind of call staged.
+on one device.  :data:`STATS` counts the bytes each kind of call moved
+(on the card, every one of them staged through host memory).
+
+The autograd collectives of tensor parallelism, in Megatron's terms:
+:func:`copy_to` is the column-parallel ``f`` (identity forward, sum of
+the cotangents backward), :func:`sum_over` the row-parallel ``g`` (sum
+forward, identity backward), :func:`gather_over` the FSDP gather of a
+weight (its cotangent summed, then this rank's block), :func:`gather_rows`
+the gather of an activation whose consumers are replicated (this rank's
+block of the cotangent, no sum), and :func:`max_over` the vocabulary's
+max (no gradient, as the reference's ``logsumexp`` stops it).
 
 :func:`spawn` starts the ranks as processes, each with its group up
 (:func:`init_group`, a ``file://`` store in a fresh temporary directory,
@@ -31,15 +41,32 @@ from typing import Any, Callable, Dict, List, Sequence
 import torch
 import torch.distributed as dist
 
-#: Bytes staged through host memory since the last :func:`reset_stats`:
-#: ``p2p`` by :func:`send` and :func:`recv`, ``collective`` by the
-#: reductions and gathers.
-STATS: Dict[str, int] = {"p2p": 0, "collective": 0}
+#: Bytes moved since the last :func:`reset_stats` (a CUDA tensor's staged
+#: through host memory): ``p2p`` by :func:`send` and :func:`recv`,
+#: ``collective`` by the
+#: reductions and gathers; the collective bytes again by what the call is
+#: for (its ``kind``): ``fsdp`` the FSDP gathers of weights and their
+#: backward, ``tp`` the tensor-parallel sums and gathers of activations
+#: (and the gradient norm's partial sums over the model axis), ``vocab``
+#: the vocabulary-parallel embedding's sum, the head's sum of input
+#: cotangents and the loss's reductions, ``data`` the reductions over the
+#: data axes (gradients, the gradient norm, the loss, its token count).
+STATS: Dict[str, int] = {"p2p": 0, "collective": 0, "fsdp": 0, "tp": 0,
+                         "vocab": 0, "data": 0}
+_KINDS = ("fsdp", "tp", "vocab", "data")
 
 
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = 0
+
+
+def _count(nbytes: int, kind: str) -> None:
+    """Add a staged collective's bytes to ``collective`` and to ``kind``
+    (one of :data:`_KINDS`, or ``""`` for none)."""
+    STATS["collective"] += nbytes
+    if kind:
+        STATS[kind] += nbytes
 
 
 def init_group(rank: int, world: int, store_path: str,
@@ -84,8 +111,7 @@ def send(t: torch.Tensor, dst: int) -> _Pending:
     """Start sending ``t`` to global rank ``dst``; ``.wait()`` the result
     before the end of the step."""
     buf = _host(t) if _staged(t) else t.contiguous()
-    if _staged(t):
-        STATS["p2p"] += buf.numel() * buf.element_size()
+    STATS["p2p"] += buf.numel() * buf.element_size()
     return _Pending(dist.isend(buf, dst), buf)
 
 
@@ -97,10 +123,8 @@ def recv(shape, dtype: torch.dtype, device, src: int) -> torch.Tensor:
     buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=staged,
                       device="cpu" if staged else device)
     dist.recv(buf, src)
-    if not staged:
-        return buf
     STATS["p2p"] += buf.numel() * buf.element_size()
-    return buf.to(device)
+    return buf.to(device) if staged else buf
 
 
 def wait_all(pending: List[_Pending]) -> None:
@@ -110,23 +134,26 @@ def wait_all(pending: List[_Pending]) -> None:
 
 
 def _reduce_host(buf: torch.Tensor, mesh, axis: str, op: str) -> None:
-    """``buf`` (a host or non-staged tensor) summed, or averaged, over
-    this rank's line of ``axis`` in place."""
+    """``buf`` (a host or non-staged tensor) summed, averaged or maxed
+    over this rank's line of ``axis`` in place."""
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(f"op must be 'sum', 'mean' or 'max', got {op!r}")
     n = mesh.shape[axis]
     if n > 1:
-        dist.all_reduce(buf, group=mesh.group(axis))
+        red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+        dist.all_reduce(buf, op=red, group=mesh.group(axis))
     if op == "mean":
         buf.div_(torch.full((), float(n), dtype=buf.dtype))
-    elif op != "sum":
-        raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
 
 
 def all_reduce(tensors: Sequence[torch.Tensor], mesh, axis: str,
-               op: str = "sum") -> None:
-    """Sum (``op="sum"``) or average (``"mean"``: the sum, then divided by
-    the axis size) each tensor over this rank's line of ``axis``, in
-    place.  The tensors of one type go as one flat bucket: one transfer
-    per type.  Every rank of the line gets the same bits."""
+               op: str = "sum", kind: str = "") -> None:
+    """Sum (``op="sum"``), average (``"mean"``: the sum, then divided by
+    the axis size) or take the largest of (``"max"``) each tensor over
+    this rank's line of ``axis``, in place.  The tensors of one type go as
+    one flat bucket: one transfer per type.  Every rank of the line gets
+    the same bits.  ``kind`` names what the call is for in
+    :data:`STATS`."""
     if mesh.shape[axis] == 1:
         return
     by_type: Dict[torch.dtype, List[torch.Tensor]] = {}
@@ -136,8 +163,7 @@ def all_reduce(tensors: Sequence[torch.Tensor], mesh, axis: str,
         flat = torch.cat([t.reshape(-1) for t in ts])
         staged = _staged(flat)
         buf = _host(flat) if staged else flat
-        if staged:
-            STATS["collective"] += buf.numel() * buf.element_size()
+        _count(buf.numel() * buf.element_size(), kind)
         _reduce_host(buf, mesh, axis, op)
         if staged:
             flat.copy_(buf)
@@ -147,7 +173,8 @@ def all_reduce(tensors: Sequence[torch.Tensor], mesh, axis: str,
             off += t.numel()
 
 
-def all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def all_gather(t: torch.Tensor, mesh, axis: str, dim: int,
+               kind: str = "") -> torch.Tensor:
     """The blocks of ``t`` of every rank of this rank's line of ``axis``,
     concatenated along ``dim`` in the mesh's coordinate order (the
     reference's ``all_gather(..., tiled=True)``)."""
@@ -157,17 +184,24 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     group = mesh.group(axis)
     staged = _staged(t)
     src = _host(t) if staged else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
     if staged:
-        STATS["collective"] += n * src.numel() * src.element_size()
+        # the blocks land in one pinned buffer, which goes to the card in
+        # one copy
+        buf = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
+                          pin_memory=True)
+        parts = list(buf.unbind(0))
+    else:
+        parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    _count(n * src.numel() * src.element_size(), kind)
+    if staged:
+        parts = list(buf.to(t.device).unbind(0))
     # the group lists its ranks in ascending order; the mesh's order may
     # differ (a permuted mapping)
     me = dist.get_rank()
     line = mesh.axis_ranks(axis, me)
     by_rank = dict(zip(sorted(line), parts))
-    out = torch.cat([by_rank[r] for r in line], dim=dim)
-    return out.to(t.device) if staged else out
+    return torch.cat([by_rank[r] for r in line], dim=dim)
 
 
 class _SumOver(torch.autograd.Function):
@@ -176,14 +210,14 @@ class _SumOver(torch.autograd.Function):
     it."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis):
+    def forward(ctx, x, mesh, axis, kind):
         y = x.clone()
-        all_reduce([y], mesh, axis, "sum")
+        all_reduce([y], mesh, axis, "sum", kind)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        return g, None, None, None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -191,53 +225,82 @@ class _CopyTo(torch.autograd.Function):
     Backward: the sum over the axis of every rank's partial cotangent."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
+    def forward(ctx, x, mesh, axis, kind):
+        ctx.mesh, ctx.axis, ctx.kind = mesh, axis, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        all_reduce([g], ctx.mesh, ctx.axis, "sum")
-        return g, None, None
+        all_reduce([g], ctx.mesh, ctx.axis, "sum", ctx.kind)
+        return g, None, None, None
 
 
 class _Gather(torch.autograd.Function):
     """Forward: :func:`all_gather` along ``dim``.  Backward: the
-    cotangent summed over the axis, then this rank's block of it."""
+    cotangent summed over the axis, then this rank's block of it (with
+    ``reduce`` false, this rank's block alone)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim):
-        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        ctx.size = x.shape[dim]
-        return all_gather(x, mesh, axis, dim)
+    def forward(ctx, x, mesh, axis, dim, kind, reduce):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.kind = mesh, axis, dim, kind
+        ctx.size, ctx.reduce = x.shape[dim], reduce
+        return all_gather(x, mesh, axis, dim, kind)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        all_reduce([g], ctx.mesh, ctx.axis, "sum")
+        if ctx.reduce:
+            g = g.contiguous().clone()
+            all_reduce([g], ctx.mesh, ctx.axis, "sum", ctx.kind)
         line = ctx.mesh.axis_ranks(ctx.axis, dist.get_rank())
         i = line.index(dist.get_rank())
         return (g.narrow(ctx.dim, i * ctx.size, ctx.size).contiguous(),
-                None, None, None)
+                None, None, None, None, None)
 
 
-def sum_over(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def sum_over(x: torch.Tensor, mesh, axis: str,
+             kind: str = "tp") -> torch.Tensor:
     """``psum`` of a partial result whose sum is replicated over ``axis``
     (differentiable; the gradient passes through unchanged)."""
-    return _SumOver.apply(x, mesh, axis)
+    return _SumOver.apply(x, mesh, axis, kind)
 
 
-def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def copy_to(x: torch.Tensor, mesh, axis: str,
+            kind: str = "tp") -> torch.Tensor:
     """Mark ``x`` as replicated over ``axis``: the identity, whose gradient
     is summed over the axis (each rank's use adds its part)."""
-    return _CopyTo.apply(x, mesh, axis)
+    return _CopyTo.apply(x, mesh, axis, kind)
 
 
-def gather_over(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+def gather_over(x: torch.Tensor, mesh, axis: str, dim: int,
+                kind: str = "fsdp") -> torch.Tensor:
     """Differentiable :func:`all_gather` (an FSDP weight gathered for
-    use); the gradient of the gathered tensor is reduce-scattered back."""
-    return _Gather.apply(x, mesh, axis, dim)
+    use); the gradient of the gathered tensor is summed over the axis and
+    this rank's block kept (an all-reduce then a cut: a reduce-scatter's
+    result at twice its bytes)."""
+    return _Gather.apply(x, mesh, axis, dim, kind, True)
+
+
+def gather_rows(x: torch.Tensor, mesh, axis: str, dim: int,
+                kind: str = "tp") -> torch.Tensor:
+    """Differentiable :func:`all_gather` of an activation whose consumers
+    are replicated over ``axis`` (the sequence-sharded attention's output
+    rows): every rank then holds the same cotangent of the whole, and the
+    gradient of ``x`` is this rank's block of it, not summed (a sum would
+    multiply it by the axis size)."""
+    return _Gather.apply(x, mesh, axis, dim, kind, False)
+
+
+def max_over(x: torch.Tensor, mesh, axis: str,
+             kind: str = "vocab") -> torch.Tensor:
+    """The elementwise largest of ``x`` over ``axis``, detached: the
+    stabiliser of a vocabulary-parallel ``logsumexp``, whose gradient the
+    reference stops too (``jax.nn.logsumexp`` takes ``stop_gradient`` of
+    its max; the result does not depend on it)."""
+    with torch.no_grad():
+        y = x.detach().clone()
+        all_reduce([y], mesh, axis, "max", kind)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,11 @@
 ``generate.py``).
 
 The reference wraps these in ``jax.jit``; PyTorch runs them eagerly, so a
-step is a plain closure over the config.
+step is a plain closure over the config.  Under an active context the
+train step runs on one rank of the mesh, on its blocks of the parameters
+(``models/sharding.py::shard_params``) and its rows of the batch
+(:func:`shard_batch`); the collectives that GSPMD inserts into the
+reference's step are written out here and in the model's layers.
 """
 from __future__ import annotations
 
@@ -14,8 +18,10 @@ import torch
 from .._tree import leaves, tree_map
 from ..models import model as M
 from ..models.config import ModelConfig
+from ..models import sharding as sh
 from ..models.sharding import ShardCtx
 from ..optim.adamw import AdamW, AdamWState
+from . import collectives as C
 
 
 def _leaves_for_grad(params) -> tuple:
@@ -52,6 +58,81 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> dict:
     return out
 
 
+def _named(tree) -> list:
+    """``(leaf name, tensor)`` of every leaf of a parameter tree (layers
+    stacked), the top-level ones first, in the tree's own order."""
+    out = []
+    for k, v in tree.items():
+        if k == "layers":
+            out += list(v.items())
+        else:
+            out.append((k, v))
+    return out
+
+
+def sync_grads(grads, cfg: ModelConfig, ctx: ShardCtx) -> None:
+    """Sum, in place, each gradient of a rank's blocks (the tree of the
+    parameters, layers stacked) over every data axis that its spec does
+    not name: a leaf replicated over a data axis holds that data shard's
+    part of its gradient, while an FSDP leaf's gather already summed its
+    gradient over the axis in the backward.  (Over the model axis the
+    layers already summed, through ``copy_to``, every leaf whose use they
+    split.)  One bucketed all-reduce per axis."""
+    if ctx is None or not ctx.active:
+        return
+    specs = sh.use_specs(cfg, ctx)
+    for a in ctx.dp:
+        part = [g for name, g in _named(grads)
+                if a not in sh.axes_of(specs[name])]
+        C.all_reduce(part, ctx.mesh, a, "sum", "data")
+
+
+def grad_sq_norm(grads, cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
+    """The squared norm of the whole model's gradient from a rank's blocks
+    (after :func:`sync_grads`), the same bits on every rank: the leaves'
+    float32 sums of squares added per set of axes their specs name, each
+    such sum reduced over those axes (a leaf replicated over an axis
+    counts once), and the sets folded in sorted order."""
+    specs = sh.use_specs(cfg, ctx)
+    groups = {}
+    for name, g in _named(grads):
+        axes = tuple(sorted(set(sh.axes_of(specs[name]))))
+        g = g.float()
+        groups.setdefault(axes, []).append(torch.sum(g * g))
+    total = 0
+    for axes in sorted(groups):
+        part = torch.stack(groups[axes]).sum()
+        for a in axes:
+            C.all_reduce([part], ctx.mesh, a, "sum",
+                         "tp" if a == ctx.tp else "data")
+        total = total + part
+    return total
+
+
+def shard_batch(batch: Dict[str, Any], ctx: ShardCtx, rank: int,
+                n_micro: int = 1) -> Dict[str, Any]:
+    """``rank``'s rows of a global batch for :func:`make_train_step` under
+    ``ctx``: of each of the ``n_micro`` microbatches of consecutive rows
+    (the reference's split), the block of its data coordinates (the data
+    axes major to minor), so that the step's microbatch ``j`` on every
+    data rank together is the reference's microbatch ``j``."""
+    n, idx = 1, 0
+    c = ctx.mesh.coords(rank)
+    for a in ctx.dp:
+        idx = idx * ctx.n(a) + c[a]
+        n *= ctx.n(a)
+    out = {}
+    for k, v in batch.items():
+        rows = v.shape[0]
+        if rows % (n_micro * n):
+            raise ValueError(f"{rows} rows do not split into {n_micro} "
+                             f"microbatches over {n} data ranks")
+        per = rows // (n_micro * n)
+        v = v.reshape((n_micro, n, per) + tuple(v.shape[1:]))[:, idx]
+        out[k] = v.reshape((n_micro * per,) + tuple(v.shape[2:]))
+    return out
+
+
 def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
                     n_micro: int = 1):
     """Microbatch-accumulation training step (Pipette's ``bs_micro``
@@ -65,7 +146,14 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
     float32 accumulators of the parameters' stacked shapes, which are
     divided by ``n_micro`` (with ``n_micro == 1`` the cast gradients are
     used as they are); then one AdamW update.  The loss is the microbatch
-    losses' mean."""
+    losses' mean.
+
+    Under an active context ``params`` and ``opt_state`` are this rank's
+    blocks and ``batch`` its rows (:func:`shard_batch`); the accumulators
+    take the blocks' shapes, each gradient is summed once over the data
+    axes that still hold part of it (:func:`sync_grads`), the grad clip
+    takes the whole model's norm (:func:`grad_sq_norm`), and the loss is
+    the global batch's."""
     if n_micro < 1:
         raise ValueError(f"n_micro must be at least 1, got {n_micro}")
 
@@ -110,7 +198,13 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
             for t in leaves(acc):
                 t.div_(div)
             loss = lsum / div
-        new_params, new_opt = opt.update(acc, opt_state, params)
+        sq_norm = None
+        if ctx is not None and ctx.active:
+            sync_grads(acc, cfg, ctx)
+            if opt.grad_clip > 0:
+                sq_norm = grad_sq_norm(acc, cfg, ctx)
+        new_params, new_opt = opt.update(acc, opt_state, params,
+                                         sq_norm=sq_norm)
         return new_params, new_opt, {"loss": loss}
 
     return train_step

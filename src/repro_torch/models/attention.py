@@ -21,11 +21,6 @@ import torch
 from .layers import pick_chunk
 
 NEG_INF = -1e30
-#: Why ``chunked_attention`` refuses a ``block_constrain``: the q-block
-#: dim sharded over the model axis is the model under an active context.
-NO_BLOCK_CONSTRAIN = ("chunked_attention: block_constrain shards the q-block "
-                      "dim over the model axis of a mesh; the sequence-"
-                      "sharded attention comes with ROADMAP Queue A 11b")
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -46,11 +41,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     recurrence, so that no ``(Sq, Sk)`` score matrix is made beyond a
     ``(cq, ck)`` tile per block.  ``q`` is scaled by ``1/sqrt(hd)`` in
     float32 before the product; masked scores are ``NEG_INF`` (-1e30).
-    Returns ``q``'s type.  ``block_constrain`` (the reference's q-block
-    sharding hook) must be None: anything else raises
-    ``NotImplementedError``."""
-    if block_constrain is not None:
-        raise NotImplementedError(NO_BLOCK_CONSTRAIN)
+    Returns ``q``'s type.  ``block_constrain(t, dim)`` (the reference's
+    q-block sharding hook) is called where the reference calls it: on the
+    scaled query blocks ``(b, nq, cq, KV, G, hd)`` and on the output
+    blocks ``(b, nq, KV, G, cq, hd)``, with the q-block dim 1; it returns
+    the tensor to go on with (the reference's lays it out over a mesh, a
+    layout only).  The model's sequence-sharded attention cuts the rows
+    itself (``transformer.py::_attn_sharded``)."""
     b, sq, h, hd = q.shape
     _, sk, kv, _ = k.shape
     g = h // kv
@@ -67,6 +64,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window = int(window)
 
     qc = q.reshape(b, nq, cq, kv, g, hd).to(f32) * scale
+    if block_constrain is not None:
+        qc = block_constrain(qc, 1)
     kc = k.reshape(b, nk, ck, kv, hd).to(f32)
     vc = v.reshape(b, nk, ck, kv, hd).to(f32)
     q_pos = q_offset + torch.arange(sq, device=q.device).reshape(nq, cq)
@@ -96,6 +95,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     out = torch.where(m[..., None] <= NEG_INF * 0.5, torch.zeros_like(out),
                       out)
+    if block_constrain is not None:
+        out = block_constrain(out, 1)
     # (b, nq, kv, g, cq, hd) -> (b, nq, cq, kv, g, hd)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, sq, h, hd)
     return out.to(q.dtype)

@@ -14,6 +14,14 @@ gets a new one back.  In a decode step each block's output is added to the
 residual stream by the norm that follows it, the final norm included (one
 ``add_rmsnorm`` launch each).  :func:`loss_fn` is the training objective
 that ``launch/steps.py::make_train_step`` differentiates.
+
+Under an active context (the attention families) :func:`forward_logits`
+and :func:`loss_fn` run this rank's part: the embedding looks up the rows
+of the vocabulary this rank holds and sums over the model axis, the head
+computes this rank's vocabulary columns, and the loss is a
+vocabulary-parallel cross-entropy whose masked mean is taken over the
+global batch.  :func:`prefill` and :func:`decode_step` refuse one
+(ROADMAP Queue A 11c).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from . import mamba as mam
 from .attention import decode_attention
 from .config import ModelConfig
 from .layers import residual_norm, rms_norm
+from . import sharding as sh
 from .sharding import P, ShardCtx, refuse_active
 from .transformer import (_out_proj, _proj_qkv, check_family, init_params,
                           layer_params, layer_plan, mlp_block, moe_mlp,
@@ -40,11 +49,47 @@ __all__ = ["init_params", "forward_logits", "loss_fn", "prefill",
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_inputs(params, cfg: ModelConfig, tokens, img_embeds=None):
+def _vocab_cut(cfg: ModelConfig, ctx) -> Any:
+    """``(v0, n)``: the first row and the number of rows of the padded
+    vocabulary this rank holds under an active context, or None when the
+    vocabulary is not cut over the model axis (or no context is
+    active)."""
+    if ctx is None or not ctx.active:
+        return None
+    if ctx.tp not in sh.spec_axes(sh.use_specs(cfg, ctx)["tok_embed"][0]):
+        return None
+    n = cfg.padded_vocab // ctx.n(ctx.tp)
+    return sh.coord(ctx, ctx.tp) * n, n
+
+
+def embed_inputs(params, cfg: ModelConfig, tokens, img_embeds=None,
+                 ctx=None):
     """Token embeddings ``(b, s, d)`` and positions ``(b, s)`` int32; image
     embeddings ``(b, n_img, d)``, when given, go ahead of the text (cast to
-    the embeddings' type) and ``s`` counts both."""
-    x = params["tok_embed"][tokens]                     # (b, s_text, d)
+    the embeddings' type) and ``s`` counts both.
+
+    Under an active context ``tokens`` and ``img_embeds`` are this data
+    shard's rows and ``tok_embed`` this rank's block: gathered over the
+    FSDP axes, it looks up the tokens in its rows of the vocabulary,
+    zeros stand for the others, and the sum over the model axis adds
+    exact zeros, so the embedding is bit-equal to the whole table's."""
+    if ctx is not None and ctx.active:
+        from ..launch import collectives as C
+        table = sh.fsdp_gather(params["tok_embed"],
+                               sh.use_specs(cfg, ctx)["tok_embed"], ctx)
+        cut = _vocab_cut(cfg, ctx)
+        if cut is None:
+            x = table[tokens]
+        else:
+            v0, n = cut
+            local = tokens - v0
+            inside = (local >= 0) & (local < n)
+            x = table[local.clamp(0, n - 1)]
+            x = torch.where(inside[..., None], x, torch.zeros(
+                (), dtype=x.dtype, device=x.device))
+            x = C.sum_over(x, ctx.mesh, ctx.tp, "vocab")
+    else:
+        x = params["tok_embed"][tokens]                 # (b, s_text, d)
     if img_embeds is not None:
         x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -53,26 +98,42 @@ def embed_inputs(params, cfg: ModelConfig, tokens, img_embeds=None):
     return x, positions
 
 
-def _head(params, cfg: ModelConfig):
-    if cfg.tie_embeddings or "lm_head" not in params:
-        return params["tok_embed"].T
-    return params["lm_head"]
+def _head(params, cfg: ModelConfig, ctx=None):
+    """The head ``(d, V)`` (under an active context this rank's columns,
+    gathered over the FSDP axes): ``lm_head``, or ``tok_embed.T`` when
+    the embeddings are tied (whose rows are the same columns)."""
+    tied = cfg.tie_embeddings or "lm_head" not in params
+    key = "tok_embed" if tied else "lm_head"
+    w = params[key]
+    if ctx is not None and ctx.active:
+        w = sh.fsdp_gather(w, sh.use_specs(cfg, ctx)[key], ctx)
+    return w.T if tied else w
 
 
-def _project_logits(x, params, cfg: ModelConfig):
+def _project_logits(x, params, cfg: ModelConfig, ctx=None):
     """Final projection with phantom-row masking (padded_vocab is exact).
 
     The reference computes ``x.astype(bfloat16) @ head``; with a float32
     head (a ``reduced()`` config) jnp promotes the product to float32.
     ``torch.matmul`` refuses mixed types, so the promotion is replayed:
-    round ``x`` to bfloat16, then multiply in the promoted type."""
-    head = _head(params, cfg)
+    round ``x`` to bfloat16, then multiply in the promoted type.  Under an
+    active context, this rank's vocabulary columns (the phantom mask by
+    global column)."""
+    head = _head(params, cfg, ctx)
+    cut = _vocab_cut(cfg, ctx)
+    v0, n = (0, cfg.padded_vocab) if cut is None else cut
     rt = torch.promote_types(torch.bfloat16, head.dtype)
-    logits = x.to(torch.bfloat16).to(rt) @ head.to(rt)
+    xr = x.to(torch.bfloat16).to(rt)
+    if cut is not None:
+        # after the casts: the ranks' partial cotangents are summed in the
+        # product's type, then rounded to bfloat16 once, as one device does
+        from ..launch import collectives as C
+        xr = C.copy_to(xr, ctx.mesh, ctx.tp, "vocab")
+    logits = xr @ head.to(rt)
     if cfg.padded_vocab != cfg.vocab_size:
-        phantom = torch.arange(cfg.padded_vocab,
-                               device=logits.device) >= cfg.vocab_size
-        bias = torch.zeros(cfg.padded_vocab, dtype=torch.float32,
+        phantom = v0 + torch.arange(n, device=logits.device) \
+            >= cfg.vocab_size
+        bias = torch.zeros(n, dtype=torch.float32,
                            device=logits.device).masked_fill(phantom, -1e30)
         logits = logits + bias.to(logits.dtype)
     return logits
@@ -80,12 +141,15 @@ def _project_logits(x, params, cfg: ModelConfig):
 
 def forward_logits(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
                    img_embeds=None):
-    """Logits ``(b, s, padded_vocab)`` of every position."""
-    refuse_active(ctx, "forward_logits")
-    x, positions = embed_inputs(params, cfg, tokens, img_embeds)
+    """Logits ``(b, s, padded_vocab)`` of every position.  Under an
+    active context, this rank's block ``(b / dp, s, padded_vocab / tp)``:
+    its data shard's rows (``tokens`` and ``img_embeds`` are those rows)
+    and its vocabulary columns (all of them when the vocabulary does not
+    divide the model axis)."""
+    x, positions = embed_inputs(params, cfg, tokens, img_embeds, ctx)
     x, _ = run_stack(x, params, cfg, ctx, positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _project_logits(x, params, cfg)
+    return _project_logits(x, params, cfg, ctx)
 
 
 def loss_fn(params, cfg: ModelConfig, ctx: ShardCtx, batch
@@ -99,19 +163,46 @@ def loss_fn(params, cfg: ModelConfig, ctx: ShardCtx, batch
     own is ``logit * 0``, an exact zero (no logit is infinite: phantom rows
     carry -1e30), so taking the label's logit with ``gather`` is bit-equal
     and never makes the one-hot (1.2 GB at qwen2-7b's vocabulary and a
-    batch of 4 x 512)."""
-    refuse_active(ctx, "loss_fn")
+    batch of 4 x 512).
+
+    Under an active context ``batch`` is this data shard's rows and the
+    result the global batch's loss, on every rank: a vocabulary-parallel
+    cross-entropy (the max and the sum of exponentials over the model
+    axis, the label's logit from the rank that holds its column), then
+    the sum of ``nll * mask`` and the count of valid labels each summed
+    over the data axes before the divide (a mean of the shards' means
+    would weigh them wrongly when labels are masked)."""
+    from ..launch import collectives as C
     logits = forward_logits(params, cfg, ctx, batch["tokens"],
                             batch.get("img_embeds"))
     labels = batch["labels"]
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    safe = labels.clamp_min(0).long()
-    picked = torch.gather(lf, -1, safe[..., None])[..., 0]
+    cut = _vocab_cut(cfg, ctx)
+    if cut is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        safe = labels.clamp_min(0).long()
+        picked = torch.gather(lf, -1, safe[..., None])[..., 0]
+    else:
+        v0, n_loc = cut
+        mx = C.max_over(lf.amax(dim=-1), ctx.mesh, ctx.tp)
+        se = torch.exp(lf - mx[..., None]).sum(dim=-1)
+        lse = mx + torch.log(C.sum_over(se, ctx.mesh, ctx.tp, "vocab"))
+        local = labels.long() - v0
+        inside = (local >= 0) & (local < n_loc)
+        picked = torch.gather(lf, -1, local.clamp(0, n_loc - 1)[..., None])
+        picked = torch.where(inside, picked[..., 0], torch.zeros(
+            (), dtype=lf.dtype, device=lf.device))
+        picked = C.sum_over(picked, ctx.mesh, ctx.tp, "vocab")
     nll = lse - picked
     mask = (labels >= 0).float()
-    n = torch.clamp_min(mask.sum(), 1.0)
-    loss = (nll * mask).sum() / n
+    total, n = (nll * mask).sum(), mask.sum()
+    if ctx is not None and ctx.active:
+        n = n.detach().clone()
+        for a in ctx.dp:
+            C.all_reduce([n], ctx.mesh, a, "sum", "data")
+            total = C.sum_over(total, ctx.mesh, a, "data")
+    n = torch.clamp_min(n, 1.0)
+    loss = total / n
     return loss, {"loss": loss, "tokens": n}
 
 

@@ -15,25 +15,35 @@ A spec is a :class:`P`, one entry per tensor dim: ``None``, an axis name,
 or a tuple of names (split major to minor).  The reference hands its
 specs to XLA, which partitions the program.  The port runs one process
 per rank, so a spec is used to cut a whole tensor down to one rank's
-block (:func:`shard_leaf`) and to describe it as ``torch.distributed``
-placements (:func:`tree_shardings`).
+block (:func:`shard_leaf`, :func:`shard_params`; :func:`gather_params`
+puts the blocks back together) and to describe it as
+``torch.distributed`` placements (:func:`tree_shardings`).
 
-The model under an active context (tensor and FSDP sharding of the dense
-weights, which XLA partitions implicitly, and the sequence-sharded
-attention) is ROADMAP Queue A 11b: the model's entry points refuse an
-active context (:func:`refuse_active`) rather than run unsharded in
-silence, and :meth:`ShardCtx.constrain` is the identity.
+Under an active context each rank holds its blocks of the parameters and
+its data shard of the batch, and the model's layers (``transformer.py``,
+``model.py``) write by hand what XLA partitions implicitly: the FSDP
+gather of a weight before its use (:func:`fsdp_gather`), the column- and
+row-parallel products with their sums over the model axis, the
+vocabulary-parallel embedding and loss, and the sequence-sharded
+attention where the heads do not divide the model axis.
+:meth:`ShardCtx.constrain` stays the identity: the port never lays out an
+activation other than the layers' code puts it.  The Mamba families,
+prefill and decode under a context are ROADMAP Queue A 11c: those entry
+points refuse an active context (:func:`refuse_active`) rather than run
+unsharded in silence.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
-#: Why the model's entry points refuse an active context.
-NO_ACTIVE_MODEL = ("the model under an active ShardCtx (tensor and FSDP "
-                   "sharding of its weights, sequence-sharded attention) "
-                   "is not ported to the PyTorch package; it comes with "
-                   "ROADMAP Queue A 11b")
+#: Why an entry point refuses an active context.
+NO_ACTIVE_MODEL = ("this path under an active ShardCtx (the Mamba "
+                   "families' packed in_proj cut over the model axis, "
+                   "prefill and decode with the KV cache's sequence over "
+                   "the model axis) is not ported to the PyTorch package; "
+                   "it comes with ROADMAP Queue A 11c")
 
 
 class P(tuple):
@@ -85,9 +95,9 @@ class ShardCtx:
 
 
 def refuse_active(ctx: Optional[ShardCtx], where: str) -> None:
-    """Raise ``NotImplementedError`` naming Queue A 11b when ``ctx`` is
-    active: the model entry point ``where`` runs on one rank's whole
-    tensors only."""
+    """Raise ``NotImplementedError`` naming Queue A 11c when ``ctx`` is
+    active: the entry point ``where`` runs on one rank's whole tensors
+    only."""
     if ctx is not None and ctx.active:
         raise NotImplementedError(f"{where}: {NO_ACTIVE_MODEL}")
 
@@ -214,3 +224,96 @@ def shard_leaf(x, spec: P, mesh, rank: int):
         size = dim // n
         index.append(slice(idx * size, (idx + 1) * size))
     return x[tuple(index)]
+
+
+# ---------------------------------------------------------------------------
+# the model's parameters under an active context
+# ---------------------------------------------------------------------------
+
+def shard_params(params, cfg, ctx: ShardCtx, rank: int):
+    """``rank``'s blocks of the whole parameters ``params`` (the tree of
+    ``init_params``, layers stacked) under :func:`tree_pspecs`, each a
+    tensor of its own: what the reference's ``jax.device_put(params,
+    tree_shardings(params, cfg, ctx))`` puts on that device."""
+    specs = tree_pspecs(params, cfg, ctx)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        return shard_leaf(node, spec, ctx.mesh, rank).contiguous()
+    return walk(params, specs)
+
+
+def gather_params(blocks: List[Any], cfg, ctx: ShardCtx):
+    """The whole tree from every rank's blocks (``blocks[r]`` is rank
+    ``r``'s tree, as :func:`shard_params` cuts it, or a tree of its
+    gradients of the same shapes): the inverse of :func:`shard_params`.
+    Every rank's block lands at its place; ranks that hold the same block
+    must hold the same values (``ValueError`` otherwise)."""
+    import torch
+    from .transformer import param_shapes
+    shapes = param_shapes(cfg)
+    specs = tree_pspecs(shapes, cfg, ctx)
+
+    def walk(parts, shape, spec):
+        if isinstance(shape, dict):
+            return {k: walk([p[k] for p in parts], shape[k], spec[k])
+                    for k in parts[0]}
+        whole = torch.empty(tuple(shape.shape), dtype=parts[0].dtype,
+                            device=parts[0].device)
+        seen = torch.zeros(tuple(shape.shape), dtype=torch.bool,
+                           device=parts[0].device)
+        for r, part in enumerate(parts):
+            dst = shard_leaf(whole, spec, ctx.mesh, r)
+            was = shard_leaf(seen, spec, ctx.mesh, r)
+            if bool(was.any()) and not torch.equal(dst, part):
+                raise ValueError(f"ranks disagree on a replicated block "
+                                 f"(rank {r}, spec {spec!r})")
+            dst.copy_(part)
+            was.fill_(True)
+        return whole
+    return walk(blocks, shapes, specs)
+
+
+@functools.lru_cache(maxsize=None)
+def use_specs(cfg, ctx: ShardCtx) -> Dict[str, P]:
+    """The spec of every parameter as a layer uses it, by leaf name: the
+    top-level leaves' specs, and each layer leaf's without its stacked
+    layer dim (one layer's slice of the stored block)."""
+    from .transformer import param_shapes
+    out: Dict[str, P] = {}
+    for k, v in param_shapes(cfg).items():
+        if k == "layers":
+            for name, sd in v.items():
+                out[name] = P(*param_spec(name, sd.shape, cfg, ctx)[1:])
+        elif not isinstance(v, dict):
+            out[k] = param_spec(k, v.shape, cfg, ctx)
+    return out
+
+
+def axes_of(spec: P) -> Tuple[str, ...]:
+    """Every axis a spec names, in the order of its entries."""
+    return tuple(a for entry in spec for a in spec_axes(entry))
+
+
+def coord(ctx: ShardCtx, axis: str) -> int:
+    """This process's coordinate along ``axis`` of ``ctx.mesh`` (its rank
+    in the default process group, which must be up)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("the model under an active ShardCtx runs one "
+                           "process per rank: no torch.distributed process "
+                           "group is up (launch/collectives.init_group)")
+    return ctx.mesh.coords(dist.get_rank())[axis]
+
+
+def fsdp_gather(w, spec: P, ctx: ShardCtx):
+    """The weight ``w`` (this rank's block under ``spec``) gathered over
+    every FSDP axis the spec names, minor axis first (a dim split major to
+    minor), so that only its model-axis cut remains; the gradient goes
+    back summed over those axes (``collectives.gather_over``)."""
+    from ..launch import collectives as C
+    for dim, entry in enumerate(spec):
+        for a in reversed([a for a in spec_axes(entry) if a in ctx.fsdp]):
+            w = C.gather_over(w, ctx.mesh, a, dim)
+    return w

@@ -26,11 +26,28 @@ family (zamba2) stacks Mamba2 layers and runs one weight-tied attention +
 MLP block, ``params["shared"]``, after every ``hybrid_attn_period``-th
 layer (:func:`shared_attn_apply`); as in the reference that block runs
 outside the per-layer remat, and the pending residual carries across it.
+
+Under an active :class:`~repro_torch.models.sharding.ShardCtx` (the dense,
+vlm, audio and MoE families) each rank runs its part of every layer on
+its blocks of the weights (``sharding.shard_params``), as GSPMD
+partitions the reference's program: each weight is first gathered over
+the FSDP axes its spec names; the attention's projections are column-
+and its out-projection row-parallel over the model axis when the head
+count divides it, else every model rank computes Q and the output of
+its share of the rows (the kernel's ``q_offset``) against K and V of the
+rows up to its share's last, and the rows are gathered; the MLP's ``gate`` and ``up``
+are column- and ``down`` row-parallel; an MoE layer runs ``moe_block``'s
+expert-parallel path.  The residual stream and the norms stay replicated
+over the model axis.  A weight replicated over the model axis whose use
+is split over it enters through ``copy_to``, so its gradient is summed
+over the axis in the backward.  Every collective is issued under a
+condition that holds alike on every rank (the config and the sequence
+length), so remat's recompute issues them in the same order everywhere.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -41,6 +58,7 @@ from . import mamba as mam
 from .config import ModelConfig
 from .layers import apply_rope, dense_init, normal, residual_norm, swiglu
 from .moe import moe_block
+from . import sharding as sh
 from .sharding import P, ShardCtx, refuse_active
 
 #: Families whose layers the port has not yet, and the ROADMAP item that
@@ -252,20 +270,25 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _proj_qkv(x, p, cfg, positions, theta):
-    """``x`` ``(b, s, d)`` -> q ``(b, s, H, hd)``, k and v ``(b, s, KV, hd)``,
-    biased and (q, k) rotated."""
+def _proj(x, w):
+    """``x`` ``(b, s, d)`` @ ``w`` ``(d, heads, hd)`` -> ``(b, s, heads,
+    hd)``."""
     b, s, d = x.shape
+    return (x @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
 
-    def proj(w):                         # (d, heads, hd) -> (b, s, heads, hd)
-        return (x @ w.reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
 
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+def _proj_qkv(x, p, cfg, positions, theta, rows=None):
+    """``x`` ``(b, s, d)`` -> q ``(b, s, H, hd)``, k and v ``(b, s, KV, hd)``,
+    biased and (q, k) rotated; with ``rows`` (a slice of the sequence) q
+    of those rows only."""
+    xq, q_pos = (x, positions) if rows is None else \
+        (x[:, rows], positions[:, rows])
+    q, k, v = _proj(xq, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = apply_rope(q, positions, theta)
+    q = apply_rope(q, q_pos, theta)
     k = apply_rope(k, positions, theta)
     return q, k, v
 
@@ -282,15 +305,114 @@ def attn_block(x, p, cfg, ctx: ShardCtx, positions, window, theta):
 
     The kernel takes ``(B, H, S, D)`` with strides, so the model's
     ``(b, s, H, hd)`` tensors go in as transposed views, and the output
-    comes back in the same memory order."""
+    comes back in the same memory order.  Under an active context
+    :func:`_attn_sharded` runs this rank's part."""
+    if ctx is not None and ctx.active:
+        return _attn_sharded(x, p, cfg, ctx, positions, window, theta)
     q, k, v = _proj_qkv(x, p, cfg, positions, theta)
+    return _attend(q, k, v, p["wo"], window), (k, v)
+
+
+def _attend(q, k, v, wo, window, q_offset: int = 0):
+    """Causal attention of ``q`` ``(b, sq, H, hd)`` (query ``i`` at
+    position ``q_offset + i``) over ``k, v`` ``(b, sk, KV, hd)`` through
+    the kernel, then the out-projection ``wo``."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True, window=int(window))
-    return _out_proj(o.transpose(1, 2), p["wo"]), (k, v)
+                        v.transpose(1, 2), causal=True, window=int(window),
+                        q_offset=q_offset)
+    return _out_proj(o.transpose(1, 2), wo)
 
 
-def mlp_block(x, p):
-    return swiglu(x, p["gate"], p["up"], p["down"])
+def _kv_heads(h0: int, n_loc: int, group: int) -> Tuple[Any, int]:
+    """``(index, group)``: the KV heads that query heads ``h0 .. h0 +
+    n_loc - 1`` read (head ``h`` reads ``h // group``), as a slice or an
+    index list, and the group size among the local heads."""
+    if n_loc % group == 0:                 # whole groups
+        return slice(h0 // group, h0 // group + n_loc // group), group
+    if group % n_loc == 0:                 # inside one group
+        return slice(h0 // group, h0 // group + 1), n_loc
+    return [(h0 + j) // group for j in range(n_loc)], 1
+
+
+def _attn_sharded(x, p, cfg, ctx: ShardCtx, positions, window, theta):
+    """This rank's part of :func:`attn_block` under an active context, on
+    the stream ``x`` (this data shard's rows, replicated over the model
+    axis); returns the whole attention output, replicated over the model
+    axis, and this rank's ``(k, v)`` (in the sequence-sharded case those
+    of the rows up to its share's last).
+
+    When the head count divides the model axis the rank computes its
+    ``H / tp`` heads: ``wq`` (and ``wk``, ``wv`` when the KV heads divide
+    too) column-parallel, ``wo`` row-parallel and its partial output
+    summed over the axis; KV weights held whole give the local query
+    heads their global KV heads ``h // (H / KV)``.  Otherwise, when the
+    sequence divides the axis, every rank computes Q of its contiguous
+    share of the rows, K and V of the rows up to its share's last, the
+    attention of its rows (query ``i`` at position ``offset + i``)
+    against those keys, and ``wo`` on them; the rows are gathered (the
+    reference's q-block sharding, ``transformer.py`` ``min_q_blocks``).
+    A sequence that does not divide the axis leaves the attention
+    replicated, as the reference's does."""
+    from ..launch import collectives as C
+    sp = sh.use_specs(cfg, ctx)
+    mesh, tp = ctx.mesh, ctx.tp
+    nm, m = ctx.n(tp), sh.coord(ctx, tp)
+    w = {k: sh.fsdp_gather(p[k], sp[k], ctx)
+         for k in ("wq", "wk", "wv", "wo")}
+    bias = {k: p[k] for k in ("bq", "bk", "bv") if k in p}
+    s = x.shape[1]
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    if tp in sh.axes_of(sp["wq"]):             # heads over the model axis
+        xin = C.copy_to(x, mesh, tp)
+        n_loc = h // nm
+        h0 = m * n_loc
+        if tp in sh.axes_of(sp["wk"]):
+            kv_idx = slice(None)
+            kv0 = m * (kvh // nm)
+            bias.update({k: C.copy_to(bias[k], mesh, tp)[kv0:kv0 + kvh // nm]
+                         for k in ("bk", "bv") if k in bias})
+        else:                                  # KV held whole
+            kv_idx, _ = _kv_heads(h0, n_loc, h // kvh)
+            w.update({k: C.copy_to(w[k], mesh, tp)[:, kv_idx]
+                      for k in ("wk", "wv")})
+            bias.update({k: C.copy_to(bias[k], mesh, tp)[kv_idx]
+                         for k in ("bk", "bv") if k in bias})
+        if "bq" in bias:
+            bias["bq"] = C.copy_to(bias["bq"], mesh, tp)[h0:h0 + n_loc]
+        q, k, v = _proj_qkv(xin, {**w, **bias}, cfg, positions, theta)
+        out = _attend(q, k, v, w["wo"], window)
+        return C.sum_over(out, mesh, tp), (k, v)
+    if s % nm or s < nm:                       # replicated, as the reference
+        q, k, v = _proj_qkv(x, {**w, **bias}, cfg, positions, theta)
+        return _attend(q, k, v, w["wo"], window), (k, v)
+    # sequence-sharded: the weights are replicated over the model axis and
+    # each rank uses them on its rows, so their gradients sum over it
+    xin = C.copy_to(x, mesh, tp)
+    p = {k: C.copy_to(v, mesh, tp) for k, v in {**w, **bias}.items()}
+    r0, r1 = m * (s // nm), (m + 1) * (s // nm)
+    # the keys past this share's last row are masked for all of its rows,
+    # so K and V are projected up to that row only
+    q, k, v = _proj_qkv(xin[:, :r1], p, cfg, positions[:, :r1], theta,
+                        rows=slice(r0, r1))
+    out = _attend(q, k, v, p["wo"], window, q_offset=r0)
+    return C.gather_rows(out, mesh, tp, 1), (k, v)
+
+
+def mlp_block(x, p, cfg: Optional[ModelConfig] = None,
+              ctx: Optional[ShardCtx] = None):
+    """SwiGLU MLP.  Under an active context: ``gate`` and ``up``
+    column-parallel and ``down`` row-parallel over the model axis (when
+    ``d_ff`` divides it; else replicated), after their FSDP gathers."""
+    if ctx is None or not ctx.active:
+        return swiglu(x, p["gate"], p["up"], p["down"])
+    from ..launch import collectives as C
+    sp = sh.use_specs(cfg, ctx)
+    gate, up, down = (sh.fsdp_gather(p[k], sp[k], ctx)
+                      for k in ("gate", "up", "down"))
+    if ctx.tp not in sh.axes_of(sp["gate"]):
+        return swiglu(x, gate, up, down)
+    y = swiglu(C.copy_to(x, ctx.mesh, ctx.tp), gate, up, down)
+    return C.sum_over(y, ctx.mesh, ctx.tp)
 
 
 def shared_attn_apply(x, pending, shared, cfg: ModelConfig, ctx: ShardCtx,
@@ -303,20 +425,47 @@ def shared_attn_apply(x, pending, shared, cfg: ModelConfig, ctx: ShardCtx,
     x, h = residual_norm(x, pending, shared["ln1"], cfg.norm_eps)
     a, kv = attn_block(h, shared, cfg, ctx, positions, 0, cfg.rope_theta)
     x, h = residual_norm(x, a, shared["ln2"], cfg.norm_eps)
-    return x, mlp_block(h, shared), kv
+    return x, mlp_block(h, shared, cfg, ctx), kv
 
 
 def moe_mlp(x, p, cfg: ModelConfig, ctx: ShardCtx, **knobs):
     """The MoE block of a layer ``p`` on ``x`` ``(b, s, d)``.  ``knobs``
     are ``moe_block``'s ``f32_combine`` and ``gather_dispatch``: prefill
     and training pass the config's, decode leaves the defaults, as the
-    reference does."""
-    refuse_active(ctx, "the MoE layer")
+    reference does.
+
+    Under an active context, ``moe_block``'s expert-parallel path with the
+    reference's arguments (``mesh``, ``data_axes=ctx.dp``,
+    ``model_axis=ctx.tp``, ``fsdp``), on the layout it wants
+    (``moe.shard_moe_params``): when the experts do not divide the model
+    axis the spec holds them whole over it, so this rank's cut of the
+    zero-padded expert dim is taken here (through ``copy_to``, the model
+    ranks' cuts of the one weight summing their gradients); an FSDP cut
+    of ``f`` over other axes than ``ctx.dp`` is gathered here."""
     moe_p = {"router": p["router"], "gate": p["e_gate"], "up": p["e_up"],
              "down": p["e_down"]}
-    return moe_block(x, moe_p, k=cfg.experts_per_token,
-                     n_experts=cfg.n_experts,
-                     capacity_factor=cfg.capacity_factor, **knobs)
+    kw = dict(k=cfg.experts_per_token, n_experts=cfg.n_experts,
+              capacity_factor=cfg.capacity_factor, **knobs)
+    if ctx is None or not ctx.active:
+        return moe_block(x, moe_p, **kw)
+    from ..launch import collectives as C
+    from .moe import pad_experts
+    sp = sh.use_specs(cfg, ctx)
+    fsdp = sh.spec_axes(sp["e_gate"][2]) == tuple(ctx.dp) and bool(ctx.fsdp)
+    nm = ctx.n(ctx.tp)
+    for name, key in (("gate", "e_gate"), ("up", "e_up"),
+                      ("down", "e_down")):
+        wt = moe_p[name]
+        if not fsdp:
+            wt = sh.fsdp_gather(wt, sp[key], ctx)
+        if ctx.tp not in sh.axes_of(sp[key]):
+            m = sh.coord(ctx, ctx.tp)
+            wt = pad_experts(C.copy_to(wt, ctx.mesh, ctx.tp), nm)
+            per = wt.shape[0] // nm
+            wt = wt[m * per:(m + 1) * per]
+        moe_p[name] = wt
+    return moe_block(x, moe_p, mesh=ctx.mesh, data_axes=ctx.dp,
+                     model_axis=ctx.tp, fsdp=fsdp, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +475,10 @@ def moe_mlp(x, p, cfg: ModelConfig, ctx: ShardCtx, **knobs):
 def _residual_spec(ctx: ShardCtx, cfg=None) -> P:
     """Spec of the residual stream ``(b, s, d)``: the batch over the data
     axes, and with ``cfg.seq_shard_residuals`` the sequence over the model
-    axis (Megatron-style sequence parallelism), as the reference's."""
+    axis (Megatron-style sequence parallelism), as the reference's.  The
+    port's layers keep the stream replicated over the model axis whatever
+    this says (no shipped config sets ``seq_shard_residuals``): only the
+    layout of the saved activations would differ, not the result."""
     if cfg is not None and cfg.seq_shard_residuals:
         return P(ctx.dp if ctx.dp else None, ctx.tp, None)
     return P(ctx.dp if ctx.dp else None, None, None)
@@ -349,7 +501,7 @@ def _layer_body(x, pending, lp, cfg: ModelConfig, ctx: ShardCtx, entry,
                         f32_combine=cfg.moe_combine_f32_materialize,
                         gather_dispatch=cfg.moe_gather_dispatch)
         else:
-            m = mlp_block(h, lp)
+            m = mlp_block(h, lp, cfg, ctx)
         return x, m, kv_cache
     y, (hstate, conv_tail) = mam.BLOCKS[entry["kind"]](h, lp, cfg)
     return x, y, (hstate, conv_tail)
@@ -389,8 +541,13 @@ def run_stack(x, params, cfg: ModelConfig, ctx: ShardCtx, positions,
     ``meta["shared_at"]``, outside the layer's remat, as the reference runs
     it between its scanned segments; its caches are then ``((ssm, conv),
     (k, v))`` with the shared block's ``(k, v)`` stacked over its
-    applications (the layers' caches alone when it runs nowhere)."""
-    refuse_active(ctx, "run_stack")
+    applications (the layers' caches alone when it runs nowhere).
+
+    Under an active context (the attention families) ``x`` is this data
+    shard's rows and ``params`` this rank's blocks; the Mamba families
+    refuse one (ROADMAP Queue A 11c)."""
+    if cfg.family not in ATTENTION_FAMILIES:
+        refuse_active(ctx, f"run_stack ({cfg.family})")
     check_family(cfg)
     plan, meta = layer_plan(cfg)
     shared_at = set(meta["shared_at"])

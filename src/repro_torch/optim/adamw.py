@@ -70,8 +70,9 @@ class AdamW:
         ``state.v`` are updated in place; ``grads`` and ``params`` are left
         as they are.  ``sq_norm``, when given, is the float32 squared norm
         of the whole gradient that the grad clip takes, in place of the
-        sum over ``grads`` (a pipeline stage holds part of the model's
-        gradient; ``launch/pp_step.py`` sums the rest)."""
+        sum over ``grads`` (a pipeline stage or a tensor-parallel rank
+        holds part of the model's gradient; ``launch/pp_step.py`` and
+        ``launch/steps.py::grad_sq_norm`` sum the rest)."""
         flat_p, flat_g = leaves(params), leaves(grads)
         flat_m, flat_v = leaves(state.m), leaves(state.v)
         if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):

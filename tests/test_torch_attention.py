@@ -116,6 +116,21 @@ def test_bfloat16_inputs_come_back_in_bfloat16():
 
 
 def test_block_constrain_is_refused_naming_the_roadmap_item():
+    """The reference's q-block hook is no longer refused: it is called
+    where the reference calls it — on the scaled query blocks ``(b, nq,
+    cq, KV, G, hd)`` and on the output blocks ``(b, nq, KV, G, cq, hd)``,
+    the q-block dim 1 — and a layout-only hook leaves the result as it
+    is."""
     q, k, v = map(_t, _qkv(1, 16, 16, 2, 2, 8, 6))
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        attn.chunked_attention(q, k, v, block_constrain=lambda t, d: t)
+    seen = []
+
+    def hook(t, dim):
+        seen.append((tuple(t.shape), dim))
+        return t
+
+    got = attn.chunked_attention(q, k, v, chunk_q=4, chunk_k=8,
+                                 min_q_blocks=2, block_constrain=hook)
+    assert seen == [((1, 4, 4, 2, 1, 8), 1), ((1, 4, 2, 1, 4, 8), 1)]
+    want = attn.chunked_attention(q, k, v, chunk_q=4, chunk_k=8,
+                                  min_q_blocks=2)
+    assert torch.equal(got, want)

@@ -808,6 +808,74 @@ def test_flash_attention_bwd_bf16_repeats_bit_for_bit(case):
         assert torch.equal(a, c)
 
 
+#: (b, h, kv, sq, sk, d, window, q_offset): a share of a sequence's rows
+#: (query i at position q_offset + i), one head dim per instance family
+#: (64: Q in registers; 136: the zero-padded 144-wide tile; 256: Q in
+#: shared memory, key tiles of 32), offsets no multiple of a tile, keys
+#: past the last row's position, a window across the offset, GQA
+FA_OFFSET_CASES = [(2, 4, 2, 70, 200, 64, 0, 100),
+                   (1, 4, 4, 64, 256, 136, 0, 192),
+                   (1, 2, 1, 50, 200, 256, 40, 150)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FA_OFFSET_CASES, ids=str)
+def test_flash_attention_q_offset_matches_plain(case, dtype):
+    """The forward with a query offset against the plain version (the
+    kernel tolerance), its ``lse``, and the backward against the plain
+    backward; each launch counted under a shape key that ends in the
+    offset."""
+    _need_cuda()
+    b, h, kv, sq, sk, d, window, off = case
+    q, k, v, do = _fa_views((b, h, kv, sq, sk, d, True, window), dtype,
+                            sum(case))
+    fwd_tol, bwd_tol = (2e-5, 1e-4) if dtype == torch.float32 else \
+        (2e-2, 1e-2)
+    got = fa.flash_attention(q, k, v, window=window, q_offset=off)
+    want, want_lse = fa.flash_attention_ref(q, k, v, window=window,
+                                            q_offset=off, return_lse=True)
+    _rel_close(got, want, fwd_tol)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    out = fa._fwd_cuda(q, k, v, True, window, lse, off)
+    finite = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    _rel_close(lse[finite], want_lse[finite], 1e-5)
+    dq, dk, dv = fa._bwd_cuda(q, k, v, out, lse, do, True, window, off)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, window=window,
+                                     q_offset=off)
+    for a, t in zip((dq, dk, dv), ref):
+        _rel_close(a, t, bwd_tol)
+    key = ((b, h, sq, d), (b, kv, sk, d), True, window, str(dtype), off)
+    assert fa.flash_attention.shapes[key] >= 2
+    assert fa.flash_attention.shapes[("bwd",) + key] >= 1
+
+
+def test_flash_attention_q_offset_zero_is_the_old_launch():
+    """``q_offset=0`` launches what a call without it launches: the same
+    bits forward and backward, in both types, under the shape key without
+    an offset."""
+    _need_cuda()
+    case = (2, 4, 2, 96, 96, 128, True, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _fa_views(case, dtype, 11)
+        lse0 = torch.empty((2, 4, 96), dtype=torch.float32, device="cuda")
+        lse1 = torch.empty_like(lse0)
+        out0 = fa._fwd_cuda(q, k, v, True, 0, lse0)
+        before = dict(fa.flash_attention.shapes)
+        out1 = fa._fwd_cuda(q, k, v, True, 0, lse1, 0)
+        assert torch.equal(out0, out1) and torch.equal(lse0, lse1)
+        assert torch.equal(fa.flash_attention(q, k, v),
+                           fa.flash_attention(q, k, v, q_offset=0))
+        g0 = fa._bwd_cuda(q, k, v, out0, lse0, do, True, 0)
+        g1 = fa._bwd_cuda(q, k, v, out0, lse0, do, True, 0, 0)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(g0, g1))
+        key = ((2, 4, 96, 128), (2, 2, 96, 128), True, 0, str(dtype))
+        assert fa.flash_attention.shapes[key] == before[key] + 3
+
+
 def test_flash_attention_bwd_bf16_alignment():
     """The bfloat16 backward refuses a misaligned q, k or v, and copies a
     misaligned dout (the same gradient as from an aligned one)."""
@@ -892,7 +960,7 @@ def test_flash_attention_136_leaves_neighbouring_columns_alone():
               k.data_ptr(), v.data_ptr(), ow.data_ptr(), None,
               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
               *ow.stride()[:3], 1, 4, 2, 70, 70, 136, 1.0 / 136 ** 0.5, 1,
-              0, 1)
+              0, 0, 1)
     torch.cuda.synchronize()
     assert bool((ow[..., 136:] == 7.0).all())
     assert torch.equal(ow[..., :136], out)

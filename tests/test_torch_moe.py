@@ -234,7 +234,8 @@ def test_moe_block_local_path_and_mesh_refusal():
                                            "group is up"):
         moe.moe_block(_t(x3), {n: _t(a) for n, a in p.items()}, mesh=mesh,
                       data_axes=("data",), **kw)
-    # the MoE layer inside the model under an active context is 11b
+    # the MoE layer inside the model under an active context calls
+    # moe_block's expert-parallel path, which wants a process group
     lp = {"router": _t(router), "e_gate": _t(wg), "e_up": _t(wu),
           "e_down": _t(wd)}
     cfg = ModelConfig(name="m", family="moe", n_layers=1, d_model=d,
@@ -242,7 +243,8 @@ def test_moe_block_local_path_and_mesh_refusal():
                       n_experts=e, experts_per_token=k, capacity_factor=1.25,
                       dtype="float32")
     ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model")
-    with pytest.raises(NotImplementedError, match="Queue A 11b"):
+    with pytest.raises(RuntimeError, match="no torch.distributed process "
+                                           "group is up"):
         moe_mlp(_t(x3), lp, cfg, ctx)
     np.testing.assert_allclose(moe_mlp(_t(x3), lp, cfg, ShardCtx()).numpy(),
                                got.numpy(), rtol=0, atol=0)

@@ -379,8 +379,12 @@ def test_pp_step_spec_trees_equal_reference(ref):
 
 
 def test_model_entry_points_refuse_an_active_context():
-    """The model under an active context is Queue A 11b: every entry point
-    raises rather than run unsharded."""
+    """What stays unported under an active context is Queue A 11c:
+    ``prefill``, ``decode_step`` and a Mamba family's ``run_stack`` raise
+    naming it rather than run unsharded.  The attention families' training
+    path runs under a context now (``tests/test_torch_tensor_parallel.py``):
+    without a process group their calls fail on the missing group, not
+    with ``NotImplementedError``."""
     cfg = TModelConfig(**MOE)
     params = t_tr.init_params(cfg, seed=0, device="cpu")
     mesh = t_mesh.Mesh(np.arange(8).reshape(2, 4), ("data", "model"))
@@ -388,22 +392,34 @@ def test_model_entry_points_refuse_an_active_context():
     toks = torch.zeros((2, 8), dtype=torch.long)
     x = torch.zeros((2, 8, cfg.d_model))
     pos = torch.zeros((2, 8), dtype=torch.int32)
-    calls = {
-        "forward_logits": lambda: TM.forward_logits(params, cfg, ctx, toks),
-        "loss_fn": lambda: TM.loss_fn(params, cfg, ctx, {"tokens": toks,
-                                                         "labels": toks}),
+    ssm = TModelConfig(name="sh-ssm", family="ssm", ssm_variant="mamba1",
+                       n_layers=1, d_model=16, n_heads=0, n_kv_heads=0,
+                       d_ff=0, vocab_size=64, ssm_state=4, dtype="float32")
+    ssm_params = t_tr.init_params(ssm, seed=0, device="cpu")
+    refused = {
         "prefill": lambda: TM.prefill(params, cfg, ctx, toks),
         "decode_step": lambda: TM.decode_step(
             params, cfg, ctx, toks[:, :1],
             TM.init_cache(cfg, 2, 8, device="cpu"), 0),
+        "run_stack (ssm)": lambda: t_tr.run_stack(
+            torch.zeros((2, 8, 16)), ssm_params, ssm, ctx, pos),
+    }
+    for where, call in refused.items():
+        with pytest.raises(NotImplementedError, match="Queue A 11c") as e:
+            call()
+        assert where in str(e.value)
+    runs = {
+        "forward_logits": lambda: TM.forward_logits(params, cfg, ctx, toks),
+        "loss_fn": lambda: TM.loss_fn(params, cfg, ctx, {"tokens": toks,
+                                                         "labels": toks}),
         "run_stack": lambda: t_tr.run_stack(x, params, cfg, ctx, pos),
         "the MoE layer": lambda: t_tr.moe_mlp(
             x, t_tr.layer_params(params, 0), cfg, ctx),
     }
-    for where, call in calls.items():
-        with pytest.raises(NotImplementedError, match="Queue A 11b") as e:
+    for where, call in runs.items():
+        with pytest.raises((RuntimeError, ValueError)) as e:
             call()
-        assert where in str(e.value)
+        assert "process group" in str(e.value), (where, e.value)
     # the same calls run with the inactive context
     assert TM.forward_logits(params, cfg, t_sh.ShardCtx(), toks).shape == \
         (2, 8, cfg.padded_vocab)

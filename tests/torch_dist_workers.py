@@ -179,3 +179,101 @@ def staged_p2p_on_gpu(rank, world, arrays):
                                            "bfloat16" else torch.int32)
                         .numpy()))
     return got
+
+
+# ---------------------------------------------------------------------------
+# the model under an active ShardCtx (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+def _count_model_calls() -> dict:
+    """Count the calls of the norm and attention wrappers on the model's
+    path (``models/layers.py``'s two norms, ``models/transformer.py``'s
+    attention): ``fwd`` every call, ``bwd`` those under grad with an input
+    that requires one."""
+    from repro_torch.models import layers, transformer
+    counts = {"rmsnorm": {"fwd": 0, "bwd": 0},
+              "flash_attention": {"fwd": 0, "bwd": 0}}
+
+    def spy(mod, name, key):
+        real = getattr(mod, name)
+
+        def call(*args, **kw):
+            counts[key]["fwd"] += 1
+            if torch.is_grad_enabled() and any(
+                    isinstance(a, torch.Tensor) and a.requires_grad
+                    for a in args):
+                counts[key]["bwd"] += 1
+            return real(*args, **kw)
+        setattr(mod, name, call)
+
+    spy(layers, "rmsnorm", "rmsnorm")
+    spy(layers, "add_rmsnorm", "rmsnorm")
+    spy(transformer, "flash_attention", "flash_attention")
+    return counts
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+_MESHES = {}
+
+
+def tp_model_case(rank, world, case):
+    """One case of the model under ``ShardCtx(mesh, dp=("data",),
+    tp="model", fsdp=...)`` on this rank: ``case`` holds the config's
+    keyword arguments, the mesh's ranks, ``fsdp``, the reference's whole
+    parameters (NumPy) and the global batch.  ``kind == "grad"``: the
+    loss of this rank's rows and the gradients of its blocks (summed over
+    the data axes, ``steps.sync_grads``); ``kind == "step"``: one
+    ``make_train_step`` step with ``n_micro`` microbatches and AdamW
+    (lr 1e-3, ``eps``), its loss and this rank's blocks after it.  Also
+    the bytes staged by kind and the wrapper calls."""
+    from repro_torch._tree import tree_map
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.optim.adamw import AdamW
+    # one Mesh per rank layout, so its groups are made once for all cases
+    key = (case["ranks"].shape, case["ranks"].tobytes())
+    mesh = _MESHES.setdefault(key, Mesh(case["ranks"], ("data", "model")))
+    ctx = sh.ShardCtx(mesh=mesh, dp=("data",), tp="model",
+                      fsdp=("data",) if case["fsdp"] else ())
+    cfg = ModelConfig(**case["cfg"])
+    local = sh.shard_params(params_from_reference(case["params"], "cpu"),
+                            cfg, ctx, rank)
+    counts = _count_model_calls()
+    C.reset_stats()
+    n_micro = case.get("n_micro", 1)
+    batch = steps.shard_batch(case["batch"], ctx, rank, n_micro)
+    out = {"coords": mesh.coords(rank)}
+    if case["kind"] == "grad":
+        p = tree_map(lambda t: t.detach().requires_grad_(), local)
+        loss, aux = M.loss_fn(p, cfg, ctx, {k: _t(v) if v.dtype.kind == "f"
+                                             else _t(v).long()
+                                             for k, v in batch.items()})
+        loss.backward()
+        grads = tree_map(lambda t: t.grad if t.grad is not None
+                         else torch.zeros_like(t), p)
+        steps.sync_grads(grads, cfg, ctx)
+        out.update(loss=float(loss.detach()), tokens=float(aux["tokens"]),
+                   grads=_np_tree(grads))
+    else:
+        opt = AdamW(lr=1e-3, eps=case["eps"])
+        step = steps.make_train_step(cfg, ctx, opt, n_micro=n_micro)
+        new, _, m = step(local, opt.init(local), batch)
+        out.update(loss=float(m["loss"]), params=_np_tree(new))
+    # a copy: the spies of this case go on counting in the later ones
+    out.update(stats=dict(C.STATS),
+               calls={k: dict(v) for k, v in counts.items()})
+    return out
+
+
+def tp_model_cases(rank, world, cases):
+    """Every case of ``cases`` (name -> case) in turn on this rank."""
+    return {name: tp_model_case(rank, world, cs)
+            for name, cs in cases.items()}
