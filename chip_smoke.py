@@ -12,8 +12,10 @@ decode of qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m,
 llava-next-mistral-7b, musicgen-large and the hybrid zamba2-7b) and
 training (``launch.train``: qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m
 and gpt-1.1b at full width and 4 layers, zamba2-7b at 12, each with a
-crash and a resume) and pipeline-parallel training (``launch.pp_step``:
-gpt-1.1b at 12 layers, pp 2 x dp 2, four ranks on the card) — builds the
+crash and a resume), pipeline-parallel training (``launch.pp_step``:
+gpt-1.1b at 8 layers, pp 2 x dp 2, four ranks on the card), and
+tensor-parallel training, prefill and decode under a ``ShardCtx`` (four
+ranks on the card) — builds the
 CUDA kernels from the sources in this checkout, holds each kernel against
 its plain PyTorch version, and proves that each path went through its
 kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
@@ -115,7 +117,7 @@ granite-moe-3b-a800m, 4 of 32 layers, its slice in float32, gpt-1.1b,
 4 of 24 layers, head dim 96, and zamba2-7b, 12 of 81 layers so that the
 shared block runs twice, its slice at 1 layer with the block after it),
 ``pp_train_gpt_1_1b`` (a Pipette configuration launched as ranks:
-gpt-1.1b at full width and 12 of 24 layers, pp 2 x dp 2 over the permuted
+gpt-1.1b at full width and 8 of 24 layers, pp 2 x dp 2 over the permuted
 mapping ``[[[1, 3]], [[0, 2]]]`` through ``mesh_from_mapping``, four
 processes on the card in a ``gloo`` group, ``make_pp_train_step`` for 3
 AdamW steps of 8 x 512 tokens in 4 microbatches; each rank's coordinates,
@@ -130,7 +132,18 @@ stated tolerances, launches against :func:`tp_rank_launches`, bytes by
 kind), ``tp_models_on_card`` (gpt-3.1b's sequence-sharded attention on
 (data 1, model 4) and granite-moe-3b-a800m's expert-parallel MoE in
 float32 on (data 2, model 2) with FSDP, 4 layers each, one step each
-against one process), ``model_kernels_at_path_shapes`` (the training
+against one process), ``tp_train_mamba_on_card`` (falcon-mamba-7b's
+channel-parallel Mamba1 at 4 layers for Conf(pp 1, tp 2, dp 2, bs_micro
+2, bs_global 8) over a permuted mapping with FSDP, and zamba2-7b's
+head-parallel Mamba2 and weight-tied block at 6 layers on (data 1, model
+4), 2 steps each against one process, launches against
+:func:`tp_mamba_rank_launches`), ``tp_generate_on_card`` (prefill of 4 x
+512 and 15 decode steps under a context of qwen2-7b and falcon-mamba-7b
+on (data 2, model 2), gpt-3.1b and zamba2-7b on (data 1, model 4), the
+cache's sequence cut over the model axis and the partial attentions
+combined, teacher-forced on one process's greedy tokens and held to its
+logits; launches against :func:`tp_generate_launches`),
+``model_kernels_at_path_shapes`` (the training
 phases' forward shapes too, the attention's query offsets among them,
 timed beside SDPA with a boolean mask), ``bwd_kernels_at_path_shapes``,
 ``bwd_attention_full_grid`` (the bfloat16 attention backward at qwen2-7b's
@@ -1877,10 +1890,11 @@ def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
     ``a``: the backward kernel's wrapper, its plain version, and, when
     ``timed``, the backward of one PyTorch call computing the forward
     (autograd of ``F.rms_norm``, of ``x + r`` and ``F.rms_norm`` for the
-    residual form, and for bfloat16 attention SDPA's backward with the
-    flash or efficient backend and ``enable_gqa`` — on KV repeated to the
-    query heads where those backends refuse grouped heads), timed as a
-    yardstick only, or None where there is none."""
+    residual form, and for attention SDPA's backward with the flash or
+    efficient backend — the efficient one in float32 — and
+    ``enable_gqa``, on KV repeated to the query heads where those
+    backends refuse grouped heads), timed as a yardstick only, or None
+    where there is none."""
     F = torch.nn.functional
     if name == "selective_scan_fused_bwd":
         args = [a[k] for k in ("x", "dt", "dt_bias", "B", "C", "A_log", "D",
@@ -1930,7 +1944,7 @@ def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
         return kernel, plain, library, ("SDPA backward with an explicit "
                                          "boolean mask (enable_gqa)")
     if not (timed and window == 0 and (sq == sk or not causal)
-            and q.dtype == torch.bfloat16):
+            and q.dtype in (torch.bfloat16, torch.float32)):
         return kernel, plain, None, None
     from torch.nn.attention import SDPBackend, sdpa_kernel
     group = q.shape[1] // k.shape[1]
@@ -2850,14 +2864,14 @@ def slice_check_train(device, arch: str) -> dict:
 # ---------------------------------------------------------------------------
 
 #: ``pp_train_gpt_1_1b``: gpt-1.1b at full width, cut to ``PP_LAYERS`` of
-#: its 24 layers, trained ``PP_STEPS`` steps by ``launch/pp_step.py`` under
+#: its 24 layers (8, so that the whole run stays inside its budget), trained ``PP_STEPS`` steps by ``launch/pp_step.py`` under
 #: the Pipette configuration ``PP_CONF`` (pp, tp, dp, bs_micro, bs_global:
 #: 4 microbatches of 2 sequences, one a data rank) over the permuted
 #: mapping ``PP_MAPPING`` (the rank at ``[x, y, z]`` is GPU f(x, y, z)),
 #: four processes on the one card in a ``gloo`` group; then the same
 #: layers, weights and batches at pp 1 x dp 2 (``PP1_CONF``, the same data
 #: mapping, no pipe), whose losses and parameters must be bit-equal.
-PP_ARCH, PP_LAYERS, PP_SEQ, PP_STEPS = "gpt-1.1b", 12, 512, 3
+PP_ARCH, PP_LAYERS, PP_SEQ, PP_STEPS = "gpt-1.1b", 8, 512, 3
 PP_CONF, PP_MAPPING = (2, 1, 2, 1, 8), [[[1, 3]], [[0, 2]]]
 PP1_CONF, PP1_MAPPING = (1, 1, 2, 1, 8), [[[1, 0]]]
 #: the spawn's limit (the ranks are killed past it) and the phase's budget
@@ -3109,7 +3123,7 @@ def pp_train() -> tuple:
 # ---------------------------------------------------------------------------
 
 #: ``tp_train_gpt_1_1b``: ``pp_train_gpt_1_1b``'s model and batches
-#: (gpt-1.1b at full width, 12 of 24 layers, bf16, remat) trained
+#: (gpt-1.1b at full width, 8 of 24 layers, bf16, remat) trained
 #: ``TP_STEPS`` steps by ``make_train_step`` under ``ShardCtx(mesh,
 #: dp=("data",), tp="model", fsdp=("data",))`` for the Pipette
 #: configuration ``TP_CONF`` (pp 1, tp 2, dp 2, bs_micro 2, bs_global 8:
@@ -3208,6 +3222,17 @@ def _global_batch(toks, lbls) -> dict:
     back)."""
     s = toks.shape[-1]
     return {"tokens": toks.reshape(-1, s), "labels": lbls.reshape(-1, s)}
+
+
+def _sum_shapes(results: list) -> dict:
+    """The ranks' shape counts (each result's ``shapes``) added up, per
+    wrapper."""
+    shapes = {name: {} for name in WRAPPERS}
+    for r in results:
+        for name, by in r["shapes"].items():
+            for k, n in by.items():
+                shapes[name][k] = shapes[name].get(k, 0) + n
+    return shapes
 
 
 def _rank_setup():
@@ -3404,15 +3429,16 @@ def param_readings(sums: list, cfg, ctx) -> dict:
     return out
 
 
-def _compare_params(sums: list, cfg, ctx) -> dict:
+def _compare_params(sums: list, cfg, ctx, tols=None) -> dict:
     """:func:`param_readings` of the ranks' blocks against the one
     process, asserted: the ranks that hold the same block of the
     parameters or of the first moment hold the same bits, each leaf's
-    update error is within ``TP_UPDATE_TOL`` and its first moment's
-    within ``TP_MOMENT_TOL``; returns the largest of each error and of
-    the parameters' elementwise difference."""
+    update error is within ``tols[0]`` (``TP_UPDATE_TOL``) and its first
+    moment's within ``tols[1]`` (``TP_MOMENT_TOL``); returns the largest
+    of each error and of the parameters' elementwise difference."""
     got = param_readings(sums, cfg, ctx)
-    for tree, tol in (("params", TP_UPDATE_TOL), ("moment", TP_MOMENT_TOL)):
+    update_tol, moment_tol = tols or (TP_UPDATE_TOL, TP_MOMENT_TOL)
+    for tree, tol in (("params", update_tol), ("moment", moment_tol)):
         for name, row in got[tree].items():
             assert row["replicas_agree"], (tree, name, "replicas differ")
             assert row["rel_err"] <= tol, (tree, name, row)
@@ -3481,11 +3507,7 @@ def tp_train(device, pp_loss=None) -> tuple:
                 for k in WRAPPERS}
     bwd = {k: sum(r["launches_bwd"][k] for r in results)
            for k in BWD_KERNELS}
-    shapes = {name: {} for name in WRAPPERS}
-    for r in results:
-        for name, by in r["shapes"].items():
-            for key, n in by.items():
-                shapes[name][key] = shapes[name].get(key, 0) + n
+    shapes = _sum_shapes(results)
     step_s = [max(r["step_s"][i] for r in results) for i in range(TP_STEPS)]
     seconds = time.perf_counter() - t_phase
     assert seconds <= TP_PHASE_S, ("tp_train_gpt_1_1b over its budget",
@@ -3667,11 +3689,7 @@ def tp_models(device) -> tuple:
                 for k in WRAPPERS}
     bwd = {k: sum(r["launches_bwd"][k] for r in results)
            for k in BWD_KERNELS}
-    shapes = {name: {} for name in WRAPPERS}
-    for r in results:
-        for name, by in r["shapes"].items():
-            for key, n in by.items():
-                shapes[name][key] = shapes[name].get(key, 0) + n
+    shapes = _sum_shapes(results)
     # the sequence-sharded attention ran at every rank's offset but the
     # first's (whose key has none)
     n = len(TPM_CASES["gpt-3.1b"]["ranks"][0])
@@ -3687,6 +3705,655 @@ def tp_models(device) -> tuple:
             "rank_setup_s": [r["setup_s"] for r in results],
             "one_process_seconds": one_s, "spawn_seconds": spawn_s,
             "seconds": seconds}, shapes
+
+
+# ---------------------------------------------------------------------------
+# the Mamba families, prefill and decode under an active ShardCtx
+# ---------------------------------------------------------------------------
+
+#: ``tp_train_mamba_on_card``: the Mamba families trained by
+#: ``make_train_step`` under a context in four processes on the card, one
+#: spawn, each case held to one process as ``tp_train_gpt_1_1b`` is (the
+#: same tolerances).  falcon-mamba-7b (Mamba1, channel-parallel) at full
+#: width and 4 of 64 layers, bf16, remat, for the Pipette configuration
+#: ``conf`` (pp 1, tp 2, dp 2, bs_micro 2, bs_global 8) over a permuted
+#: mapping with FSDP over data; zamba2-7b (Mamba2 head-parallel and its
+#: weight-tied block, applied once, after layer 5) at full width and 6 of
+#: 81 layers, bf16, remat, on (data 1, model 4) without FSDP, so that its
+#: packed ``in_proj`` (14,448 columns) is cut at 3,612, inside a head.
+#: ``TPMB_STEPS`` steps each.
+TPMB_CASES = {
+    "falcon-mamba-7b": {"layers": 4, "conf": (1, 2, 2, 2, 8),
+                        "mapping": [[[2, 0], [1, 3]]], "fsdp": True},
+    "zamba2-7b": {"layers": 6, "ranks": [[1, 3, 0, 2]], "fsdp": False,
+                  "batch": 4, "n_micro": 2},
+}
+TPMB_STEPS, TPMB_SPAWN_S, TPMB_PHASE_S = 2, 300.0, 90.0
+#: Its tolerances against one process: the loss ``TP_LOSS_TOL``; each
+#: leaf's update and first moment, relative (:func:`_compare_params`),
+#: set between the sound and the faulty readings of ``tools/tp_faults.py``
+#: (sound up to 0.46 and 0.59; the Mamba1 faults 1.40 and more, Mamba2's
+#: ``gated_norm_unsummed`` 1.23 / 1.68; PERF.md §6).  A Mamba layer's
+#: gradients feel one bfloat16 rounding in another place far more than an
+#: attention layer's: one process whose row-parallel products are summed
+#: from ``tp`` bfloat16 blocks, as the model ranks sum them, reads 0.37 /
+#: 0.40 (falcon-mamba-7b) and 0.44 / 0.53 (zamba2-7b) against the plain
+#: one (``tools/tp_noise_floor.py``), where ``TP_*``'s 0.5 / 0.1 were set
+#: for gpt-1.1b's 0.17 / 0.03.
+TPMB_UPDATE_TOL, TPMB_MOMENT_TOL = 0.9, 0.9
+
+
+def _tpmb_setup(arch: str, case: dict) -> tuple:
+    """``(cfg, mesh, ctx, n_micro, global batches)`` of a
+    ``tp_train_mamba_on_card`` case."""
+    from repro_torch.launch.mesh import Mesh
+    cfg = configs.get(arch).replace(n_layers=case["layers"])
+    if "conf" in case:
+        conf = Conf(*case["conf"])
+        mesh = mesh_from_mapping(conf, np.asarray(case["mapping"]))
+        rows, n_micro = conf.bs_global, conf.n_mb
+    else:
+        mesh = Mesh(np.asarray(case["ranks"]), ("data", "model"))
+        rows, n_micro = case["batch"], case["n_micro"]
+    ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model",
+                   fsdp=("data",) if case["fsdp"] else ())
+    rng = np.random.default_rng(len(arch))
+    batches = []
+    for _ in range(TPMB_STEPS):
+        toks = rng.integers(0, cfg.vocab_size, (rows, PP_SEQ + 1),
+                            dtype=np.int64)
+        batches.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return cfg, mesh, ctx, n_micro, batches
+
+
+def _tpmb_split(cfg, tp: int) -> str:
+    """How a case's Mamba layers split over a model axis of ``tp``."""
+    if cfg.family == "ssm":
+        return f"channel-parallel Mamba1, d_inner {cfg.d_inner // tp} a rank"
+    width = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
+    return (f"head-parallel Mamba2, {cfg.n_ssm_heads // tp} SSD heads a "
+            f"rank; packed in_proj {width} cut at {width // tp}")
+
+
+def tp_mamba_rank_launches(cfg, tp: int, n_micro: int, steps: int,
+                           mb: tuple) -> tuple:
+    """``(forward launches, backward launches, shape keys)`` of one rank of
+    a ``tp_train_mamba_on_card`` case, on its microbatch ``mb`` ``(b, S,
+    d)``: :func:`train_launches`' count with a Mamba1 rank's scan on its
+    ``d_inner / tp`` channels, and a hybrid rank's without the gated norm
+    (its statistic is summed over the model axis in plain torch) and its
+    shared block's attention on ``H / tp`` heads."""
+    L, per, bf = cfg.n_layers, steps * n_micro, torch.bfloat16
+    want = {k: 0 for k in WRAPPERS}
+    want_bwd = {k: 0 for k in BWD_KERNELS}
+    shapes = {k: {} for k in WRAPPERS}
+    if cfg.family == "hybrid":
+        apps = len(layer_plan(cfg)[1]["shared_at"])
+        res_f, res_b = 2 * (L - 1) + 2 * apps, L - 1 + 2 * apps
+        fa_key = ((mb[0], cfg.n_heads // tp, mb[1], cfg.hd),
+                  (mb[0], cfg.n_kv_heads // tp, mb[1], cfg.hd), True, 0,
+                  str(bf))
+        want["flash_attention"] = want_bwd["flash_attention_bwd"] = \
+            per * apps
+        shapes["flash_attention"] = {fa_key: per * apps,
+                                     ("bwd",) + fa_key: per * apps}
+    else:
+        res_f, res_b = 2 * (L - 1), L - 1
+        x = (mb[0], mb[1], cfg.d_inner // tp)
+        want["selective_scan"] = per * 2 * L
+        want_bwd["selective_scan_fused_bwd"] = per * L
+        shapes["selective_scan"] = {
+            ("fused_bound", x, cfg.ssm_state, bf): per * 2 * L,
+            ("fused_bwd", x, cfg.ssm_state, bf): per * L}
+    want["rmsnorm"] = per * (3 + res_f)
+    want_bwd["rmsnorm_bwd"] = per * (2 + res_b)
+    shapes["rmsnorm"] = {(mb, bf, bf): per * 3,
+                         ("add", mb, bf, bf): per * res_f,
+                         ("bwd", mb, bf, bf): per * 2,
+                         ("add_bwd", mb, bf, bf, True): per * res_b}
+    return want, want_bwd, shapes
+
+
+def tp_mamba_rank(rank: int, world: int, refs: dict) -> dict:
+    """One rank of ``tp_train_mamba_on_card``: each case of
+    ``TPMB_CASES`` in turn on its mesh (the weights drawn whole from seed
+    0 and cut, its rows of the batches), ``TPMB_STEPS`` steps of
+    ``make_train_step``, its launches, shapes and bytes by kind, and its
+    blocks after the last step against the one process's trees
+    ``refs[arch]`` (:func:`block_sums`; popped, as :func:`tp_rank`
+    empties its list)."""
+    import torch.distributed as dist
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim.adamw import AdamW
+    t_start = time.perf_counter()
+    device = _rank_setup()
+    out = {"rank": rank, "cases": {},
+           "setup_s": time.perf_counter() - t_start}
+    for arch, case in TPMB_CASES.items():
+        t0 = time.perf_counter()
+        cfg, mesh, ctx, n_micro, batches = _tpmb_setup(arch, case)
+        full = init_params(cfg, seed=0, device=device)
+        params = sh.shard_params(full, cfg, ctx, rank)
+        del full
+        torch.cuda.empty_cache()
+        mine = [train_steps.shard_batch(b, ctx, rank, n_micro)
+                for b in batches]
+        res = {"coords": mesh.coords(rank)}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for a in mesh.axis_names:       # the groups, made collectively
+            mesh.group(a)
+        dist.barrier()
+        res.update(init_s=t1 - t0, groups_s=time.perf_counter() - t1)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        collectives.reset_stats()
+        opt = AdamW(lr=TRAIN_LR)
+        state = opt.init(params)
+        step = train_steps.make_train_step(cfg, ctx, opt, n_micro=n_micro)
+        losses, step_s = [], []
+        for batch in mine:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        res.update(losses=losses, step_s=step_s,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   staged_bytes_per_step={
+                       k: v / len(mine) for k, v in collectives.STATS.items()},
+                   launches_fwd=read_launches(),
+                   launches_bwd=read_bwd_launches(), shapes=read_shapes())
+        t0 = time.perf_counter()
+        res["sums"] = block_sums(params, state.m, refs.pop(arch), cfg, ctx,
+                                 rank)
+        res["compare_s"] = time.perf_counter() - t0
+        del params, state
+        torch.cuda.empty_cache()
+        out["cases"][arch] = res
+    assert _build.last_build_seconds is None, "a rank ran nvcc"
+    return out
+
+
+#: Mamba2's gated norm under a context (the statistic summed over the
+#: model axis, ``mamba.split_gated_norm``) against the one-process
+#: ``rmsnorm`` kernel, float32: the largest difference relative to the
+#: largest output (a sum in another order, ``rsqrtf`` within 2 ulp).
+GATED_NORM_TOL = 1e-5
+
+
+def gated_norm_split_vs_kernel(device, cfg, tp: int) -> dict:
+    """``split_gated_norm`` over ``tp`` channel blocks of a random float32
+    ``(2, 512, d_inner)`` input with a bfloat16 weight, the blocks' sums
+    added in one process, against the ``rmsnorm`` kernel's gated
+    instance on the whole rows (a comparison, not a path launch)."""
+    from repro_torch.models.mamba import split_gated_norm
+    gen = torch.Generator(device=device).manual_seed(25)
+    g = torch.randn((2, PP_SEQ, cfg.d_inner), generator=gen, device=device)
+    w = (1 + 0.1 * torch.randn(cfg.d_inner, generator=gen,
+                               device=device)).to(torch.bfloat16)
+    want = rn.rmsnorm(g, w, cfg.norm_eps).float()
+    dl = cfg.d_inner // tp
+    got = split_gated_norm(torch.stack(g.split(dl, -1)),
+                           w.view(tp, 1, 1, dl), cfg.d_inner, cfg.norm_eps,
+                           lambda t: t.sum(0, keepdim=True))
+    err = float((torch.cat(list(got), -1) - want).abs().max()
+                / want.abs().max())
+    assert err <= GATED_NORM_TOL, ("split gated norm", err)
+    return {"shape": [2, PP_SEQ, cfg.d_inner], "blocks": tp,
+            "max_rel_err": err, "tol": GATED_NORM_TOL}
+
+
+def tp_train_mamba(device) -> tuple:
+    """``tp_train_mamba_on_card``: each case's one-process run, then
+    :func:`tp_mamba_rank` in four spawned processes, held to it (losses,
+    the parameters' updates and AdamW's first moments, replicas
+    bit-equal, launches against :func:`tp_mamba_rank_launches`); returns
+    ``(line, shapes)`` with the ranks' summed launches and shape
+    counts."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    refs, ref_losses = {}, {}
+    t0 = time.perf_counter()
+    for arch, case in TPMB_CASES.items():
+        cfg, _, _, n_micro, batches = _tpmb_setup(arch, case)
+        r = _one_process_run(cfg, batches, device, n_micro, TRAIN_LR)
+        refs[arch], ref_losses[arch] = r[:3], r[3]
+        del r
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = collectives.spawn(tp_mamba_rank, 4, (refs,),
+                                timeout=TPMB_SPAWN_S)
+    spawn_s = time.perf_counter() - t0
+    del refs
+    torch.cuda.ipc_collect()            # the ranks' handles are gone
+    torch.cuda.empty_cache()
+    cases, per_case = {}, []
+    for arch, case in TPMB_CASES.items():
+        cfg, mesh, ctx, n_micro, batches = _tpmb_setup(arch, case)
+        got = [r["cases"][arch] for r in results]
+        tp = mesh.shape["model"]
+        rows = batches[0]["tokens"].shape[0] // mesh.shape["data"]
+        mb = (rows // n_micro, PP_SEQ, cfg.d_model)
+        want, want_bwd, want_shapes = tp_mamba_rank_launches(
+            cfg, tp, n_micro, TPMB_STEPS, mb)
+        for rank, r in enumerate(got):
+            assert r["coords"] == mesh.coords(rank), (arch, rank, r)
+            assert r["launches_fwd"] == want, (arch, rank, r["launches_fwd"])
+            assert r["launches_bwd"] == want_bwd, (arch, rank,
+                                                   r["launches_bwd"])
+            for name, by in want_shapes.items():
+                assert r["shapes"][name] == by, (arch, rank, name,
+                                                 r["shapes"][name])
+        losses = got[0]["losses"]
+        assert all(r["losses"] == losses for r in got), \
+            [r["losses"] for r in got]
+        diffs = [abs(a - b) for a, b in zip(losses, ref_losses[arch])]
+        assert all(np.isfinite(losses)) and max(diffs) <= TP_LOSS_TOL, \
+            (arch, losses, ref_losses[arch])
+        step_s = [max(r["step_s"][i] for r in got)
+                  for i in range(TPMB_STEPS)]
+        cases[arch] = {
+            "layers": f"{case['layers']} of {configs.get(arch).n_layers}",
+            "family": cfg.family, "dtype": cfg.dtype, "remat": cfg.remat,
+            "mesh": dict(mesh.shape), "ranks": mesh.ranks.tolist(),
+            "fsdp": case["fsdp"], "n_micro": n_micro,
+            "microbatch": list(mb[:2]),
+            **({"conf": dict(zip(("pp", "tp", "dp", "bs_micro",
+                                  "bs_global"), case["conf"]))}
+               if "conf" in case else {}),
+            "split": _tpmb_split(cfg, tp),
+            "losses": losses, "one_process_losses": ref_losses[arch],
+            "loss_abs_diff": diffs,
+            "params": _compare_params([r["sums"] for r in got], cfg, ctx,
+                                      (TPMB_UPDATE_TOL, TPMB_MOMENT_TOL)),
+            "step_s": step_s, "warm_step_s": max(step_s[1:]),
+            "peak_memory_bytes_max": max(r["peak_memory_bytes"]
+                                         for r in got),
+            "staged_bytes_per_step_max": {
+                k: max(r["staged_bytes_per_step"][k] for r in got)
+                for k in got[0]["staged_bytes_per_step"]},
+            "launches_per_rank": {"fwd": want, "bwd": want_bwd},
+            "ranks_detail": [{"rank": i, **{k: r[k] for k in (
+                "coords", "step_s", "peak_memory_bytes", "init_s",
+                "groups_s", "compare_s")}} for i, r in enumerate(got)]}
+        per_case += got
+    launches = {k: sum(r["launches_fwd"][k] for r in per_case)
+                for k in WRAPPERS}
+    bwd = {k: sum(r["launches_bwd"][k] for r in per_case)
+           for k in BWD_KERNELS}
+    hybrid = next(_tpmb_setup(a, c) for a, c in TPMB_CASES.items()
+                  if configs.get(a).family == "hybrid")
+    norm = gated_norm_split_vs_kernel(device, hybrid[0],
+                                      hybrid[1].shape["model"])
+    seconds = time.perf_counter() - t_phase
+    assert seconds <= TPMB_PHASE_S, ("tp_train_mamba_on_card over its "
+                                     "budget", seconds)
+    return {"phase": "tp_train_mamba_on_card", "cases": cases,
+            "gated_norm_split_vs_kernel": norm,
+            "tol": {"loss": TP_LOSS_TOL, "update_rel": TPMB_UPDATE_TOL,
+                    "moment_rel": TPMB_MOMENT_TOL},
+            "processes": len(results), "backend": "gloo (host-staged)",
+            "seq_len": PP_SEQ, "steps": TPMB_STEPS, "lr": TRAIN_LR,
+            "launches_fwd": launches, "launches_bwd": bwd,
+            "rank_setup_s": [r["setup_s"] for r in results],
+            "one_process_seconds": one_s, "spawn_seconds": spawn_s,
+            "seconds": seconds}, _sum_shapes(per_case)
+
+
+#: ``tp_generate_on_card``: prefill and greedy decode under
+#: ``ShardCtx(mesh, dp=("data",), tp="model")`` (no FSDP: serving, as the
+#: reference's ``launch/dryrun.py``) in four processes on the card, one
+#: spawn, each model at full width and cut in depth, batch
+#: ``TPG_BATCH``, prompt ``TPG_PROMPT``, ``TPG_TOKENS`` greedy tokens:
+#: qwen2-7b on (data 2, model 2) (heads and KV heads cut), gpt-3.1b on
+#: (data 1, model 4) (22 heads: the sequence-sharded prefill, replicated
+#: heads in decode, the cache's sequence cut over (model, data)),
+#: falcon-mamba-7b on (data 2, model 2) and zamba2-7b on (data 1, model
+#: 4).  The ranks' prefill cache is gathered over its specs, grown by
+#: ``TPG_TOKENS`` positions and cut again (phase glue: the reference's
+#: ``generate.py`` has no context).  The ranks decode teacher-forced on
+#: the one process's greedy tokens, so that every step's logits are held
+#: to the one process's on the same inputs: within the slice checks'
+#: ``SLICE_TOL_MAX`` / ``SLICE_TOL_MEAN`` (both sides bfloat16 on the same
+#: kernels, after sums in another order), and each rank's greedy token
+#: equal to the one process's, or within a margin of its largest logit
+#: (a bfloat16 near-tie; :func:`tpg_tolerance`).
+TPG_CASES = {
+    "qwen2-7b": {"layers": 4, "ranks": [[2, 0], [3, 1]]},
+    "gpt-3.1b": {"layers": 4, "ranks": [[1, 3, 0, 2]]},
+    "falcon-mamba-7b": {"layers": 4, "ranks": [[3, 1], [0, 2]]},
+    "zamba2-7b": {"layers": 6, "ranks": [[0, 2, 1, 3]]},
+}
+TPG_BATCH, TPG_PROMPT, TPG_TOKENS = 4, 512, 16
+TPG_SPAWN_S, TPG_PHASE_S = 300.0, 60.0
+#: The Mamba families' logit tolerance (largest, mean absolute) against
+#: one process, in place of the slice checks': a Mamba layer's ``dt``,
+#: ``B`` and ``C`` feed exponentials over the whole prompt, so one
+#: bfloat16 rounding of a row-parallel sum in another place moves its
+#: logits further than an attention layer's.  One process whose
+#: row-parallel products are summed from ``tp`` bfloat16 blocks, as the
+#: ranks sum them, reads falcon-mamba-7b's logits exactly as its ranks
+#: do, 0.57 / 0.025 from the plain one, and zamba2-7b's 0.53 / 0.024
+#: (``tools/tp_noise_floor.py``) where its ranks read 0.63 / 0.024; the
+#: faults ``x_proj_unsummed``, ``gated_norm_unsummed`` and
+#: ``conv_tail_miscut`` read 5.5 / 0.48 and more (``tools/tp_faults.py``).
+#: Set between them.  The third number is the near-tie margin: the
+#: largest by which the one process's logit of a token that the ranks
+#: chose in its place may lie below its largest.  Sound ranks read at
+#: most 0.094, the noise floor's one process 0.19, the faults up to 3.4
+#: and more: set at 0.5 from the sound readings.  Attention models keep
+#: the slice checks' tolerances, their near-tie margin ``SLICE_TOL_MAX``.
+TPG_MAMBA_TOL = (2.0, 0.1, 0.5)
+
+
+def tpg_tolerance(cfg) -> tuple:
+    """``(largest, mean, near-tie margin)``: the absolute logit tolerances
+    of a ``tp_generate_on_card`` model against one process, and the
+    margin of a greedy token that differs."""
+    if cfg.family in ATTENTION_FAMILIES:
+        return SLICE_TOL_MAX, SLICE_TOL_MEAN, SLICE_TOL_MAX
+    return TPG_MAMBA_TOL
+
+
+def _tpg_setup(arch: str, case: dict) -> tuple:
+    """``(cfg, mesh, ctx, prompt)`` of a ``tp_generate_on_card`` case."""
+    from repro_torch.launch.mesh import Mesh
+    cfg = configs.get(arch).replace(n_layers=case["layers"])
+    mesh = Mesh(np.asarray(case["ranks"]), ("data", "model"))
+    ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model")
+    rng = np.random.default_rng(len(arch) + 1)
+    prompt = rng.integers(0, cfg.vocab_size, (TPG_BATCH, TPG_PROMPT),
+                          dtype=np.int64)
+    return cfg, mesh, ctx, prompt
+
+
+def _one_process_generate(cfg, prompt, device) -> dict:
+    """One process's prefill of ``prompt`` and greedy decode of
+    ``TPG_TOKENS`` tokens (the first from the prefill) on the weights
+    drawn whole from seed 0: its prefill logits, each step's logits and
+    the tokens ``(b, TPG_TOKENS)``, on the card."""
+    params = init_params(cfg, seed=0, device=device)
+    ctx = ShardCtx()
+    with torch.no_grad():
+        logits, cache = M.prefill(params, cfg, ctx,
+                                  torch.as_tensor(prompt, device=device))
+        cache = gen_cli.grow_cache(cache, TPG_TOKENS)
+        toks, steps = [torch.argmax(logits, -1)], []
+        for j in range(TPG_TOKENS - 1):
+            lg, cache = M.decode_step(params, cfg, ctx, toks[-1][:, None],
+                                      cache, TPG_PROMPT + j)
+            steps.append(lg)
+            toks.append(torch.argmax(lg, -1))
+    torch.cuda.synchronize()
+    return {"prefill": logits, "steps": torch.stack(steps),
+            "tokens": torch.stack(toks, 1)}
+
+
+def tp_generate_launches(cfg, tp: int, rows: int, m: int) -> tuple:
+    """``(launches, shape keys)`` of the rank at model coordinate ``m`` of
+    a ``tp_generate_on_card`` case, computing ``rows`` rows: per prefill one plain norm over the
+    sequence, ``n - 1`` residual ones and one plain norm of the last row;
+    per step one plain and ``n`` residual norms (``n`` the norms a layer
+    stack runs: 2 an attention layer, 1 a Mamba layer, 2 a shared-block
+    application; the gated norm's statistic is plain torch under a
+    context); the attention once a layer (an application) per prefill, on
+    the rank's heads or its share of the rows (the kernel's ``q_offset``
+    past the first share); the fused scan once a layer per prefill and
+    per step on the rank's channels."""
+    L, steps, bf = cfg.n_layers, TPG_TOKENS - 1, torch.bfloat16
+    apps = len(layer_plan(cfg)[1]["shared_at"])
+    attn = cfg.family in ATTENTION_FAMILIES
+    n = 2 * L if attn else L + 2 * apps
+    seq, last = (rows, TPG_PROMPT, cfg.d_model), (rows, 1, cfg.d_model)
+    want = {k: 0 for k in WRAPPERS}
+    shapes = {k: {} for k in WRAPPERS}
+    want["rmsnorm"] = (n + 1) * (1 + steps)
+    shapes["rmsnorm"] = {(seq, bf, bf): 1, ("add", seq, bf, bf): n - 1,
+                         (last, bf, bf): 1 + steps,
+                         ("add", last, bf, bf): n * steps}
+    n_attn = L if attn else apps
+    if n_attn:
+        want["flash_attention"] = n_attn
+        if cfg.n_heads % tp == 0:
+            key = ((rows, cfg.n_heads // tp, TPG_PROMPT, cfg.hd),
+                   (rows, cfg.n_kv_heads // tp, TPG_PROMPT, cfg.hd), True,
+                   0, str(bf))
+        else:                           # this rank's share of the rows
+            share = TPG_PROMPT // tp
+            key = ((rows, cfg.n_heads, share, cfg.hd),
+                   (rows, cfg.n_kv_heads, (m + 1) * share, cfg.hd), True,
+                   0, str(bf)) + ((m * share,) if m else ())
+        shapes["flash_attention"] = {key: n_attn}
+    if cfg.family == "ssm":
+        x = cfg.d_inner // tp
+        want["selective_scan"] = L * (1 + steps)
+        shapes["selective_scan"] = {
+            ("fused", (rows, TPG_PROMPT, x), cfg.ssm_state, bf, False): L,
+            ("fused", (rows, 1, x), cfg.ssm_state, bf, True): L * steps}
+    return want, shapes
+
+
+def _regrow(cache: dict, cfg, ctx, batch: int, s_old: int,
+            s_new: int) -> dict:
+    """A rank's cache blocks for ``s_old`` positions (its prefill's) as
+    blocks for ``s_new``: the full KV rows gathered over the axes of
+    their sequence's spec (the minor axis first), grown, cut again."""
+    import torch.distributed as dist
+    from repro_torch.models import sharding as sh
+    old = M.cache_specs(cfg, ctx, batch, s_old)
+    new = M.cache_specs(cfg, ctx, batch, s_new)
+    out = dict(cache)
+    for key in ("k", "v"):
+        if key in cache:
+            t = cache[key]
+            for a in reversed(sh.spec_axes(old[key][2])):
+                t = collectives.all_gather(t, ctx.mesh, a, 2)
+            t = gen_cli.grow_cache({key: t}, s_new - s_old)[key]
+            out[key] = sh.shard_leaf(t, sh.P(None, None, new[key][2]),
+                                     ctx.mesh, dist.get_rank()).contiguous()
+            del t
+    return out
+
+
+def _logit_reading(got, want) -> dict:
+    """A rank's logits block against the same block of the one
+    process's: the largest and the summed absolute differences and
+    their count."""
+    d = (got.float() - want.float()).abs()
+    return {"max_abs": float(d.max()),
+            "sum_abs": float(d.sum(dtype=torch.float64)), "n": d.numel()}
+
+
+def tp_generate_rank(rank: int, world: int, refs: dict) -> dict:
+    """One rank of ``tp_generate_on_card``: each case of ``TPG_CASES`` in
+    turn on its mesh (the weights drawn whole from seed 0 and cut, the
+    prompt's rows it computes), ``make_prefill_step`` under the context
+    (timed), the cache regrown, then ``TPG_TOKENS - 1`` teacher-forced steps of
+    ``make_decode_step`` on the one process's tokens (each timed), every
+    logits block and greedy token against the one process's ``refs[arch]``
+    (CUDA tensors the parent shares; popped), its launches, shapes,
+    bytes by kind and peak memory."""
+    import torch.distributed as dist
+    from repro_torch.models import sharding as sh
+    t_start = time.perf_counter()
+    device = _rank_setup()
+    out = {"rank": rank, "cases": {},
+           "setup_s": time.perf_counter() - t_start}
+    for arch, case in TPG_CASES.items():
+        t0 = time.perf_counter()
+        cfg, mesh, ctx, prompt = _tpg_setup(arch, case)
+        full = init_params(cfg, seed=0, device=device)
+        torch.cuda.synchronize()
+        t_draw = time.perf_counter()
+        params = sh.shard_params(full, cfg, ctx, rank)
+        del full
+        torch.cuda.empty_cache()
+        c = mesh.coords(rank)
+        nd = mesh.shape["data"]
+        per = TPG_BATCH // nd if TPG_BATCH % nd == 0 else TPG_BATCH
+        rows = slice(c["data"] * per, (c["data"] + 1) * per) \
+            if per != TPG_BATCH else slice(None)
+        cut = M._vocab_cut(cfg, ctx)
+        v0, nv = cut if cut is not None else (0, cfg.padded_vocab)
+        ref = refs.pop(arch)
+        res = {"coords": c, "rows": per}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for a in mesh.axis_names:       # the groups, made collectively
+            mesh.group(a)
+        dist.barrier()
+        res.update(init_s=t1 - t0, draw_s=t_draw - t0,
+                   groups_s=time.perf_counter() - t1)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        collectives.reset_stats()
+        toks = torch.as_tensor(prompt[rows], device=device)
+        ref_toks = ref["tokens"][rows]
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            logits, cache = make_prefill_step(cfg, ctx)(
+                params, {"tokens": toks}, batch=TPG_BATCH)
+            first = train_steps.greedy_token(logits, cfg, ctx)
+            torch.cuda.synchronize()
+            res["prefill_s"] = time.perf_counter() - t0
+            res["prefill_bytes"] = dict(collectives.STATS)
+            readings = [_logit_reading(logits, ref["prefill"][rows,
+                                                              v0:v0 + nv])]
+            greedy = [first[:, 0]]
+            cache = _regrow(cache, cfg, ctx, TPG_BATCH, TPG_PROMPT,
+                            TPG_PROMPT + TPG_TOKENS)
+            collectives.reset_stats()
+            step = make_decode_step(cfg, ctx)
+            step_s = []
+            for j in range(TPG_TOKENS - 1):
+                t0 = time.perf_counter()
+                nxt, lg, cache = step(params, cache, ref_toks[:, j:j + 1],
+                                      TPG_PROMPT + j, batch=TPG_BATCH,
+                                      seq_len=TPG_PROMPT + TPG_TOKENS)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                readings.append(_logit_reading(
+                    lg, ref["steps"][j][rows, v0:v0 + nv]))
+                greedy.append(nxt[:, 0])
+            res["decode_bytes_per_token"] = {
+                k: v / (TPG_TOKENS - 1) for k, v in collectives.STATS.items()}
+            greedy = torch.stack(greedy, 1)
+            # where a token differs, how far the one process's logit of it
+            # lies below its largest (a near-tie when within the tolerance)
+            all_logits = torch.cat([ref["prefill"][None], ref["steps"]])
+            margins = []
+            for i, j in torch.nonzero(greedy != ref_toks).tolist():
+                row = all_logits[j, rows][i].float()
+                margins.append(float(row.max() - row[greedy[i, j]]))
+        res.update(step_s=step_s, readings=readings,
+                   tokens_equal=int((greedy == ref_toks).sum()),
+                   tokens=int(greedy.numel()), token_margins=margins,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   launches=read_launches(), shapes=read_shapes())
+        del params, cache, ref, ref_toks, all_logits, logits
+        torch.cuda.empty_cache()
+        out["cases"][arch] = res
+    assert _build.last_build_seconds is None, "a rank ran nvcc"
+    return out
+
+
+def tp_generate(device) -> tuple:
+    """``tp_generate_on_card``: each case's one-process generate, then
+    :func:`tp_generate_rank` in four spawned processes, held to it;
+    returns ``(line, launches, shapes)`` with the ranks' summed launches
+    and shape counts."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    refs = {}
+    t0 = time.perf_counter()
+    for arch, case in TPG_CASES.items():
+        cfg, _, _, prompt = _tpg_setup(arch, case)
+        refs[arch] = _one_process_generate(cfg, prompt, device)
+        torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = collectives.spawn(tp_generate_rank, 4, (refs,),
+                                timeout=TPG_SPAWN_S)
+    spawn_s = time.perf_counter() - t0
+    del refs
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    cases, per_case, flash_keys = {}, [], {}
+    for arch, case in TPG_CASES.items():
+        cfg, mesh, ctx, _ = _tpg_setup(arch, case)
+        got = [r["cases"][arch] for r in results]
+        tp = mesh.shape["model"]
+        keys = set()
+        for rank, r in enumerate(got):
+            assert r["coords"] == mesh.coords(rank), (arch, rank, r)
+            want, want_shapes = tp_generate_launches(
+                cfg, tp, r["rows"], r["coords"]["model"])
+            assert r["launches"] == want, (arch, rank, r["launches"], want)
+            for name, by in want_shapes.items():
+                assert r["shapes"][name] == by, (arch, rank, name,
+                                                 r["shapes"][name])
+            keys |= set(r["shapes"]["flash_attention"])
+            for m in r["token_margins"]:
+                assert m <= tpg_tolerance(cfg)[2], (arch, rank,
+                                                    r["token_margins"])
+        if keys:
+            flash_keys[arch] = sorted(keys, key=repr)
+        reads = [x for r in got for x in r["readings"]]
+        max_abs = max(x["max_abs"] for x in reads)
+        mean_abs = sum(x["sum_abs"] for x in reads) / sum(x["n"]
+                                                          for x in reads)
+        slow = [max(r["step_s"][j] for r in got)
+                for j in range(TPG_TOKENS - 1)]
+        cases[arch] = {
+            "layers": f"{case['layers']} of {configs.get(arch).n_layers}",
+            "family": cfg.family, "mesh": dict(mesh.shape),
+            "ranks": case["ranks"],
+            "cache": {k: repr(v) for k, v in M.cache_specs(
+                cfg, ctx, TPG_BATCH, TPG_PROMPT + TPG_TOKENS).items()},
+            "prefill_s": max(r["prefill_s"] for r in got),
+            "decode_ms_per_token": sum(slow) / len(slow) * 1e3,
+            "decode_ms_per_token_warm": sum(slow[1:]) / len(slow[1:]) * 1e3,
+            "peak_memory_bytes_max": max(r["peak_memory_bytes"]
+                                         for r in got),
+            "prefill_bytes_max": {k: max(r["prefill_bytes"][k] for r in got)
+                                  for k in got[0]["prefill_bytes"]},
+            "decode_bytes_per_token_max": {
+                k: max(r["decode_bytes_per_token"][k] for r in got)
+                for k in got[0]["decode_bytes_per_token"]},
+            "logits_vs_one_process": {
+                "max_abs": max_abs, "mean_abs": mean_abs,
+                "max_abs_by_step": [max(r["readings"][j]["max_abs"]
+                                        for r in got)
+                                    for j in range(TPG_TOKENS)]},
+            "tokens_equal": sum(r["tokens_equal"] for r in got),
+            "tokens": sum(r["tokens"] for r in got),
+            "token_margins": [m for r in got for m in r["token_margins"]],
+            "ranks_detail": [{"rank": i, **{k: r[k] for k in (
+                "coords", "rows", "prefill_s", "peak_memory_bytes",
+                "init_s", "draw_s", "groups_s")}}
+                for i, r in enumerate(got)]}
+        tol_max, tol_mean, margin = tpg_tolerance(cfg)
+        cases[arch]["tol"] = {"max_abs": tol_max, "mean_abs": tol_mean,
+                              "tie_margin": margin}
+        assert max_abs <= tol_max and mean_abs <= tol_mean, \
+            (arch, cases[arch]["logits_vs_one_process"])
+        per_case += got
+    launches = {k: sum(r["launches"][k] for r in per_case) for k in WRAPPERS}
+    seconds = time.perf_counter() - t_phase
+    assert seconds <= TPG_PHASE_S, ("tp_generate_on_card over its budget",
+                                    seconds)
+    return {"phase": "tp_generate_on_card", "cases": cases,
+            "batch": TPG_BATCH, "prompt_len": TPG_PROMPT,
+            "tokens": TPG_TOKENS, "teacher_forced": True,
+            "attention_keys": {a: [repr(k) for k in ks]
+                               for a, ks in flash_keys.items()},
+            "launches": launches,
+            "rank_setup_s": [r["setup_s"] for r in results],
+            "one_process_seconds": one_s, "spawn_seconds": spawn_s,
+            "seconds": seconds}, launches, _sum_shapes(per_case)
 
 
 def leaf_names(tree, prefix: str = "") -> list:
@@ -4123,7 +4790,7 @@ def main() -> int:
         name: {k: n for k, n in by.items() if is_bwd_key(k)}
         for name, by in shapes_pp.items()}
     for run in (lambda: tp_train(device, line_pp["losses"][0]),
-                lambda: tp_models(device)):
+                lambda: tp_models(device), lambda: tp_train_mamba(device)):
         line_x, shapes_x = run()
         emit(line_x)
         train_lines.append(line_x)
@@ -4133,6 +4800,9 @@ def main() -> int:
         bwd_tr[line_x["phase"]] = {
             name: {k: n for k, n in by.items() if is_bwd_key(k)}
             for name, by in shapes_x.items()}
+    line_tg, gen_launches["tp_generate_on_card"], \
+        gen_shapes["tp_generate_on_card"] = tp_generate(device)
+    emit(line_tg)
     model_rows = check_model_path_shapes(device, {**gen_shapes, **fwd_tr})
     emit({"phase": "model_kernels_at_path_shapes", "kernels": model_rows})
     bwd_rows = check_bwd_path_shapes(device, bwd_tr)

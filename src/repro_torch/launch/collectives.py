@@ -50,10 +50,13 @@ import torch.distributed as dist
 #: (and the gradient norm's partial sums over the model axis), ``vocab``
 #: the vocabulary-parallel embedding's sum, the head's sum of input
 #: cotangents and the loss's reductions, ``data`` the reductions over the
-#: data axes (gradients, the gradient norm, the loss, its token count).
+#: data axes (gradients, the gradient norm, the loss, its token count),
+#: ``decode`` a decode step's gathers of q, k and v over the heads, its
+#: partial attentions' combine over the cache's sequence blocks and the
+#: greedy token's reductions over the vocabulary blocks.
 STATS: Dict[str, int] = {"p2p": 0, "collective": 0, "fsdp": 0, "tp": 0,
-                         "vocab": 0, "data": 0}
-_KINDS = ("fsdp", "tp", "vocab", "data")
+                         "vocab": 0, "data": 0, "decode": 0}
+_KINDS = ("fsdp", "tp", "vocab", "data", "decode")
 
 
 def reset_stats() -> None:

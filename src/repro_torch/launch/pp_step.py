@@ -15,7 +15,7 @@ At run time each rank holds its stage's layers, and the shared leaves
 (embedding, final norm, head) and all their AdamW moments, whole.  The
 spec trees describe the reference's layout: stages over the pipe axis,
 the shared leaves FSDP-sharded over the data axis and the moments ZeRO-1
-sharded; storing them so (FSDP, ZeRO-1) is ROADMAP Queue A 11c.  Results
+sharded; storing them so (FSDP, ZeRO-1) is ROADMAP Queue A 11d.  Results
 do not change with it; per-rank memory does.
 """
 from __future__ import annotations

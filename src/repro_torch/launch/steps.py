@@ -60,11 +60,12 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> dict:
 
 def _named(tree) -> list:
     """``(leaf name, tensor)`` of every leaf of a parameter tree (layers
-    stacked), the top-level ones first, in the tree's own order."""
+    stacked), in the tree's own order: a nested dict's leaves (the
+    ``layers``, a hybrid's ``shared`` block) by their own names."""
     out = []
     for k, v in tree.items():
-        if k == "layers":
-            out += list(v.items())
+        if isinstance(v, dict):
+            out += _named(v)
         else:
             out.append((k, v))
     return out
@@ -211,18 +212,43 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
 
 
 def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx):
-    def prefill_step(params, batch: Dict[str, Any]):
-        logits, cache = M.prefill(params, cfg, ctx, batch["tokens"],
-                                  batch.get("img_embeds"))
+    def prefill_step(params, inputs: Dict[str, Any], **kw):
+        """``(last_token_logits, cache)`` of ``inputs``' ``tokens`` (and
+        ``img_embeds``).  ``kw`` goes to ``prefill`` (``batch`` under an
+        active context)."""
+        logits, cache = M.prefill(params, cfg, ctx, inputs["tokens"],
+                                  inputs.get("img_embeds"), **kw)
         return logits, cache
     return prefill_step
 
 
+def greedy_token(logits, cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
+    """The greedy next token ``(b, 1)`` of a decode step's logits (under an
+    active context this rank's vocabulary block): the lowest index among
+    the largest logits, ``jnp.argmax``'s rule, over the whole vocabulary.
+    Under a context the largest value is taken over the model axis
+    (``max_over``), then the least global index among the blocks that
+    reach it (a ``max_over`` of its negation): every model rank gets the
+    same token."""
+    cut = M._vocab_cut(cfg, ctx)
+    if cut is None:
+        return torch.argmax(logits, dim=-1)[:, None]
+    v0, _ = cut
+    mesh, tp = ctx.mesh, ctx.tp
+    lf = logits.float()                   # exact for bfloat16 logits
+    top = lf.amax(dim=-1)
+    best = C.max_over(top, mesh, tp, "decode")
+    idx = v0 + torch.argmax(lf, dim=-1)
+    cand = torch.where(top == best, idx, torch.full_like(idx, cfg.padded_vocab))
+    return (-C.max_over(-cand, mesh, tp, "decode"))[:, None]
+
+
 def make_decode_step(cfg: ModelConfig, ctx: ShardCtx):
-    def serve_step(params, cache, token, pos: int):
+    def serve_step(params, cache, token, pos: int, **kw):
         """Greedy step: returns ``(next_token (b, 1), logits, cache)``; the
-        cache is updated in place."""
-        logits, cache = M.decode_step(params, cfg, ctx, token, cache, pos)
-        next_tok = torch.argmax(logits, dim=-1)[:, None]
-        return next_tok, logits, cache
+        cache is updated in place.  ``kw`` goes to ``decode_step``
+        (``batch``, ``seq_len`` under an active context)."""
+        logits, cache = M.decode_step(params, cfg, ctx, token, cache, pos,
+                                      **kw)
+        return greedy_token(logits, cfg, ctx), logits, cache
     return serve_step

@@ -2,7 +2,9 @@
 attention, single-token decode against a KV cache, and the O(S^2) oracle
 of the tests.
 
-All three are plain PyTorch, as their counterparts in the JAX package's
+All three, and the partial decode over one block of a cache's sequence
+with its combine (:func:`decode_attention_partial`,
+:func:`combine_partials`), are plain PyTorch, as their counterparts in the JAX package's
 ``models/attention.py`` compute outside any Pallas kernel.  Full-sequence
 attention of a prefill or a training step goes through the
 ``flash_attention`` kernel (:func:`repro_torch.models.transformer.
@@ -128,6 +130,51 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.exp(sc - m)
     out = torch.einsum("bkgs,bskd->bkgd", p, vf) / p.sum(-1, keepdim=True)
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_block: torch.Tensor,
+                             v_block: torch.Tensor, pos: int,
+                             offset: int = 0) -> tuple:
+    """Single-token attention of ``q`` ``(b, 1, H, hd)`` over one block of
+    a KV cache's sequence, ``k_block, v_block`` ``(b, S_blk, KV, hd)``
+    holding positions ``offset .. offset + S_blk - 1``, unnormalised: per
+    query head the block's largest score ``m`` ``(b, H)``, its sum of
+    exponentials ``l`` ``(b, H)`` and its weighted values ``o`` ``(b, H,
+    hd)``, all float32 (flash-decoding's partial result).  Positions past
+    ``pos`` are masked; a block with no allowed position gives ``m =
+    -inf``, ``l = 0`` and ``o = 0``.  :func:`combine_partials` puts the
+    blocks together."""
+    b, _, h, hd = q.shape
+    _, s, kvh, _ = k_block.shape
+    g = h // kvh
+    scale = 1.0 / (hd ** 0.5)
+    qf = q.reshape(b, kvh, g, hd).to(torch.float32) * scale
+    sc = torch.einsum("bkgd,bskd->bkgs", qf, k_block.to(torch.float32))
+    k_pos = offset + torch.arange(s, device=q.device)
+    ok = k_pos <= pos
+    sc = torch.where(ok, sc, torch.full_like(sc, -torch.inf))
+    m = sc.amax(dim=-1)                                          # (b,k,g)
+    p = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_block.to(torch.float32))
+    return m.reshape(b, h), l.reshape(b, h), o.reshape(b, h, hd)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                     max_fn: Callable, sum_fn: Callable,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The attention output ``(b, 1, H, hd)`` in ``dtype`` from the
+    blocks' partial results of :func:`decode_attention_partial`:
+    ``M = max_fn(m)``, then ``sum_fn`` of ``l e^(m - M)`` and of ``o
+    e^(m - M)``, then the divide.  ``max_fn`` and ``sum_fn`` reduce over
+    the blocks — over a mesh's axes (``collectives.max_over``,
+    ``sum_over``), or over a leading dim of stacked blocks — and return
+    a result that broadcasts against one block's."""
+    big = max_fn(m)
+    w = torch.exp(m - big)
+    out = sum_fn(o * w[..., None]) / sum_fn(l * w)[..., None]
+    b, h, hd = out.shape
+    return out.reshape(b, 1, h, hd).to(dtype)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -84,8 +84,8 @@ def causal_conv1d_step(x_t: torch.Tensor, cache: torch.Tensor,
 # the block
 # ---------------------------------------------------------------------------
 
-def mamba1_block(x, p, cfg, *, h0=None, conv0=None, single_step=False,
-                 h_out=None):
+def mamba1_block(x, p, cfg, *, ctx=None, h0=None, conv0=None,
+                 single_step=False, h_out=None):
     """``x`` ``(B, S, d_model)``, or ``(B, d_model)`` when ``single_step``.
 
     Params ``p``: in_proj (d, 2*di), conv_w (W, di), conv_b (di,),
@@ -94,7 +94,15 @@ def mamba1_block(x, p, cfg, *, h0=None, conv0=None, single_step=False,
     Returns ``(y, (h, conv_cache))``.  With ``h_out`` (``(B, di, N)``
     float32) the final state is written into it and ``h`` is ``h_out``;
     it may be ``h0`` itself, which is then updated in place.
+
+    Under an active context ``p`` is this rank's blocks and the block runs
+    channel-parallel (:func:`_mamba1_sharded`); ``h0``, ``conv0``,
+    ``h_out`` and the returned caches are this rank's blocks of the
+    decode cache (``model.cache_pspecs``).
     """
+    if ctx is not None and ctx.active:
+        return _mamba1_sharded(x, p, cfg, ctx, h0, conv0, single_step,
+                               h_out)
     n = cfg.ssm_state
     splits = [cfg.dt_rank, n, n]
 
@@ -197,8 +205,8 @@ def ssd_step(x, dt, B, C, A, state, h_out: Optional[torch.Tensor] = None
     return y, s_new
 
 
-def mamba2_block(x, p, cfg, *, h0=None, conv0=None, single_step=False,
-                 h_out=None):
+def mamba2_block(x, p, cfg, *, ctx=None, h0=None, conv0=None,
+                 single_step=False, h_out=None):
     """Mamba2 / SSD block.  ``x`` ``(B, S, d_model)``, or ``(B, d_model)``
     when ``single_step``.
 
@@ -208,7 +216,14 @@ def mamba2_block(x, p, cfg, *, h0=None, conv0=None, single_step=False,
     runs over ``x‖B‖C``.  Returns ``(y, (h, conv_cache))``; with ``h_out``
     (``(B, H, P, N)`` float32, decode only) the new state is written into
     it and ``h`` is ``h_out``.
+
+    Under an active context ``p`` is this rank's blocks and the block runs
+    head-parallel (:func:`_mamba2_sharded`); the caches in and out are
+    this rank's blocks of the decode cache.
     """
+    if ctx is not None and ctx.active:
+        return _mamba2_sharded(x, p, cfg, ctx, h0, conv0, single_step,
+                               h_out)
     di, n, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     nh = di // hd
     A = -torch.exp(p["A_log"].to(torch.float32))
@@ -234,6 +249,197 @@ def mamba2_block(x, p, cfg, *, h0=None, conv0=None, single_step=False,
     y = y.reshape(*y.shape[:-2], di)
     y = rms_norm(y * silu(z.to(torch.float32)), p["norm_w"], cfg.norm_eps)
     return y.to(x.dtype) @ p["out_proj"], (h, conv_cache)
+
+
+# ---------------------------------------------------------------------------
+# under an active ShardCtx
+# ---------------------------------------------------------------------------
+#
+# The projection ``in_proj`` is stored cut over the model axis as one
+# packed matrix (``x‖z``, or ``z‖x‖B‖C‖dt``), so a contiguous cut does not
+# give a rank matching channels of each part (at tp 2, Mamba1's rank 0
+# holds all of ``x`` and rank 1 all of ``z``).  Each rank computes its
+# column block of the packed activation with its stored block, the blocks
+# are gathered over the model axis (``gather_over``: the gradient is
+# summed over the axis, then cut), and each rank takes its own channels of
+# every part.  The rest of the weights are cut along the channels (Mamba1)
+# or heads (Mamba2), in line with that choice, except Mamba2's
+# convolution, whose ``di + 2N`` channels are cut out of line with the
+# heads: it is used whole.  A config whose channels (Mamba1) or heads
+# (Mamba2) do not divide the model axis runs the block replicated, each
+# weight whole.
+
+
+def _conv_cut(cfg, ctx) -> bool:
+    """Whether the decode cache's ``conv`` rows are cut over the model
+    axis (``cache_pspecs``' ``P(None, b, None, tp)`` when the conv
+    channels divide it)."""
+    width = cfg.d_inner + (2 * cfg.ssm_state if cfg.ssm_variant == "mamba2"
+                           else 0)
+    return width % ctx.n(ctx.tp) == 0
+
+
+def _whole_params(p, cfg, ctx):
+    """Every weight of a layer whole over the model axis, for the block
+    computed alike on every model rank."""
+    from . import sharding as sh
+    sp = sh.use_specs(cfg, ctx)
+    return {k: sh.replicated_whole(sh.fsdp_gather(v, sp[k], ctx), sp[k], ctx)
+            for k, v in p.items()}
+
+
+def _conv_whole(conv0, cfg, ctx):
+    """This rank's ``conv`` cache block, whole over the model axis."""
+    from ..launch import collectives as C
+    if not _conv_cut(cfg, ctx):
+        return conv0
+    return C.all_gather(conv0, ctx.mesh, ctx.tp, conv0.dim() - 1, "tp")
+
+
+def _conv_block(whole, cfg, ctx):
+    """This rank's block of a whole ``conv`` tail ``(b, W - 1, channels)``,
+    a tensor of its own."""
+    from . import sharding as sh
+    if _conv_cut(cfg, ctx):
+        whole = sh.model_block(whole, ctx, whole.dim() - 1)
+    return whole.clone()
+
+
+def split_gated_norm(g, w, width: int, eps: float, sum_fn):
+    """Mamba2's gated norm on a block of its ``width`` channels: ``g``
+    float32 ``(..., block)``, ``w`` the weight's block.  The block's sum
+    of squares goes through ``sum_fn`` (the sum over the blocks: over the
+    model axis under a context, its cotangent summed back), then each
+    channel is scaled as the ``rmsnorm`` kernel scales it, ``(g *
+    rsqrt(mean + eps)) * w`` in float32."""
+    ss = sum_fn(torch.sum(g * g, dim=-1, keepdim=True))
+    return g * torch.rsqrt(ss / width + eps) * w.to(torch.float32)
+
+
+def _mamba1_sharded(x, p, cfg, ctx, h0, conv0, single_step, h_out):
+    """This rank's part of :func:`mamba1_block`, channel-parallel: of the
+    ``di`` channels it runs ``[m di / tp, (m + 1) di / tp)``.  ``x`` (the
+    stream, replicated over the model axis) enters through ``copy_to``;
+    the packed ``x‖z`` is gathered from the ranks' column blocks and each
+    rank takes its channels of ``x`` and of ``z``; the convolution,
+    ``dt_w``, ``dt_bias``, ``A_log`` and ``D`` are in line with them;
+    ``x_proj`` is row-parallel, its ``dt_rank + 2N`` outputs summed over
+    the model axis (and, since every rank's channels read them, their
+    cotangents summed too); the scan runs on the rank's channels (``z``
+    a strided view of the gathered tensor: the kernel's 16-byte copies
+    take it where it is aligned, element copies elsewhere), and
+    ``out_proj`` is row-parallel, summed.  The state and conv rows are
+    this rank's channels: its blocks of the cache."""
+    from ..launch import collectives as C
+    from . import sharding as sh
+    mesh, tp = ctx.mesh, ctx.tp
+    di, n, nm = cfg.d_inner, cfg.ssm_state, ctx.n(tp)
+    if di % nm:                    # the cache rows are whole too
+        return mamba1_block(x, _whole_params(p, cfg, ctx), cfg, h0=h0,
+                            conv0=conv0, single_step=single_step,
+                            h_out=h_out)
+    sp = sh.use_specs(cfg, ctx)
+    dl = di // nm
+    c0 = sh.coord(ctx, tp) * dl
+    w_in = sh.fsdp_gather(p["in_proj"], sp["in_proj"], ctx)
+    xz = C.gather_over(C.copy_to(x, mesh, tp) @ w_in, mesh, tp, -1, "tp")
+    xi, z = xz[..., c0:c0 + dl], xz[..., di + c0:di + c0 + dl]
+    if single_step:
+        xi, conv_cache = causal_conv1d_step(xi, conv0, p["conv_w"],
+                                            p["conv_b"])
+    else:
+        conv_cache = xi[:, -(cfg.ssm_conv - 1):, :].clone()
+        xi = causal_conv1d(xi, p["conv_w"], p["conv_b"])
+    xi = silu(xi)
+    proj = C.copy_to(C.sum_over(xi @ p["x_proj"], mesh, tp), mesh, tp)
+    dt, B_, C_ = torch.split(proj, [cfg.dt_rank, n, n], dim=-1)
+    dt = dt @ p["dt_w"]
+    if single_step:
+        xi, dt, B_, C_, z = (t[:, None] for t in (xi, dt, B_, C_, z))
+    y, h = selective_scan_fused(xi, dt, p["dt_bias"], B_, C_, p["A_log"],
+                                p["D"], z, h0, h_out, step=single_step)
+    if single_step:
+        y = y[:, 0]
+    w_out = sh.fsdp_gather(p["out_proj"], sp["out_proj"], ctx)
+    return C.sum_over(y @ w_out, mesh, tp), (h, conv_cache)
+
+
+def _mamba2_sharded(x, p, cfg, ctx, h0, conv0, single_step, h_out):
+    """This rank's part of :func:`mamba2_block`, head-parallel: of the
+    ``H`` heads it runs ``[m H / tp, (m + 1) H / tp)`` and their channels
+    of ``x`` and ``z``.  The packed ``z‖x‖B‖C‖dt`` is gathered from the
+    ranks' column blocks (computed whole, its weight marked replicated,
+    where its width does not divide the axis); the convolution's weight
+    and bias are gathered whole (58 KB at zamba2-7b) and each rank
+    convolves its ``x`` channels and all of ``B`` and ``C`` (one group);
+    ``dt_bias``, ``A_log`` and ``D`` are cut along the heads.  The gated
+    norm's mean over all ``d_inner`` channels is split: the rank's
+    float32 sum of squares is summed over the model axis (``b * s``
+    floats, its cotangent summed back), then each rank scales its
+    channels by its ``norm_w`` block, in the order of the one-process
+    norm.  ``out_proj`` is row-parallel, summed.  The state rows are this
+    rank's heads; the conv tail (``di + 2N`` channels, cut out of line
+    with the heads) is re-cut from the gathered activation in a prefill,
+    and gathered whole from the ranks' blocks, stepped and cut again in a
+    decode step."""
+    from ..launch import collectives as C
+    from . import sharding as sh
+    mesh, tp = ctx.mesh, ctx.tp
+    di, n, hd, nm = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim, ctx.n(tp)
+    nh = di // hd
+    if single_step:
+        conv_in = _conv_whole(conv0, cfg, ctx)
+    if nh % nm:
+        y, (h, tail) = mamba2_block(
+            x, _whole_params(p, cfg, ctx), cfg, h0=h0,
+            conv0=conv_in if single_step else None,
+            single_step=single_step, h_out=h_out)
+        return y, (h, _conv_block(tail, cfg, ctx))
+    sp = sh.use_specs(cfg, ctx)
+    hl = nh // nm
+    dl = hl * hd
+    c0 = sh.coord(ctx, tp) * dl
+    xin = C.copy_to(x, mesh, tp)
+    w_in = sh.fsdp_gather(p["in_proj"], sp["in_proj"], ctx)
+    if tp in sh.axes_of(sp["in_proj"]):
+        zxbcdt = C.gather_over(xin @ w_in, mesh, tp, -1, "tp")
+    else:
+        zxbcdt = xin @ C.copy_to(w_in, mesh, tp)
+    z = zxbcdt[..., c0:c0 + dl]
+    xbc_all = zxbcdt[..., di:2 * di + 2 * n]                 # x‖B‖C, whole
+    xbc = torch.cat([zxbcdt[..., di + c0:di + c0 + dl],
+                     zxbcdt[..., 2 * di:2 * di + 2 * n]], dim=-1)
+    d0 = 2 * di + 2 * n + c0 // hd                          # dt's heads
+    dt = zxbcdt[..., d0:d0 + hl]
+    cw, cb = (sh.model_whole(sh.fsdp_gather(p[k], sp[k], ctx), sp[k], ctx)
+              for k in ("conv_w", "conv_b"))
+    cw = torch.cat([cw[..., c0:c0 + dl], cw[..., di:]], dim=-1)
+    cb = torch.cat([cb[c0:c0 + dl], cb[di:]], dim=-1)
+    if single_step:
+        window = torch.cat([conv_in[..., c0:c0 + dl], conv_in[..., di:]],
+                           dim=-1)
+        xbc, _ = causal_conv1d_step(xbc, window, cw, cb)
+        tail = torch.cat([conv_in[:, 1:], xbc_all[:, None]], dim=1)
+    else:
+        tail = xbc_all[:, -(cfg.ssm_conv - 1):, :]
+        xbc = causal_conv1d(xbc, cw, cb)
+    conv_cache = _conv_block(tail, cfg, ctx)
+    xbc = silu(xbc)
+    xi, B_, C_ = torch.split(xbc, [dl, n, n], dim=-1)
+    dt = softplus(dt + p["dt_bias"].to(dt.dtype))
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    xh = xi.reshape(*xi.shape[:-1], hl, hd)
+    if single_step:
+        y, h = ssd_step(xh, dt, B_, C_, A, h0, h_out)
+    else:
+        y, h = ssd_scan(xh, dt, B_, C_, A, h0=h0)
+    y = y + p["D"].to(torch.float32)[:, None] * xh.to(torch.float32)
+    g = split_gated_norm(
+        y.reshape(*y.shape[:-2], dl) * silu(z.to(torch.float32)),
+        p["norm_w"], di, cfg.norm_eps,
+        lambda t: C.copy_to(C.sum_over(t, mesh, tp), mesh, tp))
+    w_out = sh.fsdp_gather(p["out_proj"], sp["out_proj"], ctx)
+    return C.sum_over(g.to(x.dtype) @ w_out, mesh, tp), (h, conv_cache)
 
 
 #: The block of each Mamba layer kind (``layer_plan``'s ``"kind"``).

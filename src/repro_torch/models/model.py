@@ -15,13 +15,17 @@ residual stream by the norm that follows it, the final norm included (one
 ``add_rmsnorm`` launch each).  :func:`loss_fn` is the training objective
 that ``launch/steps.py::make_train_step`` differentiates.
 
-Under an active context (the attention families) :func:`forward_logits`
-and :func:`loss_fn` run this rank's part: the embedding looks up the rows
-of the vocabulary this rank holds and sums over the model axis, the head
-computes this rank's vocabulary columns, and the loss is a
-vocabulary-parallel cross-entropy whose masked mean is taken over the
-global batch.  :func:`prefill` and :func:`decode_step` refuse one
-(ROADMAP Queue A 11c).
+Under an active context every entry point runs this rank's part: the
+embedding looks up the rows of the vocabulary this rank holds and sums
+over the model axis, the head computes this rank's vocabulary columns,
+and the loss is a vocabulary-parallel cross-entropy whose masked mean is
+taken over the global batch.  :func:`prefill` returns this rank's blocks
+of the decode cache under :func:`cache_specs` (the reference's
+``cache_pspecs``, with the axes that do not divide dropped), and
+:func:`decode_step` takes them: a full cache's sequence is cut over the
+model axis (and the data axes, where the batch does not divide them),
+and each rank attends over its block, the blocks combined as
+flash-decoding combines them (``attention.py::combine_partials``).
 """
 from __future__ import annotations
 
@@ -32,17 +36,18 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from . import mamba as mam
-from .attention import decode_attention
+from .attention import (combine_partials, decode_attention,
+                        decode_attention_partial)
 from .config import ModelConfig
 from .layers import residual_norm, rms_norm
 from . import sharding as sh
-from .sharding import P, ShardCtx, refuse_active
-from .transformer import (_out_proj, _proj_qkv, check_family, init_params,
-                          layer_params, layer_plan, mlp_block, moe_mlp,
-                          run_stack)
+from .sharding import P, ShardCtx
+from .transformer import (_local_heads, _out_proj, _proj_qkv, attn_mode,
+                          check_family, init_params, kv_whole, layer_params,
+                          layer_plan, mlp_block, moe_mlp, run_stack)
 
 __all__ = ["init_params", "forward_logits", "loss_fn", "prefill",
-           "init_cache", "decode_step", "cache_pspecs"]
+           "init_cache", "decode_step", "cache_pspecs", "cache_specs"]
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +216,8 @@ def loss_fn(params, cfg: ModelConfig, ctx: ShardCtx, batch
 # ---------------------------------------------------------------------------
 
 def prefill(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
-            img_embeds=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            img_embeds=None, *, batch=None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence pass that returns ``(last_token_logits, cache)``.
 
     The cache holds ``k, v`` ``(n_full, b, S, KV, hd)`` for full-attention
@@ -220,38 +226,64 @@ def prefill(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
     ``ssm`` ``(L, b, d_inner, N)`` float32 and ``conv`` ``(L, b, W-1,
     d_inner)`` for Mamba1 layers (``(L, b, H, P, N)`` and ``(L, b, W-1,
     d_inner + 2N)`` for Mamba2).  A hybrid's ``k, v`` are its shared
-    block's, one row per application."""
-    refuse_active(ctx, "prefill")
-    x, positions = embed_inputs(params, cfg, tokens, img_embeds)
+    block's, one row per application.
+
+    Under an active context ``batch``, the global batch, is required
+    (``ValueError`` without it): ``tokens`` (and ``img_embeds``) are the
+    rows this rank computes — its data shard's when ``batch`` divides the
+    data axes, else every row — and the result is this rank's: the logits
+    of its vocabulary block (as :func:`forward_logits`), and its blocks of
+    the cache under :func:`cache_specs` (the KV rows put together over
+    the model axis, :func:`~repro_torch.models.transformer.kv_whole`, then
+    cut along the sequence)."""
+    active = ctx is not None and ctx.active
+    if active and batch is None:
+        raise ValueError("prefill under an active context needs the global "
+                         "batch (batch=)")
+    x, positions = embed_inputs(params, cfg, tokens, img_embeds, ctx)
+    s = x.shape[1]
     x, raw = run_stack(x, params, cfg, ctx, positions, collect_cache=True)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = _project_logits(x, params, cfg)
+    logits = _project_logits(x, params, cfg, ctx)
+
+    def whole(t):
+        return kv_whole(t, cfg, ctx, s) if active else t
 
     plan, meta = layer_plan(cfg)
     cache: Dict[str, Any] = {}
     if cfg.family in ("ssm", "hybrid"):
         if meta["shared_at"]:
             raw, shared_kv = raw
-            cache["k"], cache["v"] = shared_kv
+            cache["k"], cache["v"] = (whole(t) for t in shared_kv)
         cache["ssm"], cache["conv"] = raw
-        return logits[:, 0], cache
-    k, v = raw                                          # (L, b, S, KV, hd)
-    full_rows = [i for i, e in enumerate(plan) if e["cache"][0] == "full"]
-    ring_rows = [(i, e["cache"][2]) for i, e in enumerate(plan)
-                 if e["cache"][0] == "ring"]
-    if full_rows:
-        idx = torch.as_tensor(np.array(full_rows), device=k.device)
-        cache["k"], cache["v"] = k[idx], v[idx]
-    if ring_rows:
-        w = ring_rows[0][1]
-        idx = torch.as_tensor(np.array([i for i, _ in ring_rows]),
-                              device=k.device)
-        s = k.shape[2]
-        if s % w:
-            raise ValueError(f"prefill length {s} must be a multiple of the "
-                             f"sliding window {w} (ring caches)")
-        cache["k_ring"], cache["v_ring"] = k[idx, :, -w:], v[idx, :, -w:]
+    else:
+        k, v = (whole(t) for t in raw)                  # (L, b, S, KV, hd)
+        full_rows = [i for i, e in enumerate(plan)
+                     if e["cache"][0] == "full"]
+        ring_rows = [(i, e["cache"][2]) for i, e in enumerate(plan)
+                     if e["cache"][0] == "ring"]
+        if full_rows:
+            idx = torch.as_tensor(np.array(full_rows), device=k.device)
+            cache["k"], cache["v"] = k[idx], v[idx]
+        if ring_rows:
+            w = ring_rows[0][1]
+            idx = torch.as_tensor(np.array([i for i, _ in ring_rows]),
+                                  device=k.device)
+            if s % w:
+                raise ValueError(f"prefill length {s} must be a multiple of "
+                                 f"the sliding window {w} (ring caches)")
+            cache["k_ring"], cache["v_ring"] = k[idx, :, -w:], v[idx, :, -w:]
+    if active and "k" in cache:
+        seq = cache_specs(cfg, ctx, int(batch), s)["k"][2]
+        for key in ("k", "v"):
+            cache[key] = sh.shard_leaf(cache[key], P(None, None, seq),
+                                       ctx.mesh, _rank()).contiguous()
     return logits[:, 0], cache
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
 
 
 def cache_pspecs(cfg: ModelConfig, ctx: ShardCtx, batch: int) -> Dict[str, P]:
@@ -274,6 +306,20 @@ def cache_pspecs(cfg: ModelConfig, ctx: ShardCtx, batch: int) -> Dict[str, P]:
         specs["ssm"] = P(None, bspec, ctx.tp, None)
     specs["conv"] = P(None, bspec, None, ctx.tp)
     return specs
+
+
+def cache_specs(cfg: ModelConfig, ctx: ShardCtx, batch: int,
+                seq_len: int) -> Dict[str, P]:
+    """The spec of each leaf of ``init_cache(cfg, batch, seq_len)`` under
+    an active context: :func:`cache_pspecs` with every axis that does not
+    divide its dim dropped, as the reference's ``launch/specs.py``
+    lays the cache out.  ``shard_leaf`` of the whole cache under these
+    is a rank's cache; :func:`prefill` returns it and
+    :func:`decode_step` takes it."""
+    specs = cache_pspecs(cfg, ctx, batch)
+    whole = init_cache(cfg, batch, seq_len, device="meta")
+    return {k: sh.drop_non_dividing(specs[k], tuple(v.shape), ctx)
+            for k, v in whole.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -335,19 +381,21 @@ def _segments(plan, shared_at=()) -> List[Tuple[tuple, List[int], dict]]:
     return segs
 
 
-def _decode_layer_body(x, pending, lp, ck, cv, cfg, ctx, pos: int, *,
-                       kind, cache_kind, window, theta):
-    """One attention layer of a decode step on the residual stream ``x``
-    plus the previous layer's ``pending`` output (None before the first
-    layer).  ``ck, cv`` ``(b, S, KV, hd)`` are the layer's cache rows; the
-    new token's key and value are written into them in place.  Returns
-    ``(x, pending)``: the stream so far and this layer's MLP (or MoE)
-    output, not yet added.  An MoE layer runs ``moe_block`` with its
-    default combine and dispatch, whatever the config's knobs say, as the
-    reference's decode does."""
-    x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
-    b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+def _decode_attn(h, lp, ck, cv, cfg, ctx, pos: int, *, cache_kind, window,
+                 theta, seq=None):
+    """The attention of one decode step on the normed stream ``h`` ``(b,
+    1, d)``: the new token's key and value written into the cache rows
+    ``ck, cv`` in place, the attention over them, and the out-projection.
+
+    Under an active context (:func:`_decode_attn_sharded`) ``ck, cv`` are
+    this rank's block of the rows and ``seq`` the spec entry of their
+    sequence dim."""
+    if ctx is not None and ctx.active:
+        return _decode_attn_sharded(h, lp, ck, cv, cfg, ctx, pos,
+                                    cache_kind=cache_kind, window=window,
+                                    theta=theta, seq=seq)
+    b = h.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
     q, k, v = _proj_qkv(h, lp, cfg, positions, theta)
     if cache_kind == "full":
         slot, last = pos, pos
@@ -356,15 +404,92 @@ def _decode_layer_body(x, pending, lp, ck, cv, cfg, ctx, pos: int, *,
     ck[:, slot:slot + 1] = k.to(ck.dtype)
     cv[:, slot:slot + 1] = v.to(cv.dtype)
     o = decode_attention(q, ck, cv, last)
-    x, h = residual_norm(x, _out_proj(o, lp["wo"]), lp["ln2"],
-                         cfg.norm_eps)
+    return _out_proj(o, lp["wo"])
+
+
+def _decode_attn_sharded(h, lp, ck, cv, cfg, ctx, pos: int, *, cache_kind,
+                         window, theta, seq):
+    """This rank's part of a decode step's attention.  Where the heads are
+    cut over the model axis the rank projects its query heads and the KV
+    heads they read, and q, k and v are gathered over the axis (each KV
+    head once); otherwise every rank projects all heads.  A full cache's
+    sequence is cut over ``seq``'s axes: only the rank whose block holds
+    ``pos`` writes the new key and value, every rank attends over its
+    block (:func:`~repro_torch.models.attention.
+    decode_attention_partial`), and the blocks are combined over those
+    axes (``max_over``, then ``sum_over``: flash-decoding's combine); a
+    ring cache, or a sequence that does not divide them, is held whole.
+    ``wo`` is row-parallel over the rank's heads where those are cut,
+    its partial output summed over the model axis."""
+    from ..launch import collectives as C
+    sp = sh.use_specs(cfg, ctx)
+    mesh, tp = ctx.mesh, ctx.tp
+    b = h.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
+    w = {k: sh.fsdp_gather(lp[k], sp[k], ctx)
+         for k in ("wq", "wk", "wv", "wo")}
+    bias = {k: lp[k] for k in ("bq", "bk", "bv") if k in lp}
+    heads = attn_mode(cfg, ctx, 1) == "heads"
+    proj = _local_heads(w, bias, cfg, ctx) if heads else {**w, **bias}
+    q, k, v = _proj_qkv(h, proj, cfg, positions, theta)
+    if heads:
+        q = C.all_gather(q, mesh, tp, 2, "decode")
+        k, v = (kv_whole(t, cfg, ctx, 1, "decode") for t in (k, v))
+    if cache_kind != "full":
+        slot, last = pos % window, min(pos, window - 1)
+        ck[:, slot:slot + 1] = k.to(ck.dtype)
+        cv[:, slot:slot + 1] = v.to(cv.dtype)
+        o = decode_attention(q, ck, cv, last)
+    else:
+        n_blk = ck.shape[1]
+        off = sh.block_index(seq, ctx) * n_blk
+        if off <= pos < off + n_blk:
+            ck[:, pos - off:pos - off + 1] = k.to(ck.dtype)
+            cv[:, pos - off:pos - off + 1] = v.to(cv.dtype)
+        axes = sh.spec_axes(seq)
+        if not axes:
+            o = decode_attention(q, ck, cv, pos)
+        else:
+            def max_fn(t):
+                for a in axes:
+                    t = C.max_over(t, mesh, a, "decode")
+                return t
+
+            def sum_fn(t):
+                for a in axes:
+                    t = C.sum_over(t, mesh, a, "decode")
+                return t
+            m, l, o = decode_attention_partial(q, ck, cv, pos, off)
+            o = combine_partials(m, l, o, max_fn, sum_fn, q.dtype)
+    if not heads:
+        return _out_proj(o, w["wo"])
+    n_loc = cfg.n_heads // ctx.n(tp)
+    h0 = sh.coord(ctx, tp) * n_loc
+    return C.sum_over(_out_proj(o[:, :, h0:h0 + n_loc], w["wo"]), mesh, tp)
+
+
+def _decode_layer_body(x, pending, lp, ck, cv, cfg, ctx, pos: int, *,
+                       kind, cache_kind, window, theta, seq=None):
+    """One attention layer of a decode step on the residual stream ``x``
+    plus the previous layer's ``pending`` output (None before the first
+    layer).  ``ck, cv`` ``(b, S, KV, hd)`` are the layer's cache rows; the
+    new token's key and value are written into them in place.  Returns
+    ``(x, pending)``: the stream so far and this layer's MLP (or MoE)
+    output, not yet added.  An MoE layer runs ``moe_block`` with its
+    default combine and dispatch, whatever the config's knobs say, as the
+    reference's decode does; under an active context, its
+    expert-parallel path, and the MLP column- and row-parallel."""
+    x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
+    a = _decode_attn(h, lp, ck, cv, cfg, ctx, pos, cache_kind=cache_kind,
+                     window=window, theta=theta, seq=seq)
+    x, h = residual_norm(x, a, lp["ln2"], cfg.norm_eps)
     if kind == "moe":
         return x, moe_mlp(h, lp, cfg, ctx)
-    return x, mlp_block(h, lp)
+    return x, mlp_block(h, lp, cfg, ctx)
 
 
 def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
-                pos: int):
+                pos: int, *, batch=None, seq_len=None):
     """``token`` ``(b, 1)`` at position ``pos``; returns ``(logits (b,
     padded_vocab), cache)``.
 
@@ -373,12 +498,30 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
     over the old one in its ``ssm`` row; full-attention rows need room for
     position ``pos``.  A hybrid runs its shared block after each segment
     that ends in ``meta["shared_at"]``, on cache row ``meta["full"]`` plus
-    the number of applications before it."""
-    refuse_active(ctx, "decode_step")
+    the number of applications before it.
+
+    Under an active context the global ``batch`` and the cache's
+    ``seq_len`` positions are required (``ValueError`` without them):
+    ``token`` holds the rows this rank computes (as :func:`prefill`'s),
+    ``cache`` is its blocks under :func:`cache_specs` for ``seq_len``
+    positions, and the logits are its vocabulary block: the embedding vocabulary-parallel,
+    the attention as :func:`_decode_attn_sharded`, the MLP, MoE and
+    Mamba blocks as in training (a Mamba step on the rank's state rows,
+    in place)."""
     check_family(cfg)
     pos = int(pos)
     plan, meta = layer_plan(cfg)
-    x = params["tok_embed"][token]                      # (b, 1, d)
+    seq = None
+    if ctx is not None and ctx.active:
+        if batch is None or seq_len is None:
+            raise ValueError("decode_step under an active context needs the "
+                             "global batch and the cache's positions "
+                             "(batch=, seq_len=)")
+        specs = cache_specs(cfg, ctx, int(batch), int(seq_len))
+        seq = specs["k"][2] if "k" in specs else None
+        x, _ = embed_inputs(params, cfg, token, None, ctx)
+    else:
+        x = params["tok_embed"][token]                  # (b, 1, d)
     # each block's output is added to the stream by the next norm
     pending = None
     shared_seen = 0
@@ -393,14 +536,14 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
                 x, pending = _decode_layer_body(
                     x, pending, lp, cache[ckey][row], cache[vkey][row], cfg,
                     ctx, pos, kind=kind, cache_kind=cache_kind,
-                    window=window, theta=theta)
+                    window=window, theta=theta, seq=seq)
             else:                                       # mamba layer
                 row = plan[i]["ssm_row"]
                 x, h = residual_norm(x, pending, lp["ln1"], cfg.norm_eps)
                 ssm = cache["ssm"][row]       # updated in place
                 y, (_, cc) = mam.BLOCKS[kind](
-                    h[:, 0], lp, cfg, h0=ssm, conv0=cache["conv"][row],
-                    single_step=True, h_out=ssm)
+                    h[:, 0], lp, cfg, ctx=ctx, h0=ssm,
+                    conv0=cache["conv"][row], single_step=True, h_out=ssm)
                 cache["conv"][row] = cc.to(cache["conv"].dtype)
                 pending = y[:, None]
         if idxs[-1] in meta["shared_at"]:
@@ -409,8 +552,8 @@ def decode_step(params, cfg: ModelConfig, ctx: ShardCtx, token, cache,
             x, pending = _decode_layer_body(
                 x, pending, params["shared"], cache["k"][row],
                 cache["v"][row], cfg, ctx, pos, kind="attn",
-                cache_kind="full", window=0, theta=cfg.rope_theta)
+                cache_kind="full", window=0, theta=cfg.rope_theta, seq=seq)
             shared_seen += 1
     _, x = residual_norm(x, pending, params["final_norm"], cfg.norm_eps)
-    logits = _project_logits(x, params, cfg)
+    logits = _project_logits(x, params, cfg, ctx)
     return logits[:, 0], cache

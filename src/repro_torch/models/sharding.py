@@ -25,26 +25,17 @@ its data shard of the batch, and the model's layers (``transformer.py``,
 gather of a weight before its use (:func:`fsdp_gather`), the column- and
 row-parallel products with their sums over the model axis, the
 vocabulary-parallel embedding and loss, and the sequence-sharded
-attention where the heads do not divide the model axis.
+attention where the heads do not divide the model axis, the Mamba
+blocks' channel- (Mamba1) and head-parallel (Mamba2) forms, and the
+decode cache's sequence blocks with their partial-softmax combine.
 :meth:`ShardCtx.constrain` stays the identity: the port never lays out an
-activation other than the layers' code puts it.  The Mamba families,
-prefill and decode under a context are ROADMAP Queue A 11c: those entry
-points refuse an active context (:func:`refuse_active`) rather than run
-unsharded in silence.
+activation other than the layers' code puts it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Tuple
-
-#: Why an entry point refuses an active context.
-NO_ACTIVE_MODEL = ("this path under an active ShardCtx (the Mamba "
-                   "families' packed in_proj cut over the model axis, "
-                   "prefill and decode with the KV cache's sequence over "
-                   "the model axis) is not ported to the PyTorch package; "
-                   "it comes with ROADMAP Queue A 11c")
-
 
 class P(tuple):
     """A partition spec: ``P("data", None, ("pod", "data"))``.  A tuple of
@@ -92,14 +83,6 @@ class ShardCtx:
 
     def constrain(self, x, spec=None):
         return x
-
-
-def refuse_active(ctx: Optional[ShardCtx], where: str) -> None:
-    """Raise ``NotImplementedError`` naming Queue A 11c when ``ctx`` is
-    active: the entry point ``where`` runs on one rank's whole tensors
-    only."""
-    if ctx is not None and ctx.active:
-        raise NotImplementedError(f"{where}: {NO_ACTIVE_MODEL}")
 
 
 def _div(dim: int, ctx: ShardCtx, axis) -> bool:
@@ -155,6 +138,14 @@ def param_spec(name: str, shape, cfg, ctx: ShardCtx) -> P:
     parts = list(table[name])
     if len(parts) > len(shape):
         parts = parts[len(parts) - len(shape):]
+    return drop_non_dividing(P(*parts), shape, ctx)
+
+
+def drop_non_dividing(spec: P, shape, ctx: ShardCtx) -> P:
+    """``spec`` padded with ``None`` to the rank of ``shape``, with every
+    entry whose axes do not divide its dim dropped (the reference's rule
+    for parameters, and ``launch/specs.py``'s for the decode cache)."""
+    parts = list(spec)[:len(shape)]
     parts += [None] * (len(shape) - len(parts))
     clean = []
     for dim, ax in zip(shape, parts):
@@ -278,16 +269,29 @@ def gather_params(blocks: List[Any], cfg, ctx: ShardCtx):
 @functools.lru_cache(maxsize=None)
 def use_specs(cfg, ctx: ShardCtx) -> Dict[str, P]:
     """The spec of every parameter as a layer uses it, by leaf name: the
-    top-level leaves' specs, and each layer leaf's without its stacked
-    layer dim (one layer's slice of the stored block)."""
+    top-level leaves' specs, each layer leaf's without its stacked layer
+    dim (one layer's slice of the stored block), and the leaves of a
+    nested block (the hybrid's weight-tied ``shared``), which have no
+    layer dim.  A name that two places give different specs is refused
+    (no shipped config has one: the hybrid's layers carry no attention or
+    MLP leaves, and its ``ln1`` is ``P(None)`` in both)."""
     from .transformer import param_shapes
     out: Dict[str, P] = {}
+
+    def put(name, spec):
+        if out.setdefault(name, spec) != spec:
+            raise ValueError(f"leaf {name!r} has two use-specs: "
+                             f"{out[name]!r} and {spec!r}")
+
     for k, v in param_shapes(cfg).items():
         if k == "layers":
             for name, sd in v.items():
-                out[name] = P(*param_spec(name, sd.shape, cfg, ctx)[1:])
-        elif not isinstance(v, dict):
-            out[k] = param_spec(k, v.shape, cfg, ctx)
+                put(name, P(*param_spec(name, sd.shape, cfg, ctx)[1:]))
+        elif isinstance(v, dict):
+            for name, sd in v.items():
+                put(name, param_spec(name, sd.shape, cfg, ctx))
+        else:
+            put(k, param_spec(k, v.shape, cfg, ctx))
     return out
 
 
@@ -317,3 +321,57 @@ def fsdp_gather(w, spec: P, ctx: ShardCtx):
         for a in reversed([a for a in spec_axes(entry) if a in ctx.fsdp]):
             w = C.gather_over(w, ctx.mesh, a, dim)
     return w
+
+
+def _model_dim(spec: P, ctx: ShardCtx) -> Optional[int]:
+    """The dim of ``spec`` that names the model axis, or None."""
+    for dim, entry in enumerate(spec):
+        if ctx.tp in spec_axes(entry):
+            return dim
+    return None
+
+
+def model_whole(w, spec: P, ctx: ShardCtx):
+    """The weight ``w`` (gathered over its FSDP axes) whole over the model
+    axis, for a use that each model rank makes in part (its share of the
+    channels or heads): gathered where ``spec`` cuts it over that axis,
+    else marked replicated; either way its gradient is summed over the
+    axis (``collectives.gather_over``, ``copy_to``)."""
+    from ..launch import collectives as C
+    dim = _model_dim(spec, ctx)
+    if dim is None:
+        return C.copy_to(w, ctx.mesh, ctx.tp)
+    return C.gather_over(w, ctx.mesh, ctx.tp, dim, "tp")
+
+
+def replicated_whole(w, spec: P, ctx: ShardCtx):
+    """The weight ``w`` (gathered over its FSDP axes) whole over the model
+    axis, for a use that every model rank makes alike (a block computed
+    replicated): gathered where ``spec`` cuts it, with this rank's block
+    of the cotangent as its gradient, not summed (every rank holds the
+    whole cotangent, ``collectives.gather_rows``)."""
+    from ..launch import collectives as C
+    dim = _model_dim(spec, ctx)
+    if dim is None:
+        return w
+    return C.gather_rows(w, ctx.mesh, ctx.tp, dim, "tp")
+
+
+def block_index(entry, ctx: ShardCtx) -> int:
+    """This process's block along a dim whose spec entry is ``entry``
+    (its axes major to minor, as :func:`shard_leaf` cuts it)."""
+    idx = 0
+    for a in spec_axes(entry):
+        idx = idx * ctx.n(a) + coord(ctx, a)
+    return idx
+
+
+def model_block(x, ctx: ShardCtx, dim: int):
+    """This rank's block of ``x`` (whole over the model axis) along
+    ``dim``, cut in model-axis coordinate order; ``x`` itself when the
+    dim does not divide the axis (a spec that drops it)."""
+    n = ctx.n(ctx.tp)
+    if x.shape[dim] % n:
+        return x
+    size = x.shape[dim] // n
+    return x.narrow(dim, coord(ctx, ctx.tp) * size, size)

@@ -27,17 +27,19 @@ MLP block, ``params["shared"]``, after every ``hybrid_attn_period``-th
 layer (:func:`shared_attn_apply`); as in the reference that block runs
 outside the per-layer remat, and the pending residual carries across it.
 
-Under an active :class:`~repro_torch.models.sharding.ShardCtx` (the dense,
-vlm, audio and MoE families) each rank runs its part of every layer on
-its blocks of the weights (``sharding.shard_params``), as GSPMD
-partitions the reference's program: each weight is first gathered over
-the FSDP axes its spec names; the attention's projections are column-
-and its out-projection row-parallel over the model axis when the head
-count divides it, else every model rank computes Q and the output of
-its share of the rows (the kernel's ``q_offset``) against K and V of the
-rows up to its share's last, and the rows are gathered; the MLP's ``gate`` and ``up``
-are column- and ``down`` row-parallel; an MoE layer runs ``moe_block``'s
-expert-parallel path.  The residual stream and the norms stay replicated
+Under an active :class:`~repro_torch.models.sharding.ShardCtx` (every
+family) each rank runs its part of every layer on its blocks of the
+weights (``sharding.shard_params``), as GSPMD partitions the reference's
+program: each weight is first gathered over the FSDP axes its spec
+names; the attention's projections are column- and its out-projection
+row-parallel over the model axis when the head count divides it, else
+every model rank computes Q and the output of its share of the rows (the
+kernel's ``q_offset``) against K and V of the rows up to its share's
+last, and the rows are gathered; the MLP's ``gate`` and ``up`` are
+column- and ``down`` row-parallel; an MoE layer runs ``moe_block``'s
+expert-parallel path; a Mamba1 layer runs channel-parallel and a Mamba2
+layer head-parallel (``mamba.py``), the hybrid's weight-tied block as an
+attention layer does.  The residual stream and the norms stay replicated
 over the model axis.  A weight replicated over the model axis whose use
 is split over it enters through ``copy_to``, so its gradient is summed
 over the axis in the backward.  Every collective is issued under a
@@ -59,7 +61,7 @@ from .config import ModelConfig
 from .layers import apply_rope, dense_init, normal, residual_norm, swiglu
 from .moe import moe_block
 from . import sharding as sh
-from .sharding import P, ShardCtx, refuse_active
+from .sharding import P, ShardCtx
 
 #: Families whose layers the port has not yet, and the ROADMAP item that
 #: brings each (none: every family of the JAX package is ported).
@@ -334,6 +336,84 @@ def _kv_heads(h0: int, n_loc: int, group: int) -> Tuple[Any, int]:
     return [(h0 + j) // group for j in range(n_loc)], 1
 
 
+def attn_mode(cfg, ctx: ShardCtx, s: int) -> str:
+    """How :func:`_attn_sharded` splits an attention over ``s`` rows on
+    the model axis: ``"heads"`` (the head count divides it), ``"rows"``
+    (the sequence does), or ``"whole"`` (replicated)."""
+    if ctx.tp in sh.axes_of(sh.use_specs(cfg, ctx)["wq"]):
+        return "heads"
+    nm = ctx.n(ctx.tp)
+    return "whole" if s % nm or s < nm else "rows"
+
+
+def _kv_index(cfg, ctx: ShardCtx) -> Any:
+    """In the ``"heads"`` mode with the KV heads held whole: the KV heads
+    that each model rank's ``(k, v)`` carries, concatenated in model-axis
+    order (``_kv_heads``' choice per rank)."""
+    nm = ctx.n(ctx.tp)
+    n_loc, group = cfg.n_heads // nm, cfg.n_heads // cfg.n_kv_heads
+    out: List[int] = []
+    for m in range(nm):
+        idx, _ = _kv_heads(m * n_loc, n_loc, group)
+        out += list(range(cfg.n_kv_heads))[idx] if isinstance(idx, slice) \
+            else idx
+    return out
+
+
+def kv_whole(k, cfg, ctx: ShardCtx, s: int, kind: str = "tp"):
+    """A rank's keys or values ``(..., rows, heads, hd)`` of an attention
+    over ``s`` rows under an active context, as :func:`_attn_sharded`
+    returns them, made whole ``(..., s, KV, hd)`` on every rank of the
+    model axis: the heads gathered over it (each KV head once, where
+    several ranks hold one), or the rows of each rank's share gathered,
+    or ``k`` itself when the attention ran replicated.  No gradient."""
+    from ..launch import collectives as C
+    mode = attn_mode(cfg, ctx, s)
+    if mode == "whole":
+        return k
+    mesh, tp, nm = ctx.mesh, ctx.tp, ctx.n(ctx.tp)
+    if mode == "rows":
+        r0 = sh.coord(ctx, tp) * (s // nm)
+        return C.all_gather(k.narrow(-3, r0, s // nm), mesh, tp, k.dim() - 3,
+                            kind)
+    k = C.all_gather(k, mesh, tp, k.dim() - 2, kind)
+    if tp in sh.axes_of(sh.use_specs(cfg, ctx)["wk"]):
+        return k
+    held = _kv_index(cfg, ctx)
+    first = torch.as_tensor([held.index(j) for j in range(cfg.n_kv_heads)],
+                            device=k.device)
+    return k.index_select(k.dim() - 2, first)
+
+
+def _local_heads(w, bias, cfg, ctx: ShardCtx) -> Dict[str, Any]:
+    """The projections and biases of this rank's ``H / tp`` query heads in
+    the ``"heads"`` mode: ``w`` (the FSDP-gathered ``wq, wk, wv, wo``
+    blocks) and ``bias`` as stored, with the KV weights held whole cut
+    to the KV heads those query heads read and the biases (replicated
+    over the model axis) to this rank's heads, through ``copy_to`` (the
+    model ranks' cuts of one weight sum their gradients)."""
+    from ..launch import collectives as C
+    mesh, tp = ctx.mesh, ctx.tp
+    nm, m = ctx.n(tp), sh.coord(ctx, tp)
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    n_loc = h // nm
+    h0 = m * n_loc
+    w, bias = dict(w), dict(bias)
+    if tp in sh.axes_of(sh.use_specs(cfg, ctx)["wk"]):
+        kv0 = m * (kvh // nm)
+        bias.update({k: C.copy_to(bias[k], mesh, tp)[kv0:kv0 + kvh // nm]
+                     for k in ("bk", "bv") if k in bias})
+    else:                                  # KV held whole
+        kv_idx, _ = _kv_heads(h0, n_loc, h // kvh)
+        w.update({k: C.copy_to(w[k], mesh, tp)[:, kv_idx]
+                  for k in ("wk", "wv")})
+        bias.update({k: C.copy_to(bias[k], mesh, tp)[kv_idx]
+                     for k in ("bk", "bv") if k in bias})
+    if "bq" in bias:
+        bias["bq"] = C.copy_to(bias["bq"], mesh, tp)[h0:h0 + n_loc]
+    return {**w, **bias}
+
+
 def _attn_sharded(x, p, cfg, ctx: ShardCtx, positions, window, theta):
     """This rank's part of :func:`attn_block` under an active context, on
     the stream ``x`` (this data shard's rows, replicated over the model
@@ -361,28 +441,14 @@ def _attn_sharded(x, p, cfg, ctx: ShardCtx, positions, window, theta):
          for k in ("wq", "wk", "wv", "wo")}
     bias = {k: p[k] for k in ("bq", "bk", "bv") if k in p}
     s = x.shape[1]
-    h, kvh = cfg.n_heads, cfg.n_kv_heads
-    if tp in sh.axes_of(sp["wq"]):             # heads over the model axis
+    mode = attn_mode(cfg, ctx, s)
+    if mode == "heads":                        # heads over the model axis
         xin = C.copy_to(x, mesh, tp)
-        n_loc = h // nm
-        h0 = m * n_loc
-        if tp in sh.axes_of(sp["wk"]):
-            kv_idx = slice(None)
-            kv0 = m * (kvh // nm)
-            bias.update({k: C.copy_to(bias[k], mesh, tp)[kv0:kv0 + kvh // nm]
-                         for k in ("bk", "bv") if k in bias})
-        else:                                  # KV held whole
-            kv_idx, _ = _kv_heads(h0, n_loc, h // kvh)
-            w.update({k: C.copy_to(w[k], mesh, tp)[:, kv_idx]
-                      for k in ("wk", "wv")})
-            bias.update({k: C.copy_to(bias[k], mesh, tp)[kv_idx]
-                         for k in ("bk", "bv") if k in bias})
-        if "bq" in bias:
-            bias["bq"] = C.copy_to(bias["bq"], mesh, tp)[h0:h0 + n_loc]
-        q, k, v = _proj_qkv(xin, {**w, **bias}, cfg, positions, theta)
+        q, k, v = _proj_qkv(xin, _local_heads(w, bias, cfg, ctx), cfg,
+                            positions, theta)
         out = _attend(q, k, v, w["wo"], window)
         return C.sum_over(out, mesh, tp), (k, v)
-    if s % nm or s < nm:                       # replicated, as the reference
+    if mode == "whole":                        # replicated, as the reference
         q, k, v = _proj_qkv(x, {**w, **bias}, cfg, positions, theta)
         return _attend(q, k, v, w["wo"], window), (k, v)
     # sequence-sharded: the weights are replicated over the model axis and
@@ -503,7 +569,7 @@ def _layer_body(x, pending, lp, cfg: ModelConfig, ctx: ShardCtx, entry,
         else:
             m = mlp_block(h, lp, cfg, ctx)
         return x, m, kv_cache
-    y, (hstate, conv_tail) = mam.BLOCKS[entry["kind"]](h, lp, cfg)
+    y, (hstate, conv_tail) = mam.BLOCKS[entry["kind"]](h, lp, cfg, ctx=ctx)
     return x, y, (hstate, conv_tail)
 
 
@@ -543,11 +609,11 @@ def run_stack(x, params, cfg: ModelConfig, ctx: ShardCtx, positions,
     (k, v))`` with the shared block's ``(k, v)`` stacked over its
     applications (the layers' caches alone when it runs nowhere).
 
-    Under an active context (the attention families) ``x`` is this data
-    shard's rows and ``params`` this rank's blocks; the Mamba families
-    refuse one (ROADMAP Queue A 11c)."""
-    if cfg.family not in ATTENTION_FAMILIES:
-        refuse_active(ctx, f"run_stack ({cfg.family})")
+    Under an active context ``x`` is this data shard's rows and ``params``
+    this rank's blocks; the caches are each rank's own: an attention
+    layer's ``(k, v)`` as :func:`attn_block` returns them (:func:`kv_whole`
+    puts them together), a Mamba layer's state and conv rows as its
+    blocks of the decode cache."""
     check_family(cfg)
     plan, meta = layer_plan(cfg)
     shared_at = set(meta["shared_at"])

@@ -38,6 +38,7 @@ from repro_torch.core import cluster as t_cluster
 from repro_torch.core import plan as t_plan
 from repro_torch.core import simulator as t_sim
 from repro_torch.launch import mesh as t_mesh
+from repro_torch.launch import steps as t_steps
 from repro_torch.launch.pp_step import make_pp_train_step
 from repro_torch.models import model as TM
 from repro_torch.models import sharding as t_sh
@@ -379,12 +380,15 @@ def test_pp_step_spec_trees_equal_reference(ref):
 
 
 def test_model_entry_points_refuse_an_active_context():
-    """What stays unported under an active context is Queue A 11c:
-    ``prefill``, ``decode_step`` and a Mamba family's ``run_stack`` raise
-    naming it rather than run unsharded.  The attention families' training
-    path runs under a context now (``tests/test_torch_tensor_parallel.py``):
-    without a process group their calls fail on the missing group, not
-    with ``NotImplementedError``."""
+    """Every model entry point runs under an active context, one process
+    per rank (``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_mamba_parallel.py``,
+    ``tests/test_torch_serve_parallel.py``): without a process group each
+    of them — training, prefill and decode of the attention, MoE and
+    Mamba families, the greedy token — fails on the missing group, none
+    with ``NotImplementedError``, and none runs unsharded in silence.
+    Prefill and decode need the global batch (and decode the cache's
+    positions) under a context, and refuse to guess them."""
     cfg = TModelConfig(**MOE)
     params = t_tr.init_params(cfg, seed=0, device="cpu")
     mesh = t_mesh.Mesh(np.arange(8).reshape(2, 4), ("data", "model"))
@@ -396,19 +400,23 @@ def test_model_entry_points_refuse_an_active_context():
                        n_layers=1, d_model=16, n_heads=0, n_kv_heads=0,
                        d_ff=0, vocab_size=64, ssm_state=4, dtype="float32")
     ssm_params = t_tr.init_params(ssm, seed=0, device="cpu")
-    refused = {
-        "prefill": lambda: TM.prefill(params, cfg, ctx, toks),
+    hyb = TModelConfig(name="sh-hyb", family="hybrid", ssm_variant="mamba2",
+                       n_layers=2, d_model=32, n_heads=4, n_kv_heads=4,
+                       head_dim=8, d_ff=64, vocab_size=64, ssm_state=8,
+                       ssm_head_dim=16, hybrid_attn_period=2,
+                       dtype="float32")
+    hyb_params = t_tr.init_params(hyb, seed=0, device="cpu")
+    runs = {
+        "prefill": lambda: TM.prefill(params, cfg, ctx, toks, batch=2),
         "decode_step": lambda: TM.decode_step(
             params, cfg, ctx, toks[:, :1],
-            TM.init_cache(cfg, 2, 8, device="cpu"), 0),
+            TM.init_cache(cfg, 2, 8, device="cpu"), 0, batch=2, seq_len=8),
         "run_stack (ssm)": lambda: t_tr.run_stack(
             torch.zeros((2, 8, 16)), ssm_params, ssm, ctx, pos),
-    }
-    for where, call in refused.items():
-        with pytest.raises(NotImplementedError, match="Queue A 11c") as e:
-            call()
-        assert where in str(e.value)
-    runs = {
+        "run_stack (hybrid)": lambda: t_tr.run_stack(
+            torch.zeros((2, 8, 32)), hyb_params, hyb, ctx, pos),
+        "greedy_token": lambda: t_steps.greedy_token(
+            torch.zeros((2, cfg.padded_vocab // 4)), cfg, ctx),
         "forward_logits": lambda: TM.forward_logits(params, cfg, ctx, toks),
         "loss_fn": lambda: TM.loss_fn(params, cfg, ctx, {"tokens": toks,
                                                          "labels": toks}),
@@ -420,6 +428,14 @@ def test_model_entry_points_refuse_an_active_context():
         with pytest.raises((RuntimeError, ValueError)) as e:
             call()
         assert "process group" in str(e.value), (where, e.value)
+    cache = TM.init_cache(cfg, 2, 8, device="cpu")
+    for call in (lambda: TM.prefill(params, cfg, ctx, toks),
+                 lambda: TM.decode_step(params, cfg, ctx, toks[:, :1], cache,
+                                        0, batch=2),
+                 lambda: TM.decode_step(params, cfg, ctx, toks[:, :1], cache,
+                                        0, seq_len=8)):
+        with pytest.raises(ValueError, match="global batch"):
+            call()
     # the same calls run with the inactive context
     assert TM.forward_logits(params, cfg, t_sh.ShardCtx(), toks).shape == \
         (2, 8, cfg.padded_vocab)

@@ -2,6 +2,9 @@
 own so that the spawned ranks import ``torch`` and the PyTorch package
 only (not ``jax``, which the test module imports).  Each body takes its
 rank, the world size and NumPy inputs, and returns NumPy results."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -185,14 +188,17 @@ def staged_p2p_on_gpu(rank, world, arrays):
 # the model under an active ShardCtx (tests/test_torch_tensor_parallel.py)
 # ---------------------------------------------------------------------------
 
-def _count_model_calls() -> dict:
+def _count_model_calls(scan: bool = False) -> dict:
     """Count the calls of the norm and attention wrappers on the model's
     path (``models/layers.py``'s two norms, ``models/transformer.py``'s
-    attention): ``fwd`` every call, ``bwd`` those under grad with an input
-    that requires one."""
-    from repro_torch.models import layers, transformer
+    attention; with ``scan``, ``models/mamba.py``'s fused scan too):
+    ``fwd`` every call, ``bwd`` those under grad with an input that
+    requires one."""
+    from repro_torch.models import layers, mamba, transformer
     counts = {"rmsnorm": {"fwd": 0, "bwd": 0},
               "flash_attention": {"fwd": 0, "bwd": 0}}
+    if scan:
+        counts["selective_scan"] = {"fwd": 0, "bwd": 0}
 
     def spy(mod, name, key):
         real = getattr(mod, name)
@@ -209,6 +215,8 @@ def _count_model_calls() -> dict:
     spy(layers, "rmsnorm", "rmsnorm")
     spy(layers, "add_rmsnorm", "rmsnorm")
     spy(transformer, "flash_attention", "flash_attention")
+    if scan:
+        spy(mamba, "selective_scan_fused", "selective_scan")
     return counts
 
 
@@ -246,7 +254,7 @@ def tp_model_case(rank, world, case):
     cfg = ModelConfig(**case["cfg"])
     local = sh.shard_params(params_from_reference(case["params"], "cpu"),
                             cfg, ctx, rank)
-    counts = _count_model_calls()
+    counts = _count_model_calls(scan=cfg.family == "ssm")
     C.reset_stats()
     n_micro = case.get("n_micro", 1)
     batch = steps.shard_batch(case["batch"], ctx, rank, n_micro)
@@ -277,3 +285,119 @@ def tp_model_cases(rank, world, cases):
     """Every case of ``cases`` (name -> case) in turn on this rank."""
     return {name: tp_model_case(rank, world, cs)
             for name, cs in cases.items()}
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode under an active ShardCtx (tests/test_torch_serve_parallel.py)
+# ---------------------------------------------------------------------------
+
+def _case_mesh(ranks):
+    """One :class:`Mesh` per rank layout (its groups made once for all
+    cases), or None for a rank outside it, which makes the same groups
+    (``new_group`` is collective over the whole process group) and sits
+    the case out."""
+    key = (ranks.shape, ranks.tobytes())
+    if key not in _MESHES:
+        mesh = Mesh(ranks, ("data", "model"))
+        if dist.get_rank() in ranks:
+            for a in mesh.axis_names:
+                mesh.group(a)
+        else:
+            for i in range(ranks.ndim):
+                for line in np.moveaxis(ranks, i, -1).reshape(
+                        -1, ranks.shape[i]):
+                    dist.new_group([int(r) for r in line])
+            mesh = None
+        _MESHES[key] = mesh
+    return _MESHES[key]
+
+
+def _serve_rows(a, ctx, rank, batch):
+    """The rows of a global ``(batch, ...)`` array this rank computes:
+    its data shard's when the batch divides the data axes, else all."""
+    nd = ctx.n("data")
+    if batch % nd:
+        return a
+    per = batch // nd
+    c = ctx.mesh.coords(rank)["data"]
+    return a[c * per:(c + 1) * per]
+
+
+def tp_serve_case(rank, world, case):
+    """``make_prefill_step`` of the prompt, then teacher-forced
+    ``make_decode_step`` steps under ``ShardCtx(mesh, dp=("data",),
+    tp="model")`` on this rank, from the reference's whole decode cache
+    (cut by ``cache_specs``), or, where ``case["chain"]``, from this
+    rank's own prefill cache grown to the decode cache's positions (the
+    chip phase's glue, ``chip_smoke._regrow``): the
+    prefill logits' vocabulary block and cache blocks, each step's logits
+    block and greedy token, and the cache blocks after the last step.
+    Also a greedy token over planted ties across the vocabulary blocks,
+    the bytes staged by kind and the wrapper calls."""
+    from repro_torch.convert import params_from_reference
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.config import ModelConfig
+    mesh = _case_mesh(case["ranks"])
+    if mesh is None:
+        return None
+    ctx = sh.ShardCtx(mesh=mesh, dp=("data",), tp="model")
+    cfg = ModelConfig(**case["cfg"])
+    params = sh.shard_params(params_from_reference(case["params"], "cpu"),
+                             cfg, ctx, rank)
+    b = case["tokens"].shape[0]
+    counts = _count_model_calls(scan=cfg.family == "ssm")
+    C.reset_stats()
+    out = {"coords": mesh.coords(rank)}
+    with torch.no_grad():
+        toks = _t(_serve_rows(case["tokens"], ctx, rank, b)).long()
+        logits, cache = steps.make_prefill_step(cfg, ctx)(
+            params, {"tokens": toks}, batch=b)
+        out["prefill_logits"] = logits.numpy()
+        out["prefill_cache"] = {k: v.numpy() for k, v in cache.items()}
+        out["prefill_stats"] = dict(C.STATS)
+        if case.get("chain"):
+            sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+            import chip_smoke
+            cache = chip_smoke._regrow(cache, cfg, ctx, b, toks.shape[1],
+                                       case["seq_len"])
+        else:
+            specs = M.cache_specs(cfg, ctx, b, case["seq_len"])
+            cache = {k: sh.shard_leaf(_t(v), specs[k], mesh, rank).clone()
+                     for k, v in case["cache"].items()}
+        step = steps.make_decode_step(cfg, ctx)
+        out["logits"], out["greedy"] = [], []
+        C.reset_stats()
+        for j, tok in enumerate(case["feed"]):
+            tok = _t(_serve_rows(tok, ctx, rank, b)).long()
+            nxt, lg, cache = step(params, cache, tok, case["pos"] + j,
+                                  batch=b, seq_len=case["seq_len"])
+            out["logits"].append(lg.numpy())
+            out["greedy"].append(nxt.numpy())
+        out["decode_stats"] = dict(C.STATS)
+        out["cache"] = {k: v.numpy() for k, v in cache.items()}
+        # ties planted across the vocabulary blocks: the lowest index wins
+        tied = torch.zeros(2, cfg.padded_vocab)
+        tied[0, [3, cfg.padded_vocab - 2]] = 5.0
+        tied[1, [cfg.padded_vocab // 2 + 1, cfg.padded_vocab - 1]] = 7.0
+        cut = M._vocab_cut(cfg, ctx)
+        v0, n = cut if cut is not None else (0, cfg.padded_vocab)
+        out["tie"] = steps.greedy_token(tied[:, v0:v0 + n], cfg, ctx).numpy()
+    out["calls"] = {k: dict(v) for k, v in counts.items()}
+    return out
+
+
+def tp_serve_cases(rank, world, cases):
+    """Every case of ``cases`` (name -> case) in turn on this rank; the
+    training cases (``kind`` ``"grad"`` or ``"step"``) go to
+    :func:`tp_model_case`."""
+    out = {}
+    for name, cs in cases.items():
+        if cs.get("kind") in ("grad", "step"):
+            mesh = _case_mesh(cs["ranks"])
+            out[name] = None if mesh is None else \
+                tp_model_case(rank, world, cs)
+        else:
+            out[name] = tp_serve_case(rank, world, cs)
+    return out
