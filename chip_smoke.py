@@ -122,14 +122,20 @@ mapping ``[[[1, 3]], [[0, 2]]]`` through ``mesh_from_mapping``, four
 processes on the card in a ``gloo`` group, ``make_pp_train_step`` for 3
 AdamW steps of 8 x 512 tokens in 4 microbatches; each rank's coordinates,
 layers and groups held to the mapping and its launches to
-:func:`pp_rank_launches`; then the same at pp 1 x dp 2, two processes,
-whose losses and every layer's parameters must be bit-equal),
-``tp_train_gpt_1_1b`` (the same model, weights and batches at (pp 1,
-tp 2, dp 2) with FSDP over the mapping ``[[[3, 1], [0, 2]]]``: the
+:func:`pp_rank_launches`; each rank stores its stage whole, its FSDP
+block of the shared leaves and ZeRO-1 blocks of the moments, its stored
+bytes asserted against ``specs.shard_sizes``; then the same at pp 1 x
+dp 2, two processes, whose losses and every layer's parameters must be
+bit-equal), ``tp_train_gpt_1_1b`` (the same model, weights and batches
+at (pp 1, tp 2, dp 2) over the mapping ``[[[3, 1], [0, 2]]]``: the
 model under an active ``ShardCtx`` through ``make_train_step`` in four
-processes on the card, 3 steps, held to one process's run within the
-stated tolerances, launches against :func:`tp_rank_launches`, bytes by
-kind), ``tp_models_on_card`` (gpt-3.1b's sequence-sharded attention on
+processes on the card, 3 steps with FSDP and then 3 with ZeRO-1
+(``zero1=True``: moments as data-axis blocks, stored bytes asserted),
+each held to one process's run within the stated tolerances, launches
+against :func:`tp_rank_launches`, bytes by kind), ``dryrun_vs_card``
+(``launch/dryrun.py`` on meta tensors of exactly those layouts: each
+rank's collective bytes by kind and stored bytes must equal what the
+rank counted; the dry peak and FLOPs beside the card's), ``tp_models_on_card`` (gpt-3.1b's sequence-sharded attention on
 (data 1, model 4) and granite-moe-3b-a800m's expert-parallel MoE in
 float32 on (data 2, model 2) with FSDP, 4 layers each, one step each
 against one process), ``tp_train_mamba_on_card`` (falcon-mamba-7b's
@@ -154,7 +160,9 @@ call); with ``--profile`` also ``profile_sa``, ``profile_generate_*``
 (qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m, zamba2-7b),
 ``profile_train`` and
 ``profile_train_*`` of the other trained archs (torch.profiler: device
-busy and idle share).
+busy and idle share).  ``scan_dtype_refusal`` (after the scan's
+phases) holds the card's refusal of ``scan_dtype="bfloat16"``, naming
+ROADMAP Queue A 10d.
 Each plan is made twice — SA on the card
 (``backend="torch"``) and on the host (``backend="numpy"``) — and the two
 Plan JSONs must be byte-equal once the backend's name is dropped.  The
@@ -213,7 +221,10 @@ from repro_torch.core import Conf  # noqa: E402
 from repro_torch.launch import collectives  # noqa: E402
 from repro_torch.launch import generate as gen_cli  # noqa: E402
 from repro_torch.launch.mesh import mesh_from_mapping  # noqa: E402
-from repro_torch.launch.pp_step import make_pp_train_step  # noqa: E402
+from repro_torch.launch.pp_step import (init_pp_state,  # noqa: E402
+                                        make_pp_train_step,
+                                        shard_pp_params)
+from repro_torch.launch import specs as SP  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
@@ -2489,12 +2500,14 @@ def check_bwd_full_grid(device) -> dict:
 # ---------------------------------------------------------------------------
 
 #: Each trained arch, its number of layers in full, the suffix of its
-#: phases' names and the layers it trains at full width (the one cut: 4,
-#: and 12 of zamba2-7b's 81, so that its shared block runs twice, after
-#: layers 5 and 11, and its gradient sums two applications); the first
-#: arch's profile and slice phases keep the names they had before the
-#: second's (``profile_train``, ``slice_check_train``).
-TRAIN_ARCHS = {"qwen2-7b": (28, "qwen2_7b", 4),
+#: phases' names and the layers it trains at full width (the one cut: 4;
+#: 2 of qwen2-7b's, whose checkpoint of a 152k vocabulary's embedding and
+#: head is most of its phase's time; 12 of zamba2-7b's 81, so that its
+#: shared block runs twice, after layers 5 and 11, and its gradient sums
+#: two applications); the first arch's profile and slice phases keep the
+#: names they had before the second's (``profile_train``,
+#: ``slice_check_train``).
+TRAIN_ARCHS = {"qwen2-7b": (28, "qwen2_7b", 2),
                "falcon-mamba-7b": (64, "falcon_mamba_7b", 4),
                "granite-moe-3b-a800m": (32, "granite_moe_3b_a800m", 4),
                "gpt-1.1b": (24, "gpt_1_1b", 4),
@@ -2864,14 +2877,17 @@ def slice_check_train(device, arch: str) -> dict:
 # ---------------------------------------------------------------------------
 
 #: ``pp_train_gpt_1_1b``: gpt-1.1b at full width, cut to ``PP_LAYERS`` of
-#: its 24 layers (8, so that the whole run stays inside its budget), trained ``PP_STEPS`` steps by ``launch/pp_step.py`` under
-#: the Pipette configuration ``PP_CONF`` (pp, tp, dp, bs_micro, bs_global:
-#: 4 microbatches of 2 sequences, one a data rank) over the permuted
-#: mapping ``PP_MAPPING`` (the rank at ``[x, y, z]`` is GPU f(x, y, z)),
-#: four processes on the one card in a ``gloo`` group; then the same
-#: layers, weights and batches at pp 1 x dp 2 (``PP1_CONF``, the same data
-#: mapping, no pipe), whose losses and parameters must be bit-equal.
-PP_ARCH, PP_LAYERS, PP_SEQ, PP_STEPS = "gpt-1.1b", 8, 512, 3
+#: its 24 layers (4, 2 a stage, so that the phase stays inside its budget
+#: with the shared leaves gathered and the moments' blocks reduced and
+#: gathered over the data axis each step), trained ``PP_STEPS`` steps by
+#: ``launch/pp_step.py`` under the Pipette configuration ``PP_CONF`` (pp,
+#: tp, dp, bs_micro, bs_global: 4 microbatches of 2 sequences, one a data
+#: rank) over the permuted mapping ``PP_MAPPING`` (the rank at ``[x, y,
+#: z]`` is GPU f(x, y, z)), four processes on the one card in a ``gloo``
+#: group; then, in the same processes, the same layers, weights and
+#: batches at pp 1 x dp 2 (``PP1_CONF``, the same data mapping, no pipe),
+#: whose losses and parameters must be bit-equal.
+PP_ARCH, PP_LAYERS, PP_SEQ, PP_STEPS = "gpt-1.1b", 4, 512, 3
 PP_CONF, PP_MAPPING = (2, 1, 2, 1, 8), [[[1, 3]], [[0, 2]]]
 PP1_CONF, PP1_MAPPING = (1, 1, 2, 1, 8), [[[1, 0]]]
 #: the spawn's limit (the ranks are killed past it) and the phase's budget
@@ -2908,6 +2924,16 @@ def pp_rank_launches(cfg, layers: int, n_mb: int, last: bool, steps: int,
     return want, want_bwd, shapes
 
 
+def stored_bytes(*trees) -> int:
+    """The bytes of every storage the tensors of ``trees`` hold (a rank's
+    parameters and optimizer state: what it stores between steps), each
+    storage once: a view that keeps a whole tensor alive counts it all."""
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for tree in trees for t in _tree.leaves(tree)
+            if isinstance(t, torch.Tensor)}
+    return sum(held.values())
+
+
 def _pp_batches(cfg, conf) -> list:
     """``PP_STEPS`` global batches of ``conf.bs_global`` sequences, as
     ``(n_mb, bs_global / n_mb, S)`` tokens and labels, from one seed."""
@@ -2929,6 +2955,7 @@ def pp_rank(rank: int, world: int, conf_t: tuple, mapping) -> dict:
     import hashlib
     import torch.distributed as dist
     from repro_torch.optim.adamw import AdamW
+    t_run = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     device = torch.device("cuda", 0)
@@ -2940,11 +2967,16 @@ def pp_rank(rank: int, world: int, conf_t: tuple, mapping) -> dict:
     pp = mesh.shape["pipe"]
     per = PP_LAYERS // pp
     s = c["pipe"]
+    opt = AdamW(lr=TRAIN_LR)
+    step, p_spec, o_spec, _ = make_pp_train_step(
+        cfg, mesh, opt, pipe_axis="pipe", data_axis="data", n_mb=conf.n_mb,
+        remat=True)
     full = init_params(cfg, seed=0, device=device)
-    params = {"stages": {k: v[s * per:(s + 1) * per].clone()
-                         for k, v in full["layers"].items()},
-              "shared": {k: full[k] for k in ("tok_embed", "final_norm",
-                                               "lm_head")}}
+    params = shard_pp_params(
+        {"stages": {k: v[s * per:(s + 1) * per].clone()
+                    for k, v in full["layers"].items()},
+         "shared": {k: full[k] for k in ("tok_embed", "final_norm",
+                                          "lm_head")}}, p_spec, mesh, rank)
     del full
     torch.cuda.empty_cache()
     groups = {a: dist.get_process_group_ranks(mesh.group(a))
@@ -2953,11 +2985,11 @@ def pp_rank(rank: int, world: int, conf_t: tuple, mapping) -> dict:
               "groups": groups}
     print(f"[pp_train] rank {rank}: coords {c}, layers "
           f"{s * per}..{(s + 1) * per - 1}, groups {groups}", flush=True)
-    opt = AdamW(lr=TRAIN_LR)
-    state = opt.init(params)
-    step, *_ = make_pp_train_step(cfg, mesh, opt, pipe_axis="pipe",
-                                  data_axis="data", n_mb=conf.n_mb,
-                                  remat=True)
+    state = init_pp_state(params, o_spec, mesh)
+    spec_bytes = sum(_tree.leaves(SP.shard_sizes(p_spec, mesh, rank))
+                     + _tree.leaves(SP.shard_sizes(o_spec, mesh, rank)))
+    assert stored_bytes(params, state) == spec_bytes, \
+        (rank, stored_bytes(params, state), spec_bytes)
     nd, z = mesh.shape["data"], c["data"]
     batches = []
     for toks, lbls in _pp_batches(cfg, conf):
@@ -2979,23 +3011,51 @@ def pp_rank(rank: int, world: int, conf_t: tuple, mapping) -> dict:
     launches, bwd, shapes = (read_launches(), read_bwd_launches(),
                              read_shapes())
     staged = dict(collectives.STATS)
+    stored = stored_bytes(params, state)
+    assert stored == spec_bytes, (rank, stored, spec_bytes)
     digests = {}
     for k in sorted(params["stages"]):
         for j in range(per):
             t = params["stages"][k][j].contiguous().view(torch.uint8).cpu()
             digests[f"{k}[{s * per + j}]"] = hashlib.blake2b(
                 t.numpy().tobytes(), digest_size=16).hexdigest()
+    # each data rank's FSDP block of a shared leaf
     for k in sorted(params["shared"]):
         t = params["shared"][k].contiguous().view(torch.uint8).cpu()
-        digests[k] = hashlib.blake2b(t.numpy().tobytes(),
-                                     digest_size=16).hexdigest()
+        digests[f"{k}[data {z}]"] = hashlib.blake2b(
+            t.numpy().tobytes(), digest_size=16).hexdigest()
     assert _build.last_build_seconds is None, "a rank ran nvcc"
-    return dict(report, losses=losses, step_s=step_s,
+    return dict(report, losses=losses, step_s=step_s, stored_bytes=stored,
+                run_s=time.perf_counter() - t_run,
                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
                 staged_bytes_per_step={k: v / PP_STEPS
                                        for k, v in staged.items()},
                 launches_fwd=launches, launches_bwd=bwd, shapes=shapes,
                 digests=digests)
+
+
+def pp_ranks(rank: int, world: int, runs) -> dict:
+    """One process of ``pp_train``: each run of ``runs`` (``(name,
+    conf_t, mapping)``) in turn, :func:`pp_rank` where this rank is on the
+    run's mapping; a rank off it makes the run's groups in
+    ``Mesh.group``'s order (``new_group`` is collective over the whole
+    process group), meets the run's barrier and sits the run out.
+    Returns each run's result by name (None where the rank sat out)."""
+    import torch.distributed as dist
+    out = {}
+    for name, conf_t, mapping in runs:
+        ranks = np.asarray(mapping)
+        if rank in ranks:
+            out[name] = pp_rank(rank, world, conf_t, mapping)
+        else:
+            for i in range(ranks.ndim):
+                for line in np.moveaxis(ranks, i, -1).reshape(
+                        -1, ranks.shape[i]):
+                    dist.new_group([int(r) for r in line])
+            dist.barrier()
+            out[name] = None
+        torch.cuda.empty_cache()
+    return out
 
 
 def _pp_check_run(cfg, conf_t, mapping, results) -> None:
@@ -3033,16 +3093,16 @@ def pp_train() -> tuple:
     cfg = configs.get(PP_ARCH).replace(n_layers=PP_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    specs = (("pp2_dp2", PP_CONF, PP_MAPPING),
+             ("pp1_dp2", PP1_CONF, PP1_MAPPING))
+    got = collectives.spawn(pp_ranks, int(np.asarray(PP_MAPPING).size),
+                            (specs,), timeout=PP_SPAWN_S)
     runs = {}
-    for name, conf_t, mapping in (("pp2_dp2", PP_CONF, PP_MAPPING),
-                                  ("pp1_dp2", PP1_CONF, PP1_MAPPING)):
-        t0 = time.perf_counter()
-        world = int(np.asarray(mapping).size)
-        results = collectives.spawn(pp_rank, world, (conf_t, mapping),
-                                    timeout=PP_SPAWN_S)
+    for name, conf_t, mapping in specs:
+        results = [r[name] for r in got if r[name] is not None]
         _pp_check_run(cfg, conf_t, mapping, results)
         runs[name] = {"results": results,
-                      "seconds": time.perf_counter() - t0}
+                      "seconds": max(r["run_s"] for r in results)}
     pp_res, ref_res = runs["pp2_dp2"]["results"], runs["pp1_dp2"]["results"]
     # one loss per step, the same on every rank of a run and in both runs
     losses = pp_res[0]["losses"]
@@ -3059,7 +3119,8 @@ def pp_train() -> tuple:
         return out
 
     d_pp, d_ref = digests(pp_res), digests(ref_res)
-    assert len(d_ref) == len(d_pp) == 9 * PP_LAYERS + 3, len(d_pp)
+    nd = Conf(*PP_CONF).dp
+    assert len(d_ref) == len(d_pp) == 9 * PP_LAYERS + 3 * nd, len(d_pp)
     differ = sorted(k for k in d_ref if d_pp.get(k) != d_ref[k])
     assert not differ, ("pp 2 and pp 1 parameters differ", differ)
 
@@ -3092,19 +3153,28 @@ def pp_train() -> tuple:
         "seq_len": PP_SEQ, "steps": PP_STEPS, "lr": TRAIN_LR,
         "dtype": cfg.dtype, "remat": True,
         "ranks": [{k: r[k] for k in ("rank", "coords", "layers", "groups",
-                                     "peak_memory_bytes",
+                                     "peak_memory_bytes", "stored_bytes",
                                      "staged_bytes_per_step", "step_s")}
                   for r in pp_res],
+        "stored_bytes_equal_specs": "every rank of both runs: parameters "
+                                    "and AdamW state against "
+                                    "specs.shard_sizes of the step's spec "
+                                    "trees (asserted in the rank)",
         "losses": losses, "step_s": step_s,
         "peak_memory_bytes_max": max(r["peak_memory_bytes"]
                                      for r in pp_res),
         "pp1_dp2": {"mapping": PP1_MAPPING, "step_s": ref_step_s,
                     "peak_memory_bytes_max": max(r["peak_memory_bytes"]
                                                  for r in ref_res),
+                    "ranks": [{k: r[k] for k in (
+                        "rank", "coords", "peak_memory_bytes",
+                        "stored_bytes", "staged_bytes_per_step")}
+                        for r in ref_res],
                     "seconds": runs["pp1_dp2"]["seconds"]},
         "bit_equal_to_pp1_dp2": {"losses": True,
                                  "params": f"{len(d_pp)} digests (every "
-                                           f"layer's leaves and the shared "
+                                           f"layer's leaves and each data "
+                                           f"rank's block of the shared "
                                            f"ones)"},
         "launches_fwd": launches, "launches_bwd": bwd,
         "launches_per_rank_formula": "per microbatch: 2 norms + 1 attention "
@@ -3123,7 +3193,8 @@ def pp_train() -> tuple:
 # ---------------------------------------------------------------------------
 
 #: ``tp_train_gpt_1_1b``: ``pp_train_gpt_1_1b``'s model and batches
-#: (gpt-1.1b at full width, 8 of 24 layers, bf16, remat) trained
+#: (gpt-1.1b at full width, bf16, remat) at ``TP_LAYERS`` of its 24
+#: layers (8: the phase's budget holds its FSDP and ZeRO-1 runs) trained
 #: ``TP_STEPS`` steps by ``make_train_step`` under ``ShardCtx(mesh,
 #: dp=("data",), tp="model", fsdp=("data",))`` for the Pipette
 #: configuration ``TP_CONF`` (pp 1, tp 2, dp 2, bs_micro 2, bs_global 8:
@@ -3131,7 +3202,8 @@ def pp_train() -> tuple:
 #: four processes on the card; held to the same weights and batches
 #: trained by ``make_train_step`` with ``ShardCtx()`` in this process.
 TP_CONF, TP_MAPPING, TP_STEPS = (1, 2, 2, 2, 8), [[[3, 1], [0, 2]]], PP_STEPS
-TP_SPAWN_S, TP_PHASE_S = 300.0, 75.0
+TP_LAYERS = 8
+TP_SPAWN_S, TP_PHASE_S = 300.0, 110.0
 #: Tolerances of the tensor-parallel run against the one process, stated
 #: before the first run on the card.  Both run the same kernels on the
 #: same bfloat16 weights; the tensor-parallel ranks sum the row-parallel
@@ -3243,72 +3315,107 @@ def _rank_setup():
     return torch.device("cuda", 0)
 
 
+#: The layouts ``tp_train`` runs in turn in one spawn: FSDP, then ZeRO-1
+#: (parameters replicated over the data axis, moments as its blocks).
+TP_LAYOUTS = ("fsdp", "zero1")
+
+
+def tp_ctx(mesh, layout: str) -> ShardCtx:
+    """``tp_train``'s context for ``layout`` (one of :data:`TP_LAYOUTS`)."""
+    return ShardCtx(mesh=mesh, dp=("data",), tp="model",
+                    fsdp=("data",) if layout == "fsdp" else ())
+
+
 def tp_rank(rank: int, world: int, conf_t: tuple, mapping,
             ref: list) -> dict:
-    """One rank of ``tp_train`` (a spawned process on the card): its
-    blocks of the weights (drawn whole from seed 0 and cut), ``TP_STEPS``
-    steps of ``make_train_step`` under the context on its rows of
-    ``_pp_batches``, its launch counts and bytes by kind, and its blocks
-    of the parameters and of AdamW's first moment after the last step
-    against the one process's trees ``ref`` (:func:`block_sums`; the
-    parent's tensors on the card, shared with this process: the rank
-    empties the list, so that its handles on them are gone when it
-    returns and the parent can free them)."""
+    """One rank of ``tp_train`` (a spawned process on the card), for each
+    layout of :data:`TP_LAYOUTS` in turn: its blocks of the weights (drawn
+    whole from seed 0 and cut), ``TP_STEPS`` steps of ``make_train_step``
+    under the context on its rows of ``_pp_batches``, its launch counts,
+    bytes by kind, peak and stored bytes (against ``specs.shard_sizes``),
+    and its blocks of the parameters and of AdamW's first moment after the
+    last step against the one process's trees ``ref``
+    (:func:`block_sums`; the parent's tensors on the card, shared with
+    this process: the rank empties the list, so that its handles on them
+    are gone when it returns and the parent can free them)."""
     import torch.distributed as dist
     from repro_torch.models import sharding as sh
     from repro_torch.optim.adamw import AdamW
     t_start = time.perf_counter()
     device = _rank_setup()
-    cfg = configs.get(PP_ARCH).replace(n_layers=PP_LAYERS)
+    cfg = configs.get(PP_ARCH).replace(n_layers=TP_LAYERS)
     conf = Conf(*conf_t)
     mesh = mesh_from_mapping(conf, np.asarray(mapping))
-    ctx = ShardCtx(mesh=mesh, dp=("data",), tp="model", fsdp=("data",))
     c = mesh.coords(rank)
-    t0 = time.perf_counter()
-    full = init_params(cfg, seed=0, device=device)
-    params = sh.shard_params(full, cfg, ctx, rank)
-    del full
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    times = {"setup_s": t0 - t_start, "init_s": time.perf_counter() - t0}
+    times = {"setup_s": time.perf_counter() - t_start}
     t0 = time.perf_counter()
     groups = {a: dist.get_process_group_ranks(mesh.group(a))
               for a in mesh.axis_names}
     times["groups_s"] = time.perf_counter() - t0
     print(f"[tp_train] rank {rank}: coords {c}, groups {groups}", flush=True)
-    opt = AdamW(lr=TRAIN_LR)
-    state = opt.init(params)
-    step = train_steps.make_train_step(cfg, ctx, opt, n_micro=conf.n_mb)
-    batches = [train_steps.shard_batch(_global_batch(t, lb), ctx, rank,
-                                       conf.n_mb)
-               for t, lb in _pp_batches(cfg, conf)]
-    torch.cuda.synchronize()
-    dist.barrier()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    collectives.reset_stats()
-    losses, step_s = [], []
-    for batch in batches:
+    out = {"rank": rank, "coords": c, "groups": groups}
+    for layout in TP_LAYOUTS:
+        ctx = tp_ctx(mesh, layout)
+        zero1 = layout == "zero1"
         t0 = time.perf_counter()
-        params, state, m = step(params, state, batch)
-        losses.append(float(m["loss"]))
+        full = init_params(cfg, seed=0, device=device)
+        params = sh.shard_params(full, cfg, ctx, rank)
+        del full
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    launches, bwd, shapes = (read_launches(), read_bwd_launches(),
-                             read_shapes())
-    staged = dict(collectives.STATS)
-    peak = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    sums = block_sums(params, state.m, tuple(ref), cfg, ctx, rank)
-    ref.clear()
-    times["compare_s"] = time.perf_counter() - t0
-    assert _build.last_build_seconds is None, "a rank ran nvcc"
-    return {"rank": rank, "coords": c, "groups": groups, "losses": losses,
-            "sums": sums,
-            "step_s": step_s, "peak_memory_bytes": peak, "times": times,
+        run_times = dict(times, init_s=time.perf_counter() - t0)
+        opt = AdamW(lr=TRAIN_LR)
+        state = (train_steps.init_sharded(params, cfg, ctx)
+                 if zero1 else opt.init(params))
+        spec_bytes = sum(
+            _tree.leaves(SP.shard_sizes(SP.params_spec(cfg, ctx), mesh,
+                                        rank))
+            + _tree.leaves(SP.shard_sizes(SP.opt_spec(cfg, ctx, opt,
+                                                      zero1=zero1),
+                                          mesh, rank)))
+        step = train_steps.make_train_step(cfg, ctx, opt, n_micro=conf.n_mb,
+                                           zero1=zero1)
+        batches = [train_steps.shard_batch(_global_batch(t, lb), ctx, rank,
+                                           conf.n_mb)
+                   for t, lb in _pp_batches(cfg, conf)]
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        collectives.reset_stats()
+        losses, step_s = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches, bwd, shapes = (read_launches(), read_bwd_launches(),
+                                 read_shapes())
+        staged = dict(collectives.STATS)
+        peak = torch.cuda.max_memory_allocated()
+        stored = stored_bytes(params, state)
+        assert stored == spec_bytes, (layout, rank, stored, spec_bytes)
+        t0 = time.perf_counter()
+        moment_specs = (_leaf_specs(cfg, ctx, SP.opt_spec(
+            cfg, ctx, opt, zero1=True).m) if zero1 else None)
+        sums = block_sums(params, state.m, tuple(ref), cfg, ctx, rank,
+                          moment_specs)
+        run_times["compare_s"] = time.perf_counter() - t0
+        out[layout] = {
+            "losses": losses, "sums": sums, "step_s": step_s,
+            "peak_memory_bytes": peak, "stored_bytes": stored,
+            "moment_bytes": stored_bytes(state.m, state.v),
+            "times": run_times,
             "staged_bytes_per_step": {k: v / TP_STEPS
                                       for k, v in staged.items()},
-            "launches_fwd": launches, "launches_bwd": bwd, "shapes": shapes}
+            "launches_fwd": launches, "launches_bwd": bwd,
+            "shapes": shapes}
+        del params, state, step, batches
+        torch.cuda.empty_cache()
+    ref.clear()
+    assert _build.last_build_seconds is None, "a rank ran nvcc"
+    return out
 
 
 def _one_process_run(cfg, batches: list, device, n_micro: int,
@@ -3337,11 +3444,14 @@ def _one_process_run(cfg, batches: list, device, n_micro: int,
     return before, params, state.m, losses, loss0
 
 
-def _leaf_specs(cfg, ctx) -> list:
+def _leaf_specs(cfg, ctx, tree=None) -> list:
     """Each parameter leaf's spec under ``ctx``, in ``_tree.leaves``
-    order (layers stacked)."""
+    order (layers stacked); with ``tree`` (a spec tree of
+    ``launch/specs.py``, such as ZeRO-1's moments) its leaves' specs."""
     from repro_torch.models import sharding as sh
     from repro_torch.models.transformer import param_shapes
+    if tree is not None:
+        return [s.spec for s in _tree.leaves(tree)]
 
     def walk(node):
         if isinstance(node, dict):
@@ -3370,24 +3480,28 @@ def _digest(t) -> tuple:
     return s1, s2
 
 
-def block_sums(params, moment, ref, cfg, ctx, rank: int) -> dict:
+def block_sums(params, moment, ref, cfg, ctx, rank: int,
+               moment_specs=None) -> dict:
     """What a rank reports of its blocks for :func:`param_readings`: per
-    tree (``params``, and ``moment``, AdamW's first moment) and leaf, its
-    block against the same block of the one process's whole trees ``ref``
-    (``(before, after, moment)`` of :func:`_one_process_run`): ``(sum of
-    squared differences, sum of squares of the one process's update or
-    moment, largest difference, digest of the block's bits)``."""
+    tree (``params``, and ``moment``, AdamW's first moment, cut by
+    ``moment_specs`` where they differ from the parameters' specs: ZeRO-1)
+    and leaf, its block against the same block of the one process's whole
+    trees ``ref`` (``(before, after, moment)`` of
+    :func:`_one_process_run`): ``(sum of squared differences, sum of
+    squares of the one process's update or moment, largest difference,
+    digest of the block's bits)``."""
     from repro_torch.models import sharding as sh
     before, after, m_ref = ref
     specs = _leaf_specs(cfg, ctx)
     out = {}
-    for tree, mine, want, base in (("params", params, after, before),
-                                   ("moment", moment, m_ref, None)):
+    for tree, mine, want, base, tspecs in (
+            ("params", params, after, before, specs),
+            ("moment", moment, m_ref, None, moment_specs or specs)):
         bases = _tree.leaves(base) if base is not None else [None] * len(
             specs)
         rows = {}
         for name, g, w, b, spec in zip(leaf_names(want), _tree.leaves(mine),
-                                       _tree.leaves(want), bases, specs):
+                                       _tree.leaves(want), bases, tspecs):
             w = sh.shard_leaf(w, spec, ctx.mesh, rank).float()
             d = g.float() - w
             if b is not None:
@@ -3399,7 +3513,7 @@ def block_sums(params, moment, ref, cfg, ctx, rank: int) -> dict:
     return out
 
 
-def param_readings(sums: list, cfg, ctx) -> dict:
+def param_readings(sums: list, cfg, ctx, moment_specs=None) -> dict:
     """The ranks' :func:`block_sums` (``sums[r]`` rank ``r``'s) put
     together, per tree and leaf: ``rel_err``, the Frobenius norm of the
     difference from the one process over that of its update (the
@@ -3412,7 +3526,9 @@ def param_readings(sums: list, cfg, ctx) -> dict:
     out = {}
     for tree in ("params", "moment"):
         rows = {}
-        for name, spec in zip(sums[0][tree], specs):
+        tspecs = moment_specs if tree == "moment" and moment_specs \
+            else specs
+        for name, spec in zip(sums[0][tree], tspecs):
             held = {}
             for r, mine in enumerate(sums):
                 key = tuple(ctx.mesh.coords(r)[a] for entry in spec
@@ -3429,14 +3545,15 @@ def param_readings(sums: list, cfg, ctx) -> dict:
     return out
 
 
-def _compare_params(sums: list, cfg, ctx, tols=None) -> dict:
+def _compare_params(sums: list, cfg, ctx, tols=None,
+                    moment_specs=None) -> dict:
     """:func:`param_readings` of the ranks' blocks against the one
     process, asserted: the ranks that hold the same block of the
     parameters or of the first moment hold the same bits, each leaf's
     update error is within ``tols[0]`` (``TP_UPDATE_TOL``) and its first
     moment's within ``tols[1]`` (``TP_MOMENT_TOL``); returns the largest
     of each error and of the parameters' elementwise difference."""
-    got = param_readings(sums, cfg, ctx)
+    got = param_readings(sums, cfg, ctx, moment_specs)
     update_tol, moment_tol = tols or (TP_UPDATE_TOL, TP_MOMENT_TOL)
     for tree, tol in (("params", update_tol), ("moment", moment_tol)):
         for name, row in got[tree].items():
@@ -3451,16 +3568,15 @@ def _compare_params(sums: list, cfg, ctx, tols=None) -> dict:
                                       for r in got["moment"].values())}
 
 
-def tp_train(device, pp_loss=None) -> tuple:
+def tp_train(device) -> tuple:
     """``tp_train_gpt_1_1b``: the one-process run, then the (pp 1, tp 2,
     dp 2) run on the same weights and batches (:func:`tp_rank` in four
     spawned processes, which time their steps with nothing else on the
     card), their comparison, each rank's coordinates, groups and
-    launches (against :func:`tp_rank_launches`), and the run's line, with
-    ``pp_train_gpt_1_1b``'s first loss ``pp_loss`` beside its own;
+    launches (against :func:`tp_rank_launches`), and the run's line;
     returns ``(line, shapes)`` with the ranks' summed shape counts."""
     t_phase = time.perf_counter()
-    cfg = configs.get(PP_ARCH).replace(n_layers=PP_LAYERS)
+    cfg = configs.get(PP_ARCH).replace(n_layers=TP_LAYERS)
     conf = Conf(*TP_CONF)
     mapping = np.asarray(TP_MAPPING)
     torch.cuda.synchronize()
@@ -3480,6 +3596,8 @@ def tp_train(device, pp_loss=None) -> tuple:
     mb = (conf.bs_micro, PP_SEQ, cfg.d_model)
     want, want_bwd, want_shapes = tp_rank_launches(
         cfg, conf.tp, conf.n_mb, TP_STEPS, mb)
+    mesh = mesh_from_mapping(conf, mapping)
+    runs = {}
     for r in results:
         x, y, z = (int(v) for v in np.argwhere(mapping == r["rank"])[0])
         assert r["coords"] == {"pipe": x, "model": y, "data": z}, r
@@ -3487,66 +3605,230 @@ def tp_train(device, pp_loss=None) -> tuple:
             "pipe": sorted(mapping[:, y, z].tolist()),
             "model": sorted(mapping[x, :, z].tolist()),
             "data": sorted(mapping[x, y, :].tolist())}, r
-        assert r["launches_fwd"] == want, (r["rank"], r["launches_fwd"])
-        assert r["launches_bwd"] == want_bwd, (r["rank"],
-                                               r["launches_bwd"])
-        for name, by in want_shapes.items():
-            assert r["shapes"][name] == by, (r["rank"], name,
-                                             r["shapes"][name])
-    losses = results[0]["losses"]
-    assert all(r["losses"] == losses for r in results), \
-        [r["losses"] for r in results]
-    diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
-    assert all(np.isfinite(losses)) and max(diffs) <= TP_LOSS_TOL, \
-        (losses, ref_losses)
-    ctx = ShardCtx(mesh=mesh_from_mapping(conf, mapping),
-                   dp=("data",), tp="model", fsdp=("data",))
-    cmp = _compare_params([r["sums"] for r in results], cfg, ctx)
+    for layout in TP_LAYOUTS:
+        rs = [dict(r[layout], rank=r["rank"], coords=r["coords"],
+                   groups=r["groups"]) for r in results]
+        for r in rs:
+            assert r["launches_fwd"] == want, (layout, r["rank"],
+                                               r["launches_fwd"])
+            assert r["launches_bwd"] == want_bwd, (layout, r["rank"],
+                                                   r["launches_bwd"])
+            for name, by in want_shapes.items():
+                assert r["shapes"][name] == by, (layout, r["rank"], name,
+                                                 r["shapes"][name])
+        losses = rs[0]["losses"]
+        assert all(r["losses"] == losses for r in rs), \
+            [r["losses"] for r in rs]
+        diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        assert all(np.isfinite(losses)) and max(diffs) <= TP_LOSS_TOL, \
+            (layout, losses, ref_losses)
+        ctx = tp_ctx(mesh, layout)
+        moment_specs = (_leaf_specs(cfg, ctx, SP.opt_spec(
+            cfg, ctx, None, zero1=True).m) if layout == "zero1" else None)
+        cmp = _compare_params([r["sums"] for r in rs], cfg, ctx,
+                              moment_specs=moment_specs)
+        step_s = [max(r["step_s"][i] for r in rs) for i in range(TP_STEPS)]
+        runs[layout] = {
+            "ctx": {"dp": ["data"], "tp": "model",
+                    "fsdp": list(ctx.fsdp), "zero1": layout == "zero1"},
+            "ranks": [{k: r[k] for k in (
+                "rank", "coords", "groups", "peak_memory_bytes",
+                "stored_bytes", "moment_bytes", "staged_bytes_per_step",
+                "step_s", "times")} for r in rs],
+            "losses": losses, "loss_abs_diff": diffs, "params": cmp,
+            "step_s": step_s, "warm_step_s": max(step_s[1:]),
+            "peak_memory_bytes_max": max(r["peak_memory_bytes"]
+                                         for r in rs),
+            "staged_bytes_per_step_max": max(
+                r["staged_bytes_per_step"]["collective"] for r in rs),
+            "stored_bytes_equal_specs": "asserted in every rank",
+            "launches_fwd": {k: sum(r["launches_fwd"][k] for r in rs)
+                             for k in WRAPPERS},
+            "launches_bwd": {k: sum(r["launches_bwd"][k] for r in rs)
+                             for k in BWD_KERNELS},
+            "shapes": _sum_shapes(rs)}
     torch.cuda.empty_cache()
-    launches = {k: sum(r["launches_fwd"][k] for r in results)
+    launches = {k: sum(runs[lo]["launches_fwd"][k] for lo in TP_LAYOUTS)
                 for k in WRAPPERS}
-    bwd = {k: sum(r["launches_bwd"][k] for r in results)
+    bwd = {k: sum(runs[lo]["launches_bwd"][k] for lo in TP_LAYOUTS)
            for k in BWD_KERNELS}
-    shapes = _sum_shapes(results)
-    step_s = [max(r["step_s"][i] for r in results) for i in range(TP_STEPS)]
+    shapes = {name: {} for name in WRAPPERS}
+    for lo in TP_LAYOUTS:
+        for name, by in runs[lo].pop("shapes").items():
+            for key, n in by.items():
+                shapes[name][key] = shapes[name].get(key, 0) + n
     seconds = time.perf_counter() - t_phase
     assert seconds <= TP_PHASE_S, ("tp_train_gpt_1_1b over its budget",
                                    seconds)
+    fsdp = runs["fsdp"]
     line = {
         "phase": "tp_train_gpt_1_1b", "model": cfg.name,
-        "cut": f"n_layers {PP_LAYERS} of 24 (full width: d {cfg.d_model}, "
+        "cut": f"n_layers {TP_LAYERS} of 24 (full width: d {cfg.d_model}, "
                f"heads {cfg.n_heads} of {cfg.hd}, {cfg.n_heads // conf.tp} "
                f"a rank, d_ff {cfg.d_ff}, vocab {cfg.vocab_size})",
         "conf": {"pp": conf.pp, "tp": conf.tp, "dp": conf.dp,
                  "bs_micro": conf.bs_micro, "bs_global": conf.bs_global,
                  "n_mb": conf.n_mb},
         "mapping": TP_MAPPING, "axes": ["pipe", "model", "data"],
-        "ctx": {"dp": ["data"], "tp": "model", "fsdp": ["data"]},
+        "ctx": fsdp["ctx"],
         "processes": len(results), "backend": "gloo (host-staged)",
         "seq_len": PP_SEQ, "steps": TP_STEPS, "lr": TRAIN_LR,
         "dtype": cfg.dtype, "remat": True,
-        "ranks": [{k: r[k] for k in ("rank", "coords", "groups",
-                                     "peak_memory_bytes",
-                                     "staged_bytes_per_step", "step_s",
-                                     "times")}
-                  for r in results],
-        "losses": losses, "one_process_losses": ref_losses,
-        "loss_abs_diff": diffs, "tol": {"loss": TP_LOSS_TOL,
-                                        "update_rel": TP_UPDATE_TOL,
-                                        "moment_rel": TP_MOMENT_TOL},
-        "params": cmp, "pp_train_gpt_1_1b_first_loss": pp_loss,
-        "step_s": step_s, "warm_step_s": max(step_s[1:]),
-        "peak_memory_bytes_max": max(r["peak_memory_bytes"]
-                                     for r in results),
+        "ranks": fsdp["ranks"],
+        "losses": fsdp["losses"], "one_process_losses": ref_losses,
+        "loss_abs_diff": fsdp["loss_abs_diff"],
+        "tol": {"loss": TP_LOSS_TOL, "update_rel": TP_UPDATE_TOL,
+                "moment_rel": TP_MOMENT_TOL},
+        "params": fsdp["params"],
+        "step_s": fsdp["step_s"], "warm_step_s": fsdp["warm_step_s"],
+        "peak_memory_bytes_max": fsdp["peak_memory_bytes_max"],
+        "zero1": {k: v for k, v in runs["zero1"].items()
+                  if k not in ("launches_fwd", "launches_bwd")},
         "launches_fwd": launches, "launches_bwd": bwd,
         "launches_per_rank_formula": "tp_rank_launches: per microbatch 2 "
                                      "norms + 1 attention a layer, twice "
                                      "(remat), 1 backward each, and the "
-                                     "final norm, at H / tp heads",
+                                     "final norm, at H / tp heads; the "
+                                     "same in each layout (FSDP, then "
+                                     "ZeRO-1)",
         "one_process_seconds": one_s, "spawn_seconds": spawn_s,
         "seconds": seconds,
     }
     return line, shapes
+
+
+# ---------------------------------------------------------------------------
+# the dry run on the layouts the parallel phases ran
+# ---------------------------------------------------------------------------
+
+def dryrun_vs_card(line_pp: dict, line_tp: dict) -> dict:
+    """``dryrun_vs_card``: ``launch/dryrun.py``'s machinery (meta tensors,
+    ``collectives.dry``) on exactly the layouts ``pp_train_gpt_1_1b`` and
+    ``tp_train_gpt_1_1b`` just ran on the card — gpt-1.1b at
+    ``PP_LAYERS`` / ``TP_LAYERS`` layers, the same batch, sequence,
+    microbatches and mesh —
+    one dry step as a rank of each stage (the pipeline's counts depend on
+    the stage; the tensor-parallel ranks' on nothing), held to every rank
+    of it: its collective bytes by kind must equal the bytes the rank
+    counted staged through ``gloo`` a step (the same counter,
+    ``collectives.STATS``), and the bytes of its parameters and optimizer
+    state those the rank stored.  The dry peak (arguments and
+    the step's live storage) is printed beside ``max_memory_allocated``,
+    the dry FLOPs a rank beside ``model_flops`` over the ranks, and the
+    card's ``total_memory`` beside the one ``fits_h100_80g`` takes."""
+    from repro_torch.core import flops as F
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import AdamW
+    t0 = time.perf_counter()
+    cfg = configs.get(PP_ARCH).replace(n_layers=PP_LAYERS)
+    cfg_tp = configs.get(PP_ARCH).replace(n_layers=TP_LAYERS)
+    opt = AdamW(lr=TRAIN_LR)
+
+    def meta_tokens(shape):
+        return {k: torch.empty(shape, dtype=torch.int64, device="meta")
+                for k in ("tokens", "labels")}
+
+    def compare(name, cfg, step, args, ranks, n_ranks, tokens, role):
+        """One dry step for each value of ``role`` (a rank's coordinates
+        that its counts depend on), held to every rank with that value."""
+        rows = []
+        model = F.model_flops(cfg, tokens, train=True) / n_ranks
+        dry = {}
+        for r in ranks:
+            key = role(r["coords"])
+            if key not in dry:
+                dry[key] = dryrun.measure(step, args, rank=r["rank"])
+            m = dry[key]
+            stats = {k: float(v) for k, v in m["stats"].items()}
+            assert stats == r["staged_bytes_per_step"], \
+                (name, r["rank"], stats, r["staged_bytes_per_step"])
+            stored = dryrun._tree_bytes(args[:2])
+            assert stored == r["stored_bytes"], (name, r["rank"], stored,
+                                                 r["stored_bytes"])
+            rows.append({
+                "rank": r["rank"], "coords": r["coords"],
+                "collective_bytes_by_kind": m["stats"],
+                "collective_bytes_by_op": m["ops"],
+                "stored_bytes": stored,
+                "dry_peak_bytes": m["argument_bytes"] + m["temp_bytes"],
+                "card_peak_bytes": r["peak_memory_bytes"],
+                "dry_flops": m["flops"], "model_flops_per_rank": model,
+                "dry_hbm_bytes": m["hbm_bytes"],
+                "kernel_calls": m["kernel_calls"],
+                "dry_seconds": m["seconds"]})
+        return {"run": name, "ranks": rows}
+
+    runs = []
+    conf = Conf(*PP_CONF)
+    mesh = mesh_from_mapping(conf, np.asarray(PP_MAPPING))
+    step, p_spec, o_spec, _ = make_pp_train_step(
+        cfg, mesh, opt, pipe_axis="pipe", data_axis="data", n_mb=conf.n_mb,
+        remat=True)
+    params, state = dryrun.pp_meta_state(p_spec, o_spec, mesh)
+    per = conf.bs_global // conf.n_mb // conf.dp
+    batch = {k + "_mb": v for k, v in meta_tokens(
+        (conf.n_mb, per, PP_SEQ)).items()}
+    runs.append(compare("pp2_dp2", cfg, step, (params, state, batch),
+                        line_pp["ranks"], mesh.size,
+                        conf.bs_global * PP_SEQ, lambda c: c["pipe"]))
+    conf = Conf(*TP_CONF)
+    mesh = mesh_from_mapping(conf, np.asarray(TP_MAPPING))
+    for layout in TP_LAYOUTS:
+        ctx = tp_ctx(mesh, layout)
+        zero1 = layout == "zero1"
+        step = train_steps.make_train_step(cfg_tp, ctx, opt,
+                                           n_micro=conf.n_mb, zero1=zero1)
+        params, state = dryrun.train_meta_state(cfg_tp, ctx, mesh, zero1)
+        batch = meta_tokens((conf.bs_global // conf.dp, PP_SEQ))
+        ranks = line_tp["ranks"] if layout == "fsdp" else \
+            line_tp["zero1"]["ranks"]
+        runs.append(compare(f"tp2_dp2_{layout}", cfg_tp, step,
+                            (params, state, batch), ranks, mesh.size,
+                            conf.bs_global * PP_SEQ, lambda c: 0))
+    return {"phase": "dryrun_vs_card", "model": cfg.name,
+            "layers": {"pp": PP_LAYERS, "tp": TP_LAYERS}, "runs": runs,
+            "total_memory": torch.cuda.get_device_properties(0).total_memory,
+            "dryrun_total_memory": dryrun.H100_TOTAL_MEMORY,
+            "checked": "every rank: dry collective bytes by kind == the "
+                       "rank's staged bytes a step; dry stored bytes == "
+                       "the rank's stored bytes",
+            "seconds": time.perf_counter() - t0}
+
+
+def scan_dtype_refusal(device) -> dict:
+    """``scan_dtype_refusal``: on the card, reduced falcon-mamba-7b's Mamba1
+    block with ``scan_dtype="bfloat16"`` raises ``NotImplementedError``
+    naming ROADMAP Queue A 10d, in the forward and under a gradient, and
+    launches nothing; with ``"float32"`` it runs (one fused launch), and
+    the decode step ignores the knob (one launch)."""
+    from repro_torch.models import mamba
+    t0 = time.perf_counter()
+    cfg = configs.get("falcon-mamba-7b").reduced(scan_dtype="bfloat16")
+    params = init_params(cfg, seed=0, device=device)
+    p = {k: v[0] for k, v in params["layers"].items()}
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=device)
+    reset_launches()
+    refused = {}
+    for name, grad in (("forward", False), ("gradient", True)):
+        xi = x.clone().requires_grad_(grad)
+        with torch.set_grad_enabled(grad):
+            try:
+                mamba.mamba1_block(xi, p, cfg)
+            except NotImplementedError as e:
+                refused[name] = str(e)
+        assert "Queue A 10d" in refused.get(name, ""), (name, refused)
+    assert read_launches()["selective_scan"] == 0
+    with torch.no_grad():
+        _, (h, conv) = mamba.mamba1_block(
+            x, p, cfg.replace(scan_dtype="float32"))
+        y1, _ = mamba.mamba1_block(x[:, 0], p, cfg, h0=h.clone(),
+                                   conv0=conv, single_step=True)
+    assert read_launches()["selective_scan"] == 2
+    assert bool(torch.isfinite(y1).all())
+    return {"phase": "scan_dtype_refusal", "model": cfg.name,
+            "refused": refused, "float32_and_step_launches": 2,
+            "seconds": time.perf_counter() - t0}
 
 
 def tp_models_rank(rank: int, world: int, refs: dict) -> dict:
@@ -4754,6 +5036,7 @@ def main() -> int:
     scan_rows = check_scan_at_falcon_shapes(device)
     emit({"phase": "scan_at_falcon_shapes", "kernels": scan_rows})
     emit(scan_by_batch(device, scan_regs))
+    emit(scan_dtype_refusal(device))
     gen_launches, gen_shapes = {}, {}
     for arch, name in GEN_ARCHS.items():
         line_g, gen_launches[name], gen_shapes[name] = run_generate(
@@ -4789,10 +5072,12 @@ def main() -> int:
     bwd_tr[line_pp["phase"]] = {
         name: {k: n for k, n in by.items() if is_bwd_key(k)}
         for name, by in shapes_pp.items()}
-    for run in (lambda: tp_train(device, line_pp["losses"][0]),
+    for run in (lambda: tp_train(device),
                 lambda: tp_models(device), lambda: tp_train_mamba(device)):
         line_x, shapes_x = run()
         emit(line_x)
+        if line_x["phase"] == "tp_train_gpt_1_1b":
+            emit(dryrun_vs_card(line_pp, line_x))
         train_lines.append(line_x)
         fwd_tr[line_x["phase"]] = {
             name: {k: n for k, n in by.items() if not is_bwd_key(k)}

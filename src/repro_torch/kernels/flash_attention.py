@@ -67,6 +67,7 @@ from collections import Counter
 
 import torch
 
+from . import _meta
 from ._build import launch
 
 NEG_INF = -1e30
@@ -89,6 +90,39 @@ def _allowed(sq: int, sk: int, causal: bool, window: int,
     if window > 0:
         ok &= q_pos - k_pos < window
     return ok
+
+
+def allowed_pairs(sq: int, sk: int, causal: bool, window: int,
+                  q_offset: int = 0) -> int:
+    """The number of (query, key) pairs :func:`_allowed` lets through,
+    counted row by row without making the mask."""
+    import numpy as np
+    pos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(pos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _meta_ops(q, k, causal, window, q_offset, per_pair: int) -> int:
+    """``per_pair * B * H * D * pairs``: the bound's operations (4 a pair
+    forward, 10 backward)."""
+    b, h, sq, d = q.shape
+    return per_pair * b * h * d * allowed_pairs(sq, k.shape[2], causal,
+                                                window, q_offset)
+
+
+def _meta_attention(q, k, v, causal, window, q_offset):
+    """:func:`flash_attention` on meta tensors: its Function under a
+    gradient, else the output's shape, counted as the kernel's bound."""
+    if (q.requires_grad or k.requires_grad or v.requires_grad) \
+            and torch.is_grad_enabled():
+        return FlashAttentionFn.apply(q, k, v, bool(causal), window,
+                                      q_offset)
+    out = torch.empty_like(q)
+    _meta.account("flash_attention",
+                  _meta_ops(q, k, causal, window, q_offset, 4), (q, k, v),
+                  (out,))
+    return out
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -257,6 +291,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
+    if q.device.type == "meta":
+        return _meta_attention(q, k, v, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_kernel(q, k, v, window, q_offset)
@@ -366,6 +402,14 @@ class FlashAttentionFn(torch.autograd.Function):
             lse = torch.empty((b, h, sq), dtype=torch.float32,
                               device=q.device)
             out = _fwd_cuda(q, k, v, causal, window, lse, q_offset)
+        elif q.is_meta:
+            b, h, sq, _ = q.shape
+            out = torch.empty_like(q)
+            lse = torch.empty((b, h, sq), dtype=torch.float32,
+                              device=q.device)
+            _meta.account("flash_attention",
+                          _meta_ops(q, k, causal, window, q_offset, 4),
+                          (q, k, v), (out, lse))
         else:
             out, lse = flash_attention_ref(q, k, v, causal=causal,
                                            window=window, return_lse=True,
@@ -380,6 +424,12 @@ class FlashAttentionFn(torch.autograd.Function):
         if q.is_cuda:
             dq, dk, dv = _bwd_cuda(q, k, v, out, lse, dout, ctx.causal,
                                    ctx.window, ctx.q_offset)
+        elif q.is_meta:
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            _meta.account("flash_attention_bwd",
+                          _meta_ops(q, k, ctx.causal, ctx.window,
+                                    ctx.q_offset, 10),
+                          (q, k, v, out, lse, dout), (dq, dk, dv))
         else:
             dq, dk, dv = flash_attention_bwd_ref(
                 q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window,

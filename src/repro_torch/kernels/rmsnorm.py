@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from . import _meta
 from ._build import launch
 
 #: Type code of the kernel: bit 0 for a bfloat16 ``x``, bit 1 for a
@@ -117,7 +118,7 @@ def _width(shape, x, w) -> tuple:
     index = x.get_device()
     if w.get_device() != index:
         raise ValueError(f"x is on {x.device}, w on {w.device}")
-    if not x.is_cuda and x.device.type != "cpu":
+    if not x.is_cuda and x.device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     return d, index
 
@@ -136,6 +137,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     shape = x.shape
     d, index = _width(shape, x, w)
     if not x.is_cuda:
+        if x.is_meta:
+            return _meta_rmsnorm(x, w, eps)
         return rmsnorm_ref(x, w, eps)
     if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
         return RMSNormFn.apply(x, w, eps)
@@ -191,6 +194,8 @@ def add_rmsnorm(x: torch.Tensor, r: torch.Tensor, w: torch.Tensor,
     if r.get_device() != index:
         raise ValueError(f"r is on {r.device}, x on {x.device}")
     if not x.is_cuda:
+        if x.is_meta:
+            return _meta_add_rmsnorm(x, r, w, eps)
         return add_rmsnorm_ref(x, r, w, eps)
     if (x.requires_grad or r.requires_grad or w.requires_grad) \
             and torch.is_grad_enabled():
@@ -241,10 +246,38 @@ def _rmsnorm_bwd_cuda(x, w, dy, eps, ds_in, key) -> tuple:
 
 
 def _bwd(x, w, dy, eps, ds_in, key) -> tuple:
-    """The backward kernel on the card, its plain version on the CPU."""
+    """The backward kernel on the card, its plain version on the CPU, its
+    shapes on the meta device (its bound's 11 operations an element, 12
+    with ``ds_in``)."""
     if x.is_cuda:
         return _rmsnorm_bwd_cuda(x, w, dy, eps, ds_in, key)
+    if x.is_meta:
+        dx, dw = torch.empty_like(x), torch.empty_like(w)
+        _meta.account("rmsnorm_bwd", (11 if ds_in is None else 12)
+                      * x.numel(), (x, w, dy, ds_in), (dx, dw))
+        return dx, dw
     return rmsnorm_bwd_ref(x, w, dy, eps, ds_in)
+
+
+def _meta_rmsnorm(x, w, eps):
+    """:func:`rmsnorm` on meta tensors: its Function under a gradient,
+    else the output's shape, counted as its bound counts the kernel (4
+    operations an element)."""
+    if (x.requires_grad or w.requires_grad) and torch.is_grad_enabled():
+        return RMSNormFn.apply(x, w, eps)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _meta.account("rmsnorm", 4 * x.numel(), (x, w), (y,))
+    return y
+
+
+def _meta_add_rmsnorm(x, r, w, eps):
+    """:func:`add_rmsnorm` on meta tensors (5 operations an element)."""
+    if (x.requires_grad or r.requires_grad or w.requires_grad) \
+            and torch.is_grad_enabled():
+        return AddRMSNormFn.apply(x, r, w, eps)
+    s, y = torch.empty_like(x), torch.empty_like(x)
+    _meta.account("rmsnorm", 5 * x.numel(), (x, r, w), (s, y))
+    return s, y
 
 
 class RMSNormFn(torch.autograd.Function):
@@ -259,6 +292,9 @@ class RMSNormFn(torch.autograd.Function):
             x = x.contiguous()
             y = _rmsnorm_cuda(x, w, eps, _types(x, w), x.shape[-1],
                               x.get_device())
+        elif x.is_meta:
+            y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            _meta.account("rmsnorm", 4 * x.numel(), (x, w), (y,))
         else:
             y = rmsnorm_ref(x, w, eps)
         ctx.save_for_backward(x, w)
@@ -283,6 +319,9 @@ class AddRMSNormFn(torch.autograd.Function):
         if x.is_cuda:
             s, y = _add_rmsnorm_cuda(x, r, w, eps, _types(x, w), x.shape[-1],
                                      x.get_device())
+        elif x.is_meta:
+            s, y = torch.empty_like(x), torch.empty_like(x)
+            _meta.account("rmsnorm", 5 * x.numel(), (x, r, w), (s, y))
         else:
             s, y = add_rmsnorm_ref(x, r, w, eps)
         ctx.save_for_backward(s, w)

@@ -63,11 +63,13 @@ cut from the graph.  On the CPU the plain versions differentiate.
 """
 from __future__ import annotations
 
+import functools
 from collections import Counter
 from typing import Optional, Tuple
 
 import torch
 
+from . import _meta
 from ._build import launch, refuse_grad
 
 N_MAX = 16
@@ -80,6 +82,13 @@ NO_BACKWARD = ("no training path differentiates the decode step, a state "
 #: refuses other values); the plain backward takes the same chunks.
 BWD_CHUNK, BWD_CHANNELS = 16, 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The chunk length the reference's sequence scan aims at; a chunk is the
+#: largest divisor of S not above it (:func:`selective_scan_chunked_ref`).
+SCAN_CHUNK = 128
+NO_WORK_DTYPE = ("cfg.scan_dtype 'bfloat16' (the scan's chunk-local prefix "
+                 "in bfloat16) has no kernel on the card: ROADMAP Queue A "
+                 "10d, the bf16 working-type Mamba1 scan on the card; it "
+                 "runs on the CPU, and 'float32' runs everywhere")
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -127,6 +136,92 @@ def selective_scan_step(x, dt, B, C, A, h):
         * B[:, None, :].to(torch.float32)
     y = torch.einsum("bdn,bn->bd", h_new, C.to(torch.float32))
     return y, h_new
+
+
+def _pick_chunk(s: int, target: int) -> int:
+    """The largest divisor of ``s`` not above ``target`` (the reference's
+    ``models/mamba.py::_pick_chunk``)."""
+    c = min(s, target)
+    while s % c:
+        c -= 1
+    return c
+
+
+def _combine(left, right):
+    """The reference's combine of two recurrence segments, ``(a_l a_r,
+    u_l a_r + u_r)``, each product and sum rounded to the inputs' type."""
+    al, ul = left
+    ar, ur = right
+    return al * ar, ul * ar + ur
+
+
+def associative_scan(a: torch.Tensor, u: torch.Tensor, dim: int = 1):
+    """The inclusive scan of the segments ``(a, u)`` along ``dim`` under
+    :func:`_combine`, in ``jax.lax.associative_scan``'s own order (the
+    tree of its odd/even recursion: pairs combined, the half-length scan,
+    then the even positions from the odd ones), so that in bfloat16 every
+    partial product and sum rounds where the reference's does; a
+    sequential prefix would round at other places."""
+    n = a.shape[dim]
+    if n < 2:
+        return a, u
+
+    def sl(t, start, stop=None, step=1):
+        idx = [slice(None)] * t.dim()
+        idx[dim] = slice(start, stop, step)
+        return t[tuple(idx)]
+
+    pairs = _combine((sl(a, 0, -1, 2), sl(u, 0, -1, 2)),
+                     (sl(a, 1, None, 2), sl(u, 1, None, 2)))
+    odd = associative_scan(*pairs, dim=dim)
+    rest = (sl(a, 2, None, 2), sl(u, 2, None, 2))
+    if n % 2 == 0:
+        even = _combine((sl(odd[0], 0, -1), sl(odd[1], 0, -1)), rest)
+    else:
+        even = _combine(odd, rest)
+    out = []
+    for first, e, o in zip((a, u), even, odd):
+        e = torch.cat([sl(first, 0, 1), e], dim=dim)
+        t = first.new_empty(first.shape)
+        idx = [slice(None)] * t.dim()
+        idx[dim] = slice(0, None, 2)
+        t[tuple(idx)] = e
+        idx[dim] = slice(1, None, 2)
+        t[tuple(idx)] = o
+        out.append(t)
+    return out[0], out[1]
+
+
+def selective_scan_chunked_ref(x, dt, B, C, A, h0=None, *,
+                               chunk: int = SCAN_CHUNK,
+                               work_dtype: torch.dtype = torch.bfloat16):
+    """The reference's chunked recurrence (``models/mamba.py::
+    selective_scan`` with ``work_dtype``), for a working type other than
+    float32: the sequence in chunks of ``_pick_chunk(S, chunk)`` steps;
+    in each, ``a = exp(dt A)`` and ``u = (dt x) B`` computed in float32
+    and rounded to ``work_dtype``, their chunk-local prefix by
+    :func:`associative_scan` in that type, then ``h_t = a_cum h + u_scan``
+    in float32 from the float32 state carried across chunks, and ``y_t =
+    sum_N h_t C_t``.  Arguments and results as :func:`selective_scan_ref`'s
+    (float32 ``y`` and final state)."""
+    f32 = torch.float32
+    b, s, d = x.shape
+    n = B.shape[-1]
+    q = _pick_chunk(s, chunk)
+    xf, dtf, Bf, Cf, Af = (t.to(f32) for t in (x, dt, B, C, A))
+    h = (torch.zeros((b, d, n), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    ys = []
+    for c0 in range(0, s, q):
+        xq, dtq = xf[:, c0:c0 + q], dtf[:, c0:c0 + q]
+        a = torch.exp(dtq[..., None] * Af).to(work_dtype)      # (b,q,d,n)
+        u = ((dtq * xq)[..., None] * Bf[:, c0:c0 + q, None, :]
+             ).to(work_dtype)
+        a_cum, u_scan = associative_scan(a, u, dim=1)
+        h_all = a_cum.to(f32) * h[:, None] + u_scan.to(f32)
+        ys.append(torch.einsum("bqdn,bqn->bqd", h_all, Cf[:, c0:c0 + q]))
+        h = h_all[:, -1]
+    return torch.cat(ys, dim=1), h
 
 
 def selective_scan_bounds_ref(x, dt, B, C, A, h0=None, *,
@@ -394,7 +489,8 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
                          D: torch.Tensor, z: torch.Tensor,
                          h0: Optional[torch.Tensor] = None,
                          h_out: Optional[torch.Tensor] = None, *,
-                         step: bool = False
+                         step: bool = False,
+                         work_dtype: torch.dtype = torch.float32
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CUDA version of :func:`selective_scan_fused_ref`: ``x, dt, B, C, z``
     views of one type (float32 or bfloat16) with a unit-stride last axis;
@@ -404,6 +500,14 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
     ``(b, D, N)`` float32 — ``h_out`` when given (contiguous; it may be
     ``h0`` itself, which is then updated in place).  A CPU tensor goes
     through the plain version; a CUDA tensor launches the kernel or raises.
+
+    ``work_dtype`` is the model's ``scan_dtype`` over a sequence:
+    ``torch.bfloat16`` takes the reference's chunked recurrence with its
+    prefix in bfloat16 (:func:`selective_scan_chunked_ref`) on the CPU and
+    on the meta device, and raises ``NotImplementedError``
+    (:data:`NO_WORK_DTYPE`) on the card, which has no such kernel.  A meta
+    tensor otherwise returns the kernel's output shapes, its work counted
+    in ``kernels/_meta.py``.
     """
     # plain attribute reads and comparisons: a decode step calls this once
     # a layer
@@ -436,6 +540,10 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
             f"{tuple(dt_bias.shape)}, D {tuple(D.shape)}, h0 "
             f"{None if h0 is None else tuple(h0.shape)}, h_out "
             f"{None if h_out is None else tuple(h_out.shape)}")
+    if work_dtype not in (torch.float32, torch.bfloat16) or (
+            step and work_dtype is not torch.float32):
+        raise ValueError(f"work_dtype must be float32 or bfloat16 (float32 "
+                         f"for a step), got {work_dtype}")
     if min(b, s, d, n) < 1 or (step and s != 1):
         raise ValueError(f"unsupported sizes: b {b}, S {s}, D {d}, N {n} "
                          f"(S = 1 for a step)")
@@ -453,10 +561,20 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
             or (h_out is not None and h_out.get_device() != index)):
         raise ValueError(f"all inputs must be on {x.device}")
     if not x.is_cuda:
-        if x.device.type != "cpu":
+        if x.device.type not in ("cpu", "meta"):
             raise ValueError(f"unsupported device {x.device}")
+        if work_dtype is not torch.float32:
+            return selective_scan_fused_ref(
+                x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
+                scan=functools.partial(selective_scan_chunked_ref,
+                                       work_dtype=work_dtype))
+        if x.is_meta:
+            return _meta_fused(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
+                               step)
         return selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z,
                                         h0, h_out, step=step)
+    if work_dtype is not torch.float32:
+        raise NotImplementedError(NO_WORK_DTYPE)
     _check_kernel_sizes(b, s, d, n)
     if torch.is_grad_enabled() and (
             x.requires_grad or dt.requires_grad or dt_bias.requires_grad
@@ -470,6 +588,37 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
                                           h0)
     return _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
                            step)
+
+
+def _meta_fused_fwd(x, A_log, args, h_out, bounds: bool):
+    """The fused forward on meta tensors: ``(out, h[, bounds])`` of the
+    kernel's shapes, counted as its bound counts it (``7 b S D N + b S
+    D`` operations; ``args`` the inputs read)."""
+    b, s, d = x.shape
+    n = A_log.shape[-1]
+    out = torch.empty_like(x)
+    h = (torch.empty((b, d, n), dtype=torch.float32, device=x.device)
+         if h_out is None else h_out)
+    outs = [out, h]
+    if bounds:
+        outs.append(torch.empty((b, -(-s // BWD_CHUNK), d, n),
+                                dtype=torch.float32, device=x.device))
+    _meta.account("selective_scan", 7 * x.numel() * n + x.numel(), args,
+                  outs)
+    return tuple(outs)
+
+
+def _meta_fused(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out, step):
+    """:func:`selective_scan_fused` on meta tensors: its Function under a
+    gradient (over a sequence, without ``h_out``), else the outputs'
+    shapes."""
+    if torch.is_grad_enabled() and not step and h_out is None and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, dt_bias, B, C, A_log, D, z, h0)):
+        return SelectiveScanFusedFn.apply(x, dt, dt_bias, B, C, A_log, D, z,
+                                          h0)
+    return _meta_fused_fwd(x, A_log, (x, dt, dt_bias, B, C, A_log, D, z, h0),
+                           h_out, False)
 
 
 def _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
@@ -604,6 +753,10 @@ class SelectiveScanFusedFn(torch.autograd.Function):
             bounds = _bounds_for(x, A_log.shape[-1])
             out, h = _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0,
                                      None, False, bounds)
+        elif x.is_meta:
+            out, h, bounds = _meta_fused_fwd(
+                x, A_log, (x, dt, dt_bias, B, C, A_log, D, z, h0), None,
+                True)
         else:
             out, h, bounds = selective_scan_fused_ref(
                 x, dt, dt_bias, B, C, A_log, D, z, h0, bounds=True)
@@ -618,6 +771,16 @@ class SelectiveScanFusedFn(torch.autograd.Function):
         if x.is_cuda:
             return _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
                              dh_final, bounds)
+        if x.is_meta:
+            grads = tuple(None if t is None else torch.empty_like(t)
+                          for t in (x, dt, dt_bias, B, C, A_log, D, z, h0))
+            # the bound's b S D N exponentials; the saved boundaries are
+            # not an input of the function
+            _meta.account("selective_scan_fused_bwd",
+                          x.numel() * A_log.shape[-1],
+                          (x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
+                           dh_final), grads)
+            return grads
         return selective_scan_fused_bwd_ref(x, dt, dt_bias, B, C, A_log, D,
                                             z, h0, dout, dh_final,
                                             bounds=bounds)

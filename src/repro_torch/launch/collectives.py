@@ -21,6 +21,12 @@ weight (its cotangent summed, then this rank's block), :func:`gather_rows`
 the gather of an activation whose consumers are replicated (this rank's
 block of the cotangent, no sum), and :func:`max_over` the vocabulary's
 max (no gradient, as the reference's ``logsumexp`` stops it).
+:func:`reduce_scatter` is the ZeRO-1 and FSDP gradient reduction: the sum
+over an axis, of which each rank keeps its block.
+
+Inside :func:`dry` no process group is needed: every collective returns
+a meta tensor of its result's shape and counts its bytes as on the card,
+for one rank of a mesh of any size (``launch/dryrun.py``).
 
 :func:`spawn` starts the ranks as processes, each with its group up
 (:func:`init_group`, a ``file://`` store in a fresh temporary directory,
@@ -29,6 +35,7 @@ any failure and re-raises the first failing rank's traceback.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue
@@ -36,7 +43,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -54,22 +61,74 @@ import torch.distributed as dist
 #: ``decode`` a decode step's gathers of q, k and v over the heads, its
 #: partial attentions' combine over the cache's sequence blocks and the
 #: greedy token's reductions over the vocabulary blocks.
+#: ``zero1`` the all-gather of the parameter blocks that ZeRO-1's optimizer
+#: updated (the reduce-scatter of their gradients counts under ``data``).
 STATS: Dict[str, int] = {"p2p": 0, "collective": 0, "fsdp": 0, "tp": 0,
-                         "vocab": 0, "data": 0, "decode": 0}
-_KINDS = ("fsdp", "tp", "vocab", "data", "decode")
+                         "vocab": 0, "data": 0, "decode": 0, "zero1": 0}
+_KINDS = ("fsdp", "tp", "vocab", "data", "decode", "zero1")
+#: The same calls' bytes by the reference's HLO op names, as its cost
+#: model (``launch/hlo_cost.py``) counts them: an operand's bytes, twice
+#: for an all-reduce (a ring's traffic); a P2P send is a
+#: ``collective-permute``.
+OPS: Dict[str, int] = {"all-reduce": 0, "all-gather": 0,
+                       "reduce-scatter": 0, "all-to-all": 0,
+                       "collective-permute": 0}
+_RING_MULT = {"all-reduce": 2, "all-gather": 1, "reduce-scatter": 1,
+              "all-to-all": 1, "collective-permute": 1}
 
 
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0
+    for d in (STATS, OPS):
+        for k in d:
+            d[k] = 0
 
 
-def _count(nbytes: int, kind: str) -> None:
+def _count(nbytes: int, kind: str, op: str, operand: int) -> None:
     """Add a staged collective's bytes to ``collective`` and to ``kind``
-    (one of :data:`_KINDS`, or ``""`` for none)."""
+    (one of :data:`_KINDS`, or ``""`` for none), and its operand's to
+    :data:`OPS` under the reference's name ``op``."""
     STATS["collective"] += nbytes
     if kind:
         STATS[kind] += nbytes
+    OPS[op] += _RING_MULT[op] * operand
+
+
+class _Dry:
+    """The state of :func:`dry`: the rank it stands for."""
+
+    def __init__(self, rank: int):
+        self.rank = rank
+
+
+_DRY: Optional[_Dry] = None
+
+
+@contextlib.contextmanager
+def dry(rank: int):
+    """Run collectives without a process group, as global rank ``rank`` of
+    whatever mesh the caller names: every call counts its bytes in
+    :data:`STATS` and :data:`OPS` exactly as it would on that rank, and
+    returns meta tensors of its result's shape (a reduction leaves its
+    tensors as they are).  Model code that asks for its rank
+    (:func:`rank`) gets ``rank``."""
+    global _DRY
+    prev, _DRY = _DRY, _Dry(rank)
+    try:
+        yield _DRY
+    finally:
+        _DRY = prev
+
+
+def is_dry() -> bool:
+    return _DRY is not None
+
+
+def rank() -> int:
+    """This process's global rank: the rank :func:`dry` stands for inside
+    it, else the process group's (0 when none is up)."""
+    if _DRY is not None:
+        return _DRY.rank
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def init_group(rank: int, world: int, store_path: str,
@@ -106,15 +165,20 @@ class _Pending:
         self.work, self.buf = work, buf
 
     def wait(self) -> None:
-        self.work.wait()
+        if self.work is not None:
+            self.work.wait()
         self.buf = None
 
 
 def send(t: torch.Tensor, dst: int) -> _Pending:
     """Start sending ``t`` to global rank ``dst``; ``.wait()`` the result
     before the end of the step."""
+    nbytes = t.numel() * t.element_size()
+    STATS["p2p"] += nbytes
+    OPS["collective-permute"] += nbytes
+    if _DRY is not None:
+        return _Pending(None, None)
     buf = _host(t) if _staged(t) else t.contiguous()
-    STATS["p2p"] += buf.numel() * buf.element_size()
     return _Pending(dist.isend(buf, dst), buf)
 
 
@@ -122,6 +186,10 @@ def recv(shape, dtype: torch.dtype, device, src: int) -> torch.Tensor:
     """Receive a tensor of ``shape`` and ``dtype`` from global rank
     ``src`` onto ``device``."""
     device = torch.device(device)
+    if _DRY is not None:
+        buf = torch.empty(tuple(shape), dtype=dtype, device=device)
+        STATS["p2p"] += buf.numel() * buf.element_size()
+        return buf
     staged = device.type == "cuda" and dist.get_backend() == "gloo"
     buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=staged,
                       device="cpu" if staged else device)
@@ -163,11 +231,15 @@ def all_reduce(tensors: Sequence[torch.Tensor], mesh, axis: str,
     for t in tensors:
         by_type.setdefault(t.dtype, []).append(t)
     for ts in by_type.values():
+        # the dry run makes the same tensors on its device, and skips the
+        # transfer
         flat = torch.cat([t.reshape(-1) for t in ts])
         staged = _staged(flat)
         buf = _host(flat) if staged else flat
-        _count(buf.numel() * buf.element_size(), kind)
-        _reduce_host(buf, mesh, axis, op)
+        _count(buf.numel() * buf.element_size(), kind, "all-reduce",
+               buf.numel() * buf.element_size())
+        if _DRY is None:
+            _reduce_host(buf, mesh, axis, op)
         if staged:
             flat.copy_(buf)
         off = 0
@@ -184,6 +256,13 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int,
     n = mesh.shape[axis]
     if n == 1:
         return t
+    block = t.numel() * t.element_size()
+    if _DRY is not None:
+        # the blocks land on the device, then are joined: both on the
+        # device at once, as on a rank
+        _count(n * block, kind, "all-gather", block)
+        return torch.cat(list(t.new_empty((n,) + tuple(t.shape)).unbind(0)),
+                         dim=dim)
     group = mesh.group(axis)
     staged = _staged(t)
     src = _host(t) if staged else t.contiguous()
@@ -196,7 +275,7 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int,
     else:
         parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    _count(n * src.numel() * src.element_size(), kind)
+    _count(n * block, kind, "all-gather", block)
     if staged:
         parts = list(buf.to(t.device).unbind(0))
     # the group lists its ranks in ascending order; the mesh's order may
@@ -205,6 +284,94 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int,
     line = mesh.axis_ranks(axis, me)
     by_rank = dict(zip(sorted(line), parts))
     return torch.cat([by_rank[r] for r in line], dim=dim)
+
+
+def reduce_scatter(tensors: List[torch.Tensor], mesh, axis: str,
+                   dims: Sequence[int], op: str = "sum",
+                   kind: str = "") -> List[torch.Tensor]:
+    """Each tensor summed (``op="sum"``) or averaged (``"mean"``) over this
+    rank's line of ``axis``, and of that only this rank's block along its
+    dim of ``dims`` (cut in the mesh's coordinate order), as new
+    tensors: an :func:`all_reduce` then a cut, at a reduce-scatter's
+    bytes.  ``gloo`` has no reduce-scatter of its own, so each rank sends
+    every other rank its block of the input (one ``all_to_all`` per type,
+    staged through pinned host memory on the card) and adds the blocks it
+    receives in coordinate order, a left fold: on a line of two ranks the
+    sum of two, which is :func:`all_reduce`'s bits.  Every dim must divide
+    over the line.
+
+    The list ``tensors`` is handed over: each entry is dropped (set to
+    None) once its blocks are staged, so an input the caller keeps no
+    other reference to is freed then, and no copy of the whole is made
+    on the card."""
+    n = mesh.shape[axis]
+    if op not in ("sum", "mean"):
+        raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
+    for t, d in zip(tensors, dims):
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not divide "
+                             f"over {n} ranks of {axis!r}")
+    if n == 1:
+        return [t.clone() for t in tensors]
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_type: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_type.setdefault(t.dtype, []).append(i)
+    for idx in by_type.values():
+        # each tensor's moved shape (its dim first) and its block's columns
+        moved = {i: tuple(tensors[i].movedim(dims[i], 0).shape)
+                 for i in idx}
+        cols = {i: tensors[i].numel() // n for i in idx}
+        width = sum(cols.values())  # repro: noqa DET004 -- element counts are ints; integer addition is order-independent
+        first = tensors[idx[0]]
+        dtype, device, staged = first.dtype, first.device, _staged(first)
+        nbytes = n * width * first.element_size()
+        del first
+        _count(nbytes, kind, "reduce-scatter", nbytes)
+        if _DRY is not None:
+            for i in idx:
+                tensors[i] = None
+            # the sum and one received row on the device at once, as on a
+            # rank
+            total = torch.empty((width,), dtype=dtype, device=device)
+            total.add_(torch.empty_like(total))
+        else:
+            me = dist.get_rank()
+            line = list(mesh.axis_ranks(axis, me))
+            order = sorted(line)                  # the group's rank order
+            send = torch.empty((n, width), dtype=dtype,
+                               pin_memory=staged,
+                               device="cpu" if staged else device)
+            off = 0
+            for i in idx:
+                per = moved[i][0] // n
+                src = tensors[i].movedim(dims[i], 0).unflatten(0, (n, per))
+                for j, r in enumerate(order):     # rows in the group's order
+                    send[j, off:off + cols[i]].view(
+                        (per,) + moved[i][1:]).copy_(src[line.index(r)])
+                off += cols[i]
+                tensors[i] = src = None
+            got = torch.empty_like(send)
+            dist.all_to_all_single(got, send, group=mesh.group(axis))
+            del send
+            # row j came from the group's j-th rank; fold in mesh order
+            rows = [got[order.index(r)] for r in line]
+            total = rows[0].to(device, copy=True)
+            for part in rows[1:]:
+                total.add_(part.to(device))
+            del rows, got
+            if op == "mean":
+                total.div_(torch.full((), float(n), dtype=total.dtype,
+                                      device=total.device))
+        off = 0
+        for i in idx:                   # copies: the bucket is freed here
+            per = moved[i][0] // n
+            out[i] = total[off:off + cols[i]].view(
+                (per,) + moved[i][1:]).movedim(0, dims[i]).clone(
+                    memory_format=torch.contiguous_format)
+            off += cols[i]
+        del total
+    return out
 
 
 class _SumOver(torch.autograd.Function):
@@ -255,8 +422,9 @@ class _Gather(torch.autograd.Function):
         if ctx.reduce:
             g = g.contiguous().clone()
             all_reduce([g], ctx.mesh, ctx.axis, "sum", ctx.kind)
-        line = ctx.mesh.axis_ranks(ctx.axis, dist.get_rank())
-        i = line.index(dist.get_rank())
+        me = rank()
+        line = ctx.mesh.axis_ranks(ctx.axis, me)
+        i = line.index(me)
         return (g.narrow(ctx.dim, i * ctx.size, ctx.size).contiguous(),
                 None, None, None, None, None)
 

@@ -28,7 +28,6 @@ from __future__ import annotations
 from typing import Callable, List
 
 import torch
-import torch.distributed as dist
 
 from .._tree import leaves
 from . import collectives as C
@@ -67,14 +66,15 @@ def pipeline_loss_fn(embed_fn: Callable, stage_fn: Callable,
     microbatch losses in order, over the pipe group (only the last stage's
     is nonzero), averaged over ``data_axis`` when it is set, divided by
     ``n_mb``.  Leaves in ``.grad`` of every parameter that requires one
-    (replacing what was there) the gradient ``jax.grad`` of the reference
-    gives: a stage parameter's from its stage, a shared one's summed over
-    the pipe group, and every one averaged over the data group when
-    ``data_axis`` is set."""
+    (replacing what was there) this data rank's part of the gradient
+    ``jax.grad`` of the reference gives: a stage parameter's from its
+    stage, a shared one's summed over the pipe group.  With ``data_axis``
+    the caller averages the gradients over it (``pp_step.py``
+    reduce-scatters them to its ZeRO-1 blocks)."""
     pp = mesh.shape[axis]
 
     def loss(stage_params, shared, tokens_mb, labels_mb):
-        rank = dist.get_rank() if dist.is_initialized() else 0
+        rank = C.rank()
         line = mesh.axis_ranks(axis, rank)
         s = line.index(rank)
         first, last = s == 0, s == pp - 1
@@ -132,8 +132,8 @@ def pipeline_loss_fn(embed_fn: Callable, stage_fn: Callable,
                 pending.append(C.send(x.grad, line[s - 1]))
         C.wait_all(pending)
 
-        # shared gradients summed over the pipe group; then every gradient
-        # and the loss averaged over the data group
+        # shared gradients summed over the pipe group; the loss averaged
+        # over the data group
         shared_ps = _grad_leaves(shared)
         for p in shared_ps:
             if p.grad is None:
@@ -145,7 +145,6 @@ def pipeline_loss_fn(embed_fn: Callable, stage_fn: Callable,
         total = loss_sum.clone()
         C.all_reduce([total], mesh, axis, "sum")
         if data_axis:
-            C.all_reduce([p.grad for p in params], mesh, data_axis, "mean")
             C.all_reduce([total], mesh, data_axis, "mean")
         return total / torch.full((), float(n_mb), dtype=torch.float32,
                                   device=device)

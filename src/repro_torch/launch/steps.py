@@ -6,7 +6,12 @@ step is a plain closure over the config.  Under an active context the
 train step runs on one rank of the mesh, on its blocks of the parameters
 (``models/sharding.py::shard_params``) and its rows of the batch
 (:func:`shard_batch`); the collectives that GSPMD inserts into the
-reference's step are written out here and in the model's layers.
+reference's step are written out here and in the model's layers.  With
+``zero1`` (no FSDP) the rank keeps AdamW's moments as its ZeRO-1 blocks
+(``launch/specs.py::opt_spec(zero1=True)``, :func:`init_sharded`) and
+takes ZeRO-1's step from ``launch/zero1.py``: the gradients are
+reduce-scattered over the data axis, AdamW updates this rank's block of
+each parameter, and the blocks are gathered back.
 """
 from __future__ import annotations
 
@@ -15,13 +20,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .._tree import leaves, tree_map
+from .._tree import leaves, structure, tree_map, unflatten
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models import sharding as sh
 from ..models.sharding import ShardCtx
 from ..optim.adamw import AdamW, AdamWState
 from . import collectives as C
+from . import specs as SP
+from . import zero1 as Z
 
 
 def _leaves_for_grad(params) -> tuple:
@@ -53,7 +60,8 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> dict:
     their own type."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        t = v.to(device) if isinstance(v, torch.Tensor) else \
+            torch.from_numpy(np.ascontiguousarray(v)).to(device)
         out[k] = t if t.is_floating_point() else t.long()
     return out
 
@@ -69,6 +77,84 @@ def _named(tree) -> list:
         else:
             out.append((k, v))
     return out
+
+
+def zero1_dims(cfg: ModelConfig, ctx: ShardCtx):
+    """The tree of the parameters (layers stacked) with, for each leaf, the
+    dim its moments' ZeRO-1 spec cuts over the data axis
+    (``specs.opt_spec(zero1=True)``), or None where they stay whole (no
+    free dim divides): where ``zero1.scatter`` cuts the gradient and
+    ``zero1.update`` the parameter (without FSDP no parameter is cut over
+    the data axis already)."""
+    return Z.block_dims(SP.params_spec(cfg, ctx),
+                        SP.opt_spec(cfg, ctx, None, zero1=True).m,
+                        SP.ZERO1_AXIS)
+
+
+def init_sharded(params, cfg: ModelConfig, ctx: ShardCtx) -> AdamWState:
+    """AdamW's zero state for a rank's parameter blocks ``params`` under
+    ZeRO-1: each moment its block under ``specs.opt_spec(zero1=True)``, a
+    tensor of its own."""
+    return Z.init_state(SP.blocks(SP.opt_spec(cfg, ctx, None, zero1=True).m,
+                                  ctx.mesh, leaves(params)[0].device))
+
+
+def _zero1_sync(acc, dims, cfg: ModelConfig, ctx: ShardCtx):
+    """ZeRO-1's gradient reduction of a rank's float32 accumulators: summed
+    over every data axis but the ZeRO-1 one (as :func:`sync_grads`), then
+    ``zero1.scatter`` over it (sums).  Returns the tree of those blocks
+    and whole gradients; the tree ``acc`` is emptied, so that each
+    accumulator is freed as soon as its blocks are sent."""
+    specs = sh.use_specs(cfg, ctx)
+    for a in ctx.dp:
+        if a != SP.ZERO1_AXIS:
+            C.all_reduce([g for name, g in _named(acc)
+                          if a not in sh.axes_of(specs[name])], ctx.mesh, a,
+                         "sum", "data")
+    treedef, flat = structure(acc), leaves(acc)
+    _release(acc)               # the accumulators live in ``flat`` alone now
+    return unflatten(treedef, Z.scatter(flat, leaves(dims), ctx.mesh,
+                                        SP.ZERO1_AXIS, "sum"))
+
+
+def _release(tree) -> None:
+    """Empty every dict of ``tree`` in place, dropping its references to
+    the tensors (their holders elsewhere keep them)."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            _release(v)
+    tree.clear()
+
+
+def _zero1_sq_norm(grads, dims, cfg: ModelConfig,
+                   ctx: ShardCtx) -> torch.Tensor:
+    """The squared norm of the whole gradient from a rank's ZeRO-1 blocks
+    (:func:`_zero1_sync`), the same bits on every rank: each leaf's
+    float32 sum of squares, the leaves grouped by the axes that cut what
+    the rank holds (its spec's, and the data axis for a block); a group's
+    sum is reduced over its axes other than the data axis, then, over the
+    data axis, gathered and folded in coordinate order; the groups are
+    added in sorted order."""
+    specs = sh.use_specs(cfg, ctx)
+    groups = {}
+    names = [n for n, _ in _named(tree_map(lambda g: g, grads))]
+    for name, g, d in zip(names, leaves(grads), leaves(dims)):
+        axes = set(sh.axes_of(specs[name]))
+        if d is not None:
+            axes.add(SP.ZERO1_AXIS)
+        g = g.float()
+        groups.setdefault(tuple(sorted(axes)), []).append(torch.sum(g * g))
+    total = 0
+    for axes in sorted(groups):
+        part = torch.stack(groups[axes]).sum()
+        for a in axes:
+            if a == SP.ZERO1_AXIS:
+                part = Z.fold(part[None], ctx.mesh, a)[0]
+            else:
+                C.all_reduce([part], ctx.mesh, a, "sum",
+                             "tp" if a == ctx.tp else "data")
+        total = total + part
+    return total
 
 
 def sync_grads(grads, cfg: ModelConfig, ctx: ShardCtx) -> None:
@@ -135,7 +221,7 @@ def shard_batch(batch: Dict[str, Any], ctx: ShardCtx, rank: int,
 
 
 def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
-                    n_micro: int = 1):
+                    n_micro: int = 1, *, zero1: bool = False):
     """Microbatch-accumulation training step (Pipette's ``bs_micro``
     knob), as the reference's.
 
@@ -154,9 +240,26 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
     take the blocks' shapes, each gradient is summed once over the data
     axes that still hold part of it (:func:`sync_grads`), the grad clip
     takes the whole model's norm (:func:`grad_sq_norm`), and the loss is
-    the global batch's."""
+    the global batch's.
+
+    ``zero1`` (an active context without FSDP, whose data axes include
+    ``"data"``) is the layout of the reference's ``opt_spec(zero1=True)``:
+    ``params`` are the rank's blocks as without it, ``opt_state`` holds
+    the moments as ZeRO-1 blocks (:func:`init_sharded`); the accumulators
+    are reduce-scattered over the data axis (:func:`_zero1_sync`), the
+    clip takes :func:`_zero1_sq_norm`, AdamW updates the rank's block of
+    each parameter, and the new blocks are gathered over the data axis
+    (kind ``zero1``).  Leaves that the data axis does not divide stay
+    whole, with whole moments."""
     if n_micro < 1:
         raise ValueError(f"n_micro must be at least 1, got {n_micro}")
+    dims = None
+    if zero1:
+        if ctx is None or not ctx.active or ctx.fsdp \
+                or SP.ZERO1_AXIS not in ctx.dp:
+            raise ValueError("zero1 needs an active ShardCtx without fsdp "
+                             f"whose data axes include {SP.ZERO1_AXIS!r}")
+        dims = zero1_dims(cfg, ctx)
 
     def micro_grads(params, mb, acc, first: bool):
         p, flat = _leaves_for_grad(params)
@@ -200,12 +303,23 @@ def make_train_step(cfg: ModelConfig, ctx: ShardCtx, opt: AdamW,
                 t.div_(div)
             loss = lsum / div
         sq_norm = None
+        if dims is not None:
+            return _zero1_update(params, opt_state, acc, loss)
         if ctx is not None and ctx.active:
             sync_grads(acc, cfg, ctx)
             if opt.grad_clip > 0:
                 sq_norm = grad_sq_norm(acc, cfg, ctx)
         new_params, new_opt = opt.update(acc, opt_state, params,
                                          sq_norm=sq_norm)
+        return new_params, new_opt, {"loss": loss}
+
+    def _zero1_update(params, opt_state, acc, loss):
+        grads = _zero1_sync(acc, dims, cfg, ctx)
+        del acc
+        sq_norm = (_zero1_sq_norm(grads, dims, cfg, ctx)
+                   if opt.grad_clip > 0 else None)
+        new_params, new_opt = Z.update(opt, grads, opt_state, params, dims,
+                                       ctx.mesh, SP.ZERO1_AXIS, sq_norm)
         return new_params, new_opt, {"loss": loss}
 
     return train_step

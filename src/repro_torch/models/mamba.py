@@ -10,9 +10,12 @@ op for op).  Training takes the sequence branch's gradient on the card
 from the scan's backward kernel, through ``SelectiveScanFusedFn``; the
 decode step is never differentiated.  The reference computes the
 sequence's recurrence as a chunked associative scan, so the two agree to
-float32 rounding.  ``softplus`` and the one-step recurrence
-``selective_scan_step`` live beside the kernel's plain versions in
-``kernels/selective_scan.py`` and are re-exported here.
+float32 rounding.  With ``cfg.scan_dtype = "bfloat16"`` the reference
+computes each chunk's prefix in bfloat16; the port replays that on the
+CPU (``selective_scan_chunked_ref``), and the card, which has no such
+kernel, refuses it (ROADMAP Queue A 10d).  ``softplus`` and the one-step
+recurrence ``selective_scan_step`` live beside the kernel's plain
+versions in ``kernels/selective_scan.py`` and are re-exported here.
 
 Mamba2 (:func:`ssd_scan`, :func:`ssd_step`, :func:`mamba2_block`) is plain
 torch, on the card too: the reference computes it in plain jnp, with no
@@ -84,6 +87,21 @@ def causal_conv1d_step(x_t: torch.Tensor, cache: torch.Tensor,
 # the block
 # ---------------------------------------------------------------------------
 
+def _scan_work_kw(cfg, single_step: bool) -> dict:
+    """The fused scan's keyword for the sequence's working type,
+    ``cfg.scan_dtype`` (``"float32"`` or ``"bfloat16"``), as the
+    reference's ``mamba1_block`` passes it to ``selective_scan``: none for
+    float32 (the call as it was), ``work_dtype`` for bfloat16; a decode
+    step ignores the knob, as the reference's ``selective_scan_step``
+    does."""
+    if cfg.scan_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"scan_dtype must be 'float32' or 'bfloat16', got "
+                         f"{cfg.scan_dtype!r}")
+    if single_step or cfg.scan_dtype == "float32":
+        return {}
+    return {"work_dtype": torch.bfloat16}
+
+
 def mamba1_block(x, p, cfg, *, ctx=None, h0=None, conv0=None,
                  single_step=False, h_out=None):
     """``x`` ``(B, S, d_model)``, or ``(B, d_model)`` when ``single_step``.
@@ -122,7 +140,8 @@ def mamba1_block(x, p, cfg, *, ctx=None, h0=None, conv0=None,
     if single_step:                 # a sequence of one, viewed in place
         xi, dt, B_, C_, z = (t[:, None] for t in (xi, dt, B_, C_, z))
     y, h = selective_scan_fused(xi, dt, p["dt_bias"], B_, C_, p["A_log"],
-                                p["D"], z, h0, h_out, step=single_step)
+                                p["D"], z, h0, h_out, step=single_step,
+                                **_scan_work_kw(cfg, single_step))
     if single_step:
         y = y[:, 0]
     return y @ p["out_proj"], (h, conv_cache)
@@ -357,7 +376,8 @@ def _mamba1_sharded(x, p, cfg, ctx, h0, conv0, single_step, h_out):
     if single_step:
         xi, dt, B_, C_, z = (t[:, None] for t in (xi, dt, B_, C_, z))
     y, h = selective_scan_fused(xi, dt, p["dt_bias"], B_, C_, p["A_log"],
-                                p["D"], z, h0, h_out, step=single_step)
+                                p["D"], z, h0, h_out, step=single_step,
+                                **_scan_work_kw(cfg, single_step))
     if single_step:
         y = y[:, 0]
     w_out = sh.fsdp_gather(p["out_proj"], sp["out_proj"], ctx)

@@ -282,8 +282,8 @@ def prefill(params, cfg: ModelConfig, ctx: ShardCtx, tokens,
 
 
 def _rank() -> int:
-    import torch.distributed as dist
-    return dist.get_rank()
+    from ..launch import collectives as C
+    return C.rank()
 
 
 def cache_pspecs(cfg: ModelConfig, ctx: ShardCtx, batch: int) -> Dict[str, P]:
@@ -316,8 +316,10 @@ def cache_specs(cfg: ModelConfig, ctx: ShardCtx, batch: int,
     lays the cache out.  ``shard_leaf`` of the whole cache under these
     is a rank's cache; :func:`prefill` returns it and
     :func:`decode_step` takes it."""
+    from torch.utils._python_dispatch import _disable_current_modes
     specs = cache_pspecs(cfg, ctx, batch)
-    whole = init_cache(cfg, batch, seq_len, device="meta")
+    with _disable_current_modes():        # shapes only: no work of a step
+        whole = init_cache(cfg, batch, seq_len, device="meta")
     return {k: sh.drop_non_dividing(specs[k], tuple(v.shape), ctx)
             for k, v in whole.items()}
 

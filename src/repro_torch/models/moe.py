@@ -172,11 +172,12 @@ def _check_mesh(mesh) -> None:
     """``mesh`` must be a port :class:`~repro_torch.launch.mesh.Mesh` with
     a process group of its size up."""
     import torch.distributed as dist
+    from ..launch import collectives as C
     from ..launch.mesh import Mesh
     if not isinstance(mesh, Mesh):
         raise TypeError(f"moe_block's mesh must be a repro_torch.launch.mesh"
                         f".Mesh, got {type(mesh).__name__}")
-    if not (dist.is_available() and dist.is_initialized()):
+    if not C.is_dry() and not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("moe_block's expert-parallel path runs one "
                            "process per rank: no torch.distributed process "
                            "group is up (launch/collectives.init_group)")
@@ -208,7 +209,6 @@ def moe_block(x: torch.Tensor, params, *, k: int, n_experts: int,
             f32_combine=f32_combine, gather_dispatch=gather_dispatch)
         return y.reshape(b, s, d)
     _check_mesh(mesh)
-    import torch.distributed as dist
     from ..launch import collectives as C
     ma = model_axis
     e_per = -(-n_experts // mesh.shape[ma])
@@ -218,7 +218,7 @@ def moe_block(x: torch.Tensor, params, *, k: int, n_experts: int,
             w_gate = C.gather_over(w_gate, mesh, ax, 2)
             w_up = C.gather_over(w_up, mesh, ax, 2)
             w_down = C.gather_over(w_down, mesh, ax, 1)
-    my = mesh.coords(dist.get_rank())[ma] * e_per
+    my = mesh.coords(C.rank())[ma] * e_per
     x_in = C.copy_to(x, mesh, ma)
     router = C.copy_to(params["router"], mesh, ma)
     y = moe_apply_local(

@@ -198,8 +198,8 @@ def tree_shardings(params, cfg, ctx: ShardCtx):
 
 def shard_leaf(x, spec: P, mesh, rank: int):
     """``rank``'s local block of the whole tensor ``x`` under ``spec`` on
-    ``mesh`` (a view of ``x``; ``.contiguous()`` makes it a tensor of its
-    own).  A dim split over a tuple of axes is split major to minor (the
+    ``mesh`` (a view of ``x``: a block along the leading dims is
+    contiguous and still holds all of ``x``'s storage).  A dim split over a tuple of axes is split major to minor (the
     first axis the slowest), as JAX splits it."""
     coords = mesh.coords(rank)
     index = []
@@ -226,12 +226,14 @@ def shard_params(params, cfg, ctx: ShardCtx, rank: int):
     ``init_params``, layers stacked) under :func:`tree_pspecs`, each a
     tensor of its own: what the reference's ``jax.device_put(params,
     tree_shardings(params, cfg, ctx))`` puts on that device."""
+    import torch
     specs = tree_pspecs(params, cfg, ctx)
 
     def walk(node, spec):
         if isinstance(node, dict):
             return {k: walk(v, spec[k]) for k, v in node.items()}
-        return shard_leaf(node, spec, ctx.mesh, rank).contiguous()
+        return shard_leaf(node, spec, ctx.mesh, rank).clone(
+            memory_format=torch.contiguous_format)
     return walk(params, specs)
 
 
@@ -302,8 +304,12 @@ def axes_of(spec: P) -> Tuple[str, ...]:
 
 def coord(ctx: ShardCtx, axis: str) -> int:
     """This process's coordinate along ``axis`` of ``ctx.mesh`` (its rank
-    in the default process group, which must be up)."""
+    in the default process group, which must be up, or the rank a dry run
+    stands for: ``collectives.dry``)."""
     import torch.distributed as dist
+    from ..launch import collectives as C
+    if C.is_dry():
+        return ctx.mesh.coords(C.rank())[axis]
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("the model under an active ShardCtx runs one "
                            "process per rank: no torch.distributed process "

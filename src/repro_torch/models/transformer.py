@@ -262,10 +262,14 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """A :class:`ShapeDtype` for every leaf of :func:`init_params`, in the
     same tree, with nothing drawn or allocated (the reference's
     ``jax.eval_shape(init_params)``): the parameters are made on the meta
-    device, so that kimi-k2's trillion parameters cost no memory."""
+    device, so that kimi-k2's trillion parameters cost no memory, and out
+    of sight of any dispatch mode (the dry run's counters): a shape read
+    is no work of the step that asks for it."""
+    from torch.utils._python_dispatch import _disable_current_modes
     from .._tree import tree_map
-    return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype),
-                    init_params(cfg, device="meta"))
+    with _disable_current_modes():
+        whole = init_params(cfg, device="meta")
+    return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), whole)
 
 
 # ---------------------------------------------------------------------------

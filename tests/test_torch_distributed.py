@@ -14,9 +14,10 @@ runs the same code at gpt-1.1b's width in ``chip_smoke.py``
 
 Cases: the reference's own pipeline case (pp 4, tanh stages), pp 2 x
 dp 2 over a permuted mapping with ``data_axis``, one step of
-``make_pp_train_step`` at pp 2 x dp 2, and ``moe_block`` on a (data 2,
-model 4) mesh of 8 ranks.  Two spawns in all: the three 4-rank cases
-share one.
+``make_pp_train_step`` at pp 2 x dp 2 and at pp 4 (each rank storing its
+FSDP blocks of the shared leaves and ZeRO-1 blocks of the moments), and
+``moe_block`` on a (data 2, model 4) mesh of 8 ranks.  Two spawns in
+all: the four 4-rank cases share one.
 """
 import os
 import pickle
@@ -42,8 +43,10 @@ SPAWN_S = 90.0
 PP, L, D, V, MB, N_MB, S = 4, 8, 32, 64, 2, 8, 16
 #: a permuted (pipe 2, data 2) mapping: rank at [x, z] is GPU f(x, z)
 PP_DP_MAPPING = [[1, 3], [0, 2]]
-#: the pp 2 x dp 2 train step's (data 2, model 2) mesh, model as the pipe
+#: the pp 2 x dp 2 train step's (data 2, model 2) mesh, model as the pipe;
+#: the pp 4 step's (data 1, model 4)
 STEP_RANKS = [[2, 0], [3, 1]]
+STEP_RANKS_PP4 = [[3, 1, 0, 2]]
 STEP_CFG = dict(name="pp-dense", family="dense", n_layers=4, d_model=64,
                 n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=256,
                 head_dim=16, dtype="float32", remat=True)
@@ -133,19 +136,20 @@ out["pp2dp2"] = pipeline(jax.sharding.Mesh(devs[:4][mapping],
                                            ("pipe", "data")), 2, "data")
 
 cfg = ModelConfig(**inp["step_cfg"])
-mesh = jax.sharding.Mesh(devs[:4].reshape(2, 2), ("data", "model"))
-opt = AdamW(lr=1e-3, eps=inp["step_eps"])
-fn, *_ = make_pp_train_step(cfg, mesh, opt, n_mb=inp["step_n_mb"])
 full = M.init_params(cfg, jax.random.PRNGKey(3))
-params = {"stages": stage_params_split(full["layers"], 2),
-          "shared": {k: full[k] for k in ("tok_embed", "final_norm",
-                                          "lm_head")}}
-batch = {"tokens_mb": step["tokens"], "labels_mb": step["labels"]}
-with jax.set_mesh(mesh):
-    new, _, m = jax.jit(fn)(params, opt.init(params), batch)
 to_np = lambda t: jax.tree.map(np.asarray, t)
-out["step"] = {"params": to_np(params), "new": to_np(new),
-               "loss": float(m["loss"])}
+for name, shape in (("step", (2, 2)), ("step_pp4", (1, 4))):
+    mesh = jax.sharding.Mesh(devs[:4].reshape(shape), ("data", "model"))
+    opt = AdamW(lr=1e-3, eps=inp["step_eps"])
+    fn, *_ = make_pp_train_step(cfg, mesh, opt, n_mb=inp["step_n_mb"])
+    params = {"stages": stage_params_split(full["layers"], shape[1]),
+              "shared": {k: full[k] for k in ("tok_embed", "final_norm",
+                                              "lm_head")}}
+    batch = {"tokens_mb": step["tokens"], "labels_mb": step["labels"]}
+    with jax.set_mesh(mesh):
+        new, _, m = jax.jit(fn)(params, opt.init(params), batch)
+    out[name] = {"params": to_np(params), "new": to_np(new),
+                 "loss": float(m["loss"])}
 
 mesh = jax.sharding.Mesh(devs[:8].reshape(2, 4), ("data", "model"))
 out["moe"] = []
@@ -208,26 +212,43 @@ def _check_pipeline(results, want):
                                rtol=3e-4, atol=3e-5)
 
 
+def _reduce_scatter_inputs():
+    """Each rank's tensors of the reduce-scatter case: float32 values over
+    16 binades (so that the order of a sum shows in its bits) cut on dim
+    1, and bfloat16 ones cut on dim 0."""
+    rng = np.random.default_rng(31)
+    scale = np.exp2(rng.integers(-8, 8, (4, 8, 12))).astype(np.float32)
+    return {"ranks2": np.asarray(STEP_RANKS), "ranks4": np.asarray(
+        STEP_RANKS_PP4[0]), "dims": [1, 0], "dtypes": ["float32",
+                                                        "bfloat16"],
+            "inputs": [rng.standard_normal((4, 8, 12)).astype(np.float32)
+                       * scale,
+                       rng.standard_normal((4, 4, 6)).astype(np.float32)]}
+
+
 @pytest.fixture(scope="module")
 def four_ranks(ref):
-    """The three 4-rank cases, run by one spawn of 4 ranks (each case on a
+    """The four 4-rank cases, run by one spawn of 4 ranks (each case on a
     mesh of its own): the reference's pipeline case, the permuted pp 2 x
-    dp 2 pipeline and the pp 2 x dp 2 train step; per case, the ranks'
-    results in rank order."""
+    dp 2 pipeline and the pp 2 x dp 2 and pp 4 train steps; per case, the
+    ranks' results in rank order."""
     pipe, step = ref["inputs"][:2]
     want = ref["step"]
-    cases = {
-        "pp4": dict(pipe, ranks=np.arange(PP), axes=("pipe",), data_axis="",
-                    remat=True),
-        "pp2dp2": dict(pipe, ranks=np.asarray(PP_DP_MAPPING),
-                       axes=("pipe", "data"), data_axis="data", remat=False),
-        "step": {"cfg": ModelConfig(**STEP_CFG),
+    step_case = {"cfg": ModelConfig(**STEP_CFG),
                  "ranks": np.asarray(STEP_RANKS), "axes": ("data", "model"),
                  "pipe_axis": "model", "data_axis": "data",
                  "n_mb": STEP_N_MB, "remat": True, "eps": STEP_EPS,
                  "layers": {k: v.reshape((-1,) + v.shape[2:])
                             for k, v in want["params"]["stages"].items()},
-                 "shared": want["params"]["shared"], **step}}
+                 "shared": want["params"]["shared"], **step}
+    cases = {
+        "pp4": dict(pipe, ranks=np.arange(PP), axes=("pipe",), data_axis="",
+                    remat=True),
+        "pp2dp2": dict(pipe, ranks=np.asarray(PP_DP_MAPPING),
+                       axes=("pipe", "data"), data_axis="data", remat=False),
+        "step": step_case,
+        "step_pp4": dict(step_case, ranks=np.asarray(STEP_RANKS_PP4)),
+        "reduce_scatter": _reduce_scatter_inputs()}
     results = C.spawn(W.four_rank_cases, 4, (cases,), timeout=SPAWN_S,
                       threads=1)
     return {name: [r[name] for r in results] for name in cases}
@@ -259,22 +280,54 @@ def test_pipeline_matches_reference_pp2_dp2_permuted(ref, four_ranks):
     _check_pipeline(results, ref["pp2dp2"])
 
 
+def _check_pp_step(results, want, ranks):
+    """The loss and every parameter after the update against the
+    reference's ``train_step``: a rank's stage whole, its block of each
+    shared leaf (cut by the step's spec tree); and the bytes each rank
+    stores, before and after the step, equal to the spec trees' shard
+    sizes."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.pp_step import make_pp_train_step
+    from repro_torch.models.sharding import shard_leaf
+    from repro_torch.optim.adamw import AdamW
+    mesh = Mesh(np.asarray(ranks), ("data", "model"))
+    _, p_spec, _, _ = make_pp_train_step(ModelConfig(**STEP_CFG), mesh,
+                                         AdamW(), n_mb=STEP_N_MB)
+    for rank, r in enumerate(results):
+        assert abs(r["loss"] - want["loss"]) < 1e-5, (r["loss"],
+                                                       want["loss"])
+        for k, v in r["shared"].items():
+            block = shard_leaf(torch.from_numpy(want["new"]["shared"][k]),
+                               p_spec["shared"][k].spec, mesh, rank)
+            np.testing.assert_allclose(v, block.numpy(), rtol=0, atol=1e-5,
+                                       err_msg=k)
+        for k, v in r["stages"].items():
+            np.testing.assert_allclose(v, want["new"]["stages"][k][
+                r["stage"]], rtol=0, atol=1e-5, err_msg=k)
+        assert r["stored_before"] == r["stored_after"] == r["spec_bytes"], \
+            (rank, r["stored_before"], r["stored_after"], r["spec_bytes"])
+
+
 def test_pp_train_step_matches_reference_pp2_dp2(ref, four_ranks):
     """One step of ``make_pp_train_step`` (4 dense layers, d 64, f32,
     ``n_mb`` 2, AdamW at lr 1e-3) on a permuted (data 2, model 2) mesh
     with the model axis as the pipe, against the reference's
-    ``train_step``: the loss, and every parameter after the update."""
+    ``train_step``: the loss, and every parameter after the update; each
+    rank stores the spec trees' blocks (half of each shared leaf and of
+    every moment)."""
     want = ref["step"]
     results = four_ranks["step"]
+    _check_pp_step(results, want, STEP_RANKS)
+    # whole storage: the stage and the shared leaves, float32 moments of
+    # both, the step; the shared leaves and every moment are halved
+    shared = sum(v.size for v in want["params"]["shared"].values())
     for r in results:
-        assert abs(r["loss"] - want["loss"]) < 1e-5, (r["loss"],
-                                                       want["loss"])
-        for k, v in r["shared"].items():
-            np.testing.assert_allclose(v, want["new"]["shared"][k],
-                                       rtol=0, atol=1e-5, err_msg=k)
-        for k, v in r["stages"].items():
-            np.testing.assert_allclose(v, want["new"]["stages"][k][
-                r["stage"]], rtol=0, atol=1e-5, err_msg=k)
+        stage = sum(want["params"]["stages"][k][r["stage"]].size
+                    for k in want["params"]["stages"])
+        whole = 4 * (stage + shared) + 8 * (stage + shared) + 4
+        assert r["spec_bytes"] == 4 * (stage + shared // 2) \
+            + 8 * (stage + shared) // 2 + 4, (r["spec_bytes"], whole)
     # the launch formula of chip_smoke.py's pp_train_gpt_1_1b, per rank,
     # against the wrapper calls of this run (a call under grad with an
     # input that requires one is one backward launch on the card)
@@ -289,10 +342,83 @@ def test_pp_train_step_matches_reference_pp2_dp2(ref, four_ranks):
                                 "bwd": bwd["flash_attention_bwd"]}}, \
             (r["stage"], r["calls"])
     # every parameter moved: the step is not the identity
-    moved = [np.abs(r["shared"]["lm_head"]
-                    - want["params"]["shared"]["lm_head"]).max()
+    moved = [np.abs(r["stages"]["wq"]
+                    - want["params"]["stages"]["wq"][r["stage"]]).max()
              for r in results]
     assert min(moved) > 5e-4
+
+
+def test_pp_train_step_matches_reference_pp4(ref, four_ranks):
+    """The same step at pp 4 on a permuted (data 1, model 4) mesh: one
+    layer a stage, the shared leaves and moments whole on a data axis of
+    one rank; the loss, the parameters and the stored bytes."""
+    _check_pp_step(four_ranks["step_pp4"], ref["step_pp4"], STEP_RANKS_PP4)
+
+
+@pytest.mark.parametrize("case,ranks", [("step", STEP_RANKS),
+                                        ("step_pp4", STEP_RANKS_PP4)])
+def test_dry_run_counts_what_the_pp_ranks_moved_and_stored(four_ranks, case,
+                                                           ranks):
+    """``launch/dryrun.py``'s ``measure`` of the same step on meta tensors
+    of each rank's blocks (``collectives.dry``, no process group), as that
+    rank: its collective bytes by kind equal what the rank counted a step
+    (``collectives.STATS``), and its stored bytes what the rank stores;
+    chip_smoke.py's ``dryrun_vs_card`` makes the same check on the card."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.pp_step import make_pp_train_step
+    from repro_torch.optim.adamw import AdamW
+    mesh = Mesh(np.asarray(ranks), ("data", "model"))
+    step, p_spec, o_spec, _ = make_pp_train_step(
+        ModelConfig(**STEP_CFG), mesh, AdamW(lr=1e-3, eps=STEP_EPS),
+        n_mb=STEP_N_MB)
+    params, state = dryrun.pp_meta_state(p_spec, o_spec, mesh)
+    rows = STEP_MB // mesh.shape["data"]
+    batch = {k: torch.empty((STEP_N_MB, rows, STEP_S), dtype=torch.int64,
+                            device="meta") for k in ("tokens_mb",
+                                                     "labels_mb")}
+    for rank, r in enumerate(four_ranks[case]):
+        m = dryrun.measure(step, (params, state, batch), rank=rank)
+        assert m["stats"] == r["stats"], (rank, m["stats"], r["stats"])
+        assert dryrun._tree_bytes((params, state)) == r["stored_before"]
+        assert m["stats"]["p2p"] > 0 and m["ops"]["collective-permute"] > 0
+        assert m["flops"] > 0 and m["temp_bytes"] > 0
+
+
+def test_reduce_scatter_is_all_reduce_then_a_cut(four_ranks):
+    """``collectives.reduce_scatter`` (gloo has none: an ``all_to_all`` of
+    the blocks, added in coordinate order): on a line of two data ranks
+    bit-equal to ``all_reduce`` followed by this rank's block, for sum
+    and mean, float32 and bfloat16 in one call; on a permuted line of 4,
+    the left fold of the four ranks' blocks in the line's coordinate
+    order, within rounding of the all-reduce's sum in another order."""
+    inp = _reduce_scatter_inputs()
+    for rank, r in enumerate(four_ranks["reduce_scatter"]):
+        for op in ("sum", "mean"):
+            got, want, _ = r["data2", op]
+            for g, w in zip(got, want):
+                assert g.shape == w.shape
+                assert np.array_equal(g, w), (rank, op)
+            got, want, line = r["line4", op]
+            import torch
+            blocks = []
+            for a, dt, d in zip(inp["inputs"], inp["dtypes"], inp["dims"]):
+                xs = [torch.from_numpy(a[q]).to(getattr(torch, dt))
+                      for q in line]
+                total = xs[0].clone()
+                for x in xs[1:]:
+                    total += x
+                if op == "mean":
+                    total /= torch.full((), 4.0, dtype=total.dtype)
+                c = line.index(rank)
+                n = total.shape[d] // 4
+                blocks.append(total.narrow(d, c * n, n).float().numpy())
+            # another order of the sum: float32 roundoff, or a few steps
+            # of bfloat16 at the partial sums' size (up to 8)
+            for g, b, w, tol in zip(got, blocks, want, (1e-6, 2.0 ** -4)):
+                assert np.array_equal(g, b), (rank, op)
+                np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
 
 
 def test_moe_expert_parallel_matches_reference(ref):

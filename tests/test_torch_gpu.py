@@ -1512,3 +1512,53 @@ def test_pp_train_step_world_of_one_on_the_card_matches_the_host():
         <= 1e-4
     for a, b in zip(leaves(out["cuda"][0]), leaves(out["cpu"][0])):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=3e-5)
+
+
+def test_zero1_step_on_the_card_is_bit_equal_to_the_replicated_step():
+    """Two ranks of a ``gloo`` group on the one card (data 2): a bfloat16
+    dense step with ``zero1=True`` (the gradients reduce-scattered through
+    pinned host memory, AdamW on each rank's moment blocks, the parameter
+    blocks gathered back) against the replicated step, both without the
+    grad clip: the same loss and every parameter's bits on both ranks;
+    the moments stored at the ZeRO-1 spec's shard sizes."""
+    _need_cuda()
+    import torch_dist_workers as W
+    from repro_torch.launch import collectives as C
+    cfg = dict(name="z1", family="dense", n_layers=2, d_model=128,
+               n_heads=2, n_kv_heads=2, d_ff=256, vocab_size=512,
+               head_dim=64, dtype="bfloat16", remat=True)
+    rng = np.random.default_rng(5)
+    batch = {k: rng.integers(0, 512, (4, 64)) for k in ("tokens", "labels")}
+    got = C.spawn(W.zero1_on_gpu, 2, ({"cfg": cfg, "batch": batch},),
+                  timeout=240.0)
+    for r in got:
+        assert r[True]["loss"] == r[False]["loss"]
+        for a, b in zip(r[True]["bits"], r[False]["bits"]):
+            np.testing.assert_array_equal(a, b)
+        assert r["moment_bytes"] == r["moment_spec_bytes"]
+
+
+def test_scan_dtype_bfloat16_is_refused_on_the_card():
+    """Reduced falcon-mamba-7b's Mamba1 block with ``scan_dtype =
+    "bfloat16"`` on the card: ``NotImplementedError`` naming ROADMAP Queue
+    A 10d, in the forward and under a gradient, before any launch; the
+    decode step ignores the knob and runs the fused kernel."""
+    _need_cuda()
+    from repro_torch.models import mamba
+    cfg = configs.get("falcon-mamba-7b").reduced(scan_dtype="bfloat16")
+    p = {k: v[0] for k, v in init_params(cfg, seed=0, device="cuda")[
+        "layers"].items()}
+    x = torch.randn((2, 32, cfg.d_model), device="cuda")
+    before = ss.selective_scan.launches
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad), pytest.raises(
+                NotImplementedError, match="Queue A 10d"):
+            mamba.mamba1_block(x.clone().requires_grad_(grad), p, cfg)
+    assert ss.selective_scan.launches == before
+    h = torch.zeros((2, cfg.d_inner, cfg.ssm_state), device="cuda")
+    conv = torch.zeros((2, cfg.ssm_conv - 1, cfg.d_inner), device="cuda")
+    with torch.no_grad():
+        y, _ = mamba.mamba1_block(x[:, 0], p, cfg, h0=h, conv0=conv,
+                                  single_step=True)
+    assert ss.selective_scan.launches == before + 1
+    assert bool(torch.isfinite(y).all())

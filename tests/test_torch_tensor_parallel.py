@@ -13,7 +13,10 @@ drawn once, here, by the reference's ``init_params`` (the gates' own
 ranks runs every case in turn on a permuted (data 2, model 4) mesh: the
 counterparts of ``tests/test_multidevice.py``'s MoE and uneven-heads
 gates, experts and a sequence that do not divide the model axis, two
-``make_train_step`` steps and a vlm.
+``make_train_step`` steps, a vlm, the ZeRO-1 step (``zero1=True``:
+moments as data-axis blocks) against the reference and, without the grad
+clip, against the replicated step bit for bit, and Mamba1's
+channel-parallel block with ``scan_dtype="bfloat16"``.
 The kernel's ``q_offset`` is held to the reference's
 ``chunked_attention(q_offset=)`` in this process.
 
@@ -88,6 +91,24 @@ VLM = dict(name="vlm", family="vlm", frontend="vlm", n_img_tokens=6,
 #: 3 heads do not divide a 4-way axis, and 15 rows do not divide it
 #: either: the attention stays replicated, as the reference's
 ODD_SEQ = dict(UNEVEN, name="odd", d_model=24, head_dim=8, d_ff=32)
+#: Mamba1 with the scan's prefix in bfloat16 (Queue C 7): 64 channels,
+#: 16 a rank of the 4-way model axis
+MAMBA_BF16 = dict(name="mb16", family="ssm", n_layers=2, d_model=32,
+                  n_heads=0, n_kv_heads=0, d_ff=0, vocab_size=256,
+                  ssm_variant="mamba1", ssm_state=8, ssm_conv=4,
+                  ssm_expand=2, dtype="float32", remat=False,
+                  scan_dtype="bfloat16")
+#: The bfloat16 prefix against the reference's: a and u are rounded to
+#: bfloat16 from float32 exponentials and products that the two packages
+#: compute to within a float32 ulp, so now and then one lands a bfloat16
+#: step (2**-8 of itself) from the reference's, and the chunk carries it.
+#: At 64 positions (one chunk) the ranks read 1.4e-6 on the loss and at
+#: most 5.1e-3 of a leaf's largest gradient; with the knob ignored (the
+#: float32 scan) 3.5e-4 and 1.9e-2.  The loss within ``BF16_LOSS_TOL``,
+#: each gathered gradient within ``BF16_GRAD_RTOL`` of the leaf's
+#: largest.
+BF16_LOSS_TOL, BF16_GRAD_RTOL = 3e-5, 1e-2
+BF16_S = 64
 
 B, S = 4, 16
 STEP_B, N_MICRO = 8, 2
@@ -145,7 +166,19 @@ def _cases():
         "vlm": (VLM, 4, _batch(rng, VLM, B, S, img=True), "grad", True, 1),
         "odd_seq": (ODD_SEQ, 5, _batch(rng, ODD_SEQ, B, 15), "grad", False,
                     1),
+        "mamba_bf16": (MAMBA_BF16, 6, _batch(rng, MAMBA_BF16, B, BF16_S),
+                       "grad", False, 1),
+        "z1_step": (GQA, 2, _batch(np.random.default_rng(26), GQA, STEP_B, S,
+                                   masked=True), "step", False, N_MICRO),
     }
+
+
+#: Rank-only step cases (no reference run): the ZeRO-1 step and the
+#: replicated step without the grad clip, on ``z1_step``'s weights and
+#: batch; name -> (zero1, grad_clip).
+RANK_ONLY = {"z1_noclip": (True, 0.0), "rep_noclip": (False, 0.0)}
+#: The cases run with ``zero1=True``.
+ZERO1 = ("z1_step", "z1_noclip")
 
 
 REFERENCE = """
@@ -187,9 +220,12 @@ def _spawn(params):
     rank order."""
     cases = {name: {"cfg": kw, "ranks": np.asarray(RANKS), "fsdp": fsdp,
                     "params": params[name], "batch": batch, "kind": kind,
-                    "n_micro": n_micro, "eps": STEP_EPS}
+                    "n_micro": n_micro, "eps": STEP_EPS,
+                    "zero1": name in ZERO1}
              for name, (kw, _, batch, kind, fsdp, n_micro)
              in _cases().items()}
+    for name, (zero1, clip) in RANK_ONLY.items():
+        cases[name] = dict(cases["z1_step"], zero1=zero1, grad_clip=clip)
     results = C.spawn(W.tp_model_cases, 8, (cases,), timeout=SPAWN_S,
                       threads=1)
     return {name: [r[name] for r in results] for name in cases}
@@ -242,7 +278,8 @@ def ranks(runs):
 
 
 def _ctx(name):
-    kw, _, _, _, fsdp, _ = _cases()[name]
+    kw, _, _, _, fsdp, _ = _cases()["z1_step" if name in RANK_ONLY
+                                    else name]
     mesh = Mesh(np.asarray(RANKS), ("data", "model"))
     return ModelConfig(**kw), sh.ShardCtx(
         mesh=mesh, dp=("data",), tp="model", fsdp=("data",) if fsdp else ())
@@ -357,6 +394,78 @@ def test_train_step_tied_embeddings(ref, ranks):
         assert {k: v["fwd"] for k, v in r["calls"].items()} == {
             "rmsnorm": fwd["rmsnorm"],
             "flash_attention": fwd["flash_attention"]}, r["calls"]
+
+
+def test_zero1_step_matches_single_device(ref, ranks):
+    """``make_train_step(zero1=True)`` on the (data 2, model 4) mesh
+    without FSDP (GQA, biases, remat, masked labels, 2 microbatches, the
+    grad clip on): the loss and every parameter after the update against
+    the reference's single-device step, as the FSDP step is held; each
+    rank stores its moments at the ZeRO-1 spec's shard sizes, less than
+    the whole blocks; the reduce-scatter counts under ``data``, the
+    gathered parameter blocks under ``zero1``, and no FSDP gather runs."""
+    _check_step_case(ranks["z1_step"], ref["z1_step"], "z1_step")
+    for r, rep_r in zip(ranks["z1_step"], ranks["rep_noclip"]):
+        assert r["moment_bytes"] == r["moment_spec_bytes"], r
+        assert r["moment_bytes"] < rep_r["moment_bytes"]
+        assert r["stats"]["zero1"] > 0 and r["stats"]["fsdp"] == 0, \
+            r["stats"]
+
+
+@pytest.mark.parametrize("name", ["gqa_step", "z1_step"])
+def test_dry_run_counts_what_the_tp_ranks_moved_and_stored(ranks, name):
+    """``launch/dryrun.py``'s ``measure`` of the same step (FSDP, then
+    ZeRO-1) on meta tensors of each rank's blocks, as that rank: its
+    collective bytes by kind equal what the rank counted
+    (``collectives.STATS``); its stored moments are the ZeRO-1 spec's."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import AdamW
+    cfg, ctx = _ctx(name)
+    zero1 = name in ZERO1
+    step = steps.make_train_step(cfg, ctx, AdamW(lr=1e-3, eps=STEP_EPS),
+                                 n_micro=N_MICRO, zero1=zero1)
+    params, state = dryrun.train_meta_state(cfg, ctx, ctx.mesh, zero1)
+    rows = STEP_B // ctx.n("data")
+    batch = {k: torch.empty((rows, S), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    for rank, r in enumerate(ranks[name]):
+        m = dryrun.measure(step, (params, state, batch), rank=rank)
+        assert m["stats"] == r["stats"], (rank, m["stats"], r["stats"])
+        assert dryrun._tree_bytes((state.m, state.v)) == r["moment_bytes"]
+        assert m["flops"] > 0 and m["temp_bytes"] > 0
+
+
+def test_zero1_step_is_bit_equal_to_the_replicated_step(ranks):
+    """With the grad clip off, the ZeRO-1 step and the replicated step
+    (no FSDP) on the same weights and batch give every rank the same bits
+    of every parameter: the reduce-scatter's sums over the two data ranks
+    are the all-reduce's, and AdamW is elementwise."""
+    for z, r in zip(ranks["z1_noclip"], ranks["rep_noclip"]):
+        assert z["loss"] == r["loss"]
+        got, want = _flat(z["params"]), _flat(r["params"])
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
+
+
+def test_mamba1_channel_parallel_bf16_scan_matches_single_device(ref,
+                                                                 ranks):
+    """Mamba1 channel-parallel on the (data 2, model 4) mesh (16 of 64
+    channels a rank) with ``scan_dtype="bfloat16"``: the loss within
+    ``BF16_LOSS_TOL`` of the reference's single device, and every
+    gathered gradient within ``BF16_GRAD_RTOL`` of its leaf's largest."""
+    results, want = ranks["mamba_bf16"], ref["mamba_bf16"]
+    for r in results:
+        assert abs(r["loss"] - want["loss"]) < BF16_LOSS_TOL, (
+            r["loss"], want["loss"])
+    got = _flat(_whole(results, "grads", "mamba_bf16"))
+    exp = _flat(want["grads"])
+    assert sorted(got) == sorted(exp)
+    for k in exp:
+        atol = BF16_GRAD_RTOL * float(np.abs(exp[k]).max())
+        np.testing.assert_allclose(got[k], exp[k], rtol=0, atol=atol,
+                                   err_msg=k)
 
 
 def test_vlm_image_embeddings_under_a_context(ref, ranks):

@@ -57,6 +57,9 @@ def tanh_pipeline(rank, world, case):
                                axis=axis, remat=case["remat"],
                                data_axis=data_axis)
     loss = loss_fn({"w": w}, shared, toks, lbls)
+    if data_axis:           # the data mean is the caller's
+        C.all_reduce([w.grad] + [p.grad for p in shared.values()], mesh,
+                     data_axis, "mean")
     out = {"loss": float(loss), "stage": c[axis], "w": w.grad.numpy(),
            "embed": shared["embed"].grad.numpy(),
            "head": shared["head"].grad.numpy(),
@@ -100,44 +103,100 @@ def _count_kernel_calls() -> dict:
     return counts
 
 
+def _stored_bytes(*trees) -> int:
+    """The bytes of every storage the tensors of ``trees`` hold, each
+    once (a view that keeps a whole tensor alive counts it all)."""
+    from repro_torch._tree import leaves
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for tree in trees for t in leaves(tree)}
+    return sum(held.values())
+
+
 def pp_train_step(rank, world, case):
-    """One step of ``make_pp_train_step`` on this rank: returns the loss
-    and this rank's parameters after the update."""
-    from repro_torch.launch.pp_step import make_pp_train_step
+    """One step of ``make_pp_train_step`` on this rank: returns the loss,
+    this rank's parameters after the update (its FSDP blocks of the
+    shared leaves), the bytes it stores before and after the step
+    (parameters and AdamW's state) and those the spec trees give it
+    (``specs.shard_sizes``)."""
+    from repro_torch._tree import leaves
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.pp_step import (init_pp_state, make_pp_train_step,
+                                            shard_pp_params)
     from repro_torch.optim.adamw import AdamW
     mesh = Mesh(case["ranks"], case["axes"])
     cfg = case["cfg"]
     counts = _count_kernel_calls()
     opt = AdamW(lr=1e-3, eps=case["eps"])
-    step, *_ = make_pp_train_step(cfg, mesh, opt,
-                                  pipe_axis=case["pipe_axis"],
-                                  data_axis=case["data_axis"],
-                                  n_mb=case["n_mb"], remat=case["remat"])
+    step, p_spec, o_spec, _ = make_pp_train_step(
+        cfg, mesh, opt, pipe_axis=case["pipe_axis"],
+        data_axis=case["data_axis"], n_mb=case["n_mb"], remat=case["remat"])
     c = mesh.coords(rank)
     pp = mesh.shape[case["pipe_axis"]]
     per = cfg.n_layers // pp
     s = c[case["pipe_axis"]]
-    params = {"stages": {k: _t(v[s * per:(s + 1) * per]).clone()
-                         for k, v in case["layers"].items()},
-              "shared": {k: _t(v).clone() for k, v in case["shared"].items()}}
+    params = shard_pp_params(
+        {"stages": {k: _t(v[s * per:(s + 1) * per]).clone()
+                    for k, v in case["layers"].items()},
+         "shared": {k: _t(v).clone() for k, v in case["shared"].items()}},
+        p_spec, mesh, rank)
     nd = mesh.shape[case["data_axis"]]
     mb = case["tokens"].shape[1] // nd
     cut = slice(c[case["data_axis"]] * mb, (c[case["data_axis"]] + 1) * mb)
     batch = {"tokens_mb": case["tokens"][:, cut],
              "labels_mb": case["labels"][:, cut]}
-    state = opt.init(params)
+    state = init_pp_state(params, o_spec, mesh)
+    before = _stored_bytes(params, state)
+    C.reset_stats()
     new, state, m = step(params, state, batch)
-    return {"loss": float(m["loss"]), "stage": s, "calls": counts,
+    stats = dict(C.STATS)
+    spec_bytes = sum(leaves(SP.shard_sizes(p_spec, mesh, rank))
+                     + leaves(SP.shard_sizes(o_spec, mesh, rank)))
+    return {"loss": float(m["loss"]), "stage": s,
+            "calls": {k: dict(v) for k, v in counts.items()},
+            "coords": c, "stored_before": before, "stats": stats,
+            "stored_after": _stored_bytes(new, state),
+            "spec_bytes": spec_bytes,
             "stages": {k: v.numpy() for k, v in new["stages"].items()},
             "shared": {k: v.numpy() for k, v in new["shared"].items()}}
 
 
+def reduce_scatter_case(rank, world, case):
+    """``collectives.reduce_scatter`` on this rank against ``all_reduce``
+    then this rank's block, over the lines of a permuted (data 2, model 2)
+    mesh and of a permuted line of 4: float32 and bfloat16 tensors cut on
+    different dims in one call, ``sum`` and ``mean``.  Returns both
+    results (as bits) for each line, and the inputs the rank used."""
+    out = {}
+    for name, ranks, axes, axis in (
+            ("data2", case["ranks2"], ("data", "model"), "data"),
+            ("line4", case["ranks4"], ("data",), "data")):
+        mesh = Mesh(ranks, axes)
+        xs = [_t(a[rank]).to(getattr(torch, dt))
+              for a, dt in zip(case["inputs"], case["dtypes"])]
+        for op in ("sum", "mean"):
+            got = C.reduce_scatter([x.clone() for x in xs], mesh, axis,
+                                   case["dims"], op)
+            whole = [x.clone() for x in xs]
+            C.all_reduce(whole, mesh, axis, op)
+            c, n = mesh.coords(rank)[axis], mesh.shape[axis]
+            want = [w.narrow(d, c * (w.shape[d] // n), w.shape[d] // n)
+                    for w, d in zip(whole, case["dims"])]
+            out[name, op] = ([g.float().numpy() for g in got],
+                             [w.float().numpy() for w in want],
+                             mesh.axis_ranks(axis, rank))
+    return out
+
+
 def four_rank_cases(rank, world, cases):
-    """The 4-rank cases of one spawn, in turn: the two pipelines, then the
-    train step (whose wrapper spies stay installed in this process)."""
+    """The 4-rank cases of one spawn, in turn: the two pipelines, the
+    train steps (whose wrapper spies stay installed in this process), the
+    reduce-scatter."""
     return {"pp4": tanh_pipeline(rank, world, cases["pp4"]),
             "pp2dp2": tanh_pipeline(rank, world, cases["pp2dp2"]),
-            "step": pp_train_step(rank, world, cases["step"])}
+            "step": pp_train_step(rank, world, cases["step"]),
+            "step_pp4": pp_train_step(rank, world, cases["step_pp4"]),
+            "reduce_scatter": reduce_scatter_case(rank, world,
+                                                  cases["reduce_scatter"])}
 
 
 def moe_expert_parallel(rank, world, case):
@@ -271,10 +330,23 @@ def tp_model_case(rank, world, case):
         out.update(loss=float(loss.detach()), tokens=float(aux["tokens"]),
                    grads=_np_tree(grads))
     else:
-        opt = AdamW(lr=1e-3, eps=case["eps"])
-        step = steps.make_train_step(cfg, ctx, opt, n_micro=n_micro)
-        new, _, m = step(local, opt.init(local), batch)
-        out.update(loss=float(m["loss"]), params=_np_tree(new))
+        opt = AdamW(lr=1e-3, eps=case["eps"],
+                    grad_clip=case.get("grad_clip", 1.0))
+        zero1 = case.get("zero1", False)
+        step = steps.make_train_step(cfg, ctx, opt, n_micro=n_micro,
+                                     zero1=zero1)
+        state = (steps.init_sharded(local, cfg, ctx) if zero1
+                 else opt.init(local))
+        new, state, m = step(local, state, batch)
+        out.update(loss=float(m["loss"]), params=_np_tree(new),
+                   moment_bytes=_stored_bytes(state.m, state.v))
+        if zero1:
+            from repro_torch._tree import leaves
+            from repro_torch.launch import specs as SP
+            o = SP.opt_spec(cfg, ctx, opt, zero1=True)
+            out["moment_spec_bytes"] = sum(
+                leaves(SP.shard_sizes(o.m, mesh, rank))
+                + leaves(SP.shard_sizes(o.v, mesh, rank)))
     # a copy: the spies of this case go on counting in the later ones
     out.update(stats=dict(C.STATS),
                calls={k: dict(v) for k, v in counts.items()})
@@ -400,4 +472,44 @@ def tp_serve_cases(rank, world, cases):
                 tp_model_case(rank, world, cs)
         else:
             out[name] = tp_serve_case(rank, world, cs)
+    return out
+
+
+def zero1_on_gpu(rank, world, case):
+    """One ``make_train_step`` step on the card as this rank of a (data 2,
+    model 1) mesh, replicated and then ZeRO-1 (``zero1=True``), both
+    without the grad clip, from the same weights and rows: each run's loss
+    and parameters as bits, and the ZeRO-1 run's stored moment bytes with
+    the spec's."""
+    from repro_torch._tree import leaves
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch import steps
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamW
+    torch.cuda.set_device(0)
+    cfg = ModelConfig(**case["cfg"])
+    mesh = Mesh(np.arange(2).reshape(2, 1), ("data", "model"))
+    ctx = sh.ShardCtx(mesh=mesh, dp=("data",), tp="model")
+    batch = steps.shard_batch(case["batch"], ctx, rank, 1)
+    out = {}
+    for zero1 in (False, True):
+        params = sh.shard_params(init_params(cfg, seed=0, device="cuda"),
+                                 cfg, ctx, rank)
+        opt = AdamW(lr=1e-3, grad_clip=0.0)
+        state = (steps.init_sharded(params, cfg, ctx) if zero1
+                 else opt.init(params))
+        step = steps.make_train_step(cfg, ctx, opt, zero1=zero1)
+        new, state, m = step(params, state, batch)
+        out[zero1] = {"loss": float(m["loss"]), "bits": [
+            t.detach().cpu().view(torch.int16 if t.dtype == torch.bfloat16
+                                  else torch.int32).numpy()
+            for t in leaves(new)]}
+        if zero1:
+            o = SP.opt_spec(cfg, ctx, opt, zero1=True)
+            out["moment_bytes"] = _stored_bytes(state.m, state.v)
+            out["moment_spec_bytes"] = sum(
+                leaves(SP.shard_sizes(o.m, mesh, rank))
+                + leaves(SP.shard_sizes(o.v, mesh, rank)))
     return out

@@ -11,8 +11,10 @@ with the host clock as it arrives.  A phase's seconds are the time from
 the previous JSON line (the start, for the first) to its own line; lines
 that are not JSON (a spawned rank's report) belong to the phase they
 precede.  Prints one JSON line a checkout: its exit code, its total
-seconds and each phase's seconds, in order; then ``nvidia-smi``'s name
-and power limit of the card.  The raw output of each run goes to
+seconds, each phase's seconds, in order, and each phase's peak memory
+readings (every ``peak_memory_bytes*`` key of its line and of the runs
+nested in it, such as a parallel phase's ``zero1`` run); then
+``nvidia-smi``'s name and power limit of the card.  The raw output of each run goes to
 ``LOG_DIR/phase_seconds_<i>.log``.  Exits non-zero when a run does.
 """
 from __future__ import annotations
@@ -25,11 +27,23 @@ import sys
 import time
 
 
+def _peaks(obj: dict, prefix: str = "") -> dict:
+    """The ``peak_memory_bytes*`` numbers of a phase line, by their key
+    (a nested run's prefixed with its own key)."""
+    out = {}
+    for k, v in obj.items():
+        if k.startswith("peak_memory_bytes") and isinstance(v, (int, float)):
+            out[prefix + k] = v
+        elif isinstance(v, dict) and not prefix:
+            out.update(_peaks(v, k + "."))
+    return out
+
+
 def run(root: str, log_path: str) -> dict:
     """One run of ``root``'s ``chip_smoke.py``, its lines stamped."""
     t0 = time.perf_counter()
     last = t0
-    phases = []
+    phases, peaks = [], {}
     proc = subprocess.Popen([sys.executable, "chip_smoke.py"], cwd=root,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, bufsize=1)
@@ -46,10 +60,12 @@ def run(root: str, log_path: str) -> dict:
                                else "ok" if "ok" in obj else "?")
                 phases.append([name, round(now - last, 3)])
                 last = now
+                if _peaks(obj):
+                    peaks[name] = _peaks(obj)
     rc = proc.wait()
     return {"checkout": root, "rc": rc,
             "total_s": round(time.perf_counter() - t0, 3),
-            "phase_seconds": phases}
+            "phase_seconds": phases, "peaks": peaks}
 
 
 def main() -> int:

@@ -231,7 +231,7 @@ def _spawn(fault: str, fn, args: tuple, timeout: float,
 def _train_setup(phase: str) -> tuple:
     """``(cfg, ctx, global batches, n_micro)`` of a training run."""
     if phase == "tp_train_gpt_1_1b":
-        cfg = cs.configs.get(cs.PP_ARCH).replace(n_layers=cs.PP_LAYERS)
+        cfg = cs.configs.get(cs.PP_ARCH).replace(n_layers=cs.TP_LAYERS)
         conf = cs.Conf(*cs.TP_CONF)
         ctx = cs.ShardCtx(mesh=cs.mesh_from_mapping(
             conf, np.asarray(cs.TP_MAPPING)), dp=("data",), tp="model",
@@ -253,7 +253,9 @@ def _train_run(phase: str, fault: str, ref, cfg) -> tuple:
         res = _spawn(fault, cs.tp_rank,
                      (cs.TP_CONF, cs.TP_MAPPING, list(ref[:3])),
                      cs.TP_SPAWN_S)
-        return [r["losses"] for r in res], [r["sums"] for r in res]
+        # the FSDP run (the ranks go on to the ZeRO-1 layout after it)
+        return ([r["fsdp"]["losses"] for r in res],
+                [r["fsdp"]["sums"] for r in res])
     if phase.startswith("tp_train_mamba_on_card"):
         arch = phase.split(":")[1]
         res = _spawn(fault, cs.tp_mamba_rank, ({arch: ref[:3]},),
