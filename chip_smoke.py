@@ -10,12 +10,13 @@ the live bandwidth probe, the plan server, elastic replanning and the
 churn replay), generation (``launch.generate``: prefill and greedy
 decode of qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m,
 llava-next-mistral-7b, musicgen-large and the hybrid zamba2-7b) and
-training (``launch.train``: qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m
-and gpt-1.1b at full width and 4 layers, zamba2-7b at 12, each with a
-crash and a resume), pipeline-parallel training (``launch.pp_step``:
+training (``launch.train``: qwen2-7b at full width and 1 layer,
+falcon-mamba-7b, granite-moe-3b-a800m and gpt-1.1b at 2, zamba2-7b at 12,
+each with a crash and a resume), pipeline-parallel training (``launch.pp_step``:
 gpt-1.1b at 8 layers, pp 2 x dp 2, four ranks on the card), and
 tensor-parallel training, prefill and decode under a ``ShardCtx`` (four
-ranks on the card) — builds the
+ranks on the card), and the four examples of ``examples/torch`` as a user
+runs them — builds the
 CUDA kernels from the sources in this checkout, holds each kernel against
 its plain PyTorch version, and proves that each path went through its
 kernels by their launch counts.  Needs a CUDA device and ``nvcc``; exits
@@ -49,11 +50,21 @@ the verifier, byte-equal to the NumPy backend's), ``replan``
 worse than cold and cheaper, byte-equal to the NumPy backend's),
 ``churn`` (``simulate_churn`` over four seeded events on the 128-GPU
 cluster, its report equal to the NumPy backend's; the four phases under
-60 s in all), ``kernels_at_path_shapes``, ``model_kernels`` (rmsnorm in
-both forms, flash_attention, selective_scan in both forms — the fused one
-over a sequence and as a decode step — against their plain versions at ragged
-shapes, float32 and bfloat16, and the tensor-core attention at 2048 keys
-and D=256; a misaligned bfloat16 view is refused), ``model_kernels_bwd``
+60 s in all), ``examples_on_card`` (``examples/torch``: quickstart's
+``run`` as ``main`` calls it, ``train_gpt --full`` straight and with a
+crash at step 40 and ``--resume`` in a temporary directory — the final
+checkpoint and the logged losses bit-equal —, elastic_failover's ``run``
+— the restored state bit-equal to the saved — and configure_cluster on
+``mid-range`` — its estimator fitted in 12,000 steps on the card, the
+five strategies' table —; every plan made under iteration-bound budgets
+and byte-equal to the host NumPy backend's; each example's wall seconds,
+launches by kernel and printed lines; the SA budgets and the steps cut
+to stay within 120 s, named on the line), ``kernels_at_path_shapes``,
+``model_kernels`` (rmsnorm in both forms, flash_attention,
+selective_scan in both forms — the fused one over a sequence and as a
+decode step — against their plain versions at ragged shapes, float32
+and bfloat16, and the tensor-core attention at 2048 keys and D=256; a
+misaligned bfloat16 view is refused), ``model_kernels_bwd``
 (the backward kernels of rmsnorm, both forms with and without the
 stream's gradient, and of flash_attention, causal and windowed, GQA,
 ``Sq != Sk``, rows with no allowed key, strided views, against their plain
@@ -98,7 +109,7 @@ at the next position), ``ssd_at_zamba2_shapes`` (CUDA-event times of the
 plain-torch SSD and of a whole Mamba2 block at zamba2-7b's prefill and
 step),
 ``train_qwen2_7b`` (``launch.train.train``: qwen2-7b at
-full width and 4 of its 28 layers — the one cut — bf16, remat, random
+full width and 1 of its 28 layers — the one cut — bf16, remat, random
 weights from a seeded generator on the card, ``SyntheticCorpus`` batches
 of 4 x 512 in 2 microbatches, AdamW on the reference's cosine schedule, 4
 steps (the uninterrupted and the resumed run saving no checkpoint); exact
@@ -109,12 +120,12 @@ and final parameters bit for bit), ``slice_check_train`` (qwen2-7b at full
 width and 1 layer, 1 x 64 tokens: a step's loss and every leaf's gradient
 on the card against the host's plain path), ``train_falcon_mamba_7b`` and
 ``slice_check_train_falcon_mamba_7b`` (the same two for falcon-mamba-7b:
-4 of its 64 layers; the fused scan forward twice a layer, in its instance
+2 of its 64 layers; the fused scan forward twice a layer, in its instance
 that keeps the chunk boundaries, and its backward kernel once, both norm
 forms, counted exactly), ``train_granite_moe_3b_a800m`` and
 ``train_gpt_1_1b`` with their ``slice_check_train_*`` (the same for
-granite-moe-3b-a800m, 4 of 32 layers, its slice in float32, gpt-1.1b,
-4 of 24 layers, head dim 96, and zamba2-7b, 12 of 81 layers so that the
+granite-moe-3b-a800m, 2 of 32 layers, its slice in float32, gpt-1.1b,
+2 of 24 layers, head dim 96, and zamba2-7b, 12 of 81 layers so that the
 shared block runs twice, its slice at 1 layer with the block after it),
 ``pp_train_gpt_1_1b`` (a Pipette configuration launched as ranks:
 gpt-1.1b at full width and 8 of 24 layers, pp 2 x dp 2 over the permuted
@@ -148,7 +159,9 @@ head-parallel Mamba2 and weight-tied block at 6 layers on (data 1, model
 on (data 2, model 2), gpt-3.1b and zamba2-7b on (data 1, model 4), the
 cache's sequence cut over the model axis and the partial attentions
 combined, teacher-forced on one process's greedy tokens and held to its
-logits; launches against :func:`tp_generate_launches`),
+logits; each decode step's combined attention held to
+``decode_attention`` over the gathered cache within one bfloat16 step,
+:class:`CombineWatch`; launches against :func:`tp_generate_launches`),
 ``model_kernels_at_path_shapes`` (the training
 phases' forward shapes too, the attention's query offsets among them,
 timed beside SDPA with a boolean mask), ``bwd_kernels_at_path_shapes``,
@@ -1020,6 +1033,315 @@ def churn() -> tuple:
              "bytes_migrated": card.bytes_migrated,
              "report_equal_to_numpy_backend": True,
              "launches": launches}, launches, shapes)
+
+
+# ---------------------------------------------------------------------------
+# the examples, run on the card as a user runs them
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples", "torch")
+#: ``examples_on_card``'s limit, and the examples' settings it cuts to
+#: stay within it (each cut is named on the phase line).  Every plan that
+#: is compared with the host's NumPy backend runs under a budget that its
+#: iterations bind, the wall-clock cap set out of reach.
+EXAMPLES_S = 120.0
+EX_QUICKSTART_SA = dict(sa_seconds=600.0, sa_iters=200)
+EX_ELASTIC_SA = dict(sa_seconds=600.0, sa_iters=100)
+EX_CLUSTER_SA_ITERS = 100
+#: ``train_gpt``'s ``--configure`` budget (``launch/train.py``
+#: ``CONFIGURE_BUDGET``, 2,000 iterations) in this phase.
+EX_GPT_CONFIGURE = dict(sa_seconds=600.0, sa_iters=50)
+#: ``train_gpt --full``: steps of the straight run, and the step at which
+#: the other run fails (just after its checkpoint at step 40; it then
+#: resumes from that checkpoint and runs steps 40 to 50, of which the
+#: metrics file logs 40 and 50).
+EX_GPT_STEPS, EX_GPT_FAIL = 51, 41
+
+
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module (the folder is no
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(EXAMPLES_DIR, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers of its element size (NaN equal to itself,
+    -0.0 apart from 0.0)."""
+    return t.detach().view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                            8: torch.int64}[t.element_size()])
+
+
+def trees_bit_equal(a, b) -> bool:
+    la, lb = _tree.leaves(a), _tree.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(_bits(x), _bits(y)) for x, y in zip(la, lb))
+
+
+def _counted(fn) -> tuple:
+    """``fn()`` with the launch counts set to 0 before it and read after
+    it, its standard output kept: ``(result, seconds, printed lines,
+    launches, backward launches, shapes)``."""
+    import contextlib
+    import io
+    reset_launches()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, buf.getvalue().splitlines(),
+            read_launches(), read_bwd_launches(), read_shapes())
+
+
+def _npz_bit_equal(a: str, b: str) -> bool:
+    """Whether two ``.npz`` files hold the same arrays bit for bit (each
+    array read once: an ``NpzFile`` reads it again at every index)."""
+    with np.load(a) as x, np.load(b) as y:
+        if sorted(x.files) != sorted(y.files):
+            return False
+        for k in x.files:
+            u, v = x[k], y[k]
+            if u.dtype != v.dtype or u.shape != v.shape or \
+                    not np.array_equal(u.reshape(-1).view(np.uint8),
+                                       v.reshape(-1).view(np.uint8)):
+                return False
+    return True
+
+
+def _metric_losses(path: str) -> dict:
+    """step -> loss of a metrics file (a resumed run's later lines win)."""
+    with open(path) as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f)}
+
+
+def ex_quickstart(device) -> dict:
+    """``examples/torch/quickstart.py``'s ``run`` as ``main`` calls it
+    (reduced qwen2-7b, weights from seed 0 on the card, 40 steps) but at
+    ``EX_QUICKSTART_SA``, its plan held byte-equal to the host NumPy
+    backend's."""
+    import dataclasses
+    qs = load_example("quickstart")
+    cfg = configs.get("qwen2-7b").reduced()
+    budget = Budget(**EX_QUICKSTART_SA)
+    res, wall, out, fwd, bwd, shapes = _counted(lambda: qs.run(
+        cfg, init_params(cfg, seed=0, device=device), budget, 40, device,
+        log=print))
+    req, bw, _ = qs.plan_request(cfg, dataclasses.replace(budget,
+                                                          backend="numpy"))
+    t0 = time.perf_counter()
+    host = Planner(PipetteStrategy(), device=device).plan(req, bw)
+    host_s = time.perf_counter() - t0
+    assert read_launches() == fwd                # the host backend: none
+    assert strip_backend(res["plan_json"]) == strip_backend(host.to_json()), \
+        "quickstart: card plan differs from the host-backend plan"
+    losses = res["losses"]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert len(res["tokens"]) == qs.DECODE_STEPS + 1 and all(
+        0 <= t < cfg.vocab_size for t in res["tokens"]), res["tokens"]
+    return {"wall_s": wall, "output": out, "launches": fwd,
+            "bwd_launches": bwd, "shapes": shapes,
+            "cut": f"sa_iters {budget.sa_iters} (the example: 2,000)",
+            "plan": str(res["plan"].conf), "n_micro": res["n_micro"],
+            "plan_s": res["plan"].overhead.total_s, "numpy_backend_s": host_s,
+            "losses": [losses[0], losses[-1]], "tokens": res["tokens"],
+            "budget": EX_QUICKSTART_SA,
+            "plan_byte_equal_to_numpy_backend": True}
+
+
+def ex_train_gpt() -> dict:
+    """``examples/torch/train_gpt.py --full`` in a temporary directory,
+    once straight through ``EX_GPT_STEPS`` steps and once failing at
+    ``EX_GPT_FAIL`` and resumed with ``--resume``: the final checkpoint
+    (parameters and AdamW state) and every logged loss after the resume
+    bit-equal to the straight run's."""
+    tg = load_example("train_gpt")
+    cwd, budget = os.getcwd(), train_cli.CONFIGURE_BUDGET
+    train_cli.CONFIGURE_BUDGET = EX_GPT_CONFIGURE
+    with tempfile.TemporaryDirectory(prefix="train_gpt_") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("straight", "resumed")}
+
+        def runs():
+            try:
+                os.makedirs(dirs["straight"])
+                os.chdir(dirs["straight"])
+                t0 = time.perf_counter()
+                assert tg.main(["--full", "--steps", str(EX_GPT_STEPS)]) == 0
+                seconds["straight"] = time.perf_counter() - t0
+                os.makedirs(dirs["resumed"])
+                os.chdir(dirs["resumed"])
+                t0 = time.perf_counter()
+                try:
+                    tg.main(["--full", "--steps", str(EX_GPT_STEPS),
+                             "--fail-at", str(EX_GPT_FAIL)])
+                except RuntimeError as e:
+                    assert "injected failure" in str(e), e
+                else:
+                    raise AssertionError("train_gpt did not fail")
+                seconds["failing"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                assert tg.main(["--full", "--steps", str(EX_GPT_STEPS),
+                                "--resume"]) == 0
+                seconds["resumed"] = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+                train_cli.CONFIGURE_BUDGET = budget
+        seconds = {}
+        _, wall, out, fwd, bwd, shapes = _counted(runs)
+        ck = {k: os.path.join(d, "checkpoints", "gpt-demo",
+                              f"step_{EX_GPT_STEPS}", "arrays.npz")
+              for k, d in dirs.items()}
+        losses = {k: _metric_losses(os.path.join(d, "checkpoints",
+                                                 "gpt-demo-metrics.jsonl"))
+                  for k, d in dirs.items()}
+        params_equal = _npz_bit_equal(ck["straight"], ck["resumed"])
+        plan = json.load(open(os.path.join(dirs["straight"], "checkpoints",
+                                           "gpt-demo", "plan.json")))
+    last, restored = EX_GPT_STEPS - 1, EX_GPT_FAIL - EX_GPT_FAIL % \
+        tg.CKPT_EVERY
+    assert params_equal, "train_gpt: the resumed run's final state differs"
+    assert last in losses["straight"] and losses["resumed"] == \
+        losses["straight"], losses
+    for k in ("flash_attention", "rmsnorm"):
+        assert fwd[k] > 0 and bwd[k + "_bwd"] > 0, (k, fwd, bwd)
+    f32 = [k for k in shapes["flash_attention"]
+           if "torch.float32" in k and not is_bwd_key(k)]
+    assert f32 and sum(shapes["flash_attention"][k] for k in f32) \
+        == fwd["flash_attention"], shapes["flash_attention"]
+    return {"wall_s": wall, "output": out, "launches": fwd,
+            "bwd_launches": bwd, "shapes": shapes,
+            "argv": "--full --steps {0}; --full --steps {0} --fail-at {1}; "
+                    "--full --steps {0} --resume".format(EX_GPT_STEPS,
+                                                         EX_GPT_FAIL),
+            "cut": f"{EX_GPT_STEPS} steps (the example: 200); --configure "
+                   f"at sa_iters {EX_GPT_CONFIGURE['sa_iters']} (2,000)",
+            "plan": plan["best"]["conf"],
+            "final_loss": losses["straight"][last],
+            "resumed_from_step": restored,
+            "resumed_losses": {k: v for k, v in losses["resumed"].items()
+                               if k >= restored},
+            "seconds_by_run": seconds,
+            "resumed_bit_equal": True}
+
+
+def ex_elastic(device) -> dict:
+    """``examples/torch/elastic_failover.py``'s ``run`` (reduced qwen2-7b,
+    20 steps, replan from 4 nodes to 3, restore, 10 steps) with its
+    checkpoints in a temporary directory: both replans byte-equal to the
+    host NumPy backend's, the restored state bit-equal to the saved."""
+    from repro_torch.runtime.elastic import replan as elastic_replan
+    ef = load_example("elastic_failover")
+    cfg = configs.get("qwen2-7b").reduced()
+    with tempfile.TemporaryDirectory(prefix="elastic_") as tmp:
+        res, wall, out, fwd, bwd, shapes = _counted(lambda: ef.run(
+            cfg, init_params(cfg, seed=0, device=device),
+            replan_kw=EX_ELASTIC_SA, ckpt_dir=tmp, device=device,
+            log=print))
+    w = Workload(cfg, 64, 64)
+    t0 = time.perf_counter()
+    for nodes, key in ((4, "plan4"), (3, "plan3")):
+        host = elastic_replan(w, MID_RANGE, healthy_nodes=nodes,
+                              backend="numpy", device=device,
+                              **EX_ELASTIC_SA)
+        assert strip_backend(res[key].plan.to_json()) \
+            == strip_backend(host.plan.to_json()), \
+            f"elastic_failover: the {nodes}-node replan differs from numpy"
+    host_s = time.perf_counter() - t0
+    assert read_launches() == fwd
+    assert res["at"] == 20 and trees_bit_equal(res["saved"],
+                                               res["restored"])
+    assert all(np.isfinite(res["losses"] + res["more_losses"]))
+    return {"wall_s": wall, "output": out, "launches": fwd,
+            "bwd_launches": bwd, "shapes": shapes,
+            "plans": [str(res["plan4"].result.best.conf),
+                      str(res["plan3"].result.best.conf)],
+            "replan_s": [res[k].plan.overhead.total_s
+                         for k in ("plan4", "plan3")],
+            "numpy_backend_s": host_s,
+            "budget": EX_ELASTIC_SA,
+            "cut": f"replan sa_iters {EX_ELASTIC_SA['sa_iters']} (the "
+                   "example: sa_seconds 0.2 at Budget's default 8,000)",
+            "plans_byte_equal_to_numpy_backend": True,
+            "restored_bit_equal": True}
+
+
+def ex_configure_cluster(device) -> dict:
+    """``examples/torch/configure_cluster.py`` on ``mid-range`` (gpt-3.1b
+    on 128 GPUs, the estimator fitted on the card in 12,000 steps): the
+    five strategies' table; PPT-L's and PPT-LF's plans byte-equal to the
+    host NumPy backend's."""
+    import dataclasses
+    cc = load_example("configure_cluster")
+    budget = Budget(sa_seconds=600.0, sa_iters=EX_CLUSTER_SA_ITERS)
+    res, wall, out, fwd, bwd, shapes = _counted(lambda: cc.run(
+        "mid-range", budget=budget, device=device, log=print))
+    req = dataclasses.replace(res["request"], budget=dataclasses.replace(
+        budget, backend="numpy"))
+    by_label = dict(cc.strategies(res["estimator"], req.spec,
+                                  res["bw_true"]))
+    t0 = time.perf_counter()
+    for label in ("Pipette PPT-L", "Pipette PPT-LF"):
+        host = Planner(by_label[label], device=device).plan(req,
+                                                            res["bw_meas"])
+        assert strip_backend(res["plans"][label].to_json()) \
+            == strip_backend(host.to_json()), \
+            f"configure_cluster: {label} differs from the numpy backend"
+    host_s = time.perf_counter() - t0
+    assert read_launches() == fwd
+    assert fwd["group_min_scale"] > 0, fwd
+    base = next(t for name, _, t in res["rows"] if name.startswith("AMP"))
+    rows = [{"method": name, "config": str(conf), "iter_ms": t * 1e3,
+             "vs_amp": base / t} for name, conf, t in res["rows"]]
+    assert all(np.isfinite(r["iter_ms"]) for r in rows)
+    return {"wall_s": wall, "output": out, "launches": fwd,
+            "bwd_launches": bwd, "shapes": shapes, "table": rows,
+            "estimator_fit_s": res["fit_s"],
+            "pipette_search_s": res["sa_time"], "numpy_backend_s": host_s,
+            "n_annealed": sum(1 for c in res["ppt_plan"].result.ranked
+                              if c.sa is not None),
+            "budget": {"sa_seconds": 600.0, "sa_iters": EX_CLUSTER_SA_ITERS},
+            "cut": f"sa_iters {EX_CLUSTER_SA_ITERS} (the example: 20,000 "
+                   "at sa_seconds 1.0)",
+            "plans_byte_equal_to_numpy_backend": ["Pipette PPT-L",
+                                                  "Pipette PPT-LF"]}
+
+
+def examples_on_card(device) -> tuple:
+    """``examples_on_card``: the four examples of ``examples/torch`` on
+    the card, each with the launch counts set to 0 before it and read
+    after it.  Returns ``(line, launches, shapes)``, summed over the
+    examples (the backward launches in the line's ``launches_bwd``)."""
+    t_phase = time.perf_counter()
+    ex = {"quickstart": ex_quickstart(device)}
+    ex["train_gpt --full"] = ex_train_gpt()
+    ex["elastic_failover"] = ex_elastic(device)
+    ex["configure_cluster mid-range"] = ex_configure_cluster(device)
+    launches = {k: sum(e["launches"][k] for e in ex.values())
+                for k in WRAPPERS}
+    bwd = {k: sum(e["bwd_launches"][k] for e in ex.values())
+           for k in BWD_KERNELS}
+    shapes = {k: {} for k in WRAPPERS}
+    for e in ex.values():
+        for k, by in e.pop("shapes").items():
+            for key, n in by.items():
+                shapes[k][key] = shapes[k].get(key, 0) + n
+    seconds = time.perf_counter() - t_phase
+    line = {"phase": "examples_on_card", "seconds": seconds,
+            "limit_s": EXAMPLES_S,
+            "wall_s": {k: e["wall_s"] for k, e in ex.items()},
+            "cuts": {k: e["cut"] for k, e in ex.items()},
+            "table": ex["configure_cluster mid-range"]["table"],
+            "launches_by_example": {k: {**e["launches"], **e["bwd_launches"]}
+                                    for k, e in ex.items()},
+            "launches_fwd": launches, "launches_bwd": bwd,
+            "examples": ex}
+    return line, launches, shapes
 
 
 def trace(fn) -> dict:
@@ -4448,6 +4770,80 @@ def _logit_reading(got, want) -> dict:
             "sum_abs": float(d.sum(dtype=torch.float64)), "n": d.numel()}
 
 
+#: The combined decode attention (``attention.py::combine_partials`` over
+#: the sequence's blocks) against ``decode_attention`` over the cache
+#: gathered whole, in bfloat16 steps at the largest value of each head's
+#: output row (2^-7 of its binade): the two round float32 results that
+#: differ only by sums in another order, so they lie at most one step of
+#: the row apart.  (At each element's own value a near-zero element, a
+#: sum of values that cancel, reads up to 22 steps on sound ranks.)
+COMBINE_TOL_STEPS = 1.0
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` in bfloat16 steps at the largest
+    ``|want|`` of its row (the last dim)."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w.abs().amax(-1, keepdim=True))
+    step = torch.ldexp(torch.ones_like(e, dtype=w.dtype), e - 8)
+    return float(((g - w).abs() / step).max())
+
+
+class CombineWatch:
+    """While active (a ``with`` block), every ``combine_partials`` of a
+    decode step under a context is kept with the query, the cache blocks
+    and the position it combined over.  :meth:`check`, after the step
+    and outside its timing, gathers each block whole over the sequence's
+    mesh axes (the minor first, as :func:`_regrow`) and reads the
+    combined output against ``decode_attention`` over it
+    (:func:`bf16_steps`); the gathers' bytes are kept out of
+    ``collectives.STATS``.  A fault planted in ``M.combine_partials``
+    before the block is what the watch calls and reads."""
+
+    def __init__(self, cfg, ctx, batch: int, seq_len: int):
+        specs = M.cache_specs(cfg, ctx, batch, seq_len)
+        from repro_torch.models import sharding as sh
+        self.axes = sh.spec_axes(specs["k"][2]) if "k" in specs else ()
+        self.mesh = ctx.mesh
+        self.calls, self.steps = [], []
+
+    def __enter__(self):
+        self._partial, self._combine = (M.decode_attention_partial,
+                                        M.combine_partials)
+        args = []
+
+        def partial(q, k_block, v_block, pos, offset=0):
+            args[:] = [q, k_block, v_block, pos]
+            return self._partial(q, k_block, v_block, pos, offset)
+
+        def combine(m, l, o, max_fn, sum_fn, dtype):
+            out = self._combine(m, l, o, max_fn, sum_fn, dtype)
+            self.calls.append((*args, out))
+            return out
+        M.decode_attention_partial, M.combine_partials = partial, combine
+        return self
+
+    def __exit__(self, *exc):
+        M.decode_attention_partial, M.combine_partials = (self._partial,
+                                                          self._combine)
+
+    def check(self) -> None:
+        """Read this step's combines (their largest distance joins
+        ``steps``; none where the step combined nothing)."""
+        from repro_torch.models.attention import decode_attention
+        stats = dict(collectives.STATS)
+        worst = []
+        for q, k, v, pos, out in self.calls:
+            for a in reversed(self.axes):
+                k = collectives.all_gather(k, self.mesh, a, 1)
+                v = collectives.all_gather(v, self.mesh, a, 1)
+            worst.append(bf16_steps(out, decode_attention(q, k, v, pos)))
+        collectives.STATS.update(stats)
+        if worst:
+            self.steps.append(max(worst))
+        self.calls.clear()
+
+
 def tp_generate_rank(rank: int, world: int, refs: dict) -> dict:
     """One rank of ``tp_generate_on_card``: each case of ``TPG_CASES`` in
     turn on its mesh (the weights drawn whole from seed 0 and cut, the
@@ -4509,16 +4905,21 @@ def tp_generate_rank(rank: int, world: int, refs: dict) -> dict:
             collectives.reset_stats()
             step = make_decode_step(cfg, ctx)
             step_s = []
-            for j in range(TPG_TOKENS - 1):
-                t0 = time.perf_counter()
-                nxt, lg, cache = step(params, cache, ref_toks[:, j:j + 1],
-                                      TPG_PROMPT + j, batch=TPG_BATCH,
-                                      seq_len=TPG_PROMPT + TPG_TOKENS)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t0)
-                readings.append(_logit_reading(
-                    lg, ref["steps"][j][rows, v0:v0 + nv]))
-                greedy.append(nxt[:, 0])
+            watch = CombineWatch(cfg, ctx, TPG_BATCH,
+                                 TPG_PROMPT + TPG_TOKENS)
+            with watch:
+                for j in range(TPG_TOKENS - 1):
+                    t0 = time.perf_counter()
+                    nxt, lg, cache = step(params, cache,
+                                          ref_toks[:, j:j + 1],
+                                          TPG_PROMPT + j, batch=TPG_BATCH,
+                                          seq_len=TPG_PROMPT + TPG_TOKENS)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                    watch.check()
+                    readings.append(_logit_reading(
+                        lg, ref["steps"][j][rows, v0:v0 + nv]))
+                    greedy.append(nxt[:, 0])
             res["decode_bytes_per_token"] = {
                 k: v / (TPG_TOKENS - 1) for k, v in collectives.STATS.items()}
             greedy = torch.stack(greedy, 1)
@@ -4530,6 +4931,7 @@ def tp_generate_rank(rank: int, world: int, refs: dict) -> dict:
                 row = all_logits[j, rows][i].float()
                 margins.append(float(row.max() - row[greedy[i, j]]))
         res.update(step_s=step_s, readings=readings,
+                   combine_steps=watch.steps,
                    tokens_equal=int((greedy == ref_toks).sum()),
                    tokens=int(greedy.numel()), token_margins=margins,
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
@@ -4620,6 +5022,21 @@ def tp_generate(device) -> tuple:
         tol_max, tol_mean, margin = tpg_tolerance(cfg)
         cases[arch]["tol"] = {"max_abs": tol_max, "mean_abs": tol_mean,
                               "tie_margin": margin}
+        # every step of an attention model combines over the sequence's
+        # blocks on every rank; a Mamba1 model combines nothing
+        combined = [x for r in got for x in r["combine_steps"]]
+        cases[arch]["combine_vs_gathered_cache"] = {
+            "max_bf16_steps": max(combined, default=None),
+            "steps_checked": len(combined), "tol_bf16_steps":
+            COMBINE_TOL_STEPS}
+        if cfg.family in ATTENTION_FAMILIES or cfg.hybrid_attn_period:
+            assert len(combined) == len(got) * (TPG_TOKENS - 1), \
+                (arch, len(combined))
+            assert max(combined) <= COMBINE_TOL_STEPS, \
+                (arch, "combine_partials against decode_attention over the "
+                 "gathered cache", [r["combine_steps"] for r in got])
+        else:
+            assert not combined, (arch, combined)
         assert max_abs <= tol_max and mean_abs <= tol_mean, \
             (arch, cases[arch]["logits_vs_one_process"])
         per_case += got
@@ -5014,12 +5431,17 @@ def main() -> int:
     emit(line_c)
     others_s = sum(o["seconds"] for o in others)
     assert others_s < OTHER_ENTRY_POINTS_S, others_s
+    line_x, launches_x, shapes_x = examples_on_card(device)
+    emit(line_x)
+    assert line_x["seconds"] <= EXAMPLES_S, ("examples_on_card over its "
+                                             "limit", line_x["seconds"])
 
     rows = check_path_shapes(device, {"plan_uniform": shapes_u,
                                       "plan_tiered": shapes_t,
                                       "serve_plan": shapes_s,
                                       "replan": shapes_r,
-                                      "churn": shapes_c})
+                                      "churn": shapes_c,
+                                      "examples_on_card": shapes_x})
     emit({"phase": "kernels_at_path_shapes", "kernels": rows})
     if args.profile:
         emit(profile_sa(device))
@@ -5049,7 +5471,13 @@ def main() -> int:
     for arch, name in SLICE_ARCHS.items():
         emit(slice_check(name, arch, device))
     emit(ssd_at_zamba2_shapes(device))
-    train_lines, fwd_tr, bwd_tr = [], {}, {}
+    train_lines, fwd_tr, bwd_tr = [line_x], {}, {}
+    fwd_tr[line_x["phase"]] = {
+        name: {k: n for k, n in by.items() if not is_bwd_key(k)}
+        for name, by in shapes_x.items()}
+    bwd_tr[line_x["phase"]] = {
+        name: {k: n for k, n in by.items() if is_bwd_key(k)}
+        for name, by in shapes_x.items()}
     for arch in TRAIN_ARCHS:
         line_tr, shapes_tr = run_train(device, arch)
         emit(line_tr)
@@ -5098,6 +5526,7 @@ def main() -> int:
 
     main_path = {name: launches_u[name] + launches_t[name]
                  + launches_s[name] + launches_r[name] + launches_c[name]
+                 + launches_x[name]
                  for name in PLAN_KERNELS}
     main_path.update({name: sum(g[name] for g in gen_launches.values())
                       + sum(t["launches_fwd"][name] for t in train_lines)
@@ -5111,8 +5540,9 @@ def main() -> int:
 
     def summary(name):
         """One line per kernel: its launches on the main paths (the two
-        plans and the planner's other entry points, or the generate phases
-        and the training phases), and the times at the shape the paths
+        plans, the planner's other entry points and the examples, or the
+        generate, training and example phases), and the times at the
+        shape the paths
         launched most often; ``forms`` has the same for each form's most
         launched shape, ``per_shape`` every shape, and for the attention
         ``new_head_dims`` its instances at 96, 112 and 136."""
@@ -5180,8 +5610,8 @@ def main() -> int:
                 "per_shape": mine}
 
     def summary_bwd(name):
-        """One line per backward kernel: its launches in the training
-        phases and the times at its most launched shape.  It replaces no
+        """One line per backward kernel: its launches in the training and
+        example phases and the times at its most launched shape.  It replaces no
         TPU kernel: it is the backward of the kernel at ``replaces``,
         which the JAX package differentiates by autodiff of plain jnp."""
         wrapper = BWD_KERNELS[name]

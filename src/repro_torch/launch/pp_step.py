@@ -32,6 +32,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .._tree import leaves, structure, tree_map, unflatten
 from ..models.config import ModelConfig
@@ -135,7 +136,8 @@ def make_pp_train_step(cfg: ModelConfig, mesh, opt: AdamW, *,
     pp, nd = mesh.shape[pipe_axis], mesh.shape[data_axis]
 
     def embed_fn(shared, toks):
-        return shared["tok_embed"][toks]
+        # F.embedding: a backward that sums in one order (models/model.py)
+        return F.embedding(toks, shared["tok_embed"])
 
     def stage_fn(stage, x):
         for lp in stage:

@@ -31,6 +31,12 @@ from .._device import DeviceLike, resolve_device
 from .._tree import leaves
 from ..models.config import ModelConfig
 
+#: The SA budget of ``--configure`` (the reference's; the torch backend
+#: is iteration-bound).  A module constant only so that ``chip_smoke.py``
+#: and the tests can run ``--configure`` at a cut budget; the CLI has no
+#: option for it.
+CONFIGURE_BUDGET = dict(sa_seconds=0.2, sa_iters=2000)
+
 
 def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
           n_micro: int, lr: float, ckpt_dir: str, ckpt_every: int,
@@ -126,7 +132,7 @@ def main(argv=None):
         w = Workload(cfg, args.seq_len, max(args.global_batch, 64))
         bw, cost = profile_bandwidth(spec)
         req = PlanRequest(workload=w, spec=spec,
-                          budget=Budget(sa_seconds=0.2, sa_iters=2000),
+                          budget=Budget(**CONFIGURE_BUDGET),
                           seed=args.seed)
         plan = Planner(PipetteStrategy(), device=device).plan(req, bw)
         print(f"[pipette] profiled {spec.n_gpus} GPUs in {cost:.0f}s (sim); "

@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from . import mamba as mam
@@ -77,24 +78,29 @@ def embed_inputs(params, cfg: ModelConfig, tokens, img_embeds=None,
     shard's rows and ``tok_embed`` this rank's block: gathered over the
     FSDP axes, it looks up the tokens in its rows of the vocabulary,
     zeros stand for the others, and the sum over the model axis adds
-    exact zeros, so the embedding is bit-equal to the whole table's."""
+    exact zeros, so the embedding is bit-equal to the whole table's.
+
+    The rows are looked up with ``F.embedding``: its backward sums a
+    token's gradients in one order on every run, where advanced indexing
+    (``table[tokens]``, an accumulating ``index_put_`` backward) sums them
+    in the order the CPU's threads reach them."""
     if ctx is not None and ctx.active:
         from ..launch import collectives as C
         table = sh.fsdp_gather(params["tok_embed"],
                                sh.use_specs(cfg, ctx)["tok_embed"], ctx)
         cut = _vocab_cut(cfg, ctx)
         if cut is None:
-            x = table[tokens]
+            x = F.embedding(tokens, table)
         else:
             v0, n = cut
             local = tokens - v0
             inside = (local >= 0) & (local < n)
-            x = table[local.clamp(0, n - 1)]
+            x = F.embedding(local.clamp(0, n - 1), table)
             x = torch.where(inside[..., None], x, torch.zeros(
                 (), dtype=x.dtype, device=x.device))
             x = C.sum_over(x, ctx.mesh, ctx.tp, "vocab")
     else:
-        x = params["tok_embed"][tokens]                 # (b, s_text, d)
+        x = F.embedding(tokens, params["tok_embed"])    # (b, s_text, d)
     if img_embeds is not None:
         x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape

@@ -1562,3 +1562,43 @@ def test_scan_dtype_bfloat16_is_refused_on_the_card():
                                   single_step=True)
     assert ss.selective_scan.launches == before + 1
     assert bool(torch.isfinite(y).all())
+
+
+def test_quickstart_example_runs_on_the_card():
+    """``examples/torch/quickstart.py``'s ``run`` on the card (reduced
+    qwen2-7b, 200 SA iterations a candidate, 4 steps): its plan equal,
+    apart from the recorded backend, to the same request on the host's
+    NumPy backend; the training launched the norm and attention kernels
+    and their backward kernels, the plan the group reduce; the losses and
+    the greedy tokens are finite and in the vocabulary."""
+    _need_cuda()
+    import dataclasses
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "torch", "quickstart.py")
+    spec = importlib.util.spec_from_file_location("torch_quickstart", path)
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    cfg = configs.get("qwen2-7b").reduced()
+    budget = plan.Budget(sa_seconds=600.0, sa_iters=200)
+    kernels = (gr.group_min_scale, rn.rmsnorm, fa.flash_attention)
+    before = [k.launches for k in kernels]
+    bwd_before = [k.bwd_launches for k in kernels[1:]]
+    res = qs.run(cfg, init_params(cfg, seed=0, device="cuda"), budget, 4,
+                 "cuda")
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    assert all(k.bwd_launches > b for k, b in zip(kernels[1:], bwd_before))
+    req, bw, _ = qs.plan_request(cfg, dataclasses.replace(budget,
+                                                          backend="numpy"))
+    host = plan.Planner(plan.PipetteStrategy(), device="cuda").plan(req, bw)
+
+    def strip(text):
+        d = json.loads(text)
+        d["provenance"]["budget"].pop("backend")
+        return json.dumps(d, sort_keys=True)
+    assert strip(res["plan_json"]) == strip(host.to_json())
+    assert np.isfinite(res["losses"]).all() and len(res["losses"]) == 4
+    assert len(res["tokens"]) == qs.DECODE_STEPS + 1
+    assert all(0 <= t < cfg.vocab_size for t in res["tokens"])

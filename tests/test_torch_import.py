@@ -1,6 +1,6 @@
 """The PyTorch package stands alone: it imports with ``jax`` and the JAX
-package both blocked, and no source line of it (or of ``chip_smoke.py``)
-imports either."""
+package both blocked, and no source line of it (or of ``chip_smoke.py``
+and the examples under ``examples/torch``) imports either."""
 import os
 import re
 import subprocess
@@ -18,8 +18,10 @@ BLOCKED = re.compile(
 
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
-    for d, _, files in os.walk(os.path.join(SRC, "repro_torch")):
-        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    for top in (os.path.join(SRC, "repro_torch"),
+                os.path.join(ROOT, "examples", "torch")):
+        for d, _, files in os.walk(top):
+            out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
 
 
@@ -48,6 +50,7 @@ def test_package_imports_with_jax_and_reference_blocked():
         "import repro_torch.runtime.trainer, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh, repro_torch.launch.collectives\n"
         "import repro_torch.launch.pipeline, repro_torch.launch.pp_step\n"
+        "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('repro.') or "
         "m.startswith('triton')]\n"
@@ -63,6 +66,7 @@ def test_package_imports_with_jax_and_reference_blocked():
 def test_no_source_line_imports_jax_or_the_reference_package():
     files = _port_sources()
     assert len(files) > 35
+    assert sum("examples" in f for f in files) == 4, files
     bad = []
     for path in files:
         with open(path) as f:

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 import torch_dist_workers as W
+from test_torch_mamba_parallel import HYBRID
 from repro_torch import configs
 from repro_torch.launch import collectives as C
 from repro_torch.launch.mesh import Mesh
@@ -99,9 +100,16 @@ CASES = {
     # step reads them
     "odd_batch_chain": (dict(BASE, name="odd_batch_chain", family="dense",
                              n_heads=4, n_kv_heads=4), R22, 3),
+    # the Mamba tests' hybrid (4 Mamba2 layers, the weight-tied block
+    # after layers 1 and 3, 4 heads over 2 KV heads) on a 4-way model
+    # axis: the shared block's cache cut along the sequence
+    "hybrid_tp4": (HYBRID, R14, B),
 }
 #: the cases that decode from the ranks' own prefill cache, grown
 CHAIN = {"odd_batch_chain"}
+#: name -> (case, fault): a case's decode steps again, with a fault of
+#: ``tools/tp_faults.py`` planted in the ranks
+FAULTED = {"hybrid_tp4_combine_unscaled": ("hybrid_tp4", "combine_unscaled")}
 
 
 def _seq_len(name):
@@ -173,9 +181,11 @@ def runs():
                        "cache": refs[name]["cache_in"], "feed": feed,
                        "pos": S, "seq_len": _seq_len(name),
                        "chain": name in CHAIN}
+    for name, (base, fault) in FAULTED.items():
+        cases[name] = dict(cases[base], fault=fault)
     results = C.spawn(W.tp_serve_cases, 4, (cases,), timeout=SPAWN_S,
                       threads=1)
-    return refs, {n: [r[n] for r in results] for n in CASES}
+    return refs, {n: [r[n] for r in results] for n in cases}
 
 
 def _ctx(name):
@@ -333,14 +343,57 @@ def test_partial_attention_and_combine_match_decode_attention(n_blocks):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    return chip_smoke
+
+
+def _combines(name) -> bool:
+    """Whether the case's decode steps combine partial attentions: its
+    full KV rows' sequence is cut over mesh axes."""
+    cfg, ctx, b = _ctx(name)
+    specs = M.cache_specs(cfg, ctx, b, _seq_len(name))
+    return "k" in specs and bool(sh.spec_axes(specs["k"][2]))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_decode_combine_matches_attention_over_the_gathered_cache(runs,
+                                                                  name):
+    """``chip_smoke.CombineWatch``, as ``tp_generate_on_card`` runs it on
+    the card: every decode step's ``combine_partials`` over the sequence's
+    blocks against ``decode_attention`` over the blocks gathered whole,
+    within ``COMBINE_TOL_STEPS`` (one bfloat16 step) on every rank; a
+    case whose cache is not cut combines nothing."""
+    tol = _chip_smoke().COMBINE_TOL_STEPS
+    for rank, r in enumerate(runs[1][name]):
+        got = r["combine_steps"]
+        if not _combines(name):
+            assert got == [], (name, rank, got)
+            continue
+        assert len(got) == N_GEN and max(got) <= tol, (name, rank, got)
+
+
+def test_combine_check_catches_an_unscaled_combine(runs):
+    """The same reading with ``tools/tp_faults.py``'s ``combine_unscaled``
+    planted in the hybrid's ranks (the blocks' partial sums added without
+    their ``e^(m - M)`` weights): every rank reads it far past the
+    tolerance."""
+    tol = _chip_smoke().COMBINE_TOL_STEPS
+    for name in FAULTED:
+        for rank, r in enumerate(runs[1][name]):
+            got = r["combine_steps"]
+            assert len(got) == N_GEN and min(got) > 10 * tol, (name, rank,
+                                                               got)
+
+
 def test_rank_calls_match_the_chip_phase_count(runs, monkeypatch):
     """The calls of the norm, attention and scan wrappers on each rank (a
     prefill and ``N_GEN`` decode steps) are those that
     ``chip_smoke.tp_generate_launches`` counts for a rank of
     ``tp_generate_on_card``, whose launch counts the card's kernel
     counters assert."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    import chip_smoke
+    chip_smoke = _chip_smoke()
     monkeypatch.setattr(chip_smoke, "TPG_TOKENS", N_GEN + 1)
     monkeypatch.setattr(chip_smoke, "TPG_PROMPT", S)
     for name in CASES:

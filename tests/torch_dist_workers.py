@@ -395,6 +395,20 @@ def _serve_rows(a, ctx, rank, batch):
     return a[c * per:(c + 1) * per]
 
 
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    return chip_smoke
+
+
+def _combine_unscaled():
+    """``tools/tp_faults.py``'s ``combine_unscaled`` fault (importing the
+    tool plants nothing while ``TP_FAULT`` is unset)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import tp_faults
+    return tp_faults.combine_unscaled
+
+
 def tp_serve_case(rank, world, case):
     """``make_prefill_step`` of the prompt, then teacher-forced
     ``make_decode_step`` steps under ``ShardCtx(mesh, dp=("data",),
@@ -405,7 +419,10 @@ def tp_serve_case(rank, world, case):
     prefill logits' vocabulary block and cache blocks, each step's logits
     block and greedy token, and the cache blocks after the last step.
     Also a greedy token over planted ties across the vocabulary blocks,
-    the bytes staged by kind and the wrapper calls."""
+    the bytes staged by kind and the wrapper calls, and what
+    ``chip_smoke.CombineWatch`` reads of each step's combined attention
+    (``case["fault"] == "combine_unscaled"`` plants that fault for the
+    case's decode steps)."""
     from repro_torch.convert import params_from_reference
     from repro_torch.launch import steps
     from repro_torch.models import model as M
@@ -430,24 +447,33 @@ def tp_serve_case(rank, world, case):
         out["prefill_cache"] = {k: v.numpy() for k, v in cache.items()}
         out["prefill_stats"] = dict(C.STATS)
         if case.get("chain"):
-            sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-            import chip_smoke
-            cache = chip_smoke._regrow(cache, cfg, ctx, b, toks.shape[1],
-                                       case["seq_len"])
+            cache = _chip_smoke()._regrow(cache, cfg, ctx, b, toks.shape[1],
+                                          case["seq_len"])
         else:
             specs = M.cache_specs(cfg, ctx, b, case["seq_len"])
             cache = {k: sh.shard_leaf(_t(v), specs[k], mesh, rank).clone()
                      for k, v in case["cache"].items()}
         step = steps.make_decode_step(cfg, ctx)
         out["logits"], out["greedy"] = [], []
+        real_combine = M.combine_partials
+        if case.get("fault") == "combine_unscaled":
+            M.combine_partials = _combine_unscaled()
+        watch = _chip_smoke().CombineWatch(cfg, ctx, b, case["seq_len"])
         C.reset_stats()
-        for j, tok in enumerate(case["feed"]):
-            tok = _t(_serve_rows(tok, ctx, rank, b)).long()
-            nxt, lg, cache = step(params, cache, tok, case["pos"] + j,
-                                  batch=b, seq_len=case["seq_len"])
-            out["logits"].append(lg.numpy())
-            out["greedy"].append(nxt.numpy())
+        try:
+            with watch:
+                for j, tok in enumerate(case["feed"]):
+                    tok = _t(_serve_rows(tok, ctx, rank, b)).long()
+                    nxt, lg, cache = step(params, cache, tok,
+                                          case["pos"] + j, batch=b,
+                                          seq_len=case["seq_len"])
+                    watch.check()
+                    out["logits"].append(lg.numpy())
+                    out["greedy"].append(nxt.numpy())
+        finally:
+            M.combine_partials = real_combine
         out["decode_stats"] = dict(C.STATS)
+        out["combine_steps"] = watch.steps
         out["cache"] = {k: v.numpy() for k, v in cache.items()}
         # ties planted across the vocabulary blocks: the lowest index wins
         tied = torch.zeros(2, cfg.padded_vocab)

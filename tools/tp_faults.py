@@ -55,9 +55,12 @@ and each leaf's relative error beside its tolerance
 ``TPMB_*``); for the generate phase the logits' largest and mean
 absolute difference from one process's on the same tokens, beside
 their tolerances (``chip_smoke.tpg_tolerance``), and the greedy tokens
-that differ with the one process's margin at each; then ``nvidia-smi``'s
-name and power limit of the card.  The greedy tokens' margins stand
-beside the near-tie margin of ``chip_smoke.tpg_tolerance``.
+that differ with the one process's margin at each, and the largest
+distance, in bfloat16 steps, of a decode step's combined attention from
+``decode_attention`` over the gathered cache beside its tolerance
+(``chip_smoke.CombineWatch``, ``COMBINE_TOL_STEPS``); then
+``nvidia-smi``'s name and power limit of the card.  The greedy tokens'
+margins stand beside the near-tie margin of ``chip_smoke.tpg_tolerance``.
 """
 from __future__ import annotations
 
@@ -108,6 +111,15 @@ if os.environ.get("TP_ARCH"):
         if _arch in cs.TPG_CASES else {}
 
 
+def combine_unscaled(m, l, o, max_fn, sum_fn, dtype):
+    """``combine_partials`` with the ``combine_unscaled`` fault: the
+    blocks' partial sums added without rescaling each by ``e^(m - M)``
+    (also planted by ``tests/torch_dist_workers.py::tp_serve_case``)."""
+    out = sum_fn(o) / sum_fn(l)[..., None]
+    b, h, hd = out.shape
+    return out.reshape(b, 1, h, hd).to(dtype)
+
+
 def _plant(fault: str) -> None:
     """Put ``fault`` into this process's modules (see the docstring)."""
     if fault == "none":
@@ -122,11 +134,7 @@ def _plant(fault: str) -> None:
         _plant_mamba2(fault)
         return
     if fault == "combine_unscaled":
-        def combine(m, l, o, max_fn, sum_fn, dtype):
-            out = sum_fn(o) / sum_fn(l)[..., None]
-            b, h, hd = out.shape
-            return out.reshape(b, 1, h, hd).to(dtype)
-        M.combine_partials = combine
+        M.combine_partials = combine_unscaled
         return
     if fault not in ("attn_input_unsummed", "seq_weights_unsummed"):
         raise ValueError(f"unknown fault {fault!r}")
@@ -289,7 +297,11 @@ def _generate_line(arch: str, fault: str, device) -> dict:
             "tokens_equal": sum(r["tokens_equal"] for r in got),
             "tokens": sum(r["tokens"] for r in got),
             "token_margins": [m for r in got for m in r["token_margins"]],
-            "tie_margin": margin, "spawn_s": spawn_s}
+            "tie_margin": margin,
+            "combine_max_bf16_steps": max(
+                (x for r in got for x in r["combine_steps"]), default=None),
+            "combine_tol_bf16_steps": cs.COMBINE_TOL_STEPS,
+            "spawn_s": spawn_s}
 
 
 def run(device, phases=None) -> None:
