@@ -2141,9 +2141,15 @@ TOL_LSE = 1e-4
 #: float64): the directional derivative of sum(out * W) by a central
 #: difference of step FD_EPS, against <gradient, direction>, relative.
 FD_EPS, FD_TOL = 1e-3, 1e-3
-RAGGED_RMS_BWD = [((rows, d), dt) for rows in (1, 7, 70)
-                  for d in (32, 36, 384, 3584) for dt in ("float32",
-                                                          "bfloat16")]
+#: (shape, x dtype, w dtype) of the norm backward: one row, fewer rows than
+#: its 128 blocks, more (300: runs of two and three rows); packed and
+#: unpacked widths, the training paths' (768, 1920, 3584, 7168, the last
+#: also as Mamba2's float32-x / bfloat16-w pair) and 12288, wider than the
+#: ring takes.
+RAGGED_RMS_BWD = [((rows, d), dt, dt) for rows in (1, 7, 70, 300)
+                  for d in (32, 36, 384, 768, 1920, 3584, 7168, 12288)
+                  for dt in ("float32", "bfloat16")] + [
+    ((rows, 7168), "float32", "bfloat16") for rows in (1, 7, 70, 300)]
 #: (b, h, kv, sq, sk, d, causal, window): GQA, Sq != Sk both ways, a
 #: window, rows with no allowed key (the fifth), D = 256 with a group of two
 #: and of one, qwen2-7b's heads (a group of 7) at a ragged length, and keys
@@ -2349,9 +2355,10 @@ def _max_rel(got, want) -> tuple:
 def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
     """Backward kernel vs its plain version on the same inputs, within
     ``TOL_BWD`` of the largest magnitude (and, for the attention, the
-    forward's ``lse`` vs the plain one, and in bfloat16 a second launch
-    bit-equal to the first); with ``timed`` also ``ms``, ``device_ms``,
-    ``plain_ms``, ``library_ms`` and the bound."""
+    forward's ``lse`` vs the plain one); a second launch bit-equal to the
+    first (the attention's in bfloat16), and for the norm a CUDA-graph
+    replay too; with ``timed`` also ``ms``, ``device_ms``, ``plain_ms``,
+    ``library_ms`` and the bound."""
     a = bwd_inputs(name, key, device)
     kernel, plain, library, note = bwd_calls(name, key, a, timed)
     got = kernel()
@@ -2390,13 +2397,25 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         if not bool(fin.all()):          # those rows pass no gradient
             assert bool((got[0].float().abs().sum(-1)[~fin] == 0).all())
     if name == "flash_attention_bwd" and dt == torch.bfloat16 \
-            or name == "selective_scan_fused_bwd":
+            or name != "flash_attention_bwd":
         again = kernel()                 # no atomics: the same bits again
         torch.cuda.synchronize()
         row["repeat_bits_equal"] = all(
             (g is None and a_ is None) or torch.equal(g, a_)
             for g, a_ in zip(got, again))
         assert row["repeat_bits_equal"], (name, key)
+    if name == "rmsnorm_bwd":
+        # its cooperative launch replays from a CUDA graph (device_ms, the
+        # training step's capture) to the same bits
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = kernel()
+        graph.replay()
+        torch.cuda.synchronize()
+        row["graph_bits_equal"] = all(torch.equal(g, r)
+                                      for g, r in zip(got, replayed))
+        assert row["graph_bits_equal"], (name, key)
+        del graph, replayed
     if timed:
         b_ms, b_by = bwd_bound(name, key, a, got)
         fns = {"ms": kernel, "plain_ms": plain}
@@ -2544,9 +2563,9 @@ def check_bwd_ragged(device) -> dict:
     backward against autograd, each Function by finite differences, and
     the refusal of a gradient by the scan's decode step and plain form."""
     rows = []
-    for shape, dt in RAGGED_RMS_BWD:
-        for key in (("bwd", shape, dt, dt), ("add_bwd", shape, dt, dt, True),
-                    ("add_bwd", shape, dt, dt, False)):
+    for shape, xt, wt in RAGGED_RMS_BWD:
+        for key in (("bwd", shape, xt, wt), ("add_bwd", shape, xt, wt, True),
+                    ("add_bwd", shape, xt, wt, False)):
             rows.append(check_bwd_kernel("rmsnorm_bwd", key, device, False))
     for dt in ("float32", "bfloat16"):
         for b, h, kv, sq, sk, d, causal, window in RAGGED_FA_BWD:
@@ -5133,6 +5152,24 @@ def scan_bwd_ptxas(log: str) -> dict:
         if "scan_bwd_" in name else None)
 
 
+#: The norm backward's type pairs, as its instances' mangled names begin.
+RMS_BWD_TYPES = {"Iff": "f32/f32", "If13__nv_bfloat16": "f32/bf16",
+                 "I13__nv_bfloat16f": "bf16/f32",
+                 "I13__nv_bfloat16S1_": "bf16/bf16"}
+
+
+def rmsnorm_bwd_ptxas(log: str) -> dict:
+    """``ptxas_table`` of every instance of the norm backward, keyed "<x>/<w>
+    vec <pack> groups <1|4> <ring|direct>"."""
+    def label(name):
+        m = re.search(r"norm_bwd(I\w*?)Li(\d+)ELi(\d+)ELb([01])E", name)
+        if not m:
+            return None
+        return (f"{RMS_BWD_TYPES[m.group(1)]} vec {m.group(2)} groups "
+                f"{m.group(3)} {'ring' if m.group(4) == '1' else 'direct'}")
+    return ptxas_table(log, label)
+
+
 def attention_fwd_ptxas(log: str) -> dict:
     """``ptxas_table`` of every instance of the bfloat16 tensor-core
     attention forward, keyed "D=<d>" (without the lse store) and "D=<d>
@@ -5393,6 +5430,12 @@ def main() -> int:
             assert v["spill_bytes"] == [0, 0], (d, part, v)
     assert all(v["blocks_per_sm"] >= 1 for inst in attention.values()
                for v in inst.values() if "blocks_per_sm" in v), attention
+    # the norm backward: 4 type pairs x (ring of four groups, of one group,
+    # packed and element-wise without the ring), none spills
+    rms_bwd_regs = rmsnorm_bwd_ptxas(log)
+    assert len(rms_bwd_regs) == 4 * 4, rms_bwd_regs
+    assert all(v["spill_bytes"] == [0, 0] for v in rms_bwd_regs.values()), \
+        ("a norm backward instance spills", rms_bwd_regs)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled_now": _build.last_build_seconds is not None,
           "library": os.path.relpath(str(lib), ROOT),
@@ -5402,6 +5445,7 @@ def main() -> int:
           "attention_bf16_d128_spill_bytes": list(d128[0]),
           "scan_ptxas": scan_regs,
           "scan_bwd_ptxas": scan_bwd_regs,
+          "rmsnorm_bwd_ptxas": rms_bwd_regs,
           "scan_bwd_resident_blocks_per_sm": scan_bwd_resident,
           "attention_bwd_bf16_ptxas": bwd_regs,
           "attention_bf16_instances": attention,

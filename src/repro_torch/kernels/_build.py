@@ -166,8 +166,8 @@ def load_library() -> ctypes.CDLL:
         # (x, r, w, s, y, rows, d, eps, types, stream)
         "rmsnorm_fwd": [vp, vp, vp, ll, ci, dbl, ci, vp],
         "add_rmsnorm_fwd": [vp] * 5 + [ll, ci, dbl, ci, vp],
-        # (x, w, dy, ds, dx, dw, work, rows, d, eps, types, stream)
-        "rmsnorm_bwd": [vp] * 7 + [ll, ci, dbl, ci, vp],
+        # (x, w, dy, ds, dx, dw, work, rows, d, eps, types, blocks, stream)
+        "rmsnorm_bwd": [vp] * 7 + [ll, ci, dbl, ci, ci, vp],
         # flash_attention.cu: (q, k, v, o, lse, 4 x (batch, head, seq)
         #   strides, batch, heads, kv_heads, len_q, len_k, head_dim, scale,
         #   causal, window, q_offset, bf16, stream) and (q, k, v, o, dout,

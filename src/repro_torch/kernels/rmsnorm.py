@@ -16,13 +16,19 @@ residual stream goes through: ``s = x + r`` in ``x``'s type, stored, and
 ``x``'s type).  It counts in ``rmsnorm.launches``.
 
 Training differentiates both forms through a backward kernel of the same
-source (``rmsnorm_bwd``: one block a row for ``dx``, then ``dw`` by per-chunk
-partial sums folded in a fixed order, no atomics), bound by
-:class:`RMSNormFn` and :class:`AddRMSNormFn`.  A CUDA wrapper handed an
-input that requires a gradient, with grad mode on, goes through its
-Function; the backward launches count in ``rmsnorm.bwd_launches``.  The JAX
-package has no backward kernel (it differentiates its plain norm by
-autodiff); :func:`rmsnorm_bwd_ref` is the plain version of this one.
+source (``rmsnorm_bwd``), bound by :class:`RMSNormFn` and
+:class:`AddRMSNormFn`.  It is one cooperative launch of at most 128 blocks
+(:data:`BWD_MAX_BLOCKS`), each owning a run of consecutive rows
+(:func:`bwd_runs`): the rows stream through a ring in shared memory filled
+by TMA bulk copies, so ``x``, ``dy`` and ``ds_in`` cross HBM once; each
+block leaves its ``dw`` sums as one float32 partial row of a ``(blocks,
+d)`` workspace, and after a grid-wide sync the blocks fold the
+partial rows in block order — no atomics, so the bits repeat.  A CUDA
+wrapper handed an input that requires a gradient, with grad mode on, goes
+through its Function; the backward launches count in
+``rmsnorm.bwd_launches``.  The JAX package has no backward kernel (it
+differentiates its plain norm by autodiff); :func:`rmsnorm_bwd_ref` is the
+plain version of this one.
 
 The plain versions (``*_ref``) compute the same functions in the order of
 the reference (``models/layers.py::rms_norm``).  The kernel's sum runs in
@@ -219,6 +225,25 @@ def _add_rmsnorm_cuda(x, r, w, eps, types, d, index) -> tuple:
     return s, y
 
 
+#: Most blocks of the backward kernel's grid: fewer than the H100's 132
+#: SMs, so that its cooperative launch finds every block resident.
+BWD_MAX_BLOCKS = 128
+
+
+def bwd_runs(rows: int) -> list:
+    """The backward kernel's split of ``rows`` rows over its blocks, as
+    ``norm_bwd`` computes it from ``(rows, blocks)``: ``[(start, stop),
+    ...]`` for ``blocks = min(rows, BWD_MAX_BLOCKS)`` blocks, each a run of
+    ``rows // blocks`` consecutive rows, the first ``rows % blocks`` runs
+    one row longer.  The split depends on the shape alone, never on the
+    card, so the weight gradient's order of sums (and its bits) does not
+    either."""
+    blocks = min(rows, BWD_MAX_BLOCKS)
+    base, extra = divmod(rows, blocks)
+    starts = [b * base + min(b, extra) for b in range(blocks + 1)]
+    return list(zip(starts[:-1], starts[1:]))
+
+
 def _rmsnorm_bwd_cuda(x, w, dy, eps, ds_in, key) -> tuple:
     """One launch of the backward kernel: ``(dx, dw)`` for the norm's input
     ``x`` (contiguous, on the card), counted under the shape key ``key``."""
@@ -234,12 +259,13 @@ def _rmsnorm_bwd_cuda(x, w, dy, eps, ds_in, key) -> tuple:
     dw = torch.empty_like(w)
     if not rows:
         return dx, dw.zero_()
-    work = torch.empty(rows + min(rows, 64) * d, dtype=torch.float32,
-                       device=x.device)
+    blocks = min(rows, BWD_MAX_BLOCKS)     # as bwd_runs splits the rows
+    # one float32 partial row of dw sums a block
+    work = torch.empty(blocks * d, dtype=torch.float32, device=x.device)
     launch("rmsnorm_bwd", x.get_device(), x.data_ptr(), w.data_ptr(),
            dy.data_ptr(), None if ds_in is None else ds_in.data_ptr(),
            dx.data_ptr(), dw.data_ptr(), work.data_ptr(), rows, d, eps,
-           types)
+           types, blocks)
     rmsnorm.bwd_launches += 1
     rmsnorm.shapes[key] += 1
     return dx, dw
@@ -282,8 +308,8 @@ def _meta_add_rmsnorm(x, r, w, eps):
 
 class RMSNormFn(torch.autograd.Function):
     """:func:`rmsnorm` with its gradient: the forward kernel, then the
-    backward kernel on the saved input (``rstd`` is recomputed there, in
-    the forward's order).  On the CPU both sides are the plain versions,
+    backward kernel on the saved input (``r`` is recomputed there, in the
+    forward's order).  On the CPU both sides are the plain versions,
     so the Function itself can be tested there."""
 
     @staticmethod

@@ -15,8 +15,9 @@ the decode cache's state updated in place.  The planner's other entry
 points run there too: the live bandwidth probe, the plan server, an
 elastic replan and a churn replay, each equal to the host NumPy backend's
 result.  So does training: the backward kernels of ``rmsnorm`` (both forms)
-and ``flash_attention`` against their plain versions (the bfloat16
-attention backward also bit-equal to itself from launch to launch), the
+and ``flash_attention`` against their plain versions (the norm's and the
+bfloat16 attention backward also bit-equal to themselves from launch to
+launch, the norm's under a CUDA-graph replay too), the
 fused scan's backward against its plain version at ragged shapes and at
 falcon-mamba-7b's training microbatch (bit-equal to itself too), the
 autograd Functions the wrappers hand a gradient to, the scan forms that
@@ -703,10 +704,14 @@ def test_churn_replay_on_the_card_equals_numpy():
 # training: the backward kernels, the Functions, the train step
 # ---------------------------------------------------------------------------
 
-#: (rows, d) of the norm backward: packed and unpacked rows, one row, and
-#: more rows than the 64 chunks of the weight gradient's partial sums.
+#: (rows, d) of the norm backward: packed and unpacked rows, one row, more
+#: rows than the kernel's 128 blocks, and the training paths' widths —
+#: gpt-demo's 768 (8 rows a block), gpt-1.1b's 1920, zamba2's 7168 (the
+#: widest the ring of row stages takes) — and 12288, wider than the ring,
+#: at 64 rows (fewer rows than blocks).
 RMS_BWD_SHAPES = [(1, 32), (7, 384), (70, 4096), (5, 36), (3, 33),
-                  (300, 128)]
+                  (300, 128), (1024, 768), (512, 1920), (1024, 7168),
+                  (64, 12288)]
 #: (b, h, kv, sq, sk, d, causal, window): GQA, Sq != Sk both ways, a
 #: window, rows with no allowed key (the sixth), every head dim; groups of
 #: one head (no fold in bfloat16), two, four and seven (qwen2-7b's); keys
@@ -748,6 +753,123 @@ def test_rmsnorm_bwd_kernel_matches_plain(shape, dtype, with_ds):
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     _rel_close(dx, want_dx, tol)
     _rel_close(dw, want_dw, tol)
+
+
+def _rms_bwd_inputs(shape, xt, wt, with_ds, seed, offset=0):
+    """Seeded inputs of the norm backward; with ``offset`` each of x, dy
+    and ds starts ``offset`` elements into its storage (contiguous rows
+    behind an unaligned pointer)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = 1
+    for s_ in shape:
+        n *= s_
+
+    def rnd(dt, scale=1.0):
+        t = torch.empty(n + offset, dtype=dt, device="cuda")
+        t[offset:] = (torch.randn(n, generator=g, device="cuda")
+                      * scale).to(dt)
+        return t[offset:].view(shape)
+    x, dy = rnd(xt, 3.0), rnd(xt)
+    w = torch.randn(shape[-1], generator=g, device="cuda").to(wt)
+    return x, w, dy, rnd(xt) if with_ds else None
+
+
+def _rms_bwd_check(got, x, w, dy, ds):
+    want = rn.rmsnorm_bwd_ref(x, w, dy, 1e-5, ds)
+    for a, t in zip(got, want):
+        assert a.dtype == t.dtype
+        _rel_close(a, t, 2e-5 if a.dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("with_ds", [False, True], ids=["plain", "ds_in"])
+@pytest.mark.parametrize("shape", [(1024, 7168), (70, 7168), (3, 7168)],
+                         ids=str)
+def test_rmsnorm_bwd_kernel_float32_x_bfloat16_w(shape, with_ds):
+    """Mamba2's gated-norm type pair at its width: ``dx`` in float32
+    (2e-5), ``dw`` in bfloat16 (1e-2)."""
+    _need_cuda()
+    x, w, dy, ds = _rms_bwd_inputs(shape, torch.float32, torch.bfloat16,
+                                   with_ds, 7)
+    got = rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+    torch.cuda.synchronize()
+    assert got[1].dtype == torch.bfloat16
+    _rms_bwd_check(got, x, w, dy, ds)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", RMS_BWD_SHAPES, ids=str)
+def test_rmsnorm_bwd_repeats_bit_for_bit(shape, dtype):
+    """No atomics: ``dw`` is folded in block order, so two launches on the
+    same inputs give the same bits."""
+    _need_cuda()
+    x, w, dy, ds = _rms_bwd_inputs(shape, dtype, dtype, True, 11)
+    first = rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+    second = rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("with_ds", [False, True], ids=["plain", "ds_in"])
+@pytest.mark.parametrize("shape", [(1024, 768), (512, 1920), (1024, 7168),
+                                   (64, 12288), (3, 33)], ids=str)
+def test_rmsnorm_bwd_graph_replay_gives_the_launch_bits(shape, with_ds):
+    """The training phases time the kernel by CUDA-graph replay: a replay
+    of the captured launch gives the bits of a plain launch."""
+    _need_cuda()
+    x, w, dy, ds = _rms_bwd_inputs(shape, torch.bfloat16, torch.bfloat16,
+                                   with_ds, 13)
+    eager = rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
+def test_rmsnorm_bwd_shapes_back_to_back():
+    """Calls of different shapes, types and forms queued on the stream
+    with no synchronisation between them (each its own grid, ring depth
+    and workspace) are each right."""
+    _need_cuda()
+    cases = [((512, 1920), torch.bfloat16, torch.bfloat16, False),
+             ((1024, 768), torch.float32, torch.float32, True),
+             ((1024, 7168), torch.float32, torch.bfloat16, False),
+             ((7, 33), torch.bfloat16, torch.bfloat16, True),
+             ((64, 12288), torch.bfloat16, torch.bfloat16, True),
+             ((1, 32), torch.float32, torch.float32, False),
+             ((256, 3584), torch.bfloat16, torch.bfloat16, True)]
+    inputs = [_rms_bwd_inputs(s, xt, wt, ds, i)
+              for i, (s, xt, wt, ds) in enumerate(cases)]
+    torch.cuda.synchronize()
+    outs = [rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+            for x, w, dy, ds in inputs]
+    torch.cuda.synchronize()
+    for got, (x, w, dy, ds) in zip(outs, inputs):
+        _rms_bwd_check(got, x, w, dy, ds)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3], ids=lambda o: f"off{o}")
+@pytest.mark.parametrize("shape", [(70, 1920), (9, 33), (130, 1026),
+                                   (5, 8200)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rmsnorm_bwd_unaligned_and_unpacked_rows(dtype, shape, offset):
+    """Rows behind a pointer that is not 16-byte aligned, or of a width
+    that does not split into 16-byte packs, take the kernel's element-wise
+    instance; rows wider than 8192 its packed instance without the ring.
+    Each is right, with and without ``ds_in``, and repeats its bits."""
+    _need_cuda()
+    for with_ds in (False, True):
+        x, w, dy, ds = _rms_bwd_inputs(shape, dtype, dtype, with_ds,
+                                       sum(shape) + offset, offset)
+        got = rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+        again = rn._bwd(x, w, dy, 1e-5, ds, ("test",))
+        torch.cuda.synchronize()
+        _rms_bwd_check(got, x, w, dy, ds)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _fa_views(case, dtype, seed):

@@ -12,8 +12,9 @@ float64.  The backward kernels themselves run only on the card
 (``tests/test_torch_gpu.py`` and ``chip_smoke.py``); here a host emulation
 of the bfloat16 tensor-core backward's roundings (``P`` and ``dS`` rounded
 to bfloat16 as product operands) is held to the plain backward within the
-kernel's bfloat16 tolerance, and the attention source is held to the
-determinism rule (no atomics).
+kernel's bfloat16 tolerance, the attention, scan and norm sources are held
+to the determinism rule (no atomics), and the norm backward's row split
+(its blocks' runs and workspace) is checked as the wrapper hands it over.
 
 Tolerances: float32 against JAX and autograd 2e-5 relative to the
 largest magnitude (sums in another order); bfloat16 one bfloat16 step
@@ -295,6 +296,84 @@ def test_scan_source_uses_no_atomics():
     assert "atomicAdd" not in src
     assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
     assert "selective_scan_fused_bwd" in src
+
+
+def test_rmsnorm_source_uses_no_atomics():
+    """The same rule for the norm's backward: each block's ``dw`` sums leave
+    it as one float32 partial row, and after a grid-wide sync the blocks
+    fold the rows in block order."""
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    assert "atomicAdd" not in src
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
+    assert "rmsnorm_bwd" in src
+
+
+#: (rows, d) of the norm backward's row split: the training paths' rows
+#: (gpt-demo's (4, 256, 768), zamba2's gated (2, 512, 7168), gpt-1.1b's
+#: pipeline (1, 512, 1920) and tensor-parallel (2, 512, 1920) rows,
+#: qwen2-7b's (2, 512, 3584), falcon-mamba-7b's (2, 512, 4096), a
+#: (64, 12288) row set) and ragged counts: one row, fewer rows than
+#: blocks, one past a multiple of 128, not a multiple of the runs.
+RMS_SPLIT_SHAPES = [(1024, 768), (1024, 7168), (512, 1920), (1024, 1920),
+                    (1024, 3584), (1024, 4096), (64, 12288), (1, 32),
+                    (7, 384), (127, 64), (128, 64), (129, 64), (300, 128),
+                    (1000, 33), (100003, 16)]
+
+
+@pytest.mark.parametrize("rows, d", RMS_SPLIT_SHAPES, ids=str)
+def test_rmsnorm_bwd_row_split(rows, d, monkeypatch):
+    """Every row in exactly one block's run, runs consecutive and in order,
+    at most 128 blocks (one a row below that), and runs that differ by at
+    most one row.  The split asks nothing of a card: with every device
+    query refusing, it is the same."""
+    runs = rn.bwd_runs(rows)
+    blocks = len(runs)
+    assert rn.BWD_MAX_BLOCKS == 128 and blocks == min(rows, 128)
+    assert runs[0][0] == 0 and runs[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    lengths = [b - a for a, b in runs]
+    assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1
+    assert lengths == sorted(lengths, reverse=True)   # the longer runs first
+
+    def refuse(*a, **k):
+        raise AssertionError("the split asked the card")
+    for name in ("device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    assert rn.bwd_runs(rows) == runs
+
+
+@pytest.mark.parametrize("rows, d", [(1024, 768), (512, 1920), (7, 384),
+                                     (129, 64), (1000, 33)], ids=str)
+@pytest.mark.parametrize("with_ds", [False, True], ids=["plain", "ds_in"])
+def test_rmsnorm_bwd_wrapper_hands_the_kernel_the_split(rows, d, with_ds,
+                                                         monkeypatch):
+    """``_rmsnorm_bwd_cuda`` hands the C entry point ``bwd_runs``' block
+    count and a float32 workspace of one partial row of ``dw`` a block
+    (the call is caught before it reaches the library)."""
+    calls = []
+
+    def catch(name, index, *args):
+        calls.append((name, args))
+    monkeypatch.setattr(rn, "launch", catch)
+    monkeypatch.setattr(rn.rmsnorm, "bwd_launches", 0)
+    monkeypatch.setattr(rn.rmsnorm, "shapes", rn.Counter())
+    x, dy = torch.empty(rows, d), torch.empty(rows, d)
+    ds = torch.empty(rows, d) if with_ds else None
+    seen = {}
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        seen[t.data_ptr()] = t.numel()
+        return t
+    monkeypatch.setattr(rn.torch, "empty", empty)
+    rn._rmsnorm_bwd_cuda(x, torch.ones(d), dy, 1e-5, ds, ("test",))
+    assert [c[0] for c in calls] == ["rmsnorm_bwd"]
+    args = calls[0][1]
+    # (x, w, dy, ds, dx, dw, work, rows, d, eps, types, blocks)
+    assert args[7:9] == (rows, d) and args[11] == len(rn.bwd_runs(rows))
+    assert (args[3] is None) == (ds is None)
+    assert seen[args[6]] == len(rn.bwd_runs(rows)) * d
 
 
 #: Small cases for gradcheck, whose Jacobians take a forward pass per
