@@ -27,7 +27,8 @@ Phases: ``env`` (with the SM count and maximum SM clock that set the
 exponentials' rate of the scan's bound), ``build`` (with the ``ptxas``
 report: the bfloat16 D=128 attention instance must not spill, the scan's
 registers and spills per instance — plain, fused, and fused_bound, the
-training forward that keeps the chunk boundaries — none of which may
+training forward that keeps the chunk boundaries, and the bfloat16
+working type's forward (both instances) and backward — none of which may
 spill, the registers and spills of the bfloat16 attention backward's
 three passes at every head dim, none of which may spill at D=128, every
 bfloat16 attention instance's registers, spills, dynamic shared memory
@@ -173,9 +174,16 @@ call); with ``--profile`` also ``profile_sa``, ``profile_generate_*``
 (qwen2-7b, falcon-mamba-7b, granite-moe-3b-a800m, zamba2-7b),
 ``profile_train`` and
 ``profile_train_*`` of the other trained archs (torch.profiler: device
-busy and idle share).  ``scan_dtype_refusal`` (after the scan's
-phases) holds the card's refusal of ``scan_dtype="bfloat16"``, naming
-ROADMAP Queue A 10d.
+busy and idle share).  ``scan_bf16_on_card`` (after the scan's
+phases) holds the bfloat16 working type's forward and backward kernels
+(``scan_dtype="bfloat16"``) against their plain versions at
+falcon-mamba-7b's prefill and training shapes and at ragged ones, their
+bits under relaunch and CUDA-graph replay, and prints the gap a
+sequential bfloat16 prefix (the wrong order) leaves against the
+reference's tree; ``generate_falcon_mamba_7b_scan_bf16``,
+``train_falcon_mamba_7b_scan_bf16`` (no crash and resume) and
+``slice_check_train_falcon_mamba_7b_scan_bf16`` drive that working type
+through ``generate`` and ``train`` beside the float32 figures.
 Each plan is made twice — SA on the card
 (``backend="torch"``) and on the host (``backend="numpy"``) — and the two
 Plan JSONs must be byte-equal once the backend's name is dropped.  The
@@ -192,9 +200,12 @@ cache row, then the D skip, the gate and the cast).
 Then one ``{"kernels": [...]}`` line for all five kernels, the training
 forward of the scan (``selective_scan_fused_bound``, its instance that
 keeps the chunk boundaries, beside the generation instance on the same
-inputs) and the three backward kernels (after a ``run`` line with the
-whole run's seconds; each new phase prints its own), the ``nvidia-smi``
-line, and the final ``{"ok": true, ...}`` line.
+inputs), the bfloat16 working type's forward
+(``selective_scan_fused_bf16``) and the four backward kernels (the
+bfloat16 working type's ``selective_scan_fused_bf16_bwd`` among them)
+(after a ``run`` line with the whole run's seconds; each new phase
+prints its own), the ``nvidia-smi`` line, and the final ``{"ok": true,
+...}`` line.
 """
 from __future__ import annotations
 
@@ -359,7 +370,7 @@ def read_bwd_launches() -> dict:
 def is_bwd_key(key) -> bool:
     """Whether a wrapper's shape key counts a backward launch."""
     return isinstance(key, tuple) and bool(key) and key[0] in (
-        "bwd", "add_bwd", "fused_bwd")
+        "bwd", "add_bwd", "fused_bwd", "fused_bf16_bwd")
 
 
 def read_shapes() -> dict:
@@ -1490,6 +1501,13 @@ def model_inputs(name: str, key: tuple, device) -> tuple:
         (args, _) = fused_inputs(gen, ("fused",) + tuple(key[1:]) + (False,),
                                  device)
         return args[:-2] + (None,), {}
+    if key[0] in ("fused_bf16", "fused_bf16_bound"):
+        # the bfloat16 working type over a sequence: a prefill's state (the
+        # generation instance) or none (the training forward)
+        (args, _) = fused_inputs(gen, ("fused",) + tuple(key[1:]) + (False,),
+                                 device)
+        return args[:-2] + ((args[-2],) if key[0] == "fused_bf16"
+                            else (None,)), {}
     (b, s, d), n, dt = key
     dt_rank = -(-d // 32)            # d_inner = 2 d_model, dt_rank = d_model/16
     x = _randn(gen, (b, s, d), _dtype(dt), device, 0.5)
@@ -1587,7 +1605,9 @@ def model_bound(name: str, key: tuple, args, outs) -> tuple:
         rate = BF16_OPS_PER_S if "bfloat16" in dt else OPS_PER_S
     else:                          # any form of the scan
         x, n = args[0], (key[1] if len(key) == 3 else key[2])
-        ops, rate = 7 * x.numel() * n + x.numel(), OPS_PER_S
+        # the bfloat16 working type's tree: six more operations a state
+        per = 13 if str(key[0]).startswith("fused_bf16") else 7
+        ops, rate = per * x.numel() * n + x.numel(), OPS_PER_S
         if key[0] == "fused":      # h_out is h0: its bytes count once each way
             nbytes -= args[-1].numel() * 4
         t_exp = x.numel() * n / EXP_PER_S
@@ -1614,6 +1634,53 @@ def fused_bound_plain(x, dt, dt_bias, B, C, A_log, D, z, h0=None):
                                        bounds=True)
 
 
+def fused_bf16_kernel(x, dt, dt_bias, B, C, A_log, D, z, h0=None):
+    """The bfloat16 working type's generation instance (what a prefill
+    launches): ``(out, h)``."""
+    return ss.selective_scan_fused(x, dt, dt_bias, B, C, A_log, D, z, h0,
+                                   work_dtype=torch.bfloat16)
+
+
+def fused_bf16_plain(x, dt, dt_bias, B, C, A_log, D, z, h0=None):
+    """Its plain version: ``(out, h)``."""
+    return ss.selective_scan_fused_bf16_ref(x, dt, dt_bias, B, C, A_log, D,
+                                            z, h0)[:2]
+
+
+def fused_bf16_bound_kernel(x, dt, dt_bias, B, C, A_log, D, z, h0=None):
+    """The bfloat16 working type's training forward (what
+    ``SelectiveScanFusedBf16Fn`` launches): the instance that keeps the
+    state entering every chunk of ``q`` steps.  ``(out, h, bounds)``."""
+    bounds = ss._bounds_for(x, A_log.shape[-1], True)
+    out, h = ss._fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, None,
+                                False, bounds, work_bf16=True)
+    return out, h, bounds
+
+
+def sequential_bf16_state(x, dt, dt_bias, B, C, A_log, D, z, h0=None):
+    """The final state of the bfloat16 working type with a wrong order: each
+    chunk's prefix of ``(a, u)`` taken sequentially in bfloat16 (``a_t =
+    a_{t-1} a_t``, ``u_t = u_{t-1} a_t + u_t``, each op rounded) instead
+    of the reference's tree, in plain torch."""
+    f32, bf = torch.float32, torch.bfloat16
+    A = -torch.exp(A_log.to(f32))
+    dtf = ss.softplus(dt + dt_bias.to(dt.dtype)).to(f32)
+    b, s, d = x.shape
+    q = ss._pick_chunk(s, ss.SCAN_CHUNK)
+    h = (torch.zeros((b, d, A.shape[-1]), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    for c0 in range(0, s, q):
+        dq = dtf[:, c0:c0 + q]
+        a = torch.exp(dq[..., None] * A).to(bf)
+        u = ((dq * x[:, c0:c0 + q].to(f32))[..., None]
+             * B[:, c0:c0 + q, None, :].to(f32)).to(bf)
+        ac, uc = a[:, 0], u[:, 0]
+        for t in range(1, q):
+            ac, uc = ac * a[:, t], uc * a[:, t] + u[:, t]
+        h = ac.to(f32) * h + uc.to(f32)
+    return h
+
+
 MODEL_CALLS = {
     "rmsnorm": (rn.rmsnorm, rn.rmsnorm_ref),
     "add_rmsnorm": (rn.add_rmsnorm, rn.add_rmsnorm_ref),
@@ -1622,6 +1689,9 @@ MODEL_CALLS = {
     "selective_scan_fused": (ss.selective_scan_fused,
                              ss.selective_scan_fused_ref),
     "selective_scan_fused_bound": (fused_bound_kernel, fused_bound_plain),
+    "selective_scan_fused_bf16": (fused_bf16_kernel, fused_bf16_plain),
+    "selective_scan_fused_bf16_bound": (fused_bf16_bound_kernel,
+                                        ss.selective_scan_fused_bf16_ref),
 }
 
 
@@ -1629,13 +1699,16 @@ def _form(name: str, key: tuple):
     """The form a shape key names: None for a plain-form key, "add" for
     the residual form of ``rmsnorm``, "fused" / "fused_step" for the fused
     scan over a sequence / for a decode step, "fused_bound" for its
-    instance that keeps the chunk boundaries (the training forward)."""
+    instance that keeps the chunk boundaries (the training forward), and
+    "fused_bf16" / "fused_bf16_bound" for the bfloat16 working type's
+    generation and training instances."""
     if name == "rmsnorm" and key[0] == "add":
         return "add"
     if name == "selective_scan" and key[0] == "fused":
         return "fused_step" if key[-1] else "fused"
-    if name == "selective_scan" and key[0] == "fused_bound":
-        return "fused_bound"
+    if name == "selective_scan" and key[0] in ("fused_bound", "fused_bf16",
+                                               "fused_bf16_bound"):
+        return key[0]
     return None
 
 
@@ -1657,7 +1730,10 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
     form = _form(name, key)
     call = {"add": "add_rmsnorm", "fused": "selective_scan_fused",
             "fused_step": "selective_scan_fused",
-            "fused_bound": "selective_scan_fused_bound"}.get(form, name)
+            "fused_bound": "selective_scan_fused_bound",
+            "fused_bf16": "selective_scan_fused_bf16",
+            "fused_bf16_bound": "selective_scan_fused_bf16_bound"}.get(
+                form, name)
     kernel, plain = MODEL_CALLS[call]
     args, kw = model_inputs(name, key, device)
     fused = call == "selective_scan_fused"
@@ -1675,9 +1751,9 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         assert torch.equal(got[0], want[0]), (name, key, "s = x + r")
     tol = TOL[name][1 if got[0].dtype == torch.bfloat16 else 0]
     tols = [tol] * len(got)
-    if fused or form == "fused_bound":
+    if fused or form in ("fused_bound", "fused_bf16", "fused_bf16_bound"):
         tol = [2e-2 if got[0].dtype == torch.bfloat16 else 2e-4,
-               TOL_FUSED_STATE] + [TOL_FUSED_STATE] * (form == "fused_bound")
+               TOL_FUSED_STATE] + [TOL_FUSED_STATE] * (len(got) - 2)
         tols = tol
     err = 0.0
     for g, w, t in zip(got, want, tols):
@@ -1703,14 +1779,15 @@ def check_model_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         if fused:
             fns["unfused_ms"] = lambda: plain(*args, scan=ss.selective_scan,
                                               **kw)
-        if form == "fused_bound":
-            without = lambda: ss._fused_fwd_cuda(*args, None, False)  # noqa: E731
+        if form in ("fused_bound", "fused_bf16_bound"):
+            without = lambda: ss._fused_fwd_cuda(  # noqa: E731
+                *args, None, False, work_bf16=form == "fused_bf16_bound")
             fns["without_bounds_ms"] = without
         row.update({"library_ms": None,
                     **interleaved(lambda fn: time_ms(fn, reps=0), fns)})
         row.update(device_ms=device_ms(lambda: kernel(*args, **kw)),
                    bound_ms=b_ms, bound_by=b_by)
-        if form == "fused_bound":
+        if form in ("fused_bound", "fused_bf16_bound"):
             row["without_bounds_device_ms"] = device_ms(without)
     return row
 
@@ -1919,13 +1996,16 @@ def hybrid_generate_counts(cfg, plen: int, steps: int) -> tuple:
 SLICE_TOL_MAX, SLICE_TOL_MEAN = 0.25, 0.02
 
 
-def run_generate(name: str, arch: str, device) -> tuple:
+def run_generate(name: str, arch: str, device,
+                 scan_dtype: str = "float32") -> tuple:
     """``launch.generate.generate`` at full width and depth; asserts the
     exact launch count of each kernel (and, with attention, the one shape
     of the prefill's attention).  A vlm prompt is the config's image
     embeddings and ``max(GEN_PROMPT - n_img, 8)`` text tokens, as the
-    reference builds it."""
-    cfg = configs.get(arch)
+    reference builds it.  ``scan_dtype`` is a Mamba1 config's working type
+    (``"bfloat16"``: each prefill's scan in its bfloat16 instance, the
+    decode steps on the float32 step, as in the reference)."""
+    cfg = configs.get(arch).replace(scan_dtype=scan_dtype)
     torch.cuda.empty_cache()
     reset_launches()
     t0 = time.perf_counter()
@@ -1970,8 +2050,10 @@ def run_generate(name: str, arch: str, device) -> tuple:
     scans = {}
     if not attn and not hybrid:
         di, n = cfg.d_inner, cfg.ssm_state
-        scans = {("fused", (GEN_BATCH, GEN_PROMPT, di), n, bf, False):
-                 cfg.n_layers,
+        prefill = (("fused_bf16", (GEN_BATCH, GEN_PROMPT, di), n, bf)
+                   if scan_dtype == "bfloat16" else
+                   ("fused", (GEN_BATCH, GEN_PROMPT, di), n, bf, False))
+        scans = {prefill: cfg.n_layers,
                  ("fused", (GEN_BATCH, 1, di), n, bf, True):
                  cfg.n_layers * steps}
     assert shapes["selective_scan"] == scans, shapes["selective_scan"]
@@ -1980,6 +2062,7 @@ def run_generate(name: str, arch: str, device) -> tuple:
         "phase": name, "model": cfg.name, "family": cfg.family,
         "n_layers": cfg.n_layers, "d_model": d, "vocab": cfg.vocab_size,
         "batch": GEN_BATCH, "prompt_len": plen, "gen": GEN_TOKENS,
+        **({"scan_dtype": scan_dtype} if scans else {}),
         **({"image_embeddings": cfg.n_img_tokens,
             "text_tokens": plen - cfg.n_img_tokens}
            if cfg.frontend == "vlm" else {}),
@@ -2004,6 +2087,7 @@ def run_generate(name: str, arch: str, device) -> tuple:
             "rmsnorm": norms, "rmsnorm_residual_form": norms - 1,
             "selective_scan_fused": fused},
         "sample": toks[0, :8].tolist(),
+        "tokens": toks.tolist() if scans else None,
         "seconds": time.perf_counter() - t0,
     }
     del res
@@ -2134,6 +2218,11 @@ def slice_check(name: str, arch: str, device) -> dict:
 #: each plain backward against torch autograd of its plain forward.
 TOL_BWD = {"rmsnorm_bwd": (2e-5, 1e-2), "flash_attention_bwd": (1e-4, 1e-2),
            "selective_scan_fused_bwd": (1e-4, 1e-2)}
+#: The bfloat16 working type's backward against its plain version, in
+#: both input types: a float32 ulp between the kernel's and torch's
+#: sigmoid, exp or sum order can move a bfloat16 rounding of the tree's
+#: gradients a step, which the float32 gradients then carry.
+TOL_BWD_BF16_WORK = 1e-2
 #: The forward's log-sum-exp against the plain one (absolute, on finite
 #: rows; rows with no allowed key must be +inf on both sides).
 TOL_LSE = 1e-4
@@ -2184,8 +2273,9 @@ def bwd_inputs(name: str, key: tuple, device) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(zlib.crc32(repr(key).encode()))
     if name == "selective_scan_fused_bwd":
-        # ("fused_bwd", x shape, N, dtype[, with h0, with dh_final]); the
-        # training path's keys have neither
+        # ("fused_bwd" or "fused_bf16_bwd", x shape, N, dtype[, with h0,
+        # with dh_final]); the training path's keys have neither
+        work = key[0] == "fused_bf16_bwd"
         _, shape, n, dt = key[:4]
         with_h0, with_dhf = key[4:6] if len(key) > 4 else (False, False)
         args, _ = fused_inputs(gen, ("fused", tuple(shape), n, dt, False),
@@ -2194,12 +2284,14 @@ def bwd_inputs(name: str, key: tuple, device) -> dict:
         b, s, d = x.shape
         h0 = h0 if with_h0 else None
         fwd = (x, dt_, bias, B, C, A_log, D, z, h0)
-        out, h, bounds = fused_bound_kernel(*fwd)
+        out, h, bounds = (fused_bf16_bound_kernel if work
+                          else fused_bound_kernel)(*fwd)
         # the generation instance gives the same bits without them
-        out_g, h_g = ss._fused_fwd_cuda(*fwd, None, False)
+        out_g, h_g = ss._fused_fwd_cuda(*fwd, None, False, work_bf16=work)
         torch.cuda.synchronize()
         assert torch.equal(out, out_g) and torch.equal(h, h_g), (name, key)
-        want = fused_bound_plain(*fwd)[2]
+        want = (ss.selective_scan_fused_bf16_ref if work
+                else fused_bound_plain)(*fwd)[2]
         assert bool(((bounds - want).abs() <= TOL_FUSED_STATE * (
             1 + want.abs())).all()), (name, key, "bounds")
         return {"x": x, "dt": dt_, "dt_bias": bias, "B": B, "C": C,
@@ -2238,8 +2330,11 @@ def bwd_calls(name: str, key: tuple, a: dict, timed: bool) -> tuple:
     if name == "selective_scan_fused_bwd":
         args = [a[k] for k in ("x", "dt", "dt_bias", "B", "C", "A_log", "D",
                                "z", "h0", "dout", "dh_final")]
-        return (lambda: ss._bwd_cuda(*args, a["bounds"]),
-                lambda: ss.selective_scan_fused_bwd_ref(*args), None,
+        work = key[0] == "fused_bf16_bwd"
+        plain = (ss.selective_scan_fused_bf16_bwd_ref if work
+                 else ss.selective_scan_fused_bwd_ref)
+        return (lambda: ss._bwd_cuda(*args, a["bounds"], work_bf16=work),
+                lambda: plain(*args), None,
                 "none (no single PyTorch call computes this backward)")
     if name == "rmsnorm_bwd":
         x, w, dy, ds = a["x"], a["w"], a["dy"], a["ds"]
@@ -2354,18 +2449,21 @@ def _max_rel(got, want) -> tuple:
 
 def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
     """Backward kernel vs its plain version on the same inputs, within
-    ``TOL_BWD`` of the largest magnitude (and, for the attention, the
-    forward's ``lse`` vs the plain one); a second launch bit-equal to the
-    first (the attention's in bfloat16), and for the norm a CUDA-graph
-    replay too; with ``timed`` also ``ms``, ``device_ms``, ``plain_ms``,
-    ``library_ms`` and the bound."""
+    ``TOL_BWD`` of the largest magnitude (``TOL_BWD_BF16_WORK`` for the
+    scan's bfloat16 working type; and, for the attention, the forward's
+    ``lse`` vs the plain one); a second launch bit-equal to the first (the
+    attention's in bfloat16), and for the norm and the bfloat16 working
+    type's scan a CUDA-graph replay too; with ``timed`` also ``ms``,
+    ``device_ms``, ``plain_ms``, ``library_ms`` and the bound."""
     a = bwd_inputs(name, key, device)
     kernel, plain, library, note = bwd_calls(name, key, a, timed)
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
     dt = got[0].dtype
-    tol = TOL_BWD[name][1 if dt == torch.bfloat16 else 0]
+    work = key[0] == "fused_bf16_bwd"
+    tol = TOL_BWD_BF16_WORK if work else \
+        TOL_BWD[name][1 if dt == torch.bfloat16 else 0]
     err = 0.0
     for g, w in zip(got, want):
         if w is None:                  # the scan's dh0 without h0
@@ -2376,7 +2474,8 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
         diff, scale = _max_rel(g, w)
         # each output at its own type's tolerance (the gated norm's dw is
         # bfloat16 beside a float32 dx)
-        t = TOL_BWD[name][1 if g.dtype == torch.bfloat16 else 0]
+        t = TOL_BWD_BF16_WORK if work else \
+            TOL_BWD[name][1 if g.dtype == torch.bfloat16 else 0]
         assert diff <= t * max(scale, 1e-30), (name, key, diff, scale)
         err = max(err, diff)
     row = {"name": name, "key": json.loads(json.dumps(key, default=str)),
@@ -2404,16 +2503,18 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
             (g is None and a_ is None) or torch.equal(g, a_)
             for g, a_ in zip(got, again))
         assert row["repeat_bits_equal"], (name, key)
-    if name == "rmsnorm_bwd":
-        # its cooperative launch replays from a CUDA graph (device_ms, the
-        # training step's capture) to the same bits
+    if name == "rmsnorm_bwd" or work:
+        # its cooperative launch (the bfloat16 working type's: its pairs'
+        # partials added in order) replays from a CUDA graph (device_ms,
+        # the training step's capture) to the same bits
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             replayed = kernel()
         graph.replay()
         torch.cuda.synchronize()
-        row["graph_bits_equal"] = all(torch.equal(g, r)
-                                      for g, r in zip(got, replayed))
+        row["graph_bits_equal"] = all(
+            (g is None and r is None) or torch.equal(g, r)
+            for g, r in zip(got, replayed))
         assert row["graph_bits_equal"], (name, key)
         del graph, replayed
     if timed:
@@ -2423,7 +2524,10 @@ def check_bwd_kernel(name: str, key: tuple, device, timed: bool) -> dict:
             fns["library_ms"] = library
         row.update({"library_ms": None, "library": note,
                     **interleaved(lambda fn: time_ms(fn, reps=0), fns)})
-        row.update(device_ms=device_ms(kernel), bound_ms=b_ms, bound_by=b_by)
+        # the bfloat16 working type's backward takes tens of ms a call:
+        # fewer captured calls (its time is the mean all the same)
+        row.update(device_ms=device_ms(kernel, reps=5, replays=2) if work
+                   else device_ms(kernel), bound_ms=b_ms, bound_by=b_by)
     return row
 
 
@@ -2953,11 +3057,13 @@ def train_launches(cfg) -> tuple:
         n = cfg.ssm_state
         want["selective_scan"] = per * 2 * L
         want_bwd["selective_scan_fused_bwd"] = per * L
-        # every forward goes through SelectiveScanFusedFn, remat's
+        # every forward goes through SelectiveScanFusedFn (or, with the
+        # bfloat16 working type, SelectiveScanFusedBf16Fn), remat's
         # recompute too: the instance that keeps the chunk boundaries
-        shapes["selective_scan"] = {("fused_bound", x_shape, n, bf):
+        work = "fused_bf16" if cfg.scan_dtype == "bfloat16" else "fused"
+        shapes["selective_scan"] = {(work + "_bound", x_shape, n, bf):
                                     per * 2 * L,
-                                    ("fused_bwd", x_shape, n, bf): per * L}
+                                    (work + "_bwd", x_shape, n, bf): per * L}
         step.update(selective_scan_fused_fwd=2 * L * micro,
                     selective_scan_fused_bwd=L * micro)
     return want, want_bwd, shapes, step
@@ -3004,7 +3110,8 @@ def hybrid_train_launches(cfg, mb: tuple, micro: int, per: int) -> tuple:
     return want, want_bwd, shapes, step
 
 
-def run_train(device, arch: str) -> tuple:
+def run_train(device, arch: str, scan_dtype: str = "float32",
+              resume: bool = True) -> tuple:
     """``launch.train.train`` on ``arch`` at full width and its
     ``TRAIN_ARCHS`` layers (the one cut): exact forward (twice a layer
     under remat) and backward launch counts of every kernel and form on
@@ -3014,10 +3121,14 @@ def run_train(device, arch: str) -> tuple:
     bit.  Only the failing run saves (at step ``TRAIN_CKPT_EVERY``, the
     checkpoint the resume reads): the uninterrupted and the resumed run
     write none, since nothing would read one (each is 10–20 GB at these
-    sizes), so their steps are timed without a writer beside them."""
+    sizes), so their steps are timed without a writer beside them.
+    ``scan_dtype`` is a Mamba1 config's working type; ``resume=False``
+    runs the uninterrupted run alone."""
     t_phase = time.perf_counter()
     full_layers, suffix, n_layers = TRAIN_ARCHS[arch]
-    cfg = configs.get(arch).replace(n_layers=n_layers)
+    cfg = configs.get(arch).replace(n_layers=n_layers, scan_dtype=scan_dtype)
+    if scan_dtype != "float32":
+        suffix += "_scan_" + {"bfloat16": "bf16"}[scan_dtype]
     assert cfg.remat and cfg.dtype == "bfloat16"
     kw = dict(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
               n_micro=TRAIN_MICRO, lr=TRAIN_LR, ckpt_every=TRAIN_CKPT_EVERY,
@@ -3039,31 +3150,35 @@ def run_train(device, arch: str) -> tuple:
         shutil.rmtree(os.path.join(tmp, "full"), ignore_errors=True)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        try:
-            train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "resume"),
-                            fail_at=TRAIN_FAIL_AT, **kw)
-        except RuntimeError as e:
-            assert f"injected failure at step {TRAIN_FAIL_AT}" in str(e), e
-        else:
-            raise AssertionError("the failure was not injected")
-        torch.cuda.empty_cache()
-        resumed = train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "resume"),
-                                  resume=True, save_final=False,
-                                  **dict(kw, ckpt_every=TRAIN_STEPS + 1))
+        if resume:
+            try:
+                train_cli.train(cfg, ckpt_dir=os.path.join(tmp, "resume"),
+                                fail_at=TRAIN_FAIL_AT, **kw)
+            except RuntimeError as e:
+                assert f"injected failure at step {TRAIN_FAIL_AT}" in str(e), e
+            else:
+                raise AssertionError("the failure was not injected")
+            torch.cuda.empty_cache()
+            resumed = train_cli.train(
+                cfg, ckpt_dir=os.path.join(tmp, "resume"), resume=True,
+                save_final=False, **dict(kw, ckpt_every=TRAIN_STEPS + 1))
         resume_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    rh = resumed["loop"].history
-    assert [h["step"] for h in rh] == list(range(TRAIN_CKPT_EVERY,
-                                                 TRAIN_STEPS))
     losses = [h["loss"] for h in hist]
-    assert [h["loss"] for h in rh] == losses[TRAIN_CKPT_EVERY:], \
-        ([h["loss"] for h in rh], losses)
-    bit_equal = all(torch.equal(a, b) for a, b in zip(
-        _tree.leaves(full["params"]), _tree.leaves(resumed["params"])))
-    assert bit_equal, "resumed parameters differ from the uninterrupted run"
+    if resume:
+        rh = resumed["loop"].history
+        assert [h["step"] for h in rh] == list(range(TRAIN_CKPT_EVERY,
+                                                     TRAIN_STEPS))
+        assert [h["loss"] for h in rh] == losses[TRAIN_CKPT_EVERY:], \
+            ([h["loss"] for h in rh], losses)
+        bit_equal = all(torch.equal(a, b) for a, b in zip(
+            _tree.leaves(full["params"]), _tree.leaves(resumed["params"])))
+        assert bit_equal, ("resumed parameters differ from the "
+                           "uninterrupted run")
+        del resumed
     assert all(np.isfinite(losses)), losses
-    del full, resumed
+    del full
     torch.cuda.empty_cache()
 
     want, want_bwd, want_shapes, per_step = train_launches(cfg)
@@ -3094,11 +3209,14 @@ def run_train(device, arch: str) -> tuple:
         "cut": f"n_layers {n_layers} of {full_layers} (full width: "
                f"{width}, vocab {cfg.vocab_size})",
         "dtype": cfg.dtype, "remat": cfg.remat, "global_batch": TRAIN_BATCH,
+        **({"scan_dtype": scan_dtype}
+           if cfg.family not in ATTENTION_FAMILIES
+           and cfg.family != "hybrid" else {}),
         "seq_len": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "steps": TRAIN_STEPS,
         "ckpt_every": TRAIN_CKPT_EVERY,
         "saves": {"uninterrupted_run": [], "failing_run": list(range(
             TRAIN_CKPT_EVERY, TRAIN_FAIL_AT + 1, TRAIN_CKPT_EVERY)),
-                  "resumed_run": []},
+                  "resumed_run": []} if resume else {"uninterrupted_run": []},
         "lr": TRAIN_LR, **run,
         "losses": losses, "step_s": [h["dt"] for h in hist],
         "warm_step_s": warm_s, "tokens_per_s": tokens / warm_s,
@@ -3114,7 +3232,7 @@ def run_train(device, arch: str) -> tuple:
         "resume": {"fail_at": TRAIN_FAIL_AT,
                    "resumed_from_step": TRAIN_CKPT_EVERY,
                    "losses_bit_equal": True, "params_bit_equal": True,
-                   "seconds_fail_and_resume": resume_s},
+                   "seconds_fail_and_resume": resume_s} if resume else None,
         "seconds": time.perf_counter() - t_phase,
     }
     return line, shapes
@@ -3154,15 +3272,15 @@ def profile_train(device, arch: str) -> dict:
     return out
 
 
-def slice_check_train(device, arch: str) -> dict:
+def slice_check_train(device, arch: str, scan_dtype: str = "float32") -> dict:
     """``arch`` at full width and ``SLICE_TRAIN_LAYERS`` layer, batch
     ``SLICE_TRAIN_BATCH`` x ``SLICE_TRAIN_SEQ``: one training step's loss
     and per-leaf gradients on the card (kernels) against the port's host
     path (``device="cpu"``, plain versions, autograd), on the same weights
-    and tokens."""
+    and tokens; ``scan_dtype`` as :func:`run_train`'s."""
     t_phase = time.perf_counter()
     cut = slice_cut(arch, SLICE_TRAIN_LAYERS)
-    cfg = configs.get(arch).replace(**cut)
+    cfg = configs.get(arch).replace(**cut, scan_dtype=scan_dtype)
     if arch in SLICE_DTYPE:
         cfg = cfg.replace(dtype=SLICE_DTYPE[arch])
     ctx = ShardCtx()
@@ -3200,8 +3318,11 @@ def slice_check_train(device, arch: str) -> dict:
         assert errs[name] <= SLICE_TRAIN_GRAD_TOL, (name, errs[name])
     del params, host, card, want
     torch.cuda.empty_cache()
-    phase = _train_phase("slice_check_train", arch)
+    phase = _train_phase("slice_check_train", arch) + (
+        "_scan_bf16" if scan_dtype == "bfloat16" else "")
     return {"phase": phase, "model": cfg.name,
+            **({"scan_dtype": scan_dtype} if scan_dtype != "float32"
+               else {}),
             "n_layers": SLICE_TRAIN_LAYERS,
             **({"cut": cut} if len(cut) > 1 else {}),
             "batch": SLICE_TRAIN_BATCH,
@@ -4136,39 +4257,80 @@ def dryrun_vs_card(line_pp: dict, line_tp: dict) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def scan_dtype_refusal(device) -> dict:
-    """``scan_dtype_refusal``: on the card, reduced falcon-mamba-7b's Mamba1
-    block with ``scan_dtype="bfloat16"`` raises ``NotImplementedError``
-    naming ROADMAP Queue A 10d, in the forward and under a gradient, and
-    launches nothing; with ``"float32"`` it runs (one fused launch), and
-    the decode step ignores the knob (one launch)."""
-    from repro_torch.models import mamba
+#: The bfloat16 working type's ragged cases (b, S, D, N): the reference's
+#: chunk q = 1, 7, 65 and 100 (S 1, 7, 130, 200), D not a multiple of a
+#: block's channels (8 forward, 32 backward), N at 16, 5 and 1; and
+#: falcon-mamba-7b's training microbatch (the prefill's is FALCON_SCAN).
+SCAN_BF16_RAGGED = [(2, 1, 24, 16), (1, 7, 9, 5), (2, 130, 45, 16),
+                    (1, 200, 40, 1)]
+FALCON_TRAIN_SCAN = (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 8192, 16)
+
+
+def scan_bf16_on_card(device) -> dict:
+    """``scan_bf16_on_card``: the fused scan with the bfloat16 working type
+    (``scan_dtype="bfloat16"``) on the card.  Its forward instances
+    (generation, and training: the one that keeps the state entering
+    every chunk) at falcon-mamba-7b's prefill and training shapes and at
+    ``SCAN_BF16_RAGGED`` in both input types, and its backward (with and
+    without ``h0`` and ``dh_final`` at the ragged shapes), against their
+    plain versions (the state within ``TOL_FUSED_STATE``, the gradients
+    within ``TOL_BWD_BF16_WORK``; each backward relaunched and replayed
+    from a CUDA graph for the same bits); the forward at the prefill
+    shape relaunched and replayed for the same bits; and the gap that a
+    wrong order — each chunk's prefix taken sequentially in bfloat16 —
+    leaves in the final state against the plain tree, which must exceed
+    the tolerance that the kernel meets."""
     t0 = time.perf_counter()
-    cfg = configs.get("falcon-mamba-7b").reduced(scan_dtype="bfloat16")
-    params = init_params(cfg, seed=0, device=device)
-    p = {k: v[0] for k, v in params["layers"].items()}
-    gen = torch.Generator(device=device).manual_seed(7)
-    x = torch.randn((2, 64, cfg.d_model), generator=gen, device=device)
-    reset_launches()
-    refused = {}
-    for name, grad in (("forward", False), ("gradient", True)):
-        xi = x.clone().requires_grad_(grad)
-        with torch.set_grad_enabled(grad):
-            try:
-                mamba.mamba1_block(xi, p, cfg)
-            except NotImplementedError as e:
-                refused[name] = str(e)
-        assert "Queue A 10d" in refused.get(name, ""), (name, refused)
-    assert read_launches()["selective_scan"] == 0
-    with torch.no_grad():
-        _, (h, conv) = mamba.mamba1_block(
-            x, p, cfg.replace(scan_dtype="float32"))
-        y1, _ = mamba.mamba1_block(x[:, 0], p, cfg, h0=h.clone(),
-                                   conv0=conv, single_step=True)
-    assert read_launches()["selective_scan"] == 2
-    assert bool(torch.isfinite(y1).all())
-    return {"phase": "scan_dtype_refusal", "model": cfg.name,
-            "refused": refused, "float32_and_step_launches": 2,
+    b, s, d, n = FALCON_SCAN
+    keys = [("fused_bf16", (b, s, d), n, "bfloat16"),
+            ("fused_bf16_bound", FALCON_TRAIN_SCAN[:3], n, "bfloat16")]
+    keys += [(form, (b_, s_, d_), n_, dt)
+             for dt in ("float32", "bfloat16")
+             for b_, s_, d_, n_ in SCAN_BF16_RAGGED
+             for form in ("fused_bf16", "fused_bf16_bound")]
+    fwd = [check_model_kernel("selective_scan", key, device, False)
+           for key in keys]
+    bwd_keys = [("fused_bf16_bwd", FALCON_TRAIN_SCAN[:3], n, "bfloat16")]
+    bwd_keys += [("fused_bf16_bwd", (b_, s_, d_), n_, dt, with_h0, with_dhf)
+                 for dt in ("float32", "bfloat16")
+                 for b_, s_, d_, n_ in SCAN_BF16_RAGGED
+                 for with_h0, with_dhf in SCAN_BWD_STARTS]
+    bwd = [check_bwd_kernel("selective_scan_fused_bwd", key, device, False)
+           for key in bwd_keys]
+    torch.cuda.empty_cache()
+    # the prefill instance's bits, relaunched and replayed from a graph
+    args, _ = model_inputs("selective_scan", keys[0], device)
+    first = fused_bf16_kernel(*args)
+    again = fused_bf16_kernel(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fused_bf16_kernel(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    bits = all(torch.equal(f, a) and torch.equal(f, r)
+               for f, a, r in zip(first, again, replayed))
+    assert bits, "the bfloat16 working type's forward changed its bits"
+    # the tolerance tells the reference's order from a sequential one
+    _, want_h = fused_bf16_plain(*args)
+
+    def state_gap(h):
+        return float(((h - want_h).abs() / (1 + want_h.abs())).max())
+
+    kernel_gap = state_gap(first[1])
+    wrong_gap = state_gap(sequential_bf16_state(*args))
+    assert kernel_gap <= TOL_FUSED_STATE < wrong_gap, (kernel_gap,
+                                                        wrong_gap)
+    del graph, first, again, replayed, args
+    torch.cuda.empty_cache()
+    return {"phase": "scan_bf16_on_card", "kernels": fwd + bwd,
+            "tol": {"state": TOL_FUSED_STATE,
+                    "out": {"float32": 2e-4, "bfloat16": 2e-2},
+                    "gradients": TOL_BWD_BF16_WORK},
+            "prefill_repeat_and_graph_bits_equal": bits,
+            "state_gap_at_prefill": {
+                "kernel_vs_plain_tree": kernel_gap,
+                "sequential_bf16_prefix_vs_plain_tree": wrong_gap,
+                "tol": TOL_FUSED_STATE},
             "seconds": time.perf_counter() - t0}
 
 
@@ -5152,6 +5314,20 @@ def scan_bwd_ptxas(log: str) -> dict:
         if "scan_bwd_" in name else None)
 
 
+def scan_bf16_ptxas(log: str) -> dict:
+    """``ptxas_table`` of the bfloat16 working type's scan kernels in both
+    input types, keyed "<type> <fwd|fwd_bound|bwd>"."""
+    def label(name):
+        if "scan_bf16_bwd_kernel" in name:
+            form = "bwd"
+        elif "scan_bf16_kernel" in name:
+            form = "fwd_bound" if "Lb1E" in name else "fwd"
+        else:
+            return None
+        return f"{'bf16' if 'bfloat16' in name else 'f32'} {form}"
+    return ptxas_table(log, label)
+
+
 #: The norm backward's type pairs, as its instances' mangled names begin.
 RMS_BWD_TYPES = {"Iff": "f32/f32", "If13__nv_bfloat16": "f32/bf16",
                  "I13__nv_bfloat16f": "bf16/f32",
@@ -5394,6 +5570,10 @@ def main() -> int:
     assert len(scan_regs) == 2 * 3, scan_regs       # 2 types x 3 forms
     assert all(v["spill_bytes"] == [0, 0] for v in scan_regs.values()), \
         ("a scan instance spills", scan_regs)
+    scan_bf16_regs = scan_bf16_ptxas(log)
+    assert len(scan_bf16_regs) == 2 * 3, scan_bf16_regs   # 2 types x 3
+    assert all(v["spill_bytes"] == [0, 0] for v in scan_bf16_regs.values()), \
+        ("a bfloat16 working-type scan instance spills", scan_bf16_regs)
     scan_bwd_regs = scan_bwd_ptxas(log)
     assert len(scan_bwd_regs) == 2 * 2, scan_bwd_regs   # 2 types x 2 kernels
     assert scan_bwd_regs["bf16 main"]["spill_bytes"] == [0, 0], \
@@ -5445,6 +5625,7 @@ def main() -> int:
           "attention_bf16_d128_spill_bytes": list(d128[0]),
           "scan_ptxas": scan_regs,
           "scan_bwd_ptxas": scan_bwd_regs,
+          "scan_bf16_work_ptxas": scan_bf16_regs,
           "rmsnorm_bwd_ptxas": rms_bwd_regs,
           "scan_bwd_resident_blocks_per_sm": scan_bwd_resident,
           "attention_bwd_bf16_ptxas": bwd_regs,
@@ -5502,12 +5683,26 @@ def main() -> int:
     scan_rows = check_scan_at_falcon_shapes(device)
     emit({"phase": "scan_at_falcon_shapes", "kernels": scan_rows})
     emit(scan_by_batch(device, scan_regs))
-    emit(scan_dtype_refusal(device))
-    gen_launches, gen_shapes = {}, {}
+    bf16_phase = scan_bf16_on_card(device)
+    emit(bf16_phase)
+    gen_launches, gen_shapes, gen_lines = {}, {}, {}
     for arch, name in GEN_ARCHS.items():
         line_g, gen_launches[name], gen_shapes[name] = run_generate(
             name, arch, device)
-        emit(line_g)
+        gen_lines[name] = line_g
+        emit({k: v for k, v in line_g.items() if k != "tokens"})
+    # falcon-mamba-7b with the bfloat16 working type, on the same weights
+    # and prompts (the same seed), beside the float32 figures
+    name = GEN_ARCHS["falcon-mamba-7b"] + "_scan_bf16"
+    line_g, gen_launches[name], gen_shapes[name] = run_generate(
+        name, "falcon-mamba-7b", device, "bfloat16")
+    f32_line = gen_lines[GEN_ARCHS["falcon-mamba-7b"]]
+    same = np.asarray(line_g.pop("tokens")) == np.asarray(f32_line["tokens"])
+    line_g["greedy_tokens_equal_to_float32"] = float(same.mean())
+    line_g["float32_working_type"] = {k: f32_line[k] for k in (
+        "prefill_s", "decode_ms_per_token", "peak_memory_bytes",
+        "seconds")}
+    emit(line_g)
     if args.profile:
         for arch in PROFILE_GEN_ARCHS:
             emit(profile_generate(
@@ -5528,13 +5723,25 @@ def main() -> int:
         if args.profile:
             emit(profile_train(device, arch))
         emit(slice_check_train(device, arch))
-        train_lines.append(line_tr)
-        fwd_tr[line_tr["phase"]] = {
-            name: {k: n for k, n in by.items() if not is_bwd_key(k)}
-            for name, by in shapes_tr.items()}
-        bwd_tr[line_tr["phase"]] = {
-            name: {k: n for k, n in by.items() if is_bwd_key(k)}
-            for name, by in shapes_tr.items()}
+        runs = [(line_tr, shapes_tr)]
+        if arch == "falcon-mamba-7b":
+            # the bfloat16 working type: one uninterrupted run on the same
+            # weights and batches, beside the float32 figures
+            line_b, shapes_b = run_train(device, arch, "bfloat16",
+                                         resume=False)
+            line_b["float32_working_type"] = {k: line_tr[k] for k in (
+                "warm_step_s", "losses", "step_s", "peak_memory_bytes")}
+            emit(line_b)
+            emit(slice_check_train(device, arch, "bfloat16"))
+            runs.append((line_b, shapes_b))
+        for line_run, shapes_run in runs:
+            train_lines.append(line_run)
+            fwd_tr[line_run["phase"]] = {
+                name: {k: n for k, n in by.items() if not is_bwd_key(k)}
+                for name, by in shapes_run.items()}
+            bwd_tr[line_run["phase"]] = {
+                name: {k: n for k, n in by.items() if is_bwd_key(k)}
+                for name, by in shapes_run.items()}
     line_pp, shapes_pp = pp_train()
     emit(line_pp)
     train_lines.append(line_pp)
@@ -5680,9 +5887,45 @@ def main() -> int:
                                       if r["name"] == name and "ms" in r]}
                    if name == "flash_attention_bwd" else {})}
 
+    def summary_bf16(backward: bool):
+        """The bfloat16 working type's forward (its generation and
+        training instances) or backward in a line of its own: launches on
+        the generation and training phases, the times at its most
+        launched shape, and ``max_abs_err`` over those shapes and
+        ``scan_bf16_on_card``'s."""
+        forms = ("fused_bf16_bwd",) if backward else ("fused_bf16",
+                                                      "fused_bf16_bound")
+        pool = bwd_rows if backward else model_rows
+        mine = [r for r in pool if r["key"][0] in forms]
+        by_phase = bwd_tr if backward else {**gen_shapes, **fwd_tr}
+        launches = sum(n for by in by_phase.values()
+                       for k, n in by["selective_scan"].items()
+                       if k[0] in forms)
+        assert launches == sum(launched(r) for r in mine) > 0, \
+            ("the bfloat16 working type's kernel was never launched", forms)
+        top = max(mine, key=launched)
+        checked = mine + [r for r in bf16_phase["kernels"]
+                          if r["key"][0] in forms]
+        return {"name": "selective_scan_fused_bf16"
+                + ("_bwd" if backward else ""), "route": "cuda",
+                "source": SOURCES["selective_scan"],
+                "replaces": KERNELS["selective_scan"],
+                "instance_of": ("the backward of " if backward else "")
+                + "selective_scan, fused form over a sequence with the "
+                  "bfloat16 working type (the reference computes it in "
+                  "plain jnp: src/repro/models/mamba.py:59)",
+                "shape": top["key"], "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in checked),
+                **{k: top[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "per_shape": mine}
+
     emit({"phase": "run", "seconds": time.perf_counter() - t_run})
     emit({"kernels": [summary(name) for name in KERNELS] + [summary_bound()]
-          + [summary_bwd(name) for name in BWD_KERNELS]})
+          + [summary_bf16(False)]
+          + [summary_bwd(name) for name in BWD_KERNELS]
+          + [summary_bf16(True)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -195,6 +195,13 @@ def load_library() -> ctypes.CDLL:
         + [ll, ll, ci, ci, ci, ci, ci, vp],
         # (bf16, &smem bytes, &blocks an SM): no launch, no stream
         "selective_scan_fused_bwd_occupancy": [ci, vp, vp],
+        # the bfloat16 working type: the fused forward's arguments with
+        # (q, bf16) for (bf16, step), the backward's with (q, bf16) for
+        # (chunk, channels, bf16)
+        "selective_scan_fused_bf16_fwd": [vp] * 12 + [ll] * 10
+        + [ll, ll, ci, ci, ci, ci, vp],
+        "selective_scan_fused_bf16_bwd": [vp] * 22 + [ll] * 13
+        + [ll, ll, ci, ci, ci, ci, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

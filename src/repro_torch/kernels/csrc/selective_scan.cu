@@ -1,4 +1,6 @@
-// Mamba1 selective scan, forward (CUDA C++, sm_90a), in two forms.
+// Mamba1 selective scan (CUDA C++, sm_90a): the forward in two forms, the
+// fused form's backward, and the fused form's forward and backward with
+// the bfloat16 working type.
 //
 // For each batch b and channel d, over t = 0 .. S-1 in order:
 //   h[n] = exp(dt[t] * A[d, n]) * h[n] + (dt[t] * x[t]) * B[t, n]
@@ -120,6 +122,42 @@
 //    dC by kFoldSplit slices of the blocks a output).  So two launches give
 //    the same bits, which a bitwise training resume needs.
 //
+// selective_scan_fused_bf16_fwd / _bwd (the fused form over a sequence
+// with the bfloat16 working type, cfg.scan_dtype "bfloat16"; no Pallas
+// counterpart: the JAX package computes it in plain jnp,
+// models/mamba.py::selective_scan(work_dtype=bfloat16)).  In chunks of q
+// steps (the reference's, any divisor of len up to 128): a = exp(dt A) and
+// u = (dt x) B in float32, each rounded to bfloat16; their inclusive scan
+// under (a_l a_r, u_l a_r + u_r) in jax.lax.associative_scan's odd/even
+// tree, every product and sum computed in float32 and rounded to bfloat16
+// on its own, as the reference's op-by-op bfloat16 rounds them (a native
+// bfloat16 multiply-add rounds once from the exact value and lands a step
+// away in rare double-rounding cases, which a chunk carries); then h_t =
+// a_cum h + u_scan in float32 from the float32 state carried across
+// chunks, and the fused form's prologue and epilogue as above.  Bound:
+// the same b*S*D*N exponentials as the float32 form (the tree adds some
+// six bfloat16 operations a state and step).  Design, simple first:
+//  * Forward: a block of kWChannels channels x 16 states, a thread a state;
+//    each lane's a and u live in a column of shared memory ([t][lane], so
+//    a warp's accesses at one t are conflict-free) and the thread replays
+//    the whole tree over its column alone, in place (up-sweep, then
+//    down-sweep), with no barrier between levels.  y sums the 16 lanes
+//    by a butterfly.  The training instance (BOUND) also stores the state
+//    entering every chunk, (b, len / q, d, n).
+//  * Backward: one warp a channel pair, kWPairs pairs of a block's 32
+//    channels in turn, chunks in reverse from the forward's boundaries.
+//    It rebuilds the chunk's tree keeping the up-sweep's values, forms
+//    g = dy C (plus the carry at the chunk's last step), rounds g h_in and
+//    g to bfloat16 and runs the tree's transpose in bfloat16 (the
+//    down-sweep's combines from level 0 up, then the up-sweep's from the
+//    top down; an up-sweep combine's a_r on level l is rebuilt from level
+//    0's a by the forward's own products, so six columns of q a lane
+//    suffice), then ds = da exp(dt A) and du into the nine gradients.  dB
+//    and dC leave as the float32 backward's per-32-channel partials (the
+//    pairs added in order) and go through its fold: no atomics.
+//  * Both are latency-bound: the columns take 512 (forward) and 1,536
+//    (backward) bytes of shared memory a lane at q = 128 (PERF.md).
+//
 // Plain C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
 
@@ -203,6 +241,7 @@ struct Args {
   int len, d, n;
   int vx, vdt, vb, vc, vz;  // copy width of each view: 16, 4 or 0 bytes
   int step;
+  int q;                    // the bfloat16 working type's chunk
 };
 
 // The ring slots (in the inputs' type), the float32 dt and dt * x of the
@@ -577,6 +616,7 @@ struct BwdArgs {
       o_sb, o_st;
   int batch, len, d, n, chunks, blocks;
   int vx, vdt, vb, vc, vz, vo;  // copy width of each view: 16, 4 or 0 bytes
+  int q;                        // the bfloat16 working type's chunk
 };
 
 // The ring slots (in the inputs' type); what the chunk's prologue computes
@@ -973,6 +1013,9 @@ int bwd_smem_setup() {
 }
 
 template <typename T>
+int launch_fold(const BwdArgs& p, cudaStream_t stream);
+
+template <typename T>
 int launch_bwd(BwdArgs& p, cudaStream_t stream) {
   const int es = (int)sizeof(T);
   p.vx = copy_bytes(p.x, p.x_sb, p.x_st, p.d, es);
@@ -987,6 +1030,13 @@ int launch_bwd(BwdArgs& p, cudaStream_t stream) {
   scan_bwd_kernel<T><<<grid, kBwdThreads, smem, stream>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  return launch_fold<T>(p, stream);
+}
+
+// The fold of a backward's partials (either working type's): its second
+// launch.
+template <typename T>
+int launch_fold(const BwdArgs& p, cudaStream_t stream) {
   const int threads = kFoldOut * kFoldSplit;
   const long long bc_blocks =
       (2LL * p.batch * p.len * p.n + kFoldOut - 1) / kFoldOut;
@@ -994,6 +1044,426 @@ int launch_bwd(BwdArgs& p, cudaStream_t stream) {
   scan_bwd_fold<T><<<(unsigned)(bc_blocks + (rest + threads - 1) / threads),
                      threads, 0, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+
+
+// ---------------------------------------------------------------------------
+// the fused form with the bfloat16 working type (cfg.scan_dtype "bfloat16")
+// ---------------------------------------------------------------------------
+
+constexpr int kWChunkMax = 128;                 // the reference's chunk target
+constexpr int kWChannels = 8;                   // forward: channels a block
+constexpr int kWThreads = kWChannels * kNMax;   // forward: a thread a state
+constexpr int kWBwdThreads = 2 * kNMax;         // backward: one warp, a pair
+constexpr int kWPairs = kBwdChannels / 2;       // backward: pairs a block
+constexpr int kWRows = 9;                       // backward: float rows
+
+__device__ __forceinline__ float bf_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float ld_bf(const __nv_bfloat16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+
+// One combine of the reference's scan, (a_l a_r, u_l a_r + u_r), into the
+// right element: each product and the sum in float32, each rounded to
+// bfloat16 on its own, as the reference's op-by-op bfloat16 rounds them
+// (a native bfloat16 multiply-add would round once from the exact value).
+__device__ __forceinline__ void combine_bf16(__nv_bfloat16* a,
+                                             __nv_bfloat16* u, int lft,
+                                             int r) {
+  const float al = ld_bf(a, lft), ul = ld_bf(u, lft);
+  const float ar = ld_bf(a, r), ur = ld_bf(u, r);
+  a[r] = __float2bfloat16_rn(__fmul_rn(al, ar));
+  u[r] = __float2bfloat16_rn(__fadd_rn(bf_round(__fmul_rn(ul, ar)), ur));
+}
+
+// The up-sweep of jax.lax.associative_scan's odd/even recursion over one
+// lane's q elements (element t at [t * S]), in place: level l + 1's element
+// i, the combine of level l's elements 2i and 2i + 1, replaces the latter
+// (at 2^(l+1) (i + 1) - 1).  Returns the number of levels.
+template <int S>
+__device__ int tree_up(__nv_bfloat16* a, __nv_bfloat16* u, int q) {
+  int l = 0;
+  for (int cnt = q; cnt >= 2; cnt >>= 1, ++l) {
+    const int half = 1 << l;
+    for (int r = 2 * half - 1; r < (cnt >> 1) * 2 * half; r += 2 * half)
+      combine_bf16(a, u, (r - half) * S, r * S);
+  }
+  return l;
+}
+
+// Its down-sweep, from the top level: level l's even elements 2, 4, ...
+// (q >> l of them in all) from the odd ones before them, already prefixes.
+template <int S>
+__device__ void tree_down(__nv_bfloat16* a, __nv_bfloat16* u, int q,
+                          int levels) {
+  for (int l = levels - 1; l >= 0; --l) {
+    const int half = 1 << l, nl = q >> l;
+    for (int k = 2; k < nl; k += 2) {
+      const int pos = half * (k + 1) - 1;
+      combine_bf16(a, u, (pos - half) * S, pos * S);
+    }
+  }
+}
+
+// The transpose of one combine into r: with its gradients (gA, gU) read at
+// r and the forward's a_l, u_l, a_r, in bfloat16, each product and sum
+// rounded on its own: g_a[l] += gA a_r, g_u[l] += gU a_r, g_a[r] = gA a_l
+// + gU u_l (g_u[r] = gU stays).
+__device__ __forceinline__ void uncombine_bf16(__nv_bfloat16* ga,
+                                               __nv_bfloat16* gu, int lft,
+                                               int r, float al, float ul,
+                                               float ar) {
+  const float gA = ld_bf(ga, r), gU = ld_bf(gu, r);
+  ga[lft] = __float2bfloat16_rn(
+      __fadd_rn(ld_bf(ga, lft), bf_round(__fmul_rn(gA, ar))));
+  gu[lft] = __float2bfloat16_rn(
+      __fadd_rn(ld_bf(gu, lft), bf_round(__fmul_rn(gU, ar))));
+  ga[r] = __float2bfloat16_rn(
+      __fadd_rn(bf_round(__fmul_rn(gA, al)), bf_round(__fmul_rn(gU, ul))));
+}
+
+// The dt of the fused form (JAX's softplus of dt_raw + bias, replayed in
+// T) of one (t, channel), from s = round_T(dt_raw + round_T(bias)).
+template <typename T>
+__device__ __forceinline__ float softplus_io(float s) {
+  const float e = round_to<T>(expf(-fabsf(s)));
+  return round_to<T>(fmaxf(s, 0.f) + round_to<T>(log1pf(e)));
+}
+
+// Shared memory of a forward block for chunks of q steps: each lane's a and
+// u ([q][kWThreads] bfloat16 each), then dt and dt * x of each (t, channel)
+// ([q][kWChannels] float32 each; the first holds y once a is formed).
+__host__ __device__ constexpr int work_fwd_smem(int q) {
+  return q * kWThreads * 2 * (int)sizeof(__nv_bfloat16) +
+         2 * q * kWChannels * (int)sizeof(float);
+}
+
+// The forward: a block of kWChannels channels, a thread a state (lane);
+// BOUND (the training path) also stores the float32 state entering every
+// chunk of q steps, for the backward.
+template <typename T, bool BOUND>
+__global__ void __launch_bounds__(kWThreads)
+scan_bf16_kernel(const Args p) {
+  extern __shared__ __align__(16) unsigned char work_smem[];
+  constexpr int S = kWThreads;
+  const int q = p.q;
+  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(work_smem);
+  __nv_bfloat16* su = sa + q * S;
+  float* sdt = reinterpret_cast<float*>(su + q * S);
+  float* sdx = sdt + q * kWChannels;
+  const int tid = threadIdx.x, c = tid / kNMax, k = tid % kNMax;
+  const int b = blockIdx.y, c0 = blockIdx.x * kWChannels, ch = c0 + c;
+  const int d = p.d, n = p.n, chunks = p.len / q;
+  const bool in = ch < d && k < n;
+  const unsigned full = 0xffffffffu;
+  const T* xg = (const T*)p.x + b * p.x_sb;
+  const T* dg = (const T*)p.dt + b * p.dt_sb;
+  const T* bg = (const T*)p.bm + b * p.b_sb;
+  const T* cg = (const T*)p.cm + b * p.c_sb;
+  const T* zg = (const T*)p.z + b * p.z_sb;
+  const float aval = in ? -expf(p.a[(long long)ch * n + k]) : 0.f;
+  const long long state = ((long long)b * d + ch) * n + k;
+  float h = in && p.h0 != nullptr ? p.h0[state] : 0.f;
+
+  for (int kc = 0; kc < chunks; ++kc) {
+    const long long t0 = (long long)kc * q;
+    if (BOUND && in)
+      p.bound[(((long long)b * chunks + kc) * d + ch) * n + k] = h;
+    // dt and dt * x once per (t, channel); zeros past d
+    for (int i = tid; i < q * kWChannels; i += S) {
+      const long long t = t0 + i / kWChannels;
+      const int c2 = c0 + i % kWChannels;
+      float dl = 0.f, dx = 0.f;
+      if (c2 < d) {
+        dl = softplus_io<T>(round_to<T>(to_f32(dg[t * p.dt_st + c2]) +
+                                        round_to<T>(p.dt_bias[c2])));
+        dx = dl * to_f32(xg[t * p.x_st + c2]);
+      }
+      sdt[i] = dl;
+      sdx[i] = dx;
+    }
+    __syncthreads();
+    // a = exp(dt A) and u = (dt x) B in float32, each rounded to bfloat16
+    for (int t = 0; t < q; ++t) {
+      const float bv = k < n ? to_f32(bg[(t0 + t) * p.b_st + k]) : 0.f;
+      sa[t * S + tid] =
+          __float2bfloat16_rn(expf(sdt[t * kWChannels + c] * aval));
+      su[t * S + tid] = __float2bfloat16_rn(sdx[t * kWChannels + c] * bv);
+    }
+    __syncthreads();                      // sdt takes y from here
+    tree_down<S>(sa + tid, su + tid, q, tree_up<S>(sa + tid, su + tid, q));
+    // h_t = a_cum h + u_scan in float32 from the state entering the chunk;
+    // y summed over the channel's 16 lanes by a butterfly
+    float hv = h;
+    for (int t = 0; t < q; ++t) {
+      hv = __fadd_rn(__fmul_rn(ld_bf(sa, t * S + tid), h),
+                     ld_bf(su, t * S + tid));
+      const float cv = k < n ? to_f32(cg[(t0 + t) * p.c_st + k]) : 0.f;
+      float part = __fmul_rn(hv, cv);
+#pragma unroll
+      for (int m = 8; m >= 1; m >>= 1)
+        part = __fadd_rn(part, __shfl_xor_sync(full, part, m));
+      if (k == 0) sdt[t * kWChannels + c] = part;
+    }
+    h = hv;
+    __syncthreads();
+    // the D skip and the gate, as the float32 instance takes them
+    for (int i = tid; i < q * kWChannels; i += S) {
+      const long long t = t0 + i / kWChannels;
+      const int c2 = c0 + i % kWChannels;
+      if (c2 >= d) continue;
+      const float y = sdt[i] + p.dskip[c2] * to_f32(xg[t * p.x_st + c2]);
+      const float zf = to_f32(zg[t * p.z_st + c2]);
+      const float gate = __fdividef(zf, 1.f + __expf(-zf));
+      ((T*)p.y)[((long long)b * p.len + t) * d + c2] = from_f32<T>(y * gate);
+    }
+    __syncthreads();                      // sdt and sdx are free
+  }
+  if (in) p.h_out[state] = h;
+}
+
+template <typename T, bool BOUND>
+int launch_bf16(Args& p, long long batch, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      scan_bf16_kernel<T, BOUND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      work_fwd_smem(kWChunkMax));
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.d + kWChannels - 1) / kWChannels, (unsigned)batch);
+  scan_bf16_kernel<T, BOUND>
+      <<<grid, kWThreads, work_fwd_smem(p.q), stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of a backward block (one warp: a channel pair, a thread a
+// state) for chunks of q steps: six bfloat16 columns of q a lane — a and u
+// through the forward's tree (its outputs at the end), their values after
+// the up-sweep, and their gradients — then kWRows float32 rows of the
+// pair's (t, channel) values ([q][2] each).
+__host__ __device__ constexpr int work_bwd_smem(int q) {
+  return 6 * q * kWBwdThreads * (int)sizeof(__nv_bfloat16) +
+         kWRows * q * 2 * (int)sizeof(float);
+}
+
+// The backward: a block walks the kWPairs channel pairs of its 32 channels
+// in turn, each pair's chunks in reverse; its dB, dC partials, its dA_log,
+// d(dt_bias), dD partials and their fold are the float32 backward's.
+template <typename T>
+__global__ void __launch_bounds__(kWBwdThreads)
+scan_bf16_bwd_kernel(const BwdArgs p) {
+  extern __shared__ __align__(16) unsigned char work_smem[];
+  constexpr int S = kWBwdThreads;
+  const int q = p.q;
+  const int tid = threadIdx.x, c = tid / kNMax, k = tid % kNMax;
+  // this lane's columns
+  __nv_bfloat16* wa = reinterpret_cast<__nv_bfloat16*>(work_smem) + tid;
+  __nv_bfloat16* wu = wa + q * S;
+  __nv_bfloat16* ua = wu + q * S;
+  __nv_bfloat16* uu = ua + q * S;
+  __nv_bfloat16* ga = uu + q * S;
+  __nv_bfloat16* gu = ga + q * S;
+  // per (t, channel) at [2 t + channel]: dt, dt * x, dy = dout silu(z), the
+  // softplus' slope, silu'(z), dout, y, sum_N ds A, sum_N du B
+  float* r_dt = reinterpret_cast<float*>(
+      reinterpret_cast<__nv_bfloat16*>(work_smem) + 6 * q * S);
+  float* r_dx = r_dt + 2 * q;
+  float* r_dy = r_dx + 2 * q;
+  float* r_sg = r_dy + 2 * q;
+  float* r_dsl = r_sg + 2 * q;
+  float* r_go = r_dsl + 2 * q;
+  float* r_y = r_go + 2 * q;
+  float* r_sa = r_y + 2 * q;
+  float* r_sb = r_sa + 2 * q;
+  const int b = blockIdx.y, blk = blockIdx.x;
+  const int d = p.d, n = p.n, len = p.len, chunks = len / q;
+  const unsigned full = 0xffffffffu;
+  const T* xg = (const T*)p.x + b * p.x_sb;
+  const T* dg = (const T*)p.dt + b * p.dt_sb;
+  const T* bg = (const T*)p.bm + b * p.b_sb;
+  const T* cg = (const T*)p.cm + b * p.c_sb;
+  const T* zg = (const T*)p.z + b * p.z_sb;
+  const T* og = (const T*)p.dout + b * p.o_sb;
+  // a lane's partial of dB (which 0) or dC (which 1) at step t, summed
+  // over the block's pairs in order
+  auto add_part = [&](int which, int j, long long t, float v) {
+    float* dst = p.bc_part +
+                 ((((long long)which * p.batch + b) * p.blocks + blk) * len +
+                  t) * n + k;
+    *dst = j == 0 ? v : __fadd_rn(*dst, v);
+  };
+
+  for (int j = 0; j < kWPairs; ++j) {
+    const int cp = blk * kBwdChannels + 2 * j;   // the pair's first channel
+    if (cp >= d) break;
+    const int ch = cp + c;
+    const bool in = ch < d && k < n;
+    const long long state = ((long long)b * d + ch) * n + k;
+    const float aval = in ? -expf(p.a_log[(long long)ch * n + k]) : 0.f;
+    float carry = in && p.dh_final != nullptr ? p.dh_final[state] : 0.f;
+    float dA = 0.f, acc_bias = 0.f, acc_d = 0.f;
+    for (int kc = chunks - 1; kc >= 0; --kc) {
+      const long long t0 = (long long)kc * q;
+      const float hin =
+          in ? p.bound[(((long long)b * chunks + kc) * d + ch) * n + k] : 0.f;
+      // once per (t, channel); zeros past d
+      for (int i = tid; i < 2 * q; i += S) {
+        const long long t = t0 + (i >> 1);
+        const int c2 = cp + (i & 1);
+        float dl = 0.f, dx = 0.f, dy = 0.f, sg = 0.f, dsl = 0.f, go = 0.f;
+        if (c2 < d) {
+          const float s = round_to<T>(to_f32(dg[t * p.dt_st + c2]) +
+                                      round_to<T>(p.dt_bias[c2]));
+          dl = softplus_io<T>(s);
+          dx = dl * to_f32(xg[t * p.x_st + c2]);
+          sg = __fdividef(1.f, 1.f + __expf(-s));
+          const float zf = to_f32(zg[t * p.z_st + c2]);
+          const float sz = __fdividef(1.f, 1.f + __expf(-zf));
+          const float gate = zf * sz;
+          go = to_f32(og[t * p.o_st + c2]);
+          dy = go * gate;
+          dsl = sz + gate * (1.f - sz);
+        }
+        r_dt[i] = dl;
+        r_dx[i] = dx;
+        r_dy[i] = dy;
+        r_sg[i] = sg;
+        r_dsl[i] = dsl;
+        r_go[i] = go;
+      }
+      __syncthreads();
+      // the forward's a and u and its tree, the up-sweep's values kept
+      for (int t = 0; t < q; ++t) {
+        const float bv = k < n ? to_f32(bg[(t0 + t) * p.b_st + k]) : 0.f;
+        wa[t * S] = __float2bfloat16_rn(expf(r_dt[2 * t + c] * aval));
+        wu[t * S] = __float2bfloat16_rn(r_dx[2 * t + c] * bv);
+      }
+      const int levels = tree_up<S>(wa, wu, q);
+      for (int t = 0; t < q; ++t) {
+        ua[t * S] = wa[t * S];
+        uu[t * S] = wu[t * S];
+      }
+      tree_down<S>(wa, wu, q, levels);
+      // the states, y, dC; g = dL/dh_t (the carry joins at the chunk's last
+      // step); the gradients of a_cum (g h_in) and u_scan (g) rounded to
+      // bfloat16; the carry into the chunk before, sum_t g a_cum in order
+      float carry_in = 0.f;
+      for (int t = 0; t < q; ++t) {
+        const float pa = ld_bf(wa, t * S);
+        const float hv = __fadd_rn(__fmul_rn(pa, hin), ld_bf(wu, t * S));
+        const float cv = k < n ? to_f32(cg[(t0 + t) * p.c_st + k]) : 0.f;
+        float part = __fmul_rn(hv, cv);
+#pragma unroll
+        for (int m = 8; m >= 1; m >>= 1)
+          part = __fadd_rn(part, __shfl_xor_sync(full, part, m));
+        if (k == 0) r_y[2 * t + c] = part;
+        const float dyv = r_dy[2 * t + c];
+        float g = __fmul_rn(dyv, cv);
+        if (t == q - 1) g = __fadd_rn(g, carry);
+        float dc = __fmul_rn(dyv, hv);
+        dc = __fadd_rn(dc, __shfl_xor_sync(full, dc, 16));
+        if (c == 0 && k < n) add_part(1, j, t0 + t, dc);
+        ga[t * S] = __float2bfloat16_rn(__fmul_rn(g, hin));
+        gu[t * S] = __float2bfloat16_rn(g);
+        carry_in = __fadd_rn(carry_in, __fmul_rn(g, pa));
+      }
+      carry = carry_in;
+      // the transposed tree: the down-sweep's combines from level 0 up,
+      // then the up-sweep's from the top down; the a_r of an up-sweep
+      // combine on level l is rebuilt from level 0's a by the forward's
+      // products with the kept values left of it
+      for (int l = 0; l < levels; ++l) {
+        const int half = 1 << l, nl = q >> l;
+        for (int k2 = 2; k2 < nl; k2 += 2) {
+          const int pos = half * (k2 + 1) - 1, lft = pos - half;
+          uncombine_bf16(ga, gu, lft * S, pos * S, ld_bf(wa, lft * S),
+                         ld_bf(wu, lft * S), ld_bf(ua, pos * S));
+        }
+      }
+      for (int l = levels - 1; l >= 0; --l) {
+        const int half = 1 << l, m = (q >> l) >> 1;
+        for (int r = 2 * half - 1; r < m * 2 * half; r += 2 * half) {
+          float ar = bf_round(expf(r_dt[2 * r + c] * aval));
+          for (int j2 = 0; j2 < l; ++j2)
+            ar = bf_round(__fmul_rn(ld_bf(ua, (r - (1 << j2)) * S), ar));
+          uncombine_bf16(ga, gu, (r - half) * S, r * S,
+                         ld_bf(ua, (r - half) * S), ld_bf(uu, (r - half) * S),
+                         ar);
+        }
+      }
+      // da through exp (ds = da exp(dt A)), du through (dt x) B: dA_log's
+      // partial, the sums over the channel's lanes, dB over the pair
+      for (int t = 0; t < q; ++t) {
+        const float dtv = r_dt[2 * t + c];
+        const float ds = __fmul_rn(ld_bf(ga, t * S), expf(dtv * aval));
+        const float w = ld_bf(gu, t * S);
+        const float bv = k < n ? to_f32(bg[(t0 + t) * p.b_st + k]) : 0.f;
+        dA = __fadd_rn(dA, __fmul_rn(ds, dtv));
+        float sa = __fmul_rn(ds, aval), sb = __fmul_rn(w, bv);
+#pragma unroll
+        for (int m = 8; m >= 1; m >>= 1) {
+          sa = __fadd_rn(sa, __shfl_xor_sync(full, sa, m));
+          sb = __fadd_rn(sb, __shfl_xor_sync(full, sb, m));
+        }
+        if (k == 0) {
+          r_sa[2 * t + c] = sa;
+          r_sb[2 * t + c] = sb;
+        }
+        float db = __fmul_rn(w, r_dx[2 * t + c]);
+        db = __fadd_rn(db, __shfl_xor_sync(full, db, 16));
+        if (c == 0 && k < n) add_part(0, j, t0 + t, db);
+      }
+      __syncthreads();
+      // once per (t, channel): dx, ddt_raw, dz and the sums of d(dt_bias)
+      // and dD (a thread keeps one channel: i & 1 is tid & 1)
+      for (int i = tid; i < 2 * q; i += S) {
+        const long long t = t0 + (i >> 1);
+        const int c2 = cp + (i & 1);
+        if (c2 >= d) continue;
+        const float xv = to_f32(xg[t * p.x_st + c2]);
+        const float dskip = p.dskip[c2];
+        const float ddt = (r_sa[i] + xv * r_sb[i]) * r_sg[i];
+        const long long o = ((long long)b * len + t) * d + c2;
+        ((T*)p.dx)[o] = from_f32<T>(r_dy[i] * dskip + r_dt[i] * r_sb[i]);
+        ((T*)p.ddt)[o] = from_f32<T>(ddt);
+        ((T*)p.dz)[o] =
+            from_f32<T>(r_go[i] * (r_y[i] + dskip * xv) * r_dsl[i]);
+        acc_bias += ddt;
+        acc_d += r_dy[i] * xv;
+      }
+      __syncthreads();
+    }
+    if (in) {
+      p.da_part[state] = dA;
+      if (p.dh0 != nullptr) p.dh0[state] = carry;
+    }
+    // each channel's sums over the 16 threads that kept it
+#pragma unroll
+    for (int m = 2; m < 32; m <<= 1) {
+      acc_bias += __shfl_xor_sync(full, acc_bias, m);
+      acc_d += __shfl_xor_sync(full, acc_d, m);
+    }
+    if (tid < 2 && cp + tid < d) {
+      p.vec_part[(long long)b * d + cp + tid] = acc_bias;
+      p.vec_part[((long long)p.batch + b) * d + cp + tid] = acc_d;
+    }
+  }
+}
+
+template <typename T>
+int launch_bf16_bwd(BwdArgs& p, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      scan_bf16_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      work_bwd_smem(kWChunkMax));
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(p.blocks, p.batch);
+  scan_bf16_bwd_kernel<T>
+      <<<grid, kWBwdThreads, work_bwd_smem(p.q), stream>>>(p);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return (int)e2;
+  return launch_fold<T>(p, stream);
 }
 
 }  // namespace
@@ -1164,6 +1634,129 @@ int selective_scan_fused_bwd(
   p.vec_part = w;
   return bf16 ? launch_bwd<__nv_bfloat16>(p, (cudaStream_t)stream)
               : launch_bwd<float>(p, (cudaStream_t)stream);
+}
+
+// The fused Mamba1 form with the bfloat16 working type over a sequence:
+// arguments as selective_scan_fused_fwd's (no step), and q, the chunk of
+// the reference's scan (1 <= q <= 128, dividing len).  bound: NULL, or
+// (batch, len / q, d, n) float32 contiguous, which then takes the state
+// entering every chunk (what selective_scan_fused_bf16_bwd reads).
+int selective_scan_fused_bf16_fwd(
+    const void* x, const void* dt, const void* bm, const void* cm,
+    const void* z, const void* a_log, const void* dt_bias, const void* dskip,
+    const void* h0, void* out, void* h_out, void* bound, long long x_sb,
+    long long x_st, long long dt_sb, long long dt_st, long long b_sb,
+    long long b_st, long long c_sb, long long c_st, long long z_sb,
+    long long z_st, long long batch, long long len, int d, int n, int q,
+    int bf16, void* stream) {
+  if (n < 1 || n > kNMax || q < 1 || q > kWChunkMax || len % q != 0 ||
+      batch < 1 || batch >= 65536 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  Args p = {};
+  p.x = x;
+  p.dt = dt;
+  p.bm = bm;
+  p.cm = cm;
+  p.z = z;
+  p.a = (const float*)a_log;
+  p.dt_bias = (const float*)dt_bias;
+  p.dskip = (const float*)dskip;
+  p.h0 = (const float*)h0;
+  p.h_out = (float*)h_out;
+  p.bound = (float*)bound;
+  p.y = out;
+  p.x_sb = x_sb;
+  p.x_st = x_st;
+  p.dt_sb = dt_sb;
+  p.dt_st = dt_st;
+  p.b_sb = b_sb;
+  p.b_st = b_st;
+  p.c_sb = c_sb;
+  p.c_st = c_st;
+  p.z_sb = z_sb;
+  p.z_st = z_st;
+  p.len = (int)len;
+  p.d = d;
+  p.n = n;
+  p.q = q;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bound != nullptr)
+    return bf16 ? launch_bf16<__nv_bfloat16, true>(p, batch, st)
+                : launch_bf16<float, true>(p, batch, st);
+  return bf16 ? launch_bf16<__nv_bfloat16, false>(p, batch, st)
+              : launch_bf16<float, false>(p, batch, st);
+}
+
+// Its backward: arguments as selective_scan_fused_bwd's, with q in place
+// of (chunk, channels) and bound the (batch, len / q, d, n) states that
+// selective_scan_fused_bf16_fwd wrote; the same workspace (blocks of 32
+// channels) and the same fold.
+int selective_scan_fused_bf16_bwd(
+    const void* x, const void* dt, const void* bm, const void* cm,
+    const void* z, const void* a_log, const void* dt_bias, const void* dskip,
+    const void* h0, const void* dout, const void* dh_final,
+    const void* bound, void* dx, void* ddt, void* dbm, void* dcm, void* dz,
+    void* ddt_bias, void* ddskip, void* da_log, void* dh0, void* work,
+    long long work_floats, long long x_sb, long long x_st,
+    long long dt_sb, long long dt_st, long long b_sb, long long b_st,
+    long long c_sb, long long c_st, long long z_sb, long long z_st,
+    long long o_sb, long long o_st, long long batch, long long len, int d,
+    int n, int q, int bf16, void* stream) {
+  if (n < 1 || n > kNMax || q < 1 || q > kWChunkMax || len % q != 0 ||
+      batch < 1 || batch >= 65536 || d < 1 || bound == nullptr)
+    return (int)cudaErrorInvalidValue;
+  BwdArgs p = {};
+  p.x = x;
+  p.dt = dt;
+  p.bm = bm;
+  p.cm = cm;
+  p.z = z;
+  p.dout = dout;
+  p.a_log = (const float*)a_log;
+  p.dt_bias = (const float*)dt_bias;
+  p.dskip = (const float*)dskip;
+  p.h0 = (const float*)h0;
+  p.dh_final = (const float*)dh_final;
+  p.bound = (const float*)bound;
+  p.dx = dx;
+  p.ddt = ddt;
+  p.dbm = dbm;
+  p.dcm = dcm;
+  p.dz = dz;
+  p.ddt_bias = (float*)ddt_bias;
+  p.ddskip = (float*)ddskip;
+  p.da_log = (float*)da_log;
+  p.dh0 = (float*)dh0;
+  p.x_sb = x_sb;
+  p.x_st = x_st;
+  p.dt_sb = dt_sb;
+  p.dt_st = dt_st;
+  p.b_sb = b_sb;
+  p.b_st = b_st;
+  p.c_sb = c_sb;
+  p.c_st = c_st;
+  p.z_sb = z_sb;
+  p.z_st = z_st;
+  p.o_sb = o_sb;
+  p.o_st = o_st;
+  p.batch = (int)batch;
+  p.len = (int)len;
+  p.d = d;
+  p.n = n;
+  p.q = q;
+  p.chunks = (int)(len / q);
+  p.blocks = (d + kBwdChannels - 1) / kBwdChannels;
+  if (work_floats < 2 * batch * p.blocks * len * n +
+                        batch * (long long)d * n + 2 * batch * d)
+    return (int)cudaErrorInvalidValue;
+  float* w = (float*)work;
+  p.bc_part = w;
+  w += 2 * batch * p.blocks * len * n;
+  p.da_part = w;
+  w += batch * (long long)d * n;
+  p.vec_part = w;
+  return bf16 ? launch_bf16_bwd<__nv_bfloat16>(p, (cudaStream_t)stream)
+              : launch_bf16_bwd<float>(p, (cudaStream_t)stream);
 }
 
 // The backward's main kernel as the card holds it: the dynamic shared

@@ -60,6 +60,26 @@ Function, or, for what no training path differentiates — the decode
 step, a state written into ``h_out``, and the plain form — raises
 ``NotImplementedError`` naming the ROADMAP rather than return a result
 cut from the graph.  On the CPU the plain versions differentiate.
+
+The fused form over a sequence also runs with the bfloat16 working type
+(``work_dtype=torch.bfloat16``, the model's ``scan_dtype``), which the JAX
+package computes in plain jnp (``models/mamba.py::selective_scan``): in
+chunks of ``q = _pick_chunk(S, 128)`` steps, ``a = exp(dt A)`` and ``u =
+(dt x) B`` in float32 rounded to bfloat16, their chunk-local prefix by
+``jax.lax.associative_scan``'s odd/even tree in bfloat16 (each product and
+sum rounded on its own), then ``h_t = a_cum h + u_scan`` in float32 from
+the float32 state carried across chunks.  On the card that is an instance
+of its own of the fused kernel (``selective_scan_fused_bf16_fwd``: a thread
+a state, the tree replayed over a lane's column of ``a, u`` in shared
+memory), counted under ``("fused_bf16", ...)`` keys, and under a gradient
+:class:`SelectiveScanFusedBf16Fn`: the instance that keeps the state
+entering every chunk (``("fused_bf16_bound", ...)``) and a backward kernel
+(``selective_scan_fused_bf16_bwd``, ``("fused_bf16_bwd", ...)``) that
+rebuilds each chunk's tree from its boundary and runs its transpose in
+bfloat16.  Their plain versions are :func:`selective_scan_chunked_ref`
+and :func:`selective_scan_fused_bf16_bwd_ref`.  It is bound like the
+float32 form, by its ``b S D N`` exponentials (the tree adds some six
+bfloat16 operations a state and step).
 """
 from __future__ import annotations
 
@@ -85,10 +105,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The chunk length the reference's sequence scan aims at; a chunk is the
 #: largest divisor of S not above it (:func:`selective_scan_chunked_ref`).
 SCAN_CHUNK = 128
-NO_WORK_DTYPE = ("cfg.scan_dtype 'bfloat16' (the scan's chunk-local prefix "
-                 "in bfloat16) has no kernel on the card: ROADMAP Queue A "
-                 "10d, the bf16 working-type Mamba1 scan on the card; it "
-                 "runs on the CPU, and 'float32' runs everywhere")
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -194,7 +210,8 @@ def associative_scan(a: torch.Tensor, u: torch.Tensor, dim: int = 1):
 
 def selective_scan_chunked_ref(x, dt, B, C, A, h0=None, *,
                                chunk: int = SCAN_CHUNK,
-                               work_dtype: torch.dtype = torch.bfloat16):
+                               work_dtype: torch.dtype = torch.bfloat16,
+                               bounds: bool = False):
     """The reference's chunked recurrence (``models/mamba.py::
     selective_scan`` with ``work_dtype``), for a working type other than
     float32: the sequence in chunks of ``_pick_chunk(S, chunk)`` steps;
@@ -203,7 +220,8 @@ def selective_scan_chunked_ref(x, dt, B, C, A, h0=None, *,
     :func:`associative_scan` in that type, then ``h_t = a_cum h + u_scan``
     in float32 from the float32 state carried across chunks, and ``y_t =
     sum_N h_t C_t``.  Arguments and results as :func:`selective_scan_ref`'s
-    (float32 ``y`` and final state)."""
+    (float32 ``y`` and final state); ``bounds`` adds a third output, the
+    float32 state entering every chunk, ``(b, S / q, D, N)``."""
     f32 = torch.float32
     b, s, d = x.shape
     n = B.shape[-1]
@@ -211,8 +229,9 @@ def selective_scan_chunked_ref(x, dt, B, C, A, h0=None, *,
     xf, dtf, Bf, Cf, Af = (t.to(f32) for t in (x, dt, B, C, A))
     h = (torch.zeros((b, d, n), dtype=f32, device=x.device)
          if h0 is None else h0.to(f32))
-    ys = []
+    ys, kept = [], []
     for c0 in range(0, s, q):
+        kept.append(h)
         xq, dtq = xf[:, c0:c0 + q], dtf[:, c0:c0 + q]
         a = torch.exp(dtq[..., None] * Af).to(work_dtype)      # (b,q,d,n)
         u = ((dtq * xq)[..., None] * Bf[:, c0:c0 + q, None, :]
@@ -221,7 +240,83 @@ def selective_scan_chunked_ref(x, dt, B, C, A, h0=None, *,
         h_all = a_cum.to(f32) * h[:, None] + u_scan.to(f32)
         ys.append(torch.einsum("bqdn,bqn->bqd", h_all, Cf[:, c0:c0 + q]))
         h = h_all[:, -1]
+    if bounds:
+        return torch.cat(ys, dim=1), h, torch.stack(kept, dim=1)
     return torch.cat(ys, dim=1), h
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_plan(q: int) -> tuple:
+    """The combines of :func:`associative_scan` over ``q`` elements done in
+    place, as the bfloat16 kernels replay them: ``(up, down)``, lists of
+    ``(level, lefts, rights)``.  The up-sweep's level ``l`` puts level ``l
+    + 1``'s element ``i``, the combine of level ``l``'s elements ``2i`` and
+    ``2i + 1``, where the latter lay (``2^(l+1) (i + 1) - 1``); the
+    down-sweep, from the top level, forms level ``l``'s even elements 2, 4,
+    ... from the odd ones before them.  Within a level the combines are
+    independent."""
+    up, cnt, level = [], q, 0
+    while cnt >= 2:
+        half = 1 << level
+        rights = list(range(2 * half - 1, (cnt // 2) * 2 * half, 2 * half))
+        up.append((level, [r - half for r in rights], rights))
+        cnt //= 2
+        level += 1
+    down = []
+    for level in reversed(range(len(up))):
+        half = 1 << level
+        pos = [half * (k + 1) - 1 for k in range(2, q >> level, 2)]
+        if pos:
+            down.append((level, [p - half for p in pos], pos))
+    return up, down
+
+
+def _combine_at(a, u, lefts, rights) -> None:
+    """:func:`_combine` of the elements ``lefts`` into ``rights`` along
+    axis 1, in place."""
+    a[:, rights], u[:, rights] = _combine((a[:, lefts], u[:, lefts]),
+                                          (a[:, rights], u[:, rights]))
+
+
+def _tree_scan(a: torch.Tensor, u: torch.Tensor) -> tuple:
+    """:func:`associative_scan` along axis 1 in place, by
+    :func:`_tree_plan`'s combines; returns copies of ``(a, u)`` as the
+    up-sweep leaves them, which the backward reads."""
+    up, down = _tree_plan(a.shape[1])
+    for _, lefts, rights in up:
+        _combine_at(a, u, lefts, rights)
+    kept = a.clone(), u.clone()
+    for _, lefts, rights in down:
+        _combine_at(a, u, lefts, rights)
+    return kept
+
+
+def _tree_transpose(ga, gu, fa, fu, ua, uu, a0) -> None:
+    """The transpose of :func:`_tree_scan` in place: ``ga, gu`` the
+    gradients of its outputs become those of its inputs.  ``fa, fu`` are
+    its outputs, ``ua, uu`` the up-sweep's values and ``a0`` its input
+    ``a``.  The down-sweep's combines are undone from level 0 up, then the
+    up-sweep's from the top down; a combine into ``r`` with the forward's
+    ``a_l, u_l, a_r`` and gradients ``gA, gU`` at ``r`` adds ``gA a_r`` to
+    ``ga[l]`` and ``gU a_r`` to ``gu[l]`` and sets ``ga[r] = gA a_l + gU
+    u_l``, each product and sum rounded to the tensors' type.  An up-sweep
+    combine's ``a_r`` on level ``l`` is rebuilt from ``a0`` by the
+    forward's products with the values left of it."""
+    up, down = _tree_plan(ga.shape[1])
+
+    def uncombine(lefts, rights, al, ul, ar):
+        gA, gU = ga[:, rights], gu[:, rights]
+        ga[:, lefts] = ga[:, lefts] + gA * ar
+        gu[:, lefts] = gu[:, lefts] + gU * ar
+        ga[:, rights] = gA * al + gU * ul
+
+    for _, lefts, pos in reversed(down):
+        uncombine(lefts, pos, fa[:, lefts], fu[:, lefts], ua[:, pos])
+    for level, lefts, rights in reversed(up):
+        ar = a0[:, rights]
+        for j in range(level):
+            ar = ua[:, [r - (1 << j) for r in rights]] * ar
+        uncombine(lefts, rights, ua[:, lefts], uu[:, lefts], ar)
 
 
 def selective_scan_bounds_ref(x, dt, B, C, A, h0=None, *,
@@ -406,6 +501,112 @@ def _walk_bounds(x, dt, dt_bias, B, A_log, h0, chunk: int) -> torch.Tensor:
     return torch.stack(kept, dim=1)
 
 
+def selective_scan_fused_bf16_ref(x, dt, dt_bias, B, C, A_log, D, z,
+                                  h0=None) -> tuple:
+    """The fused form over a sequence with the bfloat16 working type, as
+    the training path's instance computes it: :func:`selective_scan_fused_ref`
+    with :func:`selective_scan_chunked_ref` for the scan, and the float32
+    state entering every chunk as a third output, ``(b, S / q, D, N)``,
+    which :func:`selective_scan_fused_bf16_bwd_ref` takes as ``bounds=``."""
+    A = -torch.exp(A_log.to(torch.float32))
+    dt = softplus(dt + dt_bias.to(dt.dtype))
+    y, h, kept = selective_scan_chunked_ref(x, dt, B, C, A, h0, bounds=True)
+    return _gate(y, x, D, z), h, kept
+
+
+def selective_scan_fused_bf16_bwd_ref(x, dt, dt_bias, B, C, A_log, D, z, h0,
+                                      dout, dh_final=None, *,
+                                      bounds: Optional[torch.Tensor] = None,
+                                      chunk: int = SCAN_CHUNK) -> tuple:
+    """Gradients of the fused form over a sequence with the bfloat16
+    working type (:func:`selective_scan_fused_bf16_ref`), explicitly and
+    in the backward kernel's order, not by autograd.
+
+    Arguments and results as :func:`selective_scan_fused_bwd_ref`'s;
+    ``bounds`` is the state entering every chunk of ``q =
+    _pick_chunk(S, chunk)`` steps, ``(b, S / q, D, N)``, as the forward
+    keeps it (without it, the forward is run to find them).  The chunks go
+    in reverse; in each, from its boundary ``H``:
+
+    - ``a = exp(dt A)`` and ``u = (dt x) B`` rounded to bfloat16, their
+      tree (:func:`_tree_scan`, its up-sweep kept), ``h_t = a_cum_t H +
+      u_scan_t`` and ``y_t = sum_N h_t C_t`` in float32;
+    - ``g_t = dy_t C_t`` (``dy = dout silu(z)``), plus the carried
+      gradient at the chunk's last step; ``dC_t = sum_D dy_t h_t``;
+    - the gradients of ``a_cum`` and ``u_scan``, ``g H`` and ``g``, each
+      rounded to bfloat16, the tree's transpose in bfloat16
+      (:func:`_tree_transpose`), and the carry into the chunk before,
+      ``sum_t g_t a_cum_t`` added in the order of ``t``;
+    - ``ds = da exp(dt A)`` and ``w = du`` in float32: ``dA += ds dt``,
+      ``d(dt) = sum_N ds A + x sum_N w B``, ``dx = dy D + dt sum_N w B``,
+      ``dB_t = sum_D w dt x``, then the softplus' slope, ``dz``, ``dD``
+      and ``d(dt_bias)`` as the float32 form's; ``dh0`` is the last
+      carry.
+    """
+    io, f32, bf = x.dtype, torch.float32, torch.bfloat16
+    b, s, d = x.shape
+    n = A_log.shape[-1]
+    q = _pick_chunk(s, chunk)
+    A = -torch.exp(A_log.to(f32))
+    raw = dt + dt_bias.to(io)
+    dt_io = softplus(raw)
+    dtf = dt_io.to(f32)
+    sig = torch.sigmoid(raw.to(f32))
+    xf, zf, Bf, Cf, gof = (t.to(f32) for t in (x, z, B, C, dout))
+    dtx = dtf * xf
+    Df = D.to(f32)
+    sz = torch.sigmoid(zf)
+    gate = zf * sz
+    dgate = sz * (1 + zf * (1 - sz))                 # silu'(z)
+    dy = gof * gate
+    if bounds is None:
+        _, _, bounds = selective_scan_chunked_ref(x, dt_io, B, C, A, h0,
+                                                  chunk=chunk, bounds=True)
+    elif bounds.shape != (b, s // q, d, n):
+        raise ValueError(f"bounds must be (b, S / {q}, D, N) = "
+                         f"{(b, s // q, d, n)}, got {tuple(bounds.shape)}")
+    carry = (torch.zeros((b, d, n), dtype=f32, device=x.device)
+             if dh_final is None else dh_final.to(f32))
+    dx, ddt, dz = (torch.empty((b, s, d), dtype=f32, device=x.device)
+                   for _ in range(3))
+    dB, dC = (torch.empty((b, s, n), dtype=f32, device=x.device)
+              for _ in range(2))
+    dA = torch.zeros((b, d, n), dtype=f32, device=x.device)
+    for k in reversed(range(s // q)):
+        sl = slice(k * q, (k + 1) * q)
+        H = bounds[:, k].to(f32)[:, None]                       # (b,1,d,n)
+        dq, Cq = dtf[:, sl], Cf[:, sl]
+        e = torch.exp(dq[..., None] * A)                        # (b,q,d,n)
+        a = e.to(bf)
+        a0 = a.clone()
+        u = (dtx[:, sl][..., None] * Bf[:, sl, None, :]).to(bf)
+        ua, uu = _tree_scan(a, u)
+        a_cum = a.to(f32)
+        h_all = a_cum * H + u.to(f32)
+        y = torch.einsum("bqdn,bqn->bqd", h_all, Cq)
+        g = dy[:, sl, :, None] * Cq[:, :, None, :]
+        g[:, -1] = g[:, -1] + carry
+        dC[:, sl] = torch.einsum("bqd,bqdn->bqn", dy[:, sl], h_all)
+        ga, gu = (g * H).to(bf), g.to(bf)
+        carry = torch.zeros_like(carry)
+        for t in range(q):
+            carry = carry + g[:, t] * a_cum[:, t]
+        _tree_transpose(ga, gu, a, u, ua, uu, a0)
+        ds = ga.to(f32) * e
+        w = gu.to(f32)
+        dA += (ds * dq[..., None]).sum(1)
+        sb = torch.einsum("bqdn,bqn->bqd", w, Bf[:, sl])
+        dB[:, sl] = torch.einsum("bqdn,bqd->bqn", w, dtx[:, sl])
+        ddt[:, sl] = ((ds * A).sum(-1) + xf[:, sl] * sb) * sig[:, sl]
+        dx[:, sl] = dy[:, sl] * Df + dq * sb
+        dz[:, sl] = gof[:, sl] * (y + Df * xf[:, sl]) * dgate[:, sl]
+    ddt_bias = ddt.sum((0, 1))
+    dD = (dy * xf).sum((0, 1))
+    dA_log = A * dA.sum(0)
+    return (dx.to(io), ddt.to(io), ddt_bias, dB.to(io), dC.to(io), dA_log,
+            dD, dz.to(io), None if h0 is None else carry)
+
+
 def _check(x, dt, B, C, A, h0) -> None:
     named = [("x", x), ("dt", dt), ("B", B), ("C", C), ("A", A)]
     if h0 is not None:
@@ -503,11 +704,11 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
 
     ``work_dtype`` is the model's ``scan_dtype`` over a sequence:
     ``torch.bfloat16`` takes the reference's chunked recurrence with its
-    prefix in bfloat16 (:func:`selective_scan_chunked_ref`) on the CPU and
-    on the meta device, and raises ``NotImplementedError``
-    (:data:`NO_WORK_DTYPE`) on the card, which has no such kernel.  A meta
-    tensor otherwise returns the kernel's output shapes, its work counted
-    in ``kernels/_meta.py``.
+    prefix in bfloat16 — on the CPU its plain version
+    (:func:`selective_scan_chunked_ref`), on the card the kernel's
+    bfloat16 working-type instance, or :class:`SelectiveScanFusedBf16Fn`
+    under a gradient.  A meta tensor returns the kernel's output shapes,
+    its work counted in ``kernels/_meta.py``.
     """
     # plain attribute reads and comparisons: a decode step calls this once
     # a layer
@@ -560,21 +761,20 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
             or (h0 is not None and h0.get_device() != index)
             or (h_out is not None and h_out.get_device() != index)):
         raise ValueError(f"all inputs must be on {x.device}")
+    work_bf16 = work_dtype is torch.bfloat16
     if not x.is_cuda:
         if x.device.type not in ("cpu", "meta"):
             raise ValueError(f"unsupported device {x.device}")
-        if work_dtype is not torch.float32:
+        if x.is_meta:
+            return _meta_fused(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
+                               step, work_bf16)
+        if work_bf16:
             return selective_scan_fused_ref(
                 x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
                 scan=functools.partial(selective_scan_chunked_ref,
                                        work_dtype=work_dtype))
-        if x.is_meta:
-            return _meta_fused(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
-                               step)
         return selective_scan_fused_ref(x, dt, dt_bias, B, C, A_log, D, z,
                                         h0, h_out, step=step)
-    if work_dtype is not torch.float32:
-        raise NotImplementedError(NO_WORK_DTYPE)
     _check_kernel_sizes(b, s, d, n)
     if torch.is_grad_enabled() and (
             x.requires_grad or dt.requires_grad or dt_bias.requires_grad
@@ -584,16 +784,22 @@ def selective_scan_fused(x: torch.Tensor, dt: torch.Tensor,
         if step or h_out is not None:
             refuse_grad("selective_scan_fused (decode step or h_out)",
                         NO_BACKWARD, x, dt, dt_bias, B, C, A_log, D, z, h0)
+        if work_bf16:
+            return SelectiveScanFusedBf16Fn.apply(x, dt, dt_bias, B, C, A_log,
+                                                  D, z, h0)
         return SelectiveScanFusedFn.apply(x, dt, dt_bias, B, C, A_log, D, z,
                                           h0)
     return _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
-                           step)
+                           step, work_bf16=work_bf16)
 
 
-def _meta_fused_fwd(x, A_log, args, h_out, bounds: bool):
+def _meta_fused_fwd(x, A_log, args, h_out, bounds: bool,
+                    work_bf16: bool = False):
     """The fused forward on meta tensors: ``(out, h[, bounds])`` of the
     kernel's shapes, counted as its bound counts it (``7 b S D N + b S
-    D`` operations; ``args`` the inputs read)."""
+    D`` operations; ``args`` the inputs read).  The bfloat16 working
+    type's instance counts its tree's six bfloat16 operations a state and
+    step too, under its own name, and keeps ``S / q`` boundaries."""
     b, s, d = x.shape
     n = A_log.shape[-1]
     out = torch.empty_like(x)
@@ -601,34 +807,37 @@ def _meta_fused_fwd(x, A_log, args, h_out, bounds: bool):
          if h_out is None else h_out)
     outs = [out, h]
     if bounds:
-        outs.append(torch.empty((b, -(-s // BWD_CHUNK), d, n),
-                                dtype=torch.float32, device=x.device))
-    _meta.account("selective_scan", 7 * x.numel() * n + x.numel(), args,
+        outs.append(_bounds_for(x, n, work_bf16))
+    _meta.account("selective_scan_bf16" if work_bf16 else "selective_scan",
+                  (13 if work_bf16 else 7) * x.numel() * n + x.numel(), args,
                   outs)
     return tuple(outs)
 
 
-def _meta_fused(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out, step):
+def _meta_fused(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out, step,
+                work_bf16: bool = False):
     """:func:`selective_scan_fused` on meta tensors: its Function under a
     gradient (over a sequence, without ``h_out``), else the outputs'
     shapes."""
     if torch.is_grad_enabled() and not step and h_out is None and any(
             t is not None and t.requires_grad
             for t in (x, dt, dt_bias, B, C, A_log, D, z, h0)):
-        return SelectiveScanFusedFn.apply(x, dt, dt_bias, B, C, A_log, D, z,
-                                          h0)
+        fn = SelectiveScanFusedBf16Fn if work_bf16 else SelectiveScanFusedFn
+        return fn.apply(x, dt, dt_bias, B, C, A_log, D, z, h0)
     return _meta_fused_fwd(x, A_log, (x, dt, dt_bias, B, C, A_log, D, z, h0),
-                           h_out, False)
+                           h_out, False, work_bf16)
 
 
 def _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
-                    step: bool, bounds: Optional[torch.Tensor] = None
-                    ) -> tuple:
+                    step: bool, bounds: Optional[torch.Tensor] = None,
+                    work_bf16: bool = False) -> tuple:
     """One launch of the fused forward kernel on checked CUDA tensors:
     ``(out, h)``, ``h`` being ``h_out`` when it is given.  ``bounds``, a
-    contiguous float32 ``(b, ceil(S / BWD_CHUNK), D, N)`` tensor (over a
+    contiguous float32 tensor of :func:`_bounds_for`'s shape (over a
     sequence only), launches the kernel's instance that also stores the
-    state entering every chunk there; generation passes none."""
+    state entering every chunk there; generation passes none.
+    ``work_bf16`` launches the bfloat16 working type's instances (over a
+    sequence)."""
     if not (dt_bias.is_contiguous() and A_log.is_contiguous()
             and D.is_contiguous()):
         dt_bias, A_log, D = (dt_bias.contiguous(), A_log.contiguous(),
@@ -640,28 +849,48 @@ def _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, h_out,
     out = x.new_empty(shape)
     if h_out is None:
         h_out = x.new_empty((b, d, n), dtype=torch.float32)
-    launch("selective_scan_fused_fwd", x.get_device(), x.data_ptr(),
-           dt.data_ptr(), B.data_ptr(), C.data_ptr(), z.data_ptr(),
-           A_log.data_ptr(), dt_bias.data_ptr(), D.data_ptr(),
-           None if h0 is None else h0.data_ptr(), out.data_ptr(),
-           h_out.data_ptr(), None if bounds is None else bounds.data_ptr(),
-           x.stride(0), x.stride(1), dt.stride(0),
-           dt.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-           z.stride(0), z.stride(1), b, s, d, n, _DTYPES[x.dtype], int(step))
-    selective_scan.launches += 1
-    if bounds is None:
-        selective_scan.shapes["fused", shape, n, x.dtype, bool(step)] += 1
+    args = (x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+            z.data_ptr(), A_log.data_ptr(), dt_bias.data_ptr(), D.data_ptr(),
+            None if h0 is None else h0.data_ptr(), out.data_ptr(),
+            h_out.data_ptr(), None if bounds is None else bounds.data_ptr(),
+            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+            B.stride(0), B.stride(1), C.stride(0), C.stride(1), z.stride(0),
+            z.stride(1), b, s, d, n)
+    if work_bf16:
+        launch("selective_scan_fused_bf16_fwd", x.get_device(), *args,
+               _pick_chunk(s, SCAN_CHUNK), _DTYPES[x.dtype])
     else:
-        selective_scan.shapes["fused_bound", shape, n, x.dtype] += 1
+        launch("selective_scan_fused_fwd", x.get_device(), *args,
+               _DTYPES[x.dtype], int(step))
+    selective_scan.launches += 1
+    form = "fused_bf16" if work_bf16 else "fused"
+    if bounds is not None:
+        selective_scan.shapes[form + "_bound", shape, n, x.dtype] += 1
+    elif work_bf16:
+        selective_scan.shapes[form, shape, n, x.dtype] += 1
+    else:
+        selective_scan.shapes[form, shape, n, x.dtype, bool(step)] += 1
     return out, h_out
 
 
-def _bounds_for(x: torch.Tensor, n: int) -> torch.Tensor:
-    """An empty float32 ``(b, ceil(S / BWD_CHUNK), D, N)`` tensor beside
-    ``x``: where the fused forward kernel keeps the state entering every
-    chunk for the backward (:func:`_fused_fwd_cuda`'s ``bounds``)."""
+def _bound_chunks(s: int, work_bf16: bool) -> int:
+    """The chunks whose entering state the training forward keeps:
+    ``ceil(S / BWD_CHUNK)``, or ``S / q`` for the bfloat16 working type
+    (the reference's chunks)."""
+    if work_bf16:
+        return s // _pick_chunk(s, SCAN_CHUNK)
+    return -(-s // BWD_CHUNK)
+
+
+def _bounds_for(x: torch.Tensor, n: int, work_bf16: bool = False
+                ) -> torch.Tensor:
+    """An empty float32 ``(b, chunks, D, N)`` tensor beside ``x``: where
+    the fused forward kernel keeps the state entering every chunk for the
+    backward (:func:`_fused_fwd_cuda`'s ``bounds``; chunks as
+    :func:`_bound_chunks`)."""
     b, s, d = x.shape
-    return x.new_empty((b, -(-s // BWD_CHUNK), d, n), dtype=torch.float32)
+    return x.new_empty((b, _bound_chunks(s, work_bf16), d, n),
+                       dtype=torch.float32)
 
 
 def _bwd_work_floats(b: int, s: int, d: int, n: int) -> int:
@@ -674,21 +903,22 @@ def _bwd_work_floats(b: int, s: int, d: int, n: int) -> int:
 
 
 def _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout, dh_final,
-              bounds) -> tuple:
+              bounds, work_bf16: bool = False) -> tuple:
     """One call of the backward kernel (a main launch and a fold) on the
     forward's checked CUDA inputs and the chunk boundaries its kernel
     kept (``bounds`` of :func:`_fused_fwd_cuda`): the nine gradients of
-    :func:`selective_scan_fused_bwd_ref`, ``dh0`` None when ``h0`` is.
-    ``dout``, the float32 parameters and the states are copied when their
-    layout needs it."""
+    :func:`selective_scan_fused_bwd_ref` (with ``work_bf16``, of
+    :func:`selective_scan_fused_bf16_bwd_ref`), ``dh0`` None when ``h0``
+    is.  ``dout``, the float32 parameters and the states are copied when
+    their layout needs it."""
     b, s, d = x.shape
     n = A_log.shape[-1]
-    if (bounds.shape != (b, -(-s // BWD_CHUNK), d, n)
-            or bounds.dtype != torch.float32 or not bounds.is_contiguous()):
-        raise ValueError(f"bounds must be contiguous float32 (b, ceil(S / "
-                         f"{BWD_CHUNK}), D, N) = "
-                         f"{(b, -(-s // BWD_CHUNK), d, n)}, got "
-                         f"{tuple(bounds.shape)} {bounds.dtype}")
+    want = (b, _bound_chunks(s, work_bf16), d, n)
+    if (bounds.shape != want or bounds.dtype != torch.float32
+            or not bounds.is_contiguous()):
+        raise ValueError(f"bounds must be contiguous float32 {want} (b, "
+                         f"chunks, D, N), got {tuple(bounds.shape)} "
+                         f"{bounds.dtype}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     dt_bias, A_log, D, h0, dh_final = (
@@ -701,21 +931,26 @@ def _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout, dh_final,
     dA_log = x.new_empty((d, n), dtype=f32)
     dh0 = None if h0 is None else x.new_empty((b, d, n), dtype=f32)
     work = x.new_empty((_bwd_work_floats(b, s, d, n),), dtype=f32)
-    launch("selective_scan_fused_bwd", x.get_device(), x.data_ptr(),
-           dt.data_ptr(), B.data_ptr(), C.data_ptr(), z.data_ptr(),
-           A_log.data_ptr(), dt_bias.data_ptr(), D.data_ptr(),
-           None if h0 is None else h0.data_ptr(), dout.data_ptr(),
-           None if dh_final is None else dh_final.data_ptr(),
-           bounds.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-           dz.data_ptr(), ddt_bias.data_ptr(), dD.data_ptr(),
-           dA_log.data_ptr(), None if dh0 is None else dh0.data_ptr(),
-           work.data_ptr(), work.numel(), x.stride(0), x.stride(1),
-           dt.stride(0), dt.stride(1), B.stride(0), B.stride(1), C.stride(0),
-           C.stride(1), z.stride(0), z.stride(1), dout.stride(0),
-           dout.stride(1), b, s, d, n, BWD_CHUNK, BWD_CHANNELS,
-           _DTYPES[x.dtype])
+    args = (x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+            z.data_ptr(), A_log.data_ptr(), dt_bias.data_ptr(), D.data_ptr(),
+            None if h0 is None else h0.data_ptr(), dout.data_ptr(),
+            None if dh_final is None else dh_final.data_ptr(),
+            bounds.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), dz.data_ptr(), ddt_bias.data_ptr(), dD.data_ptr(),
+            dA_log.data_ptr(), None if dh0 is None else dh0.data_ptr(),
+            work.data_ptr(), work.numel(), x.stride(0), x.stride(1),
+            dt.stride(0), dt.stride(1), B.stride(0), B.stride(1),
+            C.stride(0), C.stride(1), z.stride(0), z.stride(1),
+            dout.stride(0), dout.stride(1), b, s, d, n)
+    if work_bf16:
+        launch("selective_scan_fused_bf16_bwd", x.get_device(), *args,
+               _pick_chunk(s, SCAN_CHUNK), _DTYPES[x.dtype])
+    else:
+        launch("selective_scan_fused_bwd", x.get_device(), *args, BWD_CHUNK,
+               BWD_CHANNELS, _DTYPES[x.dtype])
     selective_scan.bwd_launches += 1
-    selective_scan.shapes["fused_bwd", x.shape, n, x.dtype] += 1
+    form = "fused_bf16_bwd" if work_bf16 else "fused_bwd"
+    selective_scan.shapes[form, x.shape, n, x.dtype] += 1
     return dx, ddt, ddt_bias, dB, dC, dA_log, dD, dz, dh0
 
 
@@ -786,6 +1021,56 @@ class SelectiveScanFusedFn(torch.autograd.Function):
                                             bounds=bounds)
 
 
+class SelectiveScanFusedBf16Fn(torch.autograd.Function):
+    """:class:`SelectiveScanFusedFn` with the bfloat16 working type: on
+    the card the forward kernel's bfloat16 instance that keeps the state
+    entering every chunk of ``q`` steps (``(b, S / q, D, N)``), then the
+    bfloat16 backward kernel on the saved inputs and those boundaries
+    (it rebuilds each chunk's tree); on the CPU the plain versions,
+    :func:`selective_scan_fused_bf16_ref` and
+    :func:`selective_scan_fused_bf16_bwd_ref`, passing the boundaries the
+    same way; on the meta device their work is counted."""
+
+    @staticmethod
+    def forward(ctx, x, dt, dt_bias, B, C, A_log, D, z, h0):
+        ctx.set_materialize_grads(False)
+        if x.is_cuda:
+            bounds = _bounds_for(x, A_log.shape[-1], True)
+            out, h = _fused_fwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0,
+                                     None, False, bounds, work_bf16=True)
+        elif x.is_meta:
+            out, h, bounds = _meta_fused_fwd(
+                x, A_log, (x, dt, dt_bias, B, C, A_log, D, z, h0), None,
+                True, True)
+        else:
+            out, h, bounds = selective_scan_fused_bf16_ref(
+                x, dt, dt_bias, B, C, A_log, D, z, h0)
+        ctx.save_for_backward(x, dt, dt_bias, B, C, A_log, D, z, h0, bounds)
+        return out, h
+
+    @staticmethod
+    def backward(ctx, dout, dh_final):
+        x, dt, dt_bias, B, C, A_log, D, z, h0, bounds = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(x)
+        if x.is_cuda:
+            return _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
+                             dh_final, bounds, work_bf16=True)
+        if x.is_meta:
+            grads = tuple(None if t is None else torch.empty_like(t)
+                          for t in (x, dt, dt_bias, B, C, A_log, D, z, h0))
+            # as the float32 backward counts: the bound's b S D N
+            # exponentials, the saved boundaries not an input
+            _meta.account("selective_scan_bf16_bwd",
+                          x.numel() * A_log.shape[-1],
+                          (x, dt, dt_bias, B, C, A_log, D, z, h0, dout,
+                           dh_final), grads)
+            return grads
+        return selective_scan_fused_bf16_bwd_ref(
+            x, dt, dt_bias, B, C, A_log, D, z, h0, dout, dh_final,
+            bounds=bounds)
+
+
 #: Number of forward kernel launches made by either wrapper (never the
 #: plain versions), of backward calls (``bwd_launches``, one per call of
 #: the backward kernel), and the same counts split by input: ``(x shape,
@@ -793,7 +1078,9 @@ class SelectiveScanFusedFn(torch.autograd.Function):
 #: x.dtype, step)`` for :func:`selective_scan_fused`, ``("fused_bound",
 #: x.shape, N, x.dtype)`` for the forward of :class:`SelectiveScanFusedFn`
 #: (the instance that keeps the chunk boundaries), ``("fused_bwd",
-#: x.shape, N, x.dtype)`` for a backward.
+#: x.shape, N, x.dtype)`` for a backward; with the bfloat16 working type
+#: ``("fused_bf16", ...)``, ``("fused_bf16_bound", ...)`` and
+#: ``("fused_bf16_bwd", ...)``, keyed alike.
 selective_scan.launches = 0
 selective_scan.bwd_launches = 0
 selective_scan.shapes = Counter()

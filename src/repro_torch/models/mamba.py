@@ -12,10 +12,12 @@ decode step is never differentiated.  The reference computes the
 sequence's recurrence as a chunked associative scan, so the two agree to
 float32 rounding.  With ``cfg.scan_dtype = "bfloat16"`` the reference
 computes each chunk's prefix in bfloat16; the port replays that on the
-CPU (``selective_scan_chunked_ref``), and the card, which has no such
-kernel, refuses it (ROADMAP Queue A 10d).  ``softplus`` and the one-step
-recurrence ``selective_scan_step`` live beside the kernel's plain
-versions in ``kernels/selective_scan.py`` and are re-exported here.
+CPU (``selective_scan_chunked_ref``) and on the card in the fused
+kernel's bfloat16 working-type instance (under a gradient
+``SelectiveScanFusedBf16Fn``, with its backward kernel).  ``softplus``
+and the one-step recurrence ``selective_scan_step`` live beside the
+kernel's plain versions in ``kernels/selective_scan.py`` and are
+re-exported here.
 
 Mamba2 (:func:`ssd_scan`, :func:`ssd_step`, :func:`mamba2_block`) is plain
 torch, on the card too: the reference computes it in plain jnp, with no

@@ -2,11 +2,12 @@
 kernels' meta branches and the collectives' dry mode.
 
 A handful of cells at full width, one rank of the production mesh each —
-a dense, a MoE and a Mamba cell, the ``pp16`` variant, a skip — meet the
-properties the reference's ``tests/test_artifacts.py`` asks of its cells:
-FLOPs above 0, a known bottleneck, ``0 < useful_flops_ratio <= 1.5``,
-collective bytes above 0 for ``train_4k``, multi-pod bytes a device at
-most 1.05 times single-pod's for ``train_4k``, and the device count.  A
+a dense, a MoE and a Mamba cell, the ``pp16`` and ``scan-bf16``
+variants, a skip — meet the properties the reference's
+``tests/test_artifacts.py`` asks of its cells: FLOPs above 0, a known
+bottleneck, ``0 < useful_flops_ratio <= 1.5``, collective bytes above 0
+for ``train_4k``, multi-pod bytes a device at most 1.05 times
+single-pod's for ``train_4k``, and the device count.  A
 tiny dense cell's stored bytes and FSDP gather bytes are counted by hand.
 ``reanalyze`` recomputes the terms and changes nothing on a second run.
 The ranks' own counters against the dry run's are in
@@ -34,6 +35,7 @@ CELLS = [("qwen2-7b", "train_4k", False, ""),
          ("qwen2-7b", "train_4k", True, ""),
          ("granite-moe-3b-a800m", "prefill_32k", False, ""),
          ("falcon-mamba-7b", "decode_32k", False, ""),
+         ("falcon-mamba-7b", "decode_32k", False, "scan-bf16"),
          ("falcon-mamba-7b", "long_500k", True, ""),
          ("gemma3-12b", "train_4k", False, "pp16"),
          ("qwen2-7b", "long_500k", False, "")]

@@ -11,7 +11,9 @@ attention kernel to the float32 plain version within 2e-2, at long and wide
 shapes too.  The scan is held to its plain version at every lane count, and
 its fused Mamba1 form (bias, softplus, scan, D skip, gate in one launch) at
 falcon-mamba-7b's prefill and decode-step shapes with the model's views and
-the decode cache's state updated in place.  The planner's other entry
+the decode cache's state updated in place, and with the bfloat16 working
+type (``scan_dtype="bfloat16"``) forward and backward against their plain
+versions at ragged chunk lengths.  The planner's other entry
 points run there too: the live bandwidth probe, the plan server, an
 elastic replan and a churn replay, each equal to the host NumPy backend's
 result.  So does training: the backward kernels of ``rmsnorm`` (both forms)
@@ -1660,30 +1662,144 @@ def test_zero1_step_on_the_card_is_bit_equal_to_the_replicated_step():
         assert r["moment_bytes"] == r["moment_spec_bytes"]
 
 
-def test_scan_dtype_bfloat16_is_refused_on_the_card():
+#: (b, S, D, N, dt_rank) of the bfloat16 working type: the reference's
+#: chunk q = 1, 7, 65 and 100 (S 1, 7, 130, 200), D not a multiple of a
+#: block's channels (8 forward, 32 backward), N at 16, 5 and 1.
+SCAN_BF16_SHAPES = [(2, 1, 24, 16, 2), (1, 7, 9, 5, 1), (2, 130, 45, 16, 3),
+                    (1, 200, 40, 1, 2)]
+#: Kernel against plain with the bfloat16 working type: the state within
+#: 2e-4 of ``1 + |h|`` and ``out`` at the float32 form's tolerances (the
+#: two compute a, u and the tree alike; y sums over N in another order);
+#: the gradients within 1e-2 of their largest magnitude (a float32 ulp
+#: between the kernel's and torch's sigmoid, exp or sum order can move a
+#: bfloat16 rounding of the tree's gradients a step).
+SCAN_BF16_STATE_TOL, SCAN_BF16_BWD_TOL = 2e-4, 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_BF16_SHAPES, ids=str)
+def test_selective_scan_fused_bf16_kernel_matches_plain(shape, dtype):
+    """The fused form with ``work_dtype=torch.bfloat16`` on the model's
+    views: one launch of the bfloat16 instance (its own shape key), held
+    to :func:`selective_scan_chunked_ref`'s fused sequence; its training
+    instance keeps the state entering every chunk, bit-equal to itself
+    and within the state's tolerance of the plain walk's; ``h_out``
+    aliasing ``h0`` is updated in place."""
+    _need_cuda()
+    args, h0 = _fused_inputs(shape, dtype, sum(shape))
+    b, s, d, n, _ = shape
+    before = ss.selective_scan.launches
+    with torch.no_grad():
+        out, h = ss.selective_scan_fused(*args, h0,
+                                         work_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == before + 1
+    assert ss.selective_scan.shapes[
+        "fused_bf16", (b, s, d), n, dtype] >= 1
+    want_out, want_h, want_bounds = ss.selective_scan_fused_bf16_ref(
+        *args, h0)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
+    diff = (out.float() - want_out.float()).abs()
+    assert bool((diff <= tol + tol * want_out.float().abs()).all()), \
+        float(diff.max())
+    assert bool(((h - want_h).abs() <= SCAN_BF16_STATE_TOL * (
+        1 + want_h.abs())).all()), float((h - want_h).abs().max())
+    bounds = ss._bounds_for(args[0], n, True)
+    out_b, h_b = ss._fused_fwd_cuda(*args, h0, None, False, bounds,
+                                    work_bf16=True)
+    state = h0.clone()
+    out_s, h_s = ss._fused_fwd_cuda(*args, state, state, False,
+                                    work_bf16=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out_b, out) and torch.equal(h_b, h)
+    assert h_s is state and torch.equal(state, h) and torch.equal(out_s, out)
+    assert bounds.shape == want_bounds.shape
+    assert bool(((bounds - want_bounds).abs() <= SCAN_BF16_STATE_TOL * (
+        1 + want_bounds.abs())).all())
+
+
+@pytest.mark.parametrize("start", ["zero", "h0+dh"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SCAN_BF16_SHAPES, ids=str)
+def test_selective_scan_fused_bf16_bwd_kernel_matches_plain(shape, dtype,
+                                                            start):
+    """The bfloat16 working type's backward kernel, fed by its forward's
+    chunk boundaries, against :func:`selective_scan_fused_bf16_bwd_ref`
+    within ``SCAN_BF16_BWD_TOL``; a second call and a CUDA-graph replay
+    give the same bits (no atomics)."""
+    _need_cuda()
+    args, h0 = _fused_inputs(shape, dtype, sum(shape))
+    b, s, d, n, _ = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    dout = _randn(rng, (b, s, d), dtype)
+    dhf = _randn(rng, (b, d, n), torch.float32) if "dh" in start else None
+    args = (*args, h0 if "h0" in start else None)
+    bounds = ss._bounds_for(args[0], n, True)
+    ss._fused_fwd_cuda(*args, None, False, bounds, work_bf16=True)
+    before = ss.selective_scan.bwd_launches
+    got = ss._bwd_cuda(*args, dout, dhf, bounds, work_bf16=True)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.bwd_launches == before + 1
+    want = ss.selective_scan_fused_bf16_bwd_ref(*args, dout, dhf)
+    for name, g, w in zip(("x", "dt", "dt_bias", "B", "C", "A_log", "D",
+                           "z", "h0"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= SCAN_BF16_BWD_TOL * max(
+            float(w.float().abs().max()), 1e-30), (name, err)
+    again = ss._bwd_cuda(*args, dout, dhf, bounds, work_bf16=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ss._bwd_cuda(*args, dout, dhf, bounds, work_bf16=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, replayed):
+        assert (g is None and a is None and r is None) or (
+            torch.equal(g, a) and torch.equal(g, r))
+
+
+def test_scan_dtype_bfloat16_runs_on_the_card():
     """Reduced falcon-mamba-7b's Mamba1 block with ``scan_dtype =
-    "bfloat16"`` on the card: ``NotImplementedError`` naming ROADMAP Queue
-    A 10d, in the forward and under a gradient, before any launch; the
-    decode step ignores the knob and runs the fused kernel."""
+    "bfloat16"`` on the card: the forward launches the bfloat16 instance,
+    under a gradient its training instance and its backward kernel
+    (``SelectiveScanFusedBf16Fn``), held to the host's block; the decode
+    step ignores the knob and runs the float32 step."""
     _need_cuda()
     from repro_torch.models import mamba
     cfg = configs.get("falcon-mamba-7b").reduced(scan_dtype="bfloat16")
     p = {k: v[0] for k, v in init_params(cfg, seed=0, device="cuda")[
         "layers"].items()}
-    x = torch.randn((2, 32, cfg.d_model), device="cuda")
-    before = ss.selective_scan.launches
-    for grad in (False, True):
-        with torch.set_grad_enabled(grad), pytest.raises(
-                NotImplementedError, match="Queue A 10d"):
-            mamba.mamba1_block(x.clone().requires_grad_(grad), p, cfg)
-    assert ss.selective_scan.launches == before
-    h = torch.zeros((2, cfg.d_inner, cfg.ssm_state), device="cuda")
-    conv = torch.zeros((2, cfg.ssm_conv - 1, cfg.d_inner), device="cuda")
+    x = torch.randn((2, 130, cfg.d_model), device="cuda")
+    ss.selective_scan.shapes.clear()
     with torch.no_grad():
-        y, _ = mamba.mamba1_block(x[:, 0], p, cfg, h0=h, conv0=conv,
-                                  single_step=True)
-    assert ss.selective_scan.launches == before + 1
-    assert bool(torch.isfinite(y).all())
+        y, (h, conv) = mamba.mamba1_block(x, p, cfg)
+    host = {k: v.cpu() for k, v in p.items()}
+    y_h, (h_h, _) = mamba.mamba1_block(x.cpu(), host, cfg)
+    assert float((y.cpu() - y_h).abs().max()) <= 2e-3 * (
+        1 + float(y_h.abs().max()))
+    assert float((h.cpu() - h_h).abs().max()) <= 2e-3 * (
+        1 + float(h_h.abs().max()))
+    xl = x.clone().requires_grad_()
+    yl, _ = mamba.mamba1_block(xl, p, cfg)
+    yl.float().square().sum().backward()
+    assert bool(torch.isfinite(xl.grad).all())
+    with torch.no_grad():
+        y1, _ = mamba.mamba1_block(x[:, 0], p, cfg, h0=h.clone(),
+                                   conv0=conv, single_step=True)
+    assert bool(torch.isfinite(y1).all())
+    shape = (2, 130, cfg.d_inner)
+    n, dt = cfg.ssm_state, x.dtype
+    assert dict(ss.selective_scan.shapes) == {
+        ("fused_bf16", shape, n, dt): 1,
+        ("fused_bf16_bound", shape, n, dt): 1,
+        ("fused_bf16_bwd", shape, n, dt): 1,
+        ("fused", (2, 1, cfg.d_inner), n, dt, True): 1}
 
 
 def test_quickstart_example_runs_on_the_card():

@@ -738,23 +738,32 @@ def test_mamba1_block_honours_scan_dtype(scan_dtype, seed, s):
                                atol=2e-5)
 
 
-def test_scan_dtype_bf16_is_refused_on_the_card_naming_queue_a_10d():
-    """By source: the fused wrapper takes the bfloat16 working type's
-    plain version on the CPU and the meta device, and on the card raises
-    ``NotImplementedError`` with ``NO_WORK_DTYPE``, which names ROADMAP
-    Queue A 10d, after the CPU branch and before any launch or Function;
-    a decode step with the bfloat16 working type is a ``ValueError``."""
+def test_scan_dtype_bf16_dispatch_runs_the_card_instance():
+    """By source: the fused wrapper takes the bfloat16 working type's meta
+    branch and plain version (``selective_scan_chunked_ref``) only off
+    the card, first; on the card it hands an input that requires a
+    gradient to ``SelectiveScanFusedBf16Fn`` and otherwise launches the
+    bfloat16 instance (``_fused_fwd_cuda(..., work_bf16=...)``), with no
+    ``try``/``except`` around either and nothing refused for the working
+    type; a decode step with the bfloat16 working type is a
+    ``ValueError``."""
     import ast
     import inspect
     import textwrap
-    assert "Queue A 10d" in ss.NO_WORK_DTYPE
-    src = ast.unparse(ast.parse(textwrap.dedent(inspect.getsource(
-        ss.selective_scan_fused))))
-    cpu = src.find("functools.partial(selective_scan_chunked_ref")
-    refuse = src.find("raise NotImplementedError(NO_WORK_DTYPE)")
-    assert 0 <= src.find("if not x.is_cuda:") < cpu < refuse
-    assert refuse < src.find("SelectiveScanFusedFn.apply(") \
-        < src.find("_fused_fwd_cuda(")
+    assert not hasattr(ss, "NO_WORK_DTYPE")
+    tree = ast.parse(textwrap.dedent(inspect.getsource(
+        ss.selective_scan_fused)))
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    src = ast.unparse(tree)
+    assert "NotImplementedError" not in src
+    cpu = src.find("if not x.is_cuda:")
+    meta = src.find("_meta_fused(", cpu)
+    plain = src.find("functools.partial(selective_scan_chunked_ref", cpu)
+    sizes = src.find("_check_kernel_sizes(", cpu)
+    fn = src.find("SelectiveScanFusedBf16Fn.apply(")
+    launch = src.find("_fused_fwd_cuda(")
+    assert 0 <= cpu < meta < plain < sizes < fn < launch
+    assert "work_bf16=work_bf16" in src[launch:]
     args = [t for _, t in _fused_inputs((1, 1, 8, 2), False, True)]
     with pytest.raises(ValueError, match="work_dtype"):
         ss.selective_scan_fused(*args, step=True,
