@@ -2416,7 +2416,7 @@ def bwd_bound(name: str, key: tuple, a: dict, outs) -> tuple:
     backward counts 11 operations an element (12 with ``ds_in``) at the
     float32 rate; the attention's its five products over the (query, key)
     pairs the mask allows, ``10 B H D pairs``, at the tensor-core rate for
-    bfloat16 inputs (the kernel itself uses the CUDA cores); the scan's
+    bfloat16 inputs and the CUDA cores' float32 rate for float32; the scan's
     its ``b S D N`` exponentials, one a state, at the special function
     units' rate (``EXP_PER_S``), as the forward's bound counts them.  The
     scan's chunk boundaries are the forward's output, saved for this call
@@ -5357,6 +5357,40 @@ def attention_fwd_ptxas(log: str) -> dict:
     return ptxas_table(log, label)
 
 
+def attention_f32_ptxas(log: str) -> dict:
+    """``ptxas_table`` of every instance of the float32 attention kernels
+    (CUDA cores), keyed "<pass> D=<d>": fwd and fwd_lse
+    (``flash_fwd_f32_tiled``), delta, bwd (``bwd_dkv_dq_f32``, the dK/dV
+    and dQ items in one kernel) and the fold's float32 instance."""
+    def label(name):
+        m = re.search(r"flash_fwd_f32_tiledILi(\d+)ELb([01])E", name)
+        if m:
+            return f"fwd{'_lse' if m.group(2) == '1' else ''} D={m.group(1)}"
+        m = re.search(r"bwd_(delta)_f32ILi(\d+)E", name) or \
+            re.search(r"(bwd)_dkv_dq_f32ILi(\d+)E", name) or \
+            re.search(r"bwd_(fold)ILi(\d+)EfE", name)
+        return None if m is None else f"{m.group(1)} D={m.group(2)}"
+    return ptxas_table(log, label)
+
+
+def attention_f32_instances(log: str) -> dict:
+    """For every head dim of ``fa.HEAD_DIMS``: the float32 kernels'
+    registers and spills, and for the forward (without its lse store) and
+    the backward's dK/dV and dQ kernel their dynamic shared memory and
+    blocks an SM (the CUDA runtime's occupancy calculator)."""
+    f32 = attention_f32_ptxas(log)
+    out = {}
+    for d in fa.HEAD_DIMS:
+        occ = fa.occupancy(d)
+        out[f"D={d}"] = {
+            p: {**f32[f"{p} D={d}"],
+                **({"dynamic_smem": occ[f"{p}_f32"][0],
+                    "blocks_per_sm": occ[f"{p}_f32"][1]}
+                   if f"{p}_f32" in occ else {})}
+            for p in ("fwd", "fwd_lse", "delta", "bwd", "fold")}
+    return out
+
+
 def attention_instances(log: str) -> dict:
     """For every head dim of ``fa.HEAD_DIMS``: the bfloat16 forward's and
     the backward's two tensor-core passes' registers, spills, dynamic
@@ -5382,7 +5416,8 @@ def attention_bwd_ptxas(log: str) -> dict:
     """``ptxas_table`` of every instance of the bfloat16 tensor-core
     attention backward (``dkv``, ``dq``, ``fold``), keyed "<pass> D=<d>"."""
     def label(name):
-        kind = re.search(r"bwd_(dkv_mma|dq_mma|fold)ILi(\d+)E", name)
+        kind = re.search(r"bwd_(dkv_mma|dq_mma|fold)ILi(\d+)E"
+                         r"(?!f)", name)
         return None if kind is None else \
             f"{kind.group(1).split('_')[0]} D={kind.group(2)}"
     return ptxas_table(log, label)
@@ -5610,6 +5645,13 @@ def main() -> int:
             assert v["spill_bytes"] == [0, 0], (d, part, v)
     assert all(v["blocks_per_sm"] >= 1 for inst in attention.values()
                for v in inst.values() if "blocks_per_sm" in v), attention
+    # the float32 kernels (CUDA cores): no spill at the paths' head dim 64,
+    # and every pass fits at least one block an SM
+    attention_f32 = attention_f32_instances(log)
+    assert all(v["spill_bytes"] == [0, 0]
+               for v in attention_f32["D=64"].values()), attention_f32
+    assert all(v["blocks_per_sm"] >= 1 for inst in attention_f32.values()
+               for v in inst.values() if "blocks_per_sm" in v), attention_f32
     # the norm backward: 4 type pairs x (ring of four groups, of one group,
     # packed and element-wise without the ring), none spills
     rms_bwd_regs = rmsnorm_bwd_ptxas(log)
@@ -5630,6 +5672,7 @@ def main() -> int:
           "scan_bwd_resident_blocks_per_sm": scan_bwd_resident,
           "attention_bwd_bf16_ptxas": bwd_regs,
           "attention_bf16_instances": attention,
+          "attention_f32_instances": attention_f32,
           **launch_path_reads_us(),
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if ln.startswith("==") or "Compiling entry" in ln

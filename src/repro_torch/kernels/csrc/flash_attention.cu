@@ -1,6 +1,7 @@
 // Causal / sliding-window GQA softmax attention, forward and backward (CUDA
 // C++, sm_90a).  The forward's kernels are described here; the backward's,
-// for the training path, in their own section below.
+// for the training path, in their own sections below, and the float32
+// kernels of both directions in the last section.
 //
 // o[b, h, i] = sum_j softmax_j(s_ij) v[b, h / g, j] with
 // s_ij = (q[b, h, i] / sqrt(D)) . k[b, h / g, j], over the keys j allowed by
@@ -67,16 +68,11 @@
 // row returns 0 — the output is the same.  16-byte cp.async needs every row
 // of q, k, v 16-byte aligned: the wrapper checks pointers and strides.
 //
-// float32: CUDA cores (flash_fwd_f32).  Tensor cores would mean TF32, ten
-// bits of mantissa, which breaks the float32 tolerance of 2e-5.  One block
-// of four warps per (q tile of 32 rows, head, batch).  A loop over key tiles
-// of 32 replaces the TPU's sequential grid axis: each tile of K and V is
-// staged in shared memory and used by all 32 query rows of the block, while
-// each row keeps its running maximum m, sum l and accumulator acc in
-// registers.  A warp owns eight rows; lane j scores key j of the tile
-// against each of them (float4 reads of the q rows, broadcast, and of the
-// padded K row), then the warp holds the 32 weights and each lane
-// accumulates D/32 columns of p.V.  Arithmetic on the CUDA cores bounds it.
+// float32: CUDA cores (flash_fwd_f32_tiled, in the float32 section at the
+// end, beside its backward).  Tensor cores would mean TF32, ten bits of
+// mantissa, which breaks the float32 tolerance of 2e-5; so the products
+// are register-tiled outer products of fmaf on the CUDA cores, whose
+// float32 rate bounds the kernel.
 //
 // Both: GQA comes from the index (head h reads KV head h / g, no repeated KV
 // is written); no length has to be a multiple of a tile; the strides of the
@@ -103,202 +99,6 @@ constexpr unsigned kFullMask = 0xffffffffu;
 struct Strides {
   long long b, h, s;  // in elements; the last axis has unit stride
 };
-
-// ---------------------------------------------------------------------------
-// float32: CUDA-core kernel
-// ---------------------------------------------------------------------------
-
-namespace f32 {
-
-constexpr int kWarps = 4;
-constexpr int kRows = 8;                      // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;       // 32
-constexpr int kBlockK = 32;                   // one key per lane
-
-// a K row is padded to D + 4 floats, so that the lanes' float4 reads of
-// their rows fall in distinct banks
-template <int D>
-struct Tile {
-  static constexpr int kStride = D + 4;
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * (kBlockQ * D + kBlockK * kStride + kBlockK * D);
-};
-
-template <int D, bool kLse>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, Strides sq,
-              Strides sk, Strides sv, Strides so, int group, int len_q,
-              int len_k, float scale, int causal, int window, int q_off) {
-  constexpr int KS = Tile<D>::kStride;
-  constexpr int DC = (D + 31) / 32;           // columns of p.V per lane
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // kBlockQ x D, scaled
-  float* ks = qs + kBlockQ * D;                 // kBlockK x KS
-  float* vs = ks + kBlockK * KS;                // kBlockK x D
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / group;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
-  float* ob = o + b * so.b + h * so.h;
-
-  for (int idx = threadIdx.x; idx < kBlockQ * D; idx += kWarps * 32) {
-    const int r = idx / D, c = idx - r * D;
-    const int qi = q0 + r;
-    qs[idx] = qi < len_q ? qb[qi * sq.s + c] * scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][DC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  }
-
-  // keys that some row of this block may see: [k_lo, k_hi); row i sits at
-  // position q_off + i
-  const int q_last = min(q0 + kBlockQ, len_q) - 1;
-  const int k_hi = causal ? min(len_k, q_off + q_last + 1) : len_k;
-  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
-
-  for (int k0 = (k_lo / kBlockK) * kBlockK; k0 < k_hi; k0 += kBlockK) {
-    __syncthreads();                 // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kBlockK * D; idx += kWarps * 32) {
-      const int r = idx / D, c = idx - r * D;
-      const int kj = k0 + r;
-      const bool in = kj < len_k;
-      ks[r * KS + c] = in ? kb[kj * sk.s + c] : 0.f;
-      vs[r * D + c] = in ? vb[kj * sv.s + c] : 0.f;
-    }
-    __syncthreads();
-
-    // scores: lane = key of the tile, one per row of the warp
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float* krow = ks + lane * KS;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(krow + c);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(
-            qs + (warp * kRows + r) * D + c);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
-      }
-    }
-
-    // mask and online-softmax update, per row
-    const int kj = k0 + lane;
-    float p[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = q0 + warp * kRows + r;
-      const int delta = q_off + qi - kj;
-      bool ok = kj < len_k;
-      if (causal) ok = ok && delta >= 0;
-      if (window > 0) ok = ok && delta < window;
-      const float sv_ = ok ? s[r] : kNegInf;
-      float tmax = sv_;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(kFullMask, tmax, off));
-      const float m_new = fmaxf(m[r], tmax);
-      p[r] = expf(sv_ - m_new);
-      const float corr = expf(m[r] - m_new);
-      float psum = p[r];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(kFullMask, psum, off);
-      l[r] = l[r] * corr + psum;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= corr;
-      m[r] = m_new;
-    }
-
-    // acc += p . V: lane owns columns lane, lane + 32, ...
-#pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float vj[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = lane + 32 * c;
-        vj[c] = col < D ? vs[j * D + col] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pj = __shfl_sync(kFullMask, p[r], j);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pj, vj[c], acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + warp * kRows + r;
-    if (qi >= len_q) continue;
-    const bool empty = m[r] <= kNegInf * 0.5f;
-    const float lr = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) ob[qi * so.s + col] = empty ? 0.f : acc[r][c] / lr;
-    }
-    if constexpr (kLse) {              // the scores here carry the scale
-      if (lane == 0)
-        lse[((long long)b * gridDim.y + h) * len_q + qi] =
-            empty ? INFINITY : m[r] + logf(lr);
-    }
-  }
-}
-
-template <int D, bool kLse>
-int launch_one(const void* q, const void* k, const void* v, void* o,
-               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
-               int batch, int heads, int group, int len_q, int len_k,
-               float scale, int causal, int window, int q_off,
-               cudaStream_t stream) {
-  constexpr size_t smem = Tile<D>::kSmemBytes;
-  // once per instantiation (and so never inside a CUDA-graph capture after
-  // a first eager call): allow more than 48 KB of dynamic shared memory
-  static const cudaError_t configured = cudaFuncSetAttribute(
-      flash_fwd_f32<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (configured != cudaSuccess) return (int)configured;
-  const dim3 grid((len_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_fwd_f32<D, kLse><<<grid, kWarps * 32, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, sq,
-      sk, sv, so, group, len_q, len_k, scale, causal, window, q_off);
-  return (int)cudaGetLastError();
-}
-
-// the lse store is a separate instance, so the kernel that generation runs
-// is the same code as before the training path asked for it
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           Strides sq, Strides sk, Strides sv, Strides so, int batch,
-           int heads, int group, int len_q, int len_k, float scale,
-           int causal, int window, int q_off, cudaStream_t stream) {
-  return lse ? launch_one<D, true>(q, k, v, o, lse, sq, sk, sv, so, batch,
-                                   heads, group, len_q, len_k, scale, causal,
-                                   window, q_off, stream)
-             : launch_one<D, false>(q, k, v, o, lse, sq, sk, sv, so, batch,
-                                    heads, group, len_q, len_k, scale,
-                                    causal, window, q_off, stream);
-}
-
-}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor-core kernel
@@ -680,7 +480,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// backward: the shared delta pass, float32 on the CUDA cores
+// backward: what both types share
 // ---------------------------------------------------------------------------
 //
 // The gradient of the forward above from its log-sum-exp, in the manner of
@@ -693,33 +493,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 //   dQ_i = scale sum_j dS_ij K_j, dK_j = scale sum_i dS_ij Q_i,
 // with s_ij = scale Q_i . K_j.  No kernel of either type uses atomics:
 // every sum runs in a fixed order, so the gradients are the same bits on
-// every run (a resumed training run repeats the uninterrupted one).
-//
-// float32 (this namespace): three kernels on the CUDA cores, everything
-// float32 inside, since tensor cores would mean TF32 and break the 1e-4
-// tolerance.  `delta` (one warp a row);
-// `dq` (one block per 32 query rows, head, batch: a loop over the key
-// tiles the rows may see, as in the float32 forward: lane = key for the
-// dot products, lane = column for the sum into dQ); `dkv` (one block per
-// 32 keys, KV head, batch: a loop over the group's query heads, in order,
-// and over the query tiles that may see the keys; lane = query row for
-// the dot products, lane = column for the sums into dK and dV).  Bound:
-// operations (5 products of the forward's size against its 2) at the CUDA
-// cores' float32 rate.
+// every run (a resumed training run repeats the uninterrupted one).  Both
+// types run the same four passes: delta, a dK/dV pass per (key tile, query
+// head, batch) that writes each head's float32 partials into a workspace
+// when a KV group has more than one head, a fold of those partials in
+// head order, and a dQ pass in the forward's layout.
 
 namespace bwd {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 8;                     // rows (queries or keys) a warp
-constexpr int kBlock = kWarps * kRows;       // 32
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
 
 // query row qi (at position q_off + qi) and key kj
 __device__ __forceinline__ bool allowed(int qi, int kj, int len_q, int len_k,
@@ -729,288 +509,6 @@ __device__ __forceinline__ bool allowed(int qi, int kj, int len_q, int len_k,
   if (causal) ok = ok && pos >= kj;
   if (window > 0) ok = ok && pos - kj < window;
   return ok;
-}
-
-// delta[row] = O_row . dO_row for the rows (b, h, i) in that order
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
-          float* __restrict__ delta, Strides so, Strides sd, int heads,
-          int len_q, long long rows) {
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;                   // a whole warp at once
-  const int lane = threadIdx.x & 31;
-  const int i = (int)(row % len_q);
-  const long long bh = row / len_q;
-  const int h = (int)(bh % heads), b = (int)(bh / heads);
-  const float* orow = o + b * so.b + h * so.h + i * so.s;
-  const float* drow = dout + b * sd.b + h * sd.h + i * sd.s;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(orow[c], drow[c], acc);
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(kFullMask, acc, off);
-  if (lane == 0) delta[row] = acc;
-}
-
-template <int D>
-struct DqTile {                               // rows padded to D + 4 floats
-  static constexpr int kStride = D + 4;
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * (2 * kBlock * D + 2 * kBlock * kStride);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-       const float* __restrict__ v, const float* __restrict__ dout,
-       const float* __restrict__ lse, const float* __restrict__ delta,
-       float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sd,
-       Strides sdq, int group, int len_q, int len_k, float scale,
-       int causal, int window, int q_off) {
-  constexpr int KS = DqTile<D>::kStride;
-  constexpr int DC = (D + 31) / 32;           // columns of dQ a lane
-  extern __shared__ float4 smem_dq[];
-  float* qs = reinterpret_cast<float*>(smem_dq);  // kBlock x D
-  float* gs = qs + kBlock * D;                    // dO rows, kBlock x D
-  float* ks = gs + kBlock * D;                    // kBlock x KS
-  float* vs = ks + kBlock * KS;                   // kBlock x KS
-
-  const int q0 = blockIdx.x * kBlock;
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y;
-  const int kvh = h / group;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* gb = dout + b * sd.b + h * sd.h;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
-  const long long stat = ((long long)b * heads + h) * len_q;
-
-  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const int qi = q0 + r;
-    const bool in = qi < len_q;
-    qs[idx] = in ? qb[qi * sq.s + c] : 0.f;
-    gs[idx] = in ? gb[qi * sd.s + c] : 0.f;
-  }
-  float lse_r[kRows], dl_r[kRows], acc[kRows][DC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + warp * kRows + r;
-    lse_r[r] = qi < len_q ? lse[stat + qi] : 0.f;
-    dl_r[r] = qi < len_q ? delta[stat + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.f;
-  }
-
-  const int q_last = min(q0 + kBlock, len_q) - 1;
-  const int k_hi = causal ? min(len_k, q_off + q_last + 1) : len_k;
-  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
-
-  for (int k0 = (k_lo / kBlock) * kBlock; k0 < k_hi; k0 += kBlock) {
-    __syncthreads();                          // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const int kj = k0 + r;
-      const bool in = kj < len_k;
-      ks[r * KS + c] = in ? kb[kj * sk.s + c] : 0.f;
-      vs[r * KS + c] = in ? vb[kj * sv.s + c] : 0.f;
-    }
-    __syncthreads();
-
-    // lane = key of the tile: s = q_r . k_lane, dp = dO_r . v_lane
-    float s[kRows], dp[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
-    const float* krow = ks + lane * KS;
-    const float* vrow = vs + lane * KS;
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      const float4 kv4 = *reinterpret_cast<const float4*>(krow + c);
-      const float4 vv4 = *reinterpret_cast<const float4*>(vrow + c);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = (warp * kRows + r) * D + c;
-        s[r] = dot4(*reinterpret_cast<const float4*>(qs + row), kv4, s[r]);
-        dp[r] = dot4(*reinterpret_cast<const float4*>(gs + row), vv4, dp[r]);
-      }
-    }
-    const int kj = k0 + lane;
-    float g[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = q0 + warp * kRows + r;
-      const float p = allowed(qi, kj, len_q, len_k, causal, window, q_off)
-                          ? expf(s[r] * scale - lse_r[r]) : 0.f;
-      g[r] = p * (dp[r] - dl_r[r]);
-    }
-    // acc += dS . K: lane owns columns lane, lane + 32, ...
-#pragma unroll 4
-    for (int j = 0; j < kBlock; ++j) {
-      float kc[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = lane + 32 * c;
-        kc[c] = col < D ? ks[j * KS + col] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float gj = __shfl_sync(kFullMask, g[r], j);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(gj, kc[c], acc[r][c]);
-      }
-    }
-  }
-
-  float* db = dq + b * sdq.b + h * sdq.h;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + warp * kRows + r;
-    if (qi >= len_q) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) db[qi * sdq.s + col] = acc[r][c] * scale;
-    }
-  }
-}
-
-template <int D>
-struct DkvTile {
-  static constexpr int kStride = D + 4;
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * (2 * kBlock * D + 2 * kBlock * kStride + 2 * kBlock);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        float* __restrict__ dk, float* __restrict__ dv, Strides sq,
-        Strides sk, Strides sv, Strides sd, Strides sdk, Strides sdv,
-        int heads, int group, int len_q, int len_k, float scale, int causal,
-        int window, int q_off) {
-  constexpr int QS = DkvTile<D>::kStride;
-  constexpr int DC = (D + 31) / 32;
-  extern __shared__ float4 smem_dkv[];
-  float* ks = reinterpret_cast<float*>(smem_dkv);  // kBlock x D
-  float* vs = ks + kBlock * D;                      // kBlock x D
-  float* qs = vs + kBlock * D;                      // kBlock x QS
-  float* gs = qs + kBlock * QS;                     // dO rows, kBlock x QS
-  float* lse_s = gs + kBlock * QS;                  // kBlock
-  float* dl_s = lse_s + kBlock;                     // kBlock
-
-  const int k0 = blockIdx.x * kBlock;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
-
-  for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const int kj = k0 + r;
-    const bool in = kj < len_k;
-    ks[idx] = in ? kb[kj * sk.s + c] : 0.f;
-    vs[idx] = in ? vb[kj * sv.s + c] : 0.f;
-  }
-  float acc_k[kRows][DC], acc_v[kRows][DC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
-
-  // query rows that may see some key of this block: [q_lo, q_hi)
-  const int k_last = min(k0 + kBlock, len_k) - 1;
-  const int q_lo = causal ? max(0, k0 - q_off) : 0;
-  const int q_hi = window > 0 ? min(len_q, k_last + window - q_off) : len_q;
-
-  for (int hh = 0; hh < group; ++hh) {       // the group's heads, in order
-    const int h = kvh * group + hh;
-    const float* qb = q + b * sq.b + h * sq.h;
-    const float* gb = dout + b * sd.b + h * sd.h;
-    const long long stat = ((long long)b * heads + h) * len_q;
-    for (int q0 = (q_lo / kBlock) * kBlock; q0 < q_hi; q0 += kBlock) {
-      __syncthreads();                        // the previous tile is consumed
-      for (int idx = threadIdx.x; idx < kBlock * D; idx += kThreads) {
-        const int r = idx / D, c = idx - r * D;
-        const int qi = q0 + r;
-        const bool in = qi < len_q;
-        qs[r * QS + c] = in ? qb[qi * sq.s + c] : 0.f;
-        gs[r * QS + c] = in ? gb[qi * sd.s + c] : 0.f;
-      }
-      if (threadIdx.x < kBlock) {
-        const int qi = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qi < len_q ? lse[stat + qi] : 0.f;
-        dl_s[threadIdx.x] = qi < len_q ? delta[stat + qi] : 0.f;
-      }
-      __syncthreads();
-
-      // lane = query row of the tile: s = q_lane . k_r, dp = dO_lane . v_r
-      float s[kRows], dp[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
-      const float* qrow = qs + lane * QS;
-      const float* grow = gs + lane * QS;
-#pragma unroll 2
-      for (int c = 0; c < D; c += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qrow + c);
-        const float4 g4 = *reinterpret_cast<const float4*>(grow + c);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int row = (warp * kRows + r) * D + c;
-          s[r] = dot4(q4, *reinterpret_cast<const float4*>(ks + row), s[r]);
-          dp[r] = dot4(g4, *reinterpret_cast<const float4*>(vs + row), dp[r]);
-        }
-      }
-      const int qi = q0 + lane;
-      const float lse_i = lse_s[lane], dl_i = dl_s[lane];
-      float p[kRows], g[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int kj = k0 + warp * kRows + r;
-        p[r] = allowed(qi, kj, len_q, len_k, causal, window, q_off)
-                   ? expf(s[r] * scale - lse_i) : 0.f;
-        g[r] = p[r] * (dp[r] - dl_i);
-      }
-      // acc_v += P^T dO, acc_k += dS^T Q: lane owns columns
-#pragma unroll 2
-      for (int i = 0; i < kBlock; ++i) {
-        float gc[DC], qc[DC];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const int col = lane + 32 * c;
-          gc[c] = col < D ? gs[i * QS + col] : 0.f;
-          qc[c] = col < D ? qs[i * QS + col] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float pi = __shfl_sync(kFullMask, p[r], i);
-          const float gi = __shfl_sync(kFullMask, g[r], i);
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            acc_v[r][c] = fmaf(pi, gc[c], acc_v[r][c]);
-            acc_k[r][c] = fmaf(gi, qc[c], acc_k[r][c]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dkb = dk + b * sdk.b + kvh * sdk.h;
-  float* dvb = dv + b * sdv.b + kvh * sdv.h;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int kj = k0 + warp * kRows + r;
-    if (kj >= len_k) continue;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < D) {
-        dkb[kj * sdk.s + col] = acc_k[r][c] * scale;
-        dvb[kj * sdv.s + col] = acc_v[r][c];
-      }
-    }
-  }
 }
 
 struct BwdArgs {
@@ -1024,42 +522,6 @@ struct BwdArgs {
   float scale;
   int causal, window, q_off;
 };
-
-template <int D>
-int launch(const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem_dq = DqTile<D>::kSmemBytes;
-  constexpr size_t smem_dkv = DkvTile<D>::kSmemBytes;
-  // once per instantiation: allow more than 48 KB of dynamic shared memory
-  static const cudaError_t configured = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)DqTile<D>::kSmemBytes);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(bwd_dkv<D>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)DkvTile<D>::kSmemBytes);
-  }();
-  if (configured != cudaSuccess) return (int)configured;
-  const long long rows = (long long)a.batch * a.heads * a.len_q;
-  const long long delta_blocks = (rows + kWarps - 1) / kWarps;
-  if (delta_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  bwd_delta<D><<<(unsigned)delta_blocks, kThreads, 0, stream>>>(
-      (const float*)a.o, (const float*)a.dout, a.delta, a.so, a.sd, a.heads,
-      a.len_q, rows);
-  const dim3 grid_q((a.len_q + kBlock - 1) / kBlock, a.heads, a.batch);
-  bwd_dq<D><<<grid_q, kThreads, smem_dq, stream>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.dout, a.lse, a.delta, (float*)a.dq, a.sq, a.sk, a.sv,
-      a.sd, a.sdq, a.group, a.len_q, a.len_k, a.scale, a.causal, a.window,
-      a.q_off);
-  const dim3 grid_k((a.len_k + kBlock - 1) / kBlock, a.kv_heads, a.batch);
-  bwd_dkv<D><<<grid_k, kThreads, smem_dkv, stream>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v,
-      (const float*)a.dout, a.lse, a.delta, (float*)a.dk, (float*)a.dv, a.sq,
-      a.sk, a.sv, a.sd, a.sdk, a.sdv, a.heads, a.group, a.len_q, a.len_k,
-      a.scale, a.causal, a.window, a.q_off);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace bwd
 
@@ -1096,8 +558,8 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
 //     head's float32 partials into the workspace (B, H, Sk, D), each twice.
 //   - `fold` (bwd_fold, only when a group has more than one head): for each
 //     KV head, the group's partials summed in head order, dK scaled, each
-//     rounded once to bf16.  This fixed order replaces the head loop of the
-//     float32 kernel's dkv pass.
+//     rounded once to bf16 (its float32 instance, for the float32
+//     backward, stores float32).
 //   - `dq` (bwd_dq_mma): the forward's layout, one block of four warps per
 //     (64 query rows, head, batch), heavy query tiles first; Q and dO tiles
 //     stay in shared memory, K and V tiles of 64 keys (32 for D > 128) go
@@ -1149,26 +611,27 @@ __device__ __forceinline__ bool straddles(int q0, int bq, int k0, int bk,
          (window > 0 && q_off + q0 + bq - 1 - k0 >= window);
 }
 
-// lanes of bwd_delta_packed a row: D / 8 (one 16-byte pack each) rounded
-// up to a power of two, so that a warp's rows are aligned groups of lanes
-// (16 for D = 96 and 112, 32 for D = 136)
-template <int D>
-__host__ __device__ constexpr int delta_lanes() {
-  static_assert(D % 8 == 0 && D <= 256, "whole packs, a row in a warp");
+// lanes of a delta pass a row of C 16-byte packs: C rounded up to a power
+// of two, so that a warp's rows are aligned groups of lanes, and at most a
+// warp (bfloat16: 16 for D = 96 and 112, 32 for D = 136; float32: 32 from
+// D = 128 on, a lane then summing more than one pack)
+template <int C>
+__host__ __device__ constexpr int pack_lanes() {
   int l = 1;
-  while (l < D / 8) l *= 2;
+  while (l < C && l < 32) l *= 2;
   return l;
 }
 
 // delta[row] = O_row . dO_row for bfloat16 rows that are 16-byte aligned:
-// delta_lanes<D>() lanes a row, the first D / 8 each reading 8 values of O
-// and of dO as one pack, the lanes' sums folded by shuffles
+// pack_lanes<D / 8>() lanes a row, the first D / 8 each reading 8 values of
+// O and of dO as one pack, the lanes' sums folded by shuffles
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 bwd_delta_packed(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                  float* __restrict__ delta, Strides so, Strides sd,
                  int heads, int len_q, long long rows) {
-  constexpr int L = delta_lanes<D>();   // lanes a row
+  static_assert(D % 8 == 0 && D <= 256, "whole packs, a row in a warp");
+  constexpr int L = pack_lanes<D / 8>();   // lanes a row
   constexpr int R = 32 / L;             // rows a warp
   const int lane = threadIdx.x & 31;
   const long long row =
@@ -1415,13 +878,15 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // dK, dV of KV head kvh = scale * (sum over the group's heads, in order, of
-// the partials), one thread per 4 columns of a key row
-template <int D>
+// the partials), one thread per 4 columns of a key row, stored as T: bf16
+// (8-byte stores, rows 8-byte aligned), or float32 (one 16-byte store where
+// vec, else four 4-byte ones)
+template <int D, class T>
 __global__ void __launch_bounds__(256)
 bwd_fold(const float* __restrict__ dkp, const float* __restrict__ dvp,
-         bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sdk,
+         T* __restrict__ dk, T* __restrict__ dv, Strides sdk,
          Strides sdv, int kv_heads, int group, int len_k, float scale,
-         long long n4) {
+         long long n4, int vec) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
   constexpr int kQuads = D / 4;
@@ -1439,11 +904,25 @@ bwd_fold(const float* __restrict__ dkp, const float* __restrict__ dvp,
     sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
     sv.x += e.x; sv.y += e.y; sv.z += e.z; sv.w += e.w;
   }
-  *reinterpret_cast<uint2*>(dk + b * sdk.b + kvh * sdk.h + j * sdk.s + c) =
-      make_uint2(pack_bf16(sk.x * scale, sk.y * scale),
-                 pack_bf16(sk.z * scale, sk.w * scale));
-  *reinterpret_cast<uint2*>(dv + b * sdv.b + kvh * sdv.h + j * sdv.s + c) =
-      make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  T* dkr = dk + b * sdk.b + kvh * sdk.h + j * sdk.s + c;
+  T* dvr = dv + b * sdv.b + kvh * sdv.h + j * sdv.s + c;
+  if constexpr (std::is_same<T, bf16>::value) {
+    *reinterpret_cast<uint2*>(dkr) =
+        make_uint2(pack_bf16(sk.x * scale, sk.y * scale),
+                   pack_bf16(sk.z * scale, sk.w * scale));
+    *reinterpret_cast<uint2*>(dvr) =
+        make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  } else {
+    const float4 ok = make_float4(sk.x * scale, sk.y * scale, sk.z * scale,
+                                  sk.w * scale);
+    if (vec) {
+      *reinterpret_cast<float4*>(dkr) = ok;
+      *reinterpret_cast<float4*>(dvr) = sv;
+    } else {
+      dkr[0] = ok.x; dkr[1] = ok.y; dkr[2] = ok.z; dkr[3] = ok.w;
+      dvr[0] = sv.x; dvr[1] = sv.y; dvr[2] = sv.z; dvr[3] = sv.w;
+    }
+  }
 }
 
 template <int D>
@@ -1629,7 +1108,7 @@ int launch(const bwd::BwdArgs& a, cudaStream_t stream) {
   if (fold && a.work == nullptr) return (int)cudaErrorInvalidValue;
   const long long hb = (long long)a.heads * a.batch;
   const long long rows = hb * a.len_q;
-  constexpr int kDeltaLanes = delta_lanes<D>();
+  constexpr int kDeltaLanes = pack_lanes<D / 8>();
   const long long delta_rows = kWarps * (32 / kDeltaLanes);  // a block's
   const long long delta_blocks = (rows + delta_rows - 1) / delta_rows;
   const long long kv_blocks = (a.len_k + Kv::kBlockK - 1) / Kv::kBlockK * hb;
@@ -1658,14 +1137,884 @@ int launch(const bwd::BwdArgs& a, cudaStream_t stream) {
     const long long n4 = (long long)a.batch * a.kv_heads * a.len_k * D / 4;
     const long long blocks = (n4 + 255) / 256;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    bwd_fold<D><<<(unsigned)blocks, 256, 0, stream>>>(
+    bwd_fold<D, bf16><<<(unsigned)blocks, 256, 0, stream>>>(
         a.work, a.work + part, (bf16*)a.dk, (bf16*)a.dv, a.sdk, a.sdv,
-        a.kv_heads, a.group, a.len_k, a.scale, n4);
+        a.kv_heads, a.group, a.len_k, a.scale, n4, 1);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc_bwd
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores, register-tiled outer products (forward and backward)
+// ---------------------------------------------------------------------------
+//
+// Everything float32 inside: tensor cores would mean TF32 and break the
+// forward's 2e-5 and the backward's 1e-4 tolerances, so every product is
+// an fmaf on the CUDA cores (the library is built with -fmad=false; these
+// are its only contractions besides the exponent's), whose float32 rate
+// bounds the kernels.  The design keeps that pipe busy:
+//   - a block is 128 threads: 16 row groups x 8 column groups, lane =
+//     column group + 8 x (row group mod 4), so the 8 threads that share a
+//     tile's rows are 8 lanes of one warp, and a warp owns its rows alone;
+//   - every product is a register-tiled outer product: a thread owns rows
+//     rg + 16 i (i < TR) of a tile and columns cg + 8 j (j < TC) of S (or
+//     S^T in the dK/dV pass), and per 4 values of the inner dimension reads
+//     TR + TC float4s from shared memory for 4 TR TC fmaf (8 to 10.7 fmaf a
+//     16-byte read, where one lane a key would do about 4); the TR row
+//     reads are one address for the 8 lanes that share them;
+//   - tiles sit in shared memory with rows of D + 4 floats: the chunk pitch
+//     D / 4 + 1 is odd for every head dim, so the 16-byte reads of 8
+//     consecutive rows at one column fall in 8 distinct bank groups;
+//   - P (or dS) goes through shared memory once a tile, transposed, in a
+//     buffer each warp owns (__syncwarp, no block barrier), and the second
+//     product reads it back as one float4 (float2) a key for the thread's
+//     rows: O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K take a thread's
+//     TR rows x its 16-byte column chunks cg + 8 u of the result, one float4
+//     of the right operand a key and chunk, and never a shuffle;
+//   - the streamed tiles go through a two-stage cp.async ring (16-byte
+//     copies where every row of every tensor is 16-byte aligned, else 4-byte
+//     copies of the same layout, picked at launch: the same kernel takes a
+//     view of any row alignment), ragged rows zero-filled;
+//   - the exponent is exp2f(fmaf(s, scale log2 e, -m scale log2 e)) as in
+//     the bfloat16 kernels; tiles that no row may see are skipped and only
+//     tiles that straddle an edge run the per-element mask.
+// Tiles (Fwd, Dkv, Dq below) are picked so that two blocks fit an SM's
+// shared memory at the path's head dim 64 (and up to 128), since the
+// training shapes' grids (192 blocks at q (4, 12, 256, 64) and at granite's
+// (2, 12, 512, 64)) are about one wave of 132 SMs.
+// Forward (flash_fwd_f32_tiled): a block per (64 query rows — 32 for
+// D > 128 — head, batch), heavy query tiles first; Q staged once; K, V
+// tiles of 64 keys (32 for D > 64) through the ring; online softmax on the
+// thread's tile, the row max across the 8 lanes of a row by three
+// __shfl_xor_sync, the row sum kept per thread and summed once at the end.
+// Backward: `delta` (bwd_delta_f32: 16-byte packs, D / 4 lanes a row up to
+// a warp), then one launch (bwd_dkv_dq_f32) for two independent passes
+// whose blocks are interleaved, each pass's heaviest items first, so that
+// the light items of one fill the SMs the heavy items of the other leave
+// idle (the key tile 0 item walks every query tile under a causal mask):
+//   - `dkv` items (dkv_item: 64 keys — 32 for D > 64 — query head,
+//     batch): K and V staged once, Q, dO, lse, delta tiles of 32 query
+//     rows through the ring; S^T = K Q^T and dP^T = V dO^T, then dV +=
+//     P^T dO and dK += dS^T Q; with one head a group the block writes dK
+//     (scaled) and dV, else its head's partials into the (2, B, H, Sk, D)
+//     workspace, which bwd_fold<D, float> sums in head order;
+//   - `dq` items (dq_item: the forward's layout with 64 query rows — 32
+//     for D > 64): Q and dO staged once, K, V tiles of 32 keys through the
+//     ring, S and dP recomputed, dQ += dS K.
+
+namespace f32 {
+
+using bwd::allowed;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc_bwd::kLog2e;
+using tc_bwd::straddles;
+
+constexpr int kThreads = 128;
+constexpr int kRowGroups = 16;     // threads along a tile's rows
+constexpr int kColGroups = 8;      // along its columns: lane & 7
+// blocks an SM the tiled kernels are built for: shared memory holds two at
+// D <= 128 anyway, so each thread may take up to 255 registers
+constexpr int kMinBlocks = 2;
+
+// floats a tile row of head dim D takes in shared memory
+template <int D>
+__host__ __device__ constexpr int pitch() { return D + 4; }
+
+// 16-byte chunks of a D-wide result row a thread owns: cg + 8 u, u < this
+template <int D>
+__host__ __device__ constexpr int chunks() {
+  return (D / 4 + kColGroups - 1) / kColGroups;
+}
+
+// whether column group cg owns chunk cg + 8 u (not all do at D = 16, 112,
+// 136: 4, 28, 34 chunks a row)
+template <int D>
+__device__ __forceinline__ bool owns(int cg, int u) {
+  return (D / 4) % kColGroups == 0 || cg + kColGroups * u < D / 4;
+}
+
+// whether every row of a float32 (nb, nh, ns, D) tensor with these strides
+// is 16-byte aligned
+inline bool rows16(const void* p, Strides s, int nb, int nh, int ns) {
+  return ((uintptr_t)p & 15) == 0 && (nb == 1 || s.b % 4 == 0) &&
+         (nh == 1 || s.h % 4 == 0) && (ns == 1 || s.s % 4 == 0);
+}
+
+// rows [row0, row0 + ROWS) of a (len, D) float32 matrix with row stride
+// `stride` into a tile of pitch D + 4 at shared address dst; rows at or past
+// len are zero-filled.  vec: 16-byte copies, else four 4-byte ones a chunk.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const float* base,
+                                          long long stride, int row0,
+                                          int len, int tid, bool vec) {
+  constexpr int C = D / 4, N = ROWS * C;
+#pragma unroll 4
+  for (int it = 0; it < (N + kThreads - 1) / kThreads; ++it) {
+    const int i = it * kThreads + tid;
+    if (N % kThreads == 0 || i < N) {
+      const int r = i / C, c = i - r * C;
+      const bool in = row0 + r < len;
+      const float* src =
+          base + (in ? (long long)(row0 + r) * stride + 4 * c : 0);
+      const uint32_t at = dst + (uint32_t)((r * pitch<D>() + 4 * c) * 4);
+      if (vec) {
+        tc::cp_async16(at, src, in);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tc_bwd::cp_async4(at + 4 * e, src + (in ? e : 0), in);
+      }
+    }
+  }
+}
+
+// acc[i][j] += A[rg + 16 i] . B[cg + 8 j] over D, with a = A + rg pitch and
+// b = B + cg pitch (tiles of pitch D + 4); the inner sum runs in column
+// order
+template <int D, int TR, int TC>
+__device__ __forceinline__ void dots(float (&acc)[TR][TC], const float* a,
+                                     const float* b) {
+  constexpr int P = pitch<D>();
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float4 av[TR];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + i * kRowGroups * P + c);
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(b + j * kColGroups * P + c);
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// v[TR] <-> TR consecutive floats of a transposed P buffer (a float4 or a
+// float2, aligned by the buffer's layout)
+template <int TR>
+__device__ __forceinline__ void read_col(float (&v)[TR], const float* p) {
+  static_assert(TR == 2 || TR == 4, "two or four rows a thread");
+  if constexpr (TR == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+template <int TR>
+__device__ __forceinline__ void write_col(float* p, const float (&v)[TR]) {
+  if constexpr (TR == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+// the thread's tile t[i][j] into the transposed buffer: row cg + 8 j
+// (pitch PP) holds column j's values at rg TR + i
+template <int TR, int TC, int PP>
+__device__ __forceinline__ void stash(float* buf, const float (&t)[TR][TC],
+                                      int rg, int cg) {
+#pragma unroll
+  for (int j = 0; j < TC; ++j) {
+    float v[TR];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) v[i] = t[i][j];
+    write_col<TR>(buf + (cg + kColGroups * j) * PP + rg * TR, v);
+  }
+}
+
+// acc[i][u] += sum_j T[j][rg TR + i] M[j][4 (cg + 8 u) ...] over j < N, in
+// order: T a transposed buffer of pitch PP (t = T + rg TR), M a tile of
+// pitch D + 4
+template <int D, int TR, int N, int PP>
+__device__ __forceinline__ void accumulate(float4 (&acc)[TR][chunks<D>()],
+                                           const float* t, const float* m,
+                                           int cg) {
+  constexpr int P = pitch<D>();
+#pragma unroll 4
+  for (int j = 0; j < N; ++j) {
+    float pv[TR];
+    read_col<TR>(pv, t + j * PP);
+#pragma unroll
+    for (int u = 0; u < chunks<D>(); ++u) {
+      if (!owns<D>(cg, u)) continue;
+      const float4 mv = *reinterpret_cast<const float4*>(
+          m + j * P + 4 * (cg + kColGroups * u));
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        acc[i][u].x = fmaf(pv[i], mv.x, acc[i][u].x);
+        acc[i][u].y = fmaf(pv[i], mv.y, acc[i][u].y);
+        acc[i][u].z = fmaf(pv[i], mv.z, acc[i][u].z);
+        acc[i][u].w = fmaf(pv[i], mv.w, acc[i][u].w);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store4(float* dst, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  }
+}
+
+__device__ __forceinline__ float4 scaled(float4 v, float s) {
+  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+}
+
+// the sum (max) of v over the 8 lanes of a row: lanes that differ in their
+// low three bits
+__device__ __forceinline__ float row_sum(float v) {
+  v += __shfl_xor_sync(kFullMask, v, 1);
+  v += __shfl_xor_sync(kFullMask, v, 2);
+  return v + __shfl_xor_sync(kFullMask, v, 4);
+}
+__device__ __forceinline__ float row_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 2));
+  return fmaxf(v, __shfl_xor_sync(kFullMask, v, 4));
+}
+
+// ---------------------------------------------------------------- forward
+
+template <int D>
+struct Fwd {
+  static constexpr int kTR = D > 128 ? 2 : 4;           // query rows a thread
+  static constexpr int kTC = D > 64 ? 4 : 8;            // keys a thread
+  static constexpr int kBlockQ = kRowGroups * kTR;      // 64, 32 past 128
+  static constexpr int kBlockK = kColGroups * kTC;      // 64, 32 past 64
+  static constexpr int kPP = kBlockQ + 4;               // P^T buffer pitch
+  static constexpr int kQFloats = kBlockQ * pitch<D>();
+  static constexpr int kKvFloats = kBlockK * pitch<D>();  // K or V
+  static constexpr int kSmemBytes =
+      4 * (kQFloats + 2 * 2 * kKvFloats + kBlockK * kPP);
+};
+
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_fwd_f32_tiled(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    float* __restrict__ lse, Strides sq, Strides sk,
+                    Strides sv, Strides so, int heads, int batch, int group,
+                    int len_q, int len_k, float scale_log2, int causal,
+                    int window, int q_off, int n_qtiles, int vec) {
+  using Cf = Fwd<D>;
+  constexpr int TR = Cf::kTR, TC = Cf::kTC, NU = chunks<D>();
+  constexpr int BQ = Cf::kBlockQ, BK = Cf::kBlockK, P = pitch<D>();
+  extern __shared__ float4 smem_f32_fwd[];
+  float* qs = reinterpret_cast<float*>(smem_f32_fwd);
+  float* ring = qs + Cf::kQFloats;                  // 2 stages x (K, V)
+  float* pt = ring + 2 * 2 * Cf::kKvFloats;         // P^T, BK x kPP
+  const uint32_t qs_a = (uint32_t)__cvta_generic_to_shared(qs);
+  const uint32_t ring_a = (uint32_t)__cvta_generic_to_shared(ring);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int cg = lane & 7, rg = (tid >> 5) * 4 + (lane >> 3);
+  const int hb = heads * batch;
+  // heavy first: the first blocks take the last (causally largest) q tile
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / hb);
+  const int h = (int)(blockIdx.x % hb) % heads;
+  const int b = (int)(blockIdx.x % hb) / heads;
+  const int kvh = h / group;
+  const int q0 = qt * BQ;
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+
+  // keys that some row of this block may see: [k_lo, k_hi); row i sits at
+  // position q_off + i
+  const int q_last = min(q0 + BQ, len_q) - 1;
+  const int k_hi = causal ? min(len_k, q_off + q_last + 1) : len_k;
+  const int k_lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
+  const int t_first = k_lo / BK;
+  const int t_end = (k_hi + BK - 1) / BK;
+
+  load_rows<D, BQ>(qs_a, q + b * sq.b + h * sq.h, sq.s, q0, len_q, tid, vec);
+  cp_async_commit();
+  if (t_first < t_end) {
+    load_rows<D, BK>(ring_a, kb, sk.s, t_first * BK, len_k, tid, vec);
+    load_rows<D, BK>(ring_a + 4 * Cf::kKvFloats, vb, sv.s, t_first * BK,
+                     len_k, tid, vec);
+  }
+  cp_async_commit();
+
+  float4 acc[TR][NU];
+  float m_r[TR], l_r[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    m_r[i] = kNegInf;
+    l_r[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int t = t_first; t < t_end; ++t) {
+    const int stage = (t - t_first) & 1;
+    const float* ks = ring + stage * 2 * Cf::kKvFloats;
+    const float* vs = ks + Cf::kKvFloats;
+    if (t + 1 < t_end) {            // the next tile, into the other stage
+      const uint32_t nk = ring_a + (1 - stage) * 2 * Cf::kKvFloats * 4;
+      load_rows<D, BK>(nk, kb, sk.s, (t + 1) * BK, len_k, tid, vec);
+      load_rows<D, BK>(nk + 4 * Cf::kKvFloats, vb, sv.s, (t + 1) * BK,
+                       len_k, tid, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // tile t (and Q) have landed
+    __syncthreads();
+
+    float s[TR][TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
+    dots<D, TR, TC>(s, qs + rg * P, ks + cg * P);
+
+    // the mask, only on tiles that straddle an edge
+    const int k0 = t * BK;
+    if (k0 + BK > len_k || (causal && k0 + BK - 1 > q_off + q0) ||
+        (window > 0 && k0 < q_off + q0 + BQ - window)) {
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int qi = q_off + q0 + rg + kRowGroups * i;   // its position
+          const int kj = k0 + cg + kColGroups * j;
+          bool ok = kj < len_k;
+          if (causal) ok = ok && qi >= kj;
+          if (window > 0) ok = ok && qi - kj < window;
+          if (!ok) s[i][j] = kNegInf;
+        }
+    }
+
+    // online softmax on the thread's rows: the max across the row's lanes,
+    // the sum kept per thread (the same correction on every lane of a row)
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float mx = m_r[i];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) mx = fmaxf(mx, s[i][j]);
+      mx = row_max(mx);
+      const float corr = exp2f((m_r[i] - mx) * scale_log2);
+      m_r[i] = mx;
+      const float msc = mx == kNegInf ? 0.f : mx * scale_log2;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const float p = exp2f(fmaf(s[i][j], scale_log2, -msc));
+        s[i][j] = p;
+        psum += p;
+      }
+      l_r[i] = fmaf(l_r[i], corr, psum);
+#pragma unroll
+      for (int u = 0; u < NU; ++u) acc[i][u] = scaled(acc[i][u], corr);
+    }
+
+    // O += P V: P through the warp's own rows of the P^T buffer
+    stash<TR, TC, Cf::kPP>(pt, s, rg, cg);
+    __syncwarp();
+    accumulate<D, TR, BK, Cf::kPP>(acc, pt + rg * TR, vs, cg);
+    __syncthreads();                // stage and P^T read; both are reused
+  }
+
+  float* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const float l = row_sum(l_r[i]);
+    const int qi = q0 + rg + kRowGroups * i;
+    if (qi >= len_q) continue;
+    const bool empty = m_r[i] <= kNegInf * 0.5f;
+    const float inv = empty ? 0.f : 1.f / fmaxf(l, 1e-30f);
+    if constexpr (kLse) {            // natural log, scale applied
+      if (cg == 0)
+        lse[((long long)b * heads + h) * len_q + qi] =
+            empty ? INFINITY
+                  : (m_r[i] * scale_log2 + log2f(fmaxf(l, 1e-30f))) *
+                        0.69314718055994531f;
+    }
+    float* orow = ob + (long long)qi * so.s;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      if (owns<D>(cg, u))
+        store4(orow + 4 * (cg + kColGroups * u), scaled(acc[i][u], inv), vec);
+  }
+}
+
+template <int D, bool kLse>
+int launch_fwd_one(const void* q, const void* k, const void* v, void* o,
+                   float* lse, Strides sq, Strides sk, Strides sv,
+                   Strides so, int batch, int heads, int kv_heads, int group,
+                   int len_q, int len_k, float scale_log2, int causal,
+                   int window, int q_off, cudaStream_t stream) {
+  constexpr int smem = Fwd<D>::kSmemBytes;
+  // once per instantiation (and so never inside a CUDA-graph capture after
+  // a first eager call): allow more than 48 KB of dynamic shared memory
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      flash_fwd_f32_tiled<D, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (configured != cudaSuccess) return (int)configured;
+  const int n_qtiles = (len_q + Fwd<D>::kBlockQ - 1) / Fwd<D>::kBlockQ;
+  const long long blocks = (long long)n_qtiles * heads * batch;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = rows16(q, sq, batch, heads, len_q) &&
+                   rows16(k, sk, batch, kv_heads, len_k) &&
+                   rows16(v, sv, batch, kv_heads, len_k) &&
+                   rows16(o, so, batch, heads, len_q);
+  flash_fwd_f32_tiled<D, kLse><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, sq,
+      sk, sv, so, heads, batch, group, len_q, len_k, scale_log2, causal,
+      window, q_off, n_qtiles, (int)vec);
+  return (int)cudaGetLastError();
+}
+
+// the lse store is a separate instance, so the kernel that generation runs
+// does not carry it
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, Strides sq, Strides sk, Strides sv, Strides so,
+               int batch, int heads, int kv_heads, int len_q, int len_k,
+               float scale_log2, int causal, int window, int q_off,
+               cudaStream_t stream) {
+  const int group = heads / kv_heads;
+  return lse ? launch_fwd_one<D, true>(q, k, v, o, lse, sq, sk, sv, so,
+                                       batch, heads, kv_heads, group, len_q,
+                                       len_k, scale_log2, causal, window,
+                                       q_off, stream)
+             : launch_fwd_one<D, false>(q, k, v, o, lse, sq, sk, sv, so,
+                                        batch, heads, kv_heads, group, len_q,
+                                        len_k, scale_log2, causal, window,
+                                        q_off, stream);
+}
+
+// --------------------------------------------------------------- backward
+
+// delta[row] = O_row . dO_row for the rows (b, h, i) in that order: L lanes
+// a row, each summing its packs of 4 floats (one 16-byte read where vec,
+// else four 4-byte ones: the same sum in the same order), the lanes' sums
+// folded by shuffles
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_delta_f32(const float* __restrict__ o, const float* __restrict__ dout,
+              float* __restrict__ delta, Strides so, Strides sd, int heads,
+              int len_q, long long rows, int vec) {
+  constexpr int C = D / 4;              // packs a row
+  constexpr int L = tc_bwd::pack_lanes<C>();   // lanes a row
+  constexpr int R = 32 / L;             // rows a warp
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      ((long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * R +
+      lane / L;
+  float acc = 0.f;
+  if (row < rows) {
+    const int i = (int)(row % len_q);
+    const long long bh = row / len_q;
+    const int h = (int)(bh % heads), b = (int)(bh / heads);
+    const float* orow = o + b * so.b + h * so.h + i * so.s;
+    const float* drow = dout + b * sd.b + h * sd.h + i * sd.s;
+    for (int c = lane % L; c < C; c += L) {
+      float4 x, y;
+      if (vec) {
+        x = *reinterpret_cast<const float4*>(orow + 4 * c);
+        y = *reinterpret_cast<const float4*>(drow + 4 * c);
+      } else {
+        x = make_float4(orow[4 * c], orow[4 * c + 1], orow[4 * c + 2],
+                        orow[4 * c + 3]);
+        y = make_float4(drow[4 * c], drow[4 * c + 1], drow[4 * c + 2],
+                        drow[4 * c + 3]);
+      }
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+      acc = fmaf(x.z, y.z, acc);
+      acc = fmaf(x.w, y.w, acc);
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(kFullMask, acc, off);
+  if (row < rows && lane % L == 0) delta[row] = acc;
+}
+
+// the float32 backward's arguments, as the kernel takes them
+struct BwdF32 {
+  const float *q, *k, *v, *dout, *lse, *delta;
+  float *dq, *dk, *dv, *dkp, *dvp;  // dkp, dvp: partials, or null
+  Strides sq, sk, sv, sd, sdq, sdk, sdv;
+  int heads, batch, group, len_q, len_k;
+  float scale, scale_log2;
+  int causal, window, q_off;
+  int n_kv_items, n_q_items, n_qtiles, vec;
+};
+
+template <int D>
+struct Dkv {
+  static constexpr int kTR = D > 64 ? 2 : 4;            // keys a thread
+  static constexpr int kTC = 4;                         // queries a thread
+  static constexpr int kBlockK = kRowGroups * kTR;      // 64, 32 past 64
+  static constexpr int kBlockQ = kColGroups * kTC;      // 32
+  static constexpr int kPP = kBlockK + 4;               // P^T, dS^T pitch
+  static constexpr int kKvFloats = kBlockK * pitch<D>();   // K or V
+  static constexpr int kQFloats = kBlockQ * pitch<D>();    // Q or dO
+  // a stage: Q, dO, then lse and delta of its rows (a multiple of 16 bytes)
+  static constexpr int kStageFloats = 2 * kQFloats + 2 * kBlockQ;
+  static constexpr int kSmemBytes =
+      4 * (2 * kKvFloats + 2 * kStageFloats + 2 * kBlockQ * kPP);
+};
+
+// dK, dV of one (key tile, query head, batch) item, key tile 0 (under a
+// causal mask the one that sees the most query tiles) first
+template <int D>
+__device__ __forceinline__ void dkv_item(const BwdF32& a, int item,
+                                         float* smem) {
+  using Cf = Dkv<D>;
+  constexpr int TR = Cf::kTR, TC = Cf::kTC, NU = chunks<D>();
+  constexpr int BK = Cf::kBlockK, BQ = Cf::kBlockQ, P = pitch<D>();
+  float* ks = smem;
+  float* vs = ks + Cf::kKvFloats;
+  float* ring = vs + Cf::kKvFloats;                 // 2 stages
+  float* pt = ring + 2 * Cf::kStageFloats;          // P^T, BQ x kPP
+  float* dst = pt + BQ * Cf::kPP;                   // dS^T, BQ x kPP
+  const uint32_t ks_a = (uint32_t)__cvta_generic_to_shared(ks);
+  const uint32_t ring_a = (uint32_t)__cvta_generic_to_shared(ring);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int cg = lane & 7, rg = (tid >> 5) * 4 + (lane >> 3);
+  const int hb = a.heads * a.batch;
+  const int kt = item / hb;
+  const int h = (item % hb) % a.heads;
+  const int b = (item % hb) / a.heads;
+  const int kvh = h / a.group;
+  const int k0 = kt * BK;
+  const int len_q = a.len_q, len_k = a.len_k;
+  const bool vec = a.vec;
+  const float* qb = a.q + b * a.sq.b + h * a.sq.h;
+  const float* gb = a.dout + b * a.sd.b + h * a.sd.h;
+  const long long bh = (long long)b * a.heads + h;
+  const long long stat = bh * len_q;
+
+  // query rows that may see some key of this block: [q_lo, q_hi)
+  const int k_last = min(k0 + BK, len_k) - 1;
+  const int q_lo = a.causal ? max(0, k0 - a.q_off) : 0;
+  const int q_hi =
+      a.window > 0 ? min(len_q, k_last + a.window - a.q_off) : len_q;
+  const int t_first = q_lo / BQ;
+  const int t_end = q_hi > q_lo ? (q_hi + BQ - 1) / BQ : t_first;
+
+  // Q, dO, lse, delta of query tile t into its stage of the ring
+  auto load_stage = [&](int t) {
+    const uint32_t st = ring_a + ((t - t_first) & 1) * Cf::kStageFloats * 4;
+    const int q0 = t * BQ;
+    load_rows<D, BQ>(st, qb, a.sq.s, q0, len_q, tid, vec);
+    load_rows<D, BQ>(st + Cf::kQFloats * 4, gb, a.sd.s, q0, len_q, tid, vec);
+    if (tid < 2 * BQ) {                 // lse, then delta
+      const int r = tid % BQ;
+      const bool in = q0 + r < len_q;
+      const float* src =
+          (tid < BQ ? a.lse : a.delta) + stat + (in ? q0 + r : 0);
+      tc_bwd::cp_async4(st + (2 * Cf::kQFloats + tid) * 4, src, in);
+    }
+  };
+
+  load_rows<D, BK>(ks_a, a.k + b * a.sk.b + kvh * a.sk.h, a.sk.s, k0, len_k,
+                   tid, vec);
+  load_rows<D, BK>(ks_a + Cf::kKvFloats * 4, a.v + b * a.sv.b + kvh * a.sv.h,
+                   a.sv.s, k0, len_k, tid, vec);
+  if (t_first < t_end) load_stage(t_first);
+  cp_async_commit();
+
+  float4 acc_k[TR][NU], acc_v[TR][NU];
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      acc_k[i][u] = acc_v[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int t = t_first; t < t_end; ++t) {
+    const float* qs = ring + ((t - t_first) & 1) * Cf::kStageFloats;
+    const float* gs = qs + Cf::kQFloats;
+    const float* lse_s = gs + Cf::kQFloats;
+    const float* dl_s = lse_s + BQ;
+    if (t + 1 < t_end) load_stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();               // tile t (and K, V) have landed
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T on the thread's keys x queries
+    float s[TR][TC], dp[TR][TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) s[i][j] = dp[i][j] = 0.f;
+    dots<D, TR, TC>(s, ks + rg * P, qs + cg * P);
+    dots<D, TR, TC>(dp, vs + rg * P, gs + cg * P);
+
+    // P^T and dS^T; the mask only on tiles that straddle an edge
+    const int q0 = t * BQ;
+    const bool edge = straddles(q0, BQ, k0, BK, len_q, len_k, a.causal,
+                                a.window, a.q_off);
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int qj = cg + kColGroups * j;
+      const float l2 = lse_s[qj] * kLog2e, dl = dl_s[qj];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        float p = exp2f(fmaf(s[i][j], a.scale_log2, -l2));
+        if (edge && !allowed(q0 + qj, k0 + rg + kRowGroups * i, len_q, len_k,
+                             a.causal, a.window, a.q_off))
+          p = 0.f;
+        s[i][j] = p;
+        dp[i][j] = p * (dp[i][j] - dl);
+      }
+    }
+
+    // dV += P^T dO, dK += dS^T Q, through the warp's own buffer rows
+    stash<TR, TC, Cf::kPP>(pt, s, rg, cg);
+    stash<TR, TC, Cf::kPP>(dst, dp, rg, cg);
+    __syncwarp();
+    accumulate<D, TR, BQ, Cf::kPP>(acc_v, pt + rg * TR, gs, cg);
+    accumulate<D, TR, BQ, Cf::kPP>(acc_k, dst + rg * TR, qs, cg);
+    __syncthreads();                  // stage and buffers read; reused
+  }
+
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int kj = k0 + rg + kRowGroups * i;
+    if (kj >= len_k) continue;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      if (!owns<D>(cg, u)) continue;
+      const int col = 4 * (cg + kColGroups * u);
+      if (a.dkp != nullptr) {         // this head's partials, unscaled
+        const long long at = (bh * len_k + kj) * D + col;
+        *reinterpret_cast<float4*>(a.dkp + at) = acc_k[i][u];
+        *reinterpret_cast<float4*>(a.dvp + at) = acc_v[i][u];
+      } else {
+        store4(a.dk + b * a.sdk.b + kvh * a.sdk.h + kj * a.sdk.s + col,
+               scaled(acc_k[i][u], a.scale), vec);
+        store4(a.dv + b * a.sdv.b + kvh * a.sdv.h + kj * a.sdv.s + col,
+               acc_v[i][u], vec);
+      }
+    }
+  }
+}
+
+template <int D>
+struct Dq {
+  static constexpr int kTR = D > 64 ? 2 : 4;            // query rows a thread
+  static constexpr int kTC = 4;                         // keys a thread
+  static constexpr int kBlockQ = kRowGroups * kTR;      // 64, 32 past 64
+  static constexpr int kBlockK = kColGroups * kTC;      // 32
+  static constexpr int kPP = kBlockQ + 4;               // dS^T pitch
+  static constexpr int kQFloats = kBlockQ * pitch<D>();    // Q or dO
+  static constexpr int kKvFloats = kBlockK * pitch<D>();   // K or V
+  static constexpr int kSmemBytes =
+      4 * (2 * kQFloats + 2 * 2 * kKvFloats + kBlockK * kPP);
+};
+
+// dQ of one (query tile, head, batch) item, the last (under a causal mask
+// the heaviest) query tile first
+template <int D>
+__device__ __forceinline__ void dq_item(const BwdF32& a, int item,
+                                        float* smem) {
+  using Cf = Dq<D>;
+  constexpr int TR = Cf::kTR, TC = Cf::kTC, NU = chunks<D>();
+  constexpr int BQ = Cf::kBlockQ, BK = Cf::kBlockK, P = pitch<D>();
+  float* qs = smem;
+  float* gs = qs + Cf::kQFloats;
+  float* ring = gs + Cf::kQFloats;                  // 2 stages x (K, V)
+  float* dst = ring + 2 * 2 * Cf::kKvFloats;        // dS^T, BK x kPP
+  const uint32_t qs_a = (uint32_t)__cvta_generic_to_shared(qs);
+  const uint32_t ring_a = (uint32_t)__cvta_generic_to_shared(ring);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int cg = lane & 7, rg = (tid >> 5) * 4 + (lane >> 3);
+  const int hb = a.heads * a.batch;
+  const int qt = a.n_qtiles - 1 - item / hb;
+  const int h = (item % hb) % a.heads;
+  const int b = (item % hb) / a.heads;
+  const int kvh = h / a.group;
+  const int q0 = qt * BQ;
+  const int len_q = a.len_q, len_k = a.len_k;
+  const bool vec = a.vec;
+  const float* kb = a.k + b * a.sk.b + kvh * a.sk.h;
+  const float* vb = a.v + b * a.sv.b + kvh * a.sv.h;
+  const long long stat = ((long long)b * a.heads + h) * len_q;
+
+  // keys that some row of this block may see: [k_lo, k_hi)
+  const int q_last = min(q0 + BQ, len_q) - 1;
+  const int k_hi = a.causal ? min(len_k, a.q_off + q_last + 1) : len_k;
+  const int k_lo = a.window > 0 ? max(0, a.q_off + q0 - a.window + 1) : 0;
+  const int t_first = k_lo / BK;
+  const int t_end = (k_hi + BK - 1) / BK;
+
+  load_rows<D, BQ>(qs_a, a.q + b * a.sq.b + h * a.sq.h, a.sq.s, q0, len_q,
+                   tid, vec);
+  load_rows<D, BQ>(qs_a + Cf::kQFloats * 4, a.dout + b * a.sd.b + h * a.sd.h,
+                   a.sd.s, q0, len_q, tid, vec);
+  if (t_first < t_end) {
+    load_rows<D, BK>(ring_a, kb, a.sk.s, t_first * BK, len_k, tid, vec);
+    load_rows<D, BK>(ring_a + Cf::kKvFloats * 4, vb, a.sv.s, t_first * BK,
+                     len_k, tid, vec);
+  }
+  cp_async_commit();
+
+  float lse2[TR], dl[TR];                 // lse in log2 units, delta
+  float4 acc[TR][NU];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int qi = q0 + rg + kRowGroups * i;
+    lse2[i] = qi < len_q ? a.lse[stat + qi] * kLog2e : INFINITY;
+    dl[i] = qi < len_q ? a.delta[stat + qi] : 0.f;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int t = t_first; t < t_end; ++t) {
+    const int stage = (t - t_first) & 1;
+    const float* ks = ring + stage * 2 * Cf::kKvFloats;
+    const float* vs = ks + Cf::kKvFloats;
+    if (t + 1 < t_end) {            // the next tile, into the other stage
+      const uint32_t nk = ring_a + (1 - stage) * 2 * Cf::kKvFloats * 4;
+      load_rows<D, BK>(nk, kb, a.sk.s, (t + 1) * BK, len_k, tid, vec);
+      load_rows<D, BK>(nk + Cf::kKvFloats * 4, vb, a.sv.s, (t + 1) * BK,
+                       len_k, tid, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();             // tile t (and Q, dO) have landed
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T on the thread's rows x keys
+    float s[TR][TC], dp[TR][TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) s[i][j] = dp[i][j] = 0.f;
+    dots<D, TR, TC>(s, qs + rg * P, ks + cg * P);
+    dots<D, TR, TC>(dp, gs + rg * P, vs + cg * P);
+
+    // dS = P (dP - delta); the mask only on tiles that straddle an edge
+    const int k0 = t * BK;
+    const bool edge = straddles(q0, BQ, k0, BK, len_q, len_k, a.causal,
+                                a.window, a.q_off);
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        float p = exp2f(fmaf(s[i][j], a.scale_log2, -lse2[i]));
+        if (edge && !allowed(q0 + rg + kRowGroups * i,
+                             k0 + cg + kColGroups * j, len_q, len_k, a.causal,
+                             a.window, a.q_off))
+          p = 0.f;
+        s[i][j] = p * (dp[i][j] - dl[i]);
+      }
+
+    // dQ += dS K, through the warp's own buffer rows
+    stash<TR, TC, Cf::kPP>(dst, s, rg, cg);
+    __syncwarp();
+    accumulate<D, TR, BK, Cf::kPP>(acc, dst + rg * TR, ks, cg);
+    __syncthreads();                // stage and buffer read; both reused
+  }
+
+  float* db = a.dq + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int qi = q0 + rg + kRowGroups * i;
+    if (qi >= len_q) continue;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      if (owns<D>(cg, u))
+        store4(db + (long long)qi * a.sdq.s + 4 * (cg + kColGroups * u),
+               scaled(acc[i][u], a.scale), vec);
+  }
+}
+
+// the dK/dV and dQ passes in one launch: the two are independent, so their
+// items (each heaviest first) are interleaved — block 2i the dK/dV pass's
+// item i, block 2i + 1 the dQ pass's — and the longer list's tail follows;
+// each pass's light items then fill the SMs that the other's heavy items
+// leave idle.  Every item is one block's, so no sum depends on the order.
+template <int D>
+__host__ __device__ constexpr int bwd_smem_bytes() {
+  return Dkv<D>::kSmemBytes > Dq<D>::kSmemBytes ? Dkv<D>::kSmemBytes
+                                                : Dq<D>::kSmemBytes;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+bwd_dkv_dq_f32(const BwdF32 a) {
+  extern __shared__ float4 smem_f32_bwd[];
+  float* smem = reinterpret_cast<float*>(smem_f32_bwd);
+  const int i = (int)blockIdx.x;
+  const int both = 2 * min(a.n_kv_items, a.n_q_items);
+  if (i < both ? (i & 1) == 0 : a.n_kv_items > a.n_q_items)
+    dkv_item<D>(a, i < both ? i >> 1 : i - both / 2, smem);
+  else
+    dq_item<D>(a, i < both ? i >> 1 : i - both / 2, smem);
+}
+
+template <int D>
+int launch_bwd(const bwd::BwdArgs& a, cudaStream_t stream) {
+  constexpr int smem = bwd_smem_bytes<D>();
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      bwd_dkv_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (configured != cudaSuccess) return (int)configured;
+  const bool fold = a.group > 1;
+  if (fold && a.work == nullptr) return (int)cudaErrorInvalidValue;
+  const long long hb = (long long)a.heads * a.batch;
+  const long long rows = hb * a.len_q;
+  const bool vec =
+      rows16(a.q, a.sq, a.batch, a.heads, a.len_q) &&
+      rows16(a.k, a.sk, a.batch, a.kv_heads, a.len_k) &&
+      rows16(a.v, a.sv, a.batch, a.kv_heads, a.len_k) &&
+      rows16(a.o, a.so, a.batch, a.heads, a.len_q) &&
+      rows16(a.dout, a.sd, a.batch, a.heads, a.len_q) &&
+      rows16(a.dq, a.sdq, a.batch, a.heads, a.len_q) &&
+      rows16(a.dk, a.sdk, a.batch, a.kv_heads, a.len_k) &&
+      rows16(a.dv, a.sdv, a.batch, a.kv_heads, a.len_k);
+  const long long delta_rows =
+      (kThreads / 32) * (32 / tc_bwd::pack_lanes<D / 4>());
+  const long long delta_blocks = (rows + delta_rows - 1) / delta_rows;
+  const long long kv_items =
+      (a.len_k + Dkv<D>::kBlockK - 1) / Dkv<D>::kBlockK * hb;
+  const int n_qtiles = (a.len_q + Dq<D>::kBlockQ - 1) / Dq<D>::kBlockQ;
+  const long long q_items = (long long)n_qtiles * hb;
+  if (kv_items + q_items > 0x7fffffffLL || delta_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const long long part = hb * a.len_k * D;    // one partial, in floats
+  const BwdF32 args{(const float*)a.q, (const float*)a.k, (const float*)a.v,
+                    (const float*)a.dout, a.lse, a.delta, (float*)a.dq,
+                    (float*)a.dk, (float*)a.dv, fold ? a.work : nullptr,
+                    fold ? a.work + part : nullptr, a.sq, a.sk, a.sv, a.sd,
+                    a.sdq, a.sdk, a.sdv, a.heads, a.batch, a.group, a.len_q,
+                    a.len_k, a.scale, a.scale * kLog2e, a.causal, a.window,
+                    a.q_off, (int)kv_items, (int)q_items, n_qtiles,
+                    (int)vec};
+  bwd_delta_f32<D><<<(unsigned)delta_blocks, kThreads, 0, stream>>>(
+      (const float*)a.o, (const float*)a.dout, a.delta, a.so, a.sd, a.heads,
+      a.len_q, rows, (int)vec);
+  bwd_dkv_dq_f32<D><<<(unsigned)(kv_items + q_items), kThreads, smem,
+                      stream>>>(args);
+  if (fold) {
+    const long long n4 = (long long)a.batch * a.kv_heads * a.len_k * D / 4;
+    const long long blocks = (n4 + 255) / 256;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    tc_bwd::bwd_fold<D, float><<<(unsigned)blocks, 256, 0, stream>>>(
+        a.work, a.work + part, (float*)a.dk, (float*)a.dv, a.sdk, a.sdv,
+        a.kv_heads, a.group, a.len_k, a.scale, n4, (int)vec);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace f32
 
 // f(std::integral_constant<int, D>) for the head dim D: one instance of
 // either kernel per head dim
@@ -1711,7 +2060,9 @@ extern "C" {
 // scale); heads % kv_heads == 0; len_q
 // and len_k at least 1 and below 2^31; window <= 0 means no window, and
 // a window is below 2^31.  bf16 != 0: bfloat16 tensors, every row 16-byte
-// aligned (the tensor-core kernel); else float32 (the CUDA-core kernel).
+// aligned (the tensor-core kernel); else float32 (the CUDA-core kernel,
+// any row alignment: 16-byte copies where every row is aligned, else
+// 4-byte ones).
 // q_offset >= 0: query row i sits at position q_offset + i, with
 // q_offset + len_q below 2^31.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1730,20 +2081,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   const int win = window > 0 ? (int)window : 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int lq = (int)len_q, lk = (int)len_k, qo = (int)q_offset;
-  if (bf16) {  // the scale folded with log2 e into the exp2 argument
-    const float scale_log2 = (float)(scale * 1.4426950408889634);
+  // the scale folded with log2 e into the exp2 argument
+  const float scale_log2 = (float)(scale * 1.4426950408889634);
+  if (bf16)
     return by_head_dim(head_dim, [&](auto d) {
       return tc::launch<decltype(d)::value>(q, k, v, o, (float*)lse, sq, sk,
                                             sv, so, batch, heads, group, lq,
                                             lk, scale_log2, causal, win, qo,
                                             s);
     });
-  }
   return by_head_dim(head_dim, [&](auto d) {
-    return f32::launch<decltype(d)::value>(q, k, v, o, (float*)lse, sq, sk,
-                                           sv, so, batch, heads, group, lq,
-                                           lk, (float)scale, causal, win, qo,
-                                           s);
+    return f32::launch_fwd<decltype(d)::value>(q, k, v, o, (float*)lse, sq,
+                                               sk, sv, so, batch, heads,
+                                               kv_heads, lq, lk, scale_log2,
+                                               causal, win, qo, s);
   });
 }
 
@@ -1752,13 +2103,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 // lse (batch, heads, len_q) and the output's gradient dout.  delta is a
 // float32 workspace of batch * heads * len_q values; work is a float32
 // workspace of 2 * batch * heads * len_k * head_dim values (each query
-// head's partial dK and dV) when bf16 and heads > kv_heads, and may be
-// null otherwise.  Types, head dims and sizes as for the forward; for
+// head's partial dK and dV) when heads > kv_heads, in either type, and may
+// be null otherwise.  Types, head dims and sizes as for the forward; for
 // bf16 every row of q, k, v and dout is 16-byte aligned, and every row of
-// dq, dk, dv 8-byte aligned.
-// Dynamic shared memory and blocks an SM of the bfloat16 tensor-core
-// instance for head_dim: pass 0 the forward (without the lse store), 1 the
-// backward's dK/dV pass, 2 its dQ pass.  Launches nothing.
+// dq, dk, dv 8-byte aligned; float32 takes any row alignment.
+// Dynamic shared memory and blocks an SM of an attention instance for
+// head_dim: pass 0 the bfloat16 forward (without the lse store), 1 its
+// backward's dK/dV pass, 2 its dQ pass; 3 the float32 forward, 4 the
+// float32 backward's dK/dV and dQ kernel.  Launches nothing.
 int flash_attention_occupancy(int head_dim, int pass, int* smem_bytes,
                               int* blocks_per_sm) {
   return by_head_dim(head_dim, [&](auto d) {
@@ -1775,6 +2127,14 @@ int flash_attention_occupancy(int head_dim, int pass, int* smem_bytes,
       case 2:
         return occupancy_of(tc_bwd::bwd_dq_mma<D>, tc_bwd::kThreads,
                             tc_bwd::Dq<D>::kSmemBytes, smem_bytes,
+                            blocks_per_sm);
+      case 3:
+        return occupancy_of(f32::flash_fwd_f32_tiled<D, false>,
+                            f32::kThreads, f32::Fwd<D>::kSmemBytes,
+                            smem_bytes, blocks_per_sm);
+      case 4:
+        return occupancy_of(f32::bwd_dkv_dq_f32<D>, f32::kThreads,
+                            f32::bwd_smem_bytes<D>(), smem_bytes,
                             blocks_per_sm);
       default:
         return (int)cudaErrorInvalidValue;
@@ -1812,7 +2172,7 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
       return tc_bwd::launch<decltype(d)::value>(a, s);
     });
   return by_head_dim(head_dim, [&](auto d) {
-    return bwd::launch<decltype(d)::value>(a, s);
+    return f32::launch_bwd<decltype(d)::value>(a, s);
   });
 }
 

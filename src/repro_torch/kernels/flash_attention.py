@@ -18,9 +18,14 @@ type, both counted in ``flash_attention.launches``:
   aligned: the wrapper raises ``ValueError`` on a bfloat16 tensor whose
   pointer or whose batch, head or sequence stride is not a multiple of 8
   elements (the model's tensors always are).
-- float32 stays on the CUDA cores (one block per 32 query rows, key tiles of
-  32 staged in shared memory): tensor cores would mean TF32, which breaks
-  the float32 tolerance of 2e-5.
+- float32 stays on the CUDA cores, since tensor cores would mean TF32,
+  which breaks the float32 tolerance of 2e-5: one block of 128 threads per
+  (64 query rows, head, batch), K and V tiles through the same kind of
+  ``cp.async`` ring, and both products as register-tiled outer products
+  of ``fmaf`` (a thread owns 4 rows x 8 keys of ``S`` and the matching
+  rows x columns of ``O``; ``P`` passes once through shared memory).  It
+  takes a row of any alignment: 16-byte copies where every row is
+  16-byte aligned, else 4-byte ones, picked at launch.
 
 Both: a loop over key tiles in place of the TPU's sequential grid axis,
 online softmax with the running maximum and sum in float32, GQA by indexing
@@ -39,16 +44,17 @@ source recomputes ``P = exp(S - lse)`` and returns ``dq, dk, dv``, in the
 manner of FlashAttention-2's backward (``delta = rowsum(dO O)``, a pass
 for ``dK, dV`` and one for ``dQ``), with no atomics, so the bits repeat:
 
-- bfloat16 runs on the tensor cores: the ``dK, dV`` pass has one block per
-  (64 keys, query head, batch), so a KV group's heads run in parallel; with
-  more than one head a group each block writes its head's float32 partials
-  into a workspace ``(2, B, H, Sk, D)`` that this wrapper allocates, and a
-  fold pass sums them in head order and rounds once.  ``P`` and ``dS`` are
-  rounded to bfloat16 as product operands; everything else is float32.
-  Rows of ``q``, ``k``, ``v`` must be 16-byte aligned (``ValueError``
-  otherwise); an ``out`` or ``dout`` whose rows are not is copied.
-- float32 stays on the CUDA cores (the ``dK, dV`` pass walks a group's
-  heads in order in one block), all float32 inside.
+- in both types the ``dK, dV`` pass has one block per (key tile, query
+  head, batch), so a KV group's heads run in parallel; with more than one
+  head a group each block writes its head's float32 partials into a
+  workspace ``(2, B, H, Sk, D)`` that this wrapper allocates, and a fold
+  pass sums them in head order (and, for bfloat16, rounds once).
+- bfloat16 runs on the tensor cores.  ``P`` and ``dS`` are rounded to
+  bfloat16 as product operands; everything else is float32.  Rows of
+  ``q``, ``k``, ``v`` must be 16-byte aligned (``ValueError`` otherwise);
+  an ``out`` or ``dout`` whose rows are not is copied.
+- float32 stays on the CUDA cores, all float32 inside, with the forward's
+  register-tiled outer products and its row alignment rule.
 
 The JAX package has no backward kernel; :func:`flash_attention_bwd_ref` is
 this one's plain version.  A CUDA wrapper handed an input that requires a
@@ -282,7 +288,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sequence-sharded attention).
 
     The inputs' type picks the kernel: bfloat16 runs the tensor-core kernel
-    (rows 16-byte aligned, else ``ValueError``), float32 the CUDA-core one.
+    (rows 16-byte aligned, else ``ValueError``), float32 the CUDA-core one
+    (any row alignment).
     A CPU tensor goes through the plain version; a CUDA tensor launches a
     kernel or raises.
     """
@@ -329,6 +336,18 @@ def _fwd_cuda(q, k, v, causal: bool, window: int, lse,
     return out
 
 
+def _bwd_workspace(q, k):
+    """The backward's float32 ``(2, B, H, Sk, D)`` workspace (each query
+    head's partial dK and dV, which the fold sums in head order) when a KV
+    group has more than one head, in either type; else None."""
+    b, h, _, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    if h == kv:
+        return None
+    return torch.empty((2, b, h, sk, d), dtype=torch.float32,
+                       device=q.device)
+
+
 def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int,
               q_offset: int = 0) -> tuple:
     """One launch of the backward kernel: ``(dq, dk, dv)``, each in its
@@ -350,9 +369,7 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int,
     kv, sk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    # each query head's float32 partial dK and dV, folded in head order
-    work = torch.empty((2, b, h, sk, d), dtype=torch.float32,
-                       device=q.device) if bf16 and h > kv else None
+    work = _bwd_workspace(q, k)
     launch("flash_attention_bwd", q.get_device(), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), None if work is None else work.data_ptr(),
@@ -368,17 +385,23 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: int,
     return dq, dk, dv
 
 
+#: The passes :func:`occupancy` reports, in the order of the C entry's
+#: ``pass`` argument: the bfloat16 tensor-core forward, dK/dV and dQ
+#: kernels, then the float32 forward and the float32 backward's one
+#: kernel for dK/dV and dQ.
+OCCUPANCY_PASSES = ("fwd", "dkv", "dq", "fwd_f32", "bwd_f32")
+
+
 def occupancy(head_dim: int) -> dict:
-    """``{"fwd" | "dkv" | "dq": (dynamic shared memory bytes, blocks an
-    SM)}`` of the bfloat16 tensor-core instances for ``head_dim`` on the
-    current CUDA device, as the CUDA runtime's occupancy calculator gives
-    them (the forward without its ``lse`` store; the backward's two
-    tensor-core passes).  Needs the card; launches nothing."""
+    """``{pass: (dynamic shared memory bytes, blocks an SM)}`` for each of
+    :data:`OCCUPANCY_PASSES` at ``head_dim`` on the current CUDA device, as
+    the CUDA runtime's occupancy calculator gives them (each forward
+    without its ``lse`` store).  Needs the card; launches nothing."""
     import ctypes
     from . import _build
     _build.load_library()
     out = {}
-    for i, name in enumerate(("fwd", "dkv", "dq")):
+    for i, name in enumerate(OCCUPANCY_PASSES):
         smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
         rc = _build._fns["flash_attention_occupancy"](
             head_dim, i, ctypes.byref(smem), ctypes.byref(blocks))

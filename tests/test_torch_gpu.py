@@ -1090,6 +1090,113 @@ def test_flash_attention_136_leaves_neighbouring_columns_alone():
     assert torch.equal(ow[..., :136], out)
 
 
+#: The float32 training paths' shapes (b, h, kv, sq, sk, d, causal,
+#: window): gpt-demo's ``train_gpt --full`` (MHA) and granite's tensor-
+#: parallel slice (a group of 3 query heads, so the backward folds).
+FA_F32_PATH_CASES = [(4, 12, 12, 256, 256, 64, True, 0),
+                     (2, 12, 4, 512, 512, 64, True, 0)]
+
+
+@pytest.mark.parametrize("case", FA_F32_PATH_CASES, ids=str)
+def test_flash_attention_f32_at_the_path_shapes(case):
+    """The float32 forward (model views, 2e-5) and backward (lse, then dq,
+    dk, dv within 1e-4 of each gradient's largest magnitude) at the shapes
+    the training paths hand them, each one launch."""
+    _need_cuda()
+    test_flash_attention_kernel_matches_plain(case, torch.float32, "bshd")
+    test_flash_attention_bwd_kernel_matches_plain(case, torch.float32)
+
+
+def _f32_backward_twice(case, seed):
+    *_, causal, window = case
+    q, k, v, do = _fa_views(case, torch.float32, seed)
+    b, h, sq = q.shape[:3]
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    out = fa._fwd_cuda(q, k, v, causal, window, lse)
+    first = fa._bwd_cuda(q, k, v, out, lse, do, causal, window)
+    second = fa._bwd_cuda(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    return (q, k, v, out, lse, do), first, second
+
+
+@pytest.mark.parametrize("case", FA_BWD_CASES + FA_F32_PATH_CASES, ids=str)
+def test_flash_attention_bwd_f32_repeats_bit_for_bit(case):
+    """No atomics in float32 either: the dK/dV partials of a group's heads
+    are folded in head order, so two launches give the same bits, and so
+    does a CUDA-graph replay of a third."""
+    _need_cuda()
+    *_, causal, window = case
+    (q, k, v, out, lse, do), first, second = _f32_backward_twice(
+        case, sum(case[:6]) + 2)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fa._bwd_cuda(q, k, v, out, lse, do, causal, window)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, c in zip(first, captured):
+        assert torch.equal(a, c)
+
+
+def _shifted(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view one float into its storage: every row 4
+    bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("case", [(2, 4, 2, 70, 90, 64, True, 0),
+                                  (1, 4, 4, 33, 33, 136, False, 20),
+                                  (1, 2, 1, 40, 40, 256, True, 0)], ids=str)
+def test_flash_attention_f32_takes_rows_off_16_bytes(case):
+    """A float32 view one float into its storage (no row 16-byte aligned)
+    launches the same kernels with 4-byte copies: the forward (2e-5) and
+    the backward (1e-4) against the plain versions, and the same bits as
+    from aligned copies of the inputs."""
+    _need_cuda()
+    *_, causal, window = case
+    q, k, v, do = (t.contiguous() for t in _fa_views(case, torch.float32, 9))
+    qo, ko, vo, doo = (_shifted(t) for t in (q, k, v, do))
+    before = fa.flash_attention.launches, fa.flash_attention.bwd_launches
+    got = fa.flash_attention(qo, ko, vo, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before[0] + 1
+    _close(got, fa.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window), 2e-5)
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=causal,
+                                               window=window))
+    b, h, sq = q.shape[:3]
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+    out = fa._fwd_cuda(q, k, v, causal, window, lse)
+    outo = _shifted(out)
+    grads = fa._bwd_cuda(qo, ko, vo, outo, lse, doo, causal, window)
+    aligned = fa._bwd_cuda(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.bwd_launches == before[1] + 2
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                      window=window)
+    for g, a, w in zip(grads, aligned, want):
+        _rel_close(g, w, 1e-4)
+        assert torch.equal(g, a)
+
+
+def test_flash_attention_f32_instances_fill_the_card():
+    """Every float32 pass fits at least one block an SM at every head dim,
+    and two at head dims up to 128 (the tiles are sized for it: the
+    training grids are about one wave of the card's SMs)."""
+    _need_cuda()
+    for d in fa.HEAD_DIMS:
+        occ = fa.occupancy(d)
+        for name in ("fwd_f32", "bwd_f32"):
+            smem, blocks = occ[name]
+            assert smem > 0 and blocks >= (2 if d <= 128 else 1), \
+                (d, name, occ[name])
+
+
 @pytest.mark.parametrize("gather,f32", [(False, True), (True, False)],
                          ids=["scatter-f32", "gather-einsum"])
 def test_moe_backward_repeats_bit_for_bit_on_the_card(gather, f32):
