@@ -5316,7 +5316,8 @@ def scan_bwd_ptxas(log: str) -> dict:
 
 def scan_bf16_ptxas(log: str) -> dict:
     """``ptxas_table`` of the bfloat16 working type's scan kernels in both
-    input types, keyed "<type> <fwd|fwd_bound|bwd>"."""
+    input types, keyed "<type> <fwd|fwd_bound|bwd> <q128|q>": each in its
+    compile-time instance for q = 128 and its instance for any q."""
     def label(name):
         if "scan_bf16_bwd_kernel" in name:
             form = "bwd"
@@ -5324,7 +5325,8 @@ def scan_bf16_ptxas(log: str) -> dict:
             form = "fwd_bound" if "Lb1E" in name else "fwd"
         else:
             return None
-        return f"{'bf16' if 'bfloat16' in name else 'f32'} {form}"
+        q = "q128" if "Li128E" in name else "q"
+        return f"{'bf16' if 'bfloat16' in name else 'f32'} {form} {q}"
     return ptxas_table(log, label)
 
 
@@ -5606,9 +5608,18 @@ def main() -> int:
     assert all(v["spill_bytes"] == [0, 0] for v in scan_regs.values()), \
         ("a scan instance spills", scan_regs)
     scan_bf16_regs = scan_bf16_ptxas(log)
-    assert len(scan_bf16_regs) == 2 * 3, scan_bf16_regs   # 2 types x 3
+    assert len(scan_bf16_regs) == 2 * 3 * 2, scan_bf16_regs   # types x 3 x q
     assert all(v["spill_bytes"] == [0, 0] for v in scan_bf16_regs.values()), \
         ("a bfloat16 working-type scan instance spills", scan_bf16_regs)
+    # their instances at q = 128: shared memory (dynamic) and blocks an SM
+    for t, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for form, key in (("fused_bf16", "fwd"), ("fused_bf16_bound",
+                                                  "fwd_bound"),
+                          ("fused_bf16_bwd", "bwd")):
+            smem, blocks = ss.bwd_occupancy(dt, form)
+            inst = scan_bf16_regs[f"{t} {key} q128"]
+            inst["dynamic_smem"], inst["blocks_per_sm"] = smem, blocks
+            assert blocks >= 1, (t, form, inst)
     scan_bwd_regs = scan_bwd_ptxas(log)
     assert len(scan_bwd_regs) == 2 * 2, scan_bwd_regs   # 2 types x 2 kernels
     assert scan_bwd_regs["bf16 main"]["spill_bytes"] == [0, 0], \

@@ -202,6 +202,10 @@ def load_library() -> ctypes.CDLL:
         + [ll, ll, ci, ci, ci, ci, vp],
         "selective_scan_fused_bf16_bwd": [vp] * 22 + [ll] * 13
         + [ll, ll, ci, ci, ci, ci, vp],
+        # (bf16, kernel, &smem bytes, &blocks an SM): no launch, no stream
+        "selective_scan_fused_bf16_occupancy": [ci, ci, vp, vp],
+        # (a, b, out, pairs, stream)
+        "selective_scan_bf16_ops_probe": [vp, vp, vp, ll, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

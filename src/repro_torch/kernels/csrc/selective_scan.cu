@@ -136,28 +136,47 @@
 // a_cum h + u_scan in float32 from the float32 state carried across
 // chunks, and the fused form's prologue and epilogue as above.  Bound:
 // the same b*S*D*N exponentials as the float32 form (the tree adds some
-// six bfloat16 operations a state and step).  Design, simple first:
-//  * Forward: a block of kWChannels channels x 16 states, a thread a state;
-//    each lane's a and u live in a column of shared memory ([t][lane], so
-//    a warp's accesses at one t are conflict-free) and the thread replays
-//    the whole tree over its column alone, in place (up-sweep, then
-//    down-sweep), with no barrier between levels.  y sums the 16 lanes
-//    by a butterfly.  The training instance (BOUND) also stores the state
-//    entering every chunk, (b, len / q, d, n).
-//  * Backward: one warp a channel pair, kWPairs pairs of a block's 32
-//    channels in turn, chunks in reverse from the forward's boundaries.
-//    It rebuilds the chunk's tree keeping the up-sweep's values, forms
-//    g = dy C (plus the carry at the chunk's last step), rounds g h_in and
-//    g to bfloat16 and runs the tree's transpose in bfloat16 (the
-//    down-sweep's combines from level 0 up, then the up-sweep's from the
-//    top down; an up-sweep combine's a_r on level l is rebuilt from level
-//    0's a by the forward's own products, so six columns of q a lane
-//    suffice), then ds = da exp(dt A) and du into the nine gradients.  dB
-//    and dC leave as the float32 backward's per-32-channel partials (the
-//    pairs added in order) and go through its fold: no atomics.
-//  * Both are latency-bound: the columns take 512 (forward) and 1,536
-//    (backward) bytes of shared memory a lane at q = 128 (PERF.md).
-//
+// six bfloat16 operations a state and step).  Design:
+//  * The tree's operations run natively on pairs of lanes (states n and
+//    n + 8 of a channel in one 32-bit word: mul.rn.bf16x2, add.rn.bf16x2),
+//    each rounding once, which for bfloat16 operands gives the bits of the
+//    float32 operation rounded (a probe entry holds the two equal on the
+//    card); a combine is three instructions for two lanes.
+//  * A lane pair's chunk is split over 16 threads of one warp, 8 steps
+//    each, in registers: the tree's levels 0-2 inside a thread (their
+//    combines independent, so they overlap), levels 3-6 between the
+//    threads' last elements by shuffles.  A warp holds one lane pair of a
+//    channel pair (a lane a channel and segment), a block the 8 pairs: 256
+//    threads.  Each level's combines touch disjoint elements, so the split
+//    gives the tree's bits.  8 steps a thread keep the backward's arrays
+//    (the tree's values, its outputs at odd steps, the two gradients)
+//    within 128 registers; 16 spilled.
+//  * Forward: a block of 16 channels, a channel pair at a time; per chunk B
+//    and C and each (t, channel)'s dt and dt * x staged once in shared
+//    memory, read by 16-byte loads; each lane pair's share of y (its two
+//    terms added) goes to shared memory and a pass sums the 8 shares of
+//    each (t, channel) in the butterfly's order (xor 8, 4, 2, 1 over the
+//    states), so the state, the boundaries and out keep the bits of a
+//    thread-a-state walk.  64 registers: 4 blocks, 32 warps, an SM.
+//  * Backward: a block of 32 channels (the float32 backward's partials and
+//    fold), its 16 channel pairs in turn for each chunk in reverse: the
+//    chunk's tree rebuilt from its boundary with the up-sweep's values
+//    kept in registers, g = dy C (plus the carry at the chunk's last step),
+//    g h_in and g rounded to bfloat16, the tree's transpose in bfloat16
+//    (the down-sweep's combines from level 0 up, then the up-sweep's from
+//    the top down; an a_r inside a segment rebuilt from level 0's a by the
+//    forward's products, between segments kept from the forward), then ds
+//    = da exp(dt A) (the exponential taken again: keeping it would cost
+//    the registers) and du into the nine gradients.  dB and dC are summed
+//    over the block's channels in shared memory in pair order (channel
+//    2 m + 1 onto 2 m by a shuffle, then the pairs in order) and leave as
+//    the per-32-channel partials: no atomics, no read-modify-write of
+//    device memory in a step loop.  The carried gradient and dA add the
+//    segments' sums by a butterfly over the segments.  2 blocks, 16
+//    warps, an SM (128 registers).
+//  * Both take a compile-time instance for q = 128 (every path shape) and
+//    one for any other q <= 128.
+
 // Plain C interface for ctypes: launches on the given stream, does not
 // synchronise, allocates nothing, returns cudaGetLastError().
 
@@ -996,19 +1015,25 @@ scan_bwd_fold(const BwdArgs p) {
   }
 }
 
+// Dynamic shared memory above 48 KB, with the SM's carveout at its largest.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
 // The main kernel's shared memory, above the 48 KB a block may hold
-// statically: dynamic, allowed by attribute, with the SM's carveout at its
-// largest so that kBwdBlocksPerSM blocks fit.  Returns its bytes, or minus
-// the error.
+// statically, allowed so that kBwdBlocksPerSM blocks fit.  Returns its
+// bytes, or minus the error.
 template <typename T>
 int bwd_smem_setup() {
   const int smem = (int)sizeof(BwdSmem<T>);
-  cudaError_t e = cudaFuncSetAttribute(
-      scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(scan_bwd_kernel<T>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
+  const cudaError_t e = allow_smem(scan_bwd_kernel<T>, smem);
   return e == cudaSuccess ? smem : -(int)e;
 }
 
@@ -1053,77 +1078,175 @@ int launch_fold(const BwdArgs& p, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 constexpr int kWChunkMax = 128;                 // the reference's chunk target
-constexpr int kWChannels = 8;                   // forward: channels a block
-constexpr int kWThreads = kWChannels * kNMax;   // forward: a thread a state
-constexpr int kWBwdThreads = 2 * kNMax;         // backward: one warp, a pair
-constexpr int kWPairs = kBwdChannels / 2;       // backward: pairs a block
-constexpr int kWRows = 9;                       // backward: float rows
+constexpr int kWPairs = kNMax / 2;              // lane pairs (n, n + 8)
+constexpr int kWThreads = 32 * kWPairs;         // a warp a lane pair
+// A chunk's kWChunkMax steps split over the threads of one warp: kWSeg
+// steps each (segment j: steps kWSeg j ..), kWSegs threads a lane pair,
+// kWGroup channels a warp (the pair 2 m, 2 m + 1; a lane a channel and
+// segment); the tree's kWInner lowest levels run inside a thread, its
+// kWOuter top ones between threads.
+constexpr int kWSeg = 8, kWSegs = kWChunkMax / kWSeg, kWGroup = 32 / kWSegs;
+constexpr int kWInner = 3, kWOuter = 4;
+constexpr int kWFwdChannels = 16;               // forward: channels a block
+constexpr int kWBwdGroups = kBwdChannels / kWGroup;
+constexpr int kWFwdBlocksPerSM = 4, kWBwdBlocksPerSM = 2;
+constexpr int kWPitch = kWChunkMax + 4;         // a row of steps: a warp's
+                                                // 16-byte loads conflict-free
+constexpr int kWRedPitch = kWChunkMax + 16;     // a row of the pairs' shares:
+                                                // (t, channel) reads too
+constexpr int kWAccPitch = kWChunkMax + 10;     // a row of dB or dC sums
+constexpr unsigned kFull = 0xffffffffu;
+static_assert((1 << kWInner) == kWSeg && (1 << kWOuter) == kWSegs &&
+                  kWGroup == 2,
+              "a warp: one channel pair, 16 segments of 8 steps");
 
-__device__ __forceinline__ float bf_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// Two lanes' bfloat16 values in one word (the first in the low half), and
+// the native operations on both: each rounds once from the exact product
+// or sum, which for two bfloat16 operands is the float32 operation rounded
+// to bfloat16 (float32 holds the exact product of two 8-bit significands,
+// and a sum rounded to 24 bits and then to 8 cannot land on a tie that the
+// exact sum missed); the library's probe entry holds the two to the same
+// bits on the card, subnormals, infinities and NaN included.  No fused
+// multiply-add: u_l a_r + u_r rounds twice, as the reference's op-by-op
+// bfloat16 does.
+__device__ __forceinline__ unsigned bmul2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
-
-__device__ __forceinline__ float ld_bf(const __nv_bfloat16* p, int i) {
-  return __bfloat162float(p[i]);
+__device__ __forceinline__ unsigned badd2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+__device__ __forceinline__ float lo2(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi2(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
 }
 
 // One combine of the reference's scan, (a_l a_r, u_l a_r + u_r), into the
-// right element: each product and the sum in float32, each rounded to
-// bfloat16 on its own, as the reference's op-by-op bfloat16 rounds them
-// (a native bfloat16 multiply-add would round once from the exact value).
-__device__ __forceinline__ void combine_bf16(__nv_bfloat16* a,
-                                             __nv_bfloat16* u, int lft,
-                                             int r) {
-  const float al = ld_bf(a, lft), ul = ld_bf(u, lft);
-  const float ar = ld_bf(a, r), ur = ld_bf(u, r);
-  a[r] = __float2bfloat16_rn(__fmul_rn(al, ar));
-  u[r] = __float2bfloat16_rn(__fadd_rn(bf_round(__fmul_rn(ul, ar)), ur));
+// right element (a, u); and its transpose, with the gradients (ga_r, gu_r)
+// at the right element and the forward's a_l, u_l, a_r: g_a[l] += gA a_r,
+// g_u[l] += gU a_r, g_a[r] = gA a_l + gU u_l (g_u[r] stays).
+__device__ __forceinline__ void comb2(unsigned al, unsigned ul, unsigned& a,
+                                      unsigned& u) {
+  u = badd2(bmul2(ul, a), u);
+  a = bmul2(al, a);
+}
+__device__ __forceinline__ void uncomb2(unsigned& gal, unsigned& gul,
+                                        unsigned& gar, unsigned gur,
+                                        unsigned al, unsigned ul,
+                                        unsigned ar) {
+  gal = badd2(gal, bmul2(gar, ar));
+  gul = badd2(gul, bmul2(gur, ar));
+  gar = badd2(bmul2(gar, al), bmul2(gur, ul));
 }
 
-// The up-sweep of jax.lax.associative_scan's odd/even recursion over one
-// lane's q elements (element t at [t * S]), in place: level l + 1's element
-// i, the combine of level l's elements 2i and 2i + 1, replaces the latter
-// (at 2^(l+1) (i + 1) - 1).  Returns the number of levels.
-template <int S>
-__device__ int tree_up(__nv_bfloat16* a, __nv_bfloat16* u, int q) {
-  int l = 0;
-  for (int cnt = q; cnt >= 2; cnt >>= 1, ++l) {
-    const int half = 1 << l;
-    for (int r = 2 * half - 1; r < (cnt >> 1) * 2 * half; r += 2 * half)
-      combine_bf16(a, u, (r - half) * S, r * S);
+// jax.lax.associative_scan's odd/even tree over a chunk of q steps, in
+// place: the up-sweep's level l combines element r - 2^l into every r < q
+// with r = -1 mod 2^(l+1); the down-sweep's level l, from the top, element
+// pos - 2^l into every pos < q with pos = 2^l - 1 mod 2^(l+1) and pos >=
+// 3 2^l - 1.  A level's combines touch disjoint elements, so any split of
+// a level gives the same bits.  A lane pair's chunk lies in registers over
+// kWSegs threads of a warp, kWGroup lanes apart: up2 runs the
+// up-sweep's levels inside each segment, then those between segments'
+// last elements (shuffles); apre keeps the last element's a before each
+// level between segments (the backward's a_r there).
+__device__ __forceinline__ void up2(unsigned (&a)[kWSeg],
+                                    unsigned (&u)[kWSeg], int j, int q,
+                                    unsigned (&apre)[kWOuter]) {
+  constexpr int SEG = kWSeg;
+  const int base = SEG * j;
+#pragma unroll
+  for (int l = 0; l < kWInner; ++l) {
+    const int h = 1 << l;
+#pragma unroll
+    for (int r = 2 * h - 1; r < SEG; r += 2 * h)
+      if (base + r < q) comb2(a[r - h], u[r - h], a[r], u[r]);
   }
-  return l;
+#pragma unroll
+  for (int s = 0; s < kWOuter; ++s) {
+    const int h = 1 << s;
+    const unsigned la = __shfl_up_sync(kFull, a[SEG - 1], kWGroup * h);
+    const unsigned lu = __shfl_up_sync(kFull, u[SEG - 1], kWGroup * h);
+    apre[s] = a[SEG - 1];
+    if ((j + 1) % (2 * h) == 0 && SEG * (j + 1) <= q)
+      comb2(la, lu, a[SEG - 1], u[SEG - 1]);
+  }
 }
 
-// Its down-sweep, from the top level: level l's even elements 2, 4, ...
-// (q >> l of them in all) from the odd ones before them, already prefixes.
-template <int S>
-__device__ void tree_down(__nv_bfloat16* a, __nv_bfloat16* u, int q,
-                          int levels) {
-  for (int l = levels - 1; l >= 0; --l) {
-    const int half = 1 << l, nl = q >> l;
-    for (int k = 2; k < nl; k += 2) {
-      const int pos = half * (k + 1) - 1;
-      combine_bf16(a, u, (pos - half) * S, pos * S);
+// The down-sweep: its levels between segments' last elements, then those
+// inside, where a segment's first combine of a level takes the previous
+// segment's last element (pa, pu: final by then).
+__device__ __forceinline__ void down2(unsigned (&a)[kWSeg],
+                                      unsigned (&u)[kWSeg], int j, int q,
+                                      unsigned& pa, unsigned& pu) {
+  constexpr int SEG = kWSeg;
+#pragma unroll
+  for (int s = kWOuter - 1; s >= 0; --s) {
+    const int h = 1 << s;
+    const unsigned la = __shfl_up_sync(kFull, a[SEG - 1], kWGroup * h);
+    const unsigned lu = __shfl_up_sync(kFull, u[SEG - 1], kWGroup * h);
+    if ((j + 1) % (2 * h) == h && j + 1 >= 3 * h && SEG * (j + 1) <= q)
+      comb2(la, lu, a[SEG - 1], u[SEG - 1]);
+  }
+  pa = __shfl_up_sync(kFull, a[SEG - 1], kWGroup);
+  pu = __shfl_up_sync(kFull, u[SEG - 1], kWGroup);
+  const int base = SEG * j;
+#pragma unroll
+  for (int l = kWInner - 1; l >= 0; --l) {
+    const int h = 1 << l;
+#pragma unroll
+    for (int i = h - 1; i < SEG; i += 2 * h) {
+      const int t = base + i;
+      if (t >= 3 * h - 1 && t < q) {
+        if (i >= h)
+          comb2(a[i - h], u[i - h], a[i], u[i]);
+        else
+          comb2(pa, pu, a[i], u[i]);
+      }
     }
   }
 }
 
-// The transpose of one combine into r: with its gradients (gA, gU) read at
-// r and the forward's a_l, u_l, a_r, in bfloat16, each product and sum
-// rounded on its own: g_a[l] += gA a_r, g_u[l] += gU a_r, g_a[r] = gA a_l
-// + gU u_l (g_u[r] = gU stays).
-__device__ __forceinline__ void uncombine_bf16(__nv_bfloat16* ga,
-                                               __nv_bfloat16* gu, int lft,
-                                               int r, float al, float ul,
-                                               float ar) {
-  const float gA = ld_bf(ga, r), gU = ld_bf(gu, r);
-  ga[lft] = __float2bfloat16_rn(
-      __fadd_rn(ld_bf(ga, lft), bf_round(__fmul_rn(gA, ar))));
-  gu[lft] = __float2bfloat16_rn(
-      __fadd_rn(ld_bf(gu, lft), bf_round(__fmul_rn(gU, ar))));
-  ga[r] = __float2bfloat16_rn(
-      __fadd_rn(bf_round(__fmul_rn(gA, al)), bf_round(__fmul_rn(gU, ul))));
+// Four consecutive floats of a shared row (16-byte aligned), and back.
+__device__ __forceinline__ void ld4(float (&v)[4], const float* p) {
+  const float4 w = *reinterpret_cast<const float4*>(p);
+  v[0] = w.x;
+  v[1] = w.y;
+  v[2] = w.z;
+  v[3] = w.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// A channel's sum over its 16 states at step t from the pairs' shares
+// (share p = term n + term n + 8, rows kWGroup * kWRedPitch apart), in the
+// order of the butterfly xor 8, 4, 2, 1 over the states.
+__device__ __forceinline__ float pairs_sum(const float* r) {
+  constexpr int S = kWGroup * kWRedPitch;
+  return __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[4 * S]),
+                             __fadd_rn(r[2 * S], r[6 * S])),
+                   __fadd_rn(__fadd_rn(r[S], r[5 * S]),
+                             __fadd_rn(r[3 * S], r[7 * S])));
+}
+
+// Element (t, col) of sequence b of a (batch, len, cols) view in T, as
+// float32; the address formed where it is read, so that no pointer stays
+// live across the tree.
+template <typename T>
+__device__ __forceinline__ float ld_io(const void* v, long long sb,
+                                       long long st, int b, long long t,
+                                       int col) {
+  return to_f32(((const T*)v)[b * sb + t * st + col]);
 }
 
 // The dt of the fused form (JAX's softplus of dt_raw + bias, replayed in
@@ -1134,336 +1257,646 @@ __device__ __forceinline__ float softplus_io(float s) {
   return round_to<T>(fmaxf(s, 0.f) + round_to<T>(log1pf(e)));
 }
 
-// Shared memory of a forward block for chunks of q steps: each lane's a and
-// u ([q][kWThreads] bfloat16 each), then dt and dt * x of each (t, channel)
-// ([q][kWChannels] float32 each; the first holds y once a is formed).
-__host__ __device__ constexpr int work_fwd_smem(int q) {
-  return q * kWThreads * 2 * (int)sizeof(__nv_bfloat16) +
-         2 * q * kWChannels * (int)sizeof(float);
-}
+// Shared memory of a forward block: the chunk's B and C in float32 ([n][t],
+// zeros past n), dt and dt * x of each (channel, t) (dt's rows take y once
+// a group's is summed), each lane pair's share of y, A and the state
+// entering the chunk of each (channel, n).
+struct __align__(16) WorkFwdSmem {
+  float b[kNMax][kWPitch];
+  float c[kNMax][kWPitch];
+  float dt[kWFwdChannels][kWPitch];
+  float dx[kWFwdChannels][kWPitch];
+  float red[kWPairs][kWGroup][kWRedPitch];
+  float a[kWFwdChannels][kNMax];
+  float h[kWFwdChannels][kNMax];
+};
 
-// The forward: a block of kWChannels channels, a thread a state (lane);
-// BOUND (the training path) also stores the float32 state entering every
-// chunk of q steps, for the backward.
-template <typename T, bool BOUND>
-__global__ void __launch_bounds__(kWThreads)
+// The forward: a block of kWFwdChannels channels in groups of a channel
+// pair, a warp a lane pair (n, n + 8) of the group, a lane a (channel,
+// segment) (see up2); Q is q where it is known at compile time (the chunk
+// every path shape takes), else 0.  BOUND (the training path) also stores
+// the float32 state entering every chunk of q steps, for the backward.
+template <typename T, bool BOUND, int Q>
+__global__ void __launch_bounds__(kWThreads, kWFwdBlocksPerSM)
 scan_bf16_kernel(const Args p) {
+  constexpr int SEG = kWSeg, G = kWGroup;
   extern __shared__ __align__(16) unsigned char work_smem[];
-  constexpr int S = kWThreads;
-  const int q = p.q;
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(work_smem);
-  __nv_bfloat16* su = sa + q * S;
-  float* sdt = reinterpret_cast<float*>(su + q * S);
-  float* sdx = sdt + q * kWChannels;
-  const int tid = threadIdx.x, c = tid / kNMax, k = tid % kNMax;
-  const int b = blockIdx.y, c0 = blockIdx.x * kWChannels, ch = c0 + c;
+  WorkFwdSmem& sm = *reinterpret_cast<WorkFwdSmem*>(work_smem);
+  const int q = Q ? Q : p.q;
+  const int tid = threadIdx.x, pr = tid / 32, lane = tid % 32;
+  const int c = lane % G, j = lane / G, base = SEG * j;
+  const int b = blockIdx.y, c0 = blockIdx.x * kWFwdChannels;
   const int d = p.d, n = p.n, chunks = p.len / q;
-  const bool in = ch < d && k < n;
-  const unsigned full = 0xffffffffu;
-  const T* xg = (const T*)p.x + b * p.x_sb;
-  const T* dg = (const T*)p.dt + b * p.dt_sb;
-  const T* bg = (const T*)p.bm + b * p.b_sb;
-  const T* cg = (const T*)p.cm + b * p.c_sb;
-  const T* zg = (const T*)p.z + b * p.z_sb;
-  const float aval = in ? -expf(p.a[(long long)ch * n + k]) : 0.f;
-  const long long state = ((long long)b * d + ch) * n + k;
-  float h = in && p.h0 != nullptr ? p.h0[state] : 0.f;
+  // a thread's (channel, n) of the block: A and the first state
+  const int my_c = tid / kNMax, my_k = tid % kNMax, my_ch = c0 + my_c;
+  const bool my_in = my_ch < d && my_k < n;
+  sm.a[my_c][my_k] = my_in ? -expf(p.a[(long long)my_ch * n + my_k]) : 0.f;
+  sm.h[my_c][my_k] = my_in && p.h0 != nullptr
+                         ? p.h0[((long long)b * d + my_ch) * n + my_k]
+                         : 0.f;
 
+#pragma unroll 1
   for (int kc = 0; kc < chunks; ++kc) {
     const long long t0 = (long long)kc * q;
-    if (BOUND && in)
-      p.bound[(((long long)b * chunks + kc) * d + ch) * n + k] = h;
+    __syncthreads();                 // the last chunk's y is out; h is in
+    if (BOUND && my_in)
+      p.bound[(((long long)b * chunks + kc) * d + my_ch) * n + my_k] =
+          sm.h[my_c][my_k];
+#pragma unroll 1
+    for (int i = tid; i < q * kNMax; i += kWThreads) {
+      const int t = i / kNMax, k = i % kNMax;
+      const bool in = k < n;
+      sm.b[k][t] = in ? ld_io<T>(p.bm, p.b_sb, p.b_st, b, t0 + t, k) : 0.f;
+      sm.c[k][t] = in ? ld_io<T>(p.cm, p.c_sb, p.c_st, b, t0 + t, k) : 0.f;
+    }
     // dt and dt * x once per (t, channel); zeros past d
-    for (int i = tid; i < q * kWChannels; i += S) {
-      const long long t = t0 + i / kWChannels;
-      const int c2 = c0 + i % kWChannels;
+#pragma unroll 1
+    for (int i = tid; i < q * kWFwdChannels; i += kWThreads) {
+      const int t = i / kWFwdChannels, cc = i % kWFwdChannels;
+      const int ch = c0 + cc;
       float dl = 0.f, dx = 0.f;
-      if (c2 < d) {
-        dl = softplus_io<T>(round_to<T>(to_f32(dg[t * p.dt_st + c2]) +
-                                        round_to<T>(p.dt_bias[c2])));
-        dx = dl * to_f32(xg[t * p.x_st + c2]);
+      if (ch < d) {
+        dl = softplus_io<T>(
+            round_to<T>(ld_io<T>(p.dt, p.dt_sb, p.dt_st, b, t0 + t, ch) +
+                        round_to<T>(p.dt_bias[ch])));
+        dx = dl * ld_io<T>(p.x, p.x_sb, p.x_st, b, t0 + t, ch);
       }
-      sdt[i] = dl;
-      sdx[i] = dx;
+      sm.dt[cc][t] = dl;
+      sm.dx[cc][t] = dx;
     }
     __syncthreads();
-    // a = exp(dt A) and u = (dt x) B in float32, each rounded to bfloat16
-    for (int t = 0; t < q; ++t) {
-      const float bv = k < n ? to_f32(bg[(t0 + t) * p.b_st + k]) : 0.f;
-      sa[t * S + tid] =
-          __float2bfloat16_rn(expf(sdt[t * kWChannels + c] * aval));
-      su[t * S + tid] = __float2bfloat16_rn(sdx[t * kWChannels + c] * bv);
-    }
-    __syncthreads();                      // sdt takes y from here
-    tree_down<S>(sa + tid, su + tid, q, tree_up<S>(sa + tid, su + tid, q));
-    // h_t = a_cum h + u_scan in float32 from the state entering the chunk;
-    // y summed over the channel's 16 lanes by a butterfly
-    float hv = h;
-    for (int t = 0; t < q; ++t) {
-      hv = __fadd_rn(__fmul_rn(ld_bf(sa, t * S + tid), h),
-                     ld_bf(su, t * S + tid));
-      const float cv = k < n ? to_f32(cg[(t0 + t) * p.c_st + k]) : 0.f;
-      float part = __fmul_rn(hv, cv);
+#pragma unroll 1
+    for (int g = 0; g < kWFwdChannels / G; ++g) {
+      const int cc = g * G + c;
+      const float a_lo = sm.a[cc][pr], a_hi = sm.a[cc][pr + kWPairs];
+      // a = exp(dt A) and u = (dt x) B in float32, each rounded to bfloat16
+      unsigned a[SEG], u[SEG];
 #pragma unroll
-      for (int m = 8; m >= 1; m >>= 1)
-        part = __fadd_rn(part, __shfl_xor_sync(full, part, m));
-      if (k == 0) sdt[t * kWChannels + c] = part;
+      for (int i0 = 0; i0 < SEG; i0 += 4) {
+        float dl[4], dx[4], bl[4], bh[4];
+        ld4(dl, &sm.dt[cc][base + i0]);
+        ld4(dx, &sm.dx[cc][base + i0]);
+        ld4(bl, &sm.b[pr][base + i0]);
+        ld4(bh, &sm.b[pr + kWPairs][base + i0]);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          a[i0 + m] = pack2(expf(dl[m] * a_lo), expf(dl[m] * a_hi));
+          u[i0 + m] = pack2(dx[m] * bl[m], dx[m] * bh[m]);
+        }
+      }
+      unsigned apre[kWOuter], pa, pu;
+      up2(a, u, j, q, apre);
+      down2(a, u, j, q, pa, pu);
+      // h_t = a_cum h + u_scan in float32 from the state entering the
+      // chunk; the pair's share of y (its two terms added, the butterfly's
+      // first level)
+      const float h_lo = sm.h[cc][pr], h_hi = sm.h[cc][pr + kWPairs];
+#pragma unroll
+      for (int i0 = 0; i0 < SEG; i0 += 4) {
+        float cl[4], chh[4], part[4];
+        ld4(cl, &sm.c[pr][base + i0]);
+        ld4(chh, &sm.c[pr + kWPairs][base + i0]);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int i = i0 + m;
+          const float hl = __fadd_rn(__fmul_rn(lo2(a[i]), h_lo), lo2(u[i]));
+          const float hh = __fadd_rn(__fmul_rn(hi2(a[i]), h_hi), hi2(u[i]));
+          part[m] = __fadd_rn(__fmul_rn(hl, cl[m]), __fmul_rn(hh, chh[m]));
+          if (base + i == q - 1) {     // the state entering the next chunk
+            sm.h[cc][pr] = hl;
+            sm.h[cc][pr + kWPairs] = hh;
+          }
+        }
+        st4(&sm.red[pr][c][base + i0], part);
+      }
+      __syncthreads();
+      // y of the group's (t, channel): the pairs' shares summed
+#pragma unroll 1
+      for (int i = tid; i < q * G; i += kWThreads) {
+        const int t = i / G, c2 = i % G;
+        sm.dt[g * G + c2][t] = pairs_sum(&sm.red[0][c2][t]);
+      }
+      __syncthreads();                 // red is free
     }
-    h = hv;
-    __syncthreads();
     // the D skip and the gate, as the float32 instance takes them
-    for (int i = tid; i < q * kWChannels; i += S) {
-      const long long t = t0 + i / kWChannels;
-      const int c2 = c0 + i % kWChannels;
-      if (c2 >= d) continue;
-      const float y = sdt[i] + p.dskip[c2] * to_f32(xg[t * p.x_st + c2]);
-      const float zf = to_f32(zg[t * p.z_st + c2]);
+#pragma unroll 1
+    for (int i = tid; i < q * kWFwdChannels; i += kWThreads) {
+      const int t = i / kWFwdChannels, cc = i % kWFwdChannels;
+      const int ch = c0 + cc;
+      if (ch >= d) continue;
+      const long long tt = t0 + t;
+      const float y = sm.dt[cc][t] +
+                      p.dskip[ch] * ld_io<T>(p.x, p.x_sb, p.x_st, b, tt, ch);
+      const float zf = ld_io<T>(p.z, p.z_sb, p.z_st, b, tt, ch);
       const float gate = __fdividef(zf, 1.f + __expf(-zf));
-      ((T*)p.y)[((long long)b * p.len + t) * d + c2] = from_f32<T>(y * gate);
+      ((T*)p.y)[((long long)b * p.len + tt) * d + ch] = from_f32<T>(y * gate);
     }
-    __syncthreads();                      // sdt and sdx are free
   }
-  if (in) p.h_out[state] = h;
+  __syncthreads();
+  if (my_in)
+    p.h_out[((long long)b * d + my_ch) * n + my_k] = sm.h[my_c][my_k];
+}
+
+// The blocks of a kernel an SM holds with `bytes` of dynamic shared memory.
+template <typename K>
+cudaError_t occupancy(K kernel, int bytes, int* blocks) {
+  const cudaError_t e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       kWThreads, bytes);
+}
+
+template <typename T, bool BOUND, int Q>
+int launch_bf16_q(Args& p, long long batch, cudaStream_t stream) {
+  const int smem = (int)sizeof(WorkFwdSmem);
+  const cudaError_t e = allow_smem(scan_bf16_kernel<T, BOUND, Q>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.d + kWFwdChannels - 1) / kWFwdChannels, (unsigned)batch);
+  scan_bf16_kernel<T, BOUND, Q><<<grid, kWThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool BOUND>
 int launch_bf16(Args& p, long long batch, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      scan_bf16_kernel<T, BOUND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      work_fwd_smem(kWChunkMax));
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.d + kWChannels - 1) / kWChannels, (unsigned)batch);
-  scan_bf16_kernel<T, BOUND>
-      <<<grid, kWThreads, work_fwd_smem(p.q), stream>>>(p);
-  return (int)cudaGetLastError();
+  return p.q == kWChunkMax
+             ? launch_bf16_q<T, BOUND, kWChunkMax>(p, batch, stream)
+             : launch_bf16_q<T, BOUND, 0>(p, batch, stream);
 }
 
-// Shared memory of a backward block (one warp: a channel pair, a thread a
-// state) for chunks of q steps: six bfloat16 columns of q a lane — a and u
-// through the forward's tree (its outputs at the end), their values after
-// the up-sweep, and their gradients — then kWRows float32 rows of the
-// pair's (t, channel) values ([q][2] each).
-__host__ __device__ constexpr int work_bwd_smem(int q) {
-  return 6 * q * kWBwdThreads * (int)sizeof(__nv_bfloat16) +
-         kWRows * q * 2 * (int)sizeof(float);
+// Shared memory of a backward block (kBwdChannels channels, a warp's
+// channels at a time): the chunk's B and C in float32 ([n][t]); a group's
+// dt, dt * x and dy = dout silu(z) of each (channel, t), in two buffers
+// taken in turns; each lane pair's share of y, sum_N ds A and sum_N du B;
+// dB and dC over the block's channels so far ([n][acc_col(t)]: a warp's
+// accesses to distinct banks); each thread's a before the up-sweep's
+// levels between segments; A, the gradient carried into the chunk before,
+// and dA of each (channel, n); each warp's sums of d(dt_bias) and dD of a
+// group's channels; the bias (rounded to T) and D of each channel.
+struct __align__(16) WorkBwdSmem {
+  static constexpr int G = kWGroup;
+  float b[kNMax][kWPitch];
+  float c[kNMax][kWPitch];
+  float dt[2][G][kWPitch];
+  float dx[2][G][kWPitch];
+  float dy[2][G][kWPitch];
+  float red[3][kWPairs][G][kWRedPitch];
+  float acc[2][kNMax][kWAccPitch];
+  unsigned apre[kWOuter][kWThreads];
+  float a[kBwdChannels][kNMax];
+  float carry[kBwdChannels][kNMax];
+  float da[kBwdChannels][kNMax];
+  float part[2][kBwdChannels / G][kWPairs][G];
+  float bias[kBwdChannels];
+  float dskip[kBwdChannels];
+};
+
+// A step's column in a row of sums: a warp's 16 segments on distinct
+// banks.
+__device__ __forceinline__ int acc_col(int t) { return t + (t >> 4); }
+
+// A lane's term and its neighbouring channel's (lane c ^ 1: the channel
+// pair 2 m, 2 m + 1) summed, for the state the lane keeps: lo (state pr)
+// on c = 0, hi (pr + kWPairs) on c = 1.
+__device__ __forceinline__ float pair_channels(int c, float lo, float hi) {
+  const float got = __shfl_xor_sync(kFull, c ? lo : hi, 1);
+  return __fadd_rn(c ? hi : lo, got);
 }
 
-// The backward: a block walks the kWPairs channel pairs of its 32 channels
-// in turn, each pair's chunks in reverse; its dB, dC partials, its dA_log,
-// d(dt_bias), dD partials and their fold are the float32 backward's.
-template <typename T>
-__global__ void __launch_bounds__(kWBwdThreads)
+// The pair's dB or dC term w of step t of the lane's kept state added to
+// the block's sum over its channels, in the pairs' order.
+__device__ __forceinline__ void join_pair(float w, float (*acc)[kWAccPitch],
+                                          int c, int pr, int t, int q,
+                                          bool first) {
+  if (t < q) {
+    float& s = acc[pr + kWPairs * c][acc_col(t)];
+    s = first ? w : __fadd_rn(s, w);
+  }
+}
+
+// The backward: a block of kBwdChannels channels (its dB, dC partials,
+// its dA_log, d(dt_bias), dD partials and their fold are the float32
+// backward's), the chunks in reverse from the forward's boundaries, each
+// chunk's channel pairs in turn with the forward's layout: a warp a lane
+// pair, a lane a (channel, segment).
+template <typename T, int Q>
+__global__ void __launch_bounds__(kWThreads, kWBwdBlocksPerSM)
 scan_bf16_bwd_kernel(const BwdArgs p) {
+  constexpr int SEG = kWSeg, G = kWGroup, kGroups = kWBwdGroups;
   extern __shared__ __align__(16) unsigned char work_smem[];
-  constexpr int S = kWBwdThreads;
-  const int q = p.q;
-  const int tid = threadIdx.x, c = tid / kNMax, k = tid % kNMax;
-  // this lane's columns
-  __nv_bfloat16* wa = reinterpret_cast<__nv_bfloat16*>(work_smem) + tid;
-  __nv_bfloat16* wu = wa + q * S;
-  __nv_bfloat16* ua = wu + q * S;
-  __nv_bfloat16* uu = ua + q * S;
-  __nv_bfloat16* ga = uu + q * S;
-  __nv_bfloat16* gu = ga + q * S;
-  // per (t, channel) at [2 t + channel]: dt, dt * x, dy = dout silu(z), the
-  // softplus' slope, silu'(z), dout, y, sum_N ds A, sum_N du B
-  float* r_dt = reinterpret_cast<float*>(
-      reinterpret_cast<__nv_bfloat16*>(work_smem) + 6 * q * S);
-  float* r_dx = r_dt + 2 * q;
-  float* r_dy = r_dx + 2 * q;
-  float* r_sg = r_dy + 2 * q;
-  float* r_dsl = r_sg + 2 * q;
-  float* r_go = r_dsl + 2 * q;
-  float* r_y = r_go + 2 * q;
-  float* r_sa = r_y + 2 * q;
-  float* r_sb = r_sa + 2 * q;
-  const int b = blockIdx.y, blk = blockIdx.x;
+  WorkBwdSmem& sm = *reinterpret_cast<WorkBwdSmem*>(work_smem);
+  const int q = Q ? Q : p.q;
+  const int tid = threadIdx.x, pr = tid / 32, lane = tid % 32;
+  const int c = lane % G, j = lane / G, base = SEG * j;
+  const int b = blockIdx.y, blk = blockIdx.x, c0 = blk * kBwdChannels;
   const int d = p.d, n = p.n, len = p.len, chunks = len / q;
-  const unsigned full = 0xffffffffu;
-  const T* xg = (const T*)p.x + b * p.x_sb;
-  const T* dg = (const T*)p.dt + b * p.dt_sb;
-  const T* bg = (const T*)p.bm + b * p.b_sb;
-  const T* cg = (const T*)p.cm + b * p.c_sb;
-  const T* zg = (const T*)p.z + b * p.z_sb;
-  const T* og = (const T*)p.dout + b * p.o_sb;
-  // a lane's partial of dB (which 0) or dC (which 1) at step t, summed
-  // over the block's pairs in order
-  auto add_part = [&](int which, int j, long long t, float v) {
-    float* dst = p.bc_part +
-                 ((((long long)which * p.batch + b) * p.blocks + blk) * len +
-                  t) * n + k;
-    *dst = j == 0 ? v : __fadd_rn(*dst, v);
-  };
-
-  for (int j = 0; j < kWPairs; ++j) {
-    const int cp = blk * kBwdChannels + 2 * j;   // the pair's first channel
-    if (cp >= d) break;
-    const int ch = cp + c;
+#pragma unroll 1
+  for (int i = tid; i < kBwdChannels * kNMax; i += kWThreads) {
+    const int cc = i / kNMax, k = i % kNMax, ch = c0 + cc;
     const bool in = ch < d && k < n;
-    const long long state = ((long long)b * d + ch) * n + k;
-    const float aval = in ? -expf(p.a_log[(long long)ch * n + k]) : 0.f;
-    float carry = in && p.dh_final != nullptr ? p.dh_final[state] : 0.f;
-    float dA = 0.f, acc_bias = 0.f, acc_d = 0.f;
-    for (int kc = chunks - 1; kc >= 0; --kc) {
-      const long long t0 = (long long)kc * q;
-      const float hin =
-          in ? p.bound[(((long long)b * chunks + kc) * d + ch) * n + k] : 0.f;
-      // once per (t, channel); zeros past d
-      for (int i = tid; i < 2 * q; i += S) {
-        const long long t = t0 + (i >> 1);
-        const int c2 = cp + (i & 1);
-        float dl = 0.f, dx = 0.f, dy = 0.f, sg = 0.f, dsl = 0.f, go = 0.f;
-        if (c2 < d) {
-          const float s = round_to<T>(to_f32(dg[t * p.dt_st + c2]) +
-                                      round_to<T>(p.dt_bias[c2]));
-          dl = softplus_io<T>(s);
-          dx = dl * to_f32(xg[t * p.x_st + c2]);
-          sg = __fdividef(1.f, 1.f + __expf(-s));
-          const float zf = to_f32(zg[t * p.z_st + c2]);
+    sm.a[cc][k] = in ? -expf(p.a_log[(long long)ch * n + k]) : 0.f;
+    sm.carry[cc][k] = in && p.dh_final != nullptr
+                          ? p.dh_final[((long long)b * d + ch) * n + k]
+                          : 0.f;
+    sm.da[cc][k] = 0.f;
+  }
+#pragma unroll 1
+  for (int i = tid; i < kBwdChannels; i += kWThreads) {
+    const bool in = c0 + i < d;
+    sm.bias[i] = in ? round_to<T>(p.dt_bias[c0 + i]) : 0.f;
+    sm.dskip[i] = in ? p.dskip[c0 + i] : 0.f;
+  }
+#pragma unroll 1
+  for (int i = tid; i < 2 * kGroups * kWPairs * G; i += kWThreads)
+    (&sm.part[0][0][0][0])[i] = 0.f;
+
+#pragma unroll 1
+  for (int kc = chunks - 1; kc >= 0; --kc) {
+    const long long t0 = (long long)kc * q;
+#pragma unroll 1
+    for (int g = 0; g < kGroups; ++g) {
+      const int buf = g & 1;
+      // the chunk's B and C (with its first group), and once per (t,
+      // channel) of the group: dt (the forward's bfloat16 softplus
+      // replay), dt * x and dy; zeros past d
+      if (g == 0) {
+#pragma unroll 1
+        for (int i = tid; i < q * kNMax; i += kWThreads) {
+          const int t = i / kNMax, k = i % kNMax;
+          const bool in = k < n;
+          sm.b[k][t] =
+              in ? ld_io<T>(p.bm, p.b_sb, p.b_st, b, t0 + t, k) : 0.f;
+          sm.c[k][t] =
+              in ? ld_io<T>(p.cm, p.c_sb, p.c_st, b, t0 + t, k) : 0.f;
+        }
+      }
+#pragma unroll 1
+      for (int i = tid; i < q * G; i += kWThreads) {
+        const int t = i / G, c2 = i % G;
+        const int cc = g * G + c2, ch = c0 + cc;
+        float dl = 0.f, dx = 0.f, dy = 0.f;
+        if (ch < d) {
+          const long long tt = t0 + t;
+          dl = softplus_io<T>(round_to<T>(
+              ld_io<T>(p.dt, p.dt_sb, p.dt_st, b, tt, ch) + sm.bias[cc]));
+          dx = dl * ld_io<T>(p.x, p.x_sb, p.x_st, b, tt, ch);
+          const float zf = ld_io<T>(p.z, p.z_sb, p.z_st, b, tt, ch);
           const float sz = __fdividef(1.f, 1.f + __expf(-zf));
           const float gate = zf * sz;
-          go = to_f32(og[t * p.o_st + c2]);
-          dy = go * gate;
-          dsl = sz + gate * (1.f - sz);
+          dy = ld_io<T>(p.dout, p.o_sb, p.o_st, b, tt, ch) * gate;
         }
-        r_dt[i] = dl;
-        r_dx[i] = dx;
-        r_dy[i] = dy;
-        r_sg[i] = sg;
-        r_dsl[i] = dsl;
-        r_go[i] = go;
+        sm.dt[buf][c2][t] = dl;
+        sm.dx[buf][c2][t] = dx;
+        sm.dy[buf][c2][t] = dy;
       }
       __syncthreads();
-      // the forward's a and u and its tree, the up-sweep's values kept
-      for (int t = 0; t < q; ++t) {
-        const float bv = k < n ? to_f32(bg[(t0 + t) * p.b_st + k]) : 0.f;
-        wa[t * S] = __float2bfloat16_rn(expf(r_dt[2 * t + c] * aval));
-        wu[t * S] = __float2bfloat16_rn(r_dx[2 * t + c] * bv);
-      }
-      const int levels = tree_up<S>(wa, wu, q);
-      for (int t = 0; t < q; ++t) {
-        ua[t * S] = wa[t * S];
-        uu[t * S] = wu[t * S];
-      }
-      tree_down<S>(wa, wu, q, levels);
-      // the states, y, dC; g = dL/dh_t (the carry joins at the chunk's last
-      // step); the gradients of a_cum (g h_in) and u_scan (g) rounded to
-      // bfloat16; the carry into the chunk before, sum_t g a_cum in order
-      float carry_in = 0.f;
-      for (int t = 0; t < q; ++t) {
-        const float pa = ld_bf(wa, t * S);
-        const float hv = __fadd_rn(__fmul_rn(pa, hin), ld_bf(wu, t * S));
-        const float cv = k < n ? to_f32(cg[(t0 + t) * p.c_st + k]) : 0.f;
-        float part = __fmul_rn(hv, cv);
+
+      {
+        const int cc = g * G + c, ch = c0 + cc;
+        const bool ch_in = ch < d;
+        const float a_lo = sm.a[cc][pr], a_hi = sm.a[cc][pr + kWPairs];
+        // the forward's a and u and its tree: a0 (level 0), (ua, uu) as
+        // the up-sweep leaves them, (fa, fu) its outputs
+        unsigned a0[SEG], ua[SEG], uu[SEG], fa[SEG], fu[SEG];
 #pragma unroll
-        for (int m = 8; m >= 1; m >>= 1)
-          part = __fadd_rn(part, __shfl_xor_sync(full, part, m));
-        if (k == 0) r_y[2 * t + c] = part;
-        const float dyv = r_dy[2 * t + c];
-        float g = __fmul_rn(dyv, cv);
-        if (t == q - 1) g = __fadd_rn(g, carry);
-        float dc = __fmul_rn(dyv, hv);
-        dc = __fadd_rn(dc, __shfl_xor_sync(full, dc, 16));
-        if (c == 0 && k < n) add_part(1, j, t0 + t, dc);
-        ga[t * S] = __float2bfloat16_rn(__fmul_rn(g, hin));
-        gu[t * S] = __float2bfloat16_rn(g);
-        carry_in = __fadd_rn(carry_in, __fmul_rn(g, pa));
-      }
-      carry = carry_in;
-      // the transposed tree: the down-sweep's combines from level 0 up,
-      // then the up-sweep's from the top down; the a_r of an up-sweep
-      // combine on level l is rebuilt from level 0's a by the forward's
-      // products with the kept values left of it
-      for (int l = 0; l < levels; ++l) {
-        const int half = 1 << l, nl = q >> l;
-        for (int k2 = 2; k2 < nl; k2 += 2) {
-          const int pos = half * (k2 + 1) - 1, lft = pos - half;
-          uncombine_bf16(ga, gu, lft * S, pos * S, ld_bf(wa, lft * S),
-                         ld_bf(wu, lft * S), ld_bf(ua, pos * S));
-        }
-      }
-      for (int l = levels - 1; l >= 0; --l) {
-        const int half = 1 << l, m = (q >> l) >> 1;
-        for (int r = 2 * half - 1; r < m * 2 * half; r += 2 * half) {
-          float ar = bf_round(expf(r_dt[2 * r + c] * aval));
-          for (int j2 = 0; j2 < l; ++j2)
-            ar = bf_round(__fmul_rn(ld_bf(ua, (r - (1 << j2)) * S), ar));
-          uncombine_bf16(ga, gu, (r - half) * S, r * S,
-                         ld_bf(ua, (r - half) * S), ld_bf(uu, (r - half) * S),
-                         ar);
-        }
-      }
-      // da through exp (ds = da exp(dt A)), du through (dt x) B: dA_log's
-      // partial, the sums over the channel's lanes, dB over the pair
-      for (int t = 0; t < q; ++t) {
-        const float dtv = r_dt[2 * t + c];
-        const float ds = __fmul_rn(ld_bf(ga, t * S), expf(dtv * aval));
-        const float w = ld_bf(gu, t * S);
-        const float bv = k < n ? to_f32(bg[(t0 + t) * p.b_st + k]) : 0.f;
-        dA = __fadd_rn(dA, __fmul_rn(ds, dtv));
-        float sa = __fmul_rn(ds, aval), sb = __fmul_rn(w, bv);
+        for (int i0 = 0; i0 < SEG; i0 += 4) {
+          float dl[4], dx[4], bl[4], bh[4];
+          ld4(dl, &sm.dt[buf][c][base + i0]);
+          ld4(dx, &sm.dx[buf][c][base + i0]);
+          ld4(bl, &sm.b[pr][base + i0]);
+          ld4(bh, &sm.b[pr + kWPairs][base + i0]);
 #pragma unroll
-        for (int m = 8; m >= 1; m >>= 1) {
-          sa = __fadd_rn(sa, __shfl_xor_sync(full, sa, m));
-          sb = __fadd_rn(sb, __shfl_xor_sync(full, sb, m));
+          for (int m = 0; m < 4; ++m) {
+            a0[i0 + m] = pack2(expf(dl[m] * a_lo), expf(dl[m] * a_hi));
+            uu[i0 + m] = pack2(dx[m] * bl[m], dx[m] * bh[m]);
+            ua[i0 + m] = a0[i0 + m];
+          }
         }
-        if (k == 0) {
-          r_sa[2 * t + c] = sa;
-          r_sb[2 * t + c] = sb;
+        {
+          unsigned apre[kWOuter], pa, pu;
+          up2(ua, uu, j, q, apre);
+#pragma unroll
+          for (int s = 0; s < kWOuter; ++s) sm.apre[s][tid] = apre[s];
+#pragma unroll
+          for (int i = 0; i < SEG; ++i) {
+            fa[i] = ua[i];
+            fu[i] = uu[i];
+          }
+          down2(fa, fu, j, q, pa, pu);
         }
-        float db = __fmul_rn(w, r_dx[2 * t + c]);
-        db = __fadd_rn(db, __shfl_xor_sync(full, db, 16));
-        if (c == 0 && k < n) add_part(0, j, t0 + t, db);
+
+        // the states, y's shares and dC's terms; g = dL/dh_t (the carry
+        // joins at the chunk's last step); the gradients of a_cum (g h_in)
+        // and u_scan (g) rounded to bfloat16; this segment's sum of
+        // g a_cum, in order
+        unsigned ga[SEG], gu[SEG];
+        {
+          const float* bo =
+              p.bound + (((long long)b * chunks + kc) * d + ch) * n;
+          const float h_lo = ch_in && pr < n ? bo[pr] : 0.f;
+          const float h_hi = ch_in && pr + kWPairs < n ? bo[pr + kWPairs]
+                                                       : 0.f;
+          const float cr_lo = sm.carry[cc][pr];
+          const float cr_hi = sm.carry[cc][pr + kWPairs];
+          float cs_lo = 0.f, cs_hi = 0.f;
+#pragma unroll
+          for (int i0 = 0; i0 < SEG; i0 += 4) {
+            float dyv[4], cl[4], chh[4], part[4];
+            ld4(dyv, &sm.dy[buf][c][base + i0]);
+            ld4(cl, &sm.c[pr][base + i0]);
+            ld4(chh, &sm.c[pr + kWPairs][base + i0]);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int i = i0 + m, t = base + i;
+              float hl = 0.f, hh = 0.f, gl = 0.f, gh = 0.f;
+              part[m] = 0.f;
+              if (t < q) {
+                hl = __fadd_rn(__fmul_rn(lo2(fa[i]), h_lo), lo2(fu[i]));
+                hh = __fadd_rn(__fmul_rn(hi2(fa[i]), h_hi), hi2(fu[i]));
+                part[m] =
+                    __fadd_rn(__fmul_rn(hl, cl[m]), __fmul_rn(hh, chh[m]));
+                gl = __fmul_rn(dyv[m], cl[m]);
+                gh = __fmul_rn(dyv[m], chh[m]);
+                if (t == q - 1) {
+                  gl = __fadd_rn(gl, cr_lo);
+                  gh = __fadd_rn(gh, cr_hi);
+                }
+                cs_lo = __fadd_rn(cs_lo, __fmul_rn(gl, lo2(fa[i])));
+                cs_hi = __fadd_rn(cs_hi, __fmul_rn(gh, hi2(fa[i])));
+              }
+              ga[i] = pack2(__fmul_rn(gl, h_lo), __fmul_rn(gh, h_hi));
+              gu[i] = pack2(gl, gh);
+              // dC's terms dy h
+              join_pair(pair_channels(c, __fmul_rn(dyv[m], hl),
+                                      __fmul_rn(dyv[m], hh)),
+                        sm.acc[1], c, pr, t, q, g == 0);
+            }
+            st4(&sm.red[0][pr][c][base + i0], part);
+          }
+          // the carry into the chunk before, sum_t g a_cum: the segments'
+          // sums added by a butterfly over the segments (the last
+          // segment's lane keeps a fixed order)
+#pragma unroll
+          for (int m = G; m < 32; m <<= 1) {
+            cs_lo = __fadd_rn(cs_lo, __shfl_xor_sync(kFull, cs_lo, m));
+            cs_hi = __fadd_rn(cs_hi, __shfl_xor_sync(kFull, cs_hi, m));
+          }
+          if (j == kWSegs - 1) {
+            sm.carry[cc][pr] = cs_lo;
+            sm.carry[cc][pr + kWPairs] = cs_hi;
+          }
+        }
+
+        // the transposed tree: the down-sweep's combines from level 0 up
+        // (a segment's first one of a level adds to the previous segment's
+        // last element, sent there and added level by level), then the
+        // up-sweep's from the top down, an a_r inside a segment rebuilt
+        // from a0 by the forward's products
+        const unsigned pa = __shfl_up_sync(kFull, fa[SEG - 1], G);
+        const unsigned pu = __shfl_up_sync(kFull, fu[SEG - 1], G);
+#pragma unroll
+        for (int l = 0; l < kWInner; ++l) {
+          const int h = 1 << l;
+          unsigned ca = 0u, cu = 0u;
+#pragma unroll
+          for (int i = h - 1; i < SEG; i += 2 * h) {
+            const int t = base + i;
+            if (t >= 3 * h - 1 && t < q) {
+              if (i >= h) {
+                uncomb2(ga[i - h], gu[i - h], ga[i], gu[i], fa[i - h],
+                        fu[i - h], ua[i]);
+              } else {
+                ca = bmul2(ga[i], ua[i]);
+                cu = bmul2(gu[i], ua[i]);
+                ga[i] = badd2(bmul2(ga[i], pa), bmul2(gu[i], pu));
+              }
+            }
+          }
+          const unsigned ra = __shfl_down_sync(kFull, ca, G);
+          const unsigned ru = __shfl_down_sync(kFull, cu, G);
+          if (SEG * (j + 1) + h - 1 < q) {
+            ga[SEG - 1] = badd2(ga[SEG - 1], ra);
+            gu[SEG - 1] = badd2(gu[SEG - 1], ru);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < kWOuter; ++s) {  // down-sweep between segments
+          const int h = 1 << s, dl = G * h;
+          const unsigned gA = __shfl_down_sync(kFull, ga[SEG - 1], dl);
+          const unsigned gU = __shfl_down_sync(kFull, gu[SEG - 1], dl);
+          const unsigned ar = __shfl_down_sync(kFull, ua[SEG - 1], dl);
+          const unsigned al = __shfl_up_sync(kFull, fa[SEG - 1], dl);
+          const unsigned ul = __shfl_up_sync(kFull, fu[SEG - 1], dl);
+          const int r = j + h + 1;                  // the right, if j is left
+          if (r % (2 * h) == h && r >= 3 * h && SEG * r <= q) {
+            ga[SEG - 1] = badd2(ga[SEG - 1], bmul2(gA, ar));
+            gu[SEG - 1] = badd2(gu[SEG - 1], bmul2(gU, ar));
+          }
+          if ((j + 1) % (2 * h) == h && j + 1 >= 3 * h && SEG * (j + 1) <= q)
+            ga[SEG - 1] =
+                badd2(bmul2(ga[SEG - 1], al), bmul2(gu[SEG - 1], ul));
+        }
+#pragma unroll
+        for (int s = kWOuter - 1; s >= 0; --s) {  // up-sweep between them
+          const int h = 1 << s, dl = G * h;
+          const unsigned gA = __shfl_down_sync(kFull, ga[SEG - 1], dl);
+          const unsigned gU = __shfl_down_sync(kFull, gu[SEG - 1], dl);
+          const unsigned ar = __shfl_down_sync(kFull, sm.apre[s][tid], dl);
+          const unsigned al = __shfl_up_sync(kFull, ua[SEG - 1], dl);
+          const unsigned ul = __shfl_up_sync(kFull, uu[SEG - 1], dl);
+          const int r = j + h + 1;
+          if (r % (2 * h) == 0 && SEG * r <= q) {
+            ga[SEG - 1] = badd2(ga[SEG - 1], bmul2(gA, ar));
+            gu[SEG - 1] = badd2(gu[SEG - 1], bmul2(gU, ar));
+          }
+          if ((j + 1) % (2 * h) == 0 && SEG * (j + 1) <= q)
+            ga[SEG - 1] =
+                badd2(bmul2(ga[SEG - 1], al), bmul2(gu[SEG - 1], ul));
+        }
+#pragma unroll
+        for (int l = kWInner - 1; l >= 0; --l) {  // up-sweep inside
+          const int h = 1 << l;
+#pragma unroll
+          for (int r = 2 * h - 1; r < SEG; r += 2 * h) {
+            if (base + r < q) {
+              unsigned ar = a0[r];
+#pragma unroll
+              for (int j2 = 0; j2 < l; ++j2)
+                ar = bmul2(ua[r - (1 << j2)], ar);
+              // u at an even step is level 0's: formed again, not kept
+              const int e = base + r - 1;
+              const unsigned ul =
+                  l > 0 ? uu[r - h]
+                        : pack2(sm.dx[buf][c][e] * sm.b[pr][e],
+                                sm.dx[buf][c][e] * sm.b[pr + kWPairs][e]);
+              uncomb2(ga[r - h], gu[r - h], ga[r], gu[r], ua[r - h], ul, ar);
+            }
+          }
+        }
+
+        // da through exp (ds = da exp(dt A)), du through (dt x) B: this
+        // segment's sum of dA terms, the pairs' shares of sum_N ds A and
+        // sum_N du B, dB's terms du dt x
+        float da_lo = 0.f, da_hi = 0.f;
+#pragma unroll
+        for (int i0 = 0; i0 < SEG; i0 += 4) {
+          float dl[4], dx[4], bl[4], bh[4], sa[4], sb[4];
+          ld4(dl, &sm.dt[buf][c][base + i0]);
+          ld4(dx, &sm.dx[buf][c][base + i0]);
+          ld4(bl, &sm.b[pr][base + i0]);
+          ld4(bh, &sm.b[pr + kWPairs][base + i0]);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int i = i0 + m, t = base + i;
+            float db_lo = 0.f, db_hi = 0.f;
+            sa[m] = sb[m] = 0.f;
+            if (t < q) {
+              const float ds_lo = __fmul_rn(lo2(ga[i]), expf(dl[m] * a_lo));
+              const float ds_hi = __fmul_rn(hi2(ga[i]), expf(dl[m] * a_hi));
+              const float w_lo = lo2(gu[i]), w_hi = hi2(gu[i]);
+              da_lo = __fadd_rn(da_lo, __fmul_rn(ds_lo, dl[m]));
+              da_hi = __fadd_rn(da_hi, __fmul_rn(ds_hi, dl[m]));
+              sa[m] =
+                  __fadd_rn(__fmul_rn(ds_lo, a_lo), __fmul_rn(ds_hi, a_hi));
+              sb[m] =
+                  __fadd_rn(__fmul_rn(w_lo, bl[m]), __fmul_rn(w_hi, bh[m]));
+              db_lo = __fmul_rn(w_lo, dx[m]);
+              db_hi = __fmul_rn(w_hi, dx[m]);
+            }
+            join_pair(pair_channels(c, db_lo, db_hi), sm.acc[0], c, pr, t, q,
+                      g == 0);
+          }
+          st4(&sm.red[1][pr][c][base + i0], sa);
+          st4(&sm.red[2][pr][c][base + i0], sb);
+        }
+        // dA's sum, as the carry's
+#pragma unroll
+        for (int m = G; m < 32; m <<= 1) {
+          da_lo = __fadd_rn(da_lo, __shfl_xor_sync(kFull, da_lo, m));
+          da_hi = __fadd_rn(da_hi, __shfl_xor_sync(kFull, da_hi, m));
+        }
+        if (j == kWSegs - 1) {
+          sm.da[cc][pr] = __fadd_rn(sm.da[cc][pr], da_lo);
+          sm.da[cc][pr + kWPairs] = __fadd_rn(sm.da[cc][pr + kWPairs], da_hi);
+        }
       }
       __syncthreads();
-      // once per (t, channel): dx, ddt_raw, dz and the sums of d(dt_bias)
-      // and dD (a thread keeps one channel: i & 1 is tid & 1)
-      for (int i = tid; i < 2 * q; i += S) {
-        const long long t = t0 + (i >> 1);
-        const int c2 = cp + (i & 1);
-        if (c2 >= d) continue;
-        const float xv = to_f32(xg[t * p.x_st + c2]);
-        const float dskip = p.dskip[c2];
-        const float ddt = (r_sa[i] + xv * r_sb[i]) * r_sg[i];
-        const long long o = ((long long)b * len + t) * d + c2;
-        ((T*)p.dx)[o] = from_f32<T>(r_dy[i] * dskip + r_dt[i] * r_sb[i]);
-        ((T*)p.ddt)[o] = from_f32<T>(ddt);
-        ((T*)p.dz)[o] =
-            from_f32<T>(r_go[i] * (r_y[i] + dskip * xv) * r_dsl[i]);
-        acc_bias += ddt;
-        acc_d += r_dy[i] * xv;
-      }
-      __syncthreads();
-    }
-    if (in) {
-      p.da_part[state] = dA;
-      if (p.dh0 != nullptr) p.dh0[state] = carry;
-    }
-    // each channel's sums over the 16 threads that kept it
+
+      // once per (t, channel) of the group: the channel's sums over N, dx,
+      // d(dt_raw) and dz; each warp's sums of d(dt_bias) and dD
+      {
+        float acc_bias = 0.f, acc_d = 0.f;
+#pragma unroll 1
+        for (int i = tid; i < q * G; i += kWThreads) {
+          const int t = i / G, c2 = i % G;
+          const int cc = g * G + c2, ch = c0 + cc;
+          if (ch >= d) continue;
+          const float y = pairs_sum(&sm.red[0][0][c2][t]);
+          const float sa = pairs_sum(&sm.red[1][0][c2][t]);
+          const float sb = pairs_sum(&sm.red[2][0][c2][t]);
+          const long long tt = t0 + t;
+          const float s = round_to<T>(
+              ld_io<T>(p.dt, p.dt_sb, p.dt_st, b, tt, ch) + sm.bias[cc]);
+          const float sg = __fdividef(1.f, 1.f + __expf(-s));
+          const float xv = ld_io<T>(p.x, p.x_sb, p.x_st, b, tt, ch);
+          const float zf = ld_io<T>(p.z, p.z_sb, p.z_st, b, tt, ch);
+          const float sz = __fdividef(1.f, 1.f + __expf(-zf));
+          const float gate = zf * sz;
+          const float go = ld_io<T>(p.dout, p.o_sb, p.o_st, b, tt, ch);
+          const float dsl = sz + gate * (1.f - sz);
+          const float dl = sm.dt[buf][c2][t], dyv = sm.dy[buf][c2][t];
+          const float dskip = sm.dskip[cc];
+          const float ddt = (sa + xv * sb) * sg;
+          const long long o = ((long long)b * len + tt) * d + ch;
+          ((T*)p.dx)[o] = from_f32<T>(dyv * dskip + dl * sb);
+          ((T*)p.ddt)[o] = from_f32<T>(ddt);
+          ((T*)p.dz)[o] = from_f32<T>(go * (y + dskip * xv) * dsl);
+          acc_bias += ddt;
+          acc_d += dyv * xv;
+        }
+        // a thread keeps one channel (tid % G): the warp's rows
 #pragma unroll
-    for (int m = 2; m < 32; m <<= 1) {
-      acc_bias += __shfl_xor_sync(full, acc_bias, m);
-      acc_d += __shfl_xor_sync(full, acc_d, m);
-    }
-    if (tid < 2 && cp + tid < d) {
-      p.vec_part[(long long)b * d + cp + tid] = acc_bias;
-      p.vec_part[((long long)p.batch + b) * d + cp + tid] = acc_d;
+        for (int m = G; m < 32; m <<= 1) {
+          acc_bias += __shfl_xor_sync(kFull, acc_bias, m);
+          acc_d += __shfl_xor_sync(kFull, acc_d, m);
+        }
+        if (lane < G) {
+          sm.part[0][g][pr][lane] += acc_bias;
+          sm.part[1][g][pr][lane] += acc_d;
+        }
+      }
+      // the chunk's dB, dC partials, once its last group is in
+      if (g == kGroups - 1) {
+#pragma unroll 1
+        for (int i = tid; i < 2 * q * kNMax; i += kWThreads) {
+          const int which = i / (q * kNMax), r = i % (q * kNMax);
+          const int t = r / kNMax, k = r % kNMax;
+          if (k < n)
+            p.bc_part[((((long long)which * p.batch + b) * p.blocks + blk) *
+                           len + t0 + t) * n + k] =
+                sm.acc[which][k][acc_col(t)];
+        }
+      }
     }
   }
+  __syncthreads();
+#pragma unroll 1
+  for (int i = tid; i < kBwdChannels * kNMax; i += kWThreads) {
+    const int cc = i / kNMax, k = i % kNMax, ch = c0 + cc;
+    if (ch >= d || k >= n) continue;
+    const long long state = ((long long)b * d + ch) * n + k;
+    p.da_part[state] = sm.da[cc][k];
+    if (p.dh0 != nullptr) p.dh0[state] = sm.carry[cc][k];
+  }
+  if (tid < kBwdChannels && c0 + tid < d) {
+    const int g = tid / G, c2 = tid % G;
+    float vb = sm.part[0][g][0][c2], vd = sm.part[1][g][0][c2];
+#pragma unroll
+    for (int w = 1; w < kWPairs; ++w) {
+      vb += sm.part[0][g][w][c2];
+      vd += sm.part[1][g][w][c2];
+    }
+    p.vec_part[(long long)b * d + c0 + tid] = vb;
+    p.vec_part[((long long)p.batch + b) * d + c0 + tid] = vd;
+  }
+}
+
+template <typename T, int Q>
+int launch_bf16_bwd_q(BwdArgs& p, cudaStream_t stream) {
+  const int smem = (int)sizeof(WorkBwdSmem);
+  const cudaError_t e = allow_smem(scan_bf16_bwd_kernel<T, Q>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(p.blocks, p.batch);
+  scan_bf16_bwd_kernel<T, Q><<<grid, kWThreads, smem, stream>>>(p);
+  const cudaError_t e2 = cudaGetLastError();
+  if (e2 != cudaSuccess) return (int)e2;
+  return launch_fold<T>(p, stream);
 }
 
 template <typename T>
 int launch_bf16_bwd(BwdArgs& p, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      scan_bf16_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      work_bwd_smem(kWChunkMax));
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(p.blocks, p.batch);
-  scan_bf16_bwd_kernel<T>
-      <<<grid, kWBwdThreads, work_bwd_smem(p.q), stream>>>(p);
-  const cudaError_t e2 = cudaGetLastError();
-  if (e2 != cudaSuccess) return (int)e2;
-  return launch_fold<T>(p, stream);
+  return p.q == kWChunkMax ? launch_bf16_bwd_q<T, kWChunkMax>(p, stream)
+                           : launch_bf16_bwd_q<T, 0>(p, stream);
+}
+
+// The native bfloat16 pair operations of the working type's tree beside
+// the float32 operation rounded to bfloat16 (as the reference rounds it),
+// on n pairs of packed operands: out[4 i ..] = the native product, the
+// float32 product rounded, the native sum, the float32 sum rounded.
+__global__ void bf16_ops_probe_kernel(const unsigned* a, const unsigned* b,
+                                      unsigned* out, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned x = a[i], y = b[i];
+  auto rounded = [](float lo, float hi) {
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+           ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+  };
+  out[4 * i] = bmul2(x, y);
+  out[4 * i + 1] = rounded(__fmul_rn(lo2(x), lo2(y)),
+                           __fmul_rn(hi2(x), hi2(y)));
+  out[4 * i + 2] = badd2(x, y);
+  out[4 * i + 3] = rounded(__fadd_rn(lo2(x), lo2(y)),
+                           __fadd_rn(hi2(x), hi2(y)));
 }
 
 }  // namespace
@@ -1775,6 +2208,50 @@ int selective_scan_fused_bwd_occupancy(int bf16, int* smem_bytes,
               : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                     blocks_per_sm, scan_bwd_kernel<float>, kBwdThreads,
                     smem);
+}
+
+// The bfloat16 working type's kernels at the chunk every path shape takes
+// (q = 128) as the card holds them: which 0 the forward, 1 its instance
+// that keeps the chunk boundaries, 2 the backward's main kernel; the
+// dynamic shared memory of a block (bytes) and the blocks an SM holds at
+// once, for bfloat16 (bf16 == 1) or float32 inputs.
+int selective_scan_fused_bf16_occupancy(int bf16, int which, int* smem_bytes,
+                                        int* blocks_per_sm) {
+  cudaError_t e;
+  if (which == 2) {
+    *smem_bytes = (int)sizeof(WorkBwdSmem);
+    e = bf16 ? occupancy(scan_bf16_bwd_kernel<__nv_bfloat16, kWChunkMax>,
+                         *smem_bytes, blocks_per_sm)
+             : occupancy(scan_bf16_bwd_kernel<float, kWChunkMax>,
+                         *smem_bytes, blocks_per_sm);
+  } else {
+    *smem_bytes = (int)sizeof(WorkFwdSmem);
+    if (which == 1)
+      e = bf16 ? occupancy(scan_bf16_kernel<__nv_bfloat16, true, kWChunkMax>,
+                           *smem_bytes, blocks_per_sm)
+               : occupancy(scan_bf16_kernel<float, true, kWChunkMax>,
+                           *smem_bytes, blocks_per_sm);
+    else
+      e = bf16 ? occupancy(scan_bf16_kernel<__nv_bfloat16, false, kWChunkMax>,
+                           *smem_bytes, blocks_per_sm)
+               : occupancy(scan_bf16_kernel<float, false, kWChunkMax>,
+                           *smem_bytes, blocks_per_sm);
+  }
+  return (int)e;
+}
+
+// n pairs of packed bfloat16 operands (two lanes a 32-bit word) through
+// the native bfloat16 pair operations the working type's kernels use and
+// through the float32 operation rounded to bfloat16: out (n, 4) words,
+// the native product, the rounded float32 product, the native sum, the
+// rounded float32 sum.
+int selective_scan_bf16_ops_probe(const void* a, const void* b, void* out,
+                                  long long n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  bf16_ops_probe_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                          (cudaStream_t)stream>>>(
+      (const unsigned*)a, (const unsigned*)b, (unsigned*)out, n);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

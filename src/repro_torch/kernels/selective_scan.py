@@ -69,17 +69,24 @@ chunks of ``q = _pick_chunk(S, 128)`` steps, ``a = exp(dt A)`` and ``u =
 ``jax.lax.associative_scan``'s odd/even tree in bfloat16 (each product and
 sum rounded on its own), then ``h_t = a_cum h + u_scan`` in float32 from
 the float32 state carried across chunks.  On the card that is an instance
-of its own of the fused kernel (``selective_scan_fused_bf16_fwd``: a thread
-a state, the tree replayed over a lane's column of ``a, u`` in shared
-memory), counted under ``("fused_bf16", ...)`` keys, and under a gradient
+of its own of the fused kernel (``selective_scan_fused_bf16_fwd``),
+counted under ``("fused_bf16", ...)`` keys, and under a gradient
 :class:`SelectiveScanFusedBf16Fn`: the instance that keeps the state
 entering every chunk (``("fused_bf16_bound", ...)``) and a backward kernel
 (``selective_scan_fused_bf16_bwd``, ``("fused_bf16_bwd", ...)``) that
 rebuilds each chunk's tree from its boundary and runs its transpose in
-bfloat16.  Their plain versions are :func:`selective_scan_chunked_ref`
-and :func:`selective_scan_fused_bf16_bwd_ref`.  It is bound like the
-float32 form, by its ``b S D N`` exponentials (the tree adds some six
-bfloat16 operations a state and step).
+bfloat16.  Both split a lane's chunk over sixteen threads of a warp, eight
+steps each in registers (the tree's lower levels inside a thread, the top
+four between threads by shuffles), and run the tree's products and sums
+natively on two lanes at once (``mul.rn.bf16x2``, ``add.rn.bf16x2``: each
+rounds once, which for bfloat16 operands is the float32 operation rounded,
+as the library's ``selective_scan_bf16_ops_probe`` entry shows on the
+card); the backward takes its block's 32 channels two at a time and sums
+dB, dC over them in shared memory.  Their plain versions are
+:func:`selective_scan_chunked_ref` and
+:func:`selective_scan_fused_bf16_bwd_ref`.  It is bound like the float32
+form, by its ``b S D N`` exponentials (the tree adds some six bfloat16
+operations a state and step).
 """
 from __future__ import annotations
 
@@ -954,20 +961,37 @@ def _bwd_cuda(x, dt, dt_bias, B, C, A_log, D, z, h0, dout, dh_final,
     return dx, ddt, ddt_bias, dB, dC, dA_log, dD, dz, dh0
 
 
-def bwd_occupancy(dtype: torch.dtype) -> Tuple[int, int]:
-    """``(shared memory bytes, blocks an SM holds)`` of the backward's main
-    kernel for inputs of ``dtype`` on the current CUDA device, as the CUDA
-    runtime's occupancy calculator gives them (the design wants
-    4 blocks, 16 warps, an SM).  Needs the card."""
+#: The kernels :func:`bwd_occupancy` reads: the float32 working type's
+#: backward, and the bfloat16 working type's forward, its training instance
+#: and its backward (their instances for ``q = 128``).
+OCCUPANCY_FORMS = ("fused_bwd", "fused_bf16", "fused_bf16_bound",
+                   "fused_bf16_bwd")
+
+
+def bwd_occupancy(dtype: torch.dtype, form: str = "fused_bwd"
+                  ) -> Tuple[int, int]:
+    """``(shared memory bytes, blocks an SM holds)`` of one of the scan's
+    kernels (``form``, one of :data:`OCCUPANCY_FORMS`; by default the
+    float32 backward's main kernel, whose design wants 4 blocks, 16 warps,
+    an SM) for inputs of ``dtype`` on the current CUDA device, as the CUDA
+    runtime's occupancy calculator gives them.  Needs the card."""
     import ctypes
     from . import _build
+    if form not in OCCUPANCY_FORMS:
+        raise ValueError(f"form must be one of {OCCUPANCY_FORMS}, got "
+                         f"{form!r}")
     _build.load_library()
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    rc = _build._fns["selective_scan_fused_bwd_occupancy"](
-        _DTYPES[dtype], ctypes.byref(smem), ctypes.byref(blocks))
+    if form == "fused_bwd":
+        name = "selective_scan_fused_bwd_occupancy"
+        rc = _build._fns[name](_DTYPES[dtype], ctypes.byref(smem),
+                               ctypes.byref(blocks))
+    else:
+        name = "selective_scan_fused_bf16_occupancy"
+        rc = _build._fns[name](_DTYPES[dtype], OCCUPANCY_FORMS.index(form) - 1,
+                               ctypes.byref(smem), ctypes.byref(blocks))
     if rc != 0:
-        raise RuntimeError(f"selective_scan_fused_bwd_occupancy: cudaError "
-                           f"{rc}")
+        raise RuntimeError(f"{name}: cudaError {rc}")
     return smem.value, blocks.value
 
 

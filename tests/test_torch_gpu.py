@@ -46,6 +46,7 @@ from repro_torch import configs
 from repro_torch.core import annealing, cluster, dedication, plan, simulator
 from repro_torch.core.memory import enumerate_confs
 from repro_torch.core.torch_engine import TorchDedicationEngine
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import group_reduce as gr
 from repro_torch.kernels import rmsnorm as rn
@@ -1773,7 +1774,10 @@ def test_zero1_step_on_the_card_is_bit_equal_to_the_replicated_step():
 #: chunk q = 1, 7, 65 and 100 (S 1, 7, 130, 200), D not a multiple of a
 #: block's channels (8 forward, 32 backward), N at 16, 5 and 1.
 SCAN_BF16_SHAPES = [(2, 1, 24, 16, 2), (1, 7, 9, 5, 1), (2, 130, 45, 16, 3),
-                    (1, 200, 40, 1, 2)]
+                    (1, 200, 40, 1, 2), (1, 256, 40, 16, 2),
+                    (2, 64, 24, 16, 2)]
+#: (the last two: q = 128 over two chunks, the kernels' compile-time
+#: instance, with D not a multiple of 16 or 32; and q = 64)
 #: Kernel against plain with the bfloat16 working type: the state within
 #: 2e-4 of ``1 + |h|`` and ``out`` at the float32 form's tolerances (the
 #: two compute a, u and the tree alike; y sums over N in another order);
@@ -1869,6 +1873,58 @@ def test_selective_scan_fused_bf16_bwd_kernel_matches_plain(shape, dtype,
     for g, a, r in zip(got, again, replayed):
         assert (g is None and a is None and r is None) or (
             torch.equal(g, a) and torch.equal(g, r))
+
+
+#: bfloat16 bit patterns at the edges: +-0, the smallest and largest
+#: subnormals, the smallest normal, one, the largest finite, +-inf, quiet
+#: and signalling NaN.
+BF16_EDGES = [0x0000, 0x8000, 0x0001, 0x8001, 0x007F, 0x807F, 0x0080, 0x8080,
+              0x3F80, 0xBF80, 0x7F7F, 0xFF7F, 0x7F80, 0xFF80, 0x7FC0, 0xFFC0,
+              0x7F81]
+
+
+def test_bf16_native_pair_ops_are_float32_rounded():
+    """The working type's tree runs ``mul.rn.bf16x2`` and ``add.rn.bf16x2``
+    in place of the float32 product and sum rounded to bfloat16: the
+    library's probe entry (``selective_scan_bf16_ops_probe``) gives the same
+    bits on 2**20 random pairs of bit patterns (every exponent, infinities
+    and NaN among them) and on every pair of edge values (subnormals, +-0,
+    the largest finite, +-inf, NaN), in both halves of a word."""
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    edges = np.array(BF16_EDGES, dtype=np.uint32)
+    ea, eb = np.meshgrid(edges, edges, indexing="ij")
+    ea, eb = ea.ravel(), eb.ravel()
+
+    def halves(edge):
+        return np.concatenate(
+            [rng.integers(0, 1 << 16, 1 << 20, dtype=np.uint32), edge])
+    # the edge pairs (ea, eb) in the low halves and (eb, ea) in the high
+    a = halves(ea) | (halves(eb) << 16)
+    b = halves(eb) | (halves(ea) << 16)
+    ta, tb = (torch.from_numpy(v.view(np.int32)).cuda() for v in (a, b))
+    out = torch.empty((a.size, 4), dtype=torch.int32, device="cuda")
+    _build.launch("selective_scan_bf16_ops_probe", out.get_device(),
+                  ta.data_ptr(), tb.data_ptr(), out.data_ptr(), a.size)
+    out = out.cpu().numpy().view(np.uint32)
+    for name, native, rounded in (("product", out[:, 0], out[:, 1]),
+                                  ("sum", out[:, 2], out[:, 3])):
+        bad = np.flatnonzero(native != rounded)
+        assert bad.size == 0, (name, [(hex(a[i]), hex(b[i]), hex(native[i]),
+                                       hex(rounded[i])) for i in bad[:8]])
+
+
+def test_scan_bf16_kernels_occupancy():
+    """The bfloat16 working type's kernels at q = 128 as the card holds
+    them: the forward (both instances) 4 blocks of 8 warps an SM (64
+    registers), the backward 2 (128 registers)."""
+    _need_cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        for form, want in (("fused_bf16", 4), ("fused_bf16_bound", 4),
+                           ("fused_bf16_bwd", 2)):
+            smem, blocks = ss.bwd_occupancy(dtype, form)
+            assert blocks >= want and smem <= 100 * 1024, (dtype, form,
+                                                           smem, blocks)
 
 
 def test_scan_dtype_bfloat16_runs_on_the_card():
